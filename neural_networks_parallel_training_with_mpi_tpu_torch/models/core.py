@@ -1,0 +1,123 @@
+"""Layers over plain dicts of tensors: the port of the JAX package's
+``models/core.py`` for the layers the Transformer LM uses.
+
+Each layer is a small frozen dataclass with ``init(generator, device)``
+and ``apply(params, x)``.  Parameters live in plain dicts of tensors
+with the JAX leaf names (``w``/``b``, ``scale``/``bias``, ``table``), so
+a JAX parameter tree carries across leaf for leaf (``interop``) and the
+serving path reads the same dicts the dense forward reads.
+
+Initialisation follows the JAX package (torch's ``nn.Linear`` reset:
+U(+-1/sqrt(fan_in)) for weight and bias; N(0, 1) embedding tables), drawn
+from an explicit ``torch.Generator``.  The two frameworks' random streams
+differ, so parity tests carry weights across instead of re-drawing them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, torch.Tensor]
+
+
+def _uniform(shape, bound: float, dtype: torch.dtype,
+             generator: torch.Generator, device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    t.uniform_(-bound, bound, generator=generator)
+    return t.to(device=device, dtype=dtype)
+
+
+def _normal(shape, dtype: torch.dtype, generator: torch.Generator,
+            device) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    t.normal_(generator=generator)
+    return t.to(device=device, dtype=dtype)
+
+
+# jax.nn.gelu defaults to the tanh approximation; torch's F.gelu defaults
+# to the exact erf form, so the port names the approximation explicitly
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "silu": F.silu,
+    "identity": lambda x: x,
+}
+
+
+@dataclass(frozen=True)
+class Linear:
+    """``y = x @ w + b`` with ``w`` stored ``(in, out)`` as in the JAX
+    package.  ``x`` and ``w`` are cast to ``compute_dtype`` (default: the
+    input's dtype) and the bias is added in that dtype."""
+
+    in_features: int
+    out_features: int
+    use_bias: bool = True
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: Optional[torch.dtype] = None
+    matmul_dtype: str = "bf16"
+
+    def init(self, generator: torch.Generator, device) -> Params:
+        bound = 1.0 / math.sqrt(self.in_features)
+        params = {"w": _uniform((self.in_features, self.out_features),
+                                bound, self.param_dtype, generator, device)}
+        if self.use_bias:
+            params["b"] = _uniform((self.out_features,), bound,
+                                   self.param_dtype, generator, device)
+        return params
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.matmul_dtype != "bf16" or "w_scale" in params:
+            raise NotImplementedError(
+                "quantized matmuls (int8/fp8 matmul_dtype, w_scale "
+                "weights) are not ported yet")
+        cdt = self.compute_dtype or x.dtype
+        y = torch.matmul(x.to(cdt), params["w"].to(cdt))
+        if self.use_bias:
+            y = y + params["b"].to(cdt)
+        return y
+
+
+@dataclass(frozen=True)
+class LayerNorm:
+    """Row LayerNorm: statistics in f32, eps 1e-5, output in the input's
+    dtype."""
+
+    dim: int
+    eps: float = 1e-5
+    param_dtype: torch.dtype = torch.float32
+
+    def init(self, generator: torch.Generator, device) -> Params:
+        return {"scale": torch.ones(self.dim, dtype=self.param_dtype,
+                                    device=device),
+                "bias": torch.zeros(self.dim, dtype=self.param_dtype,
+                                    device=device)}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, unbiased=False, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * params["scale"].float() + params["bias"].float()
+        return y.to(x.dtype)
+
+
+@dataclass(frozen=True)
+class Embedding:
+    vocab_size: int
+    dim: int
+    param_dtype: torch.dtype = torch.float32
+
+    def init(self, generator: torch.Generator, device) -> Params:
+        return {"table": _normal((self.vocab_size, self.dim),
+                                 self.param_dtype, generator, device)}
+
+    def apply(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        return params["table"][ids]

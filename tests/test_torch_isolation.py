@@ -1,0 +1,99 @@
+"""The port stands alone: no module of it, and not ``chip_smoke.py``,
+imports JAX or the JAX package; importing it loads no JAX; its entry
+points default to the GPU and refuse to run quietly on the CPU."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "neural_networks_parallel_training_with_mpi_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "neural_networks_parallel_training_with_mpi_tpu")
+
+
+def _sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert not (_imported_roots(path) & set(FORBIDDEN))
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONSTARTUP", None)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import neural_networks_parallel_training_with_mpi_tpu_torch"
+            ".serve, neural_networks_parallel_training_with_mpi_tpu_torch"
+            ".interop\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r})\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_the_gpu():
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.platform import (
+        resolve_device,
+    )
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError):
+        Transformer(TransformerConfig())
+
+
+def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):
+    """On a machine without a GPU, and alone in a directory, the chip
+    smoke test exits non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run for real")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"), (tmp_path, alone)):
+        env = _clean_env()
+        if cwd == tmp_path:
+            env.pop("PYTHONPATH")
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              env=env, capture_output=True, text=True,
+                              timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

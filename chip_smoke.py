@@ -30,6 +30,25 @@ Phases, each printing its own lines; any failure exits non-zero:
               scheduler, the gathered scheduler and ``generate()`` give
               identical greedy tokens; then fused == gathered again with
               int8 KV pools and the prefix cache on.
+6. flash    — the flash-attention forward, dq and dkv kernels against
+              their plain versions at the training shape (8, 1024, 16, 64)
+              in bf16 and f32 and all three mask modes, plus T 256 with
+              blocks 64 x 128 and head_dim 128; q/k/v are the strided
+              views of a fused qkv tensor.  Times each kernel, its plain
+              version and the library yardstick
+              (``F.scaled_dot_product_attention``, forward and
+              forward+backward) beside the bound.
+7. train    — the 219M LM trained at full width through the port's
+              ``Trainer`` (CLI flags, a 1-rank NCCL group so the gradient
+              all-reduce runs): bytes of DESIGN.md, batch 8 x 1024, bf16
+              compute, f32 params, flash attention, ce_chunk 256, 2 epochs
+              of Adam (26 steps).  Every loss finite, the last 3 steps'
+              mean 1 nat below the first, each flash launch count equal
+              to 12 x steps.  Prints step time, tokens/s, MFU, peak memory
+              and a profile of 3 more steps.
+8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
+              and with dense attention from the same params and batches
+              agree.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -310,6 +329,197 @@ def time_paged_attention(torch, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: flash attention against its plain versions
+# ---------------------------------------------------------------------------
+
+# the training path's attention shape: batch 8, T 1024, 16 heads of 64
+FLASH_SHAPE = (8, 1024, 16, 64)
+# gradients sum up to T products per element and round once to the output
+# type; their scale grows with T, so the absolute part of the tolerance is
+# relative to the largest reference value: err <= atol * max|ref| + rtol *
+# |ref|.  bf16: one output rounding (2^-8) on each side; f32: summation
+# order only.
+GRAD_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (1e-2, 1e-2)}
+
+
+def flash_cases():
+    """(name, kwargs) for every flash case: the training shape in both
+    dtypes and all three mask modes, then T 256 with blocks 64 x 128 and
+    head_dim 128."""
+    cases = []
+    for dt in ("bfloat16", "float32"):
+        for mask in ("causal", "none", "causal_exclusive"):
+            cases.append((f"{mask}_{dt}", dict(dtype=dt, shape=FLASH_SHAPE,
+                                               mask=mask)))
+        cases.append((f"t256_blocks64x128_{dt}",
+                      dict(dtype=dt, shape=(4, 256, 8, 64), mask="causal",
+                           block_q=64, block_k=128)))
+        cases.append((f"d128_{dt}", dict(dtype=dt, shape=(2, 512, 8, 128),
+                                         mask="causal")))
+    return cases
+
+
+def make_flash_case(torch, device, dtype, shape, seed=0):
+    """q/k/v as the strided views a fused (B, T, 3*H*D) projection gives
+    (as in the model), and a random output cotangent."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b, t, h, d = shape
+    qkv = torch.randn((b, t, 3 * h * d), generator=g).to(dtype).to(device)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d)
+               for i in range(3))
+    dout = torch.randn(shape, generator=g).to(dtype).to(device)
+    return q, k, v, dout
+
+
+def _close(torch, got, want, atol, rtol, scaled=False):
+    """(ok, max_abs_err): finite, and within atol (times max|want| when
+    ``scaled``) + rtol * |want| elementwise."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    base = float(want.abs().max()) if scaled else 1.0
+    ok = (bool(torch.isfinite(got).all())
+          and bool((err <= atol * base + rtol * want.abs()).all()))
+    return ok, float(err.max())
+
+
+def check_flash(torch, device, cases=None):
+    """Every flash case: the fwd, dq and dkv kernels against their plain
+    versions on the same inputs.  Returns {kernel: largest abs error}."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    for i, (name, kw) in enumerate(cases or flash_cases()):
+        dtype = getattr(torch, kw["dtype"])
+        q, k, v, dout = make_flash_case(torch, device, dtype, kw["shape"],
+                                        seed=100 + i)
+        mask = kw["mask"]
+        blocks = (kw.get("block_q", 128), kw.get("block_k", 128))
+        out, lse = fa.flash_forward(q, k, v, mask, *blocks)
+        delta = fa.flash_delta(out, dout)
+        dq = fa.flash_backward_dq(q, k, v, dout, lse, delta, mask, *blocks)
+        dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse, delta, mask,
+                                       *blocks)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        # the plain side is fed the kernel's out/lse, so each kernel is
+        # held against its own plain version on identical inputs
+        r_out, r_lse = fa.flash_forward_reference(q, k, v, mask, blocks[1])
+        r_dq = fa.flash_dq_reference(q, k, v, dout, lse, delta, mask)
+        r_dk, r_dv = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask)
+        atol, rtol = TOL[str(dtype)]
+        gatol, grtol = GRAD_TOL[str(dtype)]
+        f32 = TOL["torch.float32"]
+        results = {
+            "fwd": [_close(torch, out, r_out, atol, rtol),
+                    _close(torch, lse, r_lse, *f32)],
+            "dq": [_close(torch, dq, r_dq, gatol, grtol, scaled=True)],
+            "dkv": [_close(torch, dk, r_dk, gatol, grtol, scaled=True),
+                    _close(torch, dv, r_dv, gatol, grtol, scaled=True)],
+        }
+        if mask == "causal_exclusive":
+            # row 0 of every head attends no key: output 0, lse -1e30
+            results["fwd"].append((bool((out[:, 0] == 0).all())
+                                   and bool((lse[:, 0] <= -1e29).all()),
+                                   0.0))
+        parts = []
+        ok_all = True
+        for kern, res in results.items():
+            ok = all(r[0] for r in res)
+            err = max(r[1] for r in res)
+            worst[kern] = max(worst[kern], err)
+            ok_all = ok_all and ok
+            parts.append(f"{kern} {err:.3e}{'' if ok else ' FAIL'}")
+        print(f"flash {name} {tuple(kw['shape'])} blocks {blocks}: "
+              + ", ".join(parts) + f" (tolerance out atol {atol} + rtol "
+              f"{rtol}; lse {f32}; grads {gatol}*max|ref| + {grtol}*|ref|)",
+              flush=True)
+        if not ok_all:
+            raise AssertionError(f"flash attention disagrees with its plain "
+                                 f"version in case {name}")
+    return worst
+
+
+def flash_bound(torch, which, shape, dtype, mask="causal"):
+    """Least time for one kernel call at ``shape``: each input read once
+    and each output written once, or its products (2 flops per attended
+    (query, key, dim) and product) at the input type's peak."""
+    b, t, h, d = shape
+    pairs = {"none": t * t, "causal": t * (t + 1) // 2,
+             "causal_exclusive": t * (t - 1) // 2}[mask] * b * h
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[which]
+    flops = 2.0 * products * pairs * d
+    n = b * t * h * d * torch.tensor([], dtype=dtype).element_size()
+    rows = 4 * b * h * t                     # one f32 per row: lse, delta
+    moved = {"fwd": 3 * n + n + rows,        # q k v -> out, lse
+             "dq": 4 * n + 2 * rows + n,     # q k v dO lse delta -> dq
+             "dkv": 4 * n + 2 * rows + 2 * n}[which]
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_flash(torch, device):
+    """Kernels, plain versions and the library yardstick at the training
+    shape (bf16, causal).  Returns {kernel: timing dict}."""
+    import torch.nn.functional as F
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    dtype = torch.bfloat16
+    q, k, v, dout = make_flash_case(torch, device, dtype, FLASH_SHAPE)
+    out, lse = fa.flash_forward(q, k, v, "causal")
+    delta = fa.flash_delta(out, dout)
+    before = dict(fa.flash_attention.launches)
+    kernel = {
+        "fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v), 20),
+        "dq": time_ms(torch, lambda: fa.flash_backward_dq(
+            q, k, v, dout, lse, delta), 20),
+        "dkv": time_ms(torch, lambda: fa.flash_backward_dkv(
+            q, k, v, dout, lse, delta), 20),
+    }
+    fa.flash_attention.launches.update(before)   # timing does not count
+    plain = {
+        "fwd": time_ms(torch, lambda: fa.flash_forward_reference(
+            q, k, v, "causal"), 3),
+        "dq": time_ms(torch, lambda: fa.flash_dq_reference(
+            q, k, v, dout, lse, delta), 3),
+        "dkv": time_ms(torch, lambda: fa.flash_dkv_reference(
+            q, k, v, dout, lse, delta), 3),
+    }
+    # yardstick only: PyTorch's fused attention on (B, H, T, D) copies
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, dout))
+    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 20)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), dot)
+
+    sdpa_both = time_ms(torch, fwd_bwd, 20)
+    out_t = {}
+    for which in ("fwd", "dq", "dkv"):
+        bound_ms, bound_by = flash_bound(torch, which, FLASH_SHAPE, dtype)
+        out_t[which] = dict(ms=kernel[which], plain_ms=plain[which],
+                            library_ms=sdpa_fwd if which == "fwd" else None,
+                            bound_ms=bound_ms, bound_by=bound_by)
+        print(f"flash {which} {FLASH_SHAPE} bf16 causal: kernel "
+              f"{kernel[which]:.4f} ms, plain {plain[which]:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    print(f"flash library yardstick (F.scaled_dot_product_attention, "
+          f"is_causal): forward {sdpa_fwd:.4f} ms, forward+backward "
+          f"{sdpa_both:.4f} ms; kernels fwd+dq+dkv "
+          f"{sum(kernel.values()):.4f} ms", flush=True)
+    return out_t
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
 
@@ -550,6 +760,238 @@ def token_identity(torch, np, device, cfg=None):
           f"{len(shared)} requests ({hits} prefix hits)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: train the 219M LM at full width through the flash kernels
+# ---------------------------------------------------------------------------
+
+TEXT_FILE = str(__import__("pathlib").Path(__file__).resolve().parent
+                / "DESIGN.md")
+
+
+def train_flags(**over):
+    """The flagship training job (bench.py's big_lm: vocab 32768, T 1024,
+    12 layers, d_model 1024, 16 heads, d_ff 4096, GELU, learned positions,
+    f32 params, bf16 compute, flash attention, ce_chunk 256, batch 8) on
+    the bytes of DESIGN.md, 2 epochs of Adam at lr 1e-3."""
+    flags = dict(dataset="text", text_file=TEXT_FILE, seq_len=1024,
+                 vocab_size=32768, n_layers=12, d_model=1024, n_heads=16,
+                 d_ff=4096, ffn_activation="gelu", dtype="float32",
+                 compute_dtype="bfloat16", attention="flash", ce_chunk=256,
+                 batch_size=8, nepochs=2, optimizer="adam", lr=1e-3)
+    flags.update(over)
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def one_rank_group(torch, device):
+    """A process group of one (NCCL on the card), so the train step's
+    gradient all-reduce runs as it would in a larger world."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+
+
+def train_full_width(torch, np, device, **over):
+    """Train through the port's own Trainer and CLI config; check finite,
+    falling losses and the flash launch counts; print step time, tokens/s,
+    MFU, peak memory and a profile of 3 more steps."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    one_rank_group(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = f"{tmp}/metrics.jsonl"
+        args = build_argparser().parse_args(
+            train_flags(metrics_jsonl=metrics, **over))
+        cfg = config_from_args(args)
+        trainer = Trainer(cfg, device=device)
+        trainer.init_state()
+        n_params = sum(p.numel() for p in leaves(trainer.state.params))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        for k in fa.flash_attention.launches:
+            fa.flash_attention.launches[k] = 0
+        result = trainer.fit()
+        launches = dict(fa.flash_attention.launches)
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in sorted(records, key=lambda r: r["step"])
+              if "loss" in r]
+    steps = result["steps"]
+    m = cfg.model
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: {len(losses)} losses for {steps} "
+                             f"steps, finite: "
+                             f"{all(math.isfinite(x) for x in losses)}")
+    tail = sum(losses[-3:]) / 3
+    print(f"train: losses first {losses[0]:.4f}, last-3 mean {tail:.4f} "
+          f"over {steps} steps: {[round(x, 4) for x in losses]}", flush=True)
+    if tail > losses[0] - 1.0:
+        raise AssertionError(f"train: the last 3 steps' mean loss {tail:.4f}"
+                             f" is not 1 nat below the first {losses[0]:.4f}")
+    expect = m.n_layers * steps if device.type == "cuda" else 0
+    if any(v != expect for v in launches.values()):
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"n_layers x steps = {expect} each")
+    out = dict(steps=steps, launches=launches, first_loss=losses[0],
+               last3_loss=tail, n_params=n_params)
+    if device.type == "cuda":
+        step_ms = sorted(result["step_ms"][3:])
+        med = step_ms[len(step_ms) // 2]
+        tokens = cfg.batch_size * cfg.data.seq_len
+        flops = 3.0 * trainer.model.fwd_flops((cfg.batch_size,
+                                               cfg.data.seq_len))
+        out.update(step_ms_median=med, tokens_per_s=tokens / med * 1e3,
+                   step_tflop=flops / 1e12,
+                   mfu=flops / (med / 1e3 * PEAK_FLOPS["torch.bfloat16"]),
+                   peak_memory_gib=result["peak_memory_bytes"] / 2 ** 30,
+                   step_ms_all=[round(x, 3) for x in result["step_ms"]])
+        out.update(profile_training(torch, trainer))
+    print("train: " + json.dumps(out), flush=True)
+    return out
+
+
+def _kernel_class(name):
+    n = name.lower()
+    if "flash_" in n:
+        return "flash"
+    if any(s in n for s in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+        return "gemm"
+    if "foreach" in n or "multi_tensor" in n:
+        return "optimizer"
+    return "other"
+
+
+def profile_training(torch, trainer, n_steps=3):
+    """Where the step's device time goes: ``n_steps`` more steps of the
+    same trainer under ``torch.profiler``.  Device busy share of the
+    window, and the flash / GEMM / optimizer / other shares of device
+    time.  The profiler's own cost lengthens the window, so the busy share
+    is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = trainer.loader.epoch(0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.state, loss = trainer.train_step(trainer.state,
+                                                     next(batches))
+        float(loss)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    batches.close()
+    by_name, by_class = {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+            c = _kernel_class(ev.name)
+            by_class[c] = by_class.get(c, 0.0) + ev.device_time_total
+    busy = sum(by_name.values())
+    print(f"profile: {n_steps} steps, wall {wall_us / 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)",
+          flush=True)
+    shares = {c: us / max(busy, 1e-9) for c, us in sorted(by_class.items())}
+    print("profile shares of device time: " + ", ".join(
+        f"{c} {100 * v:.1f}%" for c, v in shares.items()), flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {100 * us / max(busy, 1e-9):5.1f}% {us / 1e3:8.2f} ms  "
+              f"[{_kernel_class(name)}] {name[:100]}", flush=True)
+    return dict(profile_busy_share=busy / wall_us, profile_shares=shares)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: f32 flash == dense through the train step
+# ---------------------------------------------------------------------------
+
+def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
+    """Full width at ``n_layers`` layers, f32 with TF32 off, SGD-momentum:
+    ``steps`` train steps from the same params and batches with
+    attention='flash' and 'dense'.  Losses must agree to rtol 1e-5 and
+    params to 1e-5 + 1e-4 * |p| (f32 on both sides; the attention sums
+    run in another order, ~1e-6 relative, and 3 small SGD steps carry
+    that into the params scaled by lr)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(BIG, n_layers=n_layers, activation="gelu",
+              pos_encoding="learned", ce_chunk=256)
+    kw.update(over)
+    data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
+    world = world_setup(device)
+    runs = {}
+    for attention in ("flash", "dense"):
+        model = Transformer(TransformerConfig(**kw, attention=attention),
+                            device=device)
+        params = model.init(torch.Generator().manual_seed(SEED + 2))
+        opt = optim.sgd(1e-2, 0.9)
+        state = TrainState.from_params(params, opt)
+        step = dp.make_train_step(model, opt, world,
+                                  loss_name="cross_entropy")
+        losses = []
+        loader = ShardedLoader(data, batch, device=device, shuffle=False)
+        for i, b in zip(range(steps), loader.epoch(0)):
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        runs[attention] = (losses, [p.detach() for p in
+                                    leaves(state.params)])
+    (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lf, ld))
+    worst = max(float((a - b).abs().max()) for a, b in zip(pf, pd))
+    params_ok = all(bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
+                    for a, b in zip(pf, pd))
+    print(f"train f32 identity ({n_layers} layers, {steps} steps): losses "
+          f"flash {lf} dense {ld}; params max |diff| {worst:.3e}", flush=True)
+    if not (loss_ok and params_ok):
+        raise AssertionError("f32 training with flash attention differs "
+                             "from dense attention")
+
+
 def main() -> int:
     import torch
 
@@ -585,13 +1027,30 @@ def main() -> int:
     phase("5 f32 token identity")
     token_identity(torch, np, device)
 
+    phase("6 flash attention against its plain versions")
+    flash_err = check_flash(torch, device)
+    flash_timing = time_flash(torch, device)
+
+    phase("7 train the 219M LM at full width through the flash kernels")
+    trained = train_full_width(torch, np, device)
+
+    phase("8 f32 training identity: flash == dense")
+    train_identity(torch, np, device)
+    torch.distributed.destroy_process_group()
+
+    src = "neural_networks_parallel_training_with_mpi_tpu_torch/csrc/"
+    tpu = "neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py"
     kernels = [dict(name="paged_attention", route="cuda",
-                    source="neural_networks_parallel_training_with_mpi_tpu"
-                           "_torch/csrc/paged_attention.cu",
-                    replaces="neural_networks_parallel_training_with_mpi_tpu"
-                             "/ops/pallas_kernels.py:486",
-                    launches=served["launches"],
+                    source=src + "paged_attention.cu",
+                    replaces=f"{tpu}:486", launches=served["launches"],
                     max_abs_err=max_err, **timing)]
+    for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
+        kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
+                            source=src + "flash_attention.cu",
+                            replaces=f"{tpu}:{line}",
+                            launches=trained["launches"][which],
+                            max_abs_err=flash_err[which],
+                            **flash_timing[which]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

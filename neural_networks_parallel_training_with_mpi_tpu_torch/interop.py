@@ -1,40 +1,97 @@
-"""Carry a JAX parameter tree into the port.
+"""Carry JAX trees into the port, and back out as numpy.
 
-The JAX package's Transformer parameters are nested dicts and lists with
-leaf names ``embed/table``, ``pos/table``, ``blocks[i]/{ln1, qkv,
-attn_out, ln2, ff_in, ff_gate, ff_out}/{w, b, scale, bias}``, ``ln_f``
-and ``head/w``; the port uses the same tree.  This module imports no
-JAX: callers hand it host arrays (``jax.device_get(params)``), and it
-returns the same tree as tensors.
+The JAX package's parameters are nested dicts and lists (the Transformer:
+``embed/table``, ``pos/table``, ``blocks[i]/{ln1, qkv, attn_out, ln2,
+ff_in, ff_gate, ff_out}/{w, b, scale, bias}``, ``ln_f``, ``head/w``; the
+MLP: a list ``[{w, b}, {}, {w, b}]``); its optimizer and train states are
+NamedTuples (``SGDState(count, momentum_buf)``, ``AdamState(count, mu,
+nu)``, ``TrainState(step, params, opt_state, qstate)``).  The port uses
+the same trees and field names.  This module imports no JAX: callers hand
+it host arrays (``jax.device_get(tree)``).
+
+* ``params_from_jax``  a Transformer tree in ``cfg.param_dtype`` (a
+  ``scan_layers`` tree is unstacked);
+* ``tree_from_jax``    any tree — MLP params, optimizer state, a whole
+  train state — with the NamedTuples mapped onto the port's classes of
+  the same name and the step counters as host ints;
+* ``tree_to_numpy``    the way back: numpy leaves under the same names
+  (NamedTuples as dicts of their fields), ready for
+  ``jax.tree_util``-level comparison or for rebuilding the JAX state.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from .models.transformer import TransformerConfig
+from .ops.optim import AdamState, SGDState
+from .train.state import TrainState
 from .utils.platform import DeviceLike, resolve_device
 
+_PORT_TYPES = {cls.__name__: cls for cls in (SGDState, AdamState,
+                                             TrainState)}
 
-def _leaf(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+
+def _leaf(arr, dtype: Optional[torch.dtype],
+          device: torch.device) -> torch.Tensor:
     a = np.asarray(arr)
-    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+    bf16 = a.dtype.kind == "V" or a.dtype.name == "bfloat16"
+    if bf16:
         # ml_dtypes' bfloat16 has no torch counterpart in from_numpy;
         # widening to f32 is exact
         a = a.astype(np.float32)
     # torch.tensor copies: host arrays from jax.device_get are read-only
-    return torch.tensor(a).to(device=device, dtype=dtype)
+    t = torch.tensor(a)
+    if dtype is None and bf16:
+        dtype = torch.bfloat16
+    return t.to(device=device, dtype=dtype)
 
 
-def _convert(node: Any, dtype: torch.dtype, device: torch.device) -> Any:
+def _convert(node: Any, dtype: Optional[torch.dtype],
+             device: torch.device) -> Any:
     if isinstance(node, dict):
         return {k: _convert(v, dtype, device) for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        fields = dict(zip(node._fields, node))
+        cls = _PORT_TYPES.get(type(node).__name__)
+        if cls is None:
+            raise ValueError(f"no port counterpart of {type(node).__name__}")
+        extra = [f for f in fields if f not in cls._fields
+                 and fields[f] not in ((), None, {})]
+        if extra:
+            raise ValueError(f"{type(node).__name__} fields {extra} have no "
+                             "port counterpart yet")
+        return cls(**{f: _convert(fields[f], dtype, device)
+                      for f in cls._fields})
     if isinstance(node, (list, tuple)):
         return [_convert(v, dtype, device) for v in node]
-    return _leaf(node, dtype, device)
+    a = np.asarray(node)
+    if a.ndim == 0 and a.dtype.kind in "iu":
+        return int(a)                  # step / optimizer counters
+    return _leaf(a, dtype, device)
+
+
+def tree_from_jax(tree: Any, device: DeviceLike = None,
+                  dtype: Optional[torch.dtype] = None) -> Any:
+    """Host copy of any JAX tree -> the port's tree on ``device`` (default:
+    cuda).  Float leaves keep their dtype unless ``dtype`` is given."""
+    return _convert(tree, dtype, resolve_device(device))
+
+
+def params_from_jax(tree: Any, cfg: TransformerConfig,
+                    device: DeviceLike = None) -> dict:
+    """Host copy of a JAX Transformer parameter tree -> the port's tree of
+    tensors in ``cfg.param_dtype`` on ``device`` (default: cuda)."""
+    tree = dict(tree)
+    if isinstance(tree["blocks"], dict):
+        tree["blocks"] = _unstack(tree["blocks"], cfg.n_layers)
+    if len(tree["blocks"]) != cfg.n_layers:
+        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "
+                         f"says n_layers={cfg.n_layers}")
+    return tree_from_jax(tree, device, cfg.param_dtype)
 
 
 def _unstack(blocks: Any, n_layers: int) -> list:
@@ -47,15 +104,19 @@ def _unstack(blocks: Any, n_layers: int) -> list:
     return [take(blocks, i) for i in range(n_layers)]
 
 
-def params_from_jax(tree: Any, cfg: TransformerConfig,
-                    device: DeviceLike = None) -> dict:
-    """Host copy of a JAX Transformer parameter tree -> the port's tree
-    of tensors in ``cfg.param_dtype`` on ``device`` (default: cuda)."""
-    dev = resolve_device(device)
-    tree = dict(tree)
-    if isinstance(tree["blocks"], dict):
-        tree["blocks"] = _unstack(tree["blocks"], cfg.n_layers)
-    if len(tree["blocks"]) != cfg.n_layers:
-        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "
-                         f"says n_layers={cfg.n_layers}")
-    return _convert(tree, cfg.param_dtype, dev)
+def tree_to_numpy(tree: Any) -> Any:
+    """The port's tree -> numpy leaves under the same names: tensors to
+    arrays (bf16 widened to f32), host ints to int32 scalars, NamedTuples
+    to dicts of their fields."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: tree_to_numpy(v) for f, v in zip(tree._fields, tree)}
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    if isinstance(tree, int):
+        return np.asarray(tree, np.int32)
+    return tree

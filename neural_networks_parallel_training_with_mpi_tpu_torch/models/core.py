@@ -1,5 +1,5 @@
 """Layers over plain dicts of tensors: the port of the JAX package's
-``models/core.py`` for the layers the Transformer LM uses.
+``models/core.py`` for the layers the Transformer LM and the MLP use.
 
 Each layer is a small frozen dataclass with ``init(generator, device)``
 and ``apply(params, x)``.  Parameters live in plain dicts of tensors
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -107,6 +107,35 @@ class LayerNorm:
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * params["scale"].float() + params["bias"].float()
         return y.to(x.dtype)
+
+
+@dataclass(frozen=True)
+class Activation:
+    """Parameter-free activation (the reference's ``nn.ReLU()``)."""
+
+    name: str = "relu"
+
+    def init(self, generator: torch.Generator, device) -> Params:
+        return {}
+
+    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return ACTIVATIONS[self.name](x)
+
+
+@dataclass(frozen=True)
+class Sequential:
+    """Chain of layers (the reference's ``nn.Sequential``); parameters are
+    a list aligned with the layers, as in the JAX package."""
+
+    layers: Tuple[Any, ...]
+
+    def init(self, generator: torch.Generator, device) -> List[Params]:
+        return [layer.init(generator, device) for layer in self.layers]
+
+    def apply(self, params: List[Params], x: torch.Tensor) -> torch.Tensor:
+        for layer, p in zip(self.layers, params):
+            x = layer.apply(p, x)
+        return x
 
 
 @dataclass(frozen=True)

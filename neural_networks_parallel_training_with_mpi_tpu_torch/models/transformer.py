@@ -9,9 +9,16 @@ attn_out, ln2, ff_in, ff_gate, ff_out}``, ``ln_f``, ``head/w``), so the
 serving path (``models.generate``, ``serve.paged_kv``) and the parity
 tests share one layout.
 
+Attention: ``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA
+kernels of ``ops.flash_attention``, forward and backward; K/V repeated to
+full heads first, as the JAX package does); ``auto`` means dense until an
+H100 crossover is measured.  Training adds ``fwd_flops`` and the fused
+chunked cross-entropy (``ce_chunk``, ``fused_loss_sum``), whose chunks run
+under ``torch.utils.checkpoint`` so the (B, T, vocab) logits never exist.
+
 Not ported yet, and refused at construction: MoE FFNs, ``scan_layers``
-(a stacked tree; ``interop.params_from_jax`` unstacks one) and any
-attention other than dense.
+(a stacked tree; ``interop.params_from_jax`` unstacks one), ``remat`` and
+the sequence-sharded attentions (ring, striped, ulysses).
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from ..ops import losses as losses_lib
+from ..ops.flash_attention import flash_attention
 from ..ops.rope import rope_rotate
 from ..utils.platform import DeviceLike, resolve_device
 from .core import ACTIVATIONS, Embedding, LayerNorm, Linear
@@ -77,13 +86,19 @@ class TransformerConfig:
     activation: str = "gelu"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
-    attention: str = "auto"            # auto | dense (auto -> dense)
+    attention: str = "auto"            # auto | dense | flash (auto -> dense)
     pos_encoding: str = "learned"      # learned | rope
     rope_theta: float = 10000.0
     n_kv_heads: Optional[int] = None
     scan_layers: bool = False
     moe_experts: int = 0
     matmul_dtype: str = "bf16"
+    # flash kernel blocks (pallas_kernels._resolve_blocks: T must divide)
+    flash_block_q: int = 128
+    flash_block_k: int = 128
+    remat: bool = False
+    # > 0: fused chunked cross-entropy over blocks of this many tokens
+    ce_chunk: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -116,10 +131,12 @@ class Transformer:
             raise NotImplementedError(
                 "scan_layers is not ported; build with scan_layers=False "
                 "(interop.params_from_jax unstacks a stacked JAX tree)")
-        if cfg.attention not in ("auto", "dense"):
+        if cfg.attention not in ("auto", "dense", "flash"):
             raise NotImplementedError(
                 f"attention={cfg.attention!r} is not ported yet; the port "
-                "has dense attention only")
+                "has dense and flash attention")
+        if cfg.remat:
+            raise NotImplementedError("remat is not ported yet")
         if cfg.matmul_dtype != "bf16":
             raise NotImplementedError(
                 f"matmul_dtype={cfg.matmul_dtype!r} is not ported yet")
@@ -197,10 +214,8 @@ class Transformer:
 
     def head_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """Final LayerNorm + untied head -> f32 logits."""
-        c = self.cfg
-        x = LayerNorm(c.d_model, param_dtype=c.param_dtype).apply(
-            params["ln_f"], x)
-        return self._head().apply(params["head"], x).float()
+        return self._head().apply(params["head"],
+                                  self.final_norm(params, x)).float()
 
     def block(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
               attend: Callable) -> torch.Tensor:
@@ -221,18 +236,99 @@ class Transformer:
         h = mods["ln2"].apply(params["ln2"], x)
         return x + self._ffn(mods, params, h).to(x.dtype)
 
-    def forward(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        """ids (B, T) -> f32 logits (B, T, vocab)."""
+    def attend(self, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        """Causal full-sequence attention of the training forward: K/V
+        repeated to full heads, then dense or the flash kernels."""
         c = self.cfg
+        k, v = repeat_kv(c, k), repeat_kv(c, v)
+        if c.attention == "flash":
+            return flash_attention(q, k, v, causal=True,
+                                   block_q=c.flash_block_q,
+                                   block_k=c.flash_block_k)
+        return attention_reference(q, k, v)
+
+    def backbone(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        """Embedding + all blocks -> (B, T, d_model) pre-head hidden
+        states: the trunk shared by :meth:`forward` and the fused loss."""
         positions = torch.arange(ids.shape[1], device=ids.device)
         x = self.embed(params, ids, positions)
-
-        def attend(q, k, v):
-            return attention_reference(q, repeat_kv(c, k), repeat_kv(c, v))
-
         for layer_params in params["blocks"]:
-            x = self.block(layer_params, x, positions, attend)
-        return self.head_logits(params, x)
+            x = self.block(layer_params, x, positions, self.attend)
+        return x
+
+    def final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
+        return LayerNorm(c.d_model, param_dtype=c.param_dtype).apply(
+            params["ln_f"], x)
+
+    def forward(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+        """ids (B, T) -> f32 logits (B, T, vocab)."""
+        return self.head_logits(params, self.backbone(params, ids))
+
+    apply = forward
+
+    def fwd_flops(self, x_shape) -> float:
+        """(B, T) token batch: qkv/out/ffn/attention matmuls + LM head."""
+        c = self.cfg
+        b, t = x_shape
+        d, ff, v = c.d_model, c.d_ff, c.vocab_size
+        per_layer = 2.0 * b * t * d * c.qkv_dim     # qkv projection
+        per_layer += 2.0 * b * t * d * d            # attention out projection
+        per_layer += 2.0 * (2.0 * b * t * t * d)    # scores + values
+        per_layer += 2.0 * ((3.0 if c.activation == "swiglu" else 2.0)
+                            * b * t * d * ff)
+        return float(c.n_layers * per_layer + 2.0 * b * t * d * v)
+
+    # ---- fused chunked cross-entropy (cfg.ce_chunk > 0) ----
+
+    def _chunked_ce_sum(self, params: Params, x: torch.Tensor,
+                        labels: torch.Tensor, mask: Optional[torch.Tensor],
+                        label_smoothing: float):
+        """(loss_sum, token_count) of head + softmax CE over ``ce_chunk``
+        tokens at a time.  Each chunk runs under ``torch.utils.checkpoint``:
+        only its (B, ce_chunk, vocab) logits live at once, and the backward
+        recomputes them.  Chunk sums add in order, as the JAX scan does."""
+        from torch.utils.checkpoint import checkpoint
+
+        c = self.cfg
+        t, k = x.shape[1], c.ce_chunk
+        if t % k != 0:
+            raise ValueError(
+                f"ce_chunk={k} must divide the local sequence length {t}")
+        head = self._head()
+
+        def chunk_sum(w, xc, yc):
+            logits = head.apply({"w": w}, xc).float()
+            return losses_lib.softmax_cross_entropy(
+                logits, yc, mask, label_smoothing=label_smoothing)
+
+        s = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, t, k):
+            cs, cc = checkpoint(chunk_sum, params["head"]["w"],
+                                x[:, i:i + k], labels[:, i:i + k],
+                                use_reentrant=False)
+            s, cnt = s + cs, cnt + cc
+        return s, cnt
+
+    def fused_loss_sum(self, loss_name: str):
+        """(params, batch) -> (loss_sum, count) fusing the LM head into a
+        chunked cross-entropy, or None (chunking off, or another loss).
+        The hook ``parallel.data_parallel.make_loss_fn`` consumes."""
+        if self.cfg.ce_chunk <= 0:
+            return None
+        base, _, smooth = loss_name.partition("@")
+        if base != "cross_entropy":
+            return None
+        label_smoothing = float(smooth) if smooth else 0.0
+
+        def loss_fn(params, batch):
+            x = self.final_norm(params, self.backbone(params, batch["x"]))
+            return self._chunked_ce_sum(params, x, batch["y"],
+                                        batch.get("mask"), label_smoothing)
+
+        return loss_fn
 
     def n_params(self, params: Params) -> int:
         return sum(t.numel() for t in tensors(params))

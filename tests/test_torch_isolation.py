@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import neural_networks_parallel_training_with_mpi_tpu_torch"
             ".serve, neural_networks_parallel_training_with_mpi_tpu_torch"
-            ".interop\n"
+            ".interop, neural_networks_parallel_training_with_mpi_tpu_torch"
+            ".cli, neural_networks_parallel_training_with_mpi_tpu_torch"
+            ".train.trainer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -67,6 +69,16 @@ def test_entry_points_default_to_the_gpu():
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
         Transformer, TransformerConfig,
     )
+    from neural_networks_parallel_training_with_mpi_tpu_torch import cli
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        TrainConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (
+        Trainer,
+    )
     from neural_networks_parallel_training_with_mpi_tpu_torch.utils.platform import (
         resolve_device,
     )
@@ -79,6 +91,13 @@ def test_entry_points_default_to_the_gpu():
         resolve_device()
     with pytest.raises(RuntimeError):
         Transformer(TransformerConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        world_setup()
+    for platform in ("auto", "gpu"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(["--nepochs", "1", "--platform", platform])
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):

@@ -154,8 +154,8 @@ def test_init_tree_matches_jax_layout():
 
 
 @pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(scan_layers=True),
-                                 dict(attention="flash")],
-                         ids=["moe", "scan_layers", "flash"])
+                                 dict(attention="ring")],
+                         ids=["moe", "scan_layers", "ring"])
 def test_unported_configs_refuse(bad):
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**SMALL, **bad), device="cpu")

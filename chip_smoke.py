@@ -49,6 +49,31 @@ Phases, each printing its own lines; any failure exits non-zero:
 8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
               and with dense attention from the same params and batches
               agree.
+9. with_lse — ``flash_attention_with_lse`` (out, lse and the lse
+              cotangent folded into delta, over the fwd/dq/dkv kernels)
+              against its plain version at the ring's shard shape
+              (8, 256, 16, 64) in bf16 and f32 and all three mask modes:
+              out, lse, and dq/dk/dv of sum(out * w) + sum(lse * u).
+              Times it beside its bound, its plain version and SDPA
+              forward+backward.
+10. ring    — ``ring_flash_attention`` and ``striped_ring_flash_attention``
+              over a ``LocalSeqGroup(4)`` at (8, 1024, 16, 64) bf16 (the
+              striped one on permuted inputs) against full-sequence flash
+              attention: output and q/k/v gradients, launches per call
+              (striped 16 of each kernel, ring 10: future blocks skipped),
+              and the time of each beside full flash.
+11. seqtrain — the 219M LM trained as in phase 7 but with
+              ``striped_flash`` over ``LocalSeqGroup(4)`` (T_local 256):
+              finite losses falling 1 nat, 12 x 16 launches per step of
+              each flash kernel and of ``flash_attention_with_lse``; step
+              time, tokens/s, MFU, peak memory and a profile.
+12. seqidentity — f32, TF32 off, 2 layers: 3 SGD steps with ring_flash
+              and with striped_flash over ``LocalSeqGroup(4)`` agree with
+              flash (losses 1e-5 relative, params 1e-6).
+13. layernorm — ``fused_layernorm`` called once as an op, then against its
+              plain version at (8192, 1024) in bf16 and f32 and a ragged
+              (1000, 768); timed against ``F.layer_norm`` and its byte
+              bound.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -244,9 +269,41 @@ def check_kernels(torch, device):
     return worst
 
 
+# device clock cycles per second of torch.cuda._sleep's spin (at or above
+# the H100's 1.98 GHz boost clock, so the sleep lasts at least as long as
+# asked)
+SLEEP_CYCLES_PER_S = 2.0e9
+
+
 def time_ms(torch, fn, iters):
-    """Mean ms per call from CUDA events around ``iters`` calls, after a
-    warm-up call."""
+    """Mean device ms per call from CUDA events around ``iters`` calls,
+    after a warm-up call.  A GPU sleep queued first holds the device while
+    the host enqueues every call, so the host's per-call overhead (Python,
+    the launch itself) does not count; a call that makes more launches
+    than the device queue holds is partly host-bound all the same (use
+    ``wall_ms`` for such a composite)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    torch.cuda._sleep(int(min(1.5 * iters * one_s + 1e-3, 5.0)
+                          * SLEEP_CYCLES_PER_S))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def wall_ms(torch, fn, iters):
+    """Mean ms per call from CUDA events around ``iters`` back-to-back
+    calls with no head start: the rate at which host and device together
+    get through them (the host's launch time counts where it is longer)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -257,6 +314,53 @@ def time_ms(torch, fn, iters):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_busy_ms(torch, fn, calls=3):
+    """Device time of one call: the sum of its kernels' durations under
+    ``torch.profiler`` (gaps between them excluded), over ``calls`` calls.
+    A one-element marker kernel (~µs, counted) opens the window, whose
+    first kernel the profiler can drop."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_time_total for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def median_ms(torch, fn, runs=25, warmup=3):
+    """Median device ms of ``runs`` single calls, each between its own
+    CUDA events after a GPU sleep long enough for the host to enqueue the
+    whole call (so the host's launch time does not count), after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    head_start = int((2.0 * (time.perf_counter() - t0) + 1e-3)
+                     * SLEEP_CYCLES_PER_S)
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(head_start)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return sorted(times)[len(times) // 2]
 
 
 def paged_bound(case):
@@ -464,8 +568,6 @@ def flash_bound(torch, which, shape, dtype, mask="causal"):
 def time_flash(torch, device):
     """Kernels, plain versions and the library yardstick at the training
     shape (bf16, causal).  Returns {kernel: timing dict}."""
-    import torch.nn.functional as F
-
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -491,32 +593,48 @@ def time_flash(torch, device):
         "dkv": time_ms(torch, lambda: fa.flash_dkv_reference(
             q, k, v, dout, lse, delta), 3),
     }
-    # yardstick only: PyTorch's fused attention on (B, H, T, D) copies
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
-                       for x in (q, k, v, dout))
-    sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), 20)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-
-    def fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        torch.autograd.grad(o, (qg, kg, vg), dot)
-
-    sdpa_both = time_ms(torch, fwd_bwd, 20)
+    # yardstick only: PyTorch's fused attention on (B, H, T, D) copies;
+    # device-time medians of single calls (a loop's mean, host launch time
+    # included, did not settle between runs); its backward alone
+    # (forward+backward - forward) stands beside dq and dkv, which
+    # together are that backward
+    sdpa_fwd, sdpa_both = sdpa_yardstick(torch, q, k, v, dout, True)
+    sdpa_bwd = sdpa_both - sdpa_fwd
     out_t = {}
     for which in ("fwd", "dq", "dkv"):
         bound_ms, bound_by = flash_bound(torch, which, FLASH_SHAPE, dtype)
         out_t[which] = dict(ms=kernel[which], plain_ms=plain[which],
-                            library_ms=sdpa_fwd if which == "fwd" else None,
+                            library_ms=sdpa_fwd if which == "fwd"
+                            else sdpa_bwd,
                             bound_ms=bound_ms, bound_by=bound_by)
         print(f"flash {which} {FLASH_SHAPE} bf16 causal: kernel "
               f"{kernel[which]:.4f} ms, plain {plain[which]:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     print(f"flash library yardstick (F.scaled_dot_product_attention, "
-          f"is_causal): forward {sdpa_fwd:.4f} ms, forward+backward "
-          f"{sdpa_both:.4f} ms; kernels fwd+dq+dkv "
+          f"is_causal, median of 25): forward {sdpa_fwd:.4f} ms, "
+          f"forward+backward {sdpa_both:.4f} ms, backward alone "
+          f"{sdpa_bwd:.4f} ms; kernels fwd+dq+dkv "
           f"{sum(kernel.values()):.4f} ms", flush=True)
     return out_t
+
+
+def sdpa_yardstick(torch, q, k, v, dout, causal):
+    """(forward ms, forward+backward ms) of one
+    ``F.scaled_dot_product_attention`` on (B, H, T, D) copies of the
+    inputs, each the median of 25 single calls after a warm-up."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                       for x in (q, k, v, dout))
+    fwd = median_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        torch.autograd.grad(o, (qg, kg, vg), dot)
+
+    return fwd, median_ms(torch, fwd_bwd)
 
 
 # ---------------------------------------------------------------------------
@@ -799,10 +917,18 @@ def one_rank_group(torch, device):
                             world_size=1)
 
 
-def train_full_width(torch, np, device, **over):
-    """Train through the port's own Trainer and CLI config; check finite,
-    falling losses and the flash launch counts; print step time, tokens/s,
-    MFU, peak memory and a profile of 3 more steps."""
+def ring_blocks(attention, s):
+    """Block calls per layer and step of each flash kernel: 1 for flash,
+    S^2 for striped_flash, S(S+1)/2 for causal ring_flash."""
+    return {"flash": 1, "striped_flash": s * s,
+            "ring_flash": s * (s + 1) // 2}[attention]
+
+
+def train_full_width(torch, np, device, seq_group=None, **over):
+    """Train through the port's own Trainer and CLI config (over
+    ``seq_group`` for a sequence-sharded attention); check finite, falling
+    losses and the flash launch counts; print step time, tokens/s, MFU,
+    peak memory and a profile of 3 more steps."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
@@ -824,7 +950,7 @@ def train_full_width(torch, np, device, **over):
         args = build_argparser().parse_args(
             train_flags(metrics_jsonl=metrics, **over))
         cfg = config_from_args(args)
-        trainer = Trainer(cfg, device=device)
+        trainer = Trainer(cfg, device=device, seq_group=seq_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
         if device.type == "cuda":
@@ -832,30 +958,39 @@ def train_full_width(torch, np, device, **over):
             torch.cuda.reset_peak_memory_stats(device)
         for k in fa.flash_attention.launches:
             fa.flash_attention.launches[k] = 0
+        fa.flash_attention_with_lse.launches = 0
         result = trainer.fit()
         launches = dict(fa.flash_attention.launches)
+        with_lse = fa.flash_attention_with_lse.launches
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in sorted(records, key=lambda r: r["step"])
               if "loss" in r]
     steps = result["steps"]
     m = cfg.model
+    tag = "train" if seq_group is None else f"train {m.attention}"
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train: {len(losses)} losses for {steps} "
+        raise AssertionError(f"{tag}: {len(losses)} losses for {steps} "
                              f"steps, finite: "
                              f"{all(math.isfinite(x) for x in losses)}")
     tail = sum(losses[-3:]) / 3
-    print(f"train: losses first {losses[0]:.4f}, last-3 mean {tail:.4f} "
+    print(f"{tag}: losses first {losses[0]:.4f}, last-3 mean {tail:.4f} "
           f"over {steps} steps: {[round(x, 4) for x in losses]}", flush=True)
     if tail > losses[0] - 1.0:
-        raise AssertionError(f"train: the last 3 steps' mean loss {tail:.4f}"
-                             f" is not 1 nat below the first {losses[0]:.4f}")
-    expect = m.n_layers * steps if device.type == "cuda" else 0
+        raise AssertionError(f"{tag}: the last 3 steps' mean loss "
+                             f"{tail:.4f} is not 1 nat below the first "
+                             f"{losses[0]:.4f}")
+    s_n = 1 if seq_group is None else seq_group.size
+    per_step = m.n_layers * ring_blocks(m.attention, s_n)
+    expect = per_step * steps if device.type == "cuda" else 0
     if any(v != expect for v in launches.values()):
         raise AssertionError(f"flash launches {launches}, expected "
-                             f"n_layers x steps = {expect} each")
-    out = dict(steps=steps, launches=launches, first_loss=losses[0],
-               last3_loss=tail, n_params=n_params)
+                             f"{per_step} per step x {steps} = {expect} each")
+    if seq_group is not None and with_lse != expect:
+        raise AssertionError(f"flash_attention_with_lse launched {with_lse} "
+                             f"times, expected {expect}")
+    out = dict(steps=steps, launches=launches, with_lse_launches=with_lse,
+               first_loss=losses[0], last3_loss=tail, n_params=n_params)
     if device.type == "cuda":
         step_ms = sorted(result["step_ms"][3:])
         med = step_ms[len(step_ms) // 2]
@@ -868,7 +1003,7 @@ def train_full_width(torch, np, device, **over):
                    peak_memory_gib=result["peak_memory_bytes"] / 2 ** 30,
                    step_ms_all=[round(x, 3) for x in result["step_ms"]])
         out.update(profile_training(torch, trainer))
-    print("train: " + json.dumps(out), flush=True)
+    print(f"{tag}: " + json.dumps(out), flush=True)
     return out
 
 
@@ -887,8 +1022,10 @@ def profile_training(torch, trainer, n_steps=3):
     """Where the step's device time goes: ``n_steps`` more steps of the
     same trainer under ``torch.profiler``.  Device busy share of the
     window, and the flash / GEMM / optimizer / other shares of device
-    time.  The profiler's own cost lengthens the window, so the busy share
-    is a lower bound."""
+    time and their ms per step ("other" holds the elementwise work: casts,
+    LayerNorm, GELU, residuals and, under a sequence group, the ring's
+    lse merges).  The profiler's own cost lengthens the window, so the
+    busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -915,25 +1052,39 @@ def profile_training(torch, trainer, n_steps=3):
           f"busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%)",
           flush=True)
     shares = {c: us / max(busy, 1e-9) for c, us in sorted(by_class.items())}
+    per_step = {c: us / 1e3 / n_steps for c, us in sorted(by_class.items())}
     print("profile shares of device time: " + ", ".join(
-        f"{c} {100 * v:.1f}%" for c, v in shares.items()), flush=True)
+        f"{c} {100 * v:.1f}% ({per_step[c]:.2f} ms/step)"
+        for c, v in shares.items()), flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {100 * us / max(busy, 1e-9):5.1f}% {us / 1e3:8.2f} ms  "
               f"[{_kernel_class(name)}] {name[:100]}", flush=True)
-    return dict(profile_busy_share=busy / wall_us, profile_shares=shares)
+    # the host side: operators by their own CPU time (the Python between
+    # them is not in any operator)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    host_us = sum(e.self_cpu_time_total for e in host)
+    print(f"profile host: operators' own CPU time {host_us / 1e3:.1f} ms "
+          f"of the {wall_us / 1e3:.1f} ms window; top by own CPU time:",
+          flush=True)
+    for e in host[:12]:
+        print(f"  {e.self_cpu_time_total / 1e3 / n_steps:8.2f} ms/step "
+              f"x{e.count // n_steps:6d}/step  {e.key[:90]}", flush=True)
+    return dict(profile_busy_share=busy / wall_us, profile_shares=shares,
+                profile_ms_per_step=per_step,
+                profile_host_op_ms_per_step=host_us / 1e3 / n_steps)
 
 
 # ---------------------------------------------------------------------------
-# phase 8: f32 flash == dense through the train step
+# phases 8 and 12: f32 training identities through the train step
 # ---------------------------------------------------------------------------
 
-def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
-    """Full width at ``n_layers`` layers, f32 with TF32 off, SGD-momentum:
-    ``steps`` train steps from the same params and batches with
-    attention='flash' and 'dense'.  Losses must agree to rtol 1e-5 and
-    params to 1e-5 + 1e-4 * |p| (f32 on both sides; the attention sums
-    run in another order, ~1e-6 relative, and 3 small SGD steps carry
-    that into the params scaled by lr)."""
+def sgd_runs(torch, device, attentions, n_layers=2, steps=3, batch=8,
+             seq_size=4, **over):
+    """Full width at ``n_layers`` layers, f32 with TF32 off,
+    SGD-momentum: ``steps`` train steps from the same params and batches
+    for each attention (the sequence-sharded ones over a
+    ``LocalSeqGroup(seq_size)``, the striped one on permuted tokens).
+    Returns {attention: (losses, params)}."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
         text_dataset,
     )
@@ -946,6 +1097,7 @@ def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
     from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
         data_parallel as dp,
+        sequence as sq,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
         world_setup,
@@ -965,21 +1117,37 @@ def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
     data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
     world = world_setup(device)
     runs = {}
-    for attention in ("flash", "dense"):
+    for attention in attentions:
+        group = perm = None
+        if attention in sq.SEQ_SHARDED_IMPLS:
+            group = sq.LocalSeqGroup(seq_size)
+            if attention.startswith("striped"):
+                perm = sq.striped_permutation(kw["max_seq_len"], seq_size)
         model = Transformer(TransformerConfig(**kw, attention=attention),
-                            device=device)
+                            device=device, seq_group=group)
         params = model.init(torch.Generator().manual_seed(SEED + 2))
         opt = optim.sgd(1e-2, 0.9)
         state = TrainState.from_params(params, opt)
         step = dp.make_train_step(model, opt, world,
                                   loss_name="cross_entropy")
         losses = []
-        loader = ShardedLoader(data, batch, device=device, shuffle=False)
+        loader = ShardedLoader(data, batch, device=device, shuffle=False,
+                               seq_permutation=perm)
         for i, b in zip(range(steps), loader.epoch(0)):
             state, loss = step(state, b)
             losses.append(float(loss))
         runs[attention] = (losses, [p.detach() for p in
                                     leaves(state.params)])
+    return runs
+
+
+def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
+    """Flash and dense attention: losses must agree to rtol 1e-5 and
+    params to 1e-5 + 1e-4 * |p| (f32 on both sides; the attention sums
+    run in another order, ~1e-6 relative, and 3 small SGD steps carry
+    that into the params scaled by lr)."""
+    runs = sgd_runs(torch, device, ("flash", "dense"), n_layers, steps,
+                    batch, **over)
     (lf, pf), (ld, pd) = runs["flash"], runs["dense"]
     loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lf, ld))
     worst = max(float((a - b).abs().max()) for a, b in zip(pf, pd))
@@ -990,6 +1158,340 @@ def train_identity(torch, np, device, n_layers=2, steps=3, batch=8, **over):
     if not (loss_ok and params_ok):
         raise AssertionError("f32 training with flash attention differs "
                              "from dense attention")
+
+
+def train_identity_seq(torch, np, device, n_layers=2, steps=3, batch=8,
+                       seq_size=4, **over):
+    """ring_flash and striped_flash over a local group of ``seq_size``
+    against flash: losses to rtol 1e-5 and params within 1e-6 (f32 on
+    every side; the lse merges and the stripe order change summation
+    order only, and lr 1e-2 scales that into the params)."""
+    runs = sgd_runs(torch, device, ("flash", "ring_flash", "striped_flash"),
+                    n_layers, steps, batch, seq_size=seq_size, **over)
+    lf, pf = runs["flash"]
+    for attention in ("ring_flash", "striped_flash"):
+        ls, ps = runs[attention]
+        loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(ls, lf))
+        worst = max(float((a - b).abs().max()) for a, b in zip(ps, pf))
+        print(f"train f32 identity {attention} over {seq_size} shards "
+              f"({n_layers} layers, {steps} steps): losses {ls} vs flash "
+              f"{lf}; params max |diff| {worst:.3e}", flush=True)
+        if not (loss_ok and worst <= 1e-6):
+            raise AssertionError(f"f32 training with {attention} differs "
+                                 "from flash attention")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: flash_attention_with_lse against its plain version
+# ---------------------------------------------------------------------------
+
+# one ring shard of the training shape: T 1024 over 4 shards
+SHARD_SHAPE = (8, 256, 16, 64)
+
+
+def lse_cases():
+    return [(f"{mask}_{dt}", dict(dtype=dt, shape=SHARD_SHAPE, mask=mask))
+            for dt in ("bfloat16", "float32")
+            for mask in ("causal", "none", "causal_exclusive")]
+
+
+def _lse_cotangents(torch, q, lse, seed):
+    """A random output cotangent w (q's type) and a random lse cotangent u
+    (f32), zero on empty rows (lse -1e30, where P = 0 anyway)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    w = torch.randn(q.shape, generator=g).to(q.dtype).to(q.device)
+    u = torch.randn(lse.shape, generator=g).to(lse.device)
+    return w, torch.where(lse > -1e29, u, 0.0)
+
+
+def check_flash_lse(torch, device, cases=None):
+    """Every case: ``flash_attention_with_lse`` (the kernels) against its
+    plain version on the same inputs: out and lse of the forward, and
+    dq/dk/dv of sum(out * w) + sum(lse * u), the plain backward fed the
+    kernel's out/lse as in phase 6.  Returns the largest abs error."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    worst = 0.0
+    for i, (name, kw) in enumerate(cases or lse_cases()):
+        dtype = getattr(torch, kw["dtype"])
+        mask = kw["mask"]
+        q, k, v, _ = make_flash_case(torch, device, dtype, kw["shape"],
+                                     seed=200 + i)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out, lse = fa.flash_attention_with_lse(qg, kg, vg, mask_mode=mask)
+        w, u = _lse_cotangents(torch, q, lse.detach(), seed=300 + i)
+        grads = torch.autograd.grad((out, lse), (qg, kg, vg), (w, u))
+        out, lse = out.detach(), lse.detach()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        r_out, r_lse = fa.flash_forward_reference(q, k, v, mask)
+        r_grads = fa.flash_backward_reference(q, k, v, out, lse, w, mask,
+                                              g_lse=u)
+        atol, rtol = TOL[str(dtype)]
+        gatol, grtol = GRAD_TOL[str(dtype)]
+        res = [_close(torch, out, r_out, atol, rtol),
+               _close(torch, lse, r_lse, *TOL["torch.float32"])]
+        res += [_close(torch, g, r, gatol, grtol, scaled=True)
+                for g, r in zip(grads, r_grads)]
+        ok = all(r[0] for r in res)
+        err = max(r[1] for r in res)
+        worst = max(worst, err)
+        print(f"with_lse {name} {tuple(kw['shape'])}: out {res[0][1]:.3e}, "
+              f"lse {res[1][1]:.3e}, dq/dk/dv "
+              f"{'/'.join(f'{r[1]:.3e}' for r in res[2:])} "
+              f"{'ok' if ok else 'FAIL'} (tolerance out atol {atol} + rtol "
+              f"{rtol}; lse {TOL['torch.float32']}; grads {gatol}*max|ref| "
+              f"+ {grtol}*|ref|)", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_attention_with_lse disagrees with "
+                                 f"its plain version in case {name}")
+    return worst
+
+
+def lse_bound(torch, shape, dtype):
+    """Least time for one forward+backward of flash_attention_with_lse
+    (causal) at ``shape``: q, k, v, w and u read once, out, lse, dq, dk,
+    dv written once, or 7 products (2 forward; S again, dP, dV, dQ, dK
+    backward) of 2 flops per attended (query, key, dim) at the type's
+    peak."""
+    b, t, h, d = shape
+    pairs = t * (t + 1) // 2 * b * h
+    flops = 2.0 * 7 * pairs * d
+    n = b * t * h * d * torch.tensor([], dtype=dtype).element_size()
+    rows = 4 * b * h * t
+    moved = 4 * n + rows + n + rows + 3 * n
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype)]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def time_flash_lse(torch, device):
+    """Forward+backward of flash_attention_with_lse at the shard shape
+    (bf16, causal): the kernels, the plain version, SDPA
+    forward+backward on the same inputs (which returns no lse: a
+    yardstick only) and the bound."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    dtype = torch.bfloat16
+    q, k, v, _ = make_flash_case(torch, device, dtype, SHARD_SHAPE, seed=7)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    _, lse0 = fa.flash_forward(q, k, v, "causal")
+    w, u = _lse_cotangents(torch, q, lse0, seed=8)
+
+    def kernel():
+        out, lse = fa.flash_attention_with_lse(qg, kg, vg)
+        torch.autograd.grad((out, lse), (qg, kg, vg), (w, u))
+
+    def plain():
+        out, lse = fa.flash_forward_reference(q, k, v, "causal")
+        fa.flash_backward_reference(q, k, v, out, lse, w, "causal", g_lse=u)
+
+    before = (dict(fa.flash_attention.launches),
+              fa.flash_attention_with_lse.launches)
+    kernel_ms = time_ms(torch, kernel, 20)
+    fa.flash_attention.launches.update(before[0])   # timing does not count
+    fa.flash_attention_with_lse.launches = before[1]
+    plain_ms = time_ms(torch, plain, 3)
+    _, library_ms = sdpa_yardstick(torch, q, k, v, w, True)
+    bound_ms, bound_by = lse_bound(torch, SHARD_SHAPE, dtype)
+    print(f"with_lse {SHARD_SHAPE} bf16 causal, forward+backward: kernels "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA fwd+bwd "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
+          flush=True)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: ring composition at the training shape
+# ---------------------------------------------------------------------------
+
+def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10):
+    """ring_flash and striped_flash over a LocalSeqGroup against
+    full-sequence flash attention (the kernels) on the same bf16 inputs:
+    output and q/k/v gradients, the launches of one call, and the time of
+    forward+backward beside full flash."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        sequence as sq,
+    )
+
+    dtype = torch.bfloat16
+    q, k, v, dout = make_flash_case(torch, device, dtype, shape, seed=11)
+    group = sq.LocalSeqGroup(seq_size)
+    perm = torch.as_tensor(sq.striped_permutation(shape[1], seq_size),
+                           device=device)
+
+    def full(q_, k_, v_):
+        return fa.flash_attention(q_, k_, v_, True)
+
+    def ring(q_, k_, v_):
+        return sq.ring_flash_attention(q_, k_, v_, group)
+
+    def striped(q_, k_, v_):
+        return sq.striped_ring_flash_attention(q_, k_, v_, group)
+
+    def fwd_bwd(fn, inputs, g):
+        leaves_ = [x.detach().requires_grad_() for x in inputs]
+        out = fn(*leaves_)
+        return (out.detach(),) + torch.autograd.grad(out, leaves_, g)
+
+    want = fwd_bwd(full, (q, k, v), dout)
+    atol, rtol = TOL[str(dtype)]
+    gatol, grtol = GRAD_TOL[str(dtype)]
+    out_t = {}
+    for name, fn, idx in (("ring_flash", ring, None),
+                          ("striped_flash", striped, perm)):
+        inputs = (q, k, v) if idx is None else tuple(
+            x.index_select(1, idx) for x in (q, k, v))
+        g = dout if idx is None else dout.index_select(1, idx)
+        ref = want if idx is None else tuple(
+            x.index_select(1, idx) for x in want)
+        before = dict(fa.flash_attention.launches)
+        got = fwd_bwd(fn, inputs, g)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = {kk: fa.flash_attention.launches[kk] - before[kk]
+                    for kk in before}
+        res = [_close(torch, got[0], ref[0], atol, rtol)]
+        res += [_close(torch, a, b, gatol, grtol, scaled=True)
+                for a, b in zip(got[1:], ref[1:])]
+        want_n = ring_blocks(name, seq_size) if device.type == "cuda" else 0
+        ok = all(r[0] for r in res) and all(n == want_n
+                                            for n in launches.values())
+        print(f"ring {name} over {seq_size} shards {tuple(shape)} bf16: out "
+              f"{res[0][1]:.3e}, dq/dk/dv "
+              f"{'/'.join(f'{r[1]:.3e}' for r in res[1:])} vs full flash; "
+              f"launches per call {launches} (expected {want_n} each) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} over a LocalSeqGroup disagrees "
+                                 "with full-sequence flash attention")
+        out_t[name] = dict(max_abs_err=max(r[1] for r in res))
+        if device.type == "cuda":
+            saved = (dict(fa.flash_attention.launches),
+                     fa.flash_attention_with_lse.launches)
+            t = out_t[name]
+            t["wall_ms"] = wall_ms(torch, lambda: fwd_bwd(fn, inputs, g),
+                                   iters)
+            t["device_ms"] = device_busy_ms(
+                torch, lambda: fwd_bwd(fn, inputs, g))
+            t["full_wall_ms"] = wall_ms(
+                torch, lambda: fwd_bwd(full, (q, k, v), dout), iters)
+            t["full_device_ms"] = device_busy_ms(
+                torch, lambda: fwd_bwd(full, (q, k, v), dout))
+            fa.flash_attention.launches.update(saved[0])
+            fa.flash_attention_with_lse.launches = saved[1]
+            print(f"ring {name} forward+backward: wall {t['wall_ms']:.4f} "
+                  f"ms, device busy {t['device_ms']:.4f} ms; full flash wall "
+                  f"{t['full_wall_ms']:.4f} ms, device busy "
+                  f"{t['full_device_ms']:.4f} ms", flush=True)
+    return out_t
+
+
+# ---------------------------------------------------------------------------
+# phase 13: fused LayerNorm against its plain version
+# ---------------------------------------------------------------------------
+
+LN_SHAPE = (8192, 1024)
+
+
+def ln_cases():
+    return [("8192x1024_bfloat16", dict(dtype="bfloat16", shape=LN_SHAPE)),
+            ("8192x1024_float32", dict(dtype="float32", shape=LN_SHAPE)),
+            ("1000x768_bfloat16", dict(dtype="bfloat16", shape=(1000, 768)))]
+
+
+def make_ln_case(torch, device, dtype, shape, seed):
+    """x with a large common offset (where E[x^2] - mean^2 would
+    cancel), scale and bias near 1 and 0."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    d = shape[-1]
+    x = (40.0 + 3.0 * torch.randn(shape, generator=g)).to(dtype).to(device)
+    scale = (1.0 + 0.1 * torch.randn(d, generator=g)).to(device)
+    bias = (0.1 * torch.randn(d, generator=g)).to(device)
+    return x, scale, bias
+
+
+def check_layernorm(torch, device, cases=None):
+    """One op-level call (its launch count is the kernel's count for the
+    kernels line: no model path calls it), then every case against the
+    plain version.  Returns (largest abs error, launches of the op call)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        layernorm as ln,
+    )
+
+    cases = cases or ln_cases()
+    dt0 = getattr(torch, cases[0][1]["dtype"])
+    x, scale, bias = make_ln_case(torch, device, dt0, cases[0][1]["shape"],
+                                  seed=0)
+    ln.fused_layernorm.launches = 0
+    y = ln.fused_layernorm(x, scale, bias)
+    launches = ln.fused_layernorm.launches
+    if y.shape != x.shape or y.dtype != x.dtype or \
+            not bool(torch.isfinite(y).all()):
+        raise AssertionError("fused_layernorm returned a wrong or non-finite "
+                             "result")
+    worst = 0.0
+    for i, (name, kw) in enumerate(cases):
+        dtype = getattr(torch, kw["dtype"])
+        x, scale, bias = make_ln_case(torch, device, dtype, kw["shape"],
+                                      seed=1 + i)
+        got = ln.fused_layernorm(x, scale, bias)
+        want = ln.fused_layernorm_reference(x, scale, bias)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        atol, rtol = TOL[str(dtype)]
+        ok, err = _close(torch, got, want, atol, rtol)
+        ok = ok and got.dtype == x.dtype
+        worst = max(worst, err)
+        print(f"layernorm {name}: max_abs_err {err:.3e} (tolerance atol "
+              f"{atol} + rtol {rtol}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"fused_layernorm disagrees with its plain "
+                                 f"version in case {name}")
+    return worst, launches
+
+
+def time_layernorm(torch, device):
+    """Kernel, plain version and ``F.layer_norm`` at (8192, 1024) bf16,
+    beside the bound: x read once, y written once (+ scale and bias), or
+    ~8 flops per element at the f32 peak."""
+    import torch.nn.functional as F
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        layernorm as ln,
+    )
+
+    x, scale, bias = make_ln_case(torch, device, torch.bfloat16, LN_SHAPE,
+                                  seed=9)
+    before = ln.fused_layernorm.launches
+    kernel_ms = time_ms(torch, lambda: ln.fused_layernorm(x, scale, bias),
+                        200)
+    ln.fused_layernorm.launches = before       # timing does not count
+    plain_ms = time_ms(torch, lambda: ln.fused_layernorm_reference(
+        x, scale, bias), 50)
+    sb, bb = scale.to(x.dtype), bias.to(x.dtype)
+    library_ms = time_ms(torch, lambda: F.layer_norm(
+        x, (x.shape[-1],), sb, bb, 1e-5), 200)
+    n = x.numel()
+    t_bytes = (2 * n * x.element_size() + 2 * 4 * x.shape[-1]) \
+        / HBM_BYTES_PER_S
+    t_ops = 8.0 * n / PEAK_FLOPS["torch.float32"]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"layernorm {LN_SHAPE} bf16: kernel {kernel_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, F.layer_norm {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def main() -> int:
@@ -1036,7 +1538,36 @@ def main() -> int:
 
     phase("8 f32 training identity: flash == dense")
     train_identity(torch, np, device)
+
+    phase("9 flash_attention_with_lse against its plain version")
+    lse_err = check_flash_lse(torch, device)
+    lse_timing = time_flash_lse(torch, device)
+
+    phase("10 ring and striped flash over a local group of 4 vs full flash")
+    check_ring(torch, device)
+
+    phase("11 train the 219M LM with striped_flash over a local group of 4")
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    seq_trained = train_full_width(torch, np, device,
+                                   seq_group=LocalSeqGroup(4),
+                                   attention="striped_flash", sp=4)
+    merge_ms = (seq_trained["profile_ms_per_step"].get("other", 0.0)
+                - trained["profile_ms_per_step"].get("other", 0.0))
+    print(f"seqtrain: step {seq_trained['step_ms_median']:.2f} ms vs flash "
+          f"{trained['step_ms_median']:.2f} ms; elementwise ('other') "
+          f"{merge_ms:+.2f} ms/step over flash (the lse merges, the "
+          f"splits and joins)", flush=True)
+
+    phase("12 f32 training identity: ring_flash == striped_flash == flash")
+    train_identity_seq(torch, np, device)
     torch.distributed.destroy_process_group()
+
+    phase("13 fused_layernorm against its plain version")
+    ln_err, ln_launches = check_layernorm(torch, device)
+    ln_timing = time_layernorm(torch, device)
 
     src = "neural_networks_parallel_training_with_mpi_tpu_torch/csrc/"
     tpu = "neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py"
@@ -1051,6 +1582,15 @@ def main() -> int:
                             launches=trained["launches"][which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
+    kernels.append(dict(name="flash_attention_with_lse", route="cuda",
+                        source=src + "flash_attention.cu",
+                        replaces=f"{tpu}:445",
+                        launches=seq_trained["with_lse_launches"],
+                        max_abs_err=lse_err, **lse_timing))
+    kernels.append(dict(name="fused_layernorm", route="cuda",
+                        source=src + "layernorm.cu", replaces=f"{tpu}:711",
+                        launches=ln_launches, max_abs_err=ln_err,
+                        **ln_timing))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,10 @@ raises without one) or, with ``--platform cpu``, on the host.  Several
 GPUs of one host: ``torchrun --nproc_per_node N -m
 neural_networks_parallel_training_with_mpi_tpu_torch ...`` (one process
 per card; ``parallel.distributed.world_setup`` forms the group).
+Sequence parallelism: ``torchrun --nproc_per_node N -m ... --sp S
+--attention ring|ring_flash|striped|striped_flash`` trains on a
+``data x seq`` world of N = ``--dp`` x S ranks; ``--sp S`` in a world of
+fewer ranks raises.
 
 Decoding (``--generate``), the supervisor (``--supervise``) and the JAX
 platform knobs (``--num_devices``, ``--probe_timeout``) are not ported and

@@ -12,7 +12,14 @@ One host-side iterator per rank that
 * hands rank ``r`` the contiguous rows ``r*n/W .. (r+1)*n/W`` of the padded
   global batch — the rows dim-0 sharding over the data axis gives device
   ``r`` in the JAX package — placed on the device through
-  ``utils.platform.h2d`` (pinned, no stream sync).
+  ``utils.platform.h2d`` (pinned, no stream sync),
+* under sequence parallelism (``sp > 1``) then hands sequence rank ``s``
+  the contiguous columns ``s*T/sp .. (s+1)*T/sp`` of every rank >= 2
+  array (the per-row ``mask`` stays whole), as the JAX package's
+  ``parallel/spmd.py`` ``batch_specs`` shard dim 1 over ``seq``; here
+  ``rank``/``world_size`` are the data rank and the data-parallel size,
+* applies ``seq_permutation`` (the striped token layout) to dim 1 of
+  every rank >= 2 array once, inputs and targets alike.
 
 Batch assembly (index gather) runs ``prefetch`` batches ahead on a thread.
 The native (C++) batcher is not ported: ``backend="native"`` raises, and
@@ -25,7 +32,7 @@ from __future__ import annotations
 import math
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -86,7 +93,9 @@ class ShardedLoader:
                  world_size: int = 1, device: DeviceLike = None,
                  shuffle: bool = True, seed: int = 0,
                  full_batch: bool = False, remainder: str = "pad",
-                 backend: str = "numpy", prefetch: int = 2):
+                 backend: str = "numpy", prefetch: int = 2,
+                 seq_rank: int = 0, sp: int = 1,
+                 seq_permutation: Optional[np.ndarray] = None):
         if remainder not in ("pad", "drop"):
             raise ValueError("remainder must be 'pad' or 'drop'")
         if prefetch < 0:
@@ -98,9 +107,17 @@ class ShardedLoader:
                 "--data_backend native (the C++ batcher) is not ported yet")
         if not 0 <= rank < world_size:
             raise ValueError(f"rank {rank} outside world of {world_size}")
+        if not 0 <= seq_rank < sp:
+            raise ValueError(f"seq_rank {seq_rank} outside {sp} shards")
         self.device = resolve_device(device)
         self.rank, self.world_size = rank, world_size
+        self.seq_rank, self.sp = seq_rank, sp
         self.data = {k: np.asarray(v) for k, v in data.items()}
+        if seq_permutation is not None:
+            # once here, not per batch: the layout is static
+            perm = np.asarray(seq_permutation)
+            self.data = {k: (v[:, perm] if v.ndim >= 2 else v)
+                         for k, v in self.data.items()}
         lens = {k: v.shape[0] for k, v in self.data.items()}
         if len(set(lens.values())) != 1:
             raise ValueError(f"ragged dataset: {lens}")
@@ -177,4 +194,14 @@ class ShardedLoader:
         padded = self._pad(batch)
         rows = shd.rank_slice(padded["mask"].shape[0], self.world_size,
                               self.rank)
-        return {k: np.ascontiguousarray(v[rows]) for k, v in padded.items()}
+        out = {}
+        for k, v in padded.items():
+            v = v[rows]
+            if self.sp > 1 and k != "mask" and v.ndim >= 2:
+                if v.shape[1] % self.sp:
+                    raise ValueError(f"seq len {v.shape[1]} (leaf {k!r}) "
+                                     f"not divisible by --sp {self.sp}")
+                w = v.shape[1] // self.sp
+                v = v[:, self.seq_rank * w:(self.seq_rank + 1) * w]
+            out[k] = np.ascontiguousarray(v)
+        return out

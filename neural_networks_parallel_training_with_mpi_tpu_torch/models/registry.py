@@ -14,7 +14,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None):
+def build_model(cfg: ModelConfig, device: DeviceLike = None,
+                seq_group=None):
+    """``seq_group``: the sequence group of the sequence-sharded attentions
+    (transformer only)."""
     pdt = DTYPES[cfg.dtype]
     cdt = DTYPES[cfg.compute_dtype]
     if cfg.arch == "mlp":
@@ -36,5 +39,5 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None):
             compute_dtype=cdt, remat=cfg.remat,
             moe_experts=cfg.moe_experts, ce_chunk=cfg.ce_chunk,
             matmul_dtype=cfg.matmul_dtype, scan_layers=cfg.scan_layers)
-        return Transformer(tc, device=device)
+        return Transformer(tc, device=device, seq_group=seq_group)
     raise ValueError(f"unknown arch {cfg.arch!r}")

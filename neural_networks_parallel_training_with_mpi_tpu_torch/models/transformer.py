@@ -12,13 +12,17 @@ tests share one layout.
 Attention: ``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA
 kernels of ``ops.flash_attention``, forward and backward; K/V repeated to
 full heads first, as the JAX package does); ``auto`` means dense until an
-H100 crossover is measured.  Training adds ``fwd_flops`` and the fused
+H100 crossover is measured.  The sequence-sharded impls ``ring``,
+``ring_flash``, ``striped`` and ``striped_flash`` run over the sequence
+group the model is built with (``parallel.sequence``), and the tokens sit
+at their global positions (``global_positions``) for the position
+embedding and RoPE.  Training adds ``fwd_flops`` and the fused
 chunked cross-entropy (``ce_chunk``, ``fused_loss_sum``), whose chunks run
 under ``torch.utils.checkpoint`` so the (B, T, vocab) logits never exist.
 
 Not ported yet, and refused at construction: MoE FFNs, ``scan_layers``
-(a stacked tree; ``interop.params_from_jax`` unstacks one), ``remat`` and
-the sequence-sharded attentions (ring, striped, ulysses).
+(a stacked tree; ``interop.params_from_jax`` unstacks one), ``remat``,
+``ulysses`` and ``dense_blockwise`` attention.
 """
 
 from __future__ import annotations
@@ -29,8 +33,11 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 
 from ..ops import losses as losses_lib
-from ..ops.flash_attention import flash_attention
 from ..ops.rope import rope_rotate
+from ..parallel.sequence import (
+    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, global_positions,
+    sequence_sharded_attention,
+)
 from ..utils.platform import DeviceLike, resolve_device
 from .core import ACTIVATIONS, Embedding, LayerNorm, Linear
 
@@ -59,22 +66,6 @@ def repeat_kv(c: "TransformerConfig", kv: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(kv, groups, dim=2)
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """Plain full-sequence attention (B, T, H, hd): f32 scores, softmax,
-    probabilities cast to ``v``'s dtype for the value product."""
-    scale = q.shape[-1] ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        t_q, t_k = q.shape[1], k.shape[1]
-        pos_q = torch.arange(t_q, device=q.device)
-        pos_k = torch.arange(t_k, device=q.device)
-        mask = pos_k[None, :] <= pos_q[:, None]
-        scores = torch.where(mask[None, None], scores, NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 @dataclass(frozen=True)
 class TransformerConfig:
     vocab_size: int = 256
@@ -86,7 +77,9 @@ class TransformerConfig:
     activation: str = "gelu"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
-    attention: str = "auto"            # auto | dense | flash (auto -> dense)
+    # auto | dense | flash | ring | ring_flash | striped | striped_flash
+    # (auto -> dense)
+    attention: str = "auto"
     pos_encoding: str = "learned"      # learned | rope
     rope_theta: float = 10000.0
     n_kv_heads: Optional[int] = None
@@ -124,17 +117,29 @@ class Transformer:
     the KV-cache and paged decode paths, which supply only their own
     attention, so the three cannot drift apart."""
 
-    def __init__(self, cfg: TransformerConfig, device: DeviceLike = None):
+    def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
+                 seq_group=None):
+        """``seq_group``: the sequence group (``parallel.sequence``) the
+        sequence-sharded attentions run over; they need one."""
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE FFNs are not ported yet")
         if cfg.scan_layers:
             raise NotImplementedError(
                 "scan_layers is not ported; build with scan_layers=False "
                 "(interop.params_from_jax unstacks a stacked JAX tree)")
-        if cfg.attention not in ("auto", "dense", "flash"):
+        if cfg.attention in UNPORTED_IMPLS:
             raise NotImplementedError(
                 f"attention={cfg.attention!r} is not ported yet; the port "
-                "has dense and flash attention")
+                "has dense, flash, ring, ring_flash, striped and "
+                "striped_flash attention")
+        if cfg.attention not in ("auto", "dense", "flash") \
+                + SEQ_SHARDED_IMPLS:
+            raise ValueError(f"unknown attention {cfg.attention!r}")
+        if cfg.attention in SEQ_SHARDED_IMPLS and seq_group is None:
+            raise ValueError(
+                f"attention={cfg.attention!r} shards the sequence and needs "
+                "a sequence group: --sp > 1 under torchrun, or an explicit "
+                "LocalSeqGroup; use dense or flash on an unsharded sequence")
         if cfg.remat:
             raise NotImplementedError("remat is not ported yet")
         if cfg.matmul_dtype != "bf16":
@@ -146,6 +151,7 @@ class Transformer:
             raise ValueError(f"unknown activation {cfg.activation!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.seq_group = seq_group
 
     # ---- submodules (stateless; parameters live in the tree) ----
     def _block_modules(self):
@@ -238,20 +244,21 @@ class Transformer:
 
     def attend(self, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
-        """Causal full-sequence attention of the training forward: K/V
-        repeated to full heads, then dense or the flash kernels."""
+        """Causal attention of the training forward: K/V repeated to full
+        heads, then dense, the flash kernels, or a sequence-sharded impl
+        over ``seq_group`` (q/k/v already rotated by their global
+        positions in :meth:`block`)."""
         c = self.cfg
         k, v = repeat_kv(c, k), repeat_kv(c, v)
-        if c.attention == "flash":
-            return flash_attention(q, k, v, causal=True,
-                                   block_q=c.flash_block_q,
-                                   block_k=c.flash_block_k)
-        return attention_reference(q, k, v)
+        return sequence_sharded_attention(
+            c.attention, q, k, v, group=self.seq_group, causal=True,
+            block_q=c.flash_block_q, block_k=c.flash_block_k)
 
     def backbone(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
         """Embedding + all blocks -> (B, T, d_model) pre-head hidden
         states: the trunk shared by :meth:`forward` and the fused loss."""
-        positions = torch.arange(ids.shape[1], device=ids.device)
+        positions = global_positions(self.cfg.attention, self.seq_group,
+                                     ids.shape[1], ids.device)
         x = self.embed(params, ids, positions)
         for layer_params in params["blocks"]:
             x = self.block(layer_params, x, positions, self.attend)

@@ -19,10 +19,18 @@ in JAX's (b, h) order.  Mask modes ``none`` / ``causal`` /
 * ``flash_forward``      -> (out, lse)      kernel ``fwd``
 * ``flash_backward_dq``  -> dq              kernel ``dq``
 * ``flash_backward_dkv`` -> (dk, dv)        kernel ``dkv``
-* ``flash_backward``     delta = rowsum(dO * O) in f32, then dq and dkv
+* ``flash_backward``     delta = rowsum(dO * O) - g_lse in f32, then dq
+                         and dkv
 * ``flash_attention``    the ``torch.autograd.Function`` over them
+* ``flash_attention_with_lse``  (out, lse), both differentiable: the port
+                         of ``flash_attention_with_lse`` (B5, a
+                         ``custom_vjp`` over the same three kernels); the
+                         building block of ring attention
+                         (``parallel.sequence``)
 
-Each kernel launch adds one to ``flash_attention.launches[name]``.
+Each kernel launch adds one to ``flash_attention.launches[name]``; each
+``flash_attention_with_lse`` call that launches the forward kernel adds
+one to ``flash_attention_with_lse.launches``.
 """
 
 from __future__ import annotations
@@ -121,12 +129,22 @@ def flash_forward_reference(q, k, v, mask: str = "causal",
             lse.reshape(b * h, t))
 
 
-def flash_delta(out, dout) -> torch.Tensor:
+def flash_delta(out, dout, g_lse=None) -> torch.Tensor:
     """delta = rowsum(dO * O) in f32, (B*H, T): one reduction outside the
-    kernels, as the JAX package computes it."""
+    kernels, as the JAX package computes it.
+
+    A cotangent ``g_lse`` (B*H, T) on the lse output folds in here: d lse_i
+    / d s_ij = p_ij, so dS_ij = p_ij (dP_ij - delta_i + g_lse_i), i.e.
+    delta shifts by -g_lse and nothing else changes (dv does not depend on
+    lse).  ``None`` counts as zero."""
     b, t, h, _ = out.shape
     d = (dout.float() * out.float()).sum(-1)            # (B, T, H)
-    return d.permute(0, 2, 1).reshape(b * h, t)
+    delta = d.permute(0, 2, 1).reshape(b * h, t)
+    if g_lse is not None:
+        # the merge's gradient may arrive strided; the kernels read delta
+        # contiguous
+        delta = (delta - g_lse.float()).contiguous()
+    return delta
 
 
 def _probs(q, k, lse, mask):
@@ -166,9 +184,11 @@ def flash_dkv_reference(q, k, v, dout, lse, delta, mask: str = "causal"):
     return dk, dv
 
 
-def flash_backward_reference(q, k, v, out, lse, dout, mask: str = "causal"):
-    """(dq, dk, dv) by the FA-2 formulas in plain PyTorch."""
-    delta = flash_delta(out, dout)
+def flash_backward_reference(q, k, v, out, lse, dout, mask: str = "causal",
+                             g_lse=None):
+    """(dq, dk, dv) by the FA-2 formulas in plain PyTorch (``g_lse``: the
+    lse cotangent, see :func:`flash_delta`)."""
+    delta = flash_delta(out, dout, g_lse)
     dk, dv = flash_dkv_reference(q, k, v, dout, lse, delta, mask)
     return flash_dq_reference(q, k, v, dout, lse, delta, mask), dk, dv
 
@@ -281,12 +301,13 @@ def flash_backward_dkv(q, k, v, dout, lse, delta, mask: str = "causal",
 
 
 def flash_backward(q, k, v, out, lse, dout, mask: str = "causal",
-                   block_q: int = 128, block_k: int = 128):
-    """(dq, dk, dv): delta in f32, then the dq and dkv kernels (or their
-    plain versions on CPU)."""
+                   block_q: int = 128, block_k: int = 128, g_lse=None):
+    """(dq, dk, dv): delta in f32 (shifted by the lse cotangent ``g_lse``
+    when given), then the dq and dkv kernels (or their plain versions on
+    CPU)."""
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    delta = flash_delta(out, dout)
+    delta = flash_delta(out, dout, g_lse)
     dq = flash_backward_dq(q, k, v, dout, lse, delta, mask, block_q, block_k)
     dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, mask, block_q,
                                 block_k)
@@ -320,3 +341,42 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+
+
+class FlashAttentionWithLse(torch.autograd.Function):
+    """B5: forward saves (q, k, v, out, lse) and returns both; backward
+    gets (g_out, g_lse) and runs dq and dkv with delta = rowsum(dO * O) -
+    g_lse (``_flash_backward`` :362-369 of the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, block_q, block_k):
+        out, lse = flash_forward(q, k, v, mask, block_q, block_k)
+        if q.device.type == "cuda":
+            flash_attention_with_lse.launches += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg = (mask, block_q, block_k)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_backward(q, k, v, out, lse, g_out, *ctx.cfg,
+                                    g_lse=g_lse)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = True,
+                             block_q: int = 128, block_k: int = 128,
+                             mask_mode: Optional[str] = None):
+    """(out (B, T, H, D), lse (B*H, T) f32), both differentiable: partial
+    outputs over different K/V blocks merge exactly by their lse weights.
+    ``mask_mode`` overrides ``causal``: ``none`` / ``causal`` /
+    ``causal_exclusive``."""
+    return FlashAttentionWithLse.apply(q, k, v, resolve_mask(causal,
+                                                             mask_mode),
+                                       block_q, block_k)
+
+
+flash_attention_with_lse.launches = 0

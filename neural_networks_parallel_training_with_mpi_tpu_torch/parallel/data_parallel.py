@@ -8,6 +8,12 @@ that carries every gradient plus the loss sum and the count, then the
 optimizer update in place on every replica.  The all-reduce runs whenever
 a process group is initialised (a world of one included).
 
+Under sequence parallelism (the port of the JAX package's
+``parallel/spmd.py`` seq step) nothing here changes: every ``data x seq``
+rank holds loss terms over its sequence columns, so the one all-reduce
+over the whole world is the JAX step's psum over ``data`` and ``seq``
+(``reduce_axes``); the Trainer runs that path with ``global_mean``.
+
 Two gradient semantics (``TrainConfig.grad_reduction``):
 
 * ``global_mean``: gradient of the global-batch mean loss, sum(grad sums)

@@ -1,5 +1,6 @@
 """Trainer: the port of the JAX package's ``train/trainer.py`` for its
-plain data-parallel branch.
+plain data-parallel branch and its ``data x seq`` branch (sequence
+parallelism, ``--sp``).
 
 World formation, dataset build, seeded replicated init, the sharded
 loader, the epoch/step loop with per-epoch loss lines, structured metrics
@@ -12,6 +13,17 @@ Every flag of a path the port has not taken over yet (model-parallel
 axes, checkpointing, telemetry, tracing, resilience, SDC checks, multi-step
 dispatch, elastic, RL, ...) raises ``NotImplementedError`` naming the flag
 when it is set to anything but its default; none is ignored.
+
+Sequence parallelism: ``--sp S`` with a sequence-sharded attention
+(``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
+``data x seq`` world of ``--dp`` x S torchrun ranks, each holding T/S
+columns of its data rows (``parallel.sequence.ProcessSeqGroup``); it
+raises in a world too small for it.  ``Trainer(cfg, device,
+seq_group=LocalSeqGroup(S))`` instead runs all S shards in this process,
+as the JAX Trainer takes an explicit ``mesh=``.  Either way the step's
+gradient is the global-batch mean over every token (``global_mean``), as
+the JAX package's seq path computes it whatever ``--grad_reduction``
+says.
 """
 
 from __future__ import annotations
@@ -32,6 +44,9 @@ from ..ops import optim as optim_lib
 from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel.distributed import describe, world_setup
+from ..parallel.sequence import (
+    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, ProcessSeqGroup, striped_permutation,
+)
 from ..utils import prng
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
@@ -69,7 +84,7 @@ _UNPORTED = {
     "collective_timeout": "--collective_timeout",
 }
 _UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
-                  "seq": "--sp", "expert": "--ep"}
+                  "expert": "--ep"}
 _UNPORTED_MODEL = {"remat": "--remat", "remat_policy": "--remat_policy",
                    "scan_layers": "--scan-layers",
                    "moe_experts": "--moe_experts",
@@ -98,10 +113,18 @@ def refuse_unported(cfg: TrainConfig) -> None:
                                   "--gamma, ...) are not ported yet")
     if cfg.data.backend == "native":
         raise NotImplementedError("--data_backend native is not ported yet")
+    if cfg.model.attention in UNPORTED_IMPLS:
+        raise NotImplementedError(
+            f"--attention {cfg.model.attention} is not ported to the "
+            "PyTorch/CUDA package yet")
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device: DeviceLike = None):
+    def __init__(self, cfg: TrainConfig, device: DeviceLike = None,
+                 seq_group=None):
+        """``seq_group``: an explicit sequence group (``LocalSeqGroup``)
+        for the sequence-sharded attentions; by default ``--sp > 1`` forms
+        a ``ProcessSeqGroup`` from the torchrun world."""
         if cfg.param_dtype:
             if cfg.param_dtype not in ("float32", "bfloat16", "float16"):
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
@@ -109,11 +132,38 @@ class Trainer:
                 cfg.model, dtype=cfg.param_dtype))
         refuse_unported(cfg)
         self.cfg = cfg
-        self.world = world_setup(device)
+        attention = (cfg.model.attention if cfg.model.arch == "transformer"
+                     else None)
+        sp = cfg.mesh.seq
+        if seq_group is not None:
+            if sp not in (1, seq_group.size):
+                raise ValueError(f"--sp {sp} != the sequence group's "
+                                 f"{seq_group.size} shards")
+            self.world = world_setup(device, dp=cfg.mesh.data)
+        else:
+            if sp > 1 and attention not in SEQ_SHARDED_IMPLS:
+                raise ValueError(
+                    f"--sp {sp} needs a sequence-sharded attention (ring, "
+                    f"ring_flash, striped, striped_flash), not "
+                    f"{attention!r}")
+            self.world = world_setup(device, sp=sp, dp=cfg.mesh.data)
+            if sp > 1:
+                seq_group = ProcessSeqGroup(self.world.seq_pg)
+        if attention in SEQ_SHARDED_IMPLS and seq_group is None:
+            raise ValueError(
+                f"attention={attention!r} needs the sequence split over "
+                "--sp > 1 ranks (torchrun) or an explicit LocalSeqGroup; "
+                "use dense or flash on an unsharded sequence")
+        self.seq_group = seq_group
         self.device = self.world.device
-        if cfg.mesh.data not in (-1, self.world.world_size):
-            raise ValueError(f"--dp {cfg.mesh.data} != world size "
-                             f"{self.world.world_size}")
+        # striped attention: tokens reorder round-robin over the shards
+        # (balanced causal blocks); the loaders permute inputs AND targets
+        # alike, so per-token losses are those of the contiguous layout
+        self.seq_permutation = None
+        if seq_group is not None and attention in ("striped",
+                                                   "striped_flash"):
+            self.seq_permutation = striped_permutation(cfg.data.seq_len,
+                                                       seq_group.size)
         if cfg.grad_reduction not in ("global_mean", "per_shard_mean"):
             raise ValueError(
                 f"grad_reduction={cfg.grad_reduction!r} is not a training "
@@ -131,7 +181,8 @@ class Trainer:
         if not 0.0 <= cfg.label_smoothing < 1.0:
             raise ValueError(f"label_smoothing must be in [0, 1), got "
                              f"{cfg.label_smoothing}")
-        self.model = build_model(cfg.model, device=self.device)
+        self.model = build_model(cfg.model, device=self.device,
+                                 seq_group=seq_group)
         self.data = build_dataset(cfg.data)
         self.val_data = None
         if cfg.data.val_fraction > 0:
@@ -150,9 +201,12 @@ class Trainer:
         # unsmoothed loss
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
                       if cfg.label_smoothing else cfg.loss)
+        # the JAX seq path passes no grad_reduction: always global_mean
         self.train_step = dp.make_train_step(
             self.model, self.optimizer, self.world, loss_name=train_loss,
-            grad_reduction=cfg.grad_reduction, accum_steps=cfg.accum_steps)
+            grad_reduction=(cfg.grad_reduction if seq_group is None
+                            else "global_mean"),
+            accum_steps=cfg.accum_steps)
         self.eval_step = dp.make_eval_step(
             self.model, self.world, loss_name=cfg.loss,
             with_accuracy=(cfg.loss == "cross_entropy"))
@@ -161,11 +215,13 @@ class Trainer:
 
     def _loader(self, data, shuffle: bool) -> ShardedLoader:
         cfg = self.cfg
+        w = self.world
         return ShardedLoader(
-            data, cfg.batch_size, rank=self.world.rank,
-            world_size=self.world.world_size, device=self.device,
-            shuffle=shuffle, seed=cfg.seed, full_batch=cfg.full_batch,
-            remainder=cfg.data.remainder, backend=cfg.data.backend)
+            data, cfg.batch_size, rank=w.data_rank, world_size=w.dp,
+            device=self.device, shuffle=shuffle, seed=cfg.seed,
+            full_batch=cfg.full_batch, remainder=cfg.data.remainder,
+            backend=cfg.data.backend, seq_rank=w.seq_rank, sp=w.sp,
+            seq_permutation=self.seq_permutation)
 
     def init_state(self) -> TrainState:
         """Seeded init, identical on every rank (no broadcast needed), drawn

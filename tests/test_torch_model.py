@@ -153,8 +153,10 @@ def test_init_tree_matches_jax_layout():
         assert jshapes == tshapes
 
 
+# "ring": the sequence-sharded family; ring and striped are ported
+# (tests/test_torch_sequence.py), ulysses is not
 @pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(scan_layers=True),
-                                 dict(attention="ring")],
+                                 dict(attention="ulysses")],
                          ids=["moe", "scan_layers", "ring"])
 def test_unported_configs_refuse(bad):
     with pytest.raises(NotImplementedError):

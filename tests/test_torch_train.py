@@ -483,7 +483,7 @@ def test_interop_round_trips_a_jax_train_state():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--tp", "2"], ["--sp", "2", "--attention", "ring"], ["--pp", "2"],
+    ["--tp", "2"], ["--sp", "2", "--attention", "ulysses"], ["--pp", "2"],
     ["--ep", "2"], ["--fsdp", "2"], ["--checkpoint_dir", "ck"],
     ["--resume"], ["--telemetry_dir", "t"], ["--trace_dir", "t"],
     ["--faults", "nan@1"], ["--sdc_check_every", "2"],

@@ -33,18 +33,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. flash    — the flash-attention forward, dq and dkv kernels against
               their plain versions at the training shape (8, 1024, 16, 64)
               in bf16 and f32 and all three mask modes, plus T 256 with
-              blocks 64 x 128 and head_dim 128; q/k/v are the strided
-              views of a fused qkv tensor.  Times each kernel, its plain
-              version and the library yardstick
-              (``F.scaled_dot_product_attention``, forward and
-              forward+backward) beside the bound.
+              blocks 64 x 128, head_dim 128 and 32, and T 320 (a multiple
+              of 64, not of 128) with blocks 64 x 64; q/k/v are the
+              strided views of a fused qkv tensor.  The bf16 forward and
+              dkv run the sm90 kernels (wgmma, cp.async) and are held
+              against both plain versions: the one that rounds P and dS
+              to bf16 as they do (tighter tolerance) and the unrounded
+              one.  Each case's launches by design, read from the
+              counters.  Times each kernel, its plain version and the
+              library yardstick (``F.scaled_dot_product_attention``,
+              forward and forward+backward) beside the bound.
 7. train    — the 219M LM trained at full width through the port's
               ``Trainer`` (CLI flags, a 1-rank NCCL group so the gradient
               all-reduce runs): bytes of DESIGN.md, batch 8 x 1024, bf16
               compute, f32 params, flash attention, ce_chunk 256, 2 epochs
               of Adam (26 steps).  Every loss finite, the last 3 steps'
               mean 1 nat below the first, each flash launch count equal
-              to 12 x steps.  Prints step time, tokens/s, MFU, peak memory
+              to 12 x steps: fwd and dkv all on the sm90 kernels, dq all
+              on the simt kernel.  Prints step time, tokens/s, MFU, peak memory
               and a profile of 3 more steps.
 8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
               and with dense attention from the same params and batches
@@ -54,8 +60,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               against its plain version at the ring's shard shape
               (8, 256, 16, 64) in bf16 and f32 and all three mask modes:
               out, lse, and dq/dk/dv of sum(out * w) + sum(lse * u).
-              Times it beside its bound, its plain version and SDPA
-              forward+backward.
+              bf16 dk/dv also against the rounding plain version; each
+              case's launches by design.  Times it beside its bound, its
+              plain version and SDPA forward+backward.
 10. ring    — ``ring_flash_attention`` and ``striped_ring_flash_attention``
               over a ``LocalSeqGroup(4)`` at (8, 1024, 16, 64) bf16 (the
               striped one on permuted inputs) against full-sequence flash
@@ -65,7 +72,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 11. seqtrain — the 219M LM trained as in phase 7 but with
               ``striped_flash`` over ``LocalSeqGroup(4)`` (T_local 256):
               finite losses falling 1 nat, 12 x 16 launches per step of
-              each flash kernel and of ``flash_attention_with_lse``; step
+              each flash kernel (by design as in phase 7) and of
+              ``flash_attention_with_lse``; step
               time, tokens/s, MFU, peak memory and a profile.
 12. seqidentity — f32, TF32 off, 2 layers: 3 SGD steps with ring_flash
               and with striped_flash over ``LocalSeqGroup(4)`` agree with
@@ -134,16 +142,18 @@ def build_kernels():
 
 
 def ptxas_summary(log):
-    """One line per compiled kernel from ``nvcc -Xptxas -v``: template
-    arguments (as mangled), registers, spills."""
+    """One line per compiled kernel from ``nvcc -Xptxas -v``: kernel name
+    and template arguments (as mangled), registers, spills."""
     import re
 
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"kernelI(.*?)EEv", m.group(1))
-            name, spill = (t.group(1) if t else m.group(1)), ""
+            t = re.search(r"([a-z0-9_]+_kernel)I(.*?)EEv", m.group(1))
+            name = (re.sub(r"^_?\d+", "", t.group(1)) + " " + t.group(2)
+                    if t else m.group(1))
+            spill = ""
         elif "spill stores" in line:
             spill = line.strip()
         else:
@@ -444,12 +454,20 @@ FLASH_SHAPE = (8, 1024, 16, 64)
 # |ref|.  bf16: one output rounding (2^-8) on each side; f32: summation
 # order only.
 GRAD_TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (1e-2, 1e-2)}
+# the sm90 (bf16) kernels against the plain versions that round P and dS
+# to bf16 as they do: left are the f32 summation order, exp2 of prescaled
+# scores, a rare P or dS that rounds the other way, and the one rounding
+# of the output (1 bf16 ulp = 2^-7 relative at most): out atol + rtol *
+# |ref|, gradients atol * max|ref| + rtol * |ref|
+ROUND_TOL = (1e-2, 8e-3)
+ROUND_GRAD_TOL = (2e-3, 8e-3)
 
 
 def flash_cases():
     """(name, kwargs) for every flash case: the training shape in both
-    dtypes and all three mask modes, then T 256 with blocks 64 x 128 and
-    head_dim 128."""
+    dtypes and all three mask modes, then T 256 with blocks 64 x 128,
+    head_dim 128, and in bf16 head_dim 32 and T 320 (a multiple of 64 but
+    not of 128) with blocks 64 x 64 in two mask modes."""
     cases = []
     for dt in ("bfloat16", "float32"):
         for mask in ("causal", "none", "causal_exclusive"):
@@ -460,6 +478,12 @@ def flash_cases():
                            block_q=64, block_k=128)))
         cases.append((f"d128_{dt}", dict(dtype=dt, shape=(2, 512, 8, 128),
                                          mask="causal")))
+    cases.append(("d32_bfloat16", dict(dtype="bfloat16", shape=(4, 512, 8, 32),
+                                       mask="causal")))
+    for mask in ("causal", "causal_exclusive"):
+        cases.append((f"t320_blocks64x64_{mask}_bfloat16",
+                      dict(dtype="bfloat16", shape=(2, 320, 8, 64), mask=mask,
+                           block_q=64, block_k=64)))
     return cases
 
 
@@ -488,7 +512,11 @@ def _close(torch, got, want, atol, rtol, scaled=False):
 
 def check_flash(torch, device, cases=None):
     """Every flash case: the fwd, dq and dkv kernels against their plain
-    versions on the same inputs.  Returns {kernel: largest abs error}."""
+    versions on the same inputs, the sm90 ones (bf16 fwd and dkv) also
+    against the plain versions that round as they do; each case launches
+    each kernel once, on the design ``kernel_design`` routes it to, as the
+    by-design counters show.  Returns {kernel: largest abs error against
+    the unrounded plain version}."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -500,6 +528,7 @@ def check_flash(torch, device, cases=None):
                                         seed=100 + i)
         mask = kw["mask"]
         blocks = (kw.get("block_q", 128), kw.get("block_k", 128))
+        before = fa.launch_counts()
         out, lse = fa.flash_forward(q, k, v, mask, *blocks)
         delta = fa.flash_delta(out, dout)
         dq = fa.flash_backward_dq(q, k, v, dout, lse, delta, mask, *blocks)
@@ -507,6 +536,19 @@ def check_flash(torch, device, cases=None):
                                        *blocks)
         if device.type == "cuda":
             torch.cuda.synchronize()
+        after = fa.launch_counts()
+        # the design each kernel ran on, by the counters (none on the CPU)
+        ran = {w: [d for d in ("sm90", "simt")
+                   if after[d].get(w, 0) > before[d].get(w, 0)]
+               for w in worst}
+        n = int(device.type == "cuda")
+        routed = {w: fa.kernel_design(w, dtype, kw["shape"][-1])
+                  for w in worst}
+        launched_ok = all(
+            sum(after[d].get(w, 0) - before[d].get(w, 0)
+                for d in ("sm90", "simt")) == n
+            and ran[w] == ([routed[w]] if n else [])
+            for w in worst)
         # the plain side is fed the kernel's out/lse, so each kernel is
         # held against its own plain version on identical inputs
         r_out, r_lse = fa.flash_forward_reference(q, k, v, mask, blocks[1])
@@ -523,25 +565,48 @@ def check_flash(torch, device, cases=None):
                     _close(torch, dv, r_dv, gatol, grtol, scaled=True)],
         }
         if mask == "causal_exclusive":
-            # row 0 of every head attends no key: output 0, lse -1e30
+            # row 0 of every head attends no key: output 0, lse -1e30,
+            # and its gradient 0 (dq row 0; no key gets dk/dv from it)
             results["fwd"].append((bool((out[:, 0] == 0).all())
                                    and bool((lse[:, 0] <= -1e29).all()),
                                    0.0))
+            results["dq"].append((bool((dq[:, 0] == 0).all()), 0.0))
+        rounded = {}
+        if routed["fwd"] == "sm90":
+            # 64-key blocks: the running max the kernel rounds P under
+            g_out, _ = fa.flash_forward_reference(q, k, v, mask, 64,
+                                                  round_p=True)
+            rounded["fwd"] = [_close(torch, out, g_out, *ROUND_TOL)]
+        if routed["dkv"] == "sm90":
+            g_dk, g_dv = fa.flash_dkv_reference(q, k, v, dout, lse, delta,
+                                                mask, round_p=True)
+            rounded["dkv"] = [_close(torch, dk, g_dk, *ROUND_GRAD_TOL,
+                                     scaled=True),
+                              _close(torch, dv, g_dv, *ROUND_GRAD_TOL,
+                                     scaled=True)]
         parts = []
-        ok_all = True
+        ok_all = launched_ok
         for kern, res in results.items():
-            ok = all(r[0] for r in res)
+            ok = all(r[0] for r in res + rounded.get(kern, []))
             err = max(r[1] for r in res)
             worst[kern] = max(worst[kern], err)
             ok_all = ok_all and ok
-            parts.append(f"{kern} {err:.3e}{'' if ok else ' FAIL'}")
+            part = f"{kern} [{'/'.join(ran[kern]) or 'plain'}] {err:.3e}"
+            if kern in rounded:
+                part += (" (rounding plain version "
+                         f"{max(r[1] for r in rounded[kern]):.3e})")
+            parts.append(part + ("" if ok else " FAIL"))
         print(f"flash {name} {tuple(kw['shape'])} blocks {blocks}: "
               + ", ".join(parts) + f" (tolerance out atol {atol} + rtol "
-              f"{rtol}; lse {f32}; grads {gatol}*max|ref| + {grtol}*|ref|)",
+              f"{rtol}; lse {f32}; grads {gatol}*max|ref| + {grtol}*|ref|; "
+              f"against the rounding plain version out {ROUND_TOL}, grads "
+              f"{ROUND_GRAD_TOL}); launches "
+              f"{'ok' if launched_ok else f'FAIL (routed to {routed})'}",
               flush=True)
         if not ok_all:
             raise AssertionError(f"flash attention disagrees with its plain "
-                                 f"version in case {name}")
+                                 f"version, or ran another design, in case "
+                                 f"{name}")
     return worst
 
 
@@ -576,15 +641,19 @@ def time_flash(torch, device):
     q, k, v, dout = make_flash_case(torch, device, dtype, FLASH_SHAPE)
     out, lse = fa.flash_forward(q, k, v, "causal")
     delta = fa.flash_delta(out, dout)
-    before = dict(fa.flash_attention.launches)
+    before = fa.launch_counts()
     kernel = {
-        "fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v), 20),
+        "fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v), 50),
         "dq": time_ms(torch, lambda: fa.flash_backward_dq(
             q, k, v, dout, lse, delta), 20),
         "dkv": time_ms(torch, lambda: fa.flash_backward_dkv(
-            q, k, v, dout, lse, delta), 20),
+            q, k, v, dout, lse, delta), 50),
     }
-    fa.flash_attention.launches.update(before)   # timing does not count
+    after = fa.launch_counts()
+    ran = {w: "/".join(d for d in ("sm90", "simt")
+                       if after[d].get(w, 0) > before[d].get(w, 0))
+           for w in kernel}
+    fa.set_launch_counts(before)   # timing does not count
     plain = {
         "fwd": time_ms(torch, lambda: fa.flash_forward_reference(
             q, k, v, "causal"), 3),
@@ -608,6 +677,7 @@ def time_flash(torch, device):
                             else sdpa_bwd,
                             bound_ms=bound_ms, bound_by=bound_by)
         print(f"flash {which} {FLASH_SHAPE} bf16 causal: kernel "
+              f"[{ran[which]}] "
               f"{kernel[which]:.4f} ms, plain {plain[which]:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
     print(f"flash library yardstick (F.scaled_dot_product_attention, "
@@ -956,12 +1026,10 @@ def train_full_width(torch, np, device, seq_group=None, **over):
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
-        for k in fa.flash_attention.launches:
-            fa.flash_attention.launches[k] = 0
-        fa.flash_attention_with_lse.launches = 0
+        fa.set_launch_counts()
         result = trainer.fit()
-        launches = dict(fa.flash_attention.launches)
-        with_lse = fa.flash_attention_with_lse.launches
+        counts = fa.launch_counts()
+        launches, with_lse = counts["all"], counts["with_lse"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
     losses = [r["loss"] for r in sorted(records, key=lambda r: r["step"])
@@ -986,11 +1054,19 @@ def train_full_width(torch, np, device, seq_group=None, **over):
     if any(v != expect for v in launches.values()):
         raise AssertionError(f"flash launches {launches}, expected "
                              f"{per_step} per step x {steps} = {expect} each")
+    # bf16: fwd and dkv all on the sm90 kernels, dq all on the simt one
+    by_design = {"sm90": counts["sm90"], "simt": counts["simt"]}
+    want_design = {"sm90": {"fwd": expect, "dkv": expect},
+                   "simt": {"fwd": 0, "dq": expect, "dkv": 0}}
+    if by_design != want_design:
+        raise AssertionError(f"flash launches by design {by_design}, "
+                             f"expected {want_design}")
     if seq_group is not None and with_lse != expect:
         raise AssertionError(f"flash_attention_with_lse launched {with_lse} "
                              f"times, expected {expect}")
     out = dict(steps=steps, launches=launches, with_lse_launches=with_lse,
-               first_loss=losses[0], last3_loss=tail, n_params=n_params)
+               launches_by_design=by_design, first_loss=losses[0],
+               last3_loss=tail, n_params=n_params)
     if device.type == "cuda":
         step_ms = sorted(result["step_ms"][3:])
         med = step_ms[len(step_ms) // 2]
@@ -1220,12 +1296,22 @@ def check_flash_lse(torch, device, cases=None):
         q, k, v, _ = make_flash_case(torch, device, dtype, kw["shape"],
                                      seed=200 + i)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        before = fa.launch_counts()
         out, lse = fa.flash_attention_with_lse(qg, kg, vg, mask_mode=mask)
         w, u = _lse_cotangents(torch, q, lse.detach(), seed=300 + i)
         grads = torch.autograd.grad((out, lse), (qg, kg, vg), (w, u))
         out, lse = out.detach(), lse.detach()
         if device.type == "cuda":
             torch.cuda.synchronize()
+        after = fa.launch_counts()
+        # one launch of each kernel, each on its design
+        n = int(device.type == "cuda")
+        by_design = {d: {kk: after[d][kk] - before[d][kk] for kk in after[d]}
+                     for d in ("sm90", "simt")}
+        want = {"sm90": {"fwd": 0, "dkv": 0},
+                "simt": {"fwd": 0, "dq": n, "dkv": 0}}
+        for which in ("fwd", "dkv"):
+            want[fa.kernel_design(which, dtype, q.shape[-1])][which] = n
         r_out, r_lse = fa.flash_forward_reference(q, k, v, mask)
         r_grads = fa.flash_backward_reference(q, k, v, out, lse, w, mask,
                                               g_lse=u)
@@ -1235,15 +1321,25 @@ def check_flash_lse(torch, device, cases=None):
                _close(torch, lse, r_lse, *TOL["torch.float32"])]
         res += [_close(torch, g, r, gatol, grtol, scaled=True)
                 for g, r in zip(grads, r_grads)]
-        ok = all(r[0] for r in res)
+        rounded = []
+        if dtype == torch.bfloat16:
+            delta = fa.flash_delta(out, w, u)
+            rounded = [_close(torch, g, r, *ROUND_GRAD_TOL, scaled=True)
+                       for g, r in zip(grads[1:], fa.flash_dkv_reference(
+                           q, k, v, w, lse, delta, mask, round_p=True))]
+        ok = all(r[0] for r in res + rounded) and by_design == want
         err = max(r[1] for r in res)
         worst = max(worst, err)
+        extra = (f"; dk/dv against the rounding plain version "
+                 f"{'/'.join(f'{r[1]:.3e}' for r in rounded)}"
+                 if rounded else "")
         print(f"with_lse {name} {tuple(kw['shape'])}: out {res[0][1]:.3e}, "
               f"lse {res[1][1]:.3e}, dq/dk/dv "
-              f"{'/'.join(f'{r[1]:.3e}' for r in res[2:])} "
-              f"{'ok' if ok else 'FAIL'} (tolerance out atol {atol} + rtol "
-              f"{rtol}; lse {TOL['torch.float32']}; grads {gatol}*max|ref| "
-              f"+ {grtol}*|ref|)", flush=True)
+              f"{'/'.join(f'{r[1]:.3e}' for r in res[2:])}{extra}; "
+              f"launches {by_design} {'ok' if ok else 'FAIL'} (tolerance "
+              f"out atol {atol} + rtol {rtol}; lse {TOL['torch.float32']}; "
+              f"grads {gatol}*max|ref| + {grtol}*|ref|; rounding "
+              f"{ROUND_GRAD_TOL})", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention_with_lse disagrees with "
                                  f"its plain version in case {name}")
@@ -1291,11 +1387,9 @@ def time_flash_lse(torch, device):
         out, lse = fa.flash_forward_reference(q, k, v, "causal")
         fa.flash_backward_reference(q, k, v, out, lse, w, "causal", g_lse=u)
 
-    before = (dict(fa.flash_attention.launches),
-              fa.flash_attention_with_lse.launches)
+    before = fa.launch_counts()
     kernel_ms = time_ms(torch, kernel, 20)
-    fa.flash_attention.launches.update(before[0])   # timing does not count
-    fa.flash_attention_with_lse.launches = before[1]
+    fa.set_launch_counts(before)   # timing does not count
     plain_ms = time_ms(torch, plain, 3)
     _, library_ms = sdpa_yardstick(torch, q, k, v, w, True)
     bound_ms, bound_by = lse_bound(torch, SHARD_SHAPE, dtype)
@@ -1376,8 +1470,7 @@ def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10):
                                  "with full-sequence flash attention")
         out_t[name] = dict(max_abs_err=max(r[1] for r in res))
         if device.type == "cuda":
-            saved = (dict(fa.flash_attention.launches),
-                     fa.flash_attention_with_lse.launches)
+            saved = fa.launch_counts()
             t = out_t[name]
             t["wall_ms"] = wall_ms(torch, lambda: fwd_bwd(fn, inputs, g),
                                    iters)
@@ -1387,8 +1480,7 @@ def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10):
                 torch, lambda: fwd_bwd(full, (q, k, v), dout), iters)
             t["full_device_ms"] = device_busy_ms(
                 torch, lambda: fwd_bwd(full, (q, k, v), dout))
-            fa.flash_attention.launches.update(saved[0])
-            fa.flash_attention_with_lse.launches = saved[1]
+            fa.set_launch_counts(saved)
             print(f"ring {name} forward+backward: wall {t['wall_ms']:.4f} "
                   f"ms, device busy {t['device_ms']:.4f} ms; full flash wall "
                   f"{t['full_wall_ms']:.4f} ms, device busy "
@@ -1576,14 +1668,19 @@ def main() -> int:
                     replaces=f"{tpu}:486", launches=served["launches"],
                     max_abs_err=max_err, **timing)]
     for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
-        kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
-                            source=src + "flash_attention.cu",
-                            replaces=f"{tpu}:{line}",
-                            launches=trained["launches"][which],
-                            max_abs_err=flash_err[which],
-                            **flash_timing[which]))
+        entry = dict(name=f"flash_attention_{which}", route="cuda",
+                     source=src + "flash_attention.cu",
+                     replaces=f"{tpu}:{line}",
+                     launches=trained["launches"][which],
+                     max_abs_err=flash_err[which], **flash_timing[which])
+        if which != "dq":   # redesigned: bf16 on the tensor cores
+            entry.update(source=src + "flash_attention_sm90.cu",
+                         design="sm90 wgmma + cp.async (bf16)")
+        kernels.append(entry)
+    # B5 has no kernel body: the autograd function over B1-B3
     kernels.append(dict(name="flash_attention_with_lse", route="cuda",
-                        source=src + "flash_attention.cu",
+                        source=("neural_networks_parallel_training_with_mpi"
+                                "_tpu_torch/ops/flash_attention.py"),
                         replaces=f"{tpu}:445",
                         launches=seq_trained["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))

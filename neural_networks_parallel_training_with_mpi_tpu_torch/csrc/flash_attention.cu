@@ -12,10 +12,11 @@
 // What bounds it on this card: at the training shape (T 1024, D 64, bf16)
 // each kernel does 2-4 causal T x T x D products per head, about 64 flops
 // per byte moved, so the bound is operations at the bf16 tensor-core rate.
-// This first version runs its products on the CUDA cores in f32 (no
-// mma/wgmma, no TF32), which keeps the f32 path exact to f32 rounding and
-// the code simple; moving the bf16 products onto the tensor cores is the
-// next step for these kernels.
+// These kernels run their products on the CUDA cores in f32 (no
+// mma/wgmma, no TF32), which keeps the f32 path exact to f32 rounding.
+// Built for every f32 kernel and the bf16 dq only: the bf16 forward and
+// dk/dv run on the tensor cores in csrc/flash_attention_sm90.cu, and a bf16
+// forward or dk/dv launch here returns -1.
 //
 // Design (not a block-by-block translation of the Pallas kernels, which
 // hold a whole K/V row in VMEM):
@@ -40,11 +41,13 @@
 //   element strides with head_dim contiguous, so the strided views of the
 //   fused qkv projection go in without a copy.
 // Plain C interface, loaded with ctypes: each launch returns the CUDA error
-// code, or -1 for an unsupported dtype / head_dim.
+// code, or -1 for an unsupported dtype / head_dim / kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -512,9 +515,12 @@ int launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t stream) {
 // which: 0 = forward, 1 = dq, 2 = dkv
 template <typename E, int D>
 int launch_which(int which, const Args& a, cudaStream_t stream) {
-  if (which == 0) return launch(flash_fwd_kernel<E, D>, fwd_smem<D>(), a, stream);
   if (which == 1) return launch(flash_dq_kernel<E, D>, dq_smem<D>(), a, stream);
-  return launch(flash_dkv_kernel<E, D>, dkv_smem<D>(), a, stream);
+  if constexpr (std::is_same<E, float>::value) {
+    if (which == 0) return launch(flash_fwd_kernel<E, D>, fwd_smem<D>(), a, stream);
+    return launch(flash_dkv_kernel<E, D>, dkv_smem<D>(), a, stream);
+  }
+  return -1;
 }
 
 template <typename E>
@@ -531,12 +537,6 @@ Strides strides_at(const long long* s, int i) {
 }
 
 }  // namespace
-
-extern "C" int flash_attention_supported(int head_dim) {
-  return head_dim == 32 || head_dim == 64 || head_dim == 128;
-}
-
-extern "C" int flash_attention_tile() { return kTile; }
 
 // One entry for the three kernels.  strides: 3 per tensor, in the order
 // q, k, v, dout, out0, out1 (the entries of tensors a kernel does not take

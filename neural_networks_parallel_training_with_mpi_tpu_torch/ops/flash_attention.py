@@ -3,11 +3,23 @@
 ``flash_attention`` is the port of the JAX package's
 ``ops/pallas_kernels.py:flash_attention`` (kernels ``_flash_fwd_kernel``,
 ``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``).  On CUDA tensors its
-three wrappers launch the hand-written kernels of
-``csrc/flash_attention.cu`` (built for ``sm_90a`` at first use, see
-``ops._build``) or raise; on CPU tensors they compute the plain PyTorch
-versions beside them.  There is no fallback from a kernel to its plain
-version.
+three wrappers launch hand-written kernels (built for ``sm_90a`` at first
+use, see ``ops._build``) or raise; on CPU tensors they compute the plain
+PyTorch versions beside them.  There is no fallback from a kernel to its
+plain version, nor from one kernel design to the other.
+
+Two designs, chosen by :func:`kernel_design` from the inputs before any
+launch:
+
+* ``sm90`` (``csrc/flash_attention_sm90.cu``): the bf16 forward and dk/dv,
+  bf16 products on the tensor cores (wgmma), tiles brought in by cp.async.
+  Its operands are read with 16-byte copies: a view whose base pointer or
+  (B, T, H) strides are not 16-byte multiples is copied contiguous first
+  (:func:`for_copies`).  It rounds P (and dS) to bf16 before the second
+  product of each pair; ``round_p=True`` makes the plain versions do the
+  same.
+* ``simt`` (``csrc/flash_attention.cu``): every f32 kernel and the bf16
+  dq, f32 products on the CUDA cores.
 
 Shapes, as in the JAX package: q/k/v (B, T, H, D) with head_dim
 contiguous (the strided views of the fused qkv projection are taken as
@@ -28,9 +40,10 @@ in JAX's (b, h) order.  Mask modes ``none`` / ``causal`` /
                          building block of ring attention
                          (``parallel.sequence``)
 
-Each kernel launch adds one to ``flash_attention.launches[name]``; each
-``flash_attention_with_lse`` call that launches the forward kernel adds
-one to ``flash_attention_with_lse.launches``.
+Each kernel launch adds one to ``flash_attention.launches[name]`` and to
+``flash_attention.launches_sm90[name]`` or ``launches_simt[name]`` by its
+design; each ``flash_attention_with_lse`` call that launches the forward
+kernel adds one to ``flash_attention_with_lse.launches``.
 """
 
 from __future__ import annotations
@@ -48,6 +61,8 @@ MASK_MODES = ("none", "causal", "causal_exclusive")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WHICH = {"fwd": 0, "dq": 1, "dkv": 2}
+HEAD_DIMS = (32, 64, 128)       # what both kernel designs take
+TILE = 64                       # rows of a kernel tile: T % TILE == 0
 
 
 def resolve_blocks(t: int, block_q: int, block_k: int) -> Tuple[int, int]:
@@ -95,10 +110,14 @@ def _keep(t: int, mask: str, device) -> Optional[torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def flash_forward_reference(q, k, v, mask: str = "causal",
-                            block_k: int = 128):
+                            block_k: int = 128, round_p: bool = False):
     """The blocked online softmax of ``_blocked_attention_reference``
     (keys in blocks of ``block_k``, running max / denominator /
-    accumulator in f32), plus lse and the empty-row convention."""
+    accumulator in f32), plus lse and the empty-row convention.
+
+    ``round_p`` rounds each block's P to q's dtype before P V (the
+    denominator keeps the f32 P), as the sm90 kernel does with its 64-key
+    tiles (``block_k=64``); on f32 inputs it changes nothing."""
     _check(q, k, v)
     b, t, h, d = q.shape
     block_k = min(block_k, t)
@@ -118,7 +137,8 @@ def flash_forward_reference(q, k, v, mask: str = "causal",
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = corr * l + p.sum(-1, keepdim=True)
-        acc = corr * acc + torch.einsum("bhts,bshd->bhtd", p,
+        pv = p.to(q.dtype).float() if round_p else p
+        acc = corr * acc + torch.einsum("bhts,bshd->bhtd", pv,
                                         vf[:, j0:j0 + block_k])
         m = m_new
     empty = m < NEG_INF * 0.5
@@ -141,10 +161,10 @@ def flash_delta(out, dout, g_lse=None) -> torch.Tensor:
     d = (dout.float() * out.float()).sum(-1)            # (B, T, H)
     delta = d.permute(0, 2, 1).reshape(b * h, t)
     if g_lse is not None:
-        # the merge's gradient may arrive strided; the kernels read delta
-        # contiguous
-        delta = (delta - g_lse.float()).contiguous()
-    return delta
+        delta = delta - g_lse.float()
+    # the kernels read delta contiguous; the reshape is a strided view at
+    # B = 1, and the merge's gradient may arrive strided
+    return delta.contiguous()
 
 
 def _probs(q, k, lse, mask):
@@ -176,9 +196,14 @@ def flash_dq_reference(q, k, v, dout, lse, delta, mask: str = "causal"):
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
-def flash_dkv_reference(q, k, v, dout, lse, delta, mask: str = "causal"):
-    """dk = dS^T Q, dv = P^T dO."""
+def flash_dkv_reference(q, k, v, dout, lse, delta, mask: str = "causal",
+                        round_p: bool = False):
+    """dk = dS^T Q, dv = P^T dO.  ``round_p`` rounds P and dS (computed in
+    f32) to q's dtype before the two products, as the sm90 kernel does; on
+    f32 inputs it changes nothing."""
     p, ds = _dscores(q, k, v, dout, lse, delta, mask)
+    if round_p:
+        p, ds = p.to(q.dtype).float(), ds.to(q.dtype).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(k.dtype)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float()).to(v.dtype)
     return dk, dv
@@ -197,30 +222,77 @@ def flash_backward_reference(q, k, v, out, lse, dout, mask: str = "causal",
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _launch(which: str, q, k, v, mask: str, block_q: int, block_k: int, *,
-            dout=None, lse=None, delta=None, out0=None, out1=None,
-            lse_out=None):
+def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The design a CUDA launch of ``which`` ("fwd", "dq", "dkv") on
+    ``dtype`` inputs goes to: ``"sm90"`` for the bf16 forward and dk/dv,
+    ``"simt"`` for every f32 kernel and the bf16 dq.  A dispatch on the
+    inputs, decided before any launch and without looking at a card: a
+    head_dim outside :data:`HEAD_DIMS` raises, in bf16 as in f32."""
+    if which not in _WHICH:
+        raise ValueError(f"kernel must be one of {tuple(_WHICH)}, got "
+                         f"{which!r}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {dtype} not supported (float32, "
+                         "bfloat16)")
+    sm90 = dtype == torch.bfloat16 and which != "dq"
+    if head_dim not in HEAD_DIMS:
+        kernels = ("the sm90 kernels (bf16 forward and dk/dv)" if sm90
+                   else "the simt kernels")
+        raise ValueError(f"{kernels} take head_dim 32/64/128, got "
+                         f"{head_dim}")
+    return "sm90" if sm90 else "simt"
+
+
+def aligned_for_copies(x: torch.Tensor) -> bool:
+    """True when the sm90 kernels' 16-byte copies can read ``x`` as it is:
+    last dim contiguous, base pointer and the strides of the other dims
+    (those longer than 1) multiples of 16 bytes."""
+    size = x.element_size()
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st * size % 16 == 0
+                    for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1))
+
+
+def for_copies(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``x`` as it is when :func:`aligned_for_copies`, else a contiguous
+    copy (fresh storage, so aligned)."""
+    if x is None or aligned_for_copies(x):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _library(design: str):
+    """The ctypes library of a design, its argument types set once."""
+    if design == "sm90":
+        lib, _ = _build.load("flash_attention_sm90")
+        fn = lib.flash_sm90_launch
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
+                           + [ctypes.POINTER(ctypes.c_longlong)]
+                           + [ctypes.c_int] * 4
+                           + [ctypes.c_float, ctypes.c_void_p])
+        return fn
     lib, _ = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        for query in (lib.flash_attention_supported, lib.flash_attention_tile):
-            query.restype = ctypes.c_int
-        lib.flash_attention_supported.argtypes = [ctypes.c_int]
-        lib.flash_attention_tile.argtypes = []
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _launch(which: str, q, k, v, mask: str, block_q: int, block_k: int, *,
+            dout=None, lse=None, delta=None, out0=None, out1=None,
+            lse_out=None):
+    """One kernel launch on CUDA tensors, of the design
+    :func:`kernel_design` routes it to."""
     b, t, h, d = q.shape
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"dtype {q.dtype} not supported (float32, "
-                         "bfloat16)")
-    if not lib.flash_attention_supported(d):
-        raise ValueError(f"the CUDA kernels take head_dim 32/64/128, got {d}")
-    tile = lib.flash_attention_tile()
-    if t % tile:
-        raise ValueError(f"the CUDA kernels need seq_len % {tile} == 0, "
+    design = kernel_design(which, q.dtype, d)
+    if t % TILE:
+        raise ValueError(f"the CUDA kernels need seq_len % {TILE} == 0, "
                          f"got {t}")
     views = (q, k, v, dout, out0, out1)
     for t_ in views + (lse, delta, lse_out):
@@ -233,20 +305,32 @@ def _launch(which: str, q, k, v, mask: str, block_q: int, block_k: int, *,
         if t_ is not None and (t_.dtype != torch.float32
                                or not t_.is_contiguous()):
             raise ValueError("lse/delta must be contiguous float32")
+    if design == "sm90":
+        # outputs come fresh from torch.empty; inputs may be strided views
+        q, k, v, dout, lse, delta = map(for_copies,
+                                        (q, k, v, dout, lse, delta))
+        views = (q, k, v, dout, out0, out1)
     strides = []
     for t_ in views:
         strides += list(t_.stride()[:3]) if t_ is not None else [0, 0, 0]
     c_strides = (ctypes.c_longlong * 18)(*strides)
     ptr = lambda t_: None if t_ is None else t_.data_ptr()  # noqa: E731
-    err = fn(_WHICH[which], _DTYPE_CODE[q.dtype], d, ptr(q), ptr(k), ptr(v),
-             ptr(dout), ptr(lse), ptr(delta), ptr(out0), ptr(out1),
-             ptr(lse_out), c_strides, b, h, t, block_q, block_k,
-             MASK_MODES.index(mask), 1.0 / math.sqrt(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    tensors = (ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
+               ptr(out0), ptr(out1), ptr(lse_out), c_strides)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    mask_code, scale = MASK_MODES.index(mask), 1.0 / math.sqrt(d)
+    if design == "sm90":
+        err = _library(design)(_WHICH[which], d, *tensors, b, h, t,
+                               mask_code, scale, stream)
+    else:
+        err = _library(design)(_WHICH[which], _DTYPE_CODE[q.dtype], d,
+                               *tensors, b, h, t, block_q, block_k,
+                               mask_code, scale, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention {which} kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention {which} kernel ({design}) "
+                           f"launch failed: CUDA error {err}")
     flash_attention.launches[which] += 1
+    getattr(flash_attention, f"launches_{design}")[which] += 1
 
 
 def _device(q) -> str:
@@ -341,6 +425,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+flash_attention.launches_sm90 = {"fwd": 0, "dkv": 0}
+flash_attention.launches_simt = {"fwd": 0, "dq": 0, "dkv": 0}
 
 
 class FlashAttentionWithLse(torch.autograd.Function):
@@ -380,3 +466,23 @@ def flash_attention_with_lse(q, k, v, causal: bool = True,
 
 
 flash_attention_with_lse.launches = 0
+
+
+def launch_counts() -> dict:
+    """A copy of every flash launch counter: ``{"all": ..., "sm90": ...,
+    "simt": ..., "with_lse": n}``."""
+    return {"all": dict(flash_attention.launches),
+            "sm90": dict(flash_attention.launches_sm90),
+            "simt": dict(flash_attention.launches_simt),
+            "with_lse": flash_attention_with_lse.launches}
+
+
+def set_launch_counts(counts: Optional[dict] = None) -> None:
+    """Set every flash launch counter from a :func:`launch_counts` copy,
+    or to 0 when ``counts`` is None."""
+    fa = flash_attention
+    for name, d in (("all", fa.launches), ("sm90", fa.launches_sm90),
+                    ("simt", fa.launches_simt)):
+        for k in d:
+            d[k] = counts[name][k] if counts else 0
+    flash_attention_with_lse.launches = counts["with_lse"] if counts else 0

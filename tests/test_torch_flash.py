@@ -154,3 +154,89 @@ def test_shape_and_mask_validation():
         fa.flash_forward(q, k[:, :16], v)
     with pytest.raises(ValueError):
         fa.flash_forward(q, k, v, "sliding")
+
+
+# ---------------------------------------------------------------------------
+# the plain versions that round as the sm90 (bf16) kernels do
+# ---------------------------------------------------------------------------
+
+# bf16: the bound the card holds the sm90 kernels to against the unrounded
+# plain versions (chip_smoke TOL / GRAD_TOL): out within 2e-2 + 1e-2 |ref|,
+# gradients within 1e-2 max|ref| + 1e-2 |ref|.  Rounding P (and dS) to bf16
+# moves each term of the second product by at most 2^-9 relative, and the
+# result rounds once more to bf16 on both sides.
+BF16_OUT = (2e-2, 1e-2)
+BF16_GRAD = (1e-2, 1e-2)
+
+
+def _near(got, want, atol, rtol, scaled=False):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    base = np.abs(want).max() if scaled else 1.0
+    assert np.all(np.abs(got - want) <= atol * base + rtol * np.abs(want))
+
+
+@pytest.mark.parametrize("mask", ["causal", "none", "causal_exclusive"])
+def test_rounding_plain_versions_are_the_unrounded_ones_in_f32(mask):
+    """round_p rounds to the inputs' dtype: on f32 it changes no bit."""
+    q, k, v = map(torch.tensor, _qkv(seed=12))
+    dout = torch.tensor(_qkv(seed=13)[0])
+    for block_k in (8, 16):
+        got = fa.flash_forward_reference(q, k, v, mask, block_k, round_p=True)
+        want = fa.flash_forward_reference(q, k, v, mask, block_k)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    out, lse = got
+    delta = fa.flash_delta(out, dout)
+    got = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask,
+                                 round_p=True)
+    want = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mask", ["causal", "none", "causal_exclusive"])
+def test_rounding_plain_versions_in_bf16_near_unrounded_and_jax(mask):
+    """bf16 inputs: out and dk/dv of the rounding plain versions (P, dS
+    rounded to bf16) within the stated bound of the unrounded plain
+    versions and of JAX's flash_attention_with_lse (Pallas, interpret mode,
+    f32 inside, bf16 out) and its jax.grad."""
+    q, k, v = _qkv(t=64, seed=14)
+    w = np.random.default_rng(15).standard_normal(q.shape).astype(np.float32)
+    tq, tk, tv, tw = (torch.tensor(a).to(torch.bfloat16)
+                      for a in (q, k, v, w))
+    out, lse = fa.flash_forward_reference(tq, tk, tv, mask, 16, round_p=True)
+    u_out, u_lse = fa.flash_forward_reference(tq, tk, tv, mask, 16)
+    torch.testing.assert_close(lse, u_lse, rtol=0, atol=0)   # f32 P only
+    assert out.dtype == torch.bfloat16
+    _near(out.float(), u_out.float(), *BF16_OUT)
+
+    jq, jk, jv, jw = (jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v, w))
+    j_out, j_lse = jax_flash_lse(jq, jk, jv, True, 16, 16, True, mask)
+    _near(out.float(), np.asarray(j_out.astype(jnp.float32)), *BF16_OUT)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **TOL)
+
+    def jloss(q, k, v):
+        o, _ = jax_flash_lse(q, k, v, True, 16, 16, True, mask)
+        return (o.astype(jnp.float32) * jw.astype(jnp.float32)).sum()
+
+    _, j_dk, j_dv = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    delta = fa.flash_delta(out, tw)
+    got = fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask,
+                                 round_p=True)
+    unrounded = fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask)
+    for g, u, j in zip(got, unrounded, (j_dk, j_dv)):
+        assert g.dtype == torch.bfloat16
+        _near(g.float(), u.float(), *BF16_GRAD, scaled=True)
+        _near(g.float(), np.asarray(j.astype(jnp.float32)), *BF16_GRAD,
+              scaled=True)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_delta_is_contiguous_for_the_kernels(b):
+    """The kernels read delta as contiguous (B*H, T) f32; at B = 1 the
+    reshape of the permuted row sums is a strided view unless copied."""
+    out, dout = (torch.tensor(a) for a in _qkv(b=b, seed=16)[:2])
+    delta = fa.flash_delta(out, dout)
+    assert delta.is_contiguous() and delta.shape == (b * 2, 32)
+    want = (out * dout).sum(-1).permute(0, 2, 1).reshape(b * 2, 32)
+    torch.testing.assert_close(delta, want, rtol=0, atol=0)

@@ -10,14 +10,17 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build    — builds the CUDA kernels from ``csrc/`` with ``nvcc`` for
               sm_90a (one ``nvcc`` per source, all started together).
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              in bf16 and f32: paged attention for decode at the 218M
-              LM's head geometry (ragged lengths up to 1024, a stream
-              straddling blocks, a length-0 lane), prefill chunks of
-              width 16 and 256 at non-zero starts, GQA (16 query heads
-              over 4 KV heads) and int8 pools with scales.  Times the
-              kernel, its plain version and a library yardstick (gather
-              + ``F.scaled_dot_product_attention``) at the decode shape,
-              beside the bound (bytes or operations at the card's peak).
+              in bf16 and f32: paged attention (split over the context)
+              for decode at the 218M LM's head geometry (ragged lengths
+              up to 1024, a stream straddling blocks, a length-0 lane),
+              prefill chunks of width 16 and 256 at non-zero starts, GQA
+              (16 query heads over 4 KV heads), int8 pools with scales,
+              short lanes in a table at full capacity and lanes ending
+              inside a split.  Times the kernel at 32-512 keys per split,
+              its plain version and a library yardstick (gather +
+              ``F.scaled_dot_product_attention``) at the decode shape,
+              medians of single calls, beside the bound (bytes or
+              operations at the card's peak).
 4. serve    — the 218M-parameter LM (vocab 32768, 12 layers, d_model
               1024, 16 heads, d_ff 4096; random weights from a seed, bf16)
               behind ``Scheduler`` -> ``PagedDecodeServer`` with
@@ -35,8 +38,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               in bf16 and f32 and all three mask modes, plus T 256 with
               blocks 64 x 128, head_dim 128 and 32, and T 320 (a multiple
               of 64, not of 128) with blocks 64 x 64; q/k/v are the
-              strided views of a fused qkv tensor.  The bf16 forward and
-              dkv run the sm90 kernels (wgmma, cp.async) and are held
+              strided views of a fused qkv tensor.  The bf16 forward, dq
+              and dkv run the sm90 kernels (wgmma, cp.async) and are held
               against both plain versions: the one that rounds P and dS
               to bf16 as they do (tighter tolerance) and the unrounded
               one.  Each case's launches by design, read from the
@@ -49,9 +52,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               compute, f32 params, flash attention, ce_chunk 256, 2 epochs
               of Adam (26 steps).  Every loss finite, the last 3 steps'
               mean 1 nat below the first, each flash launch count equal
-              to 12 x steps: fwd and dkv all on the sm90 kernels, dq all
-              on the simt kernel.  Prints step time, tokens/s, MFU, peak memory
-              and a profile of 3 more steps.
+              to 12 x steps, all on the sm90 kernels.  Prints step time,
+              tokens/s, MFU, peak memory and a profile of 3 more steps.
 8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
               and with dense attention from the same params and batches
               agree.
@@ -60,8 +62,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               against its plain version at the ring's shard shape
               (8, 256, 16, 64) in bf16 and f32 and all three mask modes:
               out, lse, and dq/dk/dv of sum(out * w) + sum(lse * u).
-              bf16 dk/dv also against the rounding plain version; each
-              case's launches by design.  Times it beside its bound, its
+              bf16 dq/dk/dv also against the rounding plain versions;
+              each case's launches by design.  Times it beside its bound, its
               plain version and SDPA forward+backward.
 10. ring    — ``ring_flash_attention`` and ``striped_ring_flash_attention``
               over a ``LocalSeqGroup(4)`` at (8, 1024, 16, 64) bf16 (the
@@ -169,13 +171,16 @@ def ptxas_summary(log):
 # ---------------------------------------------------------------------------
 
 def make_case(torch, device, dtype, lengths, starts, width, n_heads,
-              kv_heads, head_dim=64, block_size=16, quant=False, seed=0):
+              kv_heads, head_dim=64, block_size=16, quant=False, seed=0,
+              max_blocks=None):
     """Random pools and a random block table per stream, q as the strided
-    view the fused qkv projection gives (columns [q | k | v])."""
+    view the fused qkv projection gives (columns [q | k | v]).  The table
+    has ``max_blocks`` columns (default: the longest lane's blocks); the
+    entries past a lane's blocks point at the sink block 0."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     s_n = len(lengths)
     needs = [-(-max(ln, 1) // block_size) for ln in lengths]
-    max_blocks = max(needs)
+    max_blocks = max_blocks or max(needs)
     num_blocks = sum(needs) + 1 + 7
     perm = torch.randperm(num_blocks - 1, generator=g) + 1
     tables = torch.zeros((s_n, max_blocks), dtype=torch.int32)
@@ -215,6 +220,10 @@ def kernel_cases():
     """(name, make_case kwargs) for every phase-3 case, both dtypes."""
     dec = decode_lengths()
     dec_starts = [max(ln - 1, 0) for ln in dec]
+    short = [1, 0, 16, 17, 5, 63, 64, 65]
+    short_starts = [max(ln - 1, 0) for ln in short]
+    mid = [70, 300, 600, 1000, 257, 511, 513, 6]
+    mid_starts = [ln - 1 for ln in mid]
     cases = []
     for dt in ("bfloat16", "float32"):
         cases += [
@@ -240,6 +249,20 @@ def kernel_cases():
                                             starts=[300, 17], width=16,
                                             n_heads=16, kv_heads=16,
                                             quant=True)),
+            # short lanes in a table at full capacity (64 blocks, as the
+            # server's): most splits lie past the live keys
+            (f"decode_short_full_table_{dt}",
+             dict(dtype=dt, lengths=short, starts=short_starts, width=1,
+                  n_heads=16, kv_heads=16, max_blocks=64)),
+            # lanes ending inside a split (of 256 keys), int8 scales
+            # across split boundaries, a prefill row tile whose keys
+            # cross a split boundary
+            (f"decode_mid_split_int8_{dt}",
+             dict(dtype=dt, lengths=mid, starts=mid_starts, width=1,
+                  n_heads=16, kv_heads=4, quant=True, max_blocks=64)),
+            (f"prefill_w16_mid_split_{dt}",
+             dict(dtype=dt, lengths=[300, 37], starts=[284, 21], width=16,
+                  n_heads=16, kv_heads=4, max_blocks=64)),
         ]
     return cases
 
@@ -400,16 +423,21 @@ def paged_bound(case):
 
 def time_paged_attention(torch, device):
     """Kernel, plain version and library yardstick at the decode shape
-    of phase 4 (16 lanes, 16 heads of 64, block 16, bf16)."""
+    of phase 4 (16 lanes, 16 heads of 64, block 16, bf16; the table at
+    the server's capacity of 64 blocks), each the median of single calls
+    behind a GPU sleep.  The kernel is timed at several split sizes
+    (``SPLIT_KEYS``); the row's time is that of the size the port
+    ships."""
     import torch.nn.functional as F
 
-    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.paged_attention import (  # noqa: E501
-        paged_attention, paged_attention_reference,
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        paged_attention as pa,
     )
 
     lengths = decode_lengths()
     case = make_case(torch, device, torch.bfloat16, lengths,
-                     [max(ln - 1, 0) for ln in lengths], 1, 16, 16)
+                     [max(ln - 1, 0) for ln in lengths], 1, 16, 16,
+                     max_blocks=64)
     args = [case[k] for k in ("q", "k_pool", "v_pool", "tables", "lengths",
                               "starts")]
     q, kp, vp, tables, lens = args[:5]
@@ -428,18 +456,33 @@ def time_paged_attention(torch, device):
         return F.scaled_dot_product_attention(q.transpose(1, 2), k, v,
                                               attn_mask=keep)
 
-    before = paged_attention.launches
-    kernel_ms = time_ms(torch, lambda: paged_attention(*args), 200)
-    paged_attention.launches = before      # timing launches do not count
-    plain_ms = time_ms(torch, lambda: paged_attention_reference(*args), 20)
-    library_ms = time_ms(torch, library, 50)
+    before = pa.paged_attention.launches
+    shipped = pa.SPLIT_KEYS
+    sweep = {}
+    try:
+        for keys in sorted({32, 64, 128, 256, 512, shipped}):
+            pa.SPLIT_KEYS = keys
+            sweep[keys] = median_ms(torch, lambda: pa.paged_attention(*args))
+    finally:
+        pa.SPLIT_KEYS = shipped
+    pa.paged_attention.launches = before   # timing launches do not count
+    kernel_ms = sweep[shipped]
+    split_blocks, n_splits = pa.split_plan(tables.shape[1], bs)
+    plain_ms = median_ms(torch, lambda: pa.paged_attention_reference(*args))
+    library_ms = median_ms(torch, library)
     bound_ms, bound_by = paged_bound(case)
     print(f"paged_attention decode (16 lanes, sum(len)={sum(lengths)}, "
-          f"bf16): kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
+          f"bf16, table of {tables.shape[1]} blocks): split_blocks "
+          f"{split_blocks} ({split_blocks * bs} keys), {n_splits} splits; "
+          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"medians of 25", flush=True)
+    print("paged_attention split sweep (keys per split: kernel ms): "
+          + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(sweep.items())),
+          flush=True)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by,
+                split_blocks=split_blocks, n_splits=n_splits)
 
 
 # ---------------------------------------------------------------------------
@@ -512,8 +555,8 @@ def _close(torch, got, want, atol, rtol, scaled=False):
 
 def check_flash(torch, device, cases=None):
     """Every flash case: the fwd, dq and dkv kernels against their plain
-    versions on the same inputs, the sm90 ones (bf16 fwd and dkv) also
-    against the plain versions that round as they do; each case launches
+    versions on the same inputs, the sm90 ones (bf16) also against the
+    plain versions that round as they do; each case launches
     each kernel once, on the design ``kernel_design`` routes it to, as the
     by-design counters show.  Returns {kernel: largest abs error against
     the unrounded plain version}."""
@@ -577,6 +620,11 @@ def check_flash(torch, device, cases=None):
             g_out, _ = fa.flash_forward_reference(q, k, v, mask, 64,
                                                   round_p=True)
             rounded["fwd"] = [_close(torch, out, g_out, *ROUND_TOL)]
+        if routed["dq"] == "sm90":
+            g_dq = fa.flash_dq_reference(q, k, v, dout, lse, delta, mask,
+                                         round_p=True)
+            rounded["dq"] = [_close(torch, dq, g_dq, *ROUND_GRAD_TOL,
+                                    scaled=True)]
         if routed["dkv"] == "sm90":
             g_dk, g_dv = fa.flash_dkv_reference(q, k, v, dout, lse, delta,
                                                 mask, round_p=True)
@@ -1054,10 +1102,10 @@ def train_full_width(torch, np, device, seq_group=None, **over):
     if any(v != expect for v in launches.values()):
         raise AssertionError(f"flash launches {launches}, expected "
                              f"{per_step} per step x {steps} = {expect} each")
-    # bf16: fwd and dkv all on the sm90 kernels, dq all on the simt one
+    # bf16: every kernel on the sm90 design, none on the simt one
     by_design = {"sm90": counts["sm90"], "simt": counts["simt"]}
-    want_design = {"sm90": {"fwd": expect, "dkv": expect},
-                   "simt": {"fwd": 0, "dq": expect, "dkv": 0}}
+    want_design = {"sm90": {"fwd": expect, "dq": expect, "dkv": expect},
+                   "simt": {"fwd": 0, "dq": 0, "dkv": 0}}
     if by_design != want_design:
         raise AssertionError(f"flash launches by design {by_design}, "
                              f"expected {want_design}")
@@ -1308,9 +1356,8 @@ def check_flash_lse(torch, device, cases=None):
         n = int(device.type == "cuda")
         by_design = {d: {kk: after[d][kk] - before[d][kk] for kk in after[d]}
                      for d in ("sm90", "simt")}
-        want = {"sm90": {"fwd": 0, "dkv": 0},
-                "simt": {"fwd": 0, "dq": n, "dkv": 0}}
-        for which in ("fwd", "dkv"):
+        want = {d: {"fwd": 0, "dq": 0, "dkv": 0} for d in ("sm90", "simt")}
+        for which in ("fwd", "dq", "dkv"):
             want[fa.kernel_design(which, dtype, q.shape[-1])][which] = n
         r_out, r_lse = fa.flash_forward_reference(q, k, v, mask)
         r_grads = fa.flash_backward_reference(q, k, v, out, lse, w, mask,
@@ -1324,13 +1371,16 @@ def check_flash_lse(torch, device, cases=None):
         rounded = []
         if dtype == torch.bfloat16:
             delta = fa.flash_delta(out, w, u)
+            r_dq = fa.flash_dq_reference(q, k, v, w, lse, delta, mask,
+                                         round_p=True)
+            r_dkv = fa.flash_dkv_reference(q, k, v, w, lse, delta, mask,
+                                           round_p=True)
             rounded = [_close(torch, g, r, *ROUND_GRAD_TOL, scaled=True)
-                       for g, r in zip(grads[1:], fa.flash_dkv_reference(
-                           q, k, v, w, lse, delta, mask, round_p=True))]
+                       for g, r in zip(grads, (r_dq,) + r_dkv)]
         ok = all(r[0] for r in res + rounded) and by_design == want
         err = max(r[1] for r in res)
         worst = max(worst, err)
-        extra = (f"; dk/dv against the rounding plain version "
+        extra = (f"; dq/dk/dv against the rounding plain versions "
                  f"{'/'.join(f'{r[1]:.3e}' for r in rounded)}"
                  if rounded else "")
         print(f"with_lse {name} {tuple(kw['shape'])}: out {res[0][1]:.3e}, "
@@ -1665,18 +1715,19 @@ def main() -> int:
     tpu = "neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py"
     kernels = [dict(name="paged_attention", route="cuda",
                     source=src + "paged_attention.cu",
+                    design="split-K over the context, cp.async ring, "
+                           "in-kernel merge in split order",
                     replaces=f"{tpu}:486", launches=served["launches"],
                     max_abs_err=max_err, **timing)]
     for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
-        entry = dict(name=f"flash_attention_{which}", route="cuda",
-                     source=src + "flash_attention.cu",
-                     replaces=f"{tpu}:{line}",
-                     launches=trained["launches"][which],
-                     max_abs_err=flash_err[which], **flash_timing[which])
-        if which != "dq":   # redesigned: bf16 on the tensor cores
-            entry.update(source=src + "flash_attention_sm90.cu",
-                         design="sm90 wgmma + cp.async (bf16)")
-        kernels.append(entry)
+        # bf16 on the tensor cores; f32 on csrc/flash_attention.cu
+        kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
+                            source=src + "flash_attention_sm90.cu",
+                            design="sm90 wgmma + cp.async (bf16)",
+                            replaces=f"{tpu}:{line}",
+                            launches=trained["launches"][which],
+                            max_abs_err=flash_err[which],
+                            **flash_timing[which]))
     # B5 has no kernel body: the autograd function over B1-B3
     kernels.append(dict(name="flash_attention_with_lse", route="cuda",
                         source=("neural_networks_parallel_training_with_mpi"

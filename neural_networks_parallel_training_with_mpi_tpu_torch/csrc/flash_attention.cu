@@ -9,14 +9,14 @@
 // backward recomputes P = exp(s - lse) and uses delta = rowsum(dO * O),
 // computed outside the kernels as the JAX package does.
 //
-// What bounds it on this card: at the training shape (T 1024, D 64, bf16)
+// What bounds it on this card: at the training shape (T 1024, D 64)
 // each kernel does 2-4 causal T x T x D products per head, about 64 flops
-// per byte moved, so the bound is operations at the bf16 tensor-core rate.
-// These kernels run their products on the CUDA cores in f32 (no
-// mma/wgmma, no TF32), which keeps the f32 path exact to f32 rounding.
-// Built for every f32 kernel and the bf16 dq only: the bf16 forward and
-// dk/dv run on the tensor cores in csrc/flash_attention_sm90.cu, and a bf16
-// forward or dk/dv launch here returns -1.
+// per byte moved.  These kernels run their products on the CUDA cores in
+// f32 (no mma/wgmma, no TF32), which keeps the f32 path exact to f32
+// rounding: phases 8 and 12 of chip_smoke.py hold f32 training with flash
+// equal to dense and to the ring.  Built for float32 only: every bf16
+// kernel (forward, dq, dk/dv) runs on the tensor cores in
+// csrc/flash_attention_sm90.cu, and a bf16 launch here returns -1.
 //
 // Design (not a block-by-block translation of the Pallas kernels, which
 // hold a whole K/V row in VMEM):
@@ -43,11 +43,8 @@
 // Plain C interface, loaded with ctypes: each launch returns the CUDA error
 // code, or -1 for an unsupported dtype / head_dim / kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -61,20 +58,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kMaskNone = 0;
 constexpr int kMaskCausal = 1;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename E> __device__ __forceinline__ E from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // element strides of a (B, T, H, D) view; head_dim has stride 1
 struct Strides {
@@ -137,28 +120,29 @@ __device__ __forceinline__ float row_sum(float x) {
 // rows row0 .. row0+63 of one (b, h) head of a (B, T, H, D) view -> f32
 // shared tile [kTile][D + 1] (the +1 keeps the threads of a warp, which
 // read 16 different rows at one column, on different banks)
-template <typename E, int D>
-__device__ __forceinline__ void load_tile(float* dst, const E* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           Strides s, int b, int h, int row0,
                                           float scale) {
-  const E* base = src + b * s.b + h * s.h;
+  const float* base = src + b * s.b + h * s.h;
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] = to_f32(base[(long long)(row0 + r) * s.t + d]) * scale;
+    dst[r * (D + 1) + d] = base[(long long)(row0 + r) * s.t + d] * scale;
   }
 }
 
-template <typename E, int D>
-__device__ __forceinline__ void store_rows(E* __restrict__ dst, Strides s,
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides s,
                                            int b, int h, int row0, int ty,
                                            int tx, float (&acc)[kPer][D / kLanes]) {
-  E* base = dst + b * s.b + h * s.h;
+  float* base = dst + b * s.b + h * s.h;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    E* row = base + (long long)(row0 + ty + kLanes * i) * s.t;
+    float* row = base + (long long)(row0 + ty + kLanes * i) * s.t;
 #pragma unroll
     for (int dd = 0; dd < D / kLanes; ++dd)
-      row[tx + kLanes * dd] = from_f32<E>(acc[i][dd]);
+      row[tx + kLanes * dd] = acc[i][dd];
   }
 }
 
@@ -178,7 +162,7 @@ constexpr size_t dkv_smem() {
 // ---------------------------------------------------------------------------
 // forward: out, lse for one 64-row query tile
 // ---------------------------------------------------------------------------
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   constexpr int LD = D + 1;
   constexpr int kDims = D / kLanes;
@@ -191,11 +175,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int row0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const E* q = static_cast<const E*>(a.q);
-  const E* k = static_cast<const E*>(a.k);
-  const E* v = static_cast<const E*>(a.v);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
 
-  load_tile<E, D>(q_s, q, a.qs, b, h, row0, a.scale);
+  load_tile<D>(q_s, q, a.qs, b, h, row0, a.scale);
   float m[kPer], l[kPer], acc[kPer][kDims];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -209,8 +193,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    load_tile<E, D>(k_s, k, a.ks, b, h, col0, 1.f);
-    load_tile<E, D>(v_s, v, a.vs, b, h, col0, 1.f);
+    load_tile<D>(k_s, k, a.ks, b, h, col0, 1.f);
+    load_tile<D>(v_s, v, a.vs, b, h, col0, 1.f);
     __syncthreads();
 
     float s[kPer][kPer];
@@ -282,13 +266,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       a.lse_out[(long long)bh * a.t + row0 + ty + kLanes * i] =
           empty ? kNegInf : m[i] + logf(l[i]);
   }
-  store_rows<E, D>(static_cast<E*>(a.out0), a.o0s, b, h, row0, ty, tx, acc);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, ty, tx, acc);
 }
 
 // ---------------------------------------------------------------------------
 // backward dq for one 64-row query tile
 // ---------------------------------------------------------------------------
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int LD = D + 1;
   constexpr int kDims = D / kLanes;
@@ -302,11 +286,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int row0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const E* k = static_cast<const E*>(a.k);
-  const E* v = static_cast<const E*>(a.v);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
 
-  load_tile<E, D>(q_s, static_cast<const E*>(a.q), a.qs, b, h, row0, 1.f);
-  load_tile<E, D>(do_s, static_cast<const E*>(a.dout), a.dos, b, h, row0, 1.f);
+  load_tile<D>(q_s, static_cast<const float*>(a.q), a.qs, b, h, row0, 1.f);
+  load_tile<D>(do_s, static_cast<const float*>(a.dout), a.dos, b, h, row0, 1.f);
   float lse[kPer], delta[kPer], dq[kPer][kDims];
   bool live[kPer];
 #pragma unroll
@@ -324,8 +308,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();
-    load_tile<E, D>(k_s, k, a.ks, b, h, col0, 1.f);
-    load_tile<E, D>(v_s, v, a.vs, b, h, col0, 1.f);
+    load_tile<D>(k_s, k, a.ks, b, h, col0, 1.f);
+    load_tile<D>(v_s, v, a.vs, b, h, col0, 1.f);
     __syncthreads();
 
     float s[kPer][kPer], dp[kPer][kPer];
@@ -382,13 +366,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
           dq[i][dd] = fmaf(dsv[i], kv[dd], dq[i][dd]);
     }
   }
-  store_rows<E, D>(static_cast<E*>(a.out0), a.o0s, b, h, row0, ty, tx, dq);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, ty, tx, dq);
 }
 
 // ---------------------------------------------------------------------------
 // backward dk, dv for one 64-key tile
 // ---------------------------------------------------------------------------
-template <typename E, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   constexpr int LD = D + 1;
   constexpr int kDims = D / kLanes;
@@ -405,11 +389,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const int col0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const E* q = static_cast<const E*>(a.q);
-  const E* dout = static_cast<const E*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* dout = static_cast<const float*>(a.dout);
 
-  load_tile<E, D>(k_s, static_cast<const E*>(a.k), a.ks, b, h, col0, 1.f);
-  load_tile<E, D>(v_s, static_cast<const E*>(a.v), a.vs, b, h, col0, 1.f);
+  load_tile<D>(k_s, static_cast<const float*>(a.k), a.ks, b, h, col0, 1.f);
+  load_tile<D>(v_s, static_cast<const float*>(a.v), a.vs, b, h, col0, 1.f);
   // thread owns keys ty + 16i and head dims tx + 16dd of dk and dv
   float dk[kPer][kDims], dv[kPer][kDims];
 #pragma unroll
@@ -421,8 +405,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       query_start(a.mask, col0, a.block_q, a.block_k) / kTile * kTile;
   for (int row0 = start; row0 < a.t; row0 += kTile) {
     __syncthreads();
-    load_tile<E, D>(q_s, q, a.qs, b, h, row0, 1.f);
-    load_tile<E, D>(do_s, dout, a.dos, b, h, row0, 1.f);
+    load_tile<D>(q_s, q, a.qs, b, h, row0, 1.f);
+    load_tile<D>(do_s, dout, a.dos, b, h, row0, 1.f);
     if (threadIdx.x < kTile) {
       const long long idx = (long long)bh * a.t + row0 + threadIdx.x;
       lse_s[threadIdx.x] = a.lse_in[idx];
@@ -498,8 +482,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         }
     }
   }
-  store_rows<E, D>(static_cast<E*>(a.out0), a.o0s, b, h, col0, ty, tx, dk);
-  store_rows<E, D>(static_cast<E*>(a.out1), a.o1s, b, h, col0, ty, tx, dv);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, col0, ty, tx, dk);
+  store_rows<D>(static_cast<float*>(a.out1), a.o1s, b, h, col0, ty, tx, dv);
 }
 
 template <typename Kernel>
@@ -513,22 +497,19 @@ int launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t stream) {
 }
 
 // which: 0 = forward, 1 = dq, 2 = dkv
-template <typename E, int D>
+template <int D>
 int launch_which(int which, const Args& a, cudaStream_t stream) {
-  if (which == 1) return launch(flash_dq_kernel<E, D>, dq_smem<D>(), a, stream);
-  if constexpr (std::is_same<E, float>::value) {
-    if (which == 0) return launch(flash_fwd_kernel<E, D>, fwd_smem<D>(), a, stream);
-    return launch(flash_dkv_kernel<E, D>, dkv_smem<D>(), a, stream);
-  }
+  if (which == 0) return launch(flash_fwd_kernel<D>, fwd_smem<D>(), a, stream);
+  if (which == 1) return launch(flash_dq_kernel<D>, dq_smem<D>(), a, stream);
+  if (which == 2) return launch(flash_dkv_kernel<D>, dkv_smem<D>(), a, stream);
   return -1;
 }
 
-template <typename E>
 int dispatch_head_dim(int which, int head_dim, const Args& a,
                       cudaStream_t stream) {
-  if (head_dim == 32) return launch_which<E, 32>(which, a, stream);
-  if (head_dim == 64) return launch_which<E, 64>(which, a, stream);
-  if (head_dim == 128) return launch_which<E, 128>(which, a, stream);
+  if (head_dim == 32) return launch_which<32>(which, a, stream);
+  if (head_dim == 64) return launch_which<64>(which, a, stream);
+  if (head_dim == 128) return launch_which<128>(which, a, stream);
   return -1;
 }
 
@@ -540,7 +521,7 @@ Strides strides_at(const long long* s, int i) {
 
 // One entry for the three kernels.  strides: 3 per tensor, in the order
 // q, k, v, dout, out0, out1 (the entries of tensors a kernel does not take
-// are ignored).  dtype: 0 = float32, 1 = bfloat16.  mask: 0 none,
+// are ignored).  dtype: 0 = float32 (1 = bfloat16 returns -1).  mask: 0 none,
 // 1 causal, 2 causal_exclusive.  The caller guarantees t % 64 == 0.
 extern "C" int flash_attention_launch(
     int which, int dtype, int head_dim, const void* q, const void* k,
@@ -573,7 +554,6 @@ extern "C" int flash_attention_launch(
   a.mask = mask;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float>(which, head_dim, a, st);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(which, head_dim, a, st);
-  return -1;
+  if (dtype != 0) return -1;  // bf16 runs in flash_attention_sm90.cu
+  return dispatch_head_dim(which, head_dim, a, st);
 }

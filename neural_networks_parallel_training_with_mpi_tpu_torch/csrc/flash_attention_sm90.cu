@@ -1,61 +1,69 @@
 // Flash attention for Hopper (sm_90a) with bf16 products on the tensor
-// cores: the forward (out, lse) and the backward's dk/dv.
+// cores: the forward (out, lse) and the backward's dq and dk/dv.
 //
 // Replaces, for bfloat16 inputs at head_dim 32, 64 and 128, the TPU kernels
 // of neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py
 //   _flash_fwd_kernel      (:97,  reached by _flash_forward :171)
+//   _flash_bwd_dq_kernel   (:255, reached by _flash_backward :347)
 //   _flash_bwd_dkv_kernel  (:296, reached by _flash_backward :347)
 // and computes what they compute: scale 1/sqrt(D); mask modes none /
 // causal (k <= q) / causal_exclusive (k < q); online softmax; lse in
 // natural log; a row with no attendable key outputs 0 with lse -1e30 and
 // gets gradient 0; dS = P (dP - delta) scale with delta = rowsum(dO * O)
-// (an lse cotangent already folded in) computed outside the kernel.  The
-// f32 kernels and the dq kernel (_flash_bwd_dq_kernel :255) stay in
-// csrc/flash_attention.cu; ops/flash_attention.py routes by dtype and
-// kernel before any launch.
+// (an lse cotangent already folded in) computed outside the kernels.  The
+// f32 kernels stay in csrc/flash_attention.cu; ops/flash_attention.py
+// routes by dtype before any launch.
 //
 // What bounds them on this card: at the training shape (8, 1024, 16, 64)
-// causal the forward does 2 products and the dk/dv kernel 4 (S^T, dP^T,
-// dV, dK) of 2 D flops per attended pair: 17.2 and 34.4 GFLOP, i.e.
-// 0.017 and 0.035 ms at the bf16 tensor-core rate (989 TFLOP/s), against
-// 0.020 and 0.030 ms to move their inputs and outputs once at 3.35 TB/s.
-// Both sit near the ridge, so neither f32 SIMT products (67 TFLOP/s at
-// best) nor element-wise f32 staging can come close: the products have to
-// run on the tensor cores, fed from shared memory without stalls.
+// causal the forward does 2 products, dq 3 (S, dP, dQ) and dk/dv 4 (S^T,
+// dP^T, dV, dK) of 2 D flops per attended pair: 17.2, 25.8 and 34.4 GFLOP,
+// i.e. 0.017, 0.026 and 0.035 ms at the bf16 tensor-core rate (989
+// TFLOP/s), against 0.020, 0.025 and 0.030 ms to move their inputs and
+// outputs once at 3.35 TB/s (NVIDIA H100 SXM data sheet, 700 W).  All sit
+// near the ridge, so neither f32 SIMT products (67 TFLOP/s at best) nor
+// element-wise f32 staging can come close: the products have to run on
+// the tensor cores, fed from shared memory without stalls.
 //
 // Design:
 // - One warpgroup (128 threads) per block owns 64 rows: queries in the
-//   forward, keys in dk/dv.  Grid (B*H, T/64); the slow grid dimension is
-//   the tile, ordered so the tiles with the most work start first.
+//   forward and dq, keys in dk/dv.  Grid (B*H, T/64); the slow grid
+//   dimension is the tile, ordered so the tiles with the most work start
+//   first.
 // - Tiles live in shared memory in the layout wgmma reads: rows of 128
 //   bytes (64 bytes for D = 32), 16-byte chunks XOR-swizzled by row, a
 //   D = 128 tile split into two 64-column blocks.  cp.async copies them 16
 //   bytes per thread straight from the strided (B, T, H, D) views (the
 //   fused qkv projection's), two stages: the next tile's copy is in flight
-//   while the current one computes.  The block's own tile (Q; K and V) is
-//   copied once.
+//   while the current one computes.  The block's own tiles (Q; Q and dO;
+//   K and V) are copied once.
 // - Products: wgmma.mma_async m64nNk16, bf16 in, f32 accumulate.  The
-//   first product of each pair reads both operands from shared memory
-//   (K-major); the second takes its A operand from registers, the first
-//   product's f32 accumulator converted to bf16 fragments (the accumulator
-//   and A-fragment layouts coincide), so P and dS never touch shared
-//   memory.  Its B operand is the same shared copy read MN-major (the
-//   transpose bit), so Q, dO and V each have one copy.
+//   first products of each step read both operands from shared memory
+//   (K-major); the last takes its A operand from registers, an f32
+//   accumulator converted to bf16 fragments (the accumulator and
+//   A-fragment layouts coincide), so P and dS never touch shared memory.
+//   Its B operand is the same shared copy read MN-major (the transpose
+//   bit), so Q, dO, K and V each have one copy.
 // - Forward: S = Q K^T; the online softmax runs on the accumulator in
 //   registers (a row is spread over 4 lanes: quad shuffles), on scores
 //   prescaled by scale * log2(e) with exp2; O += P V.  Under a causal mask
 //   the key loop ends at the tile's own diagonal and only that tile is
 //   masked: the keys this drops are exactly the masked ones.
+// - dq (Q-stationary, like the forward): S = Q K^T and dP = dO V^T,
+//   P = exp2(S scale log2(e) - lse log2(e)), dS = P (dP - delta) scale,
+//   dQ += dS K with K read MN-major, over the key tiles up to the diagonal
+//   (causal) or T.  lse and delta of the thread's two rows sit in
+//   registers.
 // - dk/dv (FlashAttention-2 split, transposed): S^T = K Q^T and
 //   dP^T = V dO^T, P^T = exp2(S^T scale log2(e) - lse log2(e)),
 //   dS^T = P^T (dP^T - delta) scale, dV += P^T dO, dK += dS^T Q, over the
-//   query tiles from the diagonal (causal) or 0 to T.  No atomics: the
-//   results are deterministic.
-// Numerics: Q K^T and V dO^T of bf16 inputs accumulate in f32, as the
-// JAX kernels' f32 dots do, in another order.  P and dS are rounded to
-// bf16 once, as the A operands of the second products; the softmax
+//   query tiles from the diagonal (causal) or 0 to T.  No atomics in any
+//   kernel: the results are deterministic.
+// Numerics: Q K^T, dO V^T and V dO^T of bf16 inputs accumulate in f32, as
+// the JAX kernels' f32 dots do, in another order.  P and dS are rounded to
+// bf16 once, as the A operands of the last products; the softmax
 // denominator sums the unrounded f32 P.  flash_forward_reference /
-// flash_dkv_reference with round_p=True repeat that rounding.
+// flash_dq_reference / flash_dkv_reference with round_p=True repeat that
+// rounding.
 // Plain C interface, loaded with ctypes: the launch returns the CUDA error
 // code, or -1 for an unsupported head_dim or kernel.
 
@@ -88,7 +96,7 @@ struct Args {
   const bf16* dout;
   const float* lse_in;
   const float* delta;
-  bf16* out0;       // out / dk
+  bf16* out0;       // out / dq / dk
   bf16* out1;       // dv
   float* lse_out;
   Strides qs, ks, vs, dos, o0s, o1s;
@@ -613,6 +621,118 @@ __global__ void __launch_bounds__(kThreads)
                 r_lo, c_lo, dv, one);
 }
 
+// ---------------------------------------------------------------------------
+// backward: dq of one 64-row query tile
+// ---------------------------------------------------------------------------
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + 6 * Tile<D>::kBytes;  // Q, dO, 2 stages of K and V, alignment
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_sm90_kernel(const Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t kTile = Tile<D>::kBytes;
+  const uint32_t q_s = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t do_s = q_s + kTile;
+  // stage s holds K at kv_s(s) and V at kv_s(s) + kTile
+  const auto kv_s = [&](int s) { return q_s + (2 + 2 * s) * kTile; };
+
+  const int n_tiles = a.t / kRows;
+  const bool causal = a.mask != kMaskNone;
+  const int bh = blockIdx.x, b = bh / a.n_heads, h = bh % a.n_heads;
+  // causal: the last query tile has the most keys, so it starts first
+  const int qt = causal ? n_tiles - 1 - static_cast<int>(blockIdx.y)
+                        : static_cast<int>(blockIdx.y);
+  const int row0 = qt * kRows;
+  const int n_kv = causal ? qt + 1 : n_tiles;  // up to the diagonal
+  const bf16* kg = a.k + b * a.ks.b + h * a.ks.h;
+  const bf16* vg = a.v + b * a.vs.b + h * a.vs.h;
+
+  load_tile<D>(q_s, a.q + b * a.qs.b + h * a.qs.h + row0 * a.qs.t, a.qs.t);
+  load_tile<D>(do_s, a.dout + b * a.dos.b + h * a.dos.h + row0 * a.dos.t,
+               a.dos.t);
+  load_tile<D>(kv_s(0), kg, a.ks.t);
+  load_tile<D>(kv_s(0) + kTile, vg, a.vs.t);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r_lo = 16 * warp + (lane >> 2);  // queries r_lo and r_lo + 8
+  const int c_lo = 2 * (lane & 3);           // keys 8 j + c_lo (+ 1)
+  const float scale_log2 = a.scale * kLog2e;
+  // this thread's two rows: lse (log2 units; a row with no key, lse
+  // -1e30, gets P = 0) and delta
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long row = static_cast<long long>(bh) * a.t + row0 + r_lo +
+                          8 * i;
+    const float lse = a.lse_in[row];
+    lse2[i] = lse > 0.5f * kNegInf ? lse * kLog2e : INFINITY;
+    delta[i] = a.delta[row];
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq[e] = 0.f;
+
+  for (int j = 0; j < n_kv; ++j) {
+    cp_async_wait_all();  // tile j is in (the only copy in flight)
+    fence_async_proxy();
+    __syncthreads();      // ... for every thread; tile j - 1 is released
+    if (j + 1 < n_kv) {
+      const long long r = static_cast<long long>(j + 1) * kRows;
+      load_tile<D>(kv_s((j + 1) & 1), kg + r * a.ks.t, a.ks.t);
+      load_tile<D>(kv_s((j + 1) & 1) + kTile, vg + r * a.vs.t, a.vs.t);
+      cp_async_commit();
+    }
+    const uint32_t k_t = kv_s(j & 1), v_t = k_t + kTile;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] = dp[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k_major<D>(q_s, kk), desc_k_major<D>(k_t, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k_major<D>(do_s, kk), desc_k_major<D>(v_t, kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P and dS in place: rows are queries, columns keys; only the
+    // diagonal tile is masked
+    const bool diag = causal && j == qt;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int i = (e >> 1) & 1;
+      const int r = r_lo + 8 * i, c = 8 * (e >> 2) + c_lo + (e & 1);
+      float p = exp2_approx(s[e] * scale_log2 - lse2[i]);
+      if (diag && (a.mask == kMaskCausal ? c > r : c >= r)) p = 0.f;
+      dp[e] = p * (dp[e] - delta[i]) * a.scale;
+    }
+
+    uint32_t ds[4][4];
+    to_a_fragments(dp, ds);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(dq, ds[kk], desc_mn_major<D>(k_t, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    fence_regs(ds);
+  }
+
+  const float one[2] = {1.f, 1.f};
+  store_rows<D>(a.out0 + b * a.o0s.b + h * a.o0s.h + row0 * a.o0s.t, a.o0s.t,
+                r_lo, c_lo, dq, one);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, const Args& a, int batch,
            cudaStream_t stream) {
@@ -624,11 +744,13 @@ int launch(Kernel kernel, size_t smem, const Args& a, int batch,
   return (int)cudaGetLastError();
 }
 
-// which: 0 = forward, 2 = dk/dv (the codes of flash_attention.cu)
+// which: 0 = forward, 1 = dq, 2 = dk/dv (the codes of flash_attention.cu)
 template <int D>
 int launch_which(int which, const Args& a, int batch, cudaStream_t stream) {
   if (which == 0)
     return launch(flash_fwd_sm90_kernel<D>, fwd_smem<D>(), a, batch, stream);
+  if (which == 1)
+    return launch(flash_dq_sm90_kernel<D>, dq_smem<D>(), a, batch, stream);
   if (which == 2)
     return launch(flash_dkv_sm90_kernel<D>, dkv_smem<D>(), a, batch, stream);
   return -1;

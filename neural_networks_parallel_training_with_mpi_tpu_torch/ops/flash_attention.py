@@ -11,15 +11,15 @@ plain version, nor from one kernel design to the other.
 Two designs, chosen by :func:`kernel_design` from the inputs before any
 launch:
 
-* ``sm90`` (``csrc/flash_attention_sm90.cu``): the bf16 forward and dk/dv,
-  bf16 products on the tensor cores (wgmma), tiles brought in by cp.async.
-  Its operands are read with 16-byte copies: a view whose base pointer or
-  (B, T, H) strides are not 16-byte multiples is copied contiguous first
-  (:func:`for_copies`).  It rounds P (and dS) to bf16 before the second
-  product of each pair; ``round_p=True`` makes the plain versions do the
-  same.
-* ``simt`` (``csrc/flash_attention.cu``): every f32 kernel and the bf16
-  dq, f32 products on the CUDA cores.
+* ``sm90`` (``csrc/flash_attention_sm90.cu``): every bf16 kernel (forward,
+  dq, dk/dv), bf16 products on the tensor cores (wgmma), tiles brought in
+  by cp.async.  Its operands are read with 16-byte copies: a view whose
+  base pointer or (B, T, H) strides are not 16-byte multiples is copied
+  contiguous first (:func:`for_copies`).  It rounds P and dS to bf16
+  before the last product of each step; ``round_p=True`` makes the plain
+  versions do the same.
+* ``simt`` (``csrc/flash_attention.cu``): every f32 kernel, f32 products
+  on the CUDA cores.  Its source builds no bf16 kernel.
 
 Shapes, as in the JAX package: q/k/v (B, T, H, D) with head_dim
 contiguous (the strided views of the fused qkv projection are taken as
@@ -190,9 +190,14 @@ def _dscores(q, k, v, dout, lse, delta, mask):
     return p, ds
 
 
-def flash_dq_reference(q, k, v, dout, lse, delta, mask: str = "causal"):
-    """dq = dS K with dS = P (dP - delta) / sqrt(D), dP = dO V^T."""
+def flash_dq_reference(q, k, v, dout, lse, delta, mask: str = "causal",
+                       round_p: bool = False):
+    """dq = dS K with dS = P (dP - delta) / sqrt(D), dP = dO V^T.
+    ``round_p`` rounds dS (computed in f32) to q's dtype before dS K, as
+    the sm90 kernel does; on f32 inputs it changes nothing."""
     _, ds = _dscores(q, k, v, dout, lse, delta, mask)
+    if round_p:
+        ds = ds.to(q.dtype).float()
     return torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(q.dtype)
 
 
@@ -224,20 +229,19 @@ def flash_backward_reference(q, k, v, out, lse, dout, mask: str = "causal",
 
 def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
     """The design a CUDA launch of ``which`` ("fwd", "dq", "dkv") on
-    ``dtype`` inputs goes to: ``"sm90"`` for the bf16 forward and dk/dv,
-    ``"simt"`` for every f32 kernel and the bf16 dq.  A dispatch on the
-    inputs, decided before any launch and without looking at a card: a
-    head_dim outside :data:`HEAD_DIMS` raises, in bf16 as in f32."""
+    ``dtype`` inputs goes to: ``"sm90"`` for every bf16 kernel, ``"simt"``
+    for every f32 kernel.  A dispatch on the inputs, decided before any
+    launch and without looking at a card: a head_dim outside
+    :data:`HEAD_DIMS` raises, in bf16 as in f32."""
     if which not in _WHICH:
         raise ValueError(f"kernel must be one of {tuple(_WHICH)}, got "
                          f"{which!r}")
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {dtype} not supported (float32, "
                          "bfloat16)")
-    sm90 = dtype == torch.bfloat16 and which != "dq"
+    sm90 = dtype == torch.bfloat16
     if head_dim not in HEAD_DIMS:
-        kernels = ("the sm90 kernels (bf16 forward and dk/dv)" if sm90
-                   else "the simt kernels")
+        kernels = "the sm90 kernels (bf16)" if sm90 else "the simt kernels"
         raise ValueError(f"{kernels} take head_dim 32/64/128, got "
                          f"{head_dim}")
     return "sm90" if sm90 else "simt"
@@ -425,7 +429,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
 
 
 flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
-flash_attention.launches_sm90 = {"fwd": 0, "dkv": 0}
+flash_attention.launches_sm90 = {"fwd": 0, "dq": 0, "dkv": 0}
 flash_attention.launches_simt = {"fwd": 0, "dq": 0, "dkv": 0}
 
 

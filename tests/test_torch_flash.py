@@ -190,14 +190,17 @@ def test_rounding_plain_versions_are_the_unrounded_ones_in_f32(mask):
     got = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask,
                                  round_p=True)
     want = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask)
+    got += (fa.flash_dq_reference(q, k, v, dout, lse, delta, mask,
+                                  round_p=True),)
+    want += (fa.flash_dq_reference(q, k, v, dout, lse, delta, mask),)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("mask", ["causal", "none", "causal_exclusive"])
 def test_rounding_plain_versions_in_bf16_near_unrounded_and_jax(mask):
-    """bf16 inputs: out and dk/dv of the rounding plain versions (P, dS
-    rounded to bf16) within the stated bound of the unrounded plain
+    """bf16 inputs: out and dq/dk/dv of the rounding plain versions (P,
+    dS rounded to bf16) within the stated bound of the unrounded plain
     versions and of JAX's flash_attention_with_lse (Pallas, interpret mode,
     f32 inside, bf16 out) and its jax.grad."""
     q, k, v = _qkv(t=64, seed=14)
@@ -219,12 +222,15 @@ def test_rounding_plain_versions_in_bf16_near_unrounded_and_jax(mask):
         o, _ = jax_flash_lse(q, k, v, True, 16, 16, True, mask)
         return (o.astype(jnp.float32) * jw.astype(jnp.float32)).sum()
 
-    _, j_dk, j_dv = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+    j_grads = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
     delta = fa.flash_delta(out, tw)
-    got = fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask,
-                                 round_p=True)
-    unrounded = fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask)
-    for g, u, j in zip(got, unrounded, (j_dk, j_dv)):
+    got = (fa.flash_dq_reference(tq, tk, tv, tw, lse, delta, mask,
+                                 round_p=True),
+           *fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask,
+                                   round_p=True))
+    unrounded = (fa.flash_dq_reference(tq, tk, tv, tw, lse, delta, mask),
+                 *fa.flash_dkv_reference(tq, tk, tv, tw, lse, delta, mask))
+    for g, u, j in zip(got, unrounded, j_grads):
         assert g.dtype == torch.bfloat16
         _near(g.float(), u.float(), *BF16_GRAD, scaled=True)
         _near(g.float(), np.asarray(j.astype(jnp.float32)), *BF16_GRAD,

@@ -21,7 +21,7 @@ pytestmark = pytest.mark.torch_port
 @pytest.mark.parametrize("dtype,which,design", [
     (torch.bfloat16, "fwd", "sm90"),
     (torch.bfloat16, "dkv", "sm90"),
-    (torch.bfloat16, "dq", "simt"),
+    (torch.bfloat16, "dq", "sm90"),
     (torch.float32, "fwd", "simt"),
     (torch.float32, "dq", "simt"),
     (torch.float32, "dkv", "simt"),
@@ -31,7 +31,7 @@ def test_design_by_dtype_kernel_and_head_dim(dtype, which, design, head_dim):
 
 
 @pytest.mark.parametrize("head_dim", [16, 48, 96, 256])
-@pytest.mark.parametrize("which", ["fwd", "dkv"])
+@pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
 def test_bf16_head_dim_outside_the_sm90_kernels_raises(which, head_dim):
     """A raise naming the sm90 kernels, never a route to the simt ones."""
     with pytest.raises(ValueError, match="sm90 kernels .* take head_dim"):
@@ -40,7 +40,7 @@ def test_bf16_head_dim_outside_the_sm90_kernels_raises(which, head_dim):
 
 def test_simt_head_dims_and_unknown_inputs_raise():
     with pytest.raises(ValueError, match="simt kernels take head_dim"):
-        fa.kernel_design("dq", torch.bfloat16, 48)
+        fa.kernel_design("dq", torch.float32, 48)
     with pytest.raises(ValueError, match="simt kernels take head_dim"):
         fa.kernel_design("fwd", torch.float32, 256)
     with pytest.raises(ValueError, match="dtype"):
@@ -103,7 +103,7 @@ def test_launch_counters_by_design_start_at_zero_on_the_cpu_path():
     fa.flash_attention(q, k, v).sum().backward()
     after = fa.launch_counts()
     assert after == before
-    assert set(after["sm90"]) == {"fwd", "dkv"}
+    assert set(after["sm90"]) == {"fwd", "dq", "dkv"}
     assert set(after["simt"]) == {"fwd", "dq", "dkv"}
 
 
@@ -112,6 +112,7 @@ def test_set_launch_counts_restores_and_zeroes():
     try:
         fa.flash_attention.launches["fwd"] += 3
         fa.flash_attention.launches_sm90["dkv"] += 2
+        fa.flash_attention.launches_sm90["dq"] += 4
         fa.flash_attention_with_lse.launches += 1
         snap = fa.launch_counts()
         fa.set_launch_counts()

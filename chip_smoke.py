@@ -84,6 +84,27 @@ Phases, each printing its own lines; any failure exits non-zero:
               plain version at (8192, 1024) in bf16 and f32 and a ragged
               (1000, 768); timed against ``F.layer_norm`` and its byte
               bound.
+14. reference — the reference's job as its README runs it,
+              ``python -m neural_networks_parallel_training_with_mpi_tpu_torch
+              --lr 0.001 --momentum 0.9 --batch_size 4 --nepochs 3``, as a
+              subprocess on the card and again with ``--platform cpu``:
+              rc 0, three ``epoch n: loss`` lines, the same losses (1e-5
+              relative).  Then ``quality.py``'s four configurations
+              trained on the card to their bars (the port's ``quality``
+              module): the toy regression against the plain-torch
+              reference loop, digits >= 0.95, both byte LMs under the
+              unigram perplexity; prints each value.
+15. resume   — phase 7's flags with ``--checkpoint_dir``: one epoch (13
+              steps) and its snapshot, then a new ``Trainer`` with
+              ``--nepochs 2 --resume --async-checkpoint
+              --checkpoint_every 13``: steps 14-26's losses and the final
+              params against phase 7's uninterrupted run, bitwise (the
+              largest differences are printed);
+              the async snapshot of step 26 restored and equal to the
+              state, leaf for leaf; ``--generate`` of 32 tokens from it as
+              a subprocess equal to the in-process ``generate()``, greedy
+              and sampled (temperature 1, the same seed).  Prints the
+              snapshot's bytes and the save and restore seconds.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -109,8 +130,12 @@ PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (2e-2, 1e-2)}
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== phase {name}", flush=True)
+    print(f"== phase {name} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -1042,11 +1067,15 @@ def ring_blocks(attention, s):
             "ring_flash": s * (s + 1) // 2}[attention]
 
 
-def train_full_width(torch, np, device, seq_group=None, **over):
+def train_full_width(torch, np, device, seq_group=None, keep_final=False,
+                     **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention); check finite, falling
     losses and the flash launch counts; print step time, tokens/s, MFU,
-    peak memory and a profile of 3 more steps."""
+    peak memory and a profile of 3 more steps.  Returns the printed
+    numbers and every step's loss; with ``keep_final``, also a host copy
+    of the params after the last step (taken before the profile's
+    steps)."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
@@ -1077,6 +1106,8 @@ def train_full_width(torch, np, device, seq_group=None, **over):
         fa.set_launch_counts()
         result = trainer.fit()
         counts = fa.launch_counts()
+        final = ([p.detach().cpu() for p in leaves(trainer.state.params)]
+                 if keep_final else None)
         launches, with_lse = counts["all"], counts["with_lse"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
@@ -1128,7 +1159,7 @@ def train_full_width(torch, np, device, seq_group=None, **over):
                    step_ms_all=[round(x, 3) for x in result["step_ms"]])
         out.update(profile_training(torch, trainer))
     print(f"{tag}: " + json.dumps(out), flush=True)
-    return out
+    return dict(out, losses=losses, final_params=final)
 
 
 def _kernel_class(name):
@@ -1636,6 +1667,248 @@ def time_layernorm(torch, device):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the reference job through the CLI, and the quality bars
+# ---------------------------------------------------------------------------
+
+REPO_ROOT = __import__("pathlib").Path(__file__).resolve().parent
+PKG = "neural_networks_parallel_training_with_mpi_tpu_torch"
+REFERENCE_JOB = ["--lr", "0.001", "--momentum", "0.9", "--batch_size", "4",
+                 "--nepochs", "3"]
+# the card's f32 against the host's: the same job, summation order only
+REFERENCE_RTOL = 1e-5
+
+
+def run_cli(args, timeout=600):
+    """``python -m <port> args`` from the repo root; returns the
+    completed process (stdout and stderr captured)."""
+    return subprocess.run([sys.executable, "-m", PKG, *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=str(REPO_ROOT))
+
+
+def epoch_losses(text):
+    import re
+
+    return [float(x) for x in re.findall(r"^epoch \d+: loss ([-\d.e+naif]+)",
+                                         text, re.M)]
+
+
+def reference_job(card="auto"):
+    """The reference's job as its README runs it, on the card
+    (``--platform auto``) and on the host (``--platform cpu``): rc 0,
+    three ``epoch n: loss`` lines, the same losses."""
+    losses = {}
+    for platform in (card, "cpu"):
+        t0 = time.perf_counter()
+        proc = run_cli(REFERENCE_JOB + ["--platform", platform])
+        secs = time.perf_counter() - t0
+        got = epoch_losses(proc.stdout)
+        print(f"reference job --platform {platform}: rc {proc.returncode}, "
+              f"{secs:.1f} s, epoch losses {got}", flush=True)
+        if proc.returncode != 0 or len(got) != 3:
+            raise AssertionError(
+                f"reference job --platform {platform}: rc "
+                f"{proc.returncode}, {len(got)} epoch lines\n"
+                f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        losses[platform] = got
+    card, host = losses[card], losses["cpu"]
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card, host))
+    print(f"reference job: card vs host losses, largest relative "
+          f"difference {rel:.3g} (tolerance {REFERENCE_RTOL})", flush=True)
+    if rel > REFERENCE_RTOL:
+        raise AssertionError(f"reference job losses on the card {card} != "
+                             f"on the host {host}")
+    return dict(card=card, host=host, max_rel_diff=rel)
+
+
+def _quietly(fn, *args):
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def quality_bars(device):
+    """The four configurations of ``quality.py`` trained on the card to
+    their bars (``quality`` module of the port)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch import quality
+
+    records = []
+    # the toy's 2000 epoch lines stay off the log
+    quiet_toy = lambda d: _quietly(quality.run_toy, d)  # noqa: E731
+    for name, run in (("toy", quiet_toy),
+                      ("digits", quality.run_digits),
+                      ("docs_lm", lambda d: quality.run_docs_lm(d)),
+                      ("docs_lm_modern",
+                       lambda d: quality.run_docs_lm(d, modern=True))):
+        t0 = time.perf_counter()
+        rec = run(device)
+        rec["seconds"] = time.perf_counter() - t0
+        print(f"quality {name}: " + json.dumps(rec), flush=True)
+        records.append(rec)
+    failed = [r["config"] for r in records if not r["pass"]]
+    if failed:
+        raise AssertionError(f"quality bars missed on the card: {failed}")
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phase 15: checkpoint, resume and --generate at full width
+# ---------------------------------------------------------------------------
+
+PROMPT = list(b"Synchronous data-parallel training ")[:16]
+
+
+def snapshot_bytes(path):
+    return sum(p.stat().st_size for p in path.iterdir() if p.is_file())
+
+
+def resume_full_width(torch, np, device, straight, **over):
+    """Phase 7's flags (with ``over``) and ``--checkpoint_dir``: one epoch
+    (13 steps) and a snapshot; a new Trainer with ``--nepochs 2
+    --resume`` (and an async snapshot at the last step) against
+    ``straight``, phase 7's uninterrupted run; the async snapshot restored
+    against the live state; ``--generate`` from it as a subprocess against
+    the in-process ``generate()``."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.generate import (  # noqa: E501
+        generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as ckpt,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    def trainer(*switches, **kw):
+        args = build_argparser().parse_args(train_flags(**over, **kw)
+                                            + list(switches))
+        return Trainer(config_from_args(args), device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def step_losses(path):
+        with open(path) as f:
+            return {r["step"]: r["loss"] for r in map(json.loads, f)
+                    if "loss" in r}
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "ck"
+        first = trainer(nepochs=1, checkpoint_dir=ck)
+        r1 = first.fit()
+        n_params = sum(p.numel() for p in leaves(first.state.params))
+        save_s = first.save_seconds[-1]
+        spe = r1["steps"]     # 13 at full width
+        del first
+        out.update(first_steps=spe, save_s=save_s,
+                   snapshot_bytes=snapshot_bytes(ck / f"ckpt-{spe}"),
+                   expected_bytes=n_params * 12)
+        if ckpt.latest_step(str(ck)) != spe:
+            raise AssertionError(f"resume: {spe} steps, newest snapshot "
+                                 f"{ckpt.latest_step(str(ck))}")
+        metrics = Path(tmp) / "resumed.jsonl"
+        second = trainer("--resume", "--async-checkpoint", nepochs=2,
+                         checkpoint_dir=ck, checkpoint_every=spe,
+                         metrics_jsonl=metrics)
+        r2 = second.fit()
+        out.update(restore_s=second.restore_seconds,
+                   async_save_host_s=second.save_seconds[0])
+        losses = step_losses(metrics)
+        steps = list(range(spe + 1, 2 * spe + 1))
+        if sorted(losses) != steps or r2["steps"] != 2 * spe:
+            raise AssertionError(f"resume: steps {sorted(losses)}, "
+                                 f"{r2['steps']} in all")
+        want = straight["losses"][spe:2 * spe]
+        got = [losses[s] for s in steps]
+        loss_diff = max(abs(a - b) for a, b in zip(got, want))
+        param_diff = max(
+            float((a.detach().cpu() - b).abs().max())
+            for a, b in zip(leaves(second.state.params),
+                            straight["final_params"]))
+        out.update(loss_max_abs_diff=loss_diff,
+                   param_max_abs_diff=param_diff,
+                   bitwise=loss_diff == 0 and param_diff == 0)
+        print(f"resume: steps {spe + 1}-{2 * spe} losses "
+              f"{[round(x, 4) for x in got]}; "
+              f"against the uninterrupted run: largest loss difference "
+              f"{loss_diff:.3g}, largest param difference {param_diff:.3g}"
+              f" (bitwise: {out['bitwise']})", flush=True)
+        # every op on this path is deterministic (same kernels, inputs and
+        # order), so anything short of bitwise is a resume fault
+        if not out["bitwise"]:
+            raise AssertionError(
+                f"resume: not bitwise: losses differ by {loss_diff}, params "
+                f"by {param_diff}")
+        # the async snapshot of the last step against the state it holds
+        if ckpt.latest_step(str(ck)) != 2 * spe:
+            raise AssertionError(f"resume: newest snapshot "
+                                 f"{ckpt.latest_step(str(ck))}, expected "
+                                 f"{2 * spe}")
+        sync()
+        t0 = time.perf_counter()
+        restored = ckpt.restore(str(ck), second.state)
+        sync()
+        out["restore_again_s"] = time.perf_counter() - t0
+        mismatched = [i for i, (a, b) in enumerate(zip(
+            ckpt.flatten(restored), ckpt.flatten(second.state)))
+            if not (torch.equal(a[1], b[1]) if isinstance(a[1], torch.Tensor)
+                    else a[1] == b[1])]
+        if mismatched:
+            raise AssertionError(f"resume: the async snapshot differs from "
+                                 f"the state at step {2 * spe} in leaves "
+                                 f"{mismatched[:8]}")
+        out["async_snapshot_bytes"] = snapshot_bytes(ck / f"ckpt-{2 * spe}")
+        # --generate from the snapshot, as a user runs it: greedy, then
+        # sampled (a near-constant greedy continuation of a barely trained
+        # LM says little; the draws follow the whole distribution)
+        for temperature in (0.0, 1.0):
+            t0 = time.perf_counter()
+            proc = run_cli(train_flags(checkpoint_dir=ck, **over) + [
+                "--generate", ",".join(map(str, PROMPT)),
+                "--max_new_tokens", "32", "--temperature", str(temperature),
+                "--seed", "7"])
+            out[f"generate_s_t{temperature}"] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"--generate: rc {proc.returncode}\n"
+                                     f"{proc.stdout[-2000:]}\n"
+                                     f"{proc.stderr[-2000:]}")
+            cli_ids = [int(t) for t in
+                       proc.stdout.strip().splitlines()[-1].split(",")]
+            ids = generate(second.model, restored.params, [PROMPT], 32,
+                           temperature=temperature,
+                           generator=torch.Generator(device).manual_seed(7),
+                           device=device)[0].tolist()
+            print(f"generate (temperature {temperature}): --generate "
+                  f"printed {cli_ids[len(PROMPT):]}; in-process "
+                  f"{ids[len(PROMPT):]}", flush=True)
+            if cli_ids != ids or len(ids) != len(PROMPT) + 32:
+                raise AssertionError(
+                    f"--generate's ids (temperature {temperature}) differ "
+                    "from the in-process generate()'s")
+        del restored, second
+    print(f"resume: snapshot {out['snapshot_bytes']:,} bytes (params + Adam "
+          f"mu and nu: {out['expected_bytes']:,}); save {save_s:.2f} s, "
+          f"resume restore "
+          f"{out['restore_s']:.2f} s, second restore "
+          f"{out['restore_again_s']:.2f} s, async save's host copy "
+          f"{out['async_save_host_s']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1676,7 +1949,7 @@ def main() -> int:
     flash_timing = time_flash(torch, device)
 
     phase("7 train the 219M LM at full width through the flash kernels")
-    trained = train_full_width(torch, np, device)
+    trained = train_full_width(torch, np, device, keep_final=True)
 
     phase("8 f32 training identity: flash == dense")
     train_identity(torch, np, device)
@@ -1705,11 +1978,18 @@ def main() -> int:
 
     phase("12 f32 training identity: ring_flash == striped_flash == flash")
     train_identity_seq(torch, np, device)
-    torch.distributed.destroy_process_group()
 
     phase("13 fused_layernorm against its plain version")
     ln_err, ln_launches = check_layernorm(torch, device)
     ln_timing = time_layernorm(torch, device)
+
+    phase("14 reference: the reference job through the CLI, quality bars")
+    reference_job()
+    quality_bars(device)
+
+    phase("15 resume: checkpoint, resume and --generate of the 219M LM")
+    resume_full_width(torch, np, device, trained)
+    torch.distributed.destroy_process_group()
 
     src = "neural_networks_parallel_training_with_mpi_tpu_torch/csrc/"
     tpu = "neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py"

@@ -7,8 +7,11 @@
 carries its own numpy copy of that generator (``make_regression``, the
 same draws from ``np.random.RandomState`` in the same order), so the
 reference job needs no sklearn on the GPU machine; the tests hold it
-equal to sklearn's.  ``digits_dataset`` still needs sklearn (its data
-ships with it).  MNIST/CIFAR-10/LM builders read real data under
+equal to sklearn's.  ``digits_dataset`` reads ``digits.csv.gz`` beside
+this module, a copy of the file sklearn's ``load_digits`` reads (the UCI
+optical-digits test set, bundled with scikit-learn under its BSD-3
+licence), so it needs no sklearn either; the tests hold it equal to
+``load_digits``.  MNIST/CIFAR-10/LM builders read real data under
 ``data_dir`` when present and otherwise make deterministic synthetic
 stand-ins of the right shapes.
 """
@@ -69,14 +72,16 @@ def regression_dataset(n_samples: int = 16, n_features: int = 2,
     return {"x": x, "y": y}
 
 
+DIGITS_CSV = Path(__file__).with_name("digits.csv.gz")
+
+
 def digits_dataset(seed: int = 0, do_standardize: bool = True) -> Arrays:
     """sklearn ``load_digits``: 1797 real 8x8 digit images, x (N, 64)
-    float32, y (N,) int32, rows shuffled by ``seed``."""
-    from sklearn.datasets import load_digits
-
-    d = load_digits()
-    x = d.data.astype(np.float32)
-    y = d.target.astype(np.int32)
+    float32, y (N,) int32, rows shuffled by ``seed``.  Each CSV row is
+    the 64 pixels, then the label."""
+    d = np.loadtxt(DIGITS_CSV, delimiter=",")
+    x = d[:, :-1].astype(np.float32)
+    y = d[:, -1].astype(np.int32)
     if do_standardize:
         x = standardize(x)
     order = np.random.default_rng(seed).permutation(len(x))

@@ -3,16 +3,22 @@ plain data-parallel branch and its ``data x seq`` branch (sequence
 parallelism, ``--sp``).
 
 World formation, dataset build, seeded replicated init, the sharded
-loader, the epoch/step loop with per-epoch loss lines, structured metrics
-and held-out evaluation.  The loop keeps the JAX loop's lag-1 loss
-logging: the host reads a step's loss only after the next step has been
-queued, and only at ``log_every`` boundaries, so the device is never
-drained per step for logging.
+loader, the epoch/step loop with per-epoch loss lines, structured metrics,
+held-out evaluation, and checkpoint/resume (``--checkpoint_dir``,
+``--checkpoint_every``, ``--checkpoint_keep``, ``--resume``,
+``--async-checkpoint``; ``utils.checkpoint``, npz layout): a snapshot at
+each ``checkpoint_every`` boundary and one at the end; ``--resume``
+restores the newest verified snapshot and continues at its exact step,
+mid-epoch included, so no step is replayed.  Rank 0 writes, every rank
+restores.  The loop keeps the JAX loop's lag-1 loss logging: the host
+reads a step's loss only after the next step has been queued, and only at
+``log_every`` boundaries, so the device is never drained per step for
+logging.
 
 Every flag of a path the port has not taken over yet (model-parallel
-axes, checkpointing, telemetry, tracing, resilience, SDC checks, multi-step
-dispatch, elastic, RL, ...) raises ``NotImplementedError`` naming the flag
-when it is set to anything but its default; none is ignored.
+axes, telemetry, tracing, resilience, SDC checks, multi-step dispatch,
+elastic, RL, ...) raises ``NotImplementedError`` naming the flag when it
+is set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
@@ -47,6 +53,7 @@ from ..parallel.distributed import describe, world_setup
 from ..parallel.sequence import (
     SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, ProcessSeqGroup, striped_permutation,
 )
+from ..utils import checkpoint as ckpt
 from ..utils import prng
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
@@ -60,10 +67,6 @@ _UNPORTED = {
     "update_sharding": "--update_sharding",
     "master_weights": "--master-weights",
     "vocab_parallel": "--vocab_parallel",
-    "checkpoint_dir": "--checkpoint_dir",
-    "checkpoint_every": "--checkpoint_every",
-    "checkpoint_keep": "--checkpoint_keep", "resume": "--resume",
-    "async_checkpoint": "--async-checkpoint",
     "profile_dir": "--profile_dir", "telemetry_dir": "--telemetry_dir",
     "metrics_every": "--metrics_every",
     "flight_recorder": "--flight_recorder",
@@ -212,6 +215,11 @@ class Trainer:
             with_accuracy=(cfg.loss == "cross_entropy"))
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
         self.state: Optional[TrainState] = None
+        self._last_saved_step: Optional[int] = None
+        # host seconds of each save call (an async one: its host copy) and
+        # of the resume's restore
+        self.save_seconds: list = []
+        self.restore_seconds: Optional[float] = None
 
     def _loader(self, data, shuffle: bool) -> ShardedLoader:
         cfg = self.cfg
@@ -230,10 +238,67 @@ class Trainer:
         self.state = TrainState.from_params(params, self.optimizer)
         return self.state
 
+    def maybe_resume(self) -> int:
+        """Restore the newest verified snapshot of ``--checkpoint_dir``
+        under ``--resume`` and return its step (0 when there is none):
+        the loop continues at exactly that step, mid-epoch included."""
+        cfg = self.cfg
+        if not (cfg.resume and cfg.checkpoint_dir):
+            return 0
+        t0 = time.perf_counter()
+        restored = ckpt.restore(cfg.checkpoint_dir, self.state)
+        if restored is None:
+            return 0
+        # the meta of the generation actually restored (the fallback chain
+        # may land below a corrupt newest one)
+        meta = ckpt.read_meta(cfg.checkpoint_dir, step=restored.step) or {}
+        self.state = restored
+        # a relaunch keeps a rollback's re-drawn data order
+        self.loader.order_salt = int(meta.get("order_salt", 0))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.restore_seconds = time.perf_counter() - t0
+        log(f"resumed from {cfg.checkpoint_dir} at step {restored.step} "
+            f"({self.restore_seconds:.3f}s)")
+        return restored.step
+
+    def save(self, final: bool = False) -> None:
+        """Snapshot the state into ``--checkpoint_dir`` (rank 0 writes).
+        ``meta.json`` carries the JAX trainer's keys; the final save is
+        skipped when that step was just saved."""
+        cfg = self.cfg
+        if not cfg.checkpoint_dir:
+            return
+        step = self.state.step
+        if final and self._last_saved_step == step:
+            ckpt.wait_pending()
+            return
+        self._last_saved_step = step
+        w = self.world
+        extra = {"qkv_tp": 1, "order_salt": int(self.loader.order_salt),
+                 "saved_world": {
+                     "dp": int(self.loader.dp),
+                     "mesh": {"data": w.dp, "fsdp": 1, "pipe": 1,
+                              "expert": 1, "seq": w.sp, "tensor": 1},
+                     "update_sharding": cfg.update_sharding},
+                 "consumed_samples": self.loader.consumed_samples(step)}
+        t0 = time.perf_counter()
+        if cfg.async_checkpoint and not final:
+            ckpt.save_async(cfg.checkpoint_dir, self.state,
+                            keep=cfg.checkpoint_keep, extra_meta=extra)
+        else:
+            if final:   # drain in-flight writes before the last
+                ckpt.wait_pending()
+            ckpt.save(cfg.checkpoint_dir, self.state,
+                      keep=cfg.checkpoint_keep, extra_meta=extra)
+        self.save_seconds.append(time.perf_counter() - t0)
+
     def fit(self) -> Dict[str, Any]:
         cfg = self.cfg
         if self.state is None:
             self.init_state()
+        spe = max(self.loader.steps_per_epoch, 1)
+        start_step = self.maybe_resume()
         cuda = self.device.type == "cuda"
         log(f"mesh: {describe(self.world)} | model: {cfg.model.arch} "
             f"({sum(p.numel() for p in leaves(self.state.params)):,} params) | "
@@ -241,7 +306,7 @@ class Trainer:
             "steps/epoch")
         thr = Throughput()
         last_loss = float("nan")
-        step = 0
+        step = start_step
         prev: Optional[tuple] = None   # (step, epoch, loss, step before)
         # one CUDA event after each step: device time per step without a
         # host sync in the loop
@@ -249,11 +314,15 @@ class Trainer:
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        for epoch in range(cfg.nepochs):
+        # in-epoch offset, taken by the first epoch of a resumed run only
+        mid_epoch_start = start_step % spe
+        for epoch in range(start_step // spe, cfg.nepochs):
             log(f"Starting epoch {epoch + 1}")
             epoch_t0 = time.perf_counter()
             loss = None
-            for i, batch in enumerate(self.loader.epoch(epoch)):
+            first, mid_epoch_start = mid_epoch_start, 0
+            for i, batch in enumerate(self.loader.epoch(epoch,
+                                                        start_step=first)):
                 # lag-1 logging: the previous step's loss is ready (or
                 # nearly) by the time this step's batch is here
                 if prev is not None and cfg.log_every and \
@@ -266,9 +335,12 @@ class Trainer:
                 if cuda:
                     events.append(torch.cuda.Event(enable_timing=True))
                     events[-1].record()
-                thr.add(self.loader.batch_rows(i))
+                thr.add(self.loader.batch_rows(first + i))
                 prev = (step + 1, epoch, loss, step)
                 step += 1
+                if cfg.checkpoint_every and (step // cfg.checkpoint_every >
+                                             prev[3] // cfg.checkpoint_every):
+                    self.save()
             if loss is not None:
                 last_loss = float(loss)
             log(f"epoch {epoch + 1}: loss {last_loss:.6f} "
@@ -285,6 +357,7 @@ class Trainer:
             self.metrics.write({"step": prev[0], "epoch": prev[1],
                                 "loss": last_loss,
                                 "samples_per_sec": thr.samples_per_sec})
+        self.save(final=True)
         result = {"final_loss": last_loss, "steps": step,
                   "samples_per_sec": thr.samples_per_sec}
         fwd = getattr(self.model, "fwd_flops", None)

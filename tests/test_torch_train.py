@@ -211,6 +211,34 @@ def test_regression_dataset_is_sklearns():
         np.testing.assert_array_equal(gy, y)
 
 
+def test_digits_file_is_load_digits():
+    """The bundled CSV holds exactly what sklearn's ``load_digits`` loads,
+    row for row."""
+    from sklearn.datasets import load_digits
+
+    d = load_digits()
+    got = datasets.digits_dataset(seed=0, do_standardize=False)
+    order = np.random.default_rng(0).permutation(len(d.target))
+    np.testing.assert_array_equal(got["x"], d.data.astype(np.float32)[order])
+    np.testing.assert_array_equal(got["y"], d.target.astype(np.int32)[order])
+
+
+@pytest.mark.parametrize("do_standardize", [False, True])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_digits_dataset_is_jaxs(seed, do_standardize):
+    """The port's digits are the JAX package's: same rows, same order, same
+    standardization."""
+    from neural_networks_parallel_training_with_mpi_tpu.data import (
+        datasets as jdatasets,
+    )
+
+    want = jdatasets.digits_dataset(seed, do_standardize=do_standardize)
+    got = datasets.digits_dataset(seed, do_standardize=do_standardize)
+    for k in ("x", "y"):
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])
+
+
 @pytest.mark.parametrize("salt", [0, 3])
 @pytest.mark.parametrize("remainder", ["pad", "drop"])
 def test_loader_matches_jax_per_rank(salt, remainder):
@@ -484,8 +512,8 @@ def test_interop_round_trips_a_jax_train_state():
 
 @pytest.mark.parametrize("flags", [
     ["--tp", "2"], ["--sp", "2", "--attention", "ulysses"], ["--pp", "2"],
-    ["--ep", "2"], ["--fsdp", "2"], ["--checkpoint_dir", "ck"],
-    ["--resume"], ["--telemetry_dir", "t"], ["--trace_dir", "t"],
+    ["--ep", "2"], ["--fsdp", "2"], ["--profile_dir", "p"],
+    ["--check_replicas_every", "2"], ["--telemetry_dir", "t"], ["--trace_dir", "t"],
     ["--faults", "nan@1"], ["--sdc_check_every", "2"],
     ["--steps_per_dispatch", "2"], ["--hang_timeout", "5"],
     ["--rollback_after", "2"], ["--workload", "rl"], ["--elastic"],
@@ -499,7 +527,7 @@ def test_unported_flags_raise(flags):
         Trainer(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--generate", "1,2"], ["--supervise", "2"],
+@pytest.mark.parametrize("flags", [["--quantize", "int8"], ["--supervise", "2"],
                                    ["--num_devices", "4"]])
 def test_unported_cli_flags_raise(flags):
     with pytest.raises(NotImplementedError):

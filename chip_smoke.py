@@ -33,50 +33,69 @@ Phases, each printing its own lines; any failure exits non-zero:
               scheduler, the gathered scheduler and ``generate()`` give
               identical greedy tokens; then fused == gathered again with
               int8 KV pools and the prefix cache on.
-6. flash    — the flash-attention forward, dq and dkv kernels against
-              their plain versions at the training shape (8, 1024, 16, 64)
-              in bf16 and f32 and all three mask modes, plus T 256 with
-              blocks 64 x 128, head_dim 128 and 32, and T 320 (a multiple
-              of 64, not of 128) with blocks 64 x 64; q/k/v are the
-              strided views of a fused qkv tensor.  The bf16 forward, dq
-              and dkv run the sm90 kernels (wgmma, cp.async) and are held
-              against both plain versions: the one that rounds P and dS
-              to bf16 as they do (tighter tolerance) and the unrounded
-              one.  Each case's launches by design, read from the
-              counters.  Times each kernel, its plain version and the
-              library yardstick (``F.scaled_dot_product_attention``,
-              forward and forward+backward) beside the bound.
+6. flash    — the flash-attention forward kernel and the backward's one
+              C call (the delta kernel, then dq and dkv: in bf16 under
+              both schedules, one shared launch and two launches, whose
+              results must be equal bitwise) against their plain
+              versions at the training shape (8, 1024, 16, 64) in bf16
+              and f32 and all three mask modes, plus T 256 with blocks
+              64 x 128, head_dim 128 and 32, T 320 (a multiple of 64, not
+              of 128) with blocks 64 x 64, and the tail tiles: T 32 and
+              T 96 with the default blocks and T 288 with blocks 96 x 96,
+              in bf16 and f32 and all three mask modes; q/k/v are the
+              strided views of a fused qkv tensor.  The bf16 kernels run
+              the sm90 design (wgmma, cp.async) and are held against both
+              plain versions: the one that rounds P and dS to bf16 as
+              they do (tighter tolerance) and the unrounded one.  Each
+              case's launches by design, read from the counters.  Times
+              the forward (CUDA events), dq, dkv and delta (their
+              durations under the profiler in the serial backward), the
+              plain versions and the library yardstick
+              (``F.scaled_dot_product_attention``, forward and
+              forward+backward) beside the bound.
 7. train    — the 219M LM trained at full width through the port's
               ``Trainer`` (CLI flags, a 1-rank NCCL group so the gradient
               all-reduce runs): bytes of DESIGN.md, batch 8 x 1024, bf16
               compute, f32 params, flash attention, ce_chunk 256, 2 epochs
               of Adam (26 steps).  Every loss finite, the last 3 steps'
-              mean 1 nat below the first, each flash launch count equal
-              to 12 x steps, all on the sm90 kernels.  Prints step time,
-              tokens/s, MFU, peak memory and a profile of 3 more steps.
+              mean 1 nat below the first, each flash launch count (fwd,
+              delta, dq, dkv) equal to 12 x steps, all on the sm90
+              kernels.  Prints step time, tokens/s, MFU, peak memory and
+              a profile of 3 more steps with the flash wrappers' host ms
+              per call.
 8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
               and with dense attention from the same params and batches
               agree.
-9. with_lse — ``flash_attention_with_lse`` (out, lse and the lse
-              cotangent folded into delta, over the fwd/dq/dkv kernels)
-              against its plain version at the ring's shard shape
-              (8, 256, 16, 64) in bf16 and f32 and all three mask modes:
-              out, lse, and dq/dk/dv of sum(out * w) + sum(lse * u).
-              bf16 dq/dk/dv also against the rounding plain versions;
-              each case's launches by design.  Times it beside its bound, its
-              plain version and SDPA forward+backward.
+9. with_lse — ``flash_attention_with_lse`` (B5: the forward kernel,
+              then one C call for the backward: the delta kernel with the
+              lse cotangent folded in, then dq and dk/dv, shared in one
+              launch or in turn) against its plain version at the ring's
+              shard shape (8, 256, 16, 64) and at the tails T 32 and T 96,
+              in bf16 and f32 and all three mask modes: out, lse, delta,
+              and dq/dk/dv of sum(out * w) + sum(lse * u).  bf16 dq/dk/dv
+              also against the rounding plain versions; each case's
+              launches by design (fwd, delta, dq, dkv one each) and CUDA
+              launches per backward.  Times it (device ms, and wall ms
+              per call with the host's time in) beside its bound, its
+              plain version and SDPA forward+backward, each of its
+              kernels' device ms per launch, and both backward
+              schedules (shared, serial) at
+              the shard shape, T 512 and the training shape, held equal
+              bitwise.
 10. ring    — ``ring_flash_attention`` and ``striped_ring_flash_attention``
               over a ``LocalSeqGroup(4)`` at (8, 1024, 16, 64) bf16 (the
               striped one on permuted inputs) against full-sequence flash
               attention: output and q/k/v gradients, launches per call
               (striped 16 of each kernel, ring 10: future blocks skipped),
-              and the time of each beside full flash.
+              and the time of each beside full flash; then both at T 128
+              (T_local 32: tail tiles), untimed.
 11. seqtrain — the 219M LM trained as in phase 7 but with
               ``striped_flash`` over ``LocalSeqGroup(4)`` (T_local 256):
               finite losses falling 1 nat, 12 x 16 launches per step of
-              each flash kernel (by design as in phase 7) and of
-              ``flash_attention_with_lse``; step
-              time, tokens/s, MFU, peak memory and a profile.
+              each flash kernel (fwd, delta, dq, dkv; by design as in
+              phase 7) and of ``flash_attention_with_lse``; step
+              time, tokens/s, MFU, peak memory and a profile with the
+              flash wrappers' host ms per call.
 12. seqidentity — f32, TF32 off, 2 layers: 3 SGD steps with ring_flash
               and with striped_flash over ``LocalSeqGroup(4)`` agree with
               flash (losses 1e-5 relative, params 1e-6).
@@ -374,11 +393,10 @@ def wall_ms(torch, fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def device_busy_ms(torch, fn, calls=3):
-    """Device time of one call: the sum of its kernels' durations under
-    ``torch.profiler`` (gaps between them excluded), over ``calls`` calls.
-    A one-element marker kernel (~µs, counted) opens the window, whose
-    first kernel the profiler can drop."""
+def _profiled_kernels(torch, fn, calls):
+    """(name, ms) of every kernel launch ``torch.profiler`` recorded over
+    ``calls`` calls.  A one-element marker kernel (~µs, recorded) opens
+    the window, whose first kernel the profiler can drop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -391,8 +409,37 @@ def device_busy_ms(torch, fn, calls=3):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.device_time_total for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA) / 1e3 / calls
+    return [(ev.name, ev.device_time_total / 1e3) for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+def kernel_launch_ms(torch, fn, want, calls=10, tries=8):
+    """Device ms per launch of each kernel of ``fn`` whose name holds one
+    of the substrings ``want``: the mean duration of its launches that
+    ``torch.profiler`` recorded.  The profiler can record only some of a
+    window's kernel launches (on an H100 host: a third, or none, in some
+    windows), so a mean per recorded launch, not a sum over the calls; a
+    window missing a wanted kernel is profiled again, up to ``tries``
+    times."""
+    for _ in range(tries):
+        launches = {}
+        for name, ms in _profiled_kernels(torch, fn, calls):
+            launches.setdefault(name, []).append(ms)
+        found = {w: [ms for name, ts in launches.items() if w in name
+                     for ms in ts] for w in want}
+        if all(found.values()):
+            return {w: sum(ts) / len(ts) for w, ts in found.items()}
+    raise AssertionError(f"the profiler recorded no launch of "
+                         f"{[w for w, ts in found.items() if not ts]} in "
+                         f"{tries} windows")
+
+
+def device_busy_ms(torch, fn, calls=3):
+    """Device time of one call: the sum of its kernels' durations under
+    ``torch.profiler`` (gaps between them excluded), over ``calls``
+    calls; a lower bound where the profiler drops launches (see
+    ``kernel_launch_ms``)."""
+    return sum(ms for _, ms in _profiled_kernels(torch, fn, calls)) / calls
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -531,11 +578,19 @@ ROUND_TOL = (1e-2, 8e-3)
 ROUND_GRAD_TOL = (2e-3, 8e-3)
 
 
+MASKS = ("causal", "none", "causal_exclusive")
+# the tail tiles: T not a multiple of the kernels' 64-row tile, with the
+# default blocks (clipped to T) and with blocks 96 x 96
+TAIL_CASES = ((32, (4, 32, 8, 64), {}), (96, (4, 96, 8, 64), {}),
+              (288, (2, 288, 8, 64), dict(block_q=96, block_k=96)))
+
+
 def flash_cases():
     """(name, kwargs) for every flash case: the training shape in both
     dtypes and all three mask modes, then T 256 with blocks 64 x 128,
     head_dim 128, and in bf16 head_dim 32 and T 320 (a multiple of 64 but
-    not of 128) with blocks 64 x 64 in two mask modes."""
+    not of 128) with blocks 64 x 64 in two mask modes; then the tails in
+    both dtypes and all three mask modes."""
     cases = []
     for dt in ("bfloat16", "float32"):
         for mask in ("causal", "none", "causal_exclusive"):
@@ -552,6 +607,12 @@ def flash_cases():
         cases.append((f"t320_blocks64x64_{mask}_bfloat16",
                       dict(dtype="bfloat16", shape=(2, 320, 8, 64), mask=mask,
                            block_q=64, block_k=64)))
+    for dt in ("bfloat16", "float32"):
+        for t, shape, blocks in TAIL_CASES:
+            for mask in MASKS:
+                cases.append((f"tail_t{t}_{mask}_{dt}",
+                              dict(dtype=dt, shape=shape, mask=mask,
+                                   **blocks)))
     return cases
 
 
@@ -579,47 +640,53 @@ def _close(torch, got, want, atol, rtol, scaled=False):
 
 
 def check_flash(torch, device, cases=None):
-    """Every flash case: the fwd, dq and dkv kernels against their plain
-    versions on the same inputs, the sm90 ones (bf16) also against the
-    plain versions that round as they do; each case launches
-    each kernel once, on the design ``kernel_design`` routes it to, as the
-    by-design counters show.  Returns {kernel: largest abs error against
-    the unrounded plain version}."""
+    """Every flash case: the forward kernel, then the backward's one C call
+    (delta, dq, dkv) under each schedule the dtype takes (bf16: shared and
+    serial, their results equal bitwise; f32: serial), against the plain
+    versions on the same inputs (the plain dq and dkv fed the kernels'
+    out, lse and delta, so each kernel meets its own plain version on
+    identical inputs), the sm90 ones (bf16) also against the plain
+    versions that round as they do; each call launches each kernel once,
+    on the design ``kernel_design`` routes it to, as the by-design
+    counters show.  Returns {kernel: largest abs error against the
+    unrounded plain version}."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
 
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    worst = dict.fromkeys(fa.COUNTERS, 0.0)
     for i, (name, kw) in enumerate(cases or flash_cases()):
         dtype = getattr(torch, kw["dtype"])
         q, k, v, dout = make_flash_case(torch, device, dtype, kw["shape"],
                                         seed=100 + i)
         mask = kw["mask"]
         blocks = (kw.get("block_q", 128), kw.get("block_k", 128))
+        schedules = fa.SCHEDULES if dtype == torch.bfloat16 else ("serial",)
         before = fa.launch_counts()
         out, lse = fa.flash_forward(q, k, v, mask, *blocks)
-        delta = fa.flash_delta(out, dout)
-        dq = fa.flash_backward_dq(q, k, v, dout, lse, delta, mask, *blocks)
-        dk, dv = fa.flash_backward_dkv(q, k, v, dout, lse, delta, mask,
-                                       *blocks)
+        runs = {sch: fa.flash_backward(q, k, v, out, lse, dout, mask,
+                                       *blocks, schedule=sch,
+                                       return_delta=True)
+                for sch in schedules}
         if device.type == "cuda":
             torch.cuda.synchronize()
         after = fa.launch_counts()
-        # the design each kernel ran on, by the counters (none on the CPU)
-        ran = {w: [d for d in ("sm90", "simt")
-                   if after[d].get(w, 0) > before[d].get(w, 0)]
-               for w in worst}
+        # launches by design (none on the CPU): the forward once, each
+        # backward kernel once per schedule
         n = int(device.type == "cuda")
-        routed = {w: fa.kernel_design(w, dtype, kw["shape"][-1])
-                  for w in worst}
-        launched_ok = all(
-            sum(after[d].get(w, 0) - before[d].get(w, 0)
-                for d in ("sm90", "simt")) == n
-            and ran[w] == ([routed[w]] if n else [])
-            for w in worst)
-        # the plain side is fed the kernel's out/lse, so each kernel is
-        # held against its own plain version on identical inputs
+        design = fa.kernel_design("fwd", dtype, kw["shape"][-1])
+        calls = dict.fromkeys(fa.COUNTERS, len(schedules))
+        calls["fwd"] = 1
+        want = {d: {w: n * calls[w] if d == design else 0
+                    for w in fa.COUNTERS} for d in ("sm90", "simt")}
+        got = {d: {w: after[d][w] - before[d][w] for w in fa.COUNTERS}
+               for d in ("sm90", "simt")}
+        launched_ok = got == want
+        dq, dk, dv, delta = runs["serial"]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(runs.get("shared", runs["serial"]), runs["serial"]))
         r_out, r_lse = fa.flash_forward_reference(q, k, v, mask, blocks[1])
+        r_delta = fa.flash_delta(out, dout)
         r_dq = fa.flash_dq_reference(q, k, v, dout, lse, delta, mask)
         r_dk, r_dv = fa.flash_dkv_reference(q, k, v, dout, lse, delta, mask)
         atol, rtol = TOL[str(dtype)]
@@ -628,6 +695,8 @@ def check_flash(torch, device, cases=None):
         results = {
             "fwd": [_close(torch, out, r_out, atol, rtol),
                     _close(torch, lse, r_lse, *f32)],
+            # delta sums D f32 products: f32 rounding, scaled by its largest
+            "delta": [_close(torch, delta, r_delta, *f32, scaled=True)],
             "dq": [_close(torch, dq, r_dq, gatol, grtol, scaled=True)],
             "dkv": [_close(torch, dk, r_dk, gatol, grtol, scaled=True),
                     _close(torch, dv, r_dv, gatol, grtol, scaled=True)],
@@ -640,17 +709,15 @@ def check_flash(torch, device, cases=None):
                                    0.0))
             results["dq"].append((bool((dq[:, 0] == 0).all()), 0.0))
         rounded = {}
-        if routed["fwd"] == "sm90":
+        if design == "sm90":
             # 64-key blocks: the running max the kernel rounds P under
             g_out, _ = fa.flash_forward_reference(q, k, v, mask, 64,
                                                   round_p=True)
             rounded["fwd"] = [_close(torch, out, g_out, *ROUND_TOL)]
-        if routed["dq"] == "sm90":
             g_dq = fa.flash_dq_reference(q, k, v, dout, lse, delta, mask,
                                          round_p=True)
             rounded["dq"] = [_close(torch, dq, g_dq, *ROUND_GRAD_TOL,
                                     scaled=True)]
-        if routed["dkv"] == "sm90":
             g_dk, g_dv = fa.flash_dkv_reference(q, k, v, dout, lse, delta,
                                                 mask, round_p=True)
             rounded["dkv"] = [_close(torch, dk, g_dk, *ROUND_GRAD_TOL,
@@ -658,28 +725,31 @@ def check_flash(torch, device, cases=None):
                               _close(torch, dv, g_dv, *ROUND_GRAD_TOL,
                                      scaled=True)]
         parts = []
-        ok_all = launched_ok
+        ok_all = launched_ok and same
         for kern, res in results.items():
             ok = all(r[0] for r in res + rounded.get(kern, []))
             err = max(r[1] for r in res)
             worst[kern] = max(worst[kern], err)
             ok_all = ok_all and ok
-            part = f"{kern} [{'/'.join(ran[kern]) or 'plain'}] {err:.3e}"
+            part = f"{kern} {err:.3e}"
             if kern in rounded:
                 part += (" (rounding plain version "
                          f"{max(r[1] for r in rounded[kern]):.3e})")
             parts.append(part + ("" if ok else " FAIL"))
-        print(f"flash {name} {tuple(kw['shape'])} blocks {blocks}: "
-              + ", ".join(parts) + f" (tolerance out atol {atol} + rtol "
-              f"{rtol}; lse {f32}; grads {gatol}*max|ref| + {grtol}*|ref|; "
-              f"against the rounding plain version out {ROUND_TOL}, grads "
+        print(f"flash {name} {tuple(kw['shape'])} blocks {blocks} "
+              f"[{design if n else 'plain'}]: " + ", ".join(parts)
+              + f"; backward {'/'.join(schedules)}"
+              + (f", equal bitwise: {same}" if len(schedules) > 1 else "")
+              + f" (tolerance out atol {atol} + rtol {rtol}; lse and delta "
+              f"{f32}; grads {gatol}*max|ref| + {grtol}*|ref|; against the "
+              f"rounding plain version out {ROUND_TOL}, grads "
               f"{ROUND_GRAD_TOL}); launches "
-              f"{'ok' if launched_ok else f'FAIL (routed to {routed})'}",
+              f"{'ok' if launched_ok else f'FAIL ({got}, expected {want})'}",
               flush=True)
         if not ok_all:
             raise AssertionError(f"flash attention disagrees with its plain "
-                                 f"version, or ran another design, in case "
-                                 f"{name}")
+                                 f"version, or ran another design, or its "
+                                 f"schedules differ, in case {name}")
     return worst
 
 
@@ -705,7 +775,12 @@ def flash_bound(torch, which, shape, dtype, mask="causal"):
 
 def time_flash(torch, device):
     """Kernels, plain versions and the library yardstick at the training
-    shape (bf16, causal).  Returns {kernel: timing dict}."""
+    shape (bf16, causal): the forward by CUDA events around 50 calls; dq
+    and dkv (and the delta kernel) by their mean durations per launch
+    under the profiler (``kernel_launch_ms``) in the backward's serial
+    schedule, the one the rule takes at this T, whose whole call is also
+    timed by events.  Returns {kernel: timing
+    dict}."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -714,14 +789,18 @@ def time_flash(torch, device):
     q, k, v, dout = make_flash_case(torch, device, dtype, FLASH_SHAPE)
     out, lse = fa.flash_forward(q, k, v, "causal")
     delta = fa.flash_delta(out, dout)
+
+    def backward():
+        return fa.flash_backward(q, k, v, out, lse, dout, "causal",
+                                 schedule="serial")
+
     before = fa.launch_counts()
-    kernel = {
-        "fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v), 50),
-        "dq": time_ms(torch, lambda: fa.flash_backward_dq(
-            q, k, v, dout, lse, delta), 20),
-        "dkv": time_ms(torch, lambda: fa.flash_backward_dkv(
-            q, k, v, dout, lse, delta), 50),
-    }
+    kernel = {"fwd": time_ms(torch, lambda: fa.flash_forward(q, k, v), 50)}
+    backward_ms = time_ms(torch, backward, 20)
+    by_kernel = kernel_launch_ms(torch, backward, [
+        f"flash_{w}_" for w in ("delta", "dq", "dkv")])
+    for which in ("delta", "dq", "dkv"):
+        kernel[which] = by_kernel[f"flash_{which}_"]
     after = fa.launch_counts()
     ran = {w: "/".join(d for d in ("sm90", "simt")
                        if after[d].get(w, 0) > before[d].get(w, 0))
@@ -753,11 +832,16 @@ def time_flash(torch, device):
               f"[{ran[which]}] "
               f"{kernel[which]:.4f} ms, plain {plain[which]:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    print(f"flash backward (serial) {FLASH_SHAPE} bf16 causal: "
+          f"{backward_ms:.4f} ms per call (events), of which the delta "
+          f"kernel [{ran['delta']}] {kernel['delta']:.4f} ms (profiler)",
+          flush=True)
     print(f"flash library yardstick (F.scaled_dot_product_attention, "
           f"is_causal, median of 25): forward {sdpa_fwd:.4f} ms, "
           f"forward+backward {sdpa_both:.4f} ms, backward alone "
           f"{sdpa_bwd:.4f} ms; kernels fwd+dq+dkv "
-          f"{sum(kernel.values()):.4f} ms", flush=True)
+          f"{kernel['fwd'] + kernel['dq'] + kernel['dkv']:.4f} ms",
+          flush=True)
     return out_t
 
 
@@ -1135,8 +1219,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                              f"{per_step} per step x {steps} = {expect} each")
     # bf16: every kernel on the sm90 design, none on the simt one
     by_design = {"sm90": counts["sm90"], "simt": counts["simt"]}
-    want_design = {"sm90": {"fwd": expect, "dq": expect, "dkv": expect},
-                   "simt": {"fwd": 0, "dq": 0, "dkv": 0}}
+    want_design = {"sm90": dict.fromkeys(fa.COUNTERS, expect),
+                   "simt": dict.fromkeys(fa.COUNTERS, 0)}
     if by_design != want_design:
         raise AssertionError(f"flash launches by design {by_design}, "
                              f"expected {want_design}")
@@ -1224,9 +1308,24 @@ def profile_training(torch, trainer, n_steps=3):
     for e in host[:12]:
         print(f"  {e.self_cpu_time_total / 1e3 / n_steps:8.2f} ms/step "
               f"x{e.count // n_steps:6d}/step  {e.key[:90]}", flush=True)
+    # the flash wrappers (the autograd functions' forward and backward):
+    # host ms per call, their own and with the ops they call
+    flash_host = {}
+    for e in host:
+        if "FlashAttention" in e.key and e.count:
+            flash_host[e.key] = dict(
+                calls_per_step=e.count / n_steps,
+                own_ms_per_call=e.self_cpu_time_total / 1e3 / e.count,
+                total_ms_per_call=e.cpu_time_total / 1e3 / e.count)
+            print(f"profile host flash wrapper {e.key}: "
+                  f"{e.count / n_steps:.0f} calls/step, own "
+                  f"{e.self_cpu_time_total / 1e3 / e.count:.4f} ms/call, "
+                  f"with its ops {e.cpu_time_total / 1e3 / e.count:.4f} "
+                  f"ms/call", flush=True)
     return dict(profile_busy_share=busy / wall_us, profile_shares=shares,
                 profile_ms_per_step=per_step,
-                profile_host_op_ms_per_step=host_us / 1e3 / n_steps)
+                profile_host_op_ms_per_step=host_us / 1e3 / n_steps,
+                profile_flash_host=flash_host)
 
 
 # ---------------------------------------------------------------------------
@@ -1345,9 +1444,14 @@ SHARD_SHAPE = (8, 256, 16, 64)
 
 
 def lse_cases():
-    return [(f"{mask}_{dt}", dict(dtype=dt, shape=SHARD_SHAPE, mask=mask))
+    """The shard shape in both dtypes and all three mask modes, then the
+    tails T 32 and T 96 (shards under and past one 64-row tile)."""
+    shapes = (("", SHARD_SHAPE), ("t32_", (8, 32, 16, 64)),
+              ("t96_", (8, 96, 16, 64)))
+    return [(f"{tag}{mask}_{dt}", dict(dtype=dt, shape=shape, mask=mask))
+            for tag, shape in shapes
             for dt in ("bfloat16", "float32")
-            for mask in ("causal", "none", "causal_exclusive")]
+            for mask in MASKS]
 
 
 def _lse_cotangents(torch, q, lse, seed):
@@ -1363,7 +1467,10 @@ def check_flash_lse(torch, device, cases=None):
     """Every case: ``flash_attention_with_lse`` (the kernels) against its
     plain version on the same inputs: out and lse of the forward, and
     dq/dk/dv of sum(out * w) + sum(lse * u), the plain backward fed the
-    kernel's out/lse as in phase 6.  Returns the largest abs error."""
+    kernel's out/lse as in phase 6; then the delta the backward's C call
+    computes against ``flash_delta``.  One launch of each kernel (fwd,
+    delta, dq, dkv) per call, each on its design.  Returns the largest
+    abs error."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1387,21 +1494,31 @@ def check_flash_lse(torch, device, cases=None):
         n = int(device.type == "cuda")
         by_design = {d: {kk: after[d][kk] - before[d][kk] for kk in after[d]}
                      for d in ("sm90", "simt")}
-        want = {d: {"fwd": 0, "dq": 0, "dkv": 0} for d in ("sm90", "simt")}
-        for which in ("fwd", "dq", "dkv"):
-            want[fa.kernel_design(which, dtype, q.shape[-1])][which] = n
+        design = fa.kernel_design("fwd", dtype, q.shape[-1])
+        want = {d: dict.fromkeys(fa.COUNTERS, n if d == design else 0)
+                for d in ("sm90", "simt")}
+        schedule = fa.backward_schedule(dtype, q.shape[1])
+        cuda_launches = 1 + (1 if schedule == "shared" else 2)
+        # the delta of the backward's own C call (not counted: a check)
+        saved = fa.launch_counts()
+        k_delta = fa.flash_backward(q, k, v, out, lse, w, mask, g_lse=u,
+                                    return_delta=True)[3]
+        fa.set_launch_counts(saved)
         r_out, r_lse = fa.flash_forward_reference(q, k, v, mask)
         r_grads = fa.flash_backward_reference(q, k, v, out, lse, w, mask,
                                               g_lse=u)
+        delta = fa.flash_delta(out, w, u)
         atol, rtol = TOL[str(dtype)]
         gatol, grtol = GRAD_TOL[str(dtype)]
+        f32 = TOL["torch.float32"]
         res = [_close(torch, out, r_out, atol, rtol),
-               _close(torch, lse, r_lse, *TOL["torch.float32"])]
+               _close(torch, lse, r_lse, *f32)]
         res += [_close(torch, g, r, gatol, grtol, scaled=True)
                 for g, r in zip(grads, r_grads)]
+        # delta sums D f32 products: f32 rounding, scaled by its largest
+        res.append(_close(torch, k_delta, delta, *f32, scaled=True))
         rounded = []
         if dtype == torch.bfloat16:
-            delta = fa.flash_delta(out, w, u)
             r_dq = fa.flash_dq_reference(q, k, v, w, lse, delta, mask,
                                          round_p=True)
             r_dkv = fa.flash_dkv_reference(q, k, v, w, lse, delta, mask,
@@ -1416,11 +1533,13 @@ def check_flash_lse(torch, device, cases=None):
                  if rounded else "")
         print(f"with_lse {name} {tuple(kw['shape'])}: out {res[0][1]:.3e}, "
               f"lse {res[1][1]:.3e}, dq/dk/dv "
-              f"{'/'.join(f'{r[1]:.3e}' for r in res[2:])}{extra}; "
-              f"launches {by_design} {'ok' if ok else 'FAIL'} (tolerance "
-              f"out atol {atol} + rtol {rtol}; lse {TOL['torch.float32']}; "
-              f"grads {gatol}*max|ref| + {grtol}*|ref|; rounding "
-              f"{ROUND_GRAD_TOL})", flush=True)
+              f"{'/'.join(f'{r[1]:.3e}' for r in res[2:5])}, delta "
+              f"{res[5][1]:.3e}{extra}; launches {by_design}, backward "
+              f"{schedule}: {cuda_launches * n} CUDA launches "
+              f"{'ok' if ok else 'FAIL'} (tolerance "
+              f"out atol {atol} + rtol {rtol}; lse {f32}; delta "
+              f"{f32[0]}*max|ref| + {f32[1]}*|ref|; grads {gatol}*max|ref| "
+              f"+ {grtol}*|ref|; rounding {ROUND_GRAD_TOL})", flush=True)
         if not ok:
             raise AssertionError(f"flash_attention_with_lse disagrees with "
                                  f"its plain version in case {name}")
@@ -1447,9 +1566,12 @@ def lse_bound(torch, shape, dtype):
 
 def time_flash_lse(torch, device):
     """Forward+backward of flash_attention_with_lse at the shard shape
-    (bf16, causal): the kernels, the plain version, SDPA
-    forward+backward on the same inputs (which returns no lse: a
-    yardstick only) and the bound."""
+    (bf16, causal): the kernels (device ms with the host's launch time
+    hidden, and wall ms per call with it in), each kernel's device ms per
+    launch, the plain version, SDPA forward+backward on the same inputs
+    (which returns no lse: a yardstick only) and the bound; then the
+    backward alone under both schedules at the shard shape, T 512 and the
+    training shape, their results held equal bitwise."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
@@ -1469,27 +1591,63 @@ def time_flash_lse(torch, device):
         fa.flash_backward_reference(q, k, v, out, lse, w, "causal", g_lse=u)
 
     before = fa.launch_counts()
-    kernel_ms = time_ms(torch, kernel, 20)
+    b5_ms = time_ms(torch, kernel, 20)
+    b5_wall_ms = wall_ms(torch, kernel, 50)
+    by_kernel = kernel_launch_ms(torch, kernel, (
+        "flash_fwd_", "flash_delta_", "flash_bwd_"))
     fa.set_launch_counts(before)   # timing does not count
     plain_ms = time_ms(torch, plain, 3)
     _, library_ms = sdpa_yardstick(torch, q, k, v, w, True)
     bound_ms, bound_by = lse_bound(torch, SHARD_SHAPE, dtype)
     print(f"with_lse {SHARD_SHAPE} bf16 causal, forward+backward: kernels "
-          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA fwd+bwd "
+          f"{b5_ms:.4f} ms (wall {b5_wall_ms:.4f} ms per call with "
+          f"the host's time), plain {plain_ms:.4f} ms, SDPA fwd+bwd "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
           flush=True)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    print("with_lse device ms per launch by kernel (profiler): " + ", ".join(
+        f"{name.strip('_')} {ms:.4f}" for name, ms in by_kernel.items()),
+          flush=True)
+    backward = {}
+    for shape in (SHARD_SHAPE, (8, 512, 16, 64), FLASH_SHAPE):
+        bq, bk, bv, bdo = make_flash_case(torch, device, dtype, shape,
+                                          seed=9)
+        bout, blse = fa.flash_forward(bq, bk, bv, "causal")
+        g_lse = _lse_cotangents(torch, bq, blse, seed=10)[1]
+        runs = {sch: (lambda sch=sch: fa.flash_backward(
+            bq, bk, bv, bout, blse, bdo, "causal", g_lse=g_lse,
+            schedule=sch, return_delta=True)) for sch in fa.SCHEDULES}
+        results = {sch: fn() for sch, fn in runs.items()}
+        same = all(torch.equal(a, b) for a, b in
+                   zip(results["shared"], results["serial"]))
+        ms = {sch: time_ms(torch, fn, 20) for sch, fn in runs.items()}
+        ms.update({f"{sch}_again": time_ms(torch, runs[sch], 20)
+                   for sch in reversed(fa.SCHEDULES)})
+        chosen = fa.backward_schedule(dtype, shape[1])
+        backward[f"t{shape[1]}"] = dict(ms, chosen=chosen)
+        print(f"flash backward (delta + dq + dkv) {shape} bf16 causal: "
+              f"shared {ms['shared']:.4f} / {ms['shared_again']:.4f} ms, "
+              f"serial {ms['serial']:.4f} / {ms['serial_again']:.4f} ms "
+              f"(shared, serial, serial, shared); the rule picks {chosen}; "
+              f"results bitwise equal: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"the shared and serial backward differ "
+                                 f"at {shape}")
+    fa.set_launch_counts(before)
+    return dict(ms=b5_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, wall_ms=b5_wall_ms,
+                kernel_ms=by_kernel, backward_ms=backward)
 
 
 # ---------------------------------------------------------------------------
 # phase 10: ring composition at the training shape
 # ---------------------------------------------------------------------------
 
-def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10):
+def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10,
+               timed=True):
     """ring_flash and striped_flash over a LocalSeqGroup against
     full-sequence flash attention (the kernels) on the same bf16 inputs:
-    output and q/k/v gradients, the launches of one call, and the time of
+    output and q/k/v gradients, the launches of one call (each kernel,
+    delta too, once per block call), and, when ``timed``, the time of
     forward+backward beside full flash."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
@@ -1550,7 +1708,7 @@ def check_ring(torch, device, shape=FLASH_SHAPE, seq_size=4, iters=10):
             raise AssertionError(f"{name} over a LocalSeqGroup disagrees "
                                  "with full-sequence flash attention")
         out_t[name] = dict(max_abs_err=max(r[1] for r in res))
-        if device.type == "cuda":
+        if device.type == "cuda" and timed:
             saved = fa.launch_counts()
             t = out_t[name]
             t["wall_ms"] = wall_ms(torch, lambda: fwd_bwd(fn, inputs, g),
@@ -1960,6 +2118,7 @@ def main() -> int:
 
     phase("10 ring and striped flash over a local group of 4 vs full flash")
     check_ring(torch, device)
+    check_ring(torch, device, shape=(8, 128, 16, 64), timed=False)
 
     phase("11 train the 219M LM with striped_flash over a local group of 4")
     from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
@@ -1991,6 +2150,10 @@ def main() -> int:
     resume_full_width(torch, np, device, trained)
     torch.distributed.destroy_process_group()
 
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
     src = "neural_networks_parallel_training_with_mpi_tpu_torch/csrc/"
     tpu = "neural_networks_parallel_training_with_mpi_tpu/ops/pallas_kernels.py"
     kernels = [dict(name="paged_attention", route="cuda",
@@ -2008,10 +2171,16 @@ def main() -> int:
                             launches=trained["launches"][which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
-    # B5 has no kernel body: the autograd function over B1-B3
     kernels.append(dict(name="flash_attention_with_lse", route="cuda",
-                        source=("neural_networks_parallel_training_with_mpi"
-                                "_tpu_torch/ops/flash_attention.py"),
+                        source=src + "flash_attention_sm90.cu",
+                        sources=[src + "flash_attention_sm90.cu",
+                                 src + "flash_delta.cuh",
+                                 src + "flash_attention.cu"],
+                        design="sm90 (bf16): forward kernel, then one C "
+                               "call: delta kernel, dq + dk/dv in one "
+                               "shared launch up to T "
+                               f"{fa.SHARED_MAX_T}, else two; masked tail "
+                               "tiles; f32 on the simt source",
                         replaces=f"{tpu}:445",
                         launches=seq_trained["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))

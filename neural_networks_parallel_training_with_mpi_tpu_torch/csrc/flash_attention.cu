@@ -6,8 +6,9 @@
 // flash_attention there.  Same function: scale 1/sqrt(D); mask modes none /
 // causal (k <= q) / causal_exclusive (k < q); online softmax in f32; a row
 // with no attendable key outputs 0 with lse -1e30 and gets gradient 0; the
-// backward recomputes P = exp(s - lse) and uses delta = rowsum(dO * O),
-// computed outside the kernels as the JAX package does.
+// backward recomputes P = exp(s - lse) and uses delta = rowsum(dO * O) -
+// g_lse (the lse cotangent of flash_attention_with_lse, B5), computed by
+// the delta kernel of flash_delta.cuh before dq and dk/dv.
 //
 // What bounds it on this card: at the training shape (T 1024, D 64)
 // each kernel does 2-4 causal T x T x D products per head, about 64 flops
@@ -40,11 +41,19 @@
 // - q/k/v/out/dO/dq/dk/dv are read and written through their (B, T, H)
 //   element strides with head_dim contiguous, so the strided views of the
 //   fused qkv projection go in without a copy.
-// Plain C interface, loaded with ctypes: each launch returns the CUDA error
+// - Any T: the grid is ceil(T/64) tiles; rows at or past T load as 0, keys
+//   at or past T are masked, queries at or past T get P = 0, and every
+//   store is guarded by row < T.
+// - Two C entries: flash_attention_forward, and flash_attention_backward,
+//   the whole backward in one call: the delta kernel, then dq, then dk/dv,
+//   on the caller's stream.
+// Plain C interface, loaded with ctypes: each entry returns the CUDA error
 // code, or -1 for an unsupported dtype / head_dim / kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_delta.cuh"
 
 namespace {
 
@@ -79,9 +88,11 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ bool keep(int mask, int q_pos, int k_pos) {
-  return mask == kMaskNone ||
-         (mask == kMaskCausal ? k_pos <= q_pos : k_pos < q_pos);
+// key k_pos exists (k_pos < t) and query q_pos may attend it
+__device__ __forceinline__ bool keep(int mask, int t, int q_pos, int k_pos) {
+  return k_pos < t &&
+         (mask == kMaskNone ||
+          (mask == kMaskCausal ? k_pos <= q_pos : k_pos < q_pos));
 }
 
 // exclusive end of the keys the TPU kernel visits for the block_q block
@@ -119,26 +130,31 @@ __device__ __forceinline__ float row_sum(float x) {
 
 // rows row0 .. row0+63 of one (b, h) head of a (B, T, H, D) view -> f32
 // shared tile [kTile][D + 1] (the +1 keeps the threads of a warp, which
-// read 16 different rows at one column, on different banks)
+// read 16 different rows at one column, on different banks); rows at or
+// past t load as 0
 template <int D>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           Strides s, int b, int h, int row0,
-                                          float scale) {
+                                          int t, float scale) {
   const float* base = src + b * s.b + h * s.h;
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] = base[(long long)(row0 + r) * s.t + d] * scale;
+    dst[r * (D + 1) + d] =
+        row0 + r < t ? base[(long long)(row0 + r) * s.t + d] * scale : 0.f;
   }
 }
 
+// rows below t only
 template <int D>
 __device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides s,
-                                           int b, int h, int row0, int ty,
-                                           int tx, float (&acc)[kPer][D / kLanes]) {
+                                           int b, int h, int row0, int t,
+                                           int ty, int tx,
+                                           float (&acc)[kPer][D / kLanes]) {
   float* base = dst + b * s.b + h * s.h;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
+    if (row0 + ty + kLanes * i >= t) continue;
     float* row = base + (long long)(row0 + ty + kLanes * i) * s.t;
 #pragma unroll
     for (int dd = 0; dd < D / kLanes; ++dd)
@@ -179,7 +195,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
 
-  load_tile<D>(q_s, q, a.qs, b, h, row0, a.scale);
+  load_tile<D>(q_s, q, a.qs, b, h, row0, a.t, a.scale);
   float m[kPer], l[kPer], acc[kPer][kDims];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -193,8 +209,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    load_tile<D>(k_s, k, a.ks, b, h, col0, 1.f);
-    load_tile<D>(v_s, v, a.vs, b, h, col0, 1.f);
+    load_tile<D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
+    load_tile<D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
     __syncthreads();
 
     float s[kPer][kPer];
@@ -221,7 +237,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
-        if (!keep(a.mask, row0 + r, col0 + tx + kLanes * j)) s[i][j] = kNegInf;
+        if (!keep(a.mask, a.t, row0 + r, col0 + tx + kLanes * j))
+          s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -262,11 +279,12 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
     for (int dd = 0; dd < kDims; ++dd)
       acc[i][dd] = empty ? 0.f : acc[i][dd] / l[i];
-    if (tx == 0)
+    if (tx == 0 && row0 + ty + kLanes * i < a.t)
       a.lse_out[(long long)bh * a.t + row0 + ty + kLanes * i] =
           empty ? kNegInf : m[i] + logf(l[i]);
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, ty, tx, acc);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
+                acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,17 +307,20 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
 
-  load_tile<D>(q_s, static_cast<const float*>(a.q), a.qs, b, h, row0, 1.f);
-  load_tile<D>(do_s, static_cast<const float*>(a.dout), a.dos, b, h, row0, 1.f);
+  load_tile<D>(q_s, static_cast<const float*>(a.q), a.qs, b, h, row0, a.t,
+               1.f);
+  load_tile<D>(do_s, static_cast<const float*>(a.dout), a.dos, b, h, row0,
+               a.t, 1.f);
   float lse[kPer], delta[kPer], dq[kPer][kDims];
   bool live[kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
+    const bool in = row0 + ty + kLanes * i < a.t;
     const long long idx = (long long)bh * a.t + row0 + ty + kLanes * i;
-    lse[i] = a.lse_in[idx];
-    live[i] = lse[i] > kNegInf * 0.5f;   // no-key rows: gradient 0
+    lse[i] = in ? a.lse_in[idx] : kNegInf;
+    live[i] = lse[i] > kNegInf * 0.5f;   // no-key rows, rows past t: 0
     lse[i] = live[i] ? lse[i] : 0.f;
-    delta[i] = a.delta[idx];
+    delta[i] = in ? a.delta[idx] : 0.f;
 #pragma unroll
     for (int dd = 0; dd < kDims; ++dd) dq[i][dd] = 0.f;
   }
@@ -308,8 +329,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();
-    load_tile<D>(k_s, k, a.ks, b, h, col0, 1.f);
-    load_tile<D>(v_s, v, a.vs, b, h, col0, 1.f);
+    load_tile<D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
+    load_tile<D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
     __syncthreads();
 
     float s[kPer][kPer], dp[kPer][kPer];
@@ -344,8 +365,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const int c = tx + kLanes * j;
-        const float sc = keep(a.mask, row0 + r, col0 + c) ? s[i][j] * a.scale
-                                                          : kNegInf;
+        const float sc = keep(a.mask, a.t, row0 + r, col0 + c)
+                             ? s[i][j] * a.scale
+                             : kNegInf;
         const float p = live[i] ? expf(sc - lse[i]) : 0.f;
         ds_s[r * kPLd + c] = p * (dp[i][j] - delta[i]) * a.scale;
       }
@@ -366,7 +388,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
           dq[i][dd] = fmaf(dsv[i], kv[dd], dq[i][dd]);
     }
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, ty, tx, dq);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
+                dq);
 }
 
 // ---------------------------------------------------------------------------
@@ -392,8 +415,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const float* q = static_cast<const float*>(a.q);
   const float* dout = static_cast<const float*>(a.dout);
 
-  load_tile<D>(k_s, static_cast<const float*>(a.k), a.ks, b, h, col0, 1.f);
-  load_tile<D>(v_s, static_cast<const float*>(a.v), a.vs, b, h, col0, 1.f);
+  load_tile<D>(k_s, static_cast<const float*>(a.k), a.ks, b, h, col0, a.t,
+               1.f);
+  load_tile<D>(v_s, static_cast<const float*>(a.v), a.vs, b, h, col0, a.t,
+               1.f);
   // thread owns keys ty + 16i and head dims tx + 16dd of dk and dv
   float dk[kPer][kDims], dv[kPer][kDims];
 #pragma unroll
@@ -405,12 +430,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       query_start(a.mask, col0, a.block_q, a.block_k) / kTile * kTile;
   for (int row0 = start; row0 < a.t; row0 += kTile) {
     __syncthreads();
-    load_tile<D>(q_s, q, a.qs, b, h, row0, 1.f);
-    load_tile<D>(do_s, dout, a.dos, b, h, row0, 1.f);
-    if (threadIdx.x < kTile) {
+    load_tile<D>(q_s, q, a.qs, b, h, row0, a.t, 1.f);
+    load_tile<D>(do_s, dout, a.dos, b, h, row0, a.t, 1.f);
+    if (threadIdx.x < kTile) {  // a query at or past t: no key, P = 0
+      const bool in = row0 + (int)threadIdx.x < a.t;
       const long long idx = (long long)bh * a.t + row0 + threadIdx.x;
-      lse_s[threadIdx.x] = a.lse_in[idx];
-      delta_s[threadIdx.x] = a.delta[idx];
+      lse_s[threadIdx.x] = in ? a.lse_in[idx] : kNegInf;
+      delta_s[threadIdx.x] = in ? a.delta[idx] : 0.f;
     }
     __syncthreads();
 
@@ -451,8 +477,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kPer; ++j) {
         const int c = tx + kLanes * j;
-        const float sc = keep(a.mask, row0 + r, col0 + c) ? s[i][j] * a.scale
-                                                          : kNegInf;
+        const float sc = keep(a.mask, a.t, row0 + r, col0 + c)
+                             ? s[i][j] * a.scale
+                             : kNegInf;
         const float p = live ? expf(sc - lse_safe) : 0.f;
         p_s[r * kPLd + c] = p;
         ds_s[r * kPLd + c] = p * (dp[i][j] - delta) * a.scale;
@@ -482,8 +509,10 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         }
     }
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, col0, ty, tx, dk);
-  store_rows<D>(static_cast<float*>(a.out1), a.o1s, b, h, col0, ty, tx, dv);
+  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, col0, a.t, ty, tx,
+                dk);
+  store_rows<D>(static_cast<float*>(a.out1), a.o1s, b, h, col0, a.t, ty, tx,
+                dv);
 }
 
 template <typename Kernel>
@@ -491,7 +520,7 @@ int launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(a.t / kTile, a.batch * a.n_heads);
+  const dim3 grid((a.t + kTile - 1) / kTile, a.batch * a.n_heads);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -519,33 +548,25 @@ Strides strides_at(const long long* s, int i) {
 
 }  // namespace
 
-// One entry for the three kernels.  strides: 3 per tensor, in the order
-// q, k, v, dout, out0, out1 (the entries of tensors a kernel does not take
-// are ignored).  dtype: 0 = float32 (1 = bfloat16 returns -1).  mask: 0 none,
-// 1 causal, 2 causal_exclusive.  The caller guarantees t % 64 == 0.
-extern "C" int flash_attention_launch(
-    int which, int dtype, int head_dim, const void* q, const void* k,
-    const void* v, const void* dout, const void* lse_in, const void* delta,
-    void* out0, void* out1, void* lse_out, const long long* strides,
-    int batch, int n_heads, int t, int block_q, int block_k, int mask,
-    float scale, void* stream) {
+// The forward: out and lse.  strides: 3 per tensor, in the order q, k, v,
+// out.  dtype: 0 = float32 (1 = bfloat16 returns -1).  mask: 0 none, 1
+// causal, 2 causal_exclusive.  Any t.
+extern "C" int flash_attention_forward(
+    int dtype, int head_dim, const void* q, const void* k, const void* v,
+    void* out, void* lse, const long long* strides, int batch, int n_heads,
+    int t, int block_q, int block_k, int mask, float scale, void* stream) {
   if (batch == 0 || n_heads == 0 || t == 0) return 0;
-  Args a;
+  if (dtype != 0) return -1;  // bf16 runs in flash_attention_sm90.cu
+  Args a = {};
   a.q = q;
   a.k = k;
   a.v = v;
-  a.dout = dout;
-  a.lse_in = static_cast<const float*>(lse_in);
-  a.delta = static_cast<const float*>(delta);
-  a.out0 = out0;
-  a.out1 = out1;
-  a.lse_out = static_cast<float*>(lse_out);
+  a.out0 = out;
+  a.lse_out = static_cast<float*>(lse);
   a.qs = strides_at(strides, 0);
   a.ks = strides_at(strides, 1);
   a.vs = strides_at(strides, 2);
-  a.dos = strides_at(strides, 3);
-  a.o0s = strides_at(strides, 4);
-  a.o1s = strides_at(strides, 5);
+  a.o0s = strides_at(strides, 3);
   a.batch = batch;
   a.n_heads = n_heads;
   a.t = t;
@@ -553,7 +574,65 @@ extern "C" int flash_attention_launch(
   a.block_k = block_k;
   a.mask = mask;
   a.scale = scale;
+  return dispatch_head_dim(0, head_dim, a, static_cast<cudaStream_t>(stream));
+}
+
+// The whole backward in one call: delta = rowsum(dout * out) - g_lse into
+// `delta`, then dq, then dk/dv.  strides: 3 per tensor in the order q, k,
+// v, out, dout, dq, dk, dv, then g_lse's two (B*H, T) strides.  g_lse may
+// be null.  dtype as above.  Any t.
+extern "C" int flash_attention_backward(
+    int dtype, int head_dim, const void* q, const void* k, const void* v,
+    const void* out, const void* dout, const void* lse, const void* g_lse,
+    void* dq, void* dk, void* dv, void* delta, const long long* strides,
+    int batch, int n_heads, int t, int block_q, int block_k, int mask,
+    float scale, void* stream) {
+  if (batch == 0 || n_heads == 0 || t == 0) return 0;
+  if (dtype != 0) return -1;
+  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != 0) return -1;  // bf16 runs in flash_attention_sm90.cu
-  return dispatch_head_dim(which, head_dim, a, st);
+  flash_delta::Args<float> da;
+  da.out = static_cast<const float*>(out);
+  da.dout = static_cast<const float*>(dout);
+  da.g_lse = static_cast<const float*>(g_lse);
+  da.delta = static_cast<float*>(delta);
+  da.os = flash_delta::View{strides[9], strides[10], strides[11]};
+  da.dos = flash_delta::View{strides[12], strides[13], strides[14]};
+  da.g_bh = strides[24];
+  da.g_t = strides[25];
+  da.n_heads = n_heads;
+  da.t = t;
+  da.n_rows = static_cast<long long>(batch) * n_heads * t;
+  int err = flash_delta::launch_head_dim(head_dim, da, st);
+  if (err != 0) return err;
+
+  Args a = {};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.lse_in = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.out0 = dq;
+  a.out1 = nullptr;
+  a.lse_out = nullptr;
+  a.qs = strides_at(strides, 0);
+  a.ks = strides_at(strides, 1);
+  a.vs = strides_at(strides, 2);
+  a.dos = strides_at(strides, 4);
+  a.o0s = strides_at(strides, 5);
+  a.batch = batch;
+  a.n_heads = n_heads;
+  a.t = t;
+  a.block_q = block_q;
+  a.block_k = block_k;
+  a.mask = mask;
+  a.scale = scale;
+  err = dispatch_head_dim(1, head_dim, a, st);
+  if (err != 0) return err;
+  a.out0 = dk;
+  a.o0s = strides_at(strides, 6);
+  a.out1 = dv;
+  a.o1s = strides_at(strides, 7);
+  return dispatch_head_dim(2, head_dim, a, st);
 }

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at
 the root of the checkout (listed in ``.gitignore``) and loaded with
-``ctypes``.  The library's file name carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads the
+``ctypes``.  The library's file name carries a hash of the source, of
+the shared headers ``csrc/*.cuh`` it may include, and of the flags, so
+an edited source or header rebuilds and an unchanged one loads the
 existing library.  A missing ``nvcc`` or a failed build raises: there is
 no fallback to the plain PyTorch version on the GPU.
 """
@@ -45,7 +46,8 @@ def load(name: str) -> Tuple[ctypes.CDLL, dict]:
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     record = {"built": False, "seconds": 0.0, "log": "",

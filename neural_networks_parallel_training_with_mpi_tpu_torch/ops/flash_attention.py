@@ -3,8 +3,8 @@
 ``flash_attention`` is the port of the JAX package's
 ``ops/pallas_kernels.py:flash_attention`` (kernels ``_flash_fwd_kernel``,
 ``_flash_bwd_dq_kernel``, ``_flash_bwd_dkv_kernel``).  On CUDA tensors its
-three wrappers launch hand-written kernels (built for ``sm_90a`` at first
-use, see ``ops._build``) or raise; on CPU tensors they compute the plain
+wrappers launch hand-written kernels (built for ``sm_90a`` at first use,
+see ``ops._build``) or raise; on CPU tensors they compute the plain
 PyTorch versions beside them.  There is no fallback from a kernel to its
 plain version, nor from one kernel design to the other.
 
@@ -21,6 +21,10 @@ launch:
 * ``simt`` (``csrc/flash_attention.cu``): every f32 kernel, f32 products
   on the CUDA cores.  Its source builds no bf16 kernel.
 
+Both take any T that :func:`resolve_blocks` accepts, as the JAX kernels
+do: the grid covers ceil(T / 64) tiles and masks the last one
+(:func:`launch_design` is the rule), and head_dim 32, 64 or 128.
+
 Shapes, as in the JAX package: q/k/v (B, T, H, D) with head_dim
 contiguous (the strided views of the fused qkv projection are taken as
 they are); out (B, T, H, D) in q's dtype; lse and delta (B*H, T) float32
@@ -29,25 +33,29 @@ in JAX's (b, h) order.  Mask modes ``none`` / ``causal`` /
 -1e30 and gets gradient 0.
 
 * ``flash_forward``      -> (out, lse)      kernel ``fwd``
-* ``flash_backward_dq``  -> dq              kernel ``dq``
-* ``flash_backward_dkv`` -> (dk, dv)        kernel ``dkv``
-* ``flash_backward``     delta = rowsum(dO * O) - g_lse in f32, then dq
-                         and dkv
+* ``flash_backward``     -> (dq, dk, dv): one C call that launches the
+                         ``delta`` kernel (rowsum(dO * O) - g_lse in f32,
+                         ``csrc/flash_delta.cuh``; plain version
+                         :func:`flash_delta`), then ``dq`` and ``dkv``,
+                         in one shared launch or two
+                         (:func:`backward_schedule`)
 * ``flash_attention``    the ``torch.autograd.Function`` over them
 * ``flash_attention_with_lse``  (out, lse), both differentiable: the port
                          of ``flash_attention_with_lse`` (B5, a
-                         ``custom_vjp`` over the same three kernels); the
+                         ``custom_vjp`` over the same kernels); the
                          building block of ring attention
                          (``parallel.sequence``)
 
 Each kernel launch adds one to ``flash_attention.launches[name]`` and to
 ``flash_attention.launches_sm90[name]`` or ``launches_simt[name]`` by its
-design; each ``flash_attention_with_lse`` call that launches the forward
-kernel adds one to ``flash_attention_with_lse.launches``.
+design (a shared dq + dk/dv launch counts one of each); each
+``flash_attention_with_lse`` call that launches the forward kernel adds
+one to ``flash_attention_with_lse.launches``.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 from typing import Optional, Tuple
@@ -60,9 +68,13 @@ NEG_INF = -1e30
 MASK_MODES = ("none", "causal", "causal_exclusive")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_WHICH = {"fwd": 0, "dq": 1, "dkv": 2}
+_KERNELS = ("fwd", "dq", "dkv")            # the TPU kernels' ports
+COUNTERS = ("fwd", "delta", "dq", "dkv")   # launch counters, by kernel
 HEAD_DIMS = (32, 64, 128)       # what both kernel designs take
-TILE = 64                       # rows of a kernel tile: T % TILE == 0
+SCHEDULES = ("shared", "serial")
+# the longest sequence whose bf16 backward runs dq and dk/dv as one shared
+# launch (measured by chip_smoke.py phase 9: shared is faster up to here)
+SHARED_MAX_T = 512
 
 
 def resolve_blocks(t: int, block_q: int, block_k: int) -> Tuple[int, int]:
@@ -150,8 +162,9 @@ def flash_forward_reference(q, k, v, mask: str = "causal",
 
 
 def flash_delta(out, dout, g_lse=None) -> torch.Tensor:
-    """delta = rowsum(dO * O) in f32, (B*H, T): one reduction outside the
-    kernels, as the JAX package computes it.
+    """delta = rowsum(dO * O) in f32, (B*H, T), as the JAX package computes
+    it in XLA (``_flash_backward`` :366-369): the plain version of the
+    ``delta`` kernel that :func:`flash_backward` launches on CUDA tensors.
 
     A cotangent ``g_lse`` (B*H, T) on the lse output folds in here: d lse_i
     / d s_ij = p_ij, so dS_ij = p_ij (dP_ij - delta_i + g_lse_i), i.e.
@@ -233,8 +246,8 @@ def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
     for every f32 kernel.  A dispatch on the inputs, decided before any
     launch and without looking at a card: a head_dim outside
     :data:`HEAD_DIMS` raises, in bf16 as in f32."""
-    if which not in _WHICH:
-        raise ValueError(f"kernel must be one of {tuple(_WHICH)}, got "
+    if which not in _KERNELS:
+        raise ValueError(f"kernel must be one of {_KERNELS}, got "
                          f"{which!r}")
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {dtype} not supported (float32, "
@@ -247,14 +260,51 @@ def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
     return "sm90" if sm90 else "simt"
 
 
+def launch_design(which: str, dtype: torch.dtype, shape,
+                  block_q: int = 128, block_k: int = 128) -> str:
+    """The launch-shape rule of the CUDA kernels, checked before every
+    launch: any (B, T, H, D) whose T the blocks divide
+    (:func:`resolve_blocks`, as JAX requires) and whose head_dim is in
+    :data:`HEAD_DIMS`; the grid covers ceil(T / 64) tiles of 64 rows and
+    masks the rows and keys of the last one at or past T.  Returns the
+    design (:func:`kernel_design`); raises for what the kernels do not
+    take."""
+    _, t, _, d = shape
+    resolve_blocks(t, block_q, block_k)
+    return kernel_design(which, dtype, d)
+
+
+def backward_schedule(dtype: torch.dtype, t: int,
+                      schedule: Optional[str] = None) -> str:
+    """How :func:`flash_backward` launches dq and dk/dv after delta:
+    ``"shared"``, one launch whose blocks take either role, or
+    ``"serial"``, two launches in turn.  ``None`` picks by the rule: bf16
+    shares up to T = :data:`SHARED_MAX_T`; the f32 (simt) kernels always
+    run in turn, and an explicit ``"shared"`` on them raises."""
+    if schedule is None:
+        return ("shared" if dtype == torch.bfloat16 and t <= SHARED_MAX_T
+                else "serial")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, got "
+                         f"{schedule!r}")
+    if schedule == "shared" and dtype != torch.bfloat16:
+        raise ValueError("only the sm90 (bf16) kernels share a launch")
+    return schedule
+
+
+def _aligned(x: torch.Tensor, strides) -> bool:
+    if strides[-1] != 1 or x.data_ptr() % 16:
+        return False
+    unit = 16 // x.element_size()   # elements in 16 bytes
+    return all(st % unit == 0 or n == 1
+               for st, n in zip(strides[:-1], x.shape[:-1]))
+
+
 def aligned_for_copies(x: torch.Tensor) -> bool:
     """True when the sm90 kernels' 16-byte copies can read ``x`` as it is:
     last dim contiguous, base pointer and the strides of the other dims
     (those longer than 1) multiples of 16 bytes."""
-    size = x.element_size()
-    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(st * size % 16 == 0
-                    for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1))
+    return _aligned(x, x.stride())
 
 
 def for_copies(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -265,76 +315,158 @@ def for_copies(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _library(design: str):
-    """The ctypes library of a design, its argument types set once."""
-    if design == "sm90":
-        lib, _ = _build.load("flash_attention_sm90")
-        fn = lib.flash_sm90_launch
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-                           + [ctypes.POINTER(ctypes.c_longlong)]
-                           + [ctypes.c_int] * 4
-                           + [ctypes.c_float, ctypes.c_void_p])
-        return fn
-    lib, _ = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
+_LIBRARY = {"sm90": "flash_attention_sm90", "simt": "flash_attention"}
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_STRIDES = ctypes.c_void_p   # the address of an array.array("q")
+# (design, entry) -> (C function, argument types)
+_SIGNATURES = {
+    ("sm90", "forward"): ("flash_sm90_forward",
+                          [_I] + [_P] * 5 + [_STRIDES] + [_I] * 4
+                          + [_F, _P]),
+    ("sm90", "backward"): ("flash_sm90_backward",
+                           [_I] + [_P] * 11 + [_STRIDES] + [_I] * 4
+                           + [_F, _I, _P]),
+    ("simt", "forward"): ("flash_attention_forward",
+                          [_I] * 2 + [_P] * 5 + [_STRIDES] + [_I] * 6
+                          + [_F, _P]),
+    ("simt", "backward"): ("flash_attention_backward",
+                           [_I] * 2 + [_P] * 11 + [_STRIDES] + [_I] * 6
+                           + [_F, _P]),
+}
+_ENTRIES = {}
+
+
+def _entry(design: str, kind: str):
+    """The ctypes function of a design's C entry, its types set once."""
+    fn = _ENTRIES.get((design, kind))
+    if fn is None:
+        lib, _ = _build.load(_LIBRARY[design])
+        name, argtypes = _SIGNATURES[(design, kind)]
+        fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = argtypes
+        _ENTRIES[(design, kind)] = fn
     return fn
 
 
-def _launch(which: str, q, k, v, mask: str, block_q: int, block_k: int, *,
-            dout=None, lse=None, delta=None, out0=None, out1=None,
-            lse_out=None):
-    """One kernel launch on CUDA tensors, of the design
-    :func:`kernel_design` routes it to."""
-    b, t, h, d = q.shape
-    design = kernel_design(which, q.dtype, d)
-    if t % TILE:
-        raise ValueError(f"the CUDA kernels need seq_len % {TILE} == 0, "
-                         f"got {t}")
-    views = (q, k, v, dout, out0, out1)
-    for t_ in views + (lse, delta, lse_out):
-        if t_ is not None and t_.device != q.device:
-            raise ValueError(f"a tensor is on {t_.device}, q on {q.device}")
-    for t_ in views:
-        if t_ is not None and t_.stride(-1) != 1:
+def _views(device: int, copies: bool, *xs):
+    """One pass over a launch's (B, T, H, D) inputs: each on the card
+    ``device``, head_dim contiguous and, with ``copies`` (the sm90
+    design), readable by 16-byte copies or else copied contiguous
+    (:func:`for_copies`).  Returns the tensors to launch on (hold them
+    until the launch is queued: a copy freed earlier could be handed to
+    an output), their data pointers and their (B, T, H) strides, flat."""
+    views, ptrs, strides = [], [], []
+    for x in xs:
+        if x.get_device() != device:
+            raise ValueError(f"a tensor is on {x.device}, q on cuda:"
+                             f"{device}")
+        st = x.stride()
+        if st[-1] != 1:
             raise ValueError("head_dim must be contiguous")
-    for t_ in (lse, delta):
-        if t_ is not None and (t_.dtype != torch.float32
-                               or not t_.is_contiguous()):
-            raise ValueError("lse/delta must be contiguous float32")
-    if design == "sm90":
-        # outputs come fresh from torch.empty; inputs may be strided views
-        q, k, v, dout, lse, delta = map(for_copies,
-                                        (q, k, v, dout, lse, delta))
-        views = (q, k, v, dout, out0, out1)
-    strides = []
-    for t_ in views:
-        strides += list(t_.stride()[:3]) if t_ is not None else [0, 0, 0]
-    c_strides = (ctypes.c_longlong * 18)(*strides)
-    ptr = lambda t_: None if t_ is None else t_.data_ptr()  # noqa: E731
-    tensors = (ptr(q), ptr(k), ptr(v), ptr(dout), ptr(lse), ptr(delta),
-               ptr(out0), ptr(out1), ptr(lse_out), c_strides)
+        if copies and not _aligned(x, st):
+            x = for_copies(x)
+            st = x.stride()
+        views.append(x)
+        ptrs.append(x.data_ptr())
+        strides += st[:3]
+    return views, ptrs, strides
+
+
+def _count(design: str, *kernels: str) -> None:
+    by_design = getattr(flash_attention, f"launches_{design}")
+    for name in kernels:
+        flash_attention.launches[name] += 1
+        by_design[name] += 1
+
+
+def _raise_on(err: int, what: str, design: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attention {what} ({design}) launch "
+                           f"failed: CUDA error {err}")
+
+
+def _forward_cuda(q, k, v, mask: str, block_q: int, block_k: int):
+    """The forward on CUDA tensors, of the design :func:`launch_design`
+    routes it to.  Returns (out, lse)."""
+    b, t, h, d = q.shape
+    design = launch_design("fwd", q.dtype, q.shape, block_q, block_k)
+    # views (copies among them) stay alive until the call below returns
+    views, ptrs, strides = _views(q.get_device(), design == "sm90", q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    strides += (t * h * d, h * d, d)    # out: fresh, contiguous
+    c_strides = array.array("q", strides)   # alive until the call returns
+    ptrs += [out.data_ptr(), lse.data_ptr()]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     mask_code, scale = MASK_MODES.index(mask), 1.0 / math.sqrt(d)
     if design == "sm90":
-        err = _library(design)(_WHICH[which], d, *tensors, b, h, t,
-                               mask_code, scale, stream)
+        err = _entry(design, "forward")(d, *ptrs, c_strides.buffer_info()[0],
+                                        b, h, t, mask_code, scale, stream)
     else:
-        err = _library(design)(_WHICH[which], _DTYPE_CODE[q.dtype], d,
-                               *tensors, b, h, t, block_q, block_k,
-                               mask_code, scale, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention {which} kernel ({design}) "
-                           f"launch failed: CUDA error {err}")
-    flash_attention.launches[which] += 1
-    getattr(flash_attention, f"launches_{design}")[which] += 1
+        err = _entry(design, "forward")(_DTYPE_CODE[q.dtype], d, *ptrs,
+                                        c_strides.buffer_info()[0], b, h, t,
+                                        block_q, block_k, mask_code, scale,
+                                        stream)
+    _raise_on(err, "forward", design)
+    _count(design, "fwd")
+    return out, lse
+
+
+def _backward_cuda(q, k, v, out, lse, dout, mask, block_q, block_k, g_lse,
+                   schedule):
+    """The backward on CUDA tensors in one C call: delta, then dq and
+    dk/dv (shared or serial).  Returns (dq, dk, dv, delta)."""
+    b, t, h, d = q.shape
+    design = launch_design("dq", q.dtype, q.shape, block_q, block_k)
+    if out.shape != q.shape or dout.shape != q.shape or (
+            out.dtype != q.dtype or dout.dtype != q.dtype):
+        raise ValueError("out/dout must match q in shape and dtype")
+    if lse.shape != (b * h, t):
+        raise ValueError(f"lse must be (B*H, T) = {(b * h, t)}, got "
+                         f"{tuple(lse.shape)}")
+    dev = q.get_device()
+    if lse.get_device() != dev:
+        raise ValueError(f"lse is on {lse.device}, q on {q.device}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("lse must be contiguous float32")
+    g_strides = (0, 0)
+    if g_lse is not None:
+        # read through its two strides, whatever they are
+        if g_lse.shape != (b * h, t):
+            raise ValueError(f"g_lse must be (B*H, T) = {(b * h, t)}, got "
+                             f"{tuple(g_lse.shape)}")
+        if g_lse.get_device() != dev:
+            raise ValueError(f"g_lse is on {g_lse.device}, q on {q.device}")
+        if g_lse.dtype != torch.float32:
+            g_lse = g_lse.float()
+        g_strides = g_lse.stride()
+    # views (copies among them) stay alive until the call below returns
+    views, ptrs, strides = _views(dev, design == "sm90", q, k, v, out,
+                                  dout)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
+    # dq, dk, dv: fresh, contiguous
+    strides += (t * h * d, h * d, d) * 3 + tuple(g_strides)
+    c_strides = array.array("q", strides)   # alive until the call returns
+    ptrs += [lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr()]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    mask_code, scale = MASK_MODES.index(mask), 1.0 / math.sqrt(d)
+    if design == "sm90":
+        err = _entry(design, "backward")(d, *ptrs,
+                                         c_strides.buffer_info()[0], b, h, t,
+                                         mask_code, scale,
+                                         int(schedule == "shared"), stream)
+    else:
+        err = _entry(design, "backward")(_DTYPE_CODE[q.dtype], d, *ptrs,
+                                         c_strides.buffer_info()[0], b, h, t,
+                                         block_q, block_k, mask_code, scale,
+                                         stream)
+    _raise_on(err, f"backward ({schedule})", design)
+    _count(design, "delta", "dq", "dkv")
+    return dq, dk, dv, delta
 
 
 def _device(q) -> str:
@@ -353,58 +485,37 @@ def flash_forward(q, k, v, mask: str = "causal", block_q: int = 128,
     block_q, block_k = resolve_blocks(q.shape[1], block_q, block_k)
     if _device(q) == "cpu":
         return flash_forward_reference(q, k, v, mask, block_k)
-    b, t, h, _ = q.shape
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, k, v, mask, block_q, block_k, out0=out, lse_out=lse)
-    return out, lse
-
-
-def flash_backward_dq(q, k, v, dout, lse, delta, mask: str = "causal",
-                      block_q: int = 128, block_k: int = 128):
-    """dq: the ``dq`` kernel on CUDA tensors, the plain version on CPU."""
-    _check(q, k, v)
-    block_q, block_k = resolve_blocks(q.shape[1], block_q, block_k)
-    if _device(q) == "cpu":
-        return flash_dq_reference(q, k, v, dout, lse, delta, mask)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch("dq", q, k, v, mask, block_q, block_k, dout=dout, lse=lse,
-            delta=delta, out0=dq)
-    return dq
-
-
-def flash_backward_dkv(q, k, v, dout, lse, delta, mask: str = "causal",
-                       block_q: int = 128, block_k: int = 128):
-    """(dk, dv): the ``dkv`` kernel on CUDA tensors, the plain version on
-    CPU."""
-    _check(q, k, v)
-    block_q, block_k = resolve_blocks(q.shape[1], block_q, block_k)
-    if _device(q) == "cpu":
-        return flash_dkv_reference(q, k, v, dout, lse, delta, mask)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch("dkv", q, k, v, mask, block_q, block_k, dout=dout, lse=lse,
-            delta=delta, out0=dk, out1=dv)
-    return dk, dv
+    return _forward_cuda(q, k, v, mask, block_q, block_k)
 
 
 def flash_backward(q, k, v, out, lse, dout, mask: str = "causal",
-                   block_q: int = 128, block_k: int = 128, g_lse=None):
-    """(dq, dk, dv): delta in f32 (shifted by the lse cotangent ``g_lse``
-    when given), then the dq and dkv kernels (or their plain versions on
-    CPU)."""
+                   block_q: int = 128, block_k: int = 128, g_lse=None,
+                   schedule: Optional[str] = None,
+                   return_delta: bool = False):
+    """(dq, dk, dv), and delta too with ``return_delta``: on CUDA tensors
+    one C call that launches the ``delta`` kernel (shifted by the lse
+    cotangent ``g_lse`` when given), then ``dq`` and ``dkv`` as
+    :func:`backward_schedule` says (``schedule`` overrides the rule); on
+    CPU tensors the plain versions."""
+    _check(q, k, v)
+    block_q, block_k = resolve_blocks(q.shape[1], block_q, block_k)
+    schedule = backward_schedule(q.dtype, q.shape[1], schedule)
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    delta = flash_delta(out, dout, g_lse)
-    dq = flash_backward_dq(q, k, v, dout, lse, delta, mask, block_q, block_k)
-    dk, dv = flash_backward_dkv(q, k, v, dout, lse, delta, mask, block_q,
-                                block_k)
-    return dq, dk, dv
+    if _device(q) == "cpu":
+        delta = flash_delta(out, dout, g_lse)
+        dq = flash_dq_reference(q, k, v, dout, lse, delta, mask)
+        dk, dv = flash_dkv_reference(q, k, v, dout, lse, delta, mask)
+    else:
+        dq, dk, dv, delta = _backward_cuda(q, k, v, out, lse, dout, mask,
+                                           block_q, block_k, g_lse,
+                                           schedule)
+    return (dq, dk, dv, delta) if return_delta else (dq, dk, dv)
 
 
 class FlashAttention(torch.autograd.Function):
-    """Forward saves (q, k, v, out, lse); backward computes delta and runs
-    dq, then dkv."""
+    """Forward saves (q, k, v, out, lse); backward is
+    :func:`flash_backward` (delta, dq, dkv)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, block_q, block_k):
@@ -428,15 +539,16 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 128,
                                 block_k)
 
 
-flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
-flash_attention.launches_sm90 = {"fwd": 0, "dq": 0, "dkv": 0}
-flash_attention.launches_simt = {"fwd": 0, "dq": 0, "dkv": 0}
+flash_attention.launches = dict.fromkeys(COUNTERS, 0)
+flash_attention.launches_sm90 = dict.fromkeys(COUNTERS, 0)
+flash_attention.launches_simt = dict.fromkeys(COUNTERS, 0)
 
 
 class FlashAttentionWithLse(torch.autograd.Function):
     """B5: forward saves (q, k, v, out, lse) and returns both; backward
-    gets (g_out, g_lse) and runs dq and dkv with delta = rowsum(dO * O) -
-    g_lse (``_flash_backward`` :362-369 of the JAX package)."""
+    gets (g_out, g_lse) and runs :func:`flash_backward` with delta =
+    rowsum(dO * O) - g_lse (``_flash_backward`` :362-369 of the JAX
+    package)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask, block_q, block_k):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from neural_networks_parallel_training_with_mpi_tpu.ops.pallas_kernels import (
+    _heads_major,
     flash_attention as jax_flash,
     flash_attention_with_lse as jax_flash_lse,
 )
@@ -66,12 +67,19 @@ def test_gradients_match_jax_grad(causal, blocks):
         np.testing.assert_allclose(g.numpy(), np.asarray(j), **TOL)
 
 
-@pytest.mark.parametrize("mask", ["causal", "none", "causal_exclusive"])
-def test_with_lse_values_and_gradients_match_jax_grad(mask):
+MASKS = ("causal", "none", "causal_exclusive")
+
+
+@pytest.mark.parametrize(
+    "mask,t", [(m, 32) for m in MASKS] + [(m, 96) for m in MASKS],
+    ids=list(MASKS) + [f"{m}-t96" for m in MASKS])
+def test_with_lse_values_and_gradients_match_jax_grad(mask, t):
     """B5: (out, lse) and dq/dk/dv of sum(out * w) + sum(lse * u) (a
     non-zero lse cotangent, folded into delta) through the port's
-    FlashAttentionWithLse against jax.grad through the Pallas custom_vjp."""
-    q, k, v = _qkv(seed=6)
+    FlashAttentionWithLse against jax.grad through the Pallas custom_vjp.
+    T 32 and 96: shard lengths under and past the kernels' 64-row tile,
+    neither a multiple of it."""
+    q, k, v = _qkv(t=t, seed=6)
     rng = np.random.default_rng(7)
     w = rng.standard_normal(q.shape).astype(np.float32)
     u = rng.standard_normal((q.shape[0] * q.shape[2], q.shape[1])).astype(
@@ -119,6 +127,66 @@ def test_lse_cotangent_is_a_delta_shift():
                              g_lse=torch.zeros_like(lse))
     for g, w in zip(zero, fa.flash_backward(q, k, v, out, lse, dout)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g_lse", ["none", "contiguous", "strided"])
+def test_flash_delta_matches_jax_delta_formula(g_lse, dtype):
+    """delta (B*H, T) f32 against JAX's own formula
+    (``_flash_backward``, pallas_kernels.py:366-369): rowsum(dO * O) in
+    f32 per (b, h) row, shifted by -g_lse; the strided g_lse is what a
+    ring merge's gradient can hand over.  Tolerance 1e-5: f32 sums in
+    another order."""
+    out, dout = _qkv(b=2, t=96, h=3, d=16, seed=17)[:2]
+    bh, t = 2 * 3, 96
+    rng = np.random.default_rng(18)
+    u = None
+    if g_lse == "contiguous":
+        u = rng.standard_normal((bh, t)).astype(np.float32)
+    elif g_lse == "strided":
+        u = rng.standard_normal((t, 2 * bh)).astype(np.float32)
+    jdt = getattr(jnp, dtype)
+    jo, jg = jnp.asarray(out, jdt), jnp.asarray(dout, jdt)
+    want = (_heads_major(jg).astype(jnp.float32)
+            * _heads_major(jo).astype(jnp.float32)).sum(-1)
+    tu = None
+    if u is not None:
+        # strided: a (B*H, T) view with strides (2, 2 B*H) of a (T, 2 B*H)
+        ju = jnp.asarray(u if g_lse == "contiguous" else u[:, ::2].T)
+        want = want - ju
+        tu = torch.tensor(u)
+        if g_lse == "strided":
+            tu = tu[:, ::2].t()
+            assert not tu.is_contiguous() and tu.shape == (bh, t)
+    tdt = getattr(torch, dtype)
+    got = fa.flash_delta(torch.tensor(out).to(tdt), torch.tensor(dout).to(tdt),
+                         tu)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("t", [32, 96])
+def test_backward_returns_its_delta_and_takes_both_schedules(t):
+    """flash_backward's delta (``return_delta``) is flash_delta's, and its
+    dq/dk/dv are the same under either schedule; on the CPU both are the
+    plain versions."""
+    q, k, v = (torch.tensor(a).to(torch.bfloat16) for a in _qkv(t=t, seed=19))
+    dout = torch.tensor(_qkv(t=t, seed=20)[0]).to(torch.bfloat16)
+    out, lse = fa.flash_forward(q, k, v, "causal")
+    g_lse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(1))
+    got = {sch: fa.flash_backward(q, k, v, out, lse, dout, "causal",
+                                  g_lse=g_lse, schedule=sch,
+                                  return_delta=True)
+           for sch in ("shared", "serial")}
+    torch.testing.assert_close(got["shared"][3],
+                               fa.flash_delta(out, dout, g_lse),
+                               rtol=0, atol=0)
+    for a, b in zip(got["shared"], got["serial"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert len(fa.flash_backward(q, k, v, out, lse, dout)) == 3
+    with pytest.raises(ValueError, match="only the sm90"):
+        fa.flash_backward(q.float(), k.float(), v.float(), out.float(), lse,
+                          dout.float(), schedule="shared")
 
 
 def test_exclusive_mask_empty_row_is_zero_with_zero_gradient():

@@ -1,10 +1,12 @@
 """Routing of the port's flash-attention launches between its two kernel
-designs, and the alignment rule of the sm90 kernels' copies.
+designs, the launch-shape rule, the backward's schedule, and the
+alignment rule of the sm90 kernels' copies.
 
-``kernel_design`` and ``for_copies`` are the plain functions the CUDA
-wrapper calls before every launch, so they are pinned here on the CPU; the
-kernels themselves run on the card through ``chip_smoke.py``.  Nothing
-here needs or looks for a card.
+``kernel_design``, ``launch_design``, ``backward_schedule`` and
+``for_copies`` are the plain functions the CUDA wrappers call before every
+launch, so they are pinned here on the CPU; the kernels themselves run on
+the card through ``chip_smoke.py``.  Nothing here needs or looks for a
+card.
 """
 
 import pytest
@@ -98,28 +100,86 @@ def test_alignment_rule_details():
 
 
 def test_launch_counters_by_design_start_at_zero_on_the_cpu_path():
+    """The CPU path (plain versions, the delta of the backward included)
+    launches nothing: every counter, ``delta`` too, stays where it was."""
     before = fa.launch_counts()
     q, k, v = (x.float().requires_grad_() for x in _qkv_views(t=64, d=32))
     fa.flash_attention(q, k, v).sum().backward()
+    out, lse = fa.flash_attention_with_lse(q, k, v)
+    (out.sum() + lse.sum()).backward()
     after = fa.launch_counts()
     assert after == before
-    assert set(after["sm90"]) == {"fwd", "dq", "dkv"}
-    assert set(after["simt"]) == {"fwd", "dq", "dkv"}
+    assert set(after["all"]) == {"fwd", "delta", "dq", "dkv"}
+    assert set(after["sm90"]) == {"fwd", "delta", "dq", "dkv"}
+    assert set(after["simt"]) == {"fwd", "delta", "dq", "dkv"}
 
 
 def test_set_launch_counts_restores_and_zeroes():
     saved = fa.launch_counts()
     try:
         fa.flash_attention.launches["fwd"] += 3
+        fa.flash_attention.launches["delta"] += 5
         fa.flash_attention.launches_sm90["dkv"] += 2
         fa.flash_attention.launches_sm90["dq"] += 4
+        fa.flash_attention.launches_sm90["delta"] += 6
+        fa.flash_attention.launches_simt["delta"] += 7
         fa.flash_attention_with_lse.launches += 1
         snap = fa.launch_counts()
+        assert (snap["all"]["delta"], snap["sm90"]["delta"],
+                snap["simt"]["delta"]) == (saved["all"]["delta"] + 5,
+                                           saved["sm90"]["delta"] + 6,
+                                           saved["simt"]["delta"] + 7)
         fa.set_launch_counts()
         zero = fa.launch_counts()
         assert all(v == 0 for name in ("all", "sm90", "simt")
                    for v in zero[name].values()) and zero["with_lse"] == 0
+        assert zero["all"]["delta"] == 0
         fa.set_launch_counts(snap)
         assert fa.launch_counts() == snap
     finally:
         fa.set_launch_counts(saved)
+
+
+# ---------------------------------------------------------------------------
+# the launch-shape rule: any T the blocks divide, head_dim 32/64/128
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("t,blocks", [(32, (128, 128)), (96, (128, 128)),
+                                      (288, (96, 96)), (100, (50, 25)),
+                                      (320, (64, 64)), (1024, (128, 128))],
+                         ids=["t32", "t96", "t288-blocks96", "t100",
+                              "t320", "t1024"])
+@pytest.mark.parametrize("dtype,design", [(torch.bfloat16, "sm90"),
+                                          (torch.float32, "simt")],
+                         ids=["bf16", "f32"])
+def test_launch_design_takes_any_t_the_blocks_divide(t, blocks, dtype,
+                                                     design):
+    """T % 64 != 0 launches (a masked tail tile), as JAX's kernels take
+    any T their clipped blocks divide."""
+    for which in ("fwd", "dq", "dkv"):
+        assert fa.launch_design(which, dtype, (2, t, 4, 64),
+                                *blocks) == design
+
+
+@pytest.mark.parametrize("head_dim", [8, 16, 48, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_launch_design_refuses_head_dims_and_blocks(head_dim, dtype):
+    with pytest.raises(ValueError, match="take head_dim 32/64/128"):
+        fa.launch_design("fwd", dtype, (2, 96, 4, head_dim))
+    with pytest.raises(ValueError, match="not divisible"):
+        fa.launch_design("dq", dtype, (2, 96, 4, 64), 64, 64)
+
+
+def test_backward_schedule_rule_and_overrides():
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert fa.backward_schedule(bf16, fa.SHARED_MAX_T) == "shared"
+    assert fa.backward_schedule(bf16, 32) == "shared"
+    assert fa.backward_schedule(bf16, fa.SHARED_MAX_T + 64) == "serial"
+    assert fa.backward_schedule(f32, 32) == "serial"
+    assert fa.backward_schedule(bf16, 4096, "shared") == "shared"
+    assert fa.backward_schedule(f32, 32, "serial") == "serial"
+    with pytest.raises(ValueError, match="only the sm90"):
+        fa.backward_schedule(f32, 32, "shared")
+    with pytest.raises(ValueError, match="schedule must be one of"):
+        fa.backward_schedule(bf16, 32, "parallel")

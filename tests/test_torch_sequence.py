@@ -75,7 +75,7 @@ def _qkv(b=2, t=32, h=4, d=8, seed=0):
             for _ in range(3)]
 
 
-def _jax_impl(impl, causal):
+def _jax_impl(impl, causal, block=8):
     if impl == "ring":
         return functools.partial(jsq.ring_attention, causal=causal)
     if impl == "striped":
@@ -83,8 +83,8 @@ def _jax_impl(impl, causal):
                                  striped=True)
     fn = (jsq.ring_flash_attention if impl == "ring_flash"
           else jsq.striped_ring_flash_attention)
-    return functools.partial(fn, causal=causal, block_q=8, block_k=8,
-                             interpret=True)
+    return functools.partial(fn, causal=causal, block_q=block,
+                             block_k=block, interpret=True)
 
 
 # ---------------------------------------------------------------------------
@@ -163,13 +163,28 @@ def test_loader_shards_rows_then_columns_like_jax():
 def test_ring_impls_match_jax_shard_map(impl, s, causal):
     """Output and q/k/v gradients of sum(out * w), B 2, T 32, H 4, D 8,
     blocks 8; the striped impls on striped-permuted inputs."""
-    q, k, v = _qkv(seed=s)
-    w = np.random.default_rng(10 + s).standard_normal(q.shape).astype(
+    _check_ring_against_shard_map(impl, s, causal, _qkv(seed=s), 8,
+                                  seed=10 + s)
+
+
+@pytest.mark.parametrize("impl", ["ring_flash", "striped_flash"])
+def test_flash_rings_at_t_local_32_match_jax_shard_map(impl):
+    """T 128 over 4 shards, causal, the default blocks (clipped to the
+    shard): each ring block is a T 32 flash call, under the CUDA kernels'
+    64-row tile (a masked tail tile on the card).  B 1, H 2, D 8."""
+    _check_ring_against_shard_map(impl, 4, True,
+                                  _qkv(b=1, t=128, h=2, seed=21), 128,
+                                  seed=22)
+
+
+def _check_ring_against_shard_map(impl, s, causal, qkv, block, seed):
+    q, k, v = qkv
+    w = np.random.default_rng(seed).standard_normal(q.shape).astype(
         np.float32)
     if impl.startswith("striped"):
         perm = sq.striped_permutation(q.shape[1], s)
         q, k, v = (x[:, perm] for x in (q, k, v))
-    jfn = _jax_impl(impl, causal)
+    jfn = _jax_impl(impl, causal, block)
     spec = P(None, "seq")
     ring = jax.shard_map(lambda a, b_, c: jfn(a, b_, c, axis="seq"),
                          mesh=_seq_mesh(s), in_specs=(spec, spec, spec),
@@ -181,7 +196,8 @@ def test_ring_impls_match_jax_shard_map(impl, s, causal):
     tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
     out = sq.sequence_sharded_attention(impl, tq, tk, tv,
                                         group=sq.LocalSeqGroup(s),
-                                        causal=causal, block_q=8, block_k=8)
+                                        causal=causal, block_q=block,
+                                        block_k=block)
     grads = torch.autograd.grad((out * torch.tensor(w)).sum(), (tq, tk, tv))
     tol = TOL if impl.endswith("flash") else RING_TOL
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),

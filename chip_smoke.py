@@ -16,7 +16,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               prefill chunks of width 16 and 256 at non-zero starts, GQA
               (16 query heads over 4 KV heads), int8 pools with scales,
               short lanes in a table at full capacity and lanes ending
-              inside a split.  Times the kernel at 32-512 keys per split,
+              inside a split; head_dim 32 (f32, bf16 and int8 pools,
+              GQA) and pool blocks of 64 and 128 keys at head_dim 32,
+              64 and 128.  Times the kernel at 32-512 keys per split,
               its plain version and a library yardstick (gather +
               ``F.scaled_dot_product_attention``) at the decode shape,
               medians of single calls, beside the bound (bytes or
@@ -32,7 +34,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. tokens   — f32 with TF32 off, the same LM at 2 layers: the fused
               scheduler, the gathered scheduler and ``generate()`` give
               identical greedy tokens; then fused == gathered again with
-              int8 KV pools and the prefix cache on.
+              int8 KV pools and the prefix cache on.  The same for the
+              flagship geometry of ``__graft_entry__.py`` (d_model 128, 4
+              heads of 32: paged attention at head_dim 32) with pool
+              blocks of 16 and of 64 keys.
 6. flash    — the flash-attention forward kernel and the backward's one
               C call (the delta kernel, then dq and dkv: in bf16 under
               both schedules, one shared launch and two launches, whose
@@ -42,7 +47,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               64 x 128, head_dim 128 and 32, T 320 (a multiple of 64, not
               of 128) with blocks 64 x 64, and the tail tiles: T 32 and
               T 96 with the default blocks and T 288 with blocks 96 x 96,
-              in bf16 and f32 and all three mask modes; q/k/v are the
+              in bf16 and f32 and all three mask modes; head_dim 8 and 16
+              at (4, 512, 8, d) in both dtypes and all three mask modes,
+              and at a tail T 96 (bf16 there runs the simt kernels: f32
+              products, one schedule); q/k/v are the
               strided views of a fused qkv tensor.  The bf16 kernels run
               the sm90 design (wgmma, cp.async) and are held against both
               plain versions: the one that rounds P and dS to bf16 as
@@ -52,7 +60,10 @@ Phases, each printing its own lines; any failure exits non-zero:
               durations under the profiler in the serial backward), the
               plain versions and the library yardstick
               (``F.scaled_dot_product_attention``, forward and
-              forward+backward) beside the bound.
+              forward+backward) beside the bound; then bf16 at head_dim 8
+              and 16 (the simt kernels) at (8, 1024, 16, d): forward and
+              backward by events beside their plain versions, SDPA and
+              the bound.
 7. train    — the 219M LM trained at full width through the port's
               ``Trainer`` (CLI flags, a 1-rank NCCL group so the gradient
               all-reduce runs): bytes of DESIGN.md, batch 8 x 1024, bf16
@@ -70,7 +81,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               then one C call for the backward: the delta kernel with the
               lse cotangent folded in, then dq and dk/dv, shared in one
               launch or in turn) against its plain version at the ring's
-              shard shape (8, 256, 16, 64) and at the tails T 32 and T 96,
+              shard shape (8, 256, 16, 64), at the tails T 32 and T 96 and
+              at head_dim 16 (T 256 and T 96),
               in bf16 and f32 and all three mask modes: out, lse, delta,
               and dq/dk/dv of sum(out * w) + sum(lse * u).  bf16 dq/dk/dv
               also against the rounding plain versions; each case's
@@ -124,9 +136,24 @@ Phases, each printing its own lines; any failure exits non-zero:
               a subprocess equal to the in-process ``generate()``, greedy
               and sampled (temperature 1, the same seed).  Prints the
               snapshot's bytes and the save and restore seconds.
+16. dispatch — ``--steps_per_dispatch 13``: phase 7's job, then phase
+              11's striped_flash job over ``LocalSeqGroup(4)``, each train
+              step captured once as a CUDA graph and replayed (one
+              dispatch per epoch).  Losses at the dispatch ends and the
+              final params against phases 7 and 11's eager runs (bitwise,
+              or phase 8's f32 tolerance); each flash kernel's launches
+              by design (the warm-up step's counters + replays x the
+              launches captured) equal to 12 (x 16 striped) x steps; step
+              ms, tokens/s, MFU and peak memory beside the eager run's;
+              the host's launch calls per step under the profiler (one
+              more dispatch, 3 eager steps); one replay's device time
+              (events) over the step: the device's busy share.  Then an
+              f32, TF32-off, 2-layer identity: 3 SGD steps through the
+              graph against the eager steps.
 
-The last lines are the kernels JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The last lines are the kernels JSON line (each kernel with the head_dims
+and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -307,6 +334,35 @@ def kernel_cases():
             (f"prefill_w16_mid_split_{dt}",
              dict(dtype=dt, lengths=[300, 37], starts=[284, 21], width=16,
                   n_heads=16, kv_heads=4, max_blocks=64)),
+            # head_dim 32 (the flagship's 4 heads of 32): f32/bf16 and
+            # int8 pools (2 chunks of 16 values per key), GQA prefill
+            (f"decode_d32_{dt}", dict(dtype=dt, lengths=dec,
+                                      starts=dec_starts, width=1, n_heads=4,
+                                      kv_heads=4, head_dim=32)),
+            (f"decode_d32_int8_{dt}", dict(dtype=dt, lengths=dec,
+                                           starts=dec_starts, width=1,
+                                           n_heads=4, kv_heads=4,
+                                           head_dim=32, quant=True)),
+            (f"prefill_w16_d32_gqa_int8_{dt}",
+             dict(dtype=dt, lengths=[316, 28], starts=[300, 17], width=16,
+                  n_heads=4, kv_heads=2, head_dim=32, quant=True)),
+        ]
+        # pool blocks of 64 and 128 keys at every head_dim (1024 keys: 16
+        # or 8 blocks, splits of 4 or 2 blocks), int8 at head_dim 32
+        for hd in (32, 64, 128):
+            for bs in (64, 128):
+                cases.append((f"decode_d{hd}_b{bs}_{dt}",
+                              dict(dtype=dt, lengths=dec, starts=dec_starts,
+                                   width=1, n_heads=4, kv_heads=4,
+                                   head_dim=hd, block_size=bs)))
+        cases += [
+            (f"decode_d32_b128_int8_{dt}",
+             dict(dtype=dt, lengths=dec, starts=dec_starts, width=1,
+                  n_heads=4, kv_heads=4, head_dim=32, block_size=128,
+                  quant=True)),
+            (f"prefill_w16_d64_b64_gqa_{dt}",
+             dict(dtype=dt, lengths=[316, 28], starts=[300, 17], width=16,
+                  n_heads=16, kv_heads=4, block_size=64, max_blocks=16)),
         ]
     return cases
 
@@ -579,6 +635,8 @@ ROUND_GRAD_TOL = (2e-3, 8e-3)
 
 
 MASKS = ("causal", "none", "causal_exclusive")
+# the head_dims under the sm90 kernels' 32 (bf16 runs on the simt kernels)
+SMALL_HEAD_DIMS = (8, 16)
 # the tail tiles: T not a multiple of the kernels' 64-row tile, with the
 # default blocks (clipped to T) and with blocks 96 x 96
 TAIL_CASES = ((32, (4, 32, 8, 64), {}), (96, (4, 96, 8, 64), {}),
@@ -613,6 +671,17 @@ def flash_cases():
                 cases.append((f"tail_t{t}_{mask}_{dt}",
                               dict(dtype=dt, shape=shape, mask=mask,
                                    **blocks)))
+    # head_dim 8 and 16 (bf16 too on the simt kernels), every mask, and a
+    # tail T 96 at each
+    for dt in ("bfloat16", "float32"):
+        for d in SMALL_HEAD_DIMS:
+            for mask in MASKS:
+                cases.append((f"d{d}_{mask}_{dt}",
+                              dict(dtype=dt, shape=(4, 512, 8, d),
+                                   mask=mask)))
+            cases.append((f"d{d}_tail_t96_{dt}",
+                          dict(dtype=dt, shape=(4, 96, 8, d),
+                               mask="causal")))
     return cases
 
 
@@ -661,7 +730,8 @@ def check_flash(torch, device, cases=None):
                                         seed=100 + i)
         mask = kw["mask"]
         blocks = (kw.get("block_q", 128), kw.get("block_k", 128))
-        schedules = fa.SCHEDULES if dtype == torch.bfloat16 else ("serial",)
+        design = fa.kernel_design("fwd", dtype, kw["shape"][-1])
+        schedules = fa.SCHEDULES if design == "sm90" else ("serial",)
         before = fa.launch_counts()
         out, lse = fa.flash_forward(q, k, v, mask, *blocks)
         runs = {sch: fa.flash_backward(q, k, v, out, lse, dout, mask,
@@ -674,7 +744,6 @@ def check_flash(torch, device, cases=None):
         # launches by design (none on the CPU): the forward once, each
         # backward kernel once per schedule
         n = int(device.type == "cuda")
-        design = fa.kernel_design("fwd", dtype, kw["shape"][-1])
         calls = dict.fromkeys(fa.COUNTERS, len(schedules))
         calls["fwd"] = 1
         want = {d: {w: n * calls[w] if d == design else 0
@@ -845,6 +914,53 @@ def time_flash(torch, device):
     return out_t
 
 
+def time_flash_small(torch, device):
+    """bf16 at head_dim 8 and 16 (the simt kernels), causal, at the
+    training shape's (B, T, H) = (8, 1024, 16): the forward and the
+    backward's one C call (delta, dq, dkv in turn) by CUDA events, their
+    plain versions, SDPA's forward and forward+backward, and the bound of
+    forward and of dq + dkv.  Returns {head_dim: numbers}."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    dtype, out_t = torch.bfloat16, {}
+    for d in SMALL_HEAD_DIMS:
+        shape = FLASH_SHAPE[:3] + (d,)
+        q, k, v, dout = make_flash_case(torch, device, dtype, shape)
+        out, lse = fa.flash_forward(q, k, v, "causal")
+        delta = fa.flash_delta(out, dout)
+        before = fa.launch_counts()
+        fwd = time_ms(torch, lambda: fa.flash_forward(q, k, v), 20)
+        bwd = time_ms(torch, lambda: fa.flash_backward(
+            q, k, v, out, lse, dout, "causal"), 10)
+        design = "/".join(dd for dd in ("sm90", "simt")
+                          if fa.launch_counts()[dd]["fwd"] > before[dd]["fwd"])
+        fa.set_launch_counts(before)   # timing does not count
+        plain_fwd = time_ms(torch, lambda: fa.flash_forward_reference(
+            q, k, v, "causal"), 3)
+        plain_bwd = time_ms(torch, lambda: (
+            fa.flash_dq_reference(q, k, v, dout, lse, delta),
+            fa.flash_dkv_reference(q, k, v, dout, lse, delta)), 3)
+        sdpa_fwd, sdpa_both = sdpa_yardstick(torch, q, k, v, dout, True)
+        b_fwd, by_fwd = flash_bound(torch, "fwd", shape, dtype)
+        b_dq, _ = flash_bound(torch, "dq", shape, dtype)
+        b_dkv, by_bwd = flash_bound(torch, "dkv", shape, dtype)
+        out_t[d] = dict(design=design, fwd_ms=fwd, backward_ms=bwd,
+                        plain_fwd_ms=plain_fwd, plain_backward_ms=plain_bwd,
+                        sdpa_fwd_ms=sdpa_fwd,
+                        sdpa_backward_ms=sdpa_both - sdpa_fwd,
+                        bound_fwd_ms=b_fwd, bound_fwd_by=by_fwd,
+                        bound_backward_ms=b_dq + b_dkv, bound_backward_by=by_bwd)
+        print(f"flash head_dim {d} {shape} bf16 causal [{design}]: forward "
+              f"{fwd:.4f} ms (plain {plain_fwd:.4f}, SDPA {sdpa_fwd:.4f}, "
+              f"bound {b_fwd:.4f} {by_fwd}); backward (delta + dq + dkv) "
+              f"{bwd:.4f} ms (plain dq + dkv {plain_bwd:.4f}, SDPA backward "
+              f"{sdpa_both - sdpa_fwd:.4f}, bound dq + dkv "
+              f"{b_dq + b_dkv:.4f} {by_bwd})", flush=True)
+    return out_t
+
+
 def sdpa_yardstick(torch, q, k, v, dout, causal):
     """(forward ms, forward+backward ms) of one
     ``F.scaled_dot_product_attention`` on (B, H, T, D) copies of the
@@ -867,6 +983,19 @@ def sdpa_yardstick(torch, q, k, v, dout, causal):
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
+
+def flagship_config(torch):
+    """``__graft_entry__.py``'s flagship LM (vocab 256, max_seq_len 128, 2
+    layers, d_model 128, 4 heads of 32, d_ff 512), f32."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        TransformerConfig,
+    )
+
+    return TransformerConfig(vocab_size=256, max_seq_len=128, n_layers=2,
+                             d_model=128, n_heads=4, d_ff=512,
+                             attention="dense", param_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+
 
 def big_config(torch, n_layers=None, dtype=None):
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
@@ -1053,7 +1182,12 @@ def profile_serving(torch, make_scheduler, requests):
 # phase 5: token identity in f32
 # ---------------------------------------------------------------------------
 
-def token_identity(torch, np, device, cfg=None):
+def token_identity(torch, np, device, cfg=None, block_size=16, tag=""):
+    """f32 greedy tokens: the fused scheduler (paged attention's kernel),
+    the gathered one and ``generate()`` agree on ragged requests (prompts
+    that fit ``cfg.max_seq_len`` with their new tokens), then fused ==
+    gathered with int8 KV pools and the prefix cache, at pool blocks of
+    ``block_size`` keys."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
         Transformer, generate,
     )
@@ -1071,13 +1205,13 @@ def token_identity(torch, np, device, cfg=None):
     rng = np.random.default_rng(SEED + 1)
     vocab = cfg.vocab_size
     ragged = [(rng.integers(0, vocab, p).tolist(), 16)
-              for p in (5, 40, 100, 300)]
+              for p in (5, 40, 100, 300) if p + 16 <= cfg.max_seq_len]
     base = rng.integers(0, vocab, 100).tolist()
     shared = [(base + [1], 12), (base + [2, 3], 12), (base[:37] + [4], 10),
               (base, 12), (base + [1], 8)]
-    geom = dict(slots=4, block_size=16, max_len=cfg.max_seq_len,
+    geom = dict(slots=4, block_size=block_size, max_len=cfg.max_seq_len,
                 prefill_chunk=256,
-                num_blocks=4 * -(-cfg.max_seq_len // 16) + 1)
+                num_blocks=4 * -(-cfg.max_seq_len // block_size) + 1)
 
     def run(requests, **kw):
         sched = Scheduler(model, params, ServeConfig(**geom, **kw),
@@ -1091,7 +1225,7 @@ def token_identity(torch, np, device, cfg=None):
     if not fused == gathered == oracle:
         raise AssertionError("f32 greedy tokens differ: fused vs gathered "
                              "vs generate()")
-    print(f"tokens f32: fused == gathered == generate() for "
+    print(f"tokens f32{tag}: fused == gathered == generate() for "
           f"{len(ragged)} ragged requests", flush=True)
     fq, sched = run(shared, attn_impl="fused", kv_quant=True,
                     prefix_cache=True)
@@ -1101,7 +1235,7 @@ def token_identity(torch, np, device, cfg=None):
     if fq != gq or hits == 0:
         raise AssertionError(f"int8 + prefix cache: fused == gathered is "
                              f"{fq == gq}, prefix hits {hits}")
-    print(f"tokens f32 int8-KV + prefix cache: fused == gathered for "
+    print(f"tokens f32{tag} int8-KV + prefix cache: fused == gathered for "
           f"{len(shared)} requests ({hits} prefix hits)", flush=True)
 
 
@@ -1445,9 +1579,11 @@ SHARD_SHAPE = (8, 256, 16, 64)
 
 def lse_cases():
     """The shard shape in both dtypes and all three mask modes, then the
-    tails T 32 and T 96 (shards under and past one 64-row tile)."""
+    tails T 32 and T 96 (shards under and past one 64-row tile), then
+    head_dim 16 (bf16 on the simt kernels) at the shard's T and at T 96."""
     shapes = (("", SHARD_SHAPE), ("t32_", (8, 32, 16, 64)),
-              ("t96_", (8, 96, 16, 64)))
+              ("t96_", (8, 96, 16, 64)), ("d16_", (8, 256, 16, 16)),
+              ("d16_t96_", (8, 96, 16, 16)))
     return [(f"{tag}{mask}_{dt}", dict(dtype=dt, shape=shape, mask=mask))
             for tag, shape in shapes
             for dt in ("bfloat16", "float32")
@@ -1497,7 +1633,8 @@ def check_flash_lse(torch, device, cases=None):
         design = fa.kernel_design("fwd", dtype, q.shape[-1])
         want = {d: dict.fromkeys(fa.COUNTERS, n if d == design else 0)
                 for d in ("sm90", "simt")}
-        schedule = fa.backward_schedule(dtype, q.shape[1])
+        schedule = fa.backward_schedule(dtype, q.shape[1],
+                                        head_dim=q.shape[-1])
         cuda_launches = 1 + (1 if schedule == "shared" else 2)
         # the delta of the backward's own C call (not counted: a check)
         saved = fa.launch_counts()
@@ -1518,7 +1655,7 @@ def check_flash_lse(torch, device, cases=None):
         # delta sums D f32 products: f32 rounding, scaled by its largest
         res.append(_close(torch, k_delta, delta, *f32, scaled=True))
         rounded = []
-        if dtype == torch.bfloat16:
+        if design == "sm90":
             r_dq = fa.flash_dq_reference(q, k, v, w, lse, delta, mask,
                                          round_p=True)
             r_dkv = fa.flash_dkv_reference(q, k, v, w, lse, delta, mask,
@@ -2067,6 +2204,275 @@ def resume_full_width(torch, np, device, straight, **over):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-step dispatch (--steps_per_dispatch) as CUDA-graph replay
+# ---------------------------------------------------------------------------
+
+DISPATCH_K = 13   # one dispatch per epoch of the 219M LM's 13 steps
+# the host's launch APIs counted per step under the profiler
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def launch_profile(torch, run, n_steps):
+    """``run()`` (``n_steps`` train steps) under ``torch.profiler``: the
+    host's launch API calls per step by name, the wall ms per step, and
+    the device time the profiler recorded (a lower bound: it can drop
+    launches, see ``kernel_launch_ms``), with the flash kernels it
+    recorded per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    apis, device_us, flash = {}, 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            device_us += ev.device_time_total
+            flash += "flash_" in ev.name
+        elif ev.name in LAUNCH_APIS:
+            apis[ev.name] = apis.get(ev.name, 0) + 1
+    return dict(launches_per_step={k: v / n_steps for k, v in apis.items()},
+                launch_calls_per_step=sum(apis.values()) / n_steps,
+                wall_ms_per_step=wall_ms / n_steps,
+                profiled_device_ms_per_step=device_us / 1e3 / n_steps,
+                profiled_flash_kernels_per_step=flash / n_steps)
+
+
+def dispatch_full_width(torch, np, device, eager, seq_group=None,
+                        k=DISPATCH_K, **over):
+    """Phase 7's job (phase 11's with ``seq_group``) with
+    ``--steps_per_dispatch k`` through the Trainer: on the card each
+    dispatch replays the train step's CUDA graph.  Its losses at the
+    dispatch ends and its final params against ``eager`` (that phase's
+    run, the same seed, data and steps), bitwise or within phase 8's f32
+    tolerance; the flash launches by design (the warm-up's, counted by
+    the wrappers, plus replays x the launches captured in the graph)
+    equal to 12 x ring blocks x steps; step ms (one CUDA event per
+    dispatch), tokens/s, MFU and peak memory against the eager run's;
+    the host's launch calls per step of one more dispatch and of 3 eager
+    steps under the profiler; and the device time of one replay (events,
+    the host held back by a GPU sleep) over the loop's step time: the
+    device's busy share."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    one_rank_group(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = f"{tmp}/metrics.jsonl"
+        cfg = config_from_args(build_argparser().parse_args(train_flags(
+            metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
+        trainer = Trainer(cfg, device=device, seq_group=seq_group)
+        trainer.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        fa.set_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        counts = fa.launch_counts()
+        final = [p.detach().cpu() for p in leaves(trainer.state.params)]
+        with open(metrics) as f:
+            losses = {r["step"]: r["loss"] for r in map(json.loads, f)
+                      if "loss" in r}
+    graphed = trainer.multi_step
+    m, steps = cfg.model, result["steps"]
+    tag = "dispatch" if seq_group is None else f"dispatch {m.attention}"
+    ends = list(range(k, steps + 1, k))
+    if sorted(losses) != ends or steps != len(eager["losses"]):
+        raise AssertionError(f"{tag}: losses logged at {sorted(losses)}, "
+                             f"expected the dispatch ends {ends}; {steps} "
+                             f"steps")
+    loss_diff = max(abs(losses[s] - eager["losses"][s - 1]) for s in ends)
+    loss_rel = max(abs(losses[s] - eager["losses"][s - 1])
+                   / abs(eager["losses"][s - 1]) for s in ends)
+    param_diff = max(float((a - b).abs().max())
+                     for a, b in zip(final, eager["final_params"]))
+    bitwise = loss_diff == 0 and param_diff == 0
+    # phase 8's f32 tolerance, the bar should graph and eager not be equal
+    within = loss_rel <= 1e-5 and all(
+        bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
+        for a, b in zip(final, eager["final_params"]))
+    print(f"{tag}: k {k}, {steps} steps, losses at the dispatch ends "
+          f"{[round(losses[s], 4) for s in ends]}; against the eager run: "
+          f"largest loss difference {loss_diff:.3g} ({loss_rel:.3g} "
+          f"relative), largest param difference {param_diff:.3g} "
+          f"(bitwise: {bitwise})", flush=True)
+    if not (bitwise or within):
+        raise AssertionError(f"{tag}: the graphed run differs from the "
+                             f"eager one beyond phase 8's f32 tolerance")
+    # flash launches by design: eager (warm-up) + replays x captured
+    s_n = 1 if seq_group is None else seq_group.size
+    expect = m.n_layers * ring_blocks(m.attention, s_n) * steps
+    per_replay = graphed.launches_per_replay
+    total = {w: counts["all"][w] + graphed.replays * per_replay["all"][w]
+             for w in fa.COUNTERS}
+    with_lse = counts["with_lse"] + graphed.replays * per_replay["with_lse"]
+    print(f"{tag}: {graphed.eager_steps} eager step(s) (the warm-up), "
+          f"{graphed.replays} replays; flash launches by design: eager "
+          f"{counts['all']} + {graphed.replays} x {per_replay['all']} "
+          f"captured = {total} (expected {expect} each)"
+          + (f"; with_lse {with_lse}" if seq_group is not None else ""),
+          flush=True)
+    if any(v != expect for v in total.values()) or (
+            seq_group is not None and with_lse != expect):
+        raise AssertionError(f"{tag}: flash launches {total}, with_lse "
+                             f"{with_lse}, expected {expect} each")
+    # the loop's numbers: every dispatch after the first (warm-up, capture)
+    step_ms = sorted(result["step_ms"][k:])
+    med = step_ms[len(step_ms) // 2]
+    tokens = cfg.batch_size * cfg.data.seq_len
+    flops = 3.0 * trainer.model.fwd_flops((cfg.batch_size, cfg.data.seq_len))
+    out = dict(k=k, steps=steps, bitwise=bitwise, loss_max_abs_diff=loss_diff,
+               param_max_abs_diff=param_diff, launches=total,
+               with_lse_launches=with_lse,
+               launches_per_replay=per_replay, replays=graphed.replays,
+               eager_steps=graphed.eager_steps, step_ms_median=med,
+               first_dispatch_ms_per_step=result["step_ms"][0],
+               tokens_per_s=tokens / med * 1e3,
+               mfu=flops / (med / 1e3 * PEAK_FLOPS["torch.bfloat16"]),
+               peak_memory_gib=result["peak_memory_bytes"] / 2 ** 30,
+               eager_step_ms_median=eager["step_ms_median"],
+               eager_peak_memory_gib=eager["peak_memory_gib"], fit_s=fit_s)
+
+    # the host's launches per step: one more dispatch, and 3 eager steps
+    groups = trainer.loader.epoch_groups(0, k)
+    group = next(groups)[0]
+    groups.close()
+
+    def dispatch():
+        trainer.state, _ = graphed(trainer.state, group)
+
+    def eager_steps():
+        for b in group[:3]:
+            trainer.state, _ = trainer.train_step(trainer.state, b)
+
+    out["profile_graphed"] = launch_profile(torch, dispatch, len(group))
+    out["profile_eager"] = launch_profile(torch, eager_steps, 3)
+    # device time of one replay, the host held back: the busy share
+    replay_ms = time_ms(torch, graphed.graph.replay, 10)
+    out.update(replay_device_ms=replay_ms, busy_share=replay_ms / med)
+    pg, pe = out["profile_graphed"], out["profile_eager"]
+    print(f"{tag}: step {med:.2f} ms graphed vs {eager['step_ms_median']:.2f}"
+          f" ms eager (first dispatch {result['step_ms'][0]:.2f} ms/step: "
+          f"warm-up and capture), {out['tokens_per_s']:.0f} tokens/s, MFU "
+          f"{100 * out['mfu']:.1f}%, peak memory "
+          f"{out['peak_memory_gib']:.2f} GiB graphed vs "
+          f"{eager['peak_memory_gib']:.2f} GiB eager; device time of one "
+          f"replay {replay_ms:.2f} ms: busy {100 * out['busy_share']:.1f}% "
+          f"of the step", flush=True)
+    print(f"{tag}: host launch calls per step: graphed "
+          f"{pg['launch_calls_per_step']:.1f} {pg['launches_per_step']}, "
+          f"eager {pe['launch_calls_per_step']:.1f} "
+          f"{pe['launches_per_step']}; under the profiler: wall "
+          f"{pg['wall_ms_per_step']:.2f} vs {pe['wall_ms_per_step']:.2f} "
+          f"ms/step, recorded device time {pg['profiled_device_ms_per_step']:.2f}"
+          f" vs {pe['profiled_device_ms_per_step']:.2f} ms/step, flash "
+          f"kernels recorded {pg['profiled_flash_kernels_per_step']:.1f} vs "
+          f"{pe['profiled_flash_kernels_per_step']:.1f} per step", flush=True)
+    print(f"{tag}: " + json.dumps(out), flush=True)
+    del trainer, graphed, group
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_identity(torch, np, device, n_layers=2, steps=3, batch=8,
+                      **over):
+    """f32, TF32 off (phase 8 set it), flash attention at full width and
+    ``n_layers`` layers: ``steps`` SGD-momentum steps eagerly and through
+    ``GraphedTrainStep`` (one dispatch per step: the warm-up, then
+    replays) from the same params and batches; bitwise, or losses to rtol
+    1e-5 and params within 1e-5 + 1e-4 |p| (phase 8's bars)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(BIG, n_layers=n_layers, activation="gelu",
+              pos_encoding="learned", ce_chunk=256, attention="flash")
+    kw.update(over)
+    data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
+    world = world_setup(device)
+    model = Transformer(TransformerConfig(**kw), device=device)
+    params = model.init(torch.Generator().manual_seed(SEED + 2))
+    batches = [b for _, b in zip(range(steps), ShardedLoader(
+        data, batch, device=device, shuffle=False).epoch(0))]
+    runs = {}
+    for mode in ("eager", "graph"):
+        opt = optim.sgd(1e-2, 0.9)
+        state = TrainState.from_params(_clone_tree(torch, params), opt)
+        step = dp.make_train_step(model, opt, world,
+                                  loss_name="cross_entropy")
+        run = (step if mode == "eager"
+               else dp.GraphedTrainStep(step, opt, device))
+        losses = []
+        for b in batches:
+            state, loss = run(state, b if mode == "eager" else [b])
+            losses.append(float(loss))
+        runs[mode] = (losses, [p.detach().clone()
+                               for p in leaves(state.params)])
+        del run, state
+    (le, pe), (lg, pg) = runs["eager"], runs["graph"]
+    worst = max(float((a - b).abs().max()) for a, b in zip(pg, pe))
+    bitwise = le == lg and worst == 0
+    ok = bitwise or (
+        all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lg, le))
+        and all(bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
+                for a, b in zip(pg, pe)))
+    print(f"dispatch f32 identity ({n_layers} layers, {steps} SGD steps): "
+          f"losses graph {lg} eager {le}; params max |diff| {worst:.3e} "
+          f"(bitwise: {bitwise})", flush=True)
+    if not ok:
+        raise AssertionError("f32 training through the CUDA graph differs "
+                             "from the eager steps")
+    return dict(bitwise=bitwise, param_max_abs_diff=worst)
+
+
+def _clone_tree(torch, tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(torch, v) for k, v in tree.items()}
+    return [_clone_tree(torch, v) for v in tree]
+
+
 def main() -> int:
     import torch
 
@@ -2101,10 +2507,17 @@ def main() -> int:
 
     phase("5 f32 token identity")
     token_identity(torch, np, device)
+    # the flagship geometry: paged attention at head_dim 32, blocks of 16
+    # and of 64 keys
+    for bs in (16, 64):
+        token_identity(torch, np, device, cfg=flagship_config(torch),
+                       block_size=bs, tag=f" flagship (head_dim 32, block "
+                                          f"{bs})")
 
     phase("6 flash attention against its plain versions")
     flash_err = check_flash(torch, device)
     flash_timing = time_flash(torch, device)
+    small_timing = time_flash_small(torch, device)
 
     phase("7 train the 219M LM at full width through the flash kernels")
     trained = train_full_width(torch, np, device, keep_final=True)
@@ -2127,6 +2540,7 @@ def main() -> int:
 
     seq_trained = train_full_width(torch, np, device,
                                    seq_group=LocalSeqGroup(4),
+                                   keep_final=True,
                                    attention="striped_flash", sp=4)
     merge_ms = (seq_trained["profile_ms_per_step"].get("other", 0.0)
                 - trained["profile_ms_per_step"].get("other", 0.0))
@@ -2148,6 +2562,15 @@ def main() -> int:
 
     phase("15 resume: checkpoint, resume and --generate of the 219M LM")
     resume_full_width(torch, np, device, trained)
+
+    phase("16 dispatch: --steps_per_dispatch as CUDA-graph replay")
+    dispatch_full_width(torch, np, device, trained)
+    del trained["final_params"]
+    dispatch_full_width(torch, np, device, seq_trained,
+                        seq_group=LocalSeqGroup(4),
+                        attention="striped_flash", sp=4)
+    del seq_trained["final_params"]
+    dispatch_identity(torch, np, device)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -2160,17 +2583,27 @@ def main() -> int:
                     source=src + "paged_attention.cu",
                     design="split-K over the context, cp.async ring, "
                            "in-kernel merge in split order",
+                    takes="head_dim 32/64/128; pool blocks of any multiple "
+                          "of 16 keys (16, 32, 64, 128 checked)",
                     replaces=f"{tpu}:486", launches=served["launches"],
                     max_abs_err=max_err, **timing)]
     for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
         # bf16 on the tensor cores; f32 on csrc/flash_attention.cu
         kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
                             source=src + "flash_attention_sm90.cu",
-                            design="sm90 wgmma + cp.async (bf16)",
+                            sources=[src + "flash_attention_sm90.cu",
+                                     src + "flash_attention.cu"],
+                            design="sm90 wgmma + cp.async (bf16, head_dim "
+                                   "32/64/128); simt (f32, and bf16 at "
+                                   "head_dim 8/16)",
+                            takes="head_dim 8/16/32/64/128, any T the "
+                                  "blocks divide",
                             replaces=f"{tpu}:{line}",
                             launches=trained["launches"][which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
+    # bf16 at head_dim 8 and 16 (simt), timed at (8, 1024, 16, d)
+    kernels[1]["small_head_dims"] = small_timing
     kernels.append(dict(name="flash_attention_with_lse", route="cuda",
                         source=src + "flash_attention_sm90.cu",
                         sources=[src + "flash_attention_sm90.cu",
@@ -2180,12 +2613,16 @@ def main() -> int:
                                "call: delta kernel, dq + dk/dv in one "
                                "shared launch up to T "
                                f"{fa.SHARED_MAX_T}, else two; masked tail "
-                               "tiles; f32 on the simt source",
+                               "tiles; f32, and bf16 at head_dim 8/16, on "
+                               "the simt source",
+                        takes="head_dim 8/16/32/64/128, any T the blocks "
+                              "divide",
                         replaces=f"{tpu}:445",
                         launches=seq_trained["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))
     kernels.append(dict(name="fused_layernorm", route="cuda",
                         source=src + "layernorm.cu", replaces=f"{tpu}:711",
+                        takes="any rows, d_model up to 4096, f32 or bf16",
                         launches=ln_launches, max_abs_err=ln_err,
                         **ln_timing))
     print(json.dumps({"kernels": kernels}), flush=True)

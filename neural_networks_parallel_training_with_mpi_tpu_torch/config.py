@@ -245,18 +245,12 @@ class TrainConfig:
     # microbatch gradient accumulation inside the jitted step (DP path);
     # 1 = off.  One accumulated update = one optimizer step.
     accum_steps: int = 1
-    # k optimizer steps per host dispatch (lax.scan over a device-staged
-    # stack of k batches, VERDICT r4 item 6): amortizes the per-step host
-    # dispatch that dominates small models (MNIST MLP measured 0.011 MFU —
-    # dispatch-bound, BENCH_FULL.json).  The scan replays the identical
-    # batches in the identical order, so on the plain-DP shard_map path
-    # the trajectory is BITWISE identical to k=1; on the GSPMD
-    # (tensor/fsdp) paths AND the ring-attention SP stacked dispatch it is
-    # the same math within compile-fusion noise (XLA fuses the scanned
-    # body differently than the standalone step —
-    # tests/test_dispatch.py bounds the drift).  1 = off.
-    # Single-host layouts (see ShardedLoader.epoch_groups); SP stacks
-    # through spmd.place_batch_stack.
+    # multi-step dispatch (--steps_per_dispatch k): the epoch in groups of
+    # up to k consecutive batches (data.loader.ShardedLoader.epoch_groups:
+    # the same batches in the same order), each group one dispatch; on the
+    # card the train step is captured once as a CUDA graph and replayed
+    # per step (parallel.data_parallel.GraphedTrainStep).  One process
+    # only, as in the JAX package.  1 = off.
     steps_per_dispatch: int = 1
     # virtual stage-slices per pipeline device (interleaved schedule,
     # parallel.pipeline): bubble fraction (pp-1)/(v*M + pp-1) instead of
@@ -523,14 +517,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--accum_steps", type=int, default=1,
                    help="microbatch gradient-accumulation factor (DP path)")
     p.add_argument("--steps_per_dispatch", type=int, default=1,
-                   help="k optimizer steps per host dispatch (lax.scan "
-                        "over a device-staged batch stack) — amortizes "
-                        "per-step dispatch overhead on small models; "
-                        "same batches in the same order, so bitwise "
-                        "trajectory-identical to k=1 on the plain-DP "
-                        "shard_map path, identical-within-fusion-noise "
-                        "on the GSPMD (tp/fsdp) and ring-attention SP "
-                        "paths")
+                   help="k optimizer steps per host dispatch: the same "
+                        "batches in the same order, in groups of up to k; "
+                        "on the GPU the train step is captured once as a "
+                        "CUDA graph and replayed per step (a few copies "
+                        "and one graph launch per step instead of every "
+                        "kernel launch), on the CPU k eager steps; one "
+                        "process only")
     p.add_argument("--pp_interleave", type=int, default=1,
                    help="virtual stage-slices per pipeline device "
                         "(interleaved schedule: bubble / v at constant "

@@ -1,4 +1,6 @@
-// Flash attention forward and FlashAttention-2 backward, for Hopper (sm_90a).
+// Flash attention forward and FlashAttention-2 backward on the CUDA cores,
+// for Hopper (sm_90a): every f32 launch, and the bf16 launches at head_dim
+// 8 and 16.
 //
 // Replaces the TPU kernels of neural_networks_parallel_training_with_mpi_tpu/
 // ops/pallas_kernels.py: _flash_fwd_kernel (forward, out + lse),
@@ -15,9 +17,16 @@
 // per byte moved.  These kernels run their products on the CUDA cores in
 // f32 (no mma/wgmma, no TF32), which keeps the f32 path exact to f32
 // rounding: phases 8 and 12 of chip_smoke.py hold f32 training with flash
-// equal to dense and to the ring.  Built for float32 only: every bf16
-// kernel (forward, dq, dk/dv) runs on the tensor cores in
-// csrc/flash_attention_sm90.cu, and a bf16 launch here returns -1.
+// equal to dense and to the ring.  bf16 at head_dim 32, 64 and 128 runs on
+// the tensor cores in csrc/flash_attention_sm90.cu.  bf16 at head_dim 8
+// and 16 runs here: wgmma contracts over 16 bf16 values, so S = Q K^T and
+// dP = dO V^T at head_dim 8 would need zero columns in every shared tile,
+// and their 16- and 32-byte rows need other swizzle modes and descriptors
+// than the sm90 tiles'.  At such head_dims a score costs as many flops as
+// its softmax, so the tensor cores would buy little: the bf16 inputs load
+// as f32, every product and the softmax run in f32 (P and dS are not
+// rounded to bf16), and out, dq, dk, dv round to bf16 once on the store.
+// A bf16 launch at another head_dim returns -1.
 //
 // Design (not a block-by-block translation of the Pallas kernels, which
 // hold a whole K/V row in VMEM):
@@ -29,7 +38,8 @@
 //   ty + 16i and columns tx + 16j; a row's 16 threads sit in one half-warp,
 //   so row max and row sum are xor shuffles.  Probabilities go through
 //   shared memory for the value-side products, where the thread owns
-//   rows ty + 16i and head dims tx + 16d.
+//   rows ty + 16i and head dims tx + 16d (at head_dim 8 the threads with
+//   tx >= 8 compute a copy of dim 7 and store nothing).
 // - The key loop of the forward and dq kernels ends where the TPU kernel's
 //   ends (_k_block_hi of the block_q block holding the tile's last row), and
 //   the dkv kernel's query loop starts where the TPU kernel's starts (the
@@ -50,6 +60,7 @@
 // Plain C interface, loaded with ctypes: each entry returns the CUDA error
 // code, or -1 for an unsupported dtype / head_dim / kernel.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,6 +78,30 @@ constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int kMaskNone = 0;
 constexpr int kMaskCausal = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// head dims a thread owns in the value-side products (one at D < 16)
+template <int D>
+__host__ __device__ constexpr int dims_per_thread() {
+  return (D + kLanes - 1) / kLanes;
+}
+
+// head-dim column dd of thread tx in the value-side products, tx + 16 dd;
+// at D < 16 the threads past D compute a copy of column D - 1 and store
+// nothing (store_rows)
+template <int D>
+__device__ __forceinline__ int dim_col(int tx, int dd) {
+  const int c = tx + kLanes * dd;
+  return D < kLanes ? min(c, D - 1) : c;
+}
 
 // element strides of a (B, T, H, D) view; head_dim has stride 1
 struct Strides {
@@ -132,33 +167,34 @@ __device__ __forceinline__ float row_sum(float x) {
 // shared tile [kTile][D + 1] (the +1 keeps the threads of a warp, which
 // read 16 different rows at one column, on different banks); rows at or
 // past t load as 0
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
+                                          const T* __restrict__ src,
                                           Strides s, int b, int h, int row0,
                                           int t, float scale) {
-  const float* base = src + b * s.b + h * s.h;
+  const T* base = src + b * s.b + h * s.h;
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, d = e % D;
     dst[r * (D + 1) + d] =
-        row0 + r < t ? base[(long long)(row0 + r) * s.t + d] * scale : 0.f;
+        row0 + r < t ? to_f32(base[(long long)(row0 + r) * s.t + d]) * scale
+                     : 0.f;
   }
 }
 
-// rows below t only
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, Strides s,
-                                           int b, int h, int row0, int t,
-                                           int ty, int tx,
-                                           float (&acc)[kPer][D / kLanes]) {
-  float* base = dst + b * s.b + h * s.h;
+// rows below t and head dims below D only
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(
+    T* __restrict__ dst, Strides s, int b, int h, int row0, int t, int ty,
+    int tx, float (&acc)[kPer][dims_per_thread<D>()]) {
+  if (D < kLanes && tx >= D) return;
+  T* base = dst + b * s.b + h * s.h;
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     if (row0 + ty + kLanes * i >= t) continue;
-    float* row = base + (long long)(row0 + ty + kLanes * i) * s.t;
+    T* row = base + (long long)(row0 + ty + kLanes * i) * s.t;
 #pragma unroll
-    for (int dd = 0; dd < D / kLanes; ++dd)
-      row[tx + kLanes * dd] = acc[i][dd];
+    for (int dd = 0; dd < dims_per_thread<D>(); ++dd)
+      store(row + tx + kLanes * dd, acc[i][dd]);
   }
 }
 
@@ -178,10 +214,10 @@ constexpr size_t dkv_smem() {
 // ---------------------------------------------------------------------------
 // forward: out, lse for one 64-row query tile
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   constexpr int LD = D + 1;
-  constexpr int kDims = D / kLanes;
+  constexpr int kDims = dims_per_thread<D>();
   extern __shared__ float smem[];
   float* q_s = smem;                  // pre-scaled, as the TPU kernel does
   float* k_s = q_s + kTile * LD;
@@ -191,11 +227,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   const int row0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
 
-  load_tile<D>(q_s, q, a.qs, b, h, row0, a.t, a.scale);
+  load_tile<T, D>(q_s, q, a.qs, b, h, row0, a.t, a.scale);
   float m[kPer], l[kPer], acc[kPer][kDims];
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
@@ -209,8 +245,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();  // every thread is done with the previous tile
-    load_tile<D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
-    load_tile<D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
+    load_tile<T, D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
+    load_tile<T, D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
     __syncthreads();
 
     float s[kPer][kPer];
@@ -263,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) pv[i] = p_s[(ty + kLanes * i) * kPLd + c];
 #pragma unroll
-      for (int dd = 0; dd < kDims; ++dd) vv[dd] = v_s[c * LD + tx + kLanes * dd];
+      for (int dd = 0; dd < kDims; ++dd) vv[dd] = v_s[c * LD + dim_col<D>(tx, dd)];
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
 #pragma unroll
@@ -283,17 +319,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       a.lse_out[(long long)bh * a.t + row0 + ty + kLanes * i] =
           empty ? kNegInf : m[i] + logf(l[i]);
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
+  store_rows<T, D>(static_cast<T*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
                 acc);
 }
 
 // ---------------------------------------------------------------------------
 // backward dq for one 64-row query tile
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int LD = D + 1;
-  constexpr int kDims = D / kLanes;
+  constexpr int kDims = dims_per_thread<D>();
   extern __shared__ float smem[];
   float* q_s = smem;
   float* do_s = q_s + kTile * LD;
@@ -304,12 +340,12 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   const int row0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
 
-  load_tile<D>(q_s, static_cast<const float*>(a.q), a.qs, b, h, row0, a.t,
+  load_tile<T, D>(q_s, static_cast<const T*>(a.q), a.qs, b, h, row0, a.t,
                1.f);
-  load_tile<D>(do_s, static_cast<const float*>(a.dout), a.dos, b, h, row0,
+  load_tile<T, D>(do_s, static_cast<const T*>(a.dout), a.dos, b, h, row0,
                a.t, 1.f);
   float lse[kPer], delta[kPer], dq[kPer][kDims];
   bool live[kPer];
@@ -329,8 +365,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
                           a.block_k);
   for (int col0 = 0; col0 < end; col0 += kTile) {
     __syncthreads();
-    load_tile<D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
-    load_tile<D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
+    load_tile<T, D>(k_s, k, a.ks, b, h, col0, a.t, 1.f);
+    load_tile<T, D>(v_s, v, a.vs, b, h, col0, a.t, 1.f);
     __syncthreads();
 
     float s[kPer][kPer], dp[kPer][kPer];
@@ -380,7 +416,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 #pragma unroll
       for (int i = 0; i < kPer; ++i) dsv[i] = ds_s[(ty + kLanes * i) * kPLd + c];
 #pragma unroll
-      for (int dd = 0; dd < kDims; ++dd) kv[dd] = k_s[c * LD + tx + kLanes * dd];
+      for (int dd = 0; dd < kDims; ++dd) kv[dd] = k_s[c * LD + dim_col<D>(tx, dd)];
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
 #pragma unroll
@@ -388,17 +424,17 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
           dq[i][dd] = fmaf(dsv[i], kv[dd], dq[i][dd]);
     }
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
+  store_rows<T, D>(static_cast<T*>(a.out0), a.o0s, b, h, row0, a.t, ty, tx,
                 dq);
 }
 
 // ---------------------------------------------------------------------------
 // backward dk, dv for one 64-key tile
 // ---------------------------------------------------------------------------
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   constexpr int LD = D + 1;
-  constexpr int kDims = D / kLanes;
+  constexpr int kDims = dims_per_thread<D>();
   extern __shared__ float smem[];
   float* k_s = smem;
   float* v_s = k_s + kTile * LD;
@@ -412,12 +448,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const int col0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / a.n_heads, h = bh % a.n_heads;
   const int tx = threadIdx.x % kLanes, ty = threadIdx.x / kLanes;
-  const float* q = static_cast<const float*>(a.q);
-  const float* dout = static_cast<const float*>(a.dout);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
 
-  load_tile<D>(k_s, static_cast<const float*>(a.k), a.ks, b, h, col0, a.t,
+  load_tile<T, D>(k_s, static_cast<const T*>(a.k), a.ks, b, h, col0, a.t,
                1.f);
-  load_tile<D>(v_s, static_cast<const float*>(a.v), a.vs, b, h, col0, a.t,
+  load_tile<T, D>(v_s, static_cast<const T*>(a.v), a.vs, b, h, col0, a.t,
                1.f);
   // thread owns keys ty + 16i and head dims tx + 16dd of dk and dv
   float dk[kPer][kDims], dv[kPer][kDims];
@@ -430,8 +466,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       query_start(a.mask, col0, a.block_q, a.block_k) / kTile * kTile;
   for (int row0 = start; row0 < a.t; row0 += kTile) {
     __syncthreads();
-    load_tile<D>(q_s, q, a.qs, b, h, row0, a.t, 1.f);
-    load_tile<D>(do_s, dout, a.dos, b, h, row0, a.t, 1.f);
+    load_tile<T, D>(q_s, q, a.qs, b, h, row0, a.t, 1.f);
+    load_tile<T, D>(do_s, dout, a.dos, b, h, row0, a.t, 1.f);
     if (threadIdx.x < kTile) {  // a query at or past t: no key, P = 0
       const bool in = row0 + (int)threadIdx.x < a.t;
       const long long idx = (long long)bh * a.t + row0 + threadIdx.x;
@@ -497,8 +533,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       }
 #pragma unroll
       for (int dd = 0; dd < kDims; ++dd) {
-        dov[dd] = do_s[r * LD + tx + kLanes * dd];
-        qv[dd] = q_s[r * LD + tx + kLanes * dd];
+        dov[dd] = do_s[r * LD + dim_col<D>(tx, dd)];
+        qv[dd] = q_s[r * LD + dim_col<D>(tx, dd)];
       }
 #pragma unroll
       for (int i = 0; i < kPer; ++i)
@@ -509,9 +545,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
         }
     }
   }
-  store_rows<D>(static_cast<float*>(a.out0), a.o0s, b, h, col0, a.t, ty, tx,
+  store_rows<T, D>(static_cast<T*>(a.out0), a.o0s, b, h, col0, a.t, ty, tx,
                 dk);
-  store_rows<D>(static_cast<float*>(a.out1), a.o1s, b, h, col0, a.t, ty, tx,
+  store_rows<T, D>(static_cast<T*>(a.out1), a.o1s, b, h, col0, a.t, ty, tx,
                 dv);
 }
 
@@ -526,20 +562,62 @@ int launch(Kernel kernel, size_t smem, const Args& a, cudaStream_t stream) {
 }
 
 // which: 0 = forward, 1 = dq, 2 = dkv
-template <int D>
+template <typename T, int D>
 int launch_which(int which, const Args& a, cudaStream_t stream) {
-  if (which == 0) return launch(flash_fwd_kernel<D>, fwd_smem<D>(), a, stream);
-  if (which == 1) return launch(flash_dq_kernel<D>, dq_smem<D>(), a, stream);
-  if (which == 2) return launch(flash_dkv_kernel<D>, dkv_smem<D>(), a, stream);
+  if (which == 0)
+    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), a, stream);
+  if (which == 1)
+    return launch(flash_dq_kernel<T, D>, dq_smem<D>(), a, stream);
+  if (which == 2)
+    return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), a, stream);
   return -1;
 }
 
+// f32 at head_dim 8, 16, 32, 64, 128; bf16 at head_dim 8 and 16 (the
+// larger ones run on flash_attention_sm90.cu); -1 for any other
+bool supported(int dtype, int head_dim) {
+  if (head_dim == 8 || head_dim == 16) return dtype == 0 || dtype == 1;
+  return dtype == 0 && (head_dim == 32 || head_dim == 64 || head_dim == 128);
+}
+
+template <typename T>
 int dispatch_head_dim(int which, int head_dim, const Args& a,
                       cudaStream_t stream) {
-  if (head_dim == 32) return launch_which<32>(which, a, stream);
-  if (head_dim == 64) return launch_which<64>(which, a, stream);
-  if (head_dim == 128) return launch_which<128>(which, a, stream);
+  if (head_dim == 8) return launch_which<T, 8>(which, a, stream);
+  if (head_dim == 16) return launch_which<T, 16>(which, a, stream);
+  if constexpr (sizeof(T) == 4) {
+    if (head_dim == 32) return launch_which<T, 32>(which, a, stream);
+    if (head_dim == 64) return launch_which<T, 64>(which, a, stream);
+    if (head_dim == 128) return launch_which<T, 128>(which, a, stream);
+  }
   return -1;
+}
+
+int dispatch(int dtype, int which, int head_dim, const Args& a,
+             cudaStream_t stream) {
+  if (!supported(dtype, head_dim)) return -1;
+  return dtype == 0 ? dispatch_head_dim<float>(which, head_dim, a, stream)
+                    : dispatch_head_dim<__nv_bfloat16>(which, head_dim, a,
+                                                       stream);
+}
+
+template <typename T>
+int launch_delta(int head_dim, const void* out, const void* dout,
+                 const void* g_lse, void* delta, const long long* strides,
+                 int batch, int n_heads, int t, cudaStream_t stream) {
+  flash_delta::Args<T> da;
+  da.out = static_cast<const T*>(out);
+  da.dout = static_cast<const T*>(dout);
+  da.g_lse = static_cast<const float*>(g_lse);
+  da.delta = static_cast<float*>(delta);
+  da.os = flash_delta::View{strides[9], strides[10], strides[11]};
+  da.dos = flash_delta::View{strides[12], strides[13], strides[14]};
+  da.g_bh = strides[24];
+  da.g_t = strides[25];
+  da.n_heads = n_heads;
+  da.t = t;
+  da.n_rows = static_cast<long long>(batch) * n_heads * t;
+  return flash_delta::launch_head_dim(head_dim, da, stream);
 }
 
 Strides strides_at(const long long* s, int i) {
@@ -549,14 +627,15 @@ Strides strides_at(const long long* s, int i) {
 }  // namespace
 
 // The forward: out and lse.  strides: 3 per tensor, in the order q, k, v,
-// out.  dtype: 0 = float32 (1 = bfloat16 returns -1).  mask: 0 none, 1
-// causal, 2 causal_exclusive.  Any t.
+// out.  dtype: 0 = float32 (head_dim 8, 16, 32, 64, 128), 1 = bfloat16
+// (head_dim 8, 16); any other pair returns -1.  mask: 0 none, 1 causal,
+// 2 causal_exclusive.  Any t.
 extern "C" int flash_attention_forward(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     void* out, void* lse, const long long* strides, int batch, int n_heads,
     int t, int block_q, int block_k, int mask, float scale, void* stream) {
+  if (!supported(dtype, head_dim)) return -1;
   if (batch == 0 || n_heads == 0 || t == 0) return 0;
-  if (dtype != 0) return -1;  // bf16 runs in flash_attention_sm90.cu
   Args a = {};
   a.q = q;
   a.k = k;
@@ -574,7 +653,7 @@ extern "C" int flash_attention_forward(
   a.block_k = block_k;
   a.mask = mask;
   a.scale = scale;
-  return dispatch_head_dim(0, head_dim, a, static_cast<cudaStream_t>(stream));
+  return dispatch(dtype, 0, head_dim, a, static_cast<cudaStream_t>(stream));
 }
 
 // The whole backward in one call: delta = rowsum(dout * out) - g_lse into
@@ -587,23 +666,15 @@ extern "C" int flash_attention_backward(
     void* dq, void* dk, void* dv, void* delta, const long long* strides,
     int batch, int n_heads, int t, int block_q, int block_k, int mask,
     float scale, void* stream) {
+  if (!supported(dtype, head_dim)) return -1;
   if (batch == 0 || n_heads == 0 || t == 0) return 0;
-  if (dtype != 0) return -1;
-  if (head_dim != 32 && head_dim != 64 && head_dim != 128) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flash_delta::Args<float> da;
-  da.out = static_cast<const float*>(out);
-  da.dout = static_cast<const float*>(dout);
-  da.g_lse = static_cast<const float*>(g_lse);
-  da.delta = static_cast<float*>(delta);
-  da.os = flash_delta::View{strides[9], strides[10], strides[11]};
-  da.dos = flash_delta::View{strides[12], strides[13], strides[14]};
-  da.g_bh = strides[24];
-  da.g_t = strides[25];
-  da.n_heads = n_heads;
-  da.t = t;
-  da.n_rows = static_cast<long long>(batch) * n_heads * t;
-  int err = flash_delta::launch_head_dim(head_dim, da, st);
+  int err = dtype == 0
+                ? launch_delta<float>(head_dim, out, dout, g_lse, delta,
+                                      strides, batch, n_heads, t, st)
+                : launch_delta<__nv_bfloat16>(head_dim, out, dout, g_lse,
+                                              delta, strides, batch, n_heads,
+                                              t, st);
   if (err != 0) return err;
 
   Args a = {};
@@ -628,11 +699,11 @@ extern "C" int flash_attention_backward(
   a.block_k = block_k;
   a.mask = mask;
   a.scale = scale;
-  err = dispatch_head_dim(1, head_dim, a, st);
+  err = dispatch(dtype, 1, head_dim, a, st);
   if (err != 0) return err;
   a.out0 = dk;
   a.o0s = strides_at(strides, 6);
   a.out1 = dv;
   a.o1s = strides_at(strides, 7);
-  return dispatch_head_dim(2, head_dim, a, st);
+  return dispatch(dtype, 2, head_dim, a, st);
 }

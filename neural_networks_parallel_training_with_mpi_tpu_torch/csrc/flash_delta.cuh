@@ -1,6 +1,7 @@
 // delta = rowsum(dO * O) - g_lse in f32: the row statistic of the flash
 // backward, shared by both kernel designs' backward entries
-// (flash_attention_sm90.cu for bf16, flash_attention.cu for f32).
+// (flash_attention_sm90.cu for bf16 at head_dim 32-128,
+// flash_attention.cu for f32 and for bf16 at head_dim 8 and 16).
 //
 // No TPU kernel: the JAX package computes it in XLA, one fused
 // elementwise reduce in _flash_backward
@@ -14,8 +15,8 @@
 // subtraction and a copy: ~7 launches and ~59 MB moved.
 //
 // Design: lanes of a warp share a row (one (b, t, h) position, D
-// elements): 16-byte loads of 8 bf16 (the sm90 wrapper guarantees 16-byte
-// aligned rows), or one f32 per lane (any alignment); the partial sums
+// elements): 16-byte loads of 8 bf16 (the wrapper guarantees 16-byte
+// aligned rows to every bf16 launch), or one f32 per lane (any alignment); the partial sums
 // meet by xor shuffles within the row's lanes.  Rows are numbered in the
 // output's (b, h, t) order, so delta (B*H, T) is written contiguous;
 // O and dO are read through their (B, T, H) element strides and g_lse
@@ -135,10 +136,12 @@ int launch(const Args<T>& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim 32 / 64 / 128; -1 for any other
+// head_dim 8 / 16 / 32 / 64 / 128; -1 for any other
 template <typename T>
 int launch_head_dim(int head_dim, const Args<T>& a, cudaStream_t stream) {
   if (a.n_rows == 0) return 0;
+  if (head_dim == 8) return launch<T, 8>(a, stream);
+  if (head_dim == 16) return launch<T, 16>(a, stream);
   if (head_dim == 32) return launch<T, 32>(a, stream);
   if (head_dim == 64) return launch<T, 64>(a, stream);
   if (head_dim == 128) return launch<T, 128>(a, stream);

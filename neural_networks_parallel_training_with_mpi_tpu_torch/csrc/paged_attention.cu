@@ -57,6 +57,12 @@
 // - q and out are indexed through their (S, W, H, hd) strides, so the
 //   wrapper passes the strided q view from the fused qkv projection as
 //   it is.
+// - Geometry: head_dim 32, 64 or 128 (one template each; a lane owns
+//   head_dim / 32 output dims and reads half of each key's 16-byte
+//   chunks, so int8 at head_dim 32 takes one chunk per half), and any
+//   pool block size that is a multiple of the 16-key unit, read at run
+//   time: a unit never straddles two pool blocks, and shared memory holds
+//   units, so it does not grow with the block size.
 // Plain C interface, loaded with ctypes: the launch returns the CUDA
 // error code (or -1 for an unsupported combination).
 
@@ -128,11 +134,17 @@ struct Layout {
   static constexpr int kQBytes = kRows * HD * 4;
   static constexpr size_t kSmem =
       kQBytes + (kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes);
-  static_assert(kChunks >= 4 && kChunks % 2 == 0, "unsupported geometry");
+  // a lane reads half a key's chunks: an even count (int8 at head_dim 32
+  // has 2 chunks of 16 values, one per half)
+  static_assert(kChunks >= 2 && kChunks % 2 == 0, "unsupported geometry");
   static_assert(HD % 32 == 0, "unsupported geometry");
-  // byte offset of chunk c of key row k: chunks XOR-swizzled by row
+  // byte offset of chunk c of key row k: chunks XOR-swizzled by row, so
+  // the 8 lanes of a quarter-warp, reading 8 keys' chunk c, hit 8
+  // different 16-byte bank groups (the XOR stays below kChunks)
   static __device__ __forceinline__ int offset(int k, int c) {
-    const int f = kChunks >= 8 ? (k & 7) : ((k >> 1) & 3);
+    const int f = kChunks >= 8   ? (k & 7)
+                  : kChunks == 4 ? ((k >> 1) & 3)
+                                 : ((k >> 2) & 1);
     return k * kRowBytes + ((c ^ f) << 4);
   }
 };
@@ -176,17 +188,19 @@ struct Params {
   float* part_ml;    // (tile, split, row) x (max, denominator)
   float* part_acc;   // (tile, split, row) x HD
   int* tickets;      // one per (stream, kv_head, tile), zero between calls
-  int width, n_heads, kv_heads, max_blocks, split_keys, n_splits;
+  int width, n_heads, kv_heads, max_blocks, block_size, split_keys, n_splits;
   float scale;
 };
 
-template <typename QT, typename KT, int HD, int BS>
+template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Params p) {
   using L = Layout<KT, HD>;
   constexpr int kAcc = HD / 32;          // output dims per lane
   constexpr int kHalf = L::kChunks / 2;  // chunks per lane of a key
-  static_assert(BS % kUnit == 0, "a unit lies in one pool block");
+  // pool block size, a multiple of kUnit (the launch checks): a unit lies
+  // in one pool block, so shared memory does not depend on it
+  const int BS = p.block_size;
 
   extern __shared__ __align__(16) uint8_t smem[];
   float* q_s = reinterpret_cast<float*>(smem);          // [kRows][HD]
@@ -442,10 +456,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename QT, typename KT, int HD, int BS>
+template <typename QT, typename KT, int HD>
 int launch(const Params& p, int streams, cudaStream_t stream) {
   constexpr size_t smem = Layout<KT, HD>::kSmem;
-  const auto kernel = paged_attention_kernel<QT, KT, HD, BS>;
+  const auto kernel = paged_attention_kernel<QT, KT, HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -457,16 +471,11 @@ int launch(const Params& p, int streams, cudaStream_t stream) {
 }
 
 template <typename QT, typename KT>
-int dispatch_geometry(int head_dim, int block_size, const Params& p,
-                      int streams, cudaStream_t stream) {
-#define PA_CASE(HD, BS)                             \
-  if (head_dim == HD && block_size == BS)           \
-    return launch<QT, KT, HD, BS>(p, streams, stream);
-  PA_CASE(64, 16)
-  PA_CASE(64, 32)
-  PA_CASE(128, 16)
-  PA_CASE(128, 32)
-#undef PA_CASE
+int dispatch_geometry(int head_dim, const Params& p, int streams,
+                      cudaStream_t stream) {
+  if (head_dim == 32) return launch<QT, KT, 32>(p, streams, stream);
+  if (head_dim == 64) return launch<QT, KT, 64>(p, streams, stream);
+  if (head_dim == 128) return launch<QT, KT, 128>(p, streams, stream);
   return -1;
 }
 
@@ -474,9 +483,10 @@ int dispatch_geometry(int head_dim, int block_size, const Params& p,
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only; needs
 // the f32 scale pools)
+// head_dim 32, 64 or 128; any block size that is a multiple of 16 keys
 extern "C" int paged_attention_supported(int head_dim, int block_size) {
-  return (head_dim == 64 || head_dim == 128) &&
-         (block_size == 16 || block_size == 32);
+  return (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
+         block_size > 0 && block_size % kUnit == 0;
 }
 
 // split_keys: keys per split, a multiple of block_size; n_splits splits
@@ -493,6 +503,7 @@ extern "C" int paged_attention_launch(
     int n_heads, int kv_heads, int max_blocks, int split_keys, int n_splits,
     float scale, void* stream) {
   if (streams == 0 || width == 0) return 0;
+  if (!paged_attention_supported(head_dim, block_size)) return -1;
   if (split_keys <= 0 || split_keys % block_size || n_splits <= 0 ||
       static_cast<long long>(split_keys) * n_splits <
           static_cast<long long>(max_blocks) * block_size)
@@ -517,21 +528,20 @@ extern "C" int paged_attention_launch(
   p.n_heads = n_heads;
   p.kv_heads = kv_heads;
   p.max_blocks = max_blocks;
+  p.block_size = block_size;
   p.split_keys = split_keys;
   p.n_splits = n_splits;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == 0 && kv_dtype == 0)
-    return dispatch_geometry<float, float>(head_dim, block_size, p, streams,
-                                           st);
+    return dispatch_geometry<float, float>(head_dim, p, streams, st);
   if (q_dtype == 1 && kv_dtype == 1)
-    return dispatch_geometry<__nv_bfloat16, __nv_bfloat16>(
-        head_dim, block_size, p, streams, st);
+    return dispatch_geometry<__nv_bfloat16, __nv_bfloat16>(head_dim, p,
+                                                           streams, st);
   if (q_dtype == 0 && kv_dtype == 2)
-    return dispatch_geometry<float, int8_t>(head_dim, block_size, p, streams,
-                                            st);
+    return dispatch_geometry<float, int8_t>(head_dim, p, streams, st);
   if (q_dtype == 1 && kv_dtype == 2)
-    return dispatch_geometry<__nv_bfloat16, int8_t>(head_dim, block_size, p,
-                                                    streams, st);
+    return dispatch_geometry<__nv_bfloat16, int8_t>(head_dim, p, streams,
+                                                    st);
   return -1;
 }

@@ -21,6 +21,10 @@ One host-side iterator per rank that
 * applies ``seq_permutation`` (the striped token layout) to dim 1 of
   every rank >= 2 array once, inputs and targets alike.
 
+Multi-step dispatch (``--steps_per_dispatch k``): :meth:`ShardedLoader.
+epoch_groups` hands out the same batches in groups of up to k, each
+group placed on the device with one copy per leaf.
+
 Batch assembly (index gather) runs ``prefetch`` batches ahead on a thread.
 The native (C++) batcher is not ported: ``backend="native"`` raises, and
 ``auto`` takes the numpy path (as the JAX ``auto`` does where the native
@@ -43,6 +47,12 @@ from ..utils.platform import DeviceLike, h2d, resolve_device
 Arrays = Dict[str, np.ndarray]
 
 _DONE = object()
+
+# the JAX loader's refusal of multi-step dispatch across processes
+MULTI_PROCESS_DISPATCH = (
+    "steps_per_dispatch > 1 is single-host for now: the stacked group "
+    "would need a make_global_batch variant assembling per-process rows "
+    "under the scan axis")
 
 
 def _thread_prefetch(gen: Iterator[Arrays], depth: int) -> Iterator[Arrays]:
@@ -168,6 +178,50 @@ class ShardedLoader:
             host = _thread_prefetch(host, self.prefetch)
         for batch in host:
             yield {k: h2d(v, self.device) for k, v in batch.items()}
+
+    def epoch_groups(self, epoch: int, k: int, start_step: int = 0
+                     ) -> Iterator[tuple]:
+        """``(stacked, n_steps, rows)`` per group of up to ``k``
+        consecutive batches of :meth:`epoch` (the same batches in the same
+        order: shuffle, padding, sequence columns and permutation), the
+        data side of multi-step dispatch (``--steps_per_dispatch``), as
+        the JAX loader's ``epoch_groups``.  The last group of an epoch
+        may be shorter.  ``stacked`` is the list of the group's
+        ``n_steps`` batches: views into one device tensor per leaf that
+        holds the group's batches one after another along the rows, placed
+        with ONE host-to-device copy per leaf (an epoch's last batch may
+        have fewer rows than the others, so the batches are concatenated,
+        not stacked on a new axis).  ``rows`` is the group's real
+        (unpadded) global rows.  One process only: a multi-process world
+        raises, as the JAX loader does."""
+        if k < 1:
+            raise ValueError(f"steps per dispatch must be >= 1, got {k}")
+        if self.world_size > 1 or self.sp > 1:
+            raise NotImplementedError(MULTI_PROCESS_DISPATCH)
+        host = (self._rank_rows(b)
+                for b in self._host_batches(epoch, start_step))
+        if self.prefetch > 0:
+            host = _thread_prefetch(host, self.prefetch)
+        group, rows, step = [], 0, start_step
+        for batch in host:
+            group.append(batch)
+            rows += self.batch_rows(step)
+            step += 1
+            if len(group) == k:
+                yield self._place_group(group), len(group), rows
+                group, rows = [], 0
+        if group:
+            yield self._place_group(group), len(group), rows
+
+    def _place_group(self, group):
+        """Each leaf's batches concatenated on the host, one copy to the
+        device, split back into per-batch row views."""
+        ends = np.cumsum([b["mask"].shape[0] for b in group])
+        starts = np.concatenate([[0], ends[:-1]])
+        placed = {k: h2d(np.concatenate([b[k] for b in group]), self.device)
+                  for k in group[0]}
+        return [{k: v[a:e] for k, v in placed.items()}
+                for a, e in zip(starts.tolist(), ends.tolist())]
 
     def _host_batches(self, epoch: int, start_step: int) -> Iterator[Arrays]:
         order = self._epoch_order(epoch)

@@ -312,10 +312,14 @@ class Transformer:
 
         s = torch.zeros((), dtype=torch.float32, device=x.device)
         cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        # no RNG state to save and restore: a chunk draws nothing random,
+        # and reading or resetting the CUDA generator is not allowed while
+        # the step is captured as a CUDA graph (--steps_per_dispatch)
         for i in range(0, t, k):
             cs, cc = checkpoint(chunk_sum, params["head"]["w"],
                                 x[:, i:i + k], labels[:, i:i + k],
-                                use_reentrant=False)
+                                use_reentrant=False,
+                                preserve_rng_state=False)
             s, cnt = s + cs, cnt + cc
         return s, cnt
 

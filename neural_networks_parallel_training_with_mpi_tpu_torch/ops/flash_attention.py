@@ -18,12 +18,18 @@ launch:
   contiguous first (:func:`for_copies`).  It rounds P and dS to bf16
   before the last product of each step; ``round_p=True`` makes the plain
   versions do the same.
-* ``simt`` (``csrc/flash_attention.cu``): every f32 kernel, f32 products
-  on the CUDA cores.  Its source builds no bf16 kernel.
+* ``simt`` (``csrc/flash_attention.cu``): every f32 kernel, and the bf16
+  kernels at head_dim 8 and 16; f32 products on the CUDA cores (bf16
+  inputs load as f32, P and dS stay f32, outputs round to bf16 once).
+  wgmma contracts over 16 bf16 values, so head_dim 8 would need zero
+  columns in every sm90 tile, and 16- or 32-byte rows another swizzle
+  than the sm90 tiles': at those widths the scores' softmax costs as
+  much as their products, and the CUDA cores do both.
 
 Both take any T that :func:`resolve_blocks` accepts, as the JAX kernels
 do: the grid covers ceil(T / 64) tiles and masks the last one
-(:func:`launch_design` is the rule), and head_dim 32, 64 or 128.
+(:func:`launch_design` is the rule); head_dim 8, 16, 32, 64 or 128
+(:data:`HEAD_DIMS`, the sm90 design :data:`SM90_HEAD_DIMS`).
 
 Shapes, as in the JAX package: q/k/v (B, T, H, D) with head_dim
 contiguous (the strided views of the fused qkv projection are taken as
@@ -70,7 +76,8 @@ MASK_MODES = ("none", "causal", "causal_exclusive")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNELS = ("fwd", "dq", "dkv")            # the TPU kernels' ports
 COUNTERS = ("fwd", "delta", "dq", "dkv")   # launch counters, by kernel
-HEAD_DIMS = (32, 64, 128)       # what both kernel designs take
+HEAD_DIMS = (8, 16, 32, 64, 128)   # what the kernels take, in either dtype
+SM90_HEAD_DIMS = (32, 64, 128)    # bf16 on the sm90 design; 8, 16 on simt
 SCHEDULES = ("shared", "serial")
 # the longest sequence whose bf16 backward runs dq and dk/dv as one shared
 # launch (measured by chip_smoke.py phase 9: shared is faster up to here)
@@ -242,9 +249,11 @@ def flash_backward_reference(q, k, v, out, lse, dout, mask: str = "causal",
 
 def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
     """The design a CUDA launch of ``which`` ("fwd", "dq", "dkv") on
-    ``dtype`` inputs goes to: ``"sm90"`` for every bf16 kernel, ``"simt"``
-    for every f32 kernel.  A dispatch on the inputs, decided before any
-    launch and without looking at a card: a head_dim outside
+    ``dtype`` inputs goes to: ``"sm90"`` (wgmma, ``csrc/
+    flash_attention_sm90.cu``) for bf16 at head_dim 32/64/128, ``"simt"``
+    (CUDA cores, ``csrc/flash_attention.cu``) for bf16 at head_dim 8/16
+    and for every f32 kernel.  A dispatch on the inputs, decided before
+    any launch and without looking at a card: a head_dim outside
     :data:`HEAD_DIMS` raises, in bf16 as in f32."""
     if which not in _KERNELS:
         raise ValueError(f"kernel must be one of {_KERNELS}, got "
@@ -252,12 +261,16 @@ def kernel_design(which: str, dtype: torch.dtype, head_dim: int) -> str:
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {dtype} not supported (float32, "
                          "bfloat16)")
-    sm90 = dtype == torch.bfloat16
     if head_dim not in HEAD_DIMS:
-        kernels = "the sm90 kernels (bf16)" if sm90 else "the simt kernels"
-        raise ValueError(f"{kernels} take head_dim 32/64/128, got "
-                         f"{head_dim}")
-    return "sm90" if sm90 else "simt"
+        if dtype == torch.bfloat16:
+            raise ValueError(f"the sm90 kernels (bf16) take head_dim "
+                             f"32/64/128 and the simt kernels bf16 head_dim "
+                             f"8/16; got {head_dim}")
+        raise ValueError(f"the simt kernels take head_dim 32/64/128 and "
+                         f"8/16; got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
 
 
 def launch_design(which: str, dtype: torch.dtype, shape,
@@ -275,20 +288,24 @@ def launch_design(which: str, dtype: torch.dtype, shape,
 
 
 def backward_schedule(dtype: torch.dtype, t: int,
-                      schedule: Optional[str] = None) -> str:
+                      schedule: Optional[str] = None,
+                      head_dim: int = 64) -> str:
     """How :func:`flash_backward` launches dq and dk/dv after delta:
     ``"shared"``, one launch whose blocks take either role, or
-    ``"serial"``, two launches in turn.  ``None`` picks by the rule: bf16
-    shares up to T = :data:`SHARED_MAX_T`; the f32 (simt) kernels always
-    run in turn, and an explicit ``"shared"`` on them raises."""
+    ``"serial"``, two launches in turn.  ``None`` picks by the rule: the
+    sm90 kernels (bf16 at head_dim 32/64/128) share up to T =
+    :data:`SHARED_MAX_T`; the simt kernels (f32, and bf16 at head_dim
+    8/16) always run in turn, and an explicit ``"shared"`` on them
+    raises."""
+    sm90 = dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS
     if schedule is None:
-        return ("shared" if dtype == torch.bfloat16 and t <= SHARED_MAX_T
-                else "serial")
+        return "shared" if sm90 and t <= SHARED_MAX_T else "serial"
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES}, got "
                          f"{schedule!r}")
-    if schedule == "shared" and dtype != torch.bfloat16:
-        raise ValueError("only the sm90 (bf16) kernels share a launch")
+    if schedule == "shared" and not sm90:
+        raise ValueError("only the sm90 (bf16, head_dim 32/64/128) "
+                         "kernels share a launch")
     return schedule
 
 
@@ -351,8 +368,9 @@ def _entry(design: str, kind: str):
 
 def _views(device: int, copies: bool, *xs):
     """One pass over a launch's (B, T, H, D) inputs: each on the card
-    ``device``, head_dim contiguous and, with ``copies`` (the sm90
-    design), readable by 16-byte copies or else copied contiguous
+    ``device``, head_dim contiguous and, with ``copies`` (every bf16
+    launch: the sm90 kernels and the delta kernel read bf16 rows 16 bytes
+    at a time), readable by 16-byte copies or else copied contiguous
     (:func:`for_copies`).  Returns the tensors to launch on (hold them
     until the launch is queued: a copy freed earlier could be handed to
     an output), their data pointers and their (B, T, H) strides, flat."""
@@ -392,7 +410,8 @@ def _forward_cuda(q, k, v, mask: str, block_q: int, block_k: int):
     b, t, h, d = q.shape
     design = launch_design("fwd", q.dtype, q.shape, block_q, block_k)
     # views (copies among them) stay alive until the call below returns
-    views, ptrs, strides = _views(q.get_device(), design == "sm90", q, k, v)
+    views, ptrs, strides = _views(q.get_device(),
+                                  q.dtype == torch.bfloat16, q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
     strides += (t * h * d, h * d, d)    # out: fresh, contiguous
@@ -442,8 +461,8 @@ def _backward_cuda(q, k, v, out, lse, dout, mask, block_q, block_k, g_lse,
             g_lse = g_lse.float()
         g_strides = g_lse.stride()
     # views (copies among them) stay alive until the call below returns
-    views, ptrs, strides = _views(dev, design == "sm90", q, k, v, out,
-                                  dout)
+    views, ptrs, strides = _views(dev, q.dtype == torch.bfloat16, q, k,
+                                  v, out, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk, dv = torch.empty_like(dq), torch.empty_like(dq)
     delta = torch.empty((b * h, t), dtype=torch.float32, device=q.device)
@@ -499,7 +518,8 @@ def flash_backward(q, k, v, out, lse, dout, mask: str = "causal",
     CPU tensors the plain versions."""
     _check(q, k, v)
     block_q, block_k = resolve_blocks(q.shape[1], block_q, block_k)
-    schedule = backward_schedule(q.dtype, q.shape[1], schedule)
+    schedule = backward_schedule(q.dtype, q.shape[1], schedule,
+                                 q.shape[-1])
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
     if _device(q) == "cpu":

@@ -11,6 +11,15 @@ back the same objects; each formula keeps JAX's order of operations, so
 the f32 results agree to rounding.  ``count`` is a host int: the lr
 schedule is read without a device sync.
 
+The step's host-computed scalars (the scheduled lr, Adam's two bias
+corrections) reach the update as ONE 1-D f32 device tensor,
+``Optimizer.scalars(count)`` copied to the card, and never as Python
+floats: a CUDA graph of the train step (``parallel.data_parallel.
+GraphedTrainStep``) would freeze a float into its kernels, while a
+tensor it reads is rewritten before every replay.  The values are
+computed in np.float32 on the host exactly as a Python scalar would be
+rounded, so the f32 results are bitwise those of the scalar form.
+
 ``sgd`` is torch-semantics SGD (dampening 0, no Nesterov):
 ``buf <- momentum * buf + grad``; ``param <- param - lr * buf``.
 
@@ -21,11 +30,12 @@ wrappers ``with_skip_guard`` and ``with_master_weights``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, NamedTuple, Tuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..utils.platform import h2d
 from ..utils.tree import leaves, tree_map
 
 Tree = Any
@@ -33,8 +43,16 @@ Tree = Any
 LR = Union[float, Callable[[int], float]]
 
 
-def _lr_at(lr: LR, count: int) -> float:
-    return float(lr(count)) if callable(lr) else float(lr)
+def _lr_at(lr: LR, count: int) -> np.float32:
+    """The lr of step ``count`` rounded to f32, as PyTorch rounds a Python
+    scalar multiplying an f32 tensor."""
+    return np.float32(lr(count) if callable(lr) else lr)
+
+
+def device_scalars(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Host f32 ``values`` as a tensor on ``like``'s device, copied without
+    a stream sync (pinned on the card)."""
+    return h2d(np.asarray(values, np.float32), like.device)
 
 
 def global_norm(grads: Tree) -> torch.Tensor:
@@ -53,13 +71,24 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
+    """``update(grads, state, params, scalars_t=None)``: ``scalars_t`` is
+    the 1-D f32 device tensor of ``scalars(state.count)`` (None: copied
+    from the host here); ``scalars(count)`` the step's host values in
+    np.float32."""
     init: Callable[[Tree], Tree]
-    update: Callable[[Tree, Tree, Tree], Tuple[Tree, Tree]]
+    update: Callable[..., Tuple[Tree, Tree]]
     name: str = "optimizer"
+    scalars: Optional[Callable[[int], np.ndarray]] = None
+
+
+def _scalars_on(scalars: Optional[torch.Tensor], host: Callable,
+                count: int, params: List[torch.Tensor]) -> torch.Tensor:
+    return (scalars if scalars is not None
+            else device_scalars(host(count), params[0]))
 
 
 def _apply(params: List[torch.Tensor], steps: List[torch.Tensor],
-           lr_t: float) -> None:
+           lr_t: torch.Tensor) -> None:
     """param <- param - (lr * step) cast to the param's dtype, in place."""
     upd = torch._foreach_mul([s.float() for s in steps], lr_t)
     torch._foreach_sub_(params, [u.to(p.dtype) for u, p in zip(upd, params)])
@@ -76,10 +105,13 @@ def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
     def init(params: Tree) -> SGDState:
         return SGDState(0, tree_map(torch.zeros_like, params))
 
+    def scalars(count: int) -> np.ndarray:
+        return np.array([_lr_at(lr, count)], np.float32)
+
     @torch.no_grad()
-    def update(grads: Tree, state: SGDState, params: Tree):
-        lr_t = _lr_at(lr, state.count)
+    def update(grads: Tree, state: SGDState, params: Tree, scalars_t=None):
         p, g = leaves(params), leaves(grads)
+        lr_t = _scalars_on(scalars_t, scalars, state.count, p)[0]
         if weight_decay:
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
         step = g
@@ -91,7 +123,7 @@ def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
         _apply(p, step, lr_t)
         return params, SGDState(state.count + 1, state.momentum_buf)
 
-    return Optimizer(init, update, f"sgd(lr={lr},m={momentum})")
+    return Optimizer(init, update, f"sgd(lr={lr},m={momentum})", scalars)
 
 
 class AdamState(NamedTuple):
@@ -108,18 +140,21 @@ def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return AdamState(0, tree_map(torch.zeros_like, params),
                          tree_map(torch.zeros_like, params))
 
+    def scalars(count: int) -> np.ndarray:
+        """lr, then the bias corrections of step ``count + 1`` in f32, as
+        JAX evaluates b ** t."""
+        t = np.float32(count + 1)
+        return np.array([_lr_at(lr, count),
+                         np.float32(1) - np.float32(b1) ** t,
+                         np.float32(1) - np.float32(b2) ** t], np.float32)
+
     @torch.no_grad()
-    def update(grads: Tree, state: AdamState, params: Tree):
-        lr_t = _lr_at(lr, state.count)
+    def update(grads: Tree, state: AdamState, params: Tree, scalars_t=None):
         p, g = leaves(params), leaves(grads)
+        lr_t, bc1, bc2 = _scalars_on(scalars_t, scalars, state.count, p)
         mu, nu = leaves(state.mu), leaves(state.nu)
         if weight_decay and not decoupled:
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
-        count = state.count + 1
-        # bias corrections in f32, as JAX evaluates b ** t
-        t = np.float32(count)
-        bc1 = float(np.float32(1) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(b2) ** t)
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
         g2 = torch._foreach_mul(g, 1 - b2)
@@ -136,10 +171,10 @@ def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         if weight_decay and decoupled:
             torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
         _apply(p, upd, lr_t)
-        return params, AdamState(count, state.mu, state.nu)
+        return params, AdamState(state.count + 1, state.mu, state.nu)
 
     return Optimizer(init, update,
-                     f"{'adamw' if decoupled else 'adam'}(lr={lr})")
+                     f"{'adamw' if decoupled else 'adam'}(lr={lr})", scalars)
 
 
 def adamw(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -153,10 +188,12 @@ def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
     if max_norm <= 0:
         return opt
 
-    def update(grads, state, params):
-        return opt.update(clip_by_global_norm(grads, max_norm), state, params)
+    def update(grads, state, params, scalars_t=None):
+        return opt.update(clip_by_global_norm(grads, max_norm), state, params,
+                          scalars_t)
 
-    return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}")
+    return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}",
+                     opt.scalars)
 
 
 def with_skip_guard(opt: Optimizer, skip_threshold: float = 0.0) -> Optimizer:

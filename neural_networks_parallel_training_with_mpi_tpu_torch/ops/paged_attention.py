@@ -61,7 +61,10 @@ def split_plan(max_blocks: int, block_size: int) -> Tuple[int, int]:
     lane, so that ``n_splits * split_blocks >= max_blocks``.  From the
     table's capacity and the block size only: lengths live on the device
     and reading them here would wait for it, and a plan that does not
-    follow them keeps every launch of one table shape the same."""
+    follow them keeps every launch of one table shape the same.  A split
+    is a whole number of pool blocks at every block size: 16 blocks of
+    16 keys, 2 of 128, or one block when a block holds more than
+    :data:`SPLIT_KEYS` keys."""
     split_blocks = max(1, SPLIT_KEYS // block_size)
     return split_blocks, max(1, -(-max_blocks // split_blocks))
 
@@ -232,8 +235,9 @@ def _launch(q, k_pool, v_pool, tables, lengths, starts, k_scale, v_scale):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
     if not lib.paged_attention_supported(hd, bs):
-        raise ValueError(f"the CUDA kernel takes head_dim 64/128 and "
-                         f"block_size 16/32, got {hd}/{bs}")
+        raise ValueError(f"the CUDA kernel takes head_dim 32/64/128 and a "
+                         f"block_size that is a multiple of 16, got "
+                         f"{hd}/{bs}")
     out = torch.empty((s_n, w, n_heads, hd), dtype=q.dtype, device=dev)
     max_blocks = tables.shape[1]
     split_blocks, n_splits = split_plan(max_blocks, bs)

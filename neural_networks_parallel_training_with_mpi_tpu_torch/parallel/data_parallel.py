@@ -21,19 +21,28 @@ Two gradient semantics (``TrainConfig.grad_reduction``):
 * ``per_shard_mean``: the mean over ranks of each rank's mean-loss
   gradient, the reference's semantics (:188-197).
 
+Multi-step dispatch (``--steps_per_dispatch k``, the JAX package's
+``lax.scan`` over k device-staged batches): :class:`GraphedTrainStep`
+captures the whole step (forward, backward, the all-reduce, the
+``_foreach`` update) once as a ``torch.cuda.CUDAGraph`` and replays it
+over static batch buffers, so a step costs the host a few copies and one
+graph launch instead of its ~1800 kernel launches.
+
 Not ported yet, and refused: ``zero1``/``sharded`` update sharding, the
 fp8/int8 matmuls and ``with_metrics``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
-from ..ops.optim import Optimizer
+from ..ops.optim import Optimizer, device_scalars
 from ..train.state import TrainState
 from ..utils.tree import leaves, unflatten
 from .distributed import World
@@ -100,10 +109,12 @@ def make_train_step(model, optimizer: Optimizer, world: World,
                     accum_steps: int = 1,
                     update_sharding: str = "replicated",
                     with_metrics: bool = False
-                    ) -> Callable[[TrainState, Batch],
-                                  Tuple[TrainState, torch.Tensor]]:
-    """(state, this rank's batch) -> (state, global mean loss as a device
-    scalar).  Params and optimizer state are updated in place."""
+                    ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+    """(state, this rank's batch[, scalars]) -> (state, global mean loss
+    as a device scalar).  Params and optimizer state are updated in place;
+    ``scalars`` is the optimizer's device scalars of this step
+    (``Optimizer.scalars(state.opt_state.count)`` on the device; None:
+    copied from the host)."""
     if grad_reduction not in ("global_mean", "per_shard_mean"):
         raise ValueError(f"unknown grad_reduction {grad_reduction!r}")
     if update_sharding != "replicated":
@@ -116,7 +127,8 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     loss_fn = make_loss_fn(model, loss_name)
 
-    def step(state: TrainState, batch: Batch):
+    def step(state: TrainState, batch: Batch,
+             scalars: Optional[torch.Tensor] = None):
         s, c, grads = _accumulated_sum_and_grads(loss_fn, state.params,
                                                  batch, accum_steps)
         if grad_reduction == "per_shard_mean":
@@ -138,10 +150,124 @@ def make_train_step(model, optimizer: Optimizer, world: World,
             grads = [g / total for g in vals[:-2]]
             loss = vals[-2][0] / total
         params, opt_state = optimizer.update(
-            unflatten(state.params, grads), state.opt_state, state.params)
+            unflatten(state.params, grads), state.opt_state, state.params,
+            scalars)
         return TrainState(state.step + 1, params, opt_state), loss
 
     return step
+
+
+def _advanced(state: TrainState, n: int) -> TrainState:
+    """``state`` after ``n`` steps that updated its tensors in place."""
+    return TrainState(state.step + n, state.params,
+                      state.opt_state._replace(
+                          count=state.opt_state.count + n))
+
+
+class GraphedTrainStep:
+    """Multi-step dispatch on the card: ``step`` (a :func:`make_train_step`
+    step) captured once as a CUDA graph and replayed once per step.
+
+    ``graphed(state, batches) -> (state, loss)`` runs the steps of one
+    dispatch, one per batch of ``batches`` (a ``ShardedLoader.
+    epoch_groups`` group), and returns the state and a copy of the last
+    step's loss (the graph's loss buffer is rewritten by the next replay).
+    The optimizer's scalars of all the group's steps go to the card in one
+    copy; each replay is then a copy of the batch and of its scalars into
+    the graph's static buffers and one ``cudaGraphLaunch``, on the
+    caller's stream, so anything the caller queues after the dispatch (the
+    lag-1 loss read, an async snapshot's device-to-host copy) runs after
+    the replays.
+
+    The first step is the warm-up: it runs eagerly on a side stream (the
+    kernels build, cuBLAS and NCCL set up, the allocator fills), then the
+    step is captured on that stream with the warm-up's tensors (capture
+    records and runs nothing).  A batch of another shape than the captured
+    one (an epoch's shorter last batch) runs eagerly: the same ops and
+    kernels.  A failed capture raises.
+
+    The graph reads and writes the state's own tensors (the update is in
+    place): a state with other tensors (a resume's) is warmed up and
+    captured anew.  The flash wrappers count their launches while the
+    step is captured, though nothing launches then; those counts are
+    taken back and kept as :attr:`launches_per_replay` (every replay
+    launches every kernel node of the graph once), so the wrappers'
+    counters hold the eager launches and :attr:`replays` x
+    :attr:`launches_per_replay` the graphed ones."""
+
+    def __init__(self, step: Callable, optimizer: Optimizer,
+                 device: torch.device):
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, not "
+                             f"{device}")
+        self.step, self.optimizer, self.device = step, optimizer, device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.state: Optional[TrainState] = None   # the captured tensors
+        self.static_batch: Dict[str, torch.Tensor] = {}
+        self.static_scalars: Optional[torch.Tensor] = None
+        self.static_loss: Optional[torch.Tensor] = None
+        self.launches_per_replay: Dict[str, Any] = {}
+        self.replays = 0
+        self.eager_steps = 0
+
+    def __call__(self, state: TrainState, batches: List[Batch]):
+        if self.graph is not None and not self._captured_on(state):
+            self.graph = None
+        count = state.opt_state.count
+        scalars = device_scalars(
+            np.stack([self.optimizer.scalars(count + i)
+                      for i in range(len(batches))]),
+            leaves(state.params)[0])
+        loss = None
+        for i, batch in enumerate(batches):
+            if self.graph is None:
+                state, loss = self._warm_up_and_capture(state, batch,
+                                                        scalars[i])
+            elif any(batch[k].shape != v.shape
+                     for k, v in self.static_batch.items()):
+                state, loss = self.step(state, batch, scalars[i])
+                self.eager_steps += 1
+            else:
+                for k, v in self.static_batch.items():
+                    v.copy_(batch[k])
+                self.static_scalars.copy_(scalars[i])
+                self.graph.replay()
+                self.replays += 1
+                state, loss = _advanced(state, 1), self.static_loss
+        return state, loss.clone()
+
+    def _warm_up_and_capture(self, state: TrainState, batch: Batch,
+                             scalars: torch.Tensor):
+        caller = torch.cuda.current_stream(self.device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            state, loss = self.step(state, batch, scalars)
+        caller.wait_stream(self.stream)
+        self.eager_steps += 1
+        self.static_batch = {k: v.clone() for k, v in batch.items()}
+        self.static_scalars = scalars.clone()
+        before = fa.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self.stream):
+            _, self.static_loss = self.step(state, self.static_batch,
+                                            self.static_scalars)
+        captured = fa.launch_counts()
+        fa.set_launch_counts(before)
+        self.launches_per_replay = {
+            "all": {k: captured["all"][k] - before["all"][k]
+                    for k in fa.COUNTERS},
+            "with_lse": captured["with_lse"] - before["with_lse"]}
+        self.graph, self.state = graph, state
+        return state, loss
+
+    def _captured_on(self, state: TrainState) -> bool:
+        """True when the graph reads and writes ``state``'s own tensors."""
+        mine = leaves((self.state.params, self.state.opt_state))
+        theirs = leaves((state.params, state.opt_state))
+        return len(mine) == len(theirs) and all(
+            a is b for a, b in zip(mine, theirs))
 
 
 def make_eval_step(model, world: World, loss_name: str = "mse",

@@ -15,10 +15,22 @@ reads a step's loss only after the next step has been queued, and only at
 ``log_every`` boundaries, so the device is never drained per step for
 logging.
 
+Multi-step dispatch (``--steps_per_dispatch k``, the JAX loop's
+``lax.scan`` over k staged batches): the epoch runs in groups of up to k
+consecutive batches (``ShardedLoader.epoch_groups``; the same batches in
+the same order, the last group of an epoch may be shorter).  On the card
+each group is one dispatch of ``parallel.data_parallel.GraphedTrainStep``
+(the step captured once as a CUDA graph, replayed per step); on the CPU
+it is k eager steps.  Each dispatch logs its LAST step's loss, the step
+count advances by the group's steps, a ``checkpoint_every`` multiple that
+a dispatch crosses saves at its end, and one CUDA event per dispatch gives
+each of its steps the dispatch's ms / n.  One process only, as in JAX: a
+multi-process world raises.
+
 Every flag of a path the port has not taken over yet (model-parallel
-axes, telemetry, tracing, resilience, SDC checks, multi-step dispatch,
-elastic, RL, ...) raises ``NotImplementedError`` naming the flag when it
-is set to anything but its default; none is ignored.
+axes, telemetry, tracing, resilience, SDC checks, elastic, RL, ...)
+raises ``NotImplementedError`` naming the flag when it is set to anything
+but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
@@ -44,7 +56,7 @@ import torch
 
 from ..config import ModelConfig, RLConfig, TrainConfig
 from ..data.datasets import build_dataset, train_val_split
-from ..data.loader import ShardedLoader
+from ..data.loader import MULTI_PROCESS_DISPATCH, ShardedLoader
 from ..models.registry import build_model
 from ..ops import optim as optim_lib
 from ..ops import schedules
@@ -62,8 +74,7 @@ from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {
-    "workload": "--workload", "steps_per_dispatch": "--steps_per_dispatch",
-    "pp_interleave": "--pp_interleave",
+    "workload": "--workload", "pp_interleave": "--pp_interleave",
     "update_sharding": "--update_sharding",
     "master_weights": "--master-weights",
     "vocab_parallel": "--vocab_parallel",
@@ -193,6 +204,13 @@ class Trainer:
                                              cfg.data.val_fraction, cfg.seed)
             self.val_data = val or None
         self.loader = self._loader(self.data, shuffle=cfg.shuffle)
+        self.k_dispatch = int(cfg.steps_per_dispatch)
+        if self.k_dispatch < 1:
+            raise ValueError(f"--steps_per_dispatch must be >= 1, got "
+                             f"{self.k_dispatch}")
+        if self.k_dispatch > 1 and self.world.world_size > 1:
+            # fail here, not at the first epoch_groups call
+            raise NotImplementedError(MULTI_PROCESS_DISPATCH)
         lr = schedules.make(
             cfg.lr_schedule, cfg.lr,
             total_steps=cfg.nepochs * max(self.loader.steps_per_epoch, 1),
@@ -210,6 +228,13 @@ class Trainer:
             grad_reduction=(cfg.grad_reduction if seq_group is None
                             else "global_mean"),
             accum_steps=cfg.accum_steps)
+        # k > 1: (state, group) -> (state, last loss), a group's steps
+        self.multi_step = None
+        if self.k_dispatch > 1:
+            self.multi_step = (
+                dp.GraphedTrainStep(self.train_step, self.optimizer,
+                                    self.device)
+                if self.device.type == "cuda" else self._eager_group)
         self.eval_step = dp.make_eval_step(
             self.model, self.world, loss_name=cfg.loss,
             with_accuracy=(cfg.loss == "cross_entropy"))
@@ -230,6 +255,13 @@ class Trainer:
             full_batch=cfg.full_batch, remainder=cfg.data.remainder,
             backend=cfg.data.backend, seq_rank=w.seq_rank, sp=w.sp,
             seq_permutation=self.seq_permutation)
+
+    def _eager_group(self, state: TrainState, batches):
+        """A dispatch's steps one by one: the CPU's multi-step path."""
+        loss = None
+        for batch in batches:
+            state, loss = self.train_step(state, batch)
+        return state, loss
 
     def init_state(self) -> TrainState:
         """Seeded init, identical on every rank (no broadcast needed), drawn
@@ -308,9 +340,9 @@ class Trainer:
         last_loss = float("nan")
         step = start_step
         prev: Optional[tuple] = None   # (step, epoch, loss, step before)
-        # one CUDA event after each step: device time per step without a
-        # host sync in the loop
-        events = []
+        # one CUDA event after each dispatch (a step at k = 1): device time
+        # per step without a host sync in the loop
+        events, event_steps = [], []
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
@@ -321,23 +353,34 @@ class Trainer:
             epoch_t0 = time.perf_counter()
             loss = None
             first, mid_epoch_start = mid_epoch_start, 0
-            for i, batch in enumerate(self.loader.epoch(epoch,
-                                                        start_step=first)):
-                # lag-1 logging: the previous step's loss is ready (or
-                # nearly) by the time this step's batch is here
+            if self.k_dispatch > 1:
+                dispatches = self.loader.epoch_groups(
+                    epoch, self.k_dispatch, start_step=first)
+            else:
+                dispatches = ((b, 1, self.loader.batch_rows(first + i))
+                              for i, b in enumerate(self.loader.epoch(
+                                  epoch, start_step=first)))
+            for batch, n_steps, rows in dispatches:
+                # lag-1 logging: the previous dispatch's loss is ready (or
+                # nearly) by the time this one's batch is here; a dispatch
+                # logs when it crossed a log_every boundary
                 if prev is not None and cfg.log_every and \
                         prev[0] // cfg.log_every > prev[3] // cfg.log_every:
                     last_loss = float(prev[2])
                     self.metrics.write({
                         "step": prev[0], "epoch": prev[1], "loss": last_loss,
                         "samples_per_sec": thr.samples_per_sec})
-                self.state, loss = self.train_step(self.state, batch)
+                if self.k_dispatch > 1:
+                    self.state, loss = self.multi_step(self.state, batch)
+                else:
+                    self.state, loss = self.train_step(self.state, batch)
                 if cuda:
                     events.append(torch.cuda.Event(enable_timing=True))
                     events[-1].record()
-                thr.add(self.loader.batch_rows(first + i))
-                prev = (step + 1, epoch, loss, step)
-                step += 1
+                    event_steps.append(n_steps)
+                thr.add(rows)
+                prev = (step + n_steps, epoch, loss, step)
+                step += n_steps
                 if cfg.checkpoint_every and (step // cfg.checkpoint_every >
                                              prev[3] // cfg.checkpoint_every):
                     self.save()
@@ -368,8 +411,11 @@ class Trainer:
                                              * thr.samples_per_sec)
         if cuda:
             events[-1].synchronize()
-            result["step_ms"] = [a.elapsed_time(b)
-                                 for a, b in zip(events, events[1:])]
+            # a dispatch's ms shared equally by its steps
+            result["step_ms"] = [a.elapsed_time(b) / n
+                                 for a, b, n in zip(events, events[1:],
+                                                    event_steps)
+                                 for _ in range(n)]
             result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
         if self.val_data is not None:

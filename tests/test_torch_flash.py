@@ -169,9 +169,11 @@ def test_flash_delta_matches_jax_delta_formula(g_lse, dtype):
 def test_backward_returns_its_delta_and_takes_both_schedules(t):
     """flash_backward's delta (``return_delta``) is flash_delta's, and its
     dq/dk/dv are the same under either schedule; on the CPU both are the
-    plain versions."""
-    q, k, v = (torch.tensor(a).to(torch.bfloat16) for a in _qkv(t=t, seed=19))
-    dout = torch.tensor(_qkv(t=t, seed=20)[0]).to(torch.bfloat16)
+    plain versions.  head_dim 32: the shared schedule is the sm90
+    kernels' (bf16 at head_dim 32/64/128)."""
+    q, k, v = (torch.tensor(a).to(torch.bfloat16)
+               for a in _qkv(t=t, d=32, seed=19))
+    dout = torch.tensor(_qkv(t=t, d=32, seed=20)[0]).to(torch.bfloat16)
     out, lse = fa.flash_forward(q, k, v, "causal")
     g_lse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(1))
     got = {sch: fa.flash_backward(q, k, v, out, lse, dout, "causal",

@@ -32,7 +32,7 @@ def test_design_by_dtype_kernel_and_head_dim(dtype, which, design, head_dim):
     assert fa.kernel_design(which, dtype, head_dim) == design
 
 
-@pytest.mark.parametrize("head_dim", [16, 48, 96, 256])
+@pytest.mark.parametrize("head_dim", [12, 48, 96, 256])
 @pytest.mark.parametrize("which", ["fwd", "dq", "dkv"])
 def test_bf16_head_dim_outside_the_sm90_kernels_raises(which, head_dim):
     """A raise naming the sm90 kernels, never a route to the simt ones."""
@@ -161,7 +161,7 @@ def test_launch_design_takes_any_t_the_blocks_divide(t, blocks, dtype,
                                 *blocks) == design
 
 
-@pytest.mark.parametrize("head_dim", [8, 16, 48, 256])
+@pytest.mark.parametrize("head_dim", [12, 24, 48, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_launch_design_refuses_head_dims_and_blocks(head_dim, dtype):

@@ -515,7 +515,7 @@ def test_interop_round_trips_a_jax_train_state():
     ["--ep", "2"], ["--fsdp", "2"], ["--profile_dir", "p"],
     ["--check_replicas_every", "2"], ["--telemetry_dir", "t"], ["--trace_dir", "t"],
     ["--faults", "nan@1"], ["--sdc_check_every", "2"],
-    ["--steps_per_dispatch", "2"], ["--hang_timeout", "5"],
+    ["--pp_interleave", "2"], ["--hang_timeout", "5"],
     ["--rollback_after", "2"], ["--workload", "rl"], ["--elastic"],
     ["--update_sharding", "zero1"], ["--matmul_dtype", "fp8"],
     ["--remat"], ["--skip-nonfinite"], ["--optimizer", "lion"],

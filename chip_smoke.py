@@ -22,7 +22,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               its plain version and a library yardstick (gather +
               ``F.scaled_dot_product_attention``) at the decode shape,
               medians of single calls, beside the bound (bytes or
-              operations at the card's peak).
+              operations at the card's peak); then the same at head_dim
+              32 (blocks of 16 keys) and head_dim 64 (blocks of 64 and
+              128 keys) at the shipped split size.
 4. serve    — the 218M-parameter LM (vocab 32768, 12 layers, d_model
               1024, 16 heads, d_ff 4096; random weights from a seed, bf16)
               behind ``Scheduler`` -> ``PagedDecodeServer`` with
@@ -71,7 +73,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               of Adam (26 steps).  Every loss finite, the last 3 steps'
               mean 1 nat below the first, each flash launch count (fwd,
               delta, dq, dkv) equal to 12 x steps, all on the sm90
-              kernels.  Prints step time, tokens/s, MFU, peak memory and
+              kernels.  Prints step time, tokens/s, MFU, peak memory
+              (above what the card held before the run; phases 11, 16
+              and 17 the same) and
               a profile of 3 more steps with the flash wrappers' host ms
               per call.
 8. identity — f32, TF32 off, 2 layers: 3 SGD-momentum steps with flash
@@ -150,6 +154,32 @@ Phases, each printing its own lines; any failure exits non-zero:
               (events) over the step: the device's busy share.  Then an
               f32, TF32-off, 2-layer identity: 3 SGD steps through the
               graph against the eager steps.
+17. slice   — (a) the ``attention="auto"`` rows, in bf16 and in f32:
+              dense (the plain path, f32 scores) against flash, forward
+              + backward of the op alone at T 256-8192 and the full train
+              step of phase 7's model at T 256-4096 (B x T = 8192 tokens,
+              causal, 16 heads of 64; dense training at T 8192 would not
+              fit), a table on one line each; the measured row beside
+              the port's ``AUTO_FLASH_MIN_SEQ[('cuda', dtype)]`` (the
+              phase fails where they disagree beyond a 5% tie), and
+              ``auto`` through the model launching flash at a row and
+              not under it.  Then phase 7's job (b) with ``--remat``
+              under ``full``, ``dots`` and ``dots_no_batch`` (the
+              forward kernel launches 24 times per step: the block's
+              forward runs again in the backward), each also under
+              ``--steps_per_dispatch 13`` (bitwise equal to its eager
+              run); (c) with ``--scan-layers``, its snapshot
+              decoded by ``--generate`` (greedy) against ``generate()``;
+              (d) with ``--update_sharding sharded`` and ``zero1``
+              (bitwise: one card shards nothing); (e) with bf16 params,
+              ``--update_sharding sharded --master-weights``, eager and
+              graphed (every param the bf16 cast of its master, bitwise;
+              the loss falls 1 nat); each against phase 7: losses and
+              final params (bitwise, or phase 8's f32 tolerance: printed
+              which), step time, tokens/s, MFU and peak memory.  (f) f32,
+              2 layers: remat + scan_layers with striped_flash over
+              ``LocalSeqGroup(4)`` against flash without either (phase
+              12's bars).
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
@@ -549,13 +579,16 @@ def paged_bound(case):
                                        else "operations")
 
 
-def time_paged_attention(torch, device):
+def time_paged_attention(torch, device, head_dim=64, block_size=16,
+                         sweep=True):
     """Kernel, plain version and library yardstick at the decode shape
     of phase 4 (16 lanes, 16 heads of 64, block 16, bf16; the table at
-    the server's capacity of 64 blocks), each the median of single calls
-    behind a GPU sleep.  The kernel is timed at several split sizes
-    (``SPLIT_KEYS``); the row's time is that of the size the port
-    ships."""
+    the server's capacity of 1024 keys: 64 blocks), each the median of
+    single calls behind a GPU sleep.  With ``sweep`` the kernel is also
+    timed at several split sizes (``SPLIT_KEYS``); the row's time is
+    that of the size the port ships.  ``head_dim`` and ``block_size``
+    time the other shapes the kernel takes (16 heads of ``head_dim``,
+    pool blocks of ``block_size`` keys)."""
     import torch.nn.functional as F
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -565,7 +598,8 @@ def time_paged_attention(torch, device):
     lengths = decode_lengths()
     case = make_case(torch, device, torch.bfloat16, lengths,
                      [max(ln - 1, 0) for ln in lengths], 1, 16, 16,
-                     max_blocks=64)
+                     head_dim=head_dim, block_size=block_size,
+                     max_blocks=1024 // block_size)
     args = [case[k] for k in ("q", "k_pool", "v_pool", "tables", "lengths",
                               "starts")]
     q, kp, vp, tables, lens = args[:5]
@@ -586,28 +620,31 @@ def time_paged_attention(torch, device):
 
     before = pa.paged_attention.launches
     shipped = pa.SPLIT_KEYS
-    sweep = {}
+    swept = {}
     try:
-        for keys in sorted({32, 64, 128, 256, 512, shipped}):
+        for keys in sorted({32, 64, 128, 256, 512, shipped} if sweep
+                           else {shipped}):
             pa.SPLIT_KEYS = keys
-            sweep[keys] = median_ms(torch, lambda: pa.paged_attention(*args))
+            swept[keys] = median_ms(torch, lambda: pa.paged_attention(*args))
     finally:
         pa.SPLIT_KEYS = shipped
     pa.paged_attention.launches = before   # timing launches do not count
-    kernel_ms = sweep[shipped]
+    kernel_ms = swept[shipped]
     split_blocks, n_splits = pa.split_plan(tables.shape[1], bs)
     plain_ms = median_ms(torch, lambda: pa.paged_attention_reference(*args))
     library_ms = median_ms(torch, library)
     bound_ms, bound_by = paged_bound(case)
     print(f"paged_attention decode (16 lanes, sum(len)={sum(lengths)}, "
-          f"bf16, table of {tables.shape[1]} blocks): split_blocks "
+          f"bf16, head_dim {hd}, blocks of {bs} keys, table of "
+          f"{tables.shape[1]} blocks): split_blocks "
           f"{split_blocks} ({split_blocks * bs} keys), {n_splits} splits; "
           f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
           f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
           f"medians of 25", flush=True)
-    print("paged_attention split sweep (keys per split: kernel ms): "
-          + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(sweep.items())),
-          flush=True)
+    if sweep:
+        print("paged_attention split sweep (keys per split: kernel ms): "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(swept.items())),
+              flush=True)
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by,
                 split_blocks=split_blocks, n_splits=n_splits)
@@ -1258,7 +1295,8 @@ def train_flags(**over):
                  compute_dtype="bfloat16", attention="flash", ce_chunk=256,
                  batch_size=8, nepochs=2, optimizer="adam", lr=1e-3)
     flags.update(over)
-    return [f"--{k}={v}" for k, v in flags.items()]
+    # True: a switch (--remat, --scan-layers, --master-weights)
+    return [f"--{k}" if v is True else f"--{k}={v}" for k, v in flags.items()]
 
 
 def one_rank_group(torch, device):
@@ -1285,15 +1323,51 @@ def ring_blocks(attention, s):
             "ring_flash": s * (s + 1) // 2}[attention]
 
 
+def flat_params(params):
+    """The param leaves in the per-layer tree's order (a stacked
+    ``scan_layers`` tree walked layer by layer), so runs of either layout
+    compare leaf for leaf."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.transformer import (  # noqa: E501
+        layer_params,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    return leaves(dict(params, blocks=layer_params(params)))
+
+
+def memory_before(torch, device):
+    """Bytes the card holds before a run, garbage collected first: what
+    earlier phases still hold.  A run's peak memory is its
+    ``max_memory_allocated`` less this, so runs late in the script compare
+    with phase 7's."""
+    import gc
+
+    if device.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(device)
+
+
+def fwd_launches_per_layer(model_cfg):
+    """Forward kernel launches per layer and step: under --remat the
+    block's forward runs again in the backward, and no policy saves an
+    autograd.Function's output, so B1 launches twice."""
+    return 2 if model_cfg.remat else 1
+
+
 def train_full_width(torch, np, device, seq_group=None, keep_final=False,
-                     **over):
+                     profile=True, inspect=None, tag=None, **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention); check finite, falling
     losses and the flash launch counts; print step time, tokens/s, MFU,
-    peak memory and a profile of 3 more steps.  Returns the printed
-    numbers and every step's loss; with ``keep_final``, also a host copy
-    of the params after the last step (taken before the profile's
-    steps)."""
+    peak memory and (``profile``) a profile of 3 more steps.  Returns the
+    printed numbers and every step's loss; with ``keep_final``, also a
+    host copy of the params after the last step (taken before the
+    profile's steps); ``inspect(trainer)`` returns more numbers to
+    print, read after the last step."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
@@ -1315,6 +1389,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         args = build_argparser().parse_args(
             train_flags(metrics_jsonl=metrics, **over))
         cfg = config_from_args(args)
+        before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
@@ -1324,8 +1399,9 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         fa.set_launch_counts()
         result = trainer.fit()
         counts = fa.launch_counts()
-        final = ([p.detach().cpu() for p in leaves(trainer.state.params)]
+        final = ([p.detach().cpu() for p in flat_params(trainer.state.params)]
                  if keep_final else None)
+        inspected = inspect(trainer) if inspect is not None else {}
         launches, with_lse = counts["all"], counts["with_lse"]
         with open(metrics) as f:
             records = [json.loads(line) for line in f]
@@ -1333,7 +1409,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
               if "loss" in r]
     steps = result["steps"]
     m = cfg.model
-    tag = "train" if seq_group is None else f"train {m.attention}"
+    tag = tag or ("train" if seq_group is None else f"train {m.attention}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{tag}: {len(losses)} losses for {steps} "
                              f"steps, finite: "
@@ -1348,13 +1424,15 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
     s_n = 1 if seq_group is None else seq_group.size
     per_step = m.n_layers * ring_blocks(m.attention, s_n)
     expect = per_step * steps if device.type == "cuda" else 0
-    if any(v != expect for v in launches.values()):
-        raise AssertionError(f"flash launches {launches}, expected "
-                             f"{per_step} per step x {steps} = {expect} each")
+    want = dict.fromkeys(fa.COUNTERS, expect)
+    want["fwd"] = expect * fwd_launches_per_layer(m)
+    if launches != want:
+        raise AssertionError(f"flash launches {launches}, expected {want} "
+                             f"({per_step} per step x {steps} each, the "
+                             "forward twice under --remat)")
     # bf16: every kernel on the sm90 design, none on the simt one
     by_design = {"sm90": counts["sm90"], "simt": counts["simt"]}
-    want_design = {"sm90": dict.fromkeys(fa.COUNTERS, expect),
-                   "simt": dict.fromkeys(fa.COUNTERS, 0)}
+    want_design = {"sm90": want, "simt": dict.fromkeys(fa.COUNTERS, 0)}
     if by_design != want_design:
         raise AssertionError(f"flash launches by design {by_design}, "
                              f"expected {want_design}")
@@ -1363,7 +1441,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                              f"times, expected {expect}")
     out = dict(steps=steps, launches=launches, with_lse_launches=with_lse,
                launches_by_design=by_design, first_loss=losses[0],
-               last3_loss=tail, n_params=n_params)
+               last3_loss=tail, n_params=n_params, **inspected)
     if device.type == "cuda":
         step_ms = sorted(result["step_ms"][3:])
         med = step_ms[len(step_ms) // 2]
@@ -1373,9 +1451,11 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         out.update(step_ms_median=med, tokens_per_s=tokens / med * 1e3,
                    step_tflop=flops / 1e12,
                    mfu=flops / (med / 1e3 * PEAK_FLOPS["torch.bfloat16"]),
-                   peak_memory_gib=result["peak_memory_bytes"] / 2 ** 30,
+                   peak_memory_gib=(result["peak_memory_bytes"] - before)
+                   / 2 ** 30, memory_before_gib=before / 2 ** 30,
                    step_ms_all=[round(x, 3) for x in result["step_ms"]])
-        out.update(profile_training(torch, trainer))
+        if profile:
+            out.update(profile_training(torch, trainer))
     print(f"{tag}: " + json.dumps(out), flush=True)
     return dict(out, losses=losses, final_params=final)
 
@@ -1493,9 +1573,6 @@ def sgd_runs(torch, device, attentions, n_layers=2, steps=3, batch=8,
     from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
         TrainState,
     )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
-        leaves,
-    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1525,7 +1602,7 @@ def sgd_runs(torch, device, attentions, n_layers=2, steps=3, batch=8,
             state, loss = step(state, b)
             losses.append(float(loss))
         runs[attention] = (losses, [p.detach() for p in
-                                    leaves(state.params)])
+                                    flat_params(state.params)])
     return runs
 
 
@@ -2245,7 +2322,8 @@ def launch_profile(torch, run, n_steps):
 
 
 def dispatch_full_width(torch, np, device, eager, seq_group=None,
-                        k=DISPATCH_K, **over):
+                        k=DISPATCH_K, exact=False, tag=None, inspect=None,
+                        profile=True, **over):
     """Phase 7's job (phase 11's with ``seq_group``) with
     ``--steps_per_dispatch k`` through the Trainer: on the card each
     dispatch replays the train step's CUDA graph.  Its losses at the
@@ -2279,6 +2357,7 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         metrics = f"{tmp}/metrics.jsonl"
         cfg = config_from_args(build_argparser().parse_args(train_flags(
             metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
+        before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group)
         trainer.init_state()
         torch.cuda.synchronize()
@@ -2288,13 +2367,15 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         result = trainer.fit()
         fit_s = time.perf_counter() - t0
         counts = fa.launch_counts()
-        final = [p.detach().cpu() for p in leaves(trainer.state.params)]
+        final = [p.detach().cpu() for p in flat_params(trainer.state.params)]
+        inspected = inspect(trainer) if inspect is not None else {}
         with open(metrics) as f:
             losses = {r["step"]: r["loss"] for r in map(json.loads, f)
                       if "loss" in r}
     graphed = trainer.multi_step
     m, steps = cfg.model, result["steps"]
-    tag = "dispatch" if seq_group is None else f"dispatch {m.attention}"
+    tag = tag or ("dispatch" if seq_group is None
+                  else f"dispatch {m.attention}")
     ends = list(range(k, steps + 1, k))
     if sorted(losses) != ends or steps != len(eager["losses"]):
         raise AssertionError(f"{tag}: losses logged at {sorted(losses)}, "
@@ -2315,12 +2396,16 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
           f"largest loss difference {loss_diff:.3g} ({loss_rel:.3g} "
           f"relative), largest param difference {param_diff:.3g} "
           f"(bitwise: {bitwise})", flush=True)
-    if not (bitwise or within):
+    if not (bitwise or within) or (exact and not bitwise):
         raise AssertionError(f"{tag}: the graphed run differs from the "
-                             f"eager one beyond phase 8's f32 tolerance")
+                             "eager one: " + ("not bitwise" if exact else
+                                              "beyond phase 8's f32 "
+                                              "tolerance"))
     # flash launches by design: eager (warm-up) + replays x captured
     s_n = 1 if seq_group is None else seq_group.size
     expect = m.n_layers * ring_blocks(m.attention, s_n) * steps
+    want = dict.fromkeys(fa.COUNTERS, expect)
+    want["fwd"] = expect * fwd_launches_per_layer(m)
     per_replay = graphed.launches_per_replay
     total = {w: counts["all"][w] + graphed.replays * per_replay["all"][w]
              for w in fa.COUNTERS}
@@ -2328,13 +2413,12 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     print(f"{tag}: {graphed.eager_steps} eager step(s) (the warm-up), "
           f"{graphed.replays} replays; flash launches by design: eager "
           f"{counts['all']} + {graphed.replays} x {per_replay['all']} "
-          f"captured = {total} (expected {expect} each)"
+          f"captured = {total} (expected {want})"
           + (f"; with_lse {with_lse}" if seq_group is not None else ""),
           flush=True)
-    if any(v != expect for v in total.values()) or (
-            seq_group is not None and with_lse != expect):
+    if total != want or (seq_group is not None and with_lse != expect):
         raise AssertionError(f"{tag}: flash launches {total}, with_lse "
-                             f"{with_lse}, expected {expect} each")
+                             f"{with_lse}, expected {want}")
     # the loop's numbers: every dispatch after the first (warm-up, capture)
     step_ms = sorted(result["step_ms"][k:])
     med = step_ms[len(step_ms) // 2]
@@ -2348,9 +2432,22 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
                first_dispatch_ms_per_step=result["step_ms"][0],
                tokens_per_s=tokens / med * 1e3,
                mfu=flops / (med / 1e3 * PEAK_FLOPS["torch.bfloat16"]),
-               peak_memory_gib=result["peak_memory_bytes"] / 2 ** 30,
+               peak_memory_gib=(result["peak_memory_bytes"] - before)
+               / 2 ** 30, memory_before_gib=before / 2 ** 30,
                eager_step_ms_median=eager["step_ms_median"],
-               eager_peak_memory_gib=eager["peak_memory_gib"], fit_s=fit_s)
+               eager_peak_memory_gib=eager["peak_memory_gib"], fit_s=fit_s,
+               **inspected)
+    if not profile:
+        print(f"{tag}: step {med:.2f} ms graphed vs "
+              f"{eager['step_ms_median']:.2f} ms eager, "
+              f"{out['tokens_per_s']:.0f} tokens/s, MFU "
+              f"{100 * out['mfu']:.1f}%, peak memory "
+              f"{out['peak_memory_gib']:.2f} GiB graphed vs "
+              f"{eager['peak_memory_gib']:.2f} GiB eager", flush=True)
+        print(f"{tag}: " + json.dumps(out), flush=True)
+        del trainer, graphed
+        torch.cuda.empty_cache()
+        return out
 
     # the host's launches per step: one more dispatch, and 3 eager steps
     groups = trainer.loader.epoch_groups(0, k)
@@ -2465,6 +2562,388 @@ def dispatch_identity(torch, np, device, n_layers=2, steps=3, batch=8,
     return dict(bitwise=bitwise, param_max_abs_diff=worst)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the auto row, --remat, --scan-layers, update sharding and
+# master weights on phase 7's job
+# ---------------------------------------------------------------------------
+
+# the auto measurement: the flagship geometry (16 heads of 64), causal,
+# B x T = 8192 tokens, in each compute dtype the flash kernels take (bf16
+# on the sm90 kernels, f32 on the simt ones).  Dense training at T 8192
+# would keep 12 layers x 6 bytes (bf16; 4 in f32) x B x H x T^2 = 77 GiB
+# of scores and probabilities for the backward, more than the card holds
+# beside the rest: the full step is measured up to T 4096 (38.6 GiB of
+# them in bf16)
+AUTO_TOKENS = 8192
+AUTO_OP_T = (256, 512, 1024, 2048, 4096, 8192)
+AUTO_STEP_T = (256, 512, 1024, 2048, 4096)
+# a row that disagrees with the measurement only where the two full steps
+# are within this share of each other is a tie, not a stale row
+AUTO_TIE = 0.05
+
+
+def auto_op_ms(torch, device, dtype, op_t):
+    """Dense against flash, forward + backward of the op alone (CUDA
+    events, the host held back), at each T of ``op_t``."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        sequence as sq,
+    )
+
+    impls = {"dense": lambda q, k, v: sq.attention_reference(q, k, v, True),
+             "flash": lambda q, k, v: fa.flash_attention(q, k, v, True)}
+    op = {}
+    for t in op_t:
+        b = AUTO_TOKENS // t
+        g = torch.Generator(device="cpu").manual_seed(SEED + t)
+        q, k, v, dout = [torch.randn((b, t, 16, 64), generator=g).to(
+            device, dtype) for _ in range(4)]
+        for x in (q, k, v):
+            x.requires_grad_()
+        op[t] = {}
+        for name, fn in impls.items():
+            def fwd_bwd(fn=fn):
+                torch.autograd.grad(fn(q, k, v), (q, k, v), dout)
+            op[t][name] = time_ms(torch, fwd_bwd, 5)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    return op
+
+
+def auto_step_ms(torch, device, kw, step_t, steps):
+    """Dense against flash in the full train step of phase 7's model
+    (``kw``), at each T of ``step_t``: ``max_seq_len`` = T (the positions
+    are learned), Adam, the median of ``steps`` steps after 2, one event
+    after each step as phase 7 times them."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+
+    world = world_setup(device)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+    params0 = Transformer(TransformerConfig(
+        **dict(kw, max_seq_len=max(step_t))), device=device).init(gen)
+    step_ms = {}
+    for t in step_t:
+        b = AUTO_TOKENS // t
+        g = torch.Generator(device="cpu").manual_seed(SEED + t)
+        ids = torch.randint(0, kw["vocab_size"], (b, t + 1),
+                            generator=g).to(device)
+        batch = {"x": ids[:, :-1], "y": ids[:, 1:]}
+        step_ms[t] = {}
+        for name in ("dense", "flash"):
+            model = Transformer(TransformerConfig(
+                **dict(kw, max_seq_len=t), attention=name), device=device)
+            params = dict(params0, pos={"table": params0["pos"]["table"][:t]})
+            opt = optim.adam(1e-4)
+            state = TrainState.from_params(params, opt)
+            step = dp.make_train_step(model, opt, world,
+                                      loss_name="cross_entropy")
+            events = []
+            for i in range(steps + 2):
+                state, loss = step(state, batch)
+                if i >= 1:
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+            events[-1].synchronize()
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"auto: {name} at T {t}: loss {loss}")
+            ms = sorted(a.elapsed_time(z) for a, z in zip(events, events[1:]))
+            step_ms[t][name] = ms[len(ms) // 2]
+            del state, opt, step, model, params
+            torch.cuda.empty_cache()
+    del params0, batch, ids
+    torch.cuda.empty_cache()
+    return step_ms
+
+
+def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
+                 steps=6, **over):
+    """Phase 17a, in bf16 and in f32: dense attention (the port's plain
+    path, f32 scores) against flash (B1 forward; delta, B2 and B3
+    backward), as forward + backward of the op alone and as the full train
+    step of phase 7's model (:func:`auto_op_ms`, :func:`auto_step_ms`).
+    A dtype's row is the smallest T from which flash is no slower in the
+    full step at that T and every longer one (None: at no T).  The phase
+    fails when the port's ``AUTO_FLASH_MIN_SEQ`` row disagrees with the
+    measurement at a T where the two steps are further apart than
+    ``AUTO_TIE``.  Then ``attention="auto"`` through the model: flash
+    launches at a row and not just under it, nor at any T for a dtype
+    without a row."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        sequence as sq,
+    )
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        kw = dict(BIG, activation="gelu", pos_encoding="learned",
+                  ce_chunk=256, compute_dtype=dtype)
+        kw.update(over)
+        op = auto_op_ms(torch, device, dtype, op_t)
+        print(f"auto op {name} (fwd+bwd ms, 16 heads of 64, B x T = "
+              f"8192): " + "; ".join(
+                  f"T {t}: dense {r['dense']:.3f} flash {r['flash']:.3f}"
+                  for t, r in op.items()), flush=True)
+        step_ms = auto_step_ms(torch, device, kw, step_t, steps)
+        print(f"auto step {name} (ms, phase 7's model, B x T = 8192, "
+              f"Adam): " + "; ".join(
+                  f"T {t}: dense {r['dense']:.2f} flash {r['flash']:.2f}"
+                  for t, r in step_ms.items()), flush=True)
+        row = None
+        for t in sorted(step_ms, reverse=True):
+            if step_ms[t]["flash"] > step_ms[t]["dense"]:
+                break
+            row = t
+        shipped = sq.AUTO_FLASH_MIN_SEQ.get(("cuda", dtype))
+        # the shipped row's pick at each T, and how much slower it is
+        stale = {}
+        for t, r in step_ms.items():
+            pick = "flash" if shipped is not None and t >= shipped \
+                else "dense"
+            other = "dense" if pick == "flash" else "flash"
+            if r[pick] > (1 + AUTO_TIE) * r[other]:
+                stale[t] = r[pick] / r[other]
+        print(f"auto row {name}: measured {row} (flash no slower in the "
+              f"full step from there on), the port's "
+              f"AUTO_FLASH_MIN_SEQ[('cuda', {name})] {shipped}; the "
+              f"shipped pick slower by more than {AUTO_TIE:.0%} at "
+              f"{ {t: round(x, 3) for t, x in stale.items()} }", flush=True)
+        if stale:
+            raise AssertionError(
+                f"auto: the {name} row {shipped} is stale: measured {row}, "
+                f"the shipped pick slower at {sorted(stale)}")
+        # the consult point on the card: auto at the row and under it (no
+        # row: at the longest T measured)
+        ts = (shipped, shipped // 2) if shipped else (max(step_t),)
+        routed = {}
+        for t in ts:
+            model = Transformer(TransformerConfig(**dict(
+                kw, max_seq_len=t, n_layers=2), attention="auto"),
+                device=device)
+            params = model.init(torch.Generator().manual_seed(SEED))
+            ids = torch.zeros((1, t), dtype=torch.long, device=device)
+            fa.set_launch_counts()
+            with torch.no_grad():
+                model.forward(params, ids)
+            routed[t] = fa.launch_counts()["all"]["fwd"]
+            del model, params, ids
+        torch.cuda.empty_cache()
+        want = {t: 2 if shipped and t >= shipped else 0 for t in ts}
+        print(f"auto {name} through the model (2 layers): flash forward "
+              f"launches by T {routed} (expected {want})", flush=True)
+        if routed != want:
+            raise AssertionError(f"auto {name} routed {routed}, expected "
+                                 f"{want}")
+        out[name] = dict(op_ms=op, step_ms=step_ms, measured_row=row,
+                         shipped_row=shipped)
+    return out
+
+
+def against(torch, tag, run, ref, exact=False):
+    """``run``'s losses and final params against ``ref``'s (phase 7's):
+    bitwise, or within phase 8's f32 tolerance (``exact``: bitwise
+    only); prints which."""
+    loss_diff = max(abs(a - b) for a, b in zip(run["losses"], ref["losses"]))
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(run["losses"], ref["losses"]))
+    pairs = list(zip(run["final_params"], ref["final_params"]))
+    param_diff = max(float((a.float() - b.float()).abs().max())
+                     for a, b in pairs)
+    bitwise = loss_diff == 0 and param_diff == 0
+    within = loss_rel <= 1e-5 and all(
+        bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
+        for a, b in pairs)
+    print(f"{tag} against phase 7: largest loss difference {loss_diff:.3g} "
+          f"({loss_rel:.3g} relative), largest param difference "
+          f"{param_diff:.3g}: " + ("bitwise" if bitwise else
+                                  "within phase 8's f32 tolerance" if within
+                                  else "DIFFERENT"), flush=True)
+    if len(pairs) != len(ref["final_params"]) or not (
+            bitwise or (within and not exact)):
+        raise AssertionError(f"{tag} differs from phase 7's run"
+                             + (" (bitwise required)" if exact else ""))
+    return dict(bitwise=bitwise, loss_max_abs_diff=loss_diff,
+                param_max_abs_diff=param_diff)
+
+
+def master_check(trainer):
+    """Every param equals the bf16 cast of its f32 master, bitwise."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    ps = leaves(trainer.state.params)
+    ms = leaves(trainer.state.opt_state.master)
+    equal = len(ps) == len(ms) and all(
+        str(p.dtype) == "torch.bfloat16" and p.equal(m.to(p.dtype))
+        for p, m in zip(ps, ms))
+    if not equal:
+        raise AssertionError("master weights: a param differs from the "
+                             "bf16 cast of its master")
+    return dict(params_equal_bf16_master=equal,
+                param_dtype=str(ps[0].dtype).replace("torch.", ""),
+                master_dtype=str(ms[0].dtype).replace("torch.", ""))
+
+
+def scan_generate(torch, device, ck, **over):
+    """``--generate`` (greedy, 32 tokens) from a ``--scan-layers``
+    snapshot as a subprocess, against the in-process ``generate()`` over
+    the restored stacked tree."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.generate import (  # noqa: E501
+        generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.registry import (  # noqa: E501
+        build_model,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as ckpt,
+    )
+
+    flags = train_flags(checkpoint_dir=ck, **over)
+    proc = run_cli(flags + ["--generate", ",".join(map(str, PROMPT)),
+                            "--max_new_tokens", "32", "--temperature", "0"])
+    if proc.returncode != 0:
+        raise AssertionError(f"--generate (scan_layers): rc "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-2000:]}")
+    cli_ids = [int(t) for t in proc.stdout.strip().splitlines()[-1].split(",")]
+    model = build_model(config_from_args(
+        build_argparser().parse_args(flags)).model, device=device)
+    _, params = ckpt.restore_params(ck, model.init(
+        torch.Generator().manual_seed(SEED)))
+    if not isinstance(params["blocks"], dict):
+        raise AssertionError("scan_layers: the restored blocks are not "
+                             "stacked")
+    ids = generate(model, params, [PROMPT], 32, temperature=0.0,
+                   device=device)[0].tolist()
+    print(f"scan_layers generate (greedy): --generate printed "
+          f"{cli_ids[len(PROMPT):]}; in-process {ids[len(PROMPT):]}",
+          flush=True)
+    if cli_ids != ids or len(ids) != len(PROMPT) + 32:
+        raise AssertionError("--generate from a scan_layers snapshot "
+                             "differs from generate()")
+    return dict(greedy_equal=True)
+
+
+def remat_scan_identity(torch, np, device, n_layers=2, steps=3, batch=8,
+                        seq_size=4, **over):
+    """f32, TF32 off, ``n_layers`` layers: 3 SGD steps with remat +
+    scan_layers and striped_flash over ``LocalSeqGroup(seq_size)``
+    against plain flash without either: losses to rtol 1e-5 and params
+    within 1e-6 (phase 12's bars)."""
+    lf, pf = sgd_runs(torch, device, ("flash",), n_layers, steps, batch,
+                      **over)["flash"]
+    ls, ps = sgd_runs(torch, device, ("striped_flash",), n_layers, steps,
+                      batch, seq_size=seq_size, remat=True,
+                      scan_layers=True, **over)["striped_flash"]
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(ls, lf))
+    worst = max(float((a - b).abs().max()) for a, b in zip(ps, pf))
+    print(f"remat + scan_layers striped_flash over {seq_size} shards "
+          f"({n_layers} layers, {steps} steps, f32): losses {ls} vs flash "
+          f"{lf}; params max |diff| {worst:.3e}", flush=True)
+    if not (loss_ok and worst <= 1e-6 and len(ps) == len(pf)):
+        raise AssertionError("remat + scan_layers with striped_flash "
+                             "differs from flash")
+    return dict(param_max_abs_diff=worst)
+
+
+def slice_full_width(torch, np, device, trained, **over):
+    """Phase 17 (b)-(f) on phase 7's job (``over``: its flags changed, as
+    a CPU rehearsal shrinks it); ``trained`` is phase 7's run (its losses
+    and final params).  The graphed runs need the card."""
+    import tempfile
+
+    cuda = device.type == "cuda"
+    keep = ("step_ms_median", "peak_memory_gib", "memory_before_gib", "mfu",
+            "tokens_per_s", "launches", "first_loss", "last3_loss")
+
+    def train(tag, **flags):
+        run = train_full_width(torch, np, device, keep_final=True,
+                               profile=False, tag=tag, **over, **flags)
+        numbers = {k: run[k] for k in keep if k in run}
+        if cuda:
+            print(f"{tag}: step {run['step_ms_median']:.2f} ms vs "
+                  f"{trained['step_ms_median']:.2f} ms, peak memory "
+                  f"{run['peak_memory_gib']:.2f} GiB vs "
+                  f"{trained['peak_memory_gib']:.2f} GiB (phase 7); flash "
+                  f"launches {run['launches']}", flush=True)
+        return run, numbers
+
+    out = {}
+    # (b) remat: the forward kernel runs again in the backward; each
+    # policy (dots and dots_no_batch: a selective-checkpoint dispatch
+    # mode) also captured in the step's CUDA graph
+    for policy in ("full", "dots", "dots_no_batch"):
+        run, out[f"remat_{policy}"] = train(f"remat {policy}", remat=True,
+                                            remat_policy=policy)
+        out[f"remat_{policy}"].update(
+            against(torch, f"remat {policy}", run, trained))
+        if cuda:
+            graphed = dispatch_full_width(
+                torch, np, device, run, exact=True, profile=False,
+                tag=f"remat {policy} dispatch", remat=True,
+                remat_policy=policy, **over)
+            out[f"remat_{policy}"].update(
+                graphed_step_ms_median=graphed["step_ms_median"],
+                graphed_peak_memory_gib=graphed["peak_memory_gib"],
+                graphed_bitwise=graphed["bitwise"])
+        del run
+    # (c) scan_layers, then --generate from its snapshot
+    with tempfile.TemporaryDirectory() as ck:
+        run, out["scan_layers"] = train("scan_layers", checkpoint_dir=ck,
+                                        **{"scan-layers": True})
+        out["scan_layers"].update(against(torch, "scan_layers", run, trained))
+        del run
+        out["scan_layers"].update(scan_generate(
+            torch, device, ck, **over, **{"scan-layers": True}))
+    # (d) the sharded updates: N = 1 shards nothing, so bitwise
+    for how in ("sharded", "zero1"):
+        run, out[f"update_sharding_{how}"] = train(
+            f"update_sharding {how}", update_sharding=how)
+        out[f"update_sharding_{how}"].update(against(
+            torch, f"update_sharding {how}", run, trained, exact=True))
+        del run
+    # (e) bf16 params, the f32 master in the sharded state; eager, graphed
+    flags = dict(param_dtype="bfloat16", update_sharding="sharded",
+                 **{"master-weights": True})
+    run, out["master_weights"] = train("master weights",
+                                       inspect=master_check, **flags)
+    if cuda:
+        graphed = dispatch_full_width(torch, np, device, run, profile=False,
+                                      tag="master weights dispatch",
+                                      inspect=master_check, **over, **flags)
+        out["master_weights"].update(
+            graphed_step_ms_median=graphed["step_ms_median"],
+            graphed_peak_memory_gib=graphed["peak_memory_gib"],
+            graphed_bitwise=graphed["bitwise"])
+    del run
+    # (f) the f32 identity of remat + scan_layers on the striped ring
+    out["identity"] = remat_scan_identity(torch, np, device)
+    print("slice: " + json.dumps(out), flush=True)
+    return out
+
 def _clone_tree(torch, tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
@@ -2501,6 +2980,10 @@ def main() -> int:
     phase("3 kernels against their plain versions")
     max_err = check_kernels(torch, device)
     timing = time_paged_attention(torch, device)
+    # the other head_dims and blocks the kernel takes
+    other_shapes = [dict(head_dim=hd, block_size=bs, **time_paged_attention(
+        torch, device, head_dim=hd, block_size=bs, sweep=False))
+        for hd, bs in ((32, 16), (64, 64), (64, 128))]
 
     phase("4 serve the 218M LM through the fused kernel")
     served = serve_full_width(torch, np, device)
@@ -2565,12 +3048,17 @@ def main() -> int:
 
     phase("16 dispatch: --steps_per_dispatch as CUDA-graph replay")
     dispatch_full_width(torch, np, device, trained)
-    del trained["final_params"]
     dispatch_full_width(torch, np, device, seq_trained,
                         seq_group=LocalSeqGroup(4),
                         attention="striped_flash", sp=4)
     del seq_trained["final_params"]
     dispatch_identity(torch, np, device)
+
+    phase("17 slice: the auto row, --remat, --scan-layers, update sharding, "
+          "master weights")
+    auto = measure_auto(torch, np, device)
+    sliced = slice_full_width(torch, np, device, trained)
+    del trained["final_params"]
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -2586,7 +3074,8 @@ def main() -> int:
                     takes="head_dim 32/64/128; pool blocks of any multiple "
                           "of 16 keys (16, 32, 64, 128 checked)",
                     replaces=f"{tpu}:486", launches=served["launches"],
-                    max_abs_err=max_err, **timing)]
+                    max_abs_err=max_err, other_shapes=other_shapes,
+                    **timing)]
     for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
         # bf16 on the tensor cores; f32 on csrc/flash_attention.cu
         kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
@@ -2604,6 +3093,9 @@ def main() -> int:
                             **flash_timing[which]))
     # bf16 at head_dim 8 and 16 (simt), timed at (8, 1024, 16, d)
     kernels[1]["small_head_dims"] = small_timing
+    # under --remat the forward runs again in the backward (phase 17)
+    kernels[1]["launches_remat_full"] = sliced["remat_full"]["launches"]["fwd"]
+    kernels[1]["auto_row"] = {k: r["measured_row"] for k, r in auto.items()}
     kernels.append(dict(name="flash_attention_with_lse", route="cuda",
                         source=src + "flash_attention_sm90.cu",
                         sources=[src + "flash_attention_sm90.cu",

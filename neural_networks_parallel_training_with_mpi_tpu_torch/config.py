@@ -142,9 +142,9 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 256
     max_seq_len: int = 512
-    # auto (default) = per-backend shape dispatch: dense below the
-    # measured crossover, flash above (parallel.sequence.AUTO_FLASH_MIN_SEQ,
-    # seeded from BENCH_ATTENTION.json); explicit impls pin the choice
+    # auto (default) = dense below the crossover measured per device type
+    # and compute dtype, flash above (parallel.sequence.AUTO_FLASH_MIN_SEQ,
+    # chip_smoke.py phase 17a); explicit impls pin the choice
     attention: str = "auto"  # auto | dense | flash (pallas) | ring | ulysses
     # "learned" position table (default) or "rope" rotary q/k (no
     # position parameters; relative-distance attention)
@@ -694,7 +694,8 @@ def build_argparser() -> argparse.ArgumentParser:
                             "striped", "striped_flash", "ulysses"],
                    default=None,
                    help="attention impl (default: auto = dense below the "
-                        "measured per-backend crossover, flash above; "
+                        "crossover measured per device and compute dtype, "
+                        "flash above; "
                         "ring when --sp > 1; "
                         "flash = blocked pallas kernel; ring_flash = ring "
                         "with the pallas kernel per block; striped[_flash] "

@@ -10,7 +10,8 @@ the same trees and field names.  This module imports no JAX: callers hand
 it host arrays (``jax.device_get(tree)``).
 
 * ``params_from_jax``  a Transformer tree in ``cfg.param_dtype`` (a
-  ``scan_layers`` tree is unstacked);
+  ``scan_layers`` tree stays stacked when ``cfg.scan_layers``, and is
+  unstacked into one dict per layer otherwise);
 * ``tree_from_jax``    any tree — MLP params, optimizer state, a whole
   train state — with the NamedTuples mapped onto the port's classes of
   the same name and the step counters as host ints;
@@ -27,12 +28,12 @@ import numpy as np
 import torch
 
 from .models.transformer import TransformerConfig
-from .ops.optim import AdamState, SGDState
+from .ops.optim import AdamState, MasterState, SGDState
 from .train.state import TrainState
 from .utils.platform import DeviceLike, resolve_device
 
 _PORT_TYPES = {cls.__name__: cls for cls in (SGDState, AdamState,
-                                             TrainState)}
+                                             MasterState, TrainState)}
 
 
 def _leaf(arr, dtype: Optional[torch.dtype],
@@ -86,12 +87,26 @@ def params_from_jax(tree: Any, cfg: TransformerConfig,
     """Host copy of a JAX Transformer parameter tree -> the port's tree of
     tensors in ``cfg.param_dtype`` on ``device`` (default: cuda)."""
     tree = dict(tree)
-    if isinstance(tree["blocks"], dict):
-        tree["blocks"] = _unstack(tree["blocks"], cfg.n_layers)
-    if len(tree["blocks"]) != cfg.n_layers:
-        raise ValueError(f"tree has {len(tree['blocks'])} blocks, config "
-                         f"says n_layers={cfg.n_layers}")
+    stacked = isinstance(tree["blocks"], dict)
+    if cfg.scan_layers:
+        if not stacked:
+            raise ValueError("config has scan_layers=True but the tree's "
+                             "blocks are a per-layer list")
+        n = {np.shape(a)[0] for a in _leaves(tree["blocks"])}
+    else:
+        if stacked:
+            tree["blocks"] = _unstack(tree["blocks"], cfg.n_layers)
+        n = {len(tree["blocks"])}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"tree has {sorted(n)} blocks, config says "
+                         f"n_layers={cfg.n_layers}")
     return tree_from_jax(tree, device, cfg.param_dtype)
+
+
+def _leaves(node: Any) -> list:
+    if isinstance(node, dict):
+        return [a for v in node.values() for a in _leaves(v)]
+    return [node]
 
 
 def _unstack(blocks: Any, n_layers: int) -> list:

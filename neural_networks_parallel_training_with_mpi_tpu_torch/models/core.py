@@ -15,6 +15,7 @@ differ, so parity tests carry weights across instead of re-drawing them.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -23,6 +24,64 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
+
+# what ``make_remat`` may SAVE between forward and backward: the aten ops
+# whose outputs are kept (None: nothing)
+_REMAT_POLICIES = {
+    "full": None,
+    "dots": ("mm", "addmm", "bmm", "baddbmm"),
+    "dots_no_batch": ("mm", "addmm"),
+}
+
+
+def make_remat(policy: str = "full") -> Callable[[Callable], Callable]:
+    """``fn -> fn`` run under ``torch.utils.checkpoint.checkpoint``
+    (non-reentrant): the block's activations are recomputed in the
+    backward, as ``jax.checkpoint`` does.  The policy names are JAX's:
+
+    * ``full``: nothing is saved, the whole block runs again;
+    * ``dots``: the outputs of ``aten.mm``, ``addmm``, ``bmm`` and
+      ``baddbmm`` are saved (JAX's ``dots_saveable``);
+    * ``dots_no_batch``: those of ``mm`` and ``addmm`` only (JAX's
+      ``dots_with_no_batch_dims_saveable``: the projections, not the
+      batched attention products).
+
+    The two saving policies use selective checkpointing
+    (``create_selective_checkpoint_contexts``); a torch without it
+    raises.  The flash kernels are ``autograd.Function``s, not aten ops:
+    no policy saves their output, so the forward kernel runs again in the
+    backward under every policy (JAX's policies do not save a
+    ``pallas_call`` either).  Nothing in a block draws random numbers, so
+    the RNG state is neither saved nor restored, which keeps the step
+    capturable as a CUDA graph."""
+    try:
+        ops = _REMAT_POLICIES[policy]
+    except KeyError:
+        raise ValueError(f"unknown remat policy {policy!r}; have "
+                         f"{sorted(_REMAT_POLICIES)}") from None
+    from torch.utils import checkpoint as ckpt
+
+    kw: Dict[str, Any] = dict(use_reentrant=False, preserve_rng_state=False)
+    if ops is not None:
+        if not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+            raise RuntimeError(
+                f"remat policy {policy!r} needs selective checkpointing "
+                f"(torch.utils.checkpoint.create_selective_checkpoint_"
+                f"contexts), which torch {torch.__version__} lacks")
+        saved = frozenset(getattr(torch.ops.aten, name) for name in ops)
+
+        def save_dots(ctx, op, *args, **kwargs):
+            return (ckpt.CheckpointPolicy.MUST_SAVE
+                    if op.overloadpacket in saved
+                    else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, save_dots)
+
+    def remat(fn: Callable) -> Callable:
+        return lambda *args: ckpt.checkpoint(fn, *args, **kw)
+
+    return remat
 
 
 def _uniform(shape, bound: float, dtype: torch.dtype,

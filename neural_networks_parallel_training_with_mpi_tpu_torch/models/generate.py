@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..utils.platform import DeviceLike, resolve_device
-from .transformer import NEG_INF, Transformer
+from .transformer import NEG_INF, Transformer, layer_params
 
 
 def init_kv_cache(model: Transformer, batch: int, max_len: int,
@@ -93,7 +93,7 @@ def _forward_chunk(model: Transformer, params, caches, ids: torch.Tensor,
     mask = (torch.arange(t, device=ids.device)[None, None, :]
             <= positions[None, :, None]).expand(b, s, t)
     x = model.embed(params, ids, positions)
-    for layer_params, cache in zip(params["blocks"], caches):
+    for layer, cache in zip(layer_params(params), caches):
 
         def attend(q, k, v, cache=cache):
             if "k_scale" in cache:
@@ -106,7 +106,7 @@ def _forward_chunk(model: Transformer, params, caches, ids: torch.Tensor,
             return attend_masked(c, q, cache["k"], cache["v"], mask,
                                  cache.get("k_scale"), cache.get("v_scale"))
 
-        x = model.block(layer_params, x, positions, attend)
+        x = model.block(layer, x, positions, attend)
     return model.head_logits(params, x)
 
 

@@ -37,6 +37,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
             pos_encoding=cfg.pos_encoding, activation=cfg.ffn_activation,
             d_ff=cfg.d_ff, attention=cfg.attention, param_dtype=pdt,
             compute_dtype=cdt, remat=cfg.remat,
+            remat_policy=cfg.remat_policy,
             moe_experts=cfg.moe_experts, ce_chunk=cfg.ce_chunk,
             matmul_dtype=cfg.matmul_dtype, scan_layers=cfg.scan_layers)
         return Transformer(tc, device=device, seq_group=seq_group)

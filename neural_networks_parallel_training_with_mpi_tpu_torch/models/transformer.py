@@ -11,24 +11,32 @@ tests share one layout.
 
 Attention: ``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA
 kernels of ``ops.flash_attention``, forward and backward; K/V repeated to
-full heads first, as the JAX package does); ``auto`` means dense until an
-H100 crossover is measured.  The sequence-sharded impls ``ring``,
-``ring_flash``, ``striped`` and ``striped_flash`` run over the sequence
+full heads first, as the JAX package does); ``auto`` is dense or flash by
+the device, the compute dtype and the sequence length
+(``parallel.sequence.resolve_attention_impl``; a head_dim the kernels do
+not take, where auto would pick flash, is refused at construction).  The
+sequence-sharded impls ``ring``, ``ring_flash``, ``striped`` and
+``striped_flash`` run over the sequence
 group the model is built with (``parallel.sequence``), and the tokens sit
 at their global positions (``global_positions``) for the position
 embedding and RoPE.  Training adds ``fwd_flops`` and the fused
 chunked cross-entropy (``ce_chunk``, ``fused_loss_sum``), whose chunks run
 under ``torch.utils.checkpoint`` so the (B, T, vocab) logits never exist.
 
-Not ported yet, and refused at construction: MoE FFNs, ``scan_layers``
-(a stacked tree; ``interop.params_from_jax`` unstacks one), ``remat``,
-``ulysses`` and ``dense_blockwise`` attention.
+``remat`` runs each block under ``models.core.make_remat(remat_policy)``
+(recomputed in the backward).  ``scan_layers`` keeps the JAX package's
+stacked tree: ``blocks`` is one dict whose leaves carry a leading
+``(n_layers,)`` axis; every path walks it through :func:`layer_params`
+(one ``torch.unbind`` per leaf: views, no copy).
+
+Not ported yet, and refused at construction: MoE FFNs, ``ulysses`` and
+``dense_blockwise`` attention.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
@@ -36,10 +44,10 @@ from ..ops import losses as losses_lib
 from ..ops.rope import rope_rotate
 from ..parallel.sequence import (
     SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, global_positions,
-    sequence_sharded_attention,
+    resolve_attention_impl, sequence_sharded_attention,
 )
 from ..utils.platform import DeviceLike, resolve_device
-from .core import ACTIVATIONS, Embedding, LayerNorm, Linear
+from .core import ACTIVATIONS, Embedding, LayerNorm, Linear, make_remat
 
 NEG_INF = -1e30
 
@@ -78,7 +86,7 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     # auto | dense | flash | ring | ring_flash | striped | striped_flash
-    # (auto -> dense)
+    # (auto: parallel.sequence.resolve_attention_impl)
     attention: str = "auto"
     pos_encoding: str = "learned"      # learned | rope
     rope_theta: float = 10000.0
@@ -90,6 +98,7 @@ class TransformerConfig:
     flash_block_q: int = 128
     flash_block_k: int = 128
     remat: bool = False
+    remat_policy: str = "full"         # full | dots | dots_no_batch
     # > 0: fused chunked cross-entropy over blocks of this many tokens
     ce_chunk: int = 0
 
@@ -123,10 +132,6 @@ class Transformer:
         sequence-sharded attentions run over; they need one."""
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE FFNs are not ported yet")
-        if cfg.scan_layers:
-            raise NotImplementedError(
-                "scan_layers is not ported; build with scan_layers=False "
-                "(interop.params_from_jax unstacks a stacked JAX tree)")
         if cfg.attention in UNPORTED_IMPLS:
             raise NotImplementedError(
                 f"attention={cfg.attention!r} is not ported yet; the port "
@@ -140,8 +145,6 @@ class Transformer:
                 f"attention={cfg.attention!r} shards the sequence and needs "
                 "a sequence group: --sp > 1 under torchrun, or an explicit "
                 "LocalSeqGroup; use dense or flash on an unsharded sequence")
-        if cfg.remat:
-            raise NotImplementedError("remat is not ported yet")
         if cfg.matmul_dtype != "bf16":
             raise NotImplementedError(
                 f"matmul_dtype={cfg.matmul_dtype!r} is not ported yet")
@@ -152,6 +155,16 @@ class Transformer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seq_group = seq_group
+        if cfg.attention == "auto":
+            # a head_dim the flash kernels do not take is refused here
+            # when auto picks flash for some length the model takes (a
+            # length the blocks do not divide: by the trainer, or at the
+            # forward)
+            resolve_attention_impl("auto", cfg.max_seq_len,
+                                   self.device.type, cfg.compute_dtype,
+                                   cfg.head_dim, blocks=None)
+        # the block wrapper of --remat (an unknown policy raises here)
+        self._remat = make_remat(cfg.remat_policy) if cfg.remat else None
 
     # ---- submodules (stateless; parameters live in the tree) ----
     def _block_modules(self):
@@ -196,6 +209,10 @@ class Transformer:
         for _ in range(c.n_layers):
             blocks.append({name: m.init(generator, dev)
                            for name, m in self._block_modules().items()})
+        if c.scan_layers:   # stacked layout: leaves (n_layers, ...)
+            blocks = {name: {k: torch.stack([b[name][k] for b in blocks])
+                             for k in blocks[0][name]}
+                      for name in blocks[0]}
         out = {
             "embed": Embedding(c.vocab_size, c.d_model,
                                c.param_dtype).init(generator, dev),
@@ -257,11 +274,18 @@ class Transformer:
     def backbone(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
         """Embedding + all blocks -> (B, T, d_model) pre-head hidden
         states: the trunk shared by :meth:`forward` and the fused loss."""
-        positions = global_positions(self.cfg.attention, self.seq_group,
+        c = self.cfg
+        positions = global_positions(c.attention, self.seq_group,
                                      ids.shape[1], ids.device)
         x = self.embed(params, ids, positions)
-        for layer_params in params["blocks"]:
-            x = self.block(layer_params, x, positions, self.attend)
+
+        def block_fn(layer, h):
+            return self.block(layer, h, positions, self.attend)
+
+        if self._remat is not None:
+            block_fn = self._remat(block_fn)
+        for layer in layer_params(params):
+            x = block_fn(layer, x)
         return x
 
     def final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -343,6 +367,22 @@ class Transformer:
 
     def n_params(self, params: Params) -> int:
         return sum(t.numel() for t in tensors(params))
+
+
+def layer_params(params: Params) -> List[Params]:
+    """One dict per layer: ``params["blocks"]`` itself, or views of a
+    stacked (``scan_layers``) tree, each leaf unbound once.  Autograd
+    then stacks the layers' gradients once per leaf in the backward,
+    where indexing the stacked leaf per layer would cost a full-size
+    gradient per layer."""
+    blocks = params["blocks"]
+    if not isinstance(blocks, dict):
+        return blocks
+    per_leaf = {name: {k: torch.unbind(v, 0) for k, v in sub.items()}
+                for name, sub in blocks.items()}
+    n = len(next(iter(next(iter(per_leaf.values())).values())))
+    return [{name: {k: v[i] for k, v in sub.items()}
+             for name, sub in per_leaf.items()} for i in range(n)]
 
 
 def tensors(tree) -> Iterator[torch.Tensor]:

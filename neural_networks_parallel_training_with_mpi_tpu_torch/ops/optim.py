@@ -23,8 +23,12 @@ rounded, so the f32 results are bitwise those of the scalar form.
 ``sgd`` is torch-semantics SGD (dampening 0, no Nesterov):
 ``buf <- momentum * buf + grad``; ``param <- param - lr * buf``.
 
+``with_master_weights`` keeps an f32 master copy of the params in its
+state (``MasterState(master, inner)``) and writes it into the params,
+cast to their storage dtype, in place.
+
 Not ported yet, and refused at ``make``: lion, adafactor; and the
-wrappers ``with_skip_guard`` and ``with_master_weights``.
+wrapper ``with_skip_guard``.
 """
 
 from __future__ import annotations
@@ -202,8 +206,51 @@ def with_skip_guard(opt: Optimizer, skip_threshold: float = 0.0) -> Optimizer:
         "ported yet")
 
 
+class MasterState(NamedTuple):
+    """Opt state of :func:`with_master_weights`: the f32 master copy of
+    the parameters plus the wrapped optimizer's state (built over the
+    master copy, so every slot is f32)."""
+
+    master: Tree
+    inner: Tree
+
+    @property
+    def count(self) -> int:
+        return self.inner.count
+
+
+def advanced(state: Any, n: int) -> Any:
+    """An optimizer state whose step count is ``n`` further on (its
+    tensors are the same objects)."""
+    if isinstance(state, MasterState):
+        return state._replace(inner=advanced(state.inner, n))
+    return state._replace(count=state.count + n)
+
+
 def with_master_weights(opt: Optimizer) -> Optimizer:
-    raise NotImplementedError("--master_weights is not ported yet")
+    """Mixed-precision master weights: the params may live in a storage
+    dtype (bf16) while ``opt`` updates an f32 MASTER copy kept in the
+    state; each step writes the updated master into the params, cast to
+    their dtype, in place (a captured CUDA graph reads and writes those
+    same tensors).  The trainer pairs it with ``update_sharding=
+    'sharded'``, where the master is 1/N per rank."""
+
+    def init(params: Tree) -> MasterState:
+        # a copy even of f32 params: .float() of an f32 tensor is the
+        # tensor itself, and a master aliasing its param would take every
+        # in-place update twice
+        master = tree_map(lambda p: p.detach().to(torch.float32, copy=True),
+                          params)
+        return MasterState(master, opt.init(master))
+
+    @torch.no_grad()
+    def update(grads: Tree, state: MasterState, params: Tree, scalars_t=None):
+        g32 = tree_map(lambda g: g.float(), grads)
+        master, inner = opt.update(g32, state.inner, state.master, scalars_t)
+        torch._foreach_copy_(leaves(params), leaves(master))
+        return params, MasterState(master, inner)
+
+    return Optimizer(init, update, f"master:{opt.name}", opt.scalars)
 
 
 def make(name: str, lr: LR, momentum: float = 0.0,

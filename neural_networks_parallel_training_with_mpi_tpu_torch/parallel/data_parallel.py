@@ -21,6 +21,16 @@ Two gradient semantics (``TrainConfig.grad_reduction``):
 * ``per_shard_mean``: the mean over ranks of each rank's mean-loss
   gradient, the reference's semantics (:188-197).
 
+Weight-update sharding (``update_sharding``): ``sharded`` is the per-leaf
+form of ``parallel.update_sharding``; ``zero1`` is the JAX package's flat
+buffer (:func:`zero1_opt_state`, :func:`zero1_shard_update`): the params
+and gradients flattened in JAX's leaf order, one ``reduce_scatter_tensor``
+of the flat f32 gradient over the data ranks, the update of this rank's
+ceil(P/N) slice with its slice of one flat f32 buffer per optimizer slot,
+one ``all_gather_into_tensor``, and the result written back into the
+params in place.  Both clip by the global norm inside the step
+(``grad_clip``) and imply ``global_mean``.
+
 Multi-step dispatch (``--steps_per_dispatch k``, the JAX package's
 ``lax.scan`` over k device-staged batches): :class:`GraphedTrainStep`
 captures the whole step (forward, backward, the all-reduce, the
@@ -28,8 +38,7 @@ captures the whole step (forward, backward, the all-reduce, the
 over static batch buffers, so a step costs the host a few copies and one
 graph launch instead of its ~1800 kernel launches.
 
-Not ported yet, and refused: ``zero1``/``sharded`` update sharding, the
-fp8/int8 matmuls and ``with_metrics``.
+Not ported yet, and refused: the fp8/int8 matmuls and ``with_metrics``.
 """
 
 from __future__ import annotations
@@ -42,9 +51,11 @@ import torch.distributed as dist
 
 from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
-from ..ops.optim import Optimizer, device_scalars
+from ..ops.optim import Optimizer, advanced, device_scalars
 from ..train.state import TrainState
+from ..utils.checkpoint import flatten
 from ..utils.tree import leaves, unflatten
+from . import update_sharding as us
 from .distributed import World
 
 Batch = Dict[str, torch.Tensor]
@@ -103,23 +114,84 @@ def _accumulated_sum_and_grads(loss_fn, params, batch: Batch,
     return s, c, grads
 
 
+def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
+    """(this rank's opt state, its ``update_sharding.ShardedLayout``) for
+    ``update_sharding='zero1'``: the optimizer initialised on one flat f32
+    buffer of the P params padded to a multiple of N, each rank keeping
+    its ceil(P/N) slice of every slot."""
+    n = world.dp
+    size = sum(p.numel() for p in leaves(params))
+    shard = -(-size // n)
+    device = leaves(params)[0].device
+    state = optimizer.init(torch.zeros(shard, dtype=torch.float32,
+                                       device=device))
+    return state, us.ShardedLayout([0] * len(leaves(state)), n,
+                                   world.data_rank, world.data_pg)
+
+
+@torch.no_grad()
+def zero1_shard_update(optimizer: Optimizer, state: TrainState,
+                       s: torch.Tensor, c: torch.Tensor,
+                       grads: List[torch.Tensor], world: World,
+                       grad_clip: float = 0.0,
+                       scalars: Optional[torch.Tensor] = None):
+    """The zero1 update of one step (see the module docstring):
+    ``update_sharding.sharded_update`` of one leaf, the params and
+    gradients flattened in JAX's leaf order (``ravel_pytree``'s) into one
+    buffer padded to a multiple of N and planned along its only axis.
+    Returns (opt_state, global mean loss); params are written in place."""
+    n = world.dp
+    by_id = {id(p): g for p, g in zip(leaves(state.params), grads)}
+    ordered = [p for _, p in flatten(state.params)]
+    sizes = [p.numel() for p in ordered]
+    shard = -(-sum(sizes) // n)
+    pad = shard * n - sum(sizes)
+    flat_g = torch.cat([by_id[id(p)].reshape(-1).float() for p in ordered]
+                       + [s.new_zeros(pad, dtype=torch.float32)])
+    flat_p = torch.cat([p.detach().reshape(-1) for p in ordered]
+                       + [ordered[0].new_zeros(pad)])
+    opt_state, loss = us.sharded_update(
+        optimizer, flat_p, state.opt_state, s, c, [flat_g], world,
+        grad_clip, scalars, plans=[us.LeafPlan(0, shard * n, shard)])
+    torch._foreach_copy_(
+        [p.detach() for p in ordered],
+        [part.view(p.shape) for part, p in zip(
+            torch.split(flat_p[:sum(sizes)], sizes), ordered)])
+    return opt_state, loss
+
+
 def make_train_step(model, optimizer: Optimizer, world: World,
                     loss_name: str = "mse",
                     grad_reduction: str = "global_mean",
                     accum_steps: int = 1,
                     update_sharding: str = "replicated",
+                    grad_clip: float = 0.0,
                     with_metrics: bool = False
                     ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
     """(state, this rank's batch[, scalars]) -> (state, global mean loss
     as a device scalar).  Params and optimizer state are updated in place;
     ``scalars`` is the optimizer's device scalars of this step
     (``Optimizer.scalars(state.opt_state.count)`` on the device; None:
-    copied from the host)."""
+    copied from the host).
+
+    ``update_sharding='sharded'`` takes the opt state of
+    ``update_sharding.init_opt_state``, ``'zero1'`` that of
+    :func:`zero1_opt_state`.  ``grad_clip`` is applied inside those two
+    updates; the replicated update takes ``optim.with_clipping``."""
     if grad_reduction not in ("global_mean", "per_shard_mean"):
         raise ValueError(f"unknown grad_reduction {grad_reduction!r}")
-    if update_sharding != "replicated":
-        raise NotImplementedError(
-            f"update_sharding={update_sharding!r} is not ported yet")
+    if update_sharding not in ("replicated", "zero1", "sharded"):
+        raise ValueError(f"unknown update_sharding {update_sharding!r}")
+    if update_sharding != "replicated" and grad_reduction != "global_mean":
+        raise ValueError(f"update_sharding={update_sharding!r} implies the "
+                         "exact global-mean gradient; per_shard_mean is a "
+                         "replicated-path-only compatibility mode")
+    if grad_clip > 0 and update_sharding == "replicated":
+        raise ValueError(
+            "grad_clip is only applied inside the zero1/sharded update "
+            "(the gradient is shard-scattered there); on the replicated "
+            "path the full mean gradient is local — wrap the optimizer "
+            "with optim.with_clipping instead of silently not clipping")
     if with_metrics:
         raise NotImplementedError("with_metrics (on-device telemetry) is "
                                   "not ported yet")
@@ -131,6 +203,15 @@ def make_train_step(model, optimizer: Optimizer, world: World,
              scalars: Optional[torch.Tensor] = None):
         s, c, grads = _accumulated_sum_and_grads(loss_fn, state.params,
                                                  batch, accum_steps)
+        if update_sharding == "zero1":
+            opt_state, loss = zero1_shard_update(
+                optimizer, state, s, c, grads, world, grad_clip, scalars)
+        elif update_sharding == "sharded":
+            opt_state, loss = us.sharded_update(
+                optimizer, state.params, state.opt_state, s, c, grads,
+                world, grad_clip, scalars)
+        if update_sharding != "replicated":
+            return TrainState(state.step + 1, state.params, opt_state), loss
         if grad_reduction == "per_shard_mean":
             denom = torch.clamp(c, min=1.0)
             vals = [g / denom for g in grads] + [(s / denom).reshape(1)]
@@ -160,8 +241,7 @@ def make_train_step(model, optimizer: Optimizer, world: World,
 def _advanced(state: TrainState, n: int) -> TrainState:
     """``state`` after ``n`` steps that updated its tensors in place."""
     return TrainState(state.step + n, state.params,
-                      state.opt_state._replace(
-                          count=state.opt_state.count + n))
+                      advanced(state.opt_state, n))
 
 
 class GraphedTrainStep:

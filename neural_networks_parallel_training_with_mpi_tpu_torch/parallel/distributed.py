@@ -10,7 +10,9 @@ cluster is discovered otherwise: with no launcher the world is one process.
 Under sequence parallelism (``sp > 1``) the world is a ``data x seq``
 grid: rank = data_index * sp + seq_index (``seq`` minor to ``data``, as
 in the JAX package's ``parallel/mesh.py`` ``AXIS_ORDER``), with one
-process group per data index over its ``sp`` sequence ranks.
+process group per data index over its ``sp`` sequence ranks, and one per
+sequence index over its ``dp`` data ranks (the sharded weight update's
+collectives).
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ class World:
     sp: int = 1
     # this rank's sequence process group (sp > 1 only)
     seq_pg: Optional[Any] = None
+    # this rank's data process group (sp > 1 only; None: the whole world)
+    data_pg: Optional[Any] = None
 
     @property
     def dp(self) -> int:
@@ -91,13 +95,17 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
         raise ValueError(
             f"--dp {dp} x --sp {sp} does not fit a world of {size} "
             f"process(es){'' if size > 1 else ' (launch with torchrun)'}")
-    seq_pg = None
+    seq_pg = data_pg = None
     if sp > 1:
         for d in range(size // sp):
             pg = dist.new_group(list(range(d * sp, (d + 1) * sp)))
             if d == rank // sp:
                 seq_pg = pg
-    return World(rank, size, dev, sp, seq_pg)
+        for s in range(sp):
+            pg = dist.new_group(list(range(s, size, sp)))
+            if s == rank % sp:
+                data_pg = pg
+    return World(rank, size, dev, sp, seq_pg, data_pg)
 
 
 def describe(world: World) -> str:

@@ -41,7 +41,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..ops.flash_attention import flash_attention, flash_attention_with_lse
+from ..ops.flash_attention import (
+    HEAD_DIMS, flash_attention, flash_attention_with_lse,
+)
 from ..ops.rope import rope_rotate
 
 NEG_INF = -1e30
@@ -358,6 +360,68 @@ def striped_ring_flash_attention(q, k, v, group, causal: bool = True,
     return _flash_ring(q, k, v, group, mode_of, block_q, block_k)
 
 
+# ``attention="auto"``: the smallest sequence length from which flash (B1
+# forward; delta, B2 and B3 backward) trains the flagship LM no slower
+# than dense attention, at that length and every longer one, keyed by the
+# device type and the compute dtype (bf16 runs the sm90 kernels, f32 the
+# simt ones).  The rows are chip_smoke.py phase 17a's measurement on an
+# H100 80GB HBM3 at 700 W, whose tables PERF.md keeps: in both dtypes
+# flash was no slower at every length measured, 256 to 4096, so each row
+# is the shortest length measured.  A pair without a row (the CPU;
+# float16, which the kernels do not take) keeps auto dense, as the JAX
+# package keeps it dense on backends without a measured row.
+AUTO_FLASH_MIN_SEQ = {("cuda", torch.bfloat16): 256,
+                      ("cuda", torch.float32): 256}
+
+
+def _auto_flash_refusal(seq_len: int, head_dim: int,
+                        blocks: Optional[Tuple[int, int]],
+                        scale: Optional[float]) -> Optional[str]:
+    """Why the flash kernels cannot take this shape (None: they can)."""
+    if head_dim not in HEAD_DIMS:
+        return (f"the flash kernels take head_dim "
+                f"{'/'.join(map(str, HEAD_DIMS))}, not {head_dim}")
+    if blocks is None:
+        return None
+    bq, bk = min(blocks[0], seq_len), min(blocks[1], seq_len)
+    if seq_len % bq or seq_len % bk:
+        return (f"the flash kernels need seq_len divisible by their blocks "
+                f"({bq}, {bk}), not {seq_len}")
+    if scale is not None and abs(scale - head_dim ** -0.5) > 1e-12:
+        return ("the flash kernels take the default 1/sqrt(head_dim) "
+                "scale only")
+    return None
+
+
+def resolve_attention_impl(impl: str, seq_len: int, backend: str,
+                           dtype: torch.dtype,
+                           head_dim: Optional[int] = None,
+                           blocks: Optional[Tuple[int, int]] = (128, 128),
+                           scale: Optional[float] = None) -> str:
+    """Resolve ``"auto"`` for this device type, compute dtype and sequence
+    length: the single consult point (:func:`sequence_sharded_attention`
+    resolves through it, the model and the trainer check their shapes
+    with it).  Any other ``impl`` passes through.  With ``head_dim``, a
+    shape that auto sends to flash but the kernels do not take raises,
+    naming ``--attention dense``; auto never falls back quietly.
+    ``blocks`` None leaves the length's divisibility unchecked (the
+    model's check, whose lengths are any up to ``max_seq_len``)."""
+    if impl != "auto":
+        return impl
+    thresh = AUTO_FLASH_MIN_SEQ.get((backend, dtype))
+    if thresh is None or seq_len < thresh:
+        return "dense"
+    why = (None if head_dim is None else
+           _auto_flash_refusal(seq_len, head_dim, blocks, scale))
+    if why is not None:
+        raise ValueError(
+            f"attention='auto' picks flash at seq_len {seq_len} in "
+            f"{str(dtype).replace('torch.', '')} on {backend} (from "
+            f"seq_len {thresh} on, AUTO_FLASH_MIN_SEQ), but {why}: pass "
+            "--attention dense (attention='dense')")
+    return "flash"
+
+
 def sequence_sharded_attention(impl: str, q, k, v, *, group=None,
                                causal: bool = True,
                                scale: Optional[float] = None,
@@ -369,8 +433,8 @@ def sequence_sharded_attention(impl: str, q, k, v, *, group=None,
     travels the ring is already rotated correctly."""
     if impl in UNPORTED_IMPLS:
         raise NotImplementedError(f"attention={impl!r} is not ported yet")
-    if impl == "auto":
-        impl = "dense"
+    impl = resolve_attention_impl(impl, q.shape[1], q.device.type, q.dtype,
+                                  q.shape[-1], (block_q, block_k), scale)
     if impl in SEQ_SHARDED_IMPLS and group is None:
         raise ValueError(f"attention={impl!r} needs a sequence group "
                          "(ProcessSeqGroup or LocalSeqGroup)")

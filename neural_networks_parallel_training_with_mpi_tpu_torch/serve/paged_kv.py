@@ -54,7 +54,7 @@ import torch
 
 from ..models.generate import (_quantize_kv, _sample, attend_masked,
                                init_kv_cache)
-from ..models.transformer import Transformer, tensors
+from ..models.transformer import Transformer, layer_params, tensors
 from ..ops.paged_attention import paged_attention
 from ..utils.platform import DeviceLike, h2d, resolve_device
 
@@ -292,6 +292,8 @@ class PagedDecodeServer:
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.model, self.params = model, params
+        # per-layer views of the tree (a stacked scan_layers tree unbinds)
+        self.layers = layer_params(params)
         self.slots = int(slots)
         self.block_size = int(block_size)
         self.max_len = int(max_len or c.max_seq_len)
@@ -388,13 +390,13 @@ class PagedDecodeServer:
         off = torch.where(valid[None, :], positions % bs, 0)
         x = model.embed(self.params, ids,
                         positions.clamp(max=model.cfg.max_seq_len - 1))
-        for layer_params, pool in zip(self.params["blocks"], self.pools):
+        for layer, pool in zip(self.layers, self.pools):
 
             def attend(q, k, v, pool=pool):
                 return self._attend(pool, q, k, v, tables, starts, positions,
                                     blk, off, lengths)
 
-            x = model.block(layer_params, x, positions, attend)
+            x = model.block(layer, x, positions, attend)
         return model.head_logits(self.params, x)
 
     # ---- geometry ------------------------------------------------------

@@ -26,6 +26,8 @@ class TrainState(NamedTuple):
 
     @classmethod
     def from_params(cls, params, optimizer) -> "TrainState":
-        """Parameters become leaf tensors that autograd differentiates."""
+        """Parameters become leaf tensors that autograd differentiates;
+        ``optimizer=None`` leaves the opt state to the caller (None)."""
         params = tree_map(lambda p: p.detach().requires_grad_(), params)
-        return cls(step=0, params=params, opt_state=optimizer.init(params))
+        return cls(step=0, params=params, opt_state=(
+            None if optimizer is None else optimizer.init(params)))

@@ -27,6 +27,16 @@ a dispatch crosses saves at its end, and one CUDA event per dispatch gives
 each of its steps the dispatch's ms / n.  One process only, as in JAX: a
 multi-process world raises.
 
+Weight-update sharding (``--update_sharding zero1|sharded``, the JAX
+trainer's rules and messages): the optimizer state is 1/N per data rank
+(``parallel.update_sharding``, ``parallel.data_parallel.zero1_*``),
+``--grad_clip`` is applied inside the step by the global norm, and
+``--master_weights`` (``sharded`` only) keeps the f32 master copy in that
+state.  A snapshot holds the global padded opt-state arrays, as the JAX
+package writes them: every rank joins the leaf-by-leaf gather to rank 0's
+host, rank 0 writes, and a restore reads into host tensors from which
+every rank copies its own slice to its card.
+
 Every flag of a path the port has not taken over yet (model-parallel
 axes, telemetry, tracing, resilience, SDC checks, elastic, RL, ...)
 raises ``NotImplementedError`` naming the flag when it is set to anything
@@ -61,9 +71,11 @@ from ..models.registry import build_model
 from ..ops import optim as optim_lib
 from ..ops import schedules
 from ..parallel import data_parallel as dp
+from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
 from ..parallel.sequence import (
-    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, ProcessSeqGroup, striped_permutation,
+    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, ProcessSeqGroup, resolve_attention_impl,
+    striped_permutation,
 )
 from ..utils import checkpoint as ckpt
 from ..utils import prng
@@ -75,8 +87,6 @@ from .state import TrainState
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {
     "workload": "--workload", "pp_interleave": "--pp_interleave",
-    "update_sharding": "--update_sharding",
-    "master_weights": "--master-weights",
     "vocab_parallel": "--vocab_parallel",
     "profile_dir": "--profile_dir", "telemetry_dir": "--telemetry_dir",
     "metrics_every": "--metrics_every",
@@ -99,9 +109,7 @@ _UNPORTED = {
 }
 _UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
                   "expert": "--ep"}
-_UNPORTED_MODEL = {"remat": "--remat", "remat_policy": "--remat_policy",
-                   "scan_layers": "--scan-layers",
-                   "moe_experts": "--moe_experts",
+_UNPORTED_MODEL = {"moe_experts": "--moe_experts",
                    "moe_expert_axis": "--ep",
                    "moe_capacity_factor": "--moe_capacity_factor",
                    "moe_top_k": "--moe_top_k",
@@ -182,6 +190,18 @@ class Trainer:
             raise ValueError(
                 f"grad_reduction={cfg.grad_reduction!r} is not a training "
                 "semantic (choices: global_mean, per_shard_mean)")
+        self.zero1 = cfg.update_sharding == "zero1"
+        self.sharded = cfg.update_sharding == "sharded"
+        if (self.zero1 or self.sharded) and \
+                cfg.grad_reduction != "global_mean":
+            raise ValueError(f"update_sharding={cfg.update_sharding!r} "
+                             "implies global_mean gradient semantics")
+        if cfg.master_weights and not self.sharded:
+            raise ValueError(
+                "--master_weights keeps the f32 master copy in the SHARDED "
+                "optimizer state (1/N per replica); it requires "
+                "update_sharding='sharded' — a replicated master would "
+                "duplicate param memory instead of saving it")
         if cfg.model.ce_chunk > 0 and (
                 cfg.model.arch != "transformer"
                 or cfg.loss.partition("@")[0] != "cross_entropy"):
@@ -197,6 +217,11 @@ class Trainer:
                              f"{cfg.label_smoothing}")
         self.model = build_model(cfg.model, device=self.device,
                                  seq_group=seq_group)
+        if attention == "auto":     # refuse a length flash cannot take
+            m = self.model.cfg
+            resolve_attention_impl(
+                "auto", cfg.data.seq_len, self.device.type, m.compute_dtype,
+                m.head_dim, (m.flash_block_q, m.flash_block_k))
         self.data = build_dataset(cfg.data)
         self.val_data = None
         if cfg.data.val_fraction > 0:
@@ -215,9 +240,13 @@ class Trainer:
             cfg.lr_schedule, cfg.lr,
             total_steps=cfg.nepochs * max(self.loader.steps_per_epoch, 1),
             warmup_steps=cfg.warmup_steps, min_lr=cfg.min_lr)
-        self.optimizer = optim_lib.make(cfg.optimizer, lr, cfg.momentum,
-                                        cfg.weight_decay,
-                                        grad_clip=cfg.grad_clip)
+        # the sharded updates clip inside the step, by the global norm
+        step_clips = self.zero1 or self.sharded
+        self.optimizer = optim_lib.make(
+            cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
+            grad_clip=0.0 if step_clips else cfg.grad_clip)
+        if cfg.master_weights:
+            self.optimizer = optim_lib.with_master_weights(self.optimizer)
         # smoothing applies to the TRAIN loss only; eval reports the
         # unsmoothed loss
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
@@ -227,7 +256,9 @@ class Trainer:
             self.model, self.optimizer, self.world, loss_name=train_loss,
             grad_reduction=(cfg.grad_reduction if seq_group is None
                             else "global_mean"),
-            accum_steps=cfg.accum_steps)
+            accum_steps=cfg.accum_steps,
+            update_sharding=cfg.update_sharding,
+            grad_clip=cfg.grad_clip if step_clips else 0.0)
         # k > 1: (state, group) -> (state, last loss), a group's steps
         self.multi_step = None
         if self.k_dispatch > 1:
@@ -240,6 +271,8 @@ class Trainer:
             with_accuracy=(cfg.loss == "cross_entropy"))
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
         self.state: Optional[TrainState] = None
+        # the sharded opt state's place in the global snapshot arrays
+        self.layout: Optional[us.ShardedLayout] = None
         self._last_saved_step: Optional[int] = None
         # host seconds of each save call (an async one: its host copy) and
         # of the resume's restore
@@ -267,20 +300,52 @@ class Trainer:
         """Seeded init, identical on every rank (no broadcast needed), drawn
         on the host so the CPU and the GPU start from the same params."""
         params = self.model.init(prng.init_generator(self.cfg.seed))
-        self.state = TrainState.from_params(params, self.optimizer)
+        if not (self.zero1 or self.sharded):
+            self.state = TrainState.from_params(params, self.optimizer)
+            return self.state
+        w = self.world
+        params = TrainState.from_params(params, None).params
+        if self.zero1:
+            opt_state, self.layout = dp.zero1_opt_state(self.optimizer,
+                                                        params, w)
+        else:
+            opt_state, self.layout = us.init_opt_state(
+                self.optimizer, params, us.plan_updates(params, w.dp), w.dp,
+                w.data_rank, w.data_pg)
+        self.state = TrainState(0, params, opt_state)
         return self.state
+
+    def snapshot_state(self) -> TrainState:
+        """The state a snapshot holds: under update sharding, the global
+        padded opt-state arrays on rank 0's host (every rank joins the
+        leaf-by-leaf gather; the others hold nothing and write nothing)."""
+        s = self.state
+        if self.layout is None:
+            return s
+        return TrainState(s.step, s.params,
+                          self.layout.gather_to_host(s.opt_state))
 
     def maybe_resume(self) -> int:
         """Restore the newest verified snapshot of ``--checkpoint_dir``
         under ``--resume`` and return its step (0 when there is none):
-        the loop continues at exactly that step, mid-epoch included."""
+        the loop continues at exactly that step, mid-epoch included.
+        Under update sharding the opt state restores into host tensors of
+        the global padded shapes, and each rank copies its own slice to
+        its card."""
         cfg = self.cfg
         if not (cfg.resume and cfg.checkpoint_dir):
             return 0
         t0 = time.perf_counter()
-        restored = ckpt.restore(cfg.checkpoint_dir, self.state)
+        s = self.state
+        template = s if self.layout is None else TrainState(
+            s.step, s.params, self.layout.host_template(s.opt_state))
+        restored = ckpt.restore(cfg.checkpoint_dir, template)
         if restored is None:
             return 0
+        if self.layout is not None:     # every rank keeps its own slice
+            restored = TrainState(restored.step, restored.params,
+                                  self.layout.scatter(restored.opt_state,
+                                                      self.device))
         # the meta of the generation actually restored (the fallback chain
         # may land below a corrupt newest one)
         meta = ckpt.read_meta(cfg.checkpoint_dir, step=restored.step) or {}
@@ -315,13 +380,14 @@ class Trainer:
                      "update_sharding": cfg.update_sharding},
                  "consumed_samples": self.loader.consumed_samples(step)}
         t0 = time.perf_counter()
+        state = self.snapshot_state()
         if cfg.async_checkpoint and not final:
-            ckpt.save_async(cfg.checkpoint_dir, self.state,
+            ckpt.save_async(cfg.checkpoint_dir, state,
                             keep=cfg.checkpoint_keep, extra_meta=extra)
         else:
             if final:   # drain in-flight writes before the last
                 ckpt.wait_pending()
-            ckpt.save(cfg.checkpoint_dir, self.state,
+            ckpt.save(cfg.checkpoint_dir, state,
                       keep=cfg.checkpoint_keep, extra_meta=extra)
         self.save_seconds.append(time.perf_counter() - t0)
 

@@ -29,10 +29,13 @@ next-newest verified snapshot is restored instead.  Pruning never deletes
 the last verified snapshot.  A restore checks every leaf's shape and dtype
 against the caller's template and raises on a mismatch.
 
-Rank 0 writes; every rank restores.  The state is replicated (data and
-sequence parallelism), so one host copy is the whole state.  Not ported:
-the orbax layout (sharded state), the elastic reshard and I/O fault
-injection.
+Rank 0 writes; every rank restores.  Params are replicated (data and
+sequence parallelism); under update sharding the Trainer hands ``save``
+the gathered global padded opt-state arrays (the JAX package's zero1 and
+``sharded`` snapshot layout) and slices what ``restore`` returns.  A
+snapshot whose padding or layout differs from the template's is refused,
+naming the elastic reshard.  Not ported: the orbax layout, the elastic
+reshard itself and I/O fault injection.
 """
 
 from __future__ import annotations
@@ -472,7 +475,10 @@ def _load(path: Path, template: Any, prefix: bool) -> Any:
             if tuple(a.shape) != w_shape:
                 raise ValueError(
                     f"checkpoint leaf {i} ({p}) shape {tuple(a.shape)} != "
-                    f"expected {w_shape} — wrong model config?")
+                    f"expected {w_shape} — wrong model config? (a "
+                    "sharded-update snapshot from a different world size "
+                    "— or a sharded<->replicated layout change — needs "
+                    "the elastic reshard path: --elastic)")
             if dt != w_dtype:
                 raise ValueError(
                     f"checkpoint leaf {i} ({p}) dtype {dt} != expected "

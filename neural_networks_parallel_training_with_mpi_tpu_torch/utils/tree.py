@@ -1,7 +1,7 @@
 """Parameter trees: nested dicts, lists, tuples and NamedTuples with
 tensor leaves — the port's stand-in for JAX pytrees.  Leaf order is
-insertion order of dicts, then list/field order, the same order
-``jax.tree_util`` gives a tree of plain dicts and lists."""
+insertion order of dicts, then list/field order (``jax.tree_util`` sorts
+dict keys: ``utils.checkpoint.flatten`` gives its order)."""
 
 from __future__ import annotations
 

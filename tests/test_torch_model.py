@@ -155,9 +155,9 @@ def test_init_tree_matches_jax_layout():
 
 # "ring": the sequence-sharded family; ring and striped are ported
 # (tests/test_torch_sequence.py), ulysses is not
-@pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(scan_layers=True),
+@pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(matmul_dtype="fp8"),
                                  dict(attention="ulysses")],
-                         ids=["moe", "scan_layers", "ring"])
+                         ids=["moe", "fp8", "ring"])
 def test_unported_configs_refuse(bad):
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**SMALL, **bad), device="cpu")

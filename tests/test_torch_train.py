@@ -191,8 +191,6 @@ def test_unported_optimizers_refuse():
             optim.make(name, 1e-3)
     with pytest.raises(NotImplementedError):
         optim.with_skip_guard(optim.sgd(1e-3))
-    with pytest.raises(NotImplementedError):
-        optim.with_master_weights(optim.sgd(1e-3))
 
 
 # ---------------------------------------------------------------------------
@@ -517,8 +515,8 @@ def test_interop_round_trips_a_jax_train_state():
     ["--faults", "nan@1"], ["--sdc_check_every", "2"],
     ["--pp_interleave", "2"], ["--hang_timeout", "5"],
     ["--rollback_after", "2"], ["--workload", "rl"], ["--elastic"],
-    ["--update_sharding", "zero1"], ["--matmul_dtype", "fp8"],
-    ["--remat"], ["--skip-nonfinite"], ["--optimizer", "lion"],
+    ["--attention", "dense_blockwise"], ["--matmul_dtype", "fp8"],
+    ["--moe_experts", "4"], ["--skip-nonfinite"], ["--optimizer", "lion"],
     ["--dataset", "cifar10"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(flags):

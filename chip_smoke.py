@@ -180,6 +180,42 @@ Phases, each printing its own lines; any failure exits non-zero:
               2 layers: remat + scan_layers with striped_flash over
               ``LocalSeqGroup(4)`` against flash without either (phase
               12's bars).
+18. quant   — quantized compute (``ops.qmm``, ``ops.quant``): (a) the
+              three products of a quantized Linear (forward, dx, dw)
+              at phase 7's projection shapes (8192 rows; 1024->3072,
+              1024->4096, 4096->1024, 1024->32768), int8
+              (``torch._int_mm``) and fp8 (``torch._scaled_mm``), against
+              the plain product of the same codes on 256 output rows
+              (int8 equal, fp8 within 1e-3 of the products' absolute
+              sum: the tensor cores' accumulator is narrower than f32),
+              each timed
+              beside its bound at the 1979 TFLOP/s peak, qdot's forward
+              and forward + backward beside the bf16 ``torch.matmul``'s;
+              qdot on the card against the host at (256, 1024->3072):
+              the same codes, int8 outputs bitwise, fp8 within that
+              bound (dx also one bf16 rounding).  (b)-(c) phase 7's job
+              under ``--matmul_dtype int8`` (ce_chunk 256) and ``fp8``
+              (ce_chunk 0): losses finite and falling 1 nat, flash
+              launches by design, the quantized products counted against
+              the design (3 per block Linear and the head's: 160 and
+              147 per step), one step under the profiler (that many
+              ``aten::_int_mm`` / ``aten::_scaled_mm``, no f32 or bf16
+              product, every GEMM kernel one of theirs), then
+              ``--steps_per_dispatch 13`` bitwise equal to eager; step
+              ms, tokens/s and peak memory beside bf16 and the largest
+              |loss - bf16 loss|; two more eager int8 runs witness where
+              int8's early gap to bf16 comes from: ce_chunk 0 (no
+              chunked head, no recompute) and the head left unquantized
+              (``--quantize_skip head``).  (d) f32, 2 layers, T 128: int8
+              and fp8 on the card against the host (losses 1e-4 int8,
+              5e-4 fp8 relative; the params' change 1e-2 relative L2).
+              (e) phase 4's serving traffic (32 requests on 16 slots)
+              with bf16 weights, int8 PTQ weights (dequant) and PTQ with
+              int8 compute, each arm twice in the order A B C C B A:
+              tokens/s, TTFT, ITL, param bytes; at the flagship f32
+              geometry with PTQ weights, fused == gathered ==
+              ``generate()`` greedy ids for both.  A ``quant:`` JSON
+              line holds the phase's numbers.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
@@ -1084,13 +1120,18 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
 
 
-def serve_full_width(torch, np, device, cfg=None, n_requests=32,
-                     slots=16, warmup=2, **req_kw):
+def serve_setup(torch, np, device, cfg=None, n_requests=32, slots=16,
+                warmup=2, quantize=False, **req_kw):
+    """Phase 4's LM (``cfg``) behind the fused scheduler: the model, its
+    seeded params (``quantize``: int8 PTQ weights, ``ops.quant``), the
+    scheduler's config and ``n_requests`` seeded requests, after
+    ``warmup`` more on a scheduler of their own (first-call costs, cuBLAS
+    handles and allocator growth, stay out of a measured run)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
         Transformer,
     )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.paged_attention import (  # noqa: E501
-        paged_attention,
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.quant import (  # noqa: E501
+        quantize_params, quantized_bytes,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
         Scheduler, ServeConfig,
@@ -1099,9 +1140,13 @@ def serve_full_width(torch, np, device, cfg=None, n_requests=32,
     cfg = cfg or big_config(torch)
     model = Transformer(cfg, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(SEED))
-    print(f"model: {model.n_params(params) / 1e6:.1f}M parameters, "
-          f"{cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.compute_dtype}", flush=True)
+    if quantize:
+        params = quantize_params(params)
+    print(f"model: {model.n_params(params) / 1e6:.1f}M parameters "
+          f"({quantized_bytes(params) / 2 ** 20:.1f} MiB), {cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.compute_dtype}, matmul "
+          f"{cfg.matmul_dtype}{', int8 PTQ weights' if quantize else ''}",
+          flush=True)
     with torch.no_grad():
         logits = model.forward(params, torch.arange(
             64, device=device)[None] % cfg.vocab_size)
@@ -1114,22 +1159,38 @@ def serve_full_width(torch, np, device, cfg=None, n_requests=32,
                  num_blocks=slots * blocks_per_stream + 1)
     requests = serve_requests(np, n_requests + warmup, cfg.vocab_size, SEED,
                               **req_kw)
-    # warm-up on its own scheduler: first-call costs (cuBLAS handles,
-    # allocator growth) stay out of the measured run
     drive(Scheduler(model, params, ServeConfig(**sconf), device=device),
           requests[:warmup])
+    return model, params, sconf, requests[warmup:]
+
+
+def serve_measure(torch, device, model, params, sconf, requests, tag):
+    """One measured drain of ``requests`` on a fresh scheduler: check
+    completion, the drained allocator and paged attention's launches;
+    print and return tokens/s, TTFT and ITL percentiles and the param
+    bytes."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.quant import (  # noqa: E501
+        quantized_bytes,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+
     sched = Scheduler(model, params, ServeConfig(**sconf),
                       now_fn=synced_clock(torch, device), device=device)
     paged_attention.launches = 0
     t0 = sched.now()
-    rids, _ = drive(sched, requests[warmup:])
+    rids, _ = drive(sched, requests)
     wall = sched.now() - t0
     launches = paged_attention.launches
     snap = sched.snapshot()
     passes = snap["prefill_chunks"] + snap["decode_steps"]
     # one launch per layer per forward pass; CPU tensors (a rehearsal of
     # this script's control flow) take the plain version and launch none
-    expect = cfg.n_layers * passes if device.type == "cuda" else 0
+    expect = model.cfg.n_layers * passes if device.type == "cuda" else 0
     if launches != expect:
         raise AssertionError(f"paged_attention launched {launches} times, "
                              f"expected n_layers x passes = {expect}")
@@ -1143,13 +1204,26 @@ def serve_full_width(torch, np, device, cfg=None, n_requests=32,
                prefill_chunks=snap["prefill_chunks"],
                decode_steps=snap["decode_steps"], launches=launches,
                attended_ratio=snap["attended_ratio"],
-               evicted=snap["evicted"])
-    print("serve: " + json.dumps(out), flush=True)
-    if device.type == "cuda":
+               evicted=snap["evicted"], param_bytes=quantized_bytes(params))
+    print(f"{tag}: " + json.dumps(out), flush=True)
+    return out
+
+
+def serve_full_width(torch, np, device, checks=True, tag="serve", **kw):
+    """``serve_setup`` and one ``serve_measure``; ``checks``: also count
+    the host's syncs and profile one drain."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+
+    model, params, sconf, requests = serve_setup(torch, np, device, **kw)
+    out = serve_measure(torch, device, model, params, sconf, requests, tag)
+    if device.type == "cuda" and checks:
         make = lambda: Scheduler(model, params,  # noqa: E731
                                  ServeConfig(**sconf), device=device)
-        count_host_syncs(torch, make, requests[warmup:warmup + slots])
-        profile_serving(torch, make, requests[warmup:warmup + slots])
+        slots = sconf["slots"]
+        count_host_syncs(torch, make, requests[:slots])
+        profile_serving(torch, make, requests[:slots])
     return out
 
 
@@ -1300,8 +1374,9 @@ def train_flags(**over):
 
 
 def one_rank_group(torch, device):
-    """A process group of one (NCCL on the card), so the train step's
-    gradient all-reduce runs as it would in a larger world."""
+    """A process group of one (NCCL for the card's tensors, gloo for the
+    host's: phase 18 trains on both), so the train step's gradient
+    all-reduce runs as it would in a larger world."""
     import socket
 
     import torch.distributed as dist
@@ -1311,7 +1386,8 @@ def one_rank_group(torch, device):
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+    dist.init_process_group("cuda:nccl,cpu:gloo" if device.type == "cuda"
+                            else "gloo",
                             init_method=f"tcp://localhost:{port}", rank=0,
                             world_size=1)
 
@@ -1375,6 +1451,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
+        qmm,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
         Trainer,
@@ -1397,8 +1474,10 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
         fa.set_launch_counts()
+        qmm.library_gemm.launches.update(int8=0, fp8=0)
         result = trainer.fit()
         counts = fa.launch_counts()
+        gemms = dict(qmm.library_gemm.launches)
         final = ([p.detach().cpu() for p in flat_params(trainer.state.params)]
                  if keep_final else None)
         inspected = inspect(trainer) if inspect is not None else {}
@@ -1440,7 +1519,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         raise AssertionError(f"flash_attention_with_lse launched {with_lse} "
                              f"times, expected {expect}")
     out = dict(steps=steps, launches=launches, with_lse_launches=with_lse,
-               launches_by_design=by_design, first_loss=losses[0],
+               launches_by_design=by_design, gemm_launches=gemms,
+               first_loss=losses[0],
                last3_loss=tail, n_params=n_params, **inspected)
     if device.type == "cuda":
         step_ms = sorted(result["step_ms"][3:])
@@ -2344,6 +2424,7 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
+        qmm,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
         Trainer,
@@ -2363,10 +2444,12 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         fa.set_launch_counts()
+        qmm.library_gemm.launches.update(int8=0, fp8=0)
         t0 = time.perf_counter()
         result = trainer.fit()
         fit_s = time.perf_counter() - t0
         counts = fa.launch_counts()
+        gemms = dict(qmm.library_gemm.launches)
         final = [p.detach().cpu() for p in flat_params(trainer.state.params)]
         inspected = inspect(trainer) if inspect is not None else {}
         with open(metrics) as f:
@@ -2424,8 +2507,12 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     med = step_ms[len(step_ms) // 2]
     tokens = cfg.batch_size * cfg.data.seq_len
     flops = 3.0 * trainer.model.fwd_flops((cfg.batch_size, cfg.data.seq_len))
+    # the quantized products: eager (warm-up) + replays x captured
+    gemm_total = {f: gemms[f] + graphed.replays * per_replay["gemm"][f]
+                  for f in gemms}
     out = dict(k=k, steps=steps, bitwise=bitwise, loss_max_abs_diff=loss_diff,
                param_max_abs_diff=param_diff, launches=total,
+               gemm_launches=gemm_total,
                with_lse_launches=with_lse,
                launches_per_replay=per_replay, replays=graphed.replays,
                eager_steps=graphed.eager_steps, step_ms_median=med,
@@ -2944,6 +3031,609 @@ def slice_full_width(torch, np, device, trained, **over):
     print("slice: " + json.dumps(out), flush=True)
     return out
 
+# ---------------------------------------------------------------------------
+# phase 18: quantized compute (--matmul_dtype int8|fp8, --quantize int8)
+# ---------------------------------------------------------------------------
+
+# phase 7's projections at its 8192 rows (batch 8 x T 1024), (in, out):
+# qkv, ff_in, ff_out and the head
+QMM_ROWS = 8192
+QMM_SHAPES = ((1024, 3072), (1024, 4096), (4096, 1024), (1024, 32768))
+# the dense int8 and fp8 tensor-core peaks (NVIDIA H100 SXM data sheet)
+PEAK_QUANT = 1979e12
+# the library fp8 product against the plain f32 product of the same
+# codes: the H100's fp8 tensor cores add products in an accumulator
+# narrower than f32 (about 14 mantissa bits), which cuBLAS promotes to
+# f32 at intervals of its choosing (use_fast_accum=False); measured up to
+# 2.5e-4 of an element's products' absolute sum at contractions of 256
+# to 8192 on an H100 80GB HBM3 at 700 W.  Bound: 4x that reading
+FP8_ACCUM_TOL = 1e-3
+# the 2-layer job on the card against the host: the unquantized ops sum
+# in another order (fp8: the tensor cores' accumulator too), and a value
+# that lands on the far side of a rounding boundary moves its code one
+# step.  Losses relative, per format, and the params' change (p - p0) in
+# relative L2 norm, per format; on an H100 80GB HBM3 at 700 W the card
+# read 8.6e-6 / 1.5e-4 in the losses and 2.5e-3 / 1.1e-2 in the change
+# (int8 / fp8), and the host's unquantized run against its quantized
+# one (the control, measured in every run and required to exceed the
+# change's bound) 5.1e-5 / 3.1e-4 and 1.4e-2 / 2.9e-2
+QTRAIN_LOSS_RTOL = {"int8": 1e-4, "fp8": 5e-4}
+QTRAIN_UPDATE_RL2 = {"int8": 1e-2, "fp8": 2e-2}
+
+
+def _qmm_operands(torch, qmm, fmt, x, w, dy):
+    """The three products of one quantized Linear (forward, dx, dw) as
+    ``qdot``'s autograd functions form them: {name: (a, b, scale_a,
+    scale_b)}, the scales the quantization scales (None for int8)."""
+    if fmt == "int8":
+        qx, _ = qmm._q8_rowwise(x)
+        qw, _ = qmm._q8_colwise(w)
+        qdy, _ = qmm._q8_rowwise(dy)
+        qwr, _ = qmm._q8_rowwise(w)
+        qxc, _ = qmm._q8_colwise(x)
+        qdyc, _ = qmm._q8_colwise(dy)
+        return {"fwd": (qx, qw, None, None), "dx": (qdy, qwr.t(), None, None),
+                "dw": (qxc.t(), qdyc, None, None)}
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    qx, sx = qmm._cast_fp8(x, qmm.tensor_amax(x), qmm.E4M3_MAX, e4)
+    qw, sw = qmm._cast_fp8(w, qmm.tensor_amax(w), qmm.E4M3_MAX, e4)
+    qdy, sdy = qmm._cast_fp8(dy, qmm.tensor_amax(dy), qmm.E5M2_MAX, e5)
+    return {"fwd": (qx, qw, sx, sw), "dx": (qdy, qw.t(), sdy, sw),
+            "dw": (qx.t(), qdy, sx, sdy)}
+
+
+def _library(qmm, torch, a, b, sa, sb):
+    if sa is None:
+        return qmm.library_gemm(a, b)
+    return qmm.library_gemm(a, b, torch.reciprocal(sa), torch.reciprocal(sb))
+
+
+def check_qmm(torch, device, rows=QMM_ROWS, shapes=QMM_SHAPES,
+              slice_rows=256):
+    """(a) Each quantized product of each projection shape, int8 and fp8,
+    forward and backward, against the plain product of the same codes on
+    the card (int8: the exact integer sum, equal; fp8: within
+    ``FP8_ACCUM_TOL`` of the products' absolute sum) on ``slice_rows``
+    output rows; then timed (CUDA events)
+    beside its bound at the int8/fp8 peak: the library product alone,
+    qdot's forward and forward + backward (the quantization passes
+    included), against the bf16 ``torch.matmul`` forward and forward +
+    backward at the same shape."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import qmm
+
+    cuda = device.type == "cuda"
+    g = torch.Generator(device=device).manual_seed(SEED + 5)
+    out = {}
+    for k, n in shapes:
+        x = torch.randn(rows, k, generator=g, device=device).bfloat16()
+        w = torch.randn(k, n, generator=g, device=device) * k ** -0.5
+        dy = (torch.randn(rows, n, generator=g, device=device)
+              * 1e-3).bfloat16().float()
+        flops = 2.0 * rows * k * n
+        wb = w.bfloat16()
+        for fmt in ("int8", "fp8"):
+            res = {}
+            for which, (a, b, sa, sb) in _qmm_operands(
+                    torch, qmm, fmt, x, w, dy).items():
+                got = (_library(qmm, torch, a, b, sa, sb) if cuda
+                       else qmm._dot_int8(a, b) if sa is None
+                       else qmm._dot_fp8(a, b, sa, sb))
+                ref = qmm.reference_dot(a[:slice_rows], b)
+                diff = (got[:slice_rows].double() - ref.double()).abs()
+                err = float(diff.max())
+                if sa is None:
+                    ok, rel = err == 0, 0.0
+                else:
+                    ref = ref / (sa * sb)
+                    diff = (got[:slice_rows].double()
+                            - ref.double()).abs()
+                    err = float(diff.max())
+                    mass = (a[:slice_rows].float().abs()
+                            @ b.float().abs()) / (sa * sb)
+                    rel = float((diff / mass.double().clamp_min(
+                        1e-30)).max())
+                    ok = rel <= FP8_ACCUM_TOL
+                if not ok:
+                    raise AssertionError(
+                        f"qmm {fmt} {which} ({rows}, {k}) x ({k}, {n}): "
+                        f"max |library - plain| {err:.3g}, {rel:.3g} of "
+                        f"the products' absolute sum (tolerance "
+                        f"{FP8_ACCUM_TOL:.3g})")
+                m_, k_ = a.shape
+                n_ = b.shape[1]
+                bound = max(2.0 * m_ * k_ * n_ / PEAK_QUANT,
+                            (m_ * k_ + k_ * n_ + 4 * m_ * n_)
+                            / HBM_BYTES_PER_S) * 1e3
+                res[which] = dict(max_abs_err=err, max_rel_to_mass=rel,
+                                  bound_ms=bound)
+                if cuda:
+                    ms = time_ms(torch, lambda: _library(qmm, torch, a, b,
+                                                         sa, sb), 10)
+                    res[which].update(ms=ms, tflops=2.0 * m_ * k_ * n_
+                                      / ms / 1e9)
+            if cuda:
+                xr = x.detach().requires_grad_()
+                wr = w.detach().requires_grad_()
+
+                def fwd():
+                    return qmm.qdot(x, w, fmt=fmt)
+
+                def fwd_bwd():
+                    y = qmm.qdot(xr, wr, fmt=fmt)
+                    torch.autograd.grad(y, (xr, wr), dy)
+
+                res["qdot_fwd_ms"] = time_ms(torch, fwd, 5)
+                res["qdot_fwd_bwd_ms"] = time_ms(torch, fwd_bwd, 5)
+                gemm_ms = sum(res[w_]["ms"] for w_ in ("fwd", "dx", "dw"))
+                # the quantize, transpose and scale passes around the
+                # three products
+                res["elementwise_ms"] = res["qdot_fwd_bwd_ms"] - gemm_ms
+            out[f"{fmt} {k}x{n}"] = res
+        if cuda:
+            xb = x.detach().requires_grad_()
+            wbr = wb.detach().requires_grad_()
+            dyb = dy.bfloat16()
+
+            def bf16_fwd_bwd():
+                y = torch.matmul(xb, wbr)
+                torch.autograd.grad(y, (xb, wbr), dyb)
+
+            bf = dict(fwd_ms=time_ms(torch, lambda: torch.matmul(x, wb), 10),
+                      fwd_bwd_ms=time_ms(torch, bf16_fwd_bwd, 5))
+            bf["tflops"] = flops / bf["fwd_ms"] / 1e9
+            out[f"bf16 {k}x{n}"] = bf
+            line = ", ".join(
+                f"{fmt} gemm fwd {out[f'{fmt} {k}x{n}']['fwd']['ms']:.3f} ms "
+                f"({out[f'{fmt} {k}x{n}']['fwd']['tflops']:.0f} TFLOP/s, "
+                f"bound {out[f'{fmt} {k}x{n}']['fwd']['bound_ms']:.3f}), "
+                f"qdot fwd {out[f'{fmt} {k}x{n}']['qdot_fwd_ms']:.3f} / "
+                f"fwd+bwd {out[f'{fmt} {k}x{n}']['qdot_fwd_bwd_ms']:.3f} ms"
+                for fmt in ("int8", "fp8"))
+            print(f"qmm ({rows}, {k}) x ({k}, {n}): {line}; bf16 matmul "
+                  f"fwd {bf['fwd_ms']:.3f} ms ({bf['tflops']:.0f} TFLOP/s) "
+                  f"/ fwd+bwd {bf['fwd_bwd_ms']:.3f} ms", flush=True)
+        del x, w, dy, wb
+    print("qmm products against the plain products: int8 equal, fp8 within "
+          f"{FP8_ACCUM_TOL:g} of the products' absolute sum (largest share "
+          "measured), "
+          f"at {len(shapes)} shapes: " + ", ".join(
+              f"{key} {which} {res[which]['max_rel_to_mass']:.3g}"
+              for key, res in out.items() if key.startswith("fp8")
+              for which in ("fwd", "dx", "dw")), flush=True)
+    return out
+
+
+def qdot_card_vs_host(torch, device, rows=256, k=1024, n=3072):
+    """qdot forward and backward on the card against the host (the plain
+    products) from the same bf16 activations, f32 weights and gradient:
+    the codes of all three operands equal; int8 outputs equal bitwise
+    (exact integer sums, the same scaling order), fp8 within
+    ``FP8_ACCUM_TOL`` of each element's products' absolute sum."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import qmm
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(rows, k, generator=g).bfloat16()
+    w = torch.randn(k, n, generator=g) * k ** -0.5
+    dy = (torch.randn(rows, n, generator=g) * 1e-3).bfloat16().float()
+    out = {}
+    for fmt in ("int8", "fp8"):
+        res, codes = [], []
+        for dev in (device, torch.device("cpu")):
+            xr = x.to(dev).detach().requires_grad_()
+            wr = w.to(dev).detach().requires_grad_()
+            y = qmm.qdot(xr, wr, fmt=fmt)
+            gx, gw = torch.autograd.grad(y, (xr, wr), dy.to(dev))
+            res.append([t.detach().float().cpu() for t in (y, gx, gw)])
+            ops = _qmm_operands(torch, qmm, fmt, x.to(dev), w.to(dev),
+                                dy.to(dev))
+            codes.append({name: [t.cpu() for t in v if t is not None]
+                          for name, v in ops.items()})
+        same_codes = all(
+            torch.equal(a.view(torch.uint8) if a.element_size() == 1
+                        else a, b.view(torch.uint8) if b.element_size() == 1
+                        else b)
+            for name in codes[0] for a, b in zip(codes[0][name],
+                                                 codes[1][name]))
+        errs = [float((a - b).abs().max()) for a, b in zip(*res)]
+        if fmt == "int8":
+            rels = [0.0, 0.0, 0.0]
+            ok = not any(errs)
+        else:
+            rels = []
+            for (a, b, sa, sb), (got, ref), half in zip(
+                    codes[1].values(), zip(*res), (0.0, 2.0 ** -8, 0.0)):
+                # dx comes back in x's bf16: one rounding on each side,
+                # half an ulp each (2^-8 of the value in all)
+                mass = (a.float().abs() @ b.float().abs()) / (sa * sb)
+                rels.append(float((((got - ref).abs() - half * ref.abs())
+                                   .clamp_min(0) / mass.clamp_min(1e-30))
+                                  .max()))
+            ok = all(r <= FP8_ACCUM_TOL for r in rels)
+        print(f"qdot {fmt} card vs host ({rows}, {k}) x ({k}, {n}): codes "
+              f"{'equal' if same_codes else 'DIFFERENT'}; max |diff| y "
+              f"{errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g} "
+              f"({'bitwise' if not any(errs) else 'of the absolute sums: '}"
+              + ("" if not any(errs) else
+                 ", ".join(f"{r:.3g}" for r in rels)) + ")", flush=True)
+        if not (ok and same_codes):
+            raise AssertionError(f"qdot {fmt}: the card differs from the "
+                                 "host")
+        out[fmt] = dict(max_abs_diff=errs, rel_to_mass=rels)
+    return out
+
+
+def quant_step_design(cfg):
+    """Quantized products per train step by design: 3 per quantized
+    Linear of the blocks (forward, dx, dw), and the head's: 3, or under
+    --ce_chunk 4 per chunk (its forward runs again in the backward);
+    none for a role in --quantize_skip."""
+    m = cfg.model
+    roles = ["qkv", "attn_out", "ff_in", "ff_out"]
+    if m.ffn_activation == "swiglu":
+        roles.append("ff_gate")
+    per_block = sum(r not in m.matmul_skip for r in roles)
+    chunks = cfg.data.seq_len // m.ce_chunk if m.ce_chunk else 0
+    head = 0 if "head" in m.matmul_skip else (4 * chunks if chunks else 3)
+    return 3 * per_block * m.n_layers + head
+
+
+def profile_quant_step(torch, trainer, fmt):
+    """(b) One more eager step of ``trainer`` under ``torch.profiler``:
+    the quantized products it runs (``aten::_int_mm`` /
+    ``aten::_scaled_mm``) must number ``quant_step_design``, no f32 or
+    bf16 product (``aten::mm``, ``addmm``, ``bmm``, ``baddbmm``) may run,
+    and every GEMM kernel the profiler recorded must belong to one of the
+    quantized products.  Prints their kernels' names and device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q_op = {"int8": "aten::_int_mm", "fp8": "aten::_scaled_mm"}[fmt]
+    plain_ops = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+    batches = trainer.loader.epoch(0)
+    batch = next(batches)
+    batches.close()
+    trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, loss = trainer.train_step(trainer.state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+    n_q, n_plain, q_kernels, gemm_kernels = 0, 0, {}, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if _kernel_class(ev.name) == "gemm":
+                gemm_kernels[ev.name] = (gemm_kernels.get(ev.name, 0.0)
+                                         + ev.device_time_total / 1e3)
+        elif ev.name == q_op:
+            n_q += 1
+            for kern in getattr(ev, "kernels", None) or []:
+                q_kernels[kern.name] = q_kernels.get(kern.name, 0) + 1
+        elif ev.name in plain_ops:
+            n_plain += 1
+    want = quant_step_design(trainer.cfg)
+    print(f"profile {fmt} step: {n_q} {q_op} (by design {want}), {n_plain} "
+          f"f32/bf16 products; GEMM kernels recorded: " + ", ".join(
+              f"{name[:80]} {ms:.2f} ms" for name, ms in sorted(
+                  gemm_kernels.items(), key=lambda kv: -kv[1])[:6]),
+          flush=True)
+    print(f"profile {fmt} step: kernels under {q_op}: "
+          + (", ".join(f"{name[:80]} x{c}" for name, c in q_kernels.items())
+             or "(the profiler linked none)"), flush=True)
+    if n_q != want or n_plain:
+        raise AssertionError(f"{fmt} step: {n_q} quantized products "
+                             f"(expected {want}), {n_plain} unquantized")
+    strays = [nm for nm in gemm_kernels if q_kernels and nm not in q_kernels]
+    if strays:
+        raise AssertionError(f"{fmt} step: GEMM kernels outside the "
+                             f"quantized products: {strays}")
+    if not gemm_kernels:
+        raise AssertionError(f"{fmt} step: the profiler recorded no GEMM "
+                             "kernel")
+    return dict(profiled_products=n_q, profiled_plain_products=n_plain,
+                gemm_kernels={k: round(v, 3) for k, v in gemm_kernels.items()},
+                linked_kernels=q_kernels)
+
+
+def quant_train_full_width(torch, np, device, trained, **over):
+    """(b)-(c) Phase 7's job under --matmul_dtype int8 (ce_chunk 256) and
+    fp8 (ce_chunk 0, as the trainer requires), eager (its products counted
+    against the design and one step profiled) and under
+    --steps_per_dispatch 13 (CUDA-graph replay, bitwise equal to eager);
+    every loss finite and falling 1 nat (train_full_width), flash launches
+    by design; step ms, tokens/s and peak memory beside bf16 (phase 7:
+    ``trained``) and the largest |loss - bf16 loss|.  Then int8's
+    witnesses, eager: ce_chunk 0 (the head's products whole, none run
+    again) and the head unquantized (``--quantize_skip head``), their
+    losses against bf16's and the int8 run's."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+
+    cuda = device.type == "cuda"
+    int8_ce = over.pop("int8_ce_chunk", 256)
+    out, curves = {}, {"bf16": trained["losses"]}
+    for fmt, ce in (("int8", int8_ce), ("fp8", 0)):
+        flags = dict(over, matmul_dtype=fmt, ce_chunk=ce)
+        cfg = config_from_args(build_argparser().parse_args(
+            train_flags(**flags)))
+        per_step = quant_step_design(cfg) if cuda else 0
+        inspect = ((lambda t, f=fmt: profile_quant_step(torch, t, f))
+                   if cuda else None)
+        run = train_full_width(torch, np, device, keep_final=True,
+                               profile=cuda, tag=f"quant {fmt}",
+                               inspect=inspect, **flags)
+        want = {"int8": 0, "fp8": 0}
+        want[fmt] = per_step * run["steps"]
+        if run["gemm_launches"] != want:
+            raise AssertionError(f"quant {fmt}: products {run['gemm_launches']}"
+                                 f", by design {want}")
+        delta = max(abs(a - b) for a, b in zip(run["losses"],
+                                                trained["losses"]))
+        res = dict(losses=[round(x, 4) for x in run["losses"]],
+                   bf16_losses=[round(x, 4) for x in trained["losses"]],
+                   max_abs_loss_diff_vs_bf16=delta,
+                   gemm_launches=run["gemm_launches"],
+                   products_per_step=per_step,
+                   **{k: run[k] for k in ("step_ms_median", "tokens_per_s",
+                                          "peak_memory_gib", "mfu",
+                                          "first_loss", "last3_loss",
+                                          "profiled_products",
+                                          "gemm_kernels",
+                                          "profile_busy_share",
+                                          "profile_ms_per_step")
+                      if k in run})
+        if cuda:
+            graphed = dispatch_full_width(torch, np, device, run, exact=True,
+                                          profile=False,
+                                          tag=f"quant {fmt} dispatch",
+                                          **flags)
+            if graphed["gemm_launches"] != want:
+                raise AssertionError(
+                    f"quant {fmt} dispatch: products "
+                    f"{graphed['gemm_launches']} (warm-up + replays x "
+                    f"captured), by design {want}")
+            res.update(graphed_step_ms_median=graphed["step_ms_median"],
+                       graphed_tokens_per_s=graphed["tokens_per_s"],
+                       graphed_peak_memory_gib=graphed["peak_memory_gib"],
+                       graphed_bitwise=graphed["bitwise"])
+            print(f"quant {fmt}: step {run['step_ms_median']:.2f} ms eager, "
+                  f"{graphed['step_ms_median']:.2f} ms graphed vs bf16 "
+                  f"{trained['step_ms_median']:.2f} ms (phase 7); "
+                  f"{run['tokens_per_s']:.0f} tokens/s eager; peak memory "
+                  f"{run['peak_memory_gib']:.2f} GiB vs "
+                  f"{trained['peak_memory_gib']:.2f} GiB; largest |loss - "
+                  f"bf16 loss| {delta:.4f}", flush=True)
+        out[fmt] = res
+        curves[fmt] = run["losses"]
+        del run
+    witness = {}
+    for name, extra in (("int8 ce_chunk 0", dict(ce_chunk=0)),
+                        ("int8 head unquantized",
+                         dict(ce_chunk=int8_ce, quantize_skip="head"))):
+        flags = dict(over, matmul_dtype="int8", **extra)
+        cfg = config_from_args(build_argparser().parse_args(
+            train_flags(**flags)))
+        run = train_full_width(torch, np, device, profile=False,
+                               tag=f"quant {name}", **flags)
+        want = (quant_step_design(cfg) * run["steps"]) if cuda else 0
+        if run["gemm_launches"] != {"int8": want, "fp8": 0}:
+            raise AssertionError(f"quant {name}: products "
+                                 f"{run['gemm_launches']}, by design {want}")
+        curves[name] = run["losses"]
+        witness[name] = dict(
+            losses=[round(x, 4) for x in run["losses"]],
+            max_abs_loss_diff_vs_bf16=max(
+                abs(a - b) for a, b in zip(run["losses"], curves["bf16"])),
+            max_abs_loss_diff_vs_int8=max(
+                abs(a - b) for a, b in zip(run["losses"], curves["int8"])),
+            **{k: run[k] for k in ("step_ms_median", "last3_loss")
+               if k in run})
+        del run
+    out["int8_witness"] = witness
+    print("quant: loss - bf16 loss over the first 6 steps: " + "; ".join(
+        f"{name} " + str([round(a - b, 4) for a, b in
+                          zip(curve[:6], curves["bf16"])])
+        for name, curve in curves.items() if name != "bf16"), flush=True)
+    return out
+
+
+def quant_identity(torch, np, device, n_layers=2, steps=3, batch=2,
+                   seq_len=128, int8_ce_chunk=64, **over):
+    """(d) f32, TF32 off, full width at ``n_layers`` layers, T
+    ``seq_len``: 3 SGD-momentum steps under int8 (ce_chunk 64) and fp8
+    from the same params and batches on the card and on the host; losses
+    within QTRAIN_LOSS_RTOL and the params' change within
+    QTRAIN_UPDATE_RL2, which the host's unquantized run (the plain f32
+    product) must exceed against the host's quantized one."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(BIG, n_layers=n_layers, activation="gelu",
+              pos_encoding="learned", attention="flash",
+              param_dtype=torch.float32, compute_dtype=torch.float32)
+    kw.update(over, max_seq_len=seq_len)
+    data = text_dataset(TEXT_FILE, seq_len, kw["vocab_size"])
+
+    def train(fmt, ce, dev):
+        model = Transformer(TransformerConfig(**kw, matmul_dtype=fmt,
+                                              ce_chunk=ce), device=dev)
+        params = model.init(torch.Generator().manual_seed(SEED + 7))
+        p0 = [p.detach().cpu().clone() for p in flat_params(params)]
+        opt = optim.sgd(1e-2, 0.9)
+        state = TrainState.from_params(params, opt, model)
+        step = dp.make_train_step(model, opt, world_setup(dev),
+                                  loss_name="cross_entropy")
+        losses = []
+        loader = ShardedLoader(data, batch, device=dev, shuffle=False)
+        for _, b in zip(range(steps), loader.epoch(0)):
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        return losses, [p.detach().cpu() for p in
+                        flat_params(state.params)], p0
+
+    def update_rl2(got, want, p0):
+        return float(sum(float(((a - b) ** 2).sum())
+                         for a, b in zip(got, want)) ** 0.5
+                     / sum(float(((b - z) ** 2).sum())
+                           for b, z in zip(want, p0)) ** 0.5)
+
+    cpu = torch.device("cpu")
+    plain = train("bf16", int8_ce_chunk, cpu)
+    out = {}
+    for fmt, ce in (("int8", int8_ce_chunk), ("fp8", 0)):
+        (lc, pc, p0c), (lh, ph, p0h) = (train(fmt, ce, device),
+                                        train(fmt, ce, cpu))
+        if not all(torch.equal(a, b) for a, b in zip(p0c + p0h,
+                                                     p0h + plain[2])):
+            raise AssertionError(f"quant identity {fmt}: the runs start "
+                                 "from different params")
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+        rl2 = update_rl2(pc, ph, p0h)
+        control = update_rl2(plain[1], ph, p0h)
+        bound = QTRAIN_UPDATE_RL2[fmt]
+        print(f"quant identity {fmt} ({n_layers} layers, T {seq_len}, "
+              f"{steps} steps): losses card {lc} host {lh} (largest "
+              f"relative difference {loss_rel:.3g}, bound "
+              f"{QTRAIN_LOSS_RTOL[fmt]:g}); params' change relative L2 "
+              f"{rl2:.3g} (bound {bound:g}; the host's unquantized run "
+              f"against its {fmt} run, the control: {control:.3g})",
+              flush=True)
+        if loss_rel > QTRAIN_LOSS_RTOL[fmt] or rl2 > bound:
+            raise AssertionError(f"quant identity {fmt}: the card's run "
+                                 "differs from the host's")
+        if control <= bound:
+            raise AssertionError(f"quant identity {fmt}: the bound {bound:g}"
+                                 " would pass an unquantized run (control "
+                                 f"{control:.3g})")
+        out[fmt] = dict(loss_rel=loss_rel, update_rel_l2=rl2,
+                        control_update_rel_l2=control)
+    return out
+
+
+def ptq_token_identity(torch, np, device, cfg=None, n_new=16):
+    """(e) f32 at ``__graft_entry__``'s geometry, int8 PTQ weights: for
+    the dequant product (matmul_dtype bf16) and int8 compute, the fused
+    scheduler, the gathered one and ``generate()`` give identical greedy
+    ids; prints how many of int8 compute's ids equal the dequant
+    path's."""
+    import dataclasses
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.quant import (  # noqa: E501
+        quantize_params,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cfg or flagship_config(torch)
+    rng = np.random.default_rng(SEED + 8)
+    requests = [(rng.integers(0, cfg.vocab_size, p).tolist(), n_new)
+                for p in (3, 17, 40, 90)]
+    params = None
+    ids = {}
+    for fmt in ("bf16", "int8"):
+        model = Transformer(dataclasses.replace(cfg, matmul_dtype=fmt),
+                            device=device)
+        if params is None:
+            params = quantize_params(model.init(
+                torch.Generator(device=device).manual_seed(SEED + 8)))
+        geom = dict(slots=4, block_size=16, max_len=cfg.max_seq_len,
+                    prefill_chunk=64,
+                    num_blocks=4 * -(-cfg.max_seq_len // 16) + 1)
+        got = {}
+        for impl in ("fused", "gathered"):
+            sched = Scheduler(model, params, ServeConfig(**geom,
+                                                         attn_impl=impl),
+                              device=device)
+            got[impl] = drive(sched, requests)[1]
+        got["generate"] = [generate(model, params, [p], n,
+                                    device=device)[0].tolist()
+                           for p, n in requests]
+        if not got["fused"] == got["gathered"] == got["generate"]:
+            raise AssertionError(f"PTQ {fmt}: greedy ids differ between "
+                                 "fused, gathered and generate()")
+        ids[fmt] = got["fused"]
+    new = [(a[len(p):], b[len(p):])
+           for (p, _), a, b in zip(requests, ids["bf16"], ids["int8"])]
+    same = sum(x == y for a, b in new for x, y in zip(a, b))
+    total = sum(len(a) for a, _ in new)
+    print(f"tokens PTQ f32 flagship: fused == gathered == generate() for "
+          f"dequant and for int8 compute ({len(requests)} requests); int8 "
+          f"compute's new ids equal the dequant path's {same}/{total}",
+          flush=True)
+    return dict(int8_vs_dequant_same=same, new_tokens=total)
+
+
+def quant_serve(torch, np, device, **traffic):
+    """(e) Phase 4's LM and traffic (``serve_setup``'s defaults: 32
+    requests of 64-768 prompt and 32-128 new tokens on 16 slots) with
+    bf16 weights, int8 PTQ weights through the dequant product, and PTQ
+    weights with int8 compute, each arm measured twice in the order
+    A B C C B A (drift on the card or the host lands on both sides of
+    every comparison): tokens/s, TTFT, ITL and the param bytes of each
+    run, and each metric's spread over an arm's two runs (max - min over
+    the mean); then ``ptq_token_identity``."""
+    import dataclasses
+
+    keep = ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+            "itl_p99_ms", "wall_s", "tokens_out", "param_bytes", "launches",
+            "requests")
+    setups = {}
+    for tag, quantize, fmt in (("bf16 weights", False, "bf16"),
+                               ("PTQ dequant", True, "bf16"),
+                               ("PTQ int8 compute", True, "int8")):
+        cfg = dataclasses.replace(big_config(torch), matmul_dtype=fmt)
+        setups[tag] = serve_setup(torch, np, device, cfg=cfg,
+                                  quantize=quantize, **traffic)
+    runs = {tag: [] for tag in setups}
+    order = list(setups) + list(setups)[::-1]
+    for i, tag in enumerate(order):
+        run = serve_measure(torch, device, *setups[tag],
+                            tag=f"serve {tag} (run {i + 1} of {len(order)})")
+        runs[tag].append({k: run[k] for k in keep})
+    out = {}
+    for tag, rs in runs.items():
+        spread = {}
+        for k in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                  "itl_p50_ms", "itl_p99_ms"):
+            vals = [r[k] for r in rs]
+            spread[k] = (max(vals) - min(vals)) / (sum(vals) / len(vals))
+        out[tag] = dict(runs=rs, spread=spread)
+        print(f"serve {tag}: tokens/s " + ", ".join(
+            f"{r['tokens_per_s']:.1f}" for r in rs) + "; TTFT p50 "
+            + ", ".join(f"{r['ttft_p50_ms']:.1f}" for r in rs)
+            + " ms; ITL p50 " + ", ".join(f"{r['itl_p50_ms']:.2f}" for r in rs)
+            + f" ms; spread of tokens/s {spread['tokens_per_s']:.1%}, of "
+            f"ITL p50 {spread['itl_p50_ms']:.1%}", flush=True)
+    del setups
+    out["identity"] = ptq_token_identity(torch, np, device)
+    return out
+
+
 def _clone_tree(torch, tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
@@ -3059,6 +3749,14 @@ def main() -> int:
     auto = measure_auto(torch, np, device)
     sliced = slice_full_width(torch, np, device, trained)
     del trained["final_params"]
+
+    phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
+    quant = dict(products=check_qmm(torch, device),
+                 card_vs_host=qdot_card_vs_host(torch, device))
+    quant["train"] = quant_train_full_width(torch, np, device, trained)
+    quant["identity"] = quant_identity(torch, np, device)
+    quant["serve"] = quant_serve(torch, np, device)
+    print("quant: " + json.dumps(quant), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (

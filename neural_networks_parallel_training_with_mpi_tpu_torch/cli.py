@@ -20,11 +20,15 @@ and ``--max_new_tokens`` decoded ids, comma-separated, as the JAX CLI
 does.  Greedy by default; ``--temperature`` (with ``--top_k``/``--top_p``)
 samples from a ``torch.Generator`` seeded by ``--seed``, so sampled ids
 differ from the JAX package's while greedy ids agree.  ``--kv_quant int8``
-and ``--prefill_chunk`` as in ``models.generate``.
+and ``--prefill_chunk`` as in ``models.generate``.  ``--quantize int8``
+quantizes the restored weights (``ops.quant``; ``--quantize_skip head``
+keeps named sites in full precision) and decodes through the dequant
+product, or with ``--matmul_dtype int8`` through int8 x int8 products
+(``ops.qmm``); ``--matmul_dtype fp8`` over them is refused with rc 2.
+Training ignores ``--quantize``, as the JAX CLI does.
 
-Not ported, and raising when set: ``--quantize`` (int8 weights), the
-supervisor (``--supervise``) and the JAX platform knobs
-(``--num_devices``, ``--probe_timeout``).
+Not ported, and raising when set: the supervisor (``--supervise``) and
+the JAX platform knobs (``--num_devices``, ``--probe_timeout``).
 """
 
 from __future__ import annotations
@@ -36,8 +40,7 @@ from .utils.logging import log
 
 # CLI-only flags of paths the port lacks -> their defaults
 _UNPORTED_CLI = {"supervise": 0, "num_devices": None, "probe_timeout": 60.0,
-                 "quantize": "none", "supervise_backoff": 1.0,
-                 "supervise_backoff_max": 60.0}
+                 "supervise_backoff": 1.0, "supervise_backoff_max": 60.0}
 
 
 def _generate(args) -> int:
@@ -95,6 +98,25 @@ def _generate(args) -> int:
         log(f"restored step {step} from {cfg.checkpoint_dir}")
     else:
         log("note: no --checkpoint_dir; generating from a fresh init")
+    if args.quantize == "int8" and cfg.model.matmul_dtype == "fp8":
+        # Linear's fp8 branch needs float kernels: over PTQ weights the
+        # flag would do nothing
+        log("ERROR: --matmul_dtype fp8 cannot run over --quantize int8 "
+            "PTQ kernels; use --matmul_dtype int8 (true int8 compute) "
+            "or bf16 (dequant) with PTQ weights")
+        return 2
+    if args.quantize == "int8":
+        from .ops.quant import quantize_params, quantized_bytes
+
+        skip = tuple(s for s in (args.quantize_skip or "").split(",") if s)
+        full_b = quantized_bytes(params)
+        params = quantize_params(params, skip=skip)
+        log(f"int8 weights-only PTQ: param bytes {full_b/2**20:.1f} -> "
+            f"{quantized_bytes(params)/2**20:.1f} MiB"
+            + (f" (kept {','.join(skip)} full-precision)" if skip else ""))
+        if cfg.model.matmul_dtype == "int8":
+            log("int8 COMPUTE decode: true int8 activation x weight dot "
+                "(ops.qmm) over the PTQ kernels")
     generator = None
     if args.temperature > 0:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)

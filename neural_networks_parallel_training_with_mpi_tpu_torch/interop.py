@@ -18,6 +18,11 @@ it host arrays (``jax.device_get(tree)``).
 * ``tree_to_numpy``    the way back: numpy leaves under the same names
   (NamedTuples as dicts of their fields), ready for
   ``jax.tree_util``-level comparison or for rebuilding the JAX state.
+
+A train state's fp8 ``qstate`` (``{"amax": {role: (16,) f32}}``) crosses
+as any other subtree; the empty ``qstate=()`` of the other formats stays
+an empty tuple.  Quantized params (``ops.quant``: int8 ``w``, f32
+``w_scale``) keep their dtypes.
 """
 
 from __future__ import annotations
@@ -67,8 +72,10 @@ def _convert(node: Any, dtype: Optional[torch.dtype],
                              "port counterpart yet")
         return cls(**{f: _convert(fields[f], dtype, device)
                       for f in cls._fields})
-    if isinstance(node, (list, tuple)):
+    if isinstance(node, list):
         return [_convert(v, dtype, device) for v in node]
+    if isinstance(node, tuple):         # the empty qstate of a non-fp8 state
+        return tuple(_convert(v, dtype, device) for v in node)
     a = np.asarray(node)
     if a.ndim == 0 and a.dtype.kind in "iu":
         return int(a)                  # step / optimizer counters
@@ -130,8 +137,10 @@ def tree_to_numpy(tree: Any) -> Any:
         return {f: tree_to_numpy(v) for f, v in zip(tree._fields, tree)}
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, list):
         return [tree_to_numpy(v) for v in tree]
+    if isinstance(tree, tuple):
+        return tuple(tree_to_numpy(v) for v in tree)
     if isinstance(tree, int):
         return np.asarray(tree, np.int32)
     return tree

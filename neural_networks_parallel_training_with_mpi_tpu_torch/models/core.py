@@ -114,7 +114,13 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 class Linear:
     """``y = x @ w + b`` with ``w`` stored ``(in, out)`` as in the JAX
     package.  ``x`` and ``w`` are cast to ``compute_dtype`` (default: the
-    input's dtype) and the bias is added in that dtype."""
+    input's dtype) and the bias is added in that dtype.
+
+    ``matmul_dtype`` is the quantized-matmul seam (``ops.qmm``): 'bf16'
+    is the plain product; 'int8' and 'fp8' run it in the quantized
+    domain (training: ``qdot``; serving: an int8 x int8 product against
+    ``ops.quant`` PTQ weights).  ``q_role`` names this layer's fp8 amax
+    history (delayed scaling)."""
 
     in_features: int
     out_features: int
@@ -122,6 +128,7 @@ class Linear:
     param_dtype: torch.dtype = torch.float32
     compute_dtype: Optional[torch.dtype] = None
     matmul_dtype: str = "bf16"
+    q_role: str = ""
 
     def init(self, generator: torch.Generator, device) -> Params:
         bound = 1.0 / math.sqrt(self.in_features)
@@ -132,13 +139,45 @@ class Linear:
                                    self.param_dtype, generator, device)
         return params
 
-    def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        if self.matmul_dtype != "bf16" or "w_scale" in params:
-            raise NotImplementedError(
-                "quantized matmuls (int8/fp8 matmul_dtype, w_scale "
-                "weights) are not ported yet")
+    def apply(self, params: Params, x: torch.Tensor, qscales=None,
+              qobserved=None) -> torch.Tensor:
+        """``qscales``: role -> delayed fp8 amax (read); ``qobserved``:
+        role -> this step's observed amax, max-merged over the layers
+        sharing a role (written).  Both only matter under fp8."""
         cdt = self.compute_dtype or x.dtype
-        y = torch.matmul(x.to(cdt), params["w"].to(cdt))
+        fmt = self.matmul_dtype
+        if fmt == "int8" and "w_scale" in params:
+            # serving: PTQ weights and a true int8 product
+            from ..ops import qmm
+
+            y = qmm.int8_serve_dot(x.to(cdt), params["w"],
+                                   params["w_scale"]).to(cdt)
+        elif fmt == "fp8" and "w_scale" in params:
+            # refused here, not only in the CLI: falling through to the
+            # dequant product would mislabel every other caller's run
+            raise ValueError(
+                "matmul_dtype='fp8' cannot run over int8 PTQ kernels "
+                "(params carry w_scale); use matmul_dtype='int8' for "
+                "true int8 compute or 'bf16' for the dequant path")
+        elif fmt in ("int8", "fp8"):
+            from ..ops import qmm
+
+            a_amax = None
+            if fmt == "fp8" and qscales is not None and self.q_role:
+                a_amax = qscales.get(self.q_role)
+            if fmt == "fp8" and qobserved is not None and self.q_role:
+                prev = qobserved.get(self.q_role)
+                obs = qmm.tensor_amax(x)
+                qobserved[self.q_role] = (obs if prev is None
+                                          else torch.maximum(prev, obs))
+            y = qmm.qdot(x.to(cdt), params["w"], fmt=fmt,
+                         scales=a_amax).to(cdt)
+        else:
+            y = torch.matmul(x.to(cdt), params["w"].to(cdt))
+            if "w_scale" in params:
+                # weights-only int8 (ops.quant.quantize_params): the
+                # per-output-channel scale commutes through the product
+                y = y * params["w_scale"].to(cdt)
         if self.use_bias:
             y = y + params["b"].to(cdt)
         return y

@@ -27,9 +27,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
     if cfg.arch == "convnet":
         raise NotImplementedError("arch='convnet' is not ported yet")
     if cfg.arch == "transformer":
-        if cfg.matmul_skip:
-            raise NotImplementedError(
-                "--quantize_skip / matmul_skip is not ported yet")
         tc = TransformerConfig(
             vocab_size=cfg.vocab_size, max_seq_len=cfg.max_seq_len,
             n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
@@ -39,6 +36,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
             compute_dtype=cdt, remat=cfg.remat,
             remat_policy=cfg.remat_policy,
             moe_experts=cfg.moe_experts, ce_chunk=cfg.ce_chunk,
-            matmul_dtype=cfg.matmul_dtype, scan_layers=cfg.scan_layers)
+            matmul_dtype=cfg.matmul_dtype,
+            matmul_skip=tuple(cfg.matmul_skip), scan_layers=cfg.scan_layers)
         return Transformer(tc, device=device, seq_group=seq_group)
     raise ValueError(f"unknown arch {cfg.arch!r}")

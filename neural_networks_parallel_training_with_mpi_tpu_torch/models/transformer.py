@@ -24,10 +24,21 @@ chunked cross-entropy (``ce_chunk``, ``fused_loss_sum``), whose chunks run
 under ``torch.utils.checkpoint`` so the (B, T, vocab) logits never exist.
 
 ``remat`` runs each block under ``models.core.make_remat(remat_policy)``
-(recomputed in the backward).  ``scan_layers`` keeps the JAX package's
+(recomputed in the backward; fp8 observations come from the first
+forward only, the recompute's are dropped).  ``scan_layers`` keeps the JAX package's
 stacked tree: ``blocks`` is one dict whose leaves carry a leading
 ``(n_layers,)`` axis; every path walks it through :func:`layer_params`
 (one ``torch.unbind`` per leaf: views, no copy).
+
+Quantized compute (``matmul_dtype`` int8 or fp8, ``ops.qmm``): every
+dense projection (qkv, attn_out, ff_in, ff_gate, ff_out, head) runs
+through the seam unless its role is in ``matmul_skip``.  Under fp8 the
+blocks read the delayed activation amax of their role from ``qscales``
+and report this step's observed amax (:meth:`forward` with
+``return_qobs``), maxed over the layers.  Params quantized by
+``ops.quant.quantize_params`` (int8 ``w`` + f32 ``w_scale``) serve as
+they are: dequantized in the product (``matmul_dtype`` bf16) or as an
+int8 x int8 product (int8).
 
 Not ported yet, and refused at construction: MoE FFNs, ``ulysses`` and
 ``dense_blockwise`` attention.
@@ -36,7 +47,7 @@ Not ported yet, and refused at construction: MoE FFNs, ``ulysses`` and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -93,7 +104,9 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None
     scan_layers: bool = False
     moe_experts: int = 0
-    matmul_dtype: str = "bf16"
+    matmul_dtype: str = "bf16"            # bf16 | int8 | fp8 (ops.qmm)
+    # projection roles kept on the plain product under int8/fp8
+    matmul_skip: Tuple[str, ...] = ()
     # flash kernel blocks (pallas_kernels._resolve_blocks: T must divide)
     flash_block_q: int = 128
     flash_block_k: int = 128
@@ -145,9 +158,9 @@ class Transformer:
                 f"attention={cfg.attention!r} shards the sequence and needs "
                 "a sequence group: --sp > 1 under torchrun, or an explicit "
                 "LocalSeqGroup; use dense or flash on an unsharded sequence")
-        if cfg.matmul_dtype != "bf16":
-            raise NotImplementedError(
-                f"matmul_dtype={cfg.matmul_dtype!r} is not ported yet")
+        if cfg.matmul_dtype not in ("bf16", "int8", "fp8"):
+            raise ValueError(f"unknown matmul_dtype {cfg.matmul_dtype!r} "
+                             "(choices: bf16, int8, fp8)")
         if cfg.pos_encoding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_encoding {cfg.pos_encoding!r}")
         if cfg.activation != "swiglu" and cfg.activation not in ACTIVATIONS:
@@ -167,40 +180,60 @@ class Transformer:
         self._remat = make_remat(cfg.remat_policy) if cfg.remat else None
 
     # ---- submodules (stateless; parameters live in the tree) ----
+    def _mm(self, role: str) -> str:
+        """The matmul format of one projection role: the config's, or
+        bf16 (the plain product) for a role in ``matmul_skip``."""
+        c = self.cfg
+        return "bf16" if role in c.matmul_skip else c.matmul_dtype
+
+    def _linear(self, role: str, i: int, o: int, use_bias: bool = True
+                ) -> Linear:
+        c = self.cfg
+        return Linear(i, o, use_bias=use_bias, param_dtype=c.param_dtype,
+                      compute_dtype=c.compute_dtype,
+                      matmul_dtype=self._mm(role), q_role=role)
+
     def _block_modules(self):
         c = self.cfg
-        lin = lambda i, o: Linear(i, o, param_dtype=c.param_dtype,  # noqa: E731
-                                  compute_dtype=c.compute_dtype)
         mods = {
             "ln1": LayerNorm(c.d_model, param_dtype=c.param_dtype),
-            "qkv": lin(c.d_model, c.qkv_dim),
-            "attn_out": lin(c.d_model, c.d_model),
+            "qkv": self._linear("qkv", c.d_model, c.qkv_dim),
+            "attn_out": self._linear("attn_out", c.d_model, c.d_model),
             "ln2": LayerNorm(c.d_model, param_dtype=c.param_dtype),
-            "ff_in": lin(c.d_model, c.d_ff),
+            "ff_in": self._linear("ff_in", c.d_model, c.d_ff),
         }
         if c.activation == "swiglu":
-            mods["ff_gate"] = lin(c.d_model, c.d_ff)
-        mods["ff_out"] = lin(c.d_ff, c.d_model)
+            mods["ff_gate"] = self._linear("ff_gate", c.d_model, c.d_ff)
+        mods["ff_out"] = self._linear("ff_out", c.d_ff, c.d_model)
         return mods
 
     def _head(self) -> Linear:
         c = self.cfg
-        return Linear(c.d_model, c.vocab_size, use_bias=False,
-                      param_dtype=c.param_dtype,
-                      compute_dtype=c.compute_dtype)
+        return self._linear("head", c.d_model, c.vocab_size, use_bias=False)
 
-    def _ffn(self, mods, params, h: torch.Tensor) -> torch.Tensor:
+    def quant_roles(self) -> Tuple[str, ...]:
+        """The fp8 delayed-scaling roles (``ops.qmm``): one activation
+        amax history per projection role, shared across the layers;
+        skipped roles run the plain product and carry none."""
+        c = self.cfg
+        roles = ["qkv", "attn_out", "ff_in", "ff_out", "head"]
+        if c.activation == "swiglu":
+            roles.insert(3, "ff_gate")
+        return tuple(r for r in roles if r not in c.matmul_skip)
+
+    def _ffn(self, mods, params, h: torch.Tensor, **qkw) -> torch.Tensor:
         """Classic ``act(h W_in) W_out``, or SwiGLU
-        ``(silu(h W_gate) * h W_in) W_out``."""
+        ``(silu(h W_gate) * h W_in) W_out``; ``qkw`` carries the fp8
+        context (``qscales``/``qobserved``) to the Linears."""
         if self.cfg.activation == "swiglu":
             gate = torch.nn.functional.silu(
-                mods["ff_gate"].apply(params["ff_gate"], h))
+                mods["ff_gate"].apply(params["ff_gate"], h, **qkw))
             return mods["ff_out"].apply(
-                params["ff_out"], gate * mods["ff_in"].apply(params["ff_in"],
-                                                             h))
-        h = mods["ff_in"].apply(params["ff_in"], h)
+                params["ff_out"],
+                gate * mods["ff_in"].apply(params["ff_in"], h, **qkw), **qkw)
+        h = mods["ff_in"].apply(params["ff_in"], h, **qkw)
         h = ACTIVATIONS[self.cfg.activation](h)
-        return mods["ff_out"].apply(params["ff_out"], h)
+        return mods["ff_out"].apply(params["ff_out"], h, **qkw)
 
     def init(self, generator: torch.Generator) -> Params:
         c = self.cfg
@@ -235,29 +268,37 @@ class Transformer:
             x = x + params["pos"]["table"][positions]
         return x.to(c.compute_dtype)
 
-    def head_logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        """Final LayerNorm + untied head -> f32 logits."""
-        return self._head().apply(params["head"],
-                                  self.final_norm(params, x)).float()
+    def head_logits(self, params: Params, x: torch.Tensor,
+                    qscales=None, qobserved=None) -> torch.Tensor:
+        """Final LayerNorm + untied head -> f32 logits (``qscales``: the
+        fp8 delayed amax; ``qobserved``: the dict the head's fp8
+        observation, taken on ``final_norm(x)``, lands in)."""
+        return self._head().apply(params["head"], self.final_norm(params, x),
+                                  qscales=qscales,
+                                  qobserved=qobserved).float()
 
     def block(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
-              attend: Callable) -> torch.Tensor:
+              attend: Callable, qscales=None, qobs=None) -> torch.Tensor:
         """One pre-LN block on ``x`` (B, W, D) whose rows sit at
         ``positions`` ((W,) or (B, W), used by RoPE).  ``attend(q, k, v)``
         (q (B, W, H, hd), k/v (B, W, KV, hd) after RoPE) returns the
         attention output (B, W, H, hd): the dense forward, the KV-cache
-        decode and the paged server differ only there."""
+        decode and the paged server differ only there.  Under fp8 the
+        Linears read ``qscales`` and write their observations into the
+        dict ``qobs`` (when given)."""
         c = self.cfg
         mods = self._block_modules()
+        qkw = ({"qscales": qscales, "qobserved": qobs}
+               if c.matmul_dtype == "fp8" else {})
         h = mods["ln1"].apply(params["ln1"], x)
-        q, k, v = split_qkv(c, mods["qkv"].apply(params["qkv"], h))
+        q, k, v = split_qkv(c, mods["qkv"].apply(params["qkv"], h, **qkw))
         if c.pos_encoding == "rope":
             q = rope_rotate(q, positions, c.rope_theta)
             k = rope_rotate(k, positions, c.rope_theta)
         out = attend(q, k, v).to(x.dtype).reshape(*x.shape[:2], c.d_model)
-        x = x + mods["attn_out"].apply(params["attn_out"], out)
+        x = x + mods["attn_out"].apply(params["attn_out"], out, **qkw)
         h = mods["ln2"].apply(params["ln2"], x)
-        return x + self._ffn(mods, params, h).to(x.dtype)
+        return x + self._ffn(mods, params, h, **qkw).to(x.dtype)
 
     def attend(self, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -271,21 +312,40 @@ class Transformer:
             c.attention, q, k, v, group=self.seq_group, causal=True,
             block_q=c.flash_block_q, block_k=c.flash_block_k)
 
-    def backbone(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
+    def backbone(self, params: Params, ids: torch.Tensor, qscales=None,
+                 qobs: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
         """Embedding + all blocks -> (B, T, d_model) pre-head hidden
-        states: the trunk shared by :meth:`forward` and the fused loss."""
+        states: the trunk shared by :meth:`forward` and the fused loss.
+        fp8: the blocks read ``qscales``; given a dict ``qobs``, each
+        block role's observed amax, maxed over the layers, lands in it.
+        Each block observes into a dict of its own, which it returns, so
+        the forward that ``--remat`` runs again in the backward observes
+        into a dict nobody reads."""
         c = self.cfg
         positions = global_positions(c.attention, self.seq_group,
                                      ids.shape[1], ids.device)
         x = self.embed(params, ids, positions)
+        collect = qobs is not None and c.matmul_dtype == "fp8"
 
         def block_fn(layer, h):
-            return self.block(layer, h, positions, self.attend)
+            obs = {} if collect else None
+            return self.block(layer, h, positions, self.attend,
+                              qscales=qscales, qobs=obs), obs
 
         if self._remat is not None:
             block_fn = self._remat(block_fn)
+        if collect:
+            for r in self.quant_roles():
+                if r != "head":
+                    qobs[r] = torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
         for layer in layer_params(params):
-            x = block_fn(layer, x)
+            x, obs = block_fn(layer, x)
+            if collect:
+                for r in qobs:
+                    if r in obs:
+                        qobs[r] = torch.maximum(qobs[r], obs[r])
         return x
 
     def final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -293,9 +353,17 @@ class Transformer:
         return LayerNorm(c.d_model, param_dtype=c.param_dtype).apply(
             params["ln_f"], x)
 
-    def forward(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        """ids (B, T) -> f32 logits (B, T, vocab)."""
-        return self.head_logits(params, self.backbone(params, ids))
+    def forward(self, params: Params, ids: torch.Tensor, qscales=None,
+                return_qobs: bool = False):
+        """ids (B, T) -> f32 logits (B, T, vocab); with ``return_qobs``,
+        (logits, {role: observed amax}): the fp8 step's calibration
+        input (empty unless the model is fp8).  ``qscales`` is the
+        per-role delayed amax (``ops.qmm.delayed_amax``); None is current
+        scaling."""
+        qobs = {} if return_qobs else None
+        x = self.backbone(params, ids, qscales=qscales, qobs=qobs)
+        logits = self.head_logits(params, x, qscales=qscales, qobserved=qobs)
+        return (logits, qobs) if return_qobs else logits
 
     apply = forward
 

@@ -38,7 +38,16 @@ captures the whole step (forward, backward, the all-reduce, the
 over static batch buffers, so a step costs the host a few copies and one
 graph launch instead of its ~1800 kernel launches.
 
-Not ported yet, and refused: the fp8/int8 matmuls and ``with_metrics``.
+Quantized compute (``--matmul_dtype``, ``ops.qmm``): int8 needs nothing
+here.  Under fp8 the step reads each role's delayed amax from
+``state.qstate`` at its top (:func:`make_qloss_fn`), takes the max of the
+observations over the microbatches, then over every rank (one
+``all_reduce`` with ``MAX``: the data ranks and, under sequence
+parallelism, the seq ranks, as the JAX step's ``pmax``), and after the
+update rolls the histories in place, in the replicated, ``zero1`` and
+``sharded`` forms alike, so a CUDA graph's replay rolls them too.
+
+Not ported yet, and refused: ``with_metrics``.
 """
 
 from __future__ import annotations
@@ -51,6 +60,7 @@ import torch.distributed as dist
 
 from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
+from ..ops import qmm
 from ..ops.optim import Optimizer, advanced, device_scalars
 from ..train.state import TrainState
 from ..utils.checkpoint import flatten
@@ -80,38 +90,89 @@ def make_loss_fn(model, loss_name: str) -> Callable[[Any, Batch],
     return loss_fn
 
 
-def _sum_and_grads(loss_fn, params, batch):
-    s, c = loss_fn(params, batch)
+def make_qloss_fn(model, loss_name: str):
+    """(params, batch, qamax) -> (loss_sum, (count, observed)): the fp8
+    variant of :func:`make_loss_fn`.  The model reads the per-role delayed
+    amax ``qamax`` (``ops.qmm.delayed_amax`` of ``state.qstate``) and
+    reports this step's observed amax.  The fused chunked CE is bypassed,
+    as in the JAX package (the trainer refuses --ce_chunk with fp8)."""
+    base = losses_lib.get(loss_name)
+
+    def loss_fn(params, batch, qamax):
+        pred, obs = model.apply(params, batch["x"], qscales=qamax,
+                                return_qobs=True)
+        s, c = base(pred, batch["y"], batch.get("mask"))
+        return s, (c, obs)
+
+    return loss_fn
+
+
+def _lifted(loss_fn):
+    """A (params, batch) loss in :func:`make_qloss_fn`'s contract, with no
+    observations."""
+    def qfn(params, batch, _qamax):
+        s, c = loss_fn(params, batch)
+        return s, (c, {})
+    return qfn
+
+
+def _sum_and_grads(loss_fn, params, batch, qamax):
+    s, (c, obs) = loss_fn(params, batch, qamax)
     ps = leaves(params)
     grads = torch.autograd.grad(s, ps, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(ps, grads)]
-    return s.detach(), c.detach(), grads
+    return s.detach(), c.detach(), grads, obs
 
 
 def _accumulated_sum_and_grads(loss_fn, params, batch: Batch,
-                               accum_steps: int):
-    """This rank's (loss_sum, count, grads-of-sum as a leaf list),
-    microbatched when ``accum_steps > 1``: every loss returns SUMS, so
-    adding microbatch sums (grads in f32) is the unsplit computation."""
+                               accum_steps: int, qamax=None):
+    """This rank's (loss_sum, count, grads-of-sum as a leaf list, fp8
+    observations), microbatched when ``accum_steps > 1``: every loss
+    returns SUMS, so adding microbatch sums (grads in f32) is the unsplit
+    computation, and the amax of the union is the max of the
+    microbatches' amax.  ``loss_fn`` follows :func:`make_qloss_fn`."""
     if accum_steps == 1:
-        return _sum_and_grads(loss_fn, params, batch)
+        return _sum_and_grads(loss_fn, params, batch, qamax)
     for k, v in batch.items():
         if v.shape[0] % accum_steps:
             raise ValueError(
                 f"per-device batch rows {v.shape[0]} (leaf {k!r}) not "
                 f"divisible by accum_steps={accum_steps}")
     micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
-    s = c = grads = None
+    s = c = grads = obs = None
     for i in range(accum_steps):
-        ms, mc, mg = _sum_and_grads(loss_fn, params,
-                                    {k: v[i] for k, v in micro.items()})
+        ms, mc, mg, mo = _sum_and_grads(loss_fn, params,
+                                        {k: v[i] for k, v in micro.items()},
+                                        qamax)
         if grads is None:
-            s, c, grads = ms, mc, [g.float() for g in mg]
+            s, c, grads, obs = ms, mc, [g.float() for g in mg], mo
         else:
             s, c = s + ms, c + mc
             torch._foreach_add_(grads, [g.float() for g in mg])
-    return s, c, grads
+            obs = {r: torch.maximum(obs[r], mo[r]) for r in obs}
+    return s, c, grads, obs
+
+
+def _max_over_ranks(obs: Dict[str, torch.Tensor],
+                    world: World) -> Dict[str, torch.Tensor]:
+    """The observations' max over every rank (data and seq): one
+    ``all_reduce`` of a vector in the roles' order."""
+    if not world.initialized or not obs:
+        return obs
+    roles = sorted(obs)
+    flat = torch.stack([obs[r].float() for r in roles])
+    dist.all_reduce(flat, op=dist.ReduceOp.MAX)
+    return dict(zip(roles, flat.unbind()))
+
+
+@torch.no_grad()
+def _roll_qstate(state: TrainState, obs: Dict[str, torch.Tensor]) -> None:
+    """Roll ``state.qstate``'s histories in place with ``obs``."""
+    new = qmm.update_qstate(state.qstate, obs)
+    roles = list(state.qstate["amax"])
+    torch._foreach_copy_([state.qstate["amax"][r] for r in roles],
+                         [new["amax"][r] for r in roles])
 
 
 def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
@@ -197,12 +258,18 @@ def make_train_step(model, optimizer: Optimizer, world: World,
                                   "not ported yet")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    loss_fn = make_loss_fn(model, loss_name)
+    fp8 = qmm.model_format(model) == "fp8"
+    loss_fn = (make_qloss_fn(model, loss_name) if fp8
+               else _lifted(make_loss_fn(model, loss_name)))
 
     def step(state: TrainState, batch: Batch,
              scalars: Optional[torch.Tensor] = None):
-        s, c, grads = _accumulated_sum_and_grads(loss_fn, state.params,
-                                                 batch, accum_steps)
+        # fp8: each role's delayed amax, read before anything updates
+        qamax = qmm.delayed_amax(state.qstate) if fp8 else None
+        s, c, grads, obs = _accumulated_sum_and_grads(
+            loss_fn, state.params, batch, accum_steps, qamax)
+        if fp8:
+            obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":
             opt_state, loss = zero1_shard_update(
                 optimizer, state, s, c, grads, world, grad_clip, scalars)
@@ -211,7 +278,10 @@ def make_train_step(model, optimizer: Optimizer, world: World,
                 optimizer, state.params, state.opt_state, s, c, grads,
                 world, grad_clip, scalars)
         if update_sharding != "replicated":
-            return TrainState(state.step + 1, state.params, opt_state), loss
+            state = state._replace(step=state.step + 1, opt_state=opt_state)
+            if fp8:
+                _roll_qstate(state, obs)
+            return state, loss
         if grad_reduction == "per_shard_mean":
             denom = torch.clamp(c, min=1.0)
             vals = [g / denom for g in grads] + [(s / denom).reshape(1)]
@@ -230,18 +300,24 @@ def make_train_step(model, optimizer: Optimizer, world: World,
             total = vals[-1][0]
             grads = [g / total for g in vals[:-2]]
             loss = vals[-2][0] / total
+        # grads now names the reduced gradients only: the backward's are
+        # freed before the update, whose peak they would otherwise raise
         params, opt_state = optimizer.update(
             unflatten(state.params, grads), state.opt_state, state.params,
             scalars)
-        return TrainState(state.step + 1, params, opt_state), loss
+        state = TrainState(state.step + 1, params, opt_state, state.qstate)
+        if fp8:
+            _roll_qstate(state, obs)
+        return state, loss
 
     return step
 
 
 def _advanced(state: TrainState, n: int) -> TrainState:
-    """``state`` after ``n`` steps that updated its tensors in place."""
-    return TrainState(state.step + n, state.params,
-                      advanced(state.opt_state, n))
+    """``state`` after ``n`` steps that updated its tensors in place (the
+    params, the opt state and the fp8 histories)."""
+    return state._replace(step=state.step + n,
+                          opt_state=advanced(state.opt_state, n))
 
 
 class GraphedTrainStep:
@@ -266,12 +342,14 @@ class GraphedTrainStep:
     one (an epoch's shorter last batch) runs eagerly: the same ops and
     kernels.  A failed capture raises.
 
-    The graph reads and writes the state's own tensors (the update is in
-    place): a state with other tensors (a resume's) is warmed up and
-    captured anew.  The flash wrappers count their launches while the
-    step is captured, though nothing launches then; those counts are
-    taken back and kept as :attr:`launches_per_replay` (every replay
-    launches every kernel node of the graph once), so the wrappers'
+    The graph reads and writes the state's own tensors (the update, and
+    the fp8 histories' roll, are in place): a state with other tensors (a
+    resume's) is warmed up and captured anew.  The fp8 capability probe
+    (``ops.qmm.fp8_dot_supported``) runs here, before any capture.  The
+    flash wrappers and ``ops.qmm.library_gemm`` count their launches
+    while the step is captured, though nothing launches then; those
+    counts are taken back and kept as :attr:`launches_per_replay` (every
+    replay launches every kernel node of the graph once), so the
     counters hold the eager launches and :attr:`replays` x
     :attr:`launches_per_replay` the graphed ones."""
 
@@ -280,6 +358,7 @@ class GraphedTrainStep:
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{device}")
+        qmm.fp8_dot_supported(device)
         self.step, self.optimizer, self.device = step, optimizer, device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
@@ -329,6 +408,7 @@ class GraphedTrainStep:
         self.static_batch = {k: v.clone() for k, v in batch.items()}
         self.static_scalars = scalars.clone()
         before = fa.launch_counts()
+        gemms = dict(qmm.library_gemm.launches)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self.stream):
             _, self.static_loss = self.step(state, self.static_batch,
@@ -338,14 +418,18 @@ class GraphedTrainStep:
         self.launches_per_replay = {
             "all": {k: captured["all"][k] - before["all"][k]
                     for k in fa.COUNTERS},
-            "with_lse": captured["with_lse"] - before["with_lse"]}
+            "with_lse": captured["with_lse"] - before["with_lse"],
+            "gemm": {k: v - gemms[k]
+                     for k, v in qmm.library_gemm.launches.items()}}
+        qmm.library_gemm.launches.update(gemms)
         self.graph, self.state = graph, state
         return state, loss
 
     def _captured_on(self, state: TrainState) -> bool:
         """True when the graph reads and writes ``state``'s own tensors."""
-        mine = leaves((self.state.params, self.state.opt_state))
-        theirs = leaves((state.params, state.opt_state))
+        mine = leaves((self.state.params, self.state.opt_state,
+                       self.state.qstate))
+        theirs = leaves((state.params, state.opt_state, state.qstate))
         return len(mine) == len(theirs) and all(
             a is b for a, b in zip(mine, theirs))
 

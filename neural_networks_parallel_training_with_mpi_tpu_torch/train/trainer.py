@@ -37,6 +37,13 @@ package writes them: every rank joins the leaf-by-leaf gather to rank 0's
 host, rank 0 writes, and a restore reads into host tensors from which
 every rank copies its own slice to its card.
 
+Quantized compute (``--matmul_dtype int8|fp8``, ``--quantize_skip``;
+``ops.qmm``): the JAX trainer's rules and messages (transformer only; MoE
+refused; fp8 with ``--ce_chunk`` refused; the pipe, expert, seq x tensor
+and expert x tensor layouts refused), the fp8 calibration state created
+with the params and restored with them (``TrainState.qstate``), and
+``+matmul_dtype=...`` in :attr:`Trainer.layout_tag`.
+
 Every flag of a path the port has not taken over yet (model-parallel
 axes, telemetry, tracing, resilience, SDC checks, elastic, RL, ...)
 raises ``NotImplementedError`` naming the flag when it is set to anything
@@ -69,6 +76,7 @@ from ..data.datasets import build_dataset, train_val_split
 from ..data.loader import MULTI_PROCESS_DISPATCH, ShardedLoader
 from ..models.registry import build_model
 from ..ops import optim as optim_lib
+from ..ops import qmm
 from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel import update_sharding as us
@@ -112,9 +120,46 @@ _UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
 _UNPORTED_MODEL = {"moe_experts": "--moe_experts",
                    "moe_expert_axis": "--ep",
                    "moe_capacity_factor": "--moe_capacity_factor",
-                   "moe_top_k": "--moe_top_k",
-                   "matmul_dtype": "--matmul_dtype",
-                   "matmul_skip": "--quantize_skip"}
+                   "moe_top_k": "--moe_top_k"}
+
+
+def check_matmul_dtype(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for ``--matmul_dtype``, with its messages
+    and exception types: a transformer only; not under the layouts that
+    run their own sliced matmuls (pipe, expert, seq x tensor, expert x
+    tensor); not with MoE FFNs; fp8 not with ``--ce_chunk``."""
+    mm = cfg.model.matmul_dtype
+    if mm not in ("bf16", "int8", "fp8"):
+        raise ValueError(f"unknown --matmul_dtype {mm!r} "
+                         "(choices: bf16, int8, fp8)")
+    if mm != "bf16":
+        mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
+        pipeline, expert = mesh.pipe > 1, mesh.expert > 1
+        seq, tensor, fsdp = mesh.seq > 1, mesh.tensor > 1, mesh.fsdp > 1
+        sp_tp = seq and tensor and not (pipeline or expert or fsdp or moe)
+        ep_tp = tensor and not (pipeline or fsdp) and (expert
+                                                        or (seq and moe))
+        if cfg.model.arch != "transformer":
+            raise ValueError(
+                f"--matmul_dtype {mm} is the transformer's quantized "
+                "dense-projection seam; it does nothing for "
+                f"arch={cfg.model.arch!r}")
+        if pipeline or expert or sp_tp or ep_tp:
+            raise NotImplementedError(
+                f"--matmul_dtype {mm} is wired on the DP, DP x seq "
+                "and GSPMD (tensor/fsdp) layouts; the pipe/expert/"
+                "seq-x-tensor layouts run their own sliced matmuls "
+                "outside the ops.qmm seam")
+        if moe:
+            raise ValueError(
+                f"--matmul_dtype {mm} covers the dense projections "
+                "(qkv/attn_out/ffn/head); the MoE expert einsums are "
+                "not routed through the seam — drop --moe_experts")
+    if mm == "fp8" and cfg.model.ce_chunk > 0:
+        raise ValueError(
+            "--matmul_dtype fp8 needs the delayed-scaling amax "
+            "observations, which do not thread the --ce_chunk fused "
+            "scan; use int8/bf16 with --ce_chunk, or drop it")
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -152,6 +197,7 @@ class Trainer:
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, dtype=cfg.param_dtype))
+        check_matmul_dtype(cfg)
         refuse_unported(cfg)
         self.cfg = cfg
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
@@ -192,6 +238,12 @@ class Trainer:
                 "semantic (choices: global_mean, per_shard_mean)")
         self.zero1 = cfg.update_sharding == "zero1"
         self.sharded = cfg.update_sharding == "sharded"
+        # the JAX trainer's name of the step's program
+        self.layout_tag = "sp" if seq_group is not None else "dp"
+        if cfg.update_sharding != "replicated":
+            self.layout_tag += f"+{cfg.update_sharding}"
+        if cfg.model.matmul_dtype != "bf16":
+            self.layout_tag += f"+matmul_dtype={cfg.model.matmul_dtype}"
         if (self.zero1 or self.sharded) and \
                 cfg.grad_reduction != "global_mean":
             raise ValueError(f"update_sharding={cfg.update_sharding!r} "
@@ -301,7 +353,8 @@ class Trainer:
         on the host so the CPU and the GPU start from the same params."""
         params = self.model.init(prng.init_generator(self.cfg.seed))
         if not (self.zero1 or self.sharded):
-            self.state = TrainState.from_params(params, self.optimizer)
+            self.state = TrainState.from_params(params, self.optimizer,
+                                                self.model)
             return self.state
         w = self.world
         params = TrainState.from_params(params, None).params
@@ -312,7 +365,8 @@ class Trainer:
             opt_state, self.layout = us.init_opt_state(
                 self.optimizer, params, us.plan_updates(params, w.dp), w.dp,
                 w.data_rank, w.data_pg)
-        self.state = TrainState(0, params, opt_state)
+        self.state = TrainState(0, params, opt_state,
+                                qmm.init_qstate(self.model))
         return self.state
 
     def snapshot_state(self) -> TrainState:
@@ -322,8 +376,7 @@ class Trainer:
         s = self.state
         if self.layout is None:
             return s
-        return TrainState(s.step, s.params,
-                          self.layout.gather_to_host(s.opt_state))
+        return s._replace(opt_state=self.layout.gather_to_host(s.opt_state))
 
     def maybe_resume(self) -> int:
         """Restore the newest verified snapshot of ``--checkpoint_dir``
@@ -337,15 +390,16 @@ class Trainer:
             return 0
         t0 = time.perf_counter()
         s = self.state
-        template = s if self.layout is None else TrainState(
-            s.step, s.params, self.layout.host_template(s.opt_state))
+        template = s if self.layout is None else s._replace(
+            opt_state=self.layout.host_template(s.opt_state))
+        # the fp8 histories restore with the rest: a resume continues the
+        # delayed scaling where the snapshot left it
         restored = ckpt.restore(cfg.checkpoint_dir, template)
         if restored is None:
             return 0
         if self.layout is not None:     # every rank keeps its own slice
-            restored = TrainState(restored.step, restored.params,
-                                  self.layout.scatter(restored.opt_state,
-                                                      self.device))
+            restored = restored._replace(opt_state=self.layout.scatter(
+                restored.opt_state, self.device))
         # the meta of the generation actually restored (the fallback chain
         # may land below a corrupt newest one)
         meta = ckpt.read_meta(cfg.checkpoint_dir, step=restored.step) or {}
@@ -398,7 +452,8 @@ class Trainer:
         spe = max(self.loader.steps_per_epoch, 1)
         start_step = self.maybe_resume()
         cuda = self.device.type == "cuda"
-        log(f"mesh: {describe(self.world)} | model: {cfg.model.arch} "
+        log(f"mesh: {describe(self.world)} | layout: {self.layout_tag} | "
+            f"model: {cfg.model.arch} "
             f"({sum(p.numel() for p in leaves(self.state.params)):,} params) | "
             f"{self.loader.n} samples, {self.loader.steps_per_epoch} "
             "steps/epoch")

@@ -5,10 +5,13 @@ Layout: ``<dir>/ckpt-<step>/`` per snapshot, newest-VERIFIED-wins restore,
 retention of the last K snapshots.  A snapshot holds
 
 * ``state.npz``: ``leaf_i`` in JAX's flatten order (NamedTuple fields in
-  order, dict keys sorted, lists in order; the JAX ``TrainState``'s
-  ``qstate=()`` has no leaves), so leaf 0 is ``step`` and leaves
-  ``1..n_params`` are the params whatever the optimizer.  ``step`` and the
-  optimizer counts are 0-d int32 arrays.  ``__leaf_dtypes__`` records the
+  order, dict keys sorted, lists in order), so leaf 0 is ``step`` and
+  leaves ``1..n_params`` are the params whatever the optimizer.  The fp8
+  calibration state comes last (``qstate/amax/<role>``, roles sorted);
+  every other format's ``qstate=()`` has no leaves, so its snapshots are
+  leaf for leaf those written before ``TrainState`` had the field, and
+  restore either way.  ``step`` and the optimizer counts are 0-d int32
+  arrays.  ``__leaf_dtypes__`` records the
   true dtypes: a bf16 leaf is stored as ``|V2`` bytes marked
   ``"bfloat16"``, as numpy writes the JAX package's bf16 arrays;
 * ``leaves.json``: the leaf paths (``params/blocks/0/qkv/w``, ...).  The

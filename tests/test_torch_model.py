@@ -59,9 +59,16 @@ def test_linear_matches_jax():
 
 
 def test_linear_refuses_quantized_matmuls():
-    lin = core.Linear(4, 4, matmul_dtype="int8")
-    p = lin.init(torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
+    """The quantized matmuls are ported (tests/test_torch_qmm.py); what
+    Linear still refuses, as the JAX Linear does, is fp8 over int8 PTQ
+    weights."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.quant import (
+        quantize_params,
+    )
+
+    lin = core.Linear(4, 4, matmul_dtype="fp8")
+    p = quantize_params(lin.init(torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(ValueError, match="cannot run over int8 PTQ"):
         lin.apply(p, torch.zeros(2, 4))
 
 
@@ -154,8 +161,10 @@ def test_init_tree_matches_jax_layout():
 
 
 # "ring": the sequence-sharded family; ring and striped are ported
-# (tests/test_torch_sequence.py), ulysses is not
-@pytest.mark.parametrize("bad", [dict(moe_experts=2), dict(matmul_dtype="fp8"),
+# (tests/test_torch_sequence.py), ulysses is not.  "fp8": fp8 is ported
+# (tests/test_torch_qmm.py), over MoE FFNs it still refuses
+@pytest.mark.parametrize("bad", [dict(moe_experts=2),
+                                 dict(matmul_dtype="fp8", moe_experts=2),
                                  dict(attention="ulysses")],
                          ids=["moe", "fp8", "ring"])
 def test_unported_configs_refuse(bad):

@@ -515,7 +515,9 @@ def test_interop_round_trips_a_jax_train_state():
     ["--faults", "nan@1"], ["--sdc_check_every", "2"],
     ["--pp_interleave", "2"], ["--hang_timeout", "5"],
     ["--rollback_after", "2"], ["--workload", "rl"], ["--elastic"],
-    ["--attention", "dense_blockwise"], ["--matmul_dtype", "fp8"],
+    ["--attention", "dense_blockwise"],
+    # ported, but not over the pipeline layout (JAX's refusal)
+    ["--matmul_dtype", "fp8", "--dataset", "lm", "--pp", "2"],
     ["--moe_experts", "4"], ["--skip-nonfinite"], ["--optimizer", "lion"],
     ["--dataset", "cifar10"],
 ], ids=lambda f: f[0].lstrip("-"))
@@ -525,7 +527,10 @@ def test_unported_flags_raise(flags):
         Trainer(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("flags", [["--quantize", "int8"], ["--supervise", "2"],
+# --quantize is ported (tests/test_torch_quant.py): --probe_timeout
+# takes its place
+@pytest.mark.parametrize("flags", [["--probe_timeout", "5"],
+                                   ["--supervise", "2"],
                                    ["--num_devices", "4"]])
 def test_unported_cli_flags_raise(flags):
     with pytest.raises(NotImplementedError):

@@ -111,7 +111,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               each flash kernel (fwd, delta, dq, dkv; by design as in
               phase 7) and of ``flash_attention_with_lse``; step
               time, tokens/s, MFU, peak memory and a profile with the
-              flash wrappers' host ms per call.
+              flash wrappers' host ms per call.  Then the same under
+              ``--matmul_dtype int8`` (ce_chunk 256) and ``fp8`` (ce_chunk
+              0): B5 under quantized compute, each Linear quantizing its
+              4 sequence shards as 4 ranks would; the same checks, step
+              ms and peak memory beside bf16's.
 12. seqidentity — f32, TF32 off, 2 layers: 3 SGD steps with ring_flash
               and with striped_flash over ``LocalSeqGroup(4)`` agree with
               flash (losses 1e-5 relative, params 1e-6).
@@ -217,6 +221,32 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``generate()`` greedy ids for both.  A ``quant:`` JSON
               line holds the phase's numbers.
 
+19. resilience — phase 7's job (graphed, k 13, unless a part says
+              otherwise).  (a) ``--skip-nonfinite`` against the same run
+              without it, 4 epochs, graphed and eager: losses and final
+              state bitwise equal; step ms, the guard's overhead and
+              peak memory.  (b) ``--skip-nonfinite --faults
+              nan@5,nan@18``, constant lr and a cosine schedule with 10
+              warm-up steps: the graphed run through ``Trainer.fit``
+              against an eager run driven step by step: NaN losses at
+              steps 5 and 18 only, 2 skipped, the state (params, Adam's mu
+              and nu) bitwise unchanged across each faulted step and the
+              count that picks the lr row not advanced, graphed == eager
+              bitwise.  (c) a rollback (see ``guard_rollback``): one, to
+              the step-8 snapshot, order_salt 1, no re-capture; its
+              restore s.  (d) the CLI as subprocesses: SIGTERM at step 7
+              -> exit 0 with the step-13 snapshot, then ``--resume`` ends
+              bitwise at phase 7's final params; ``--supervise 2`` with
+              a crash at step 20 relaunches once, resumes from step 13,
+              ends bitwise there too; ``--rollback_after 1
+              --max_rollbacks 0`` with a NaN at step 5 exits 44, not
+              retried; seconds from the signal to the snapshot and the
+              exit, and from a (re)launch to its first step.  (e) 2
+              layers, ``--hang_timeout 10 --faults peer_hang@4``: exit 42
+              with the threads' stacks, 10-30 s after the hang.  A
+              ``resilience:`` JSON line holds the phase's numbers; the
+              flash kernels' launches count phase 19's in-process runs.
+
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
@@ -226,6 +256,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1671,7 +1702,7 @@ def sgd_runs(torch, device, attentions, n_layers=2, steps=3, batch=8,
         model = Transformer(TransformerConfig(**kw, attention=attention),
                             device=device, seq_group=group)
         params = model.init(torch.Generator().manual_seed(SEED + 2))
-        opt = optim.sgd(1e-2, 0.9)
+        opt = optim.sgd(1e-2, 0.9, steps=steps)
         state = TrainState.from_params(params, opt)
         step = dp.make_train_step(model, opt, world,
                                   loss_name="cross_entropy")
@@ -2620,12 +2651,12 @@ def dispatch_identity(torch, np, device, n_layers=2, steps=3, batch=8,
         data, batch, device=device, shuffle=False).epoch(0))]
     runs = {}
     for mode in ("eager", "graph"):
-        opt = optim.sgd(1e-2, 0.9)
+        opt = optim.sgd(1e-2, 0.9, steps=len(batches))
         state = TrainState.from_params(_clone_tree(torch, params), opt)
         step = dp.make_train_step(model, opt, world,
                                   loss_name="cross_entropy")
         run = (step if mode == "eager"
-               else dp.GraphedTrainStep(step, opt, device))
+               else dp.GraphedTrainStep(step, device))
         losses = []
         for b in batches:
             state, loss = run(state, b if mode == "eager" else [b])
@@ -2734,7 +2765,7 @@ def auto_step_ms(torch, device, kw, step_t, steps):
             model = Transformer(TransformerConfig(
                 **dict(kw, max_seq_len=t), attention=name), device=device)
             params = dict(params0, pos={"table": params0["pos"]["table"][:t]})
-            opt = optim.adam(1e-4)
+            opt = optim.adam(1e-4, steps=steps + 2)
             state = TrainState.from_params(params, opt)
             step = dp.make_train_step(model, opt, world,
                                       loss_name="cross_entropy")
@@ -3479,7 +3510,7 @@ def quant_identity(torch, np, device, n_layers=2, steps=3, batch=2,
                                               ce_chunk=ce), device=dev)
         params = model.init(torch.Generator().manual_seed(SEED + 7))
         p0 = [p.detach().cpu().clone() for p in flat_params(params)]
-        opt = optim.sgd(1e-2, 0.9)
+        opt = optim.sgd(1e-2, 0.9, steps=steps)
         state = TrainState.from_params(params, opt, model)
         step = dp.make_train_step(model, opt, world_setup(dev),
                                   loss_name="cross_entropy")
@@ -3634,6 +3665,429 @@ def quant_serve(torch, np, device, **traffic):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: resilience on phase 7's job (guard, faults, rollback, SIGTERM,
+# supervisor, watchdog)
+# ---------------------------------------------------------------------------
+
+def _bits(torch, t):
+    """``t``'s bits as integers (bitwise comparison: -0.0 != 0.0, NaN ==
+    the same NaN)."""
+    t = t.detach()
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _same_bits(torch, a, b):
+    return all(torch.equal(_bits(torch, x), _bits(torch, y))
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def _state_tensors(trainer):
+    """The params, the opt state (Adam's mu and nu, the guard's counts)
+    and the fp8 histories, in a fixed order."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    s = trainer.state
+    return leaves((s.params, s.opt_state, s.qstate))
+
+
+def res_fit(torch, device, tag, inspect=None, **over):
+    """Phase 7's flags with ``over`` through ``Trainer.fit``: the logged
+    losses by step, the final state on the host, the step ms median (the
+    graphed runs' after their first dispatch), peak memory and the flash
+    launches by design of this run alone (counts set to 0 before it)."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+
+    one_rank_group(torch, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = f"{tmp}/metrics.jsonl"
+        cfg = config_from_args(build_argparser().parse_args(
+            train_flags(metrics_jsonl=metrics, **over)))
+        before = memory_before(torch, device)
+        trainer = Trainer(cfg, device=device)
+        trainer.init_state()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+        fa.set_launch_counts()
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        counts = fa.launch_counts()["all"]
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        extra = inspect(trainer) if inspect is not None else {}
+    graphed = trainer.multi_step
+    launches = dict(counts)
+    replays = getattr(graphed, "replays", 0)   # the host's group: eager
+    if replays:
+        per = graphed.launches_per_replay["all"]
+        launches = {w: counts[w] + replays * per[w] for w in counts}
+    k = trainer.k_dispatch
+    # the card's step ms (the host's: nan)
+    step_ms = sorted(result.get("step_ms", [])[k if k > 1 else 3:]) or [
+        math.nan]
+    out = dict(tag=tag, result=result, records=records,
+               losses={r["step"]: r["loss"] for r in records
+                       if "loss" in r},
+               final=[t.detach().cpu().clone()
+                      for t in _state_tensors(trainer)],
+               step_ms=step_ms[len(step_ms) // 2],
+               peak_gib=(result.get("peak_memory_bytes", before) - before)
+               / 2 ** 30,
+               launches=launches, fit_s=fit_s,
+               captures=getattr(graphed, "captures", 0),
+               **extra)
+    print(f"{tag}: {result['steps']} steps in {fit_s:.1f} s, step "
+          f"{out['step_ms']:.2f} ms, peak memory {out['peak_gib']:.2f} GiB, "
+          f"flash launches {launches}", flush=True)
+    del trainer
+    memory_before(torch, device)
+    return out
+
+
+def guard_happy_path(torch, device):
+    """(a) ``--skip-nonfinite`` against the same run without it, graphed
+    (k 13) and eager, 4 epochs: losses and final state bitwise equal; the
+    guard's overhead on the step time and peak memory."""
+    out, runs = {}, {}
+    for mode, k in (("graphed", DISPATCH_K), ("eager", 1)):
+        order = ((False, True) if mode == "graphed" else (True, False))
+        for guard in order:
+            extra = {"skip-nonfinite": True} if guard else {}
+            runs[(mode, guard)] = res_fit(
+                torch, device, f"guard {mode} {'on' if guard else 'off'}",
+                nepochs=4, steps_per_dispatch=k, **extra)
+        on, off = runs[(mode, True)], runs[(mode, False)]
+        if on["losses"] != off["losses"] or not all(
+                math.isfinite(x) for x in on["losses"].values()):
+            raise AssertionError(f"guard {mode}: losses differ from the "
+                                 "unguarded run's")
+        # the guarded state holds two more leaves (its 0-d counts): the
+        # params and Adam's slots compare
+        if not _same_bits(torch, [t for t in on["final"] if t.dim()],
+                          [t for t in off["final"] if t.dim()]):
+            raise AssertionError(f"guard {mode}: the final state differs "
+                                 "from the unguarded run's")
+        if on["result"]["skipped_updates"] != 0:
+            raise AssertionError(f"guard {mode}: skipped "
+                                 f"{on['result']['skipped_updates']}")
+        overhead = (on["step_ms"] / off["step_ms"] - 1.0) * 100.0
+        out[mode] = dict(step_ms_guard=on["step_ms"],
+                         step_ms_plain=off["step_ms"],
+                         overhead_pct=overhead, peak_gib_guard=on["peak_gib"],
+                         peak_gib_plain=off["peak_gib"], bitwise=True)
+        print(f"guard happy path {mode}: step {on['step_ms']:.3f} ms with "
+              f"the guard vs {off['step_ms']:.3f} ms without "
+              f"({overhead:+.2f}%), peak memory {on['peak_gib']:.2f} vs "
+              f"{off['peak_gib']:.2f} GiB; losses and final state bitwise "
+              "equal", flush=True)
+    launches = {w: sum(r["launches"][w] for r in runs.values())
+                for w in runs[("eager", True)]["launches"]}
+    return out, launches
+
+
+def _manual_eager(torch, device, faulted, **over):
+    """The guarded eager run driven step by step (the Trainer's own step,
+    loader and fault plan): each step's loss, and the state before and
+    after every faulted step, which must be bitwise equal (params, Adam's
+    mu and nu, the count that picks the lr row).  Returns the losses and
+    the final state on the host."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import optim
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_from_args(build_argparser().parse_args(train_flags(
+            metrics_jsonl=f"{tmp}/m.jsonl", **over)))
+        trainer = Trainer(cfg, device=device)
+        trainer.init_state()
+        losses, step = [], 0
+        for epoch in range(cfg.nepochs):
+            for batch in trainer.loader.epoch(epoch):
+                batch = trainer.fault_plan.apply(step, batch)
+                if step in faulted:
+                    before = [t.clone() for t in _state_tensors(trainer)]
+                    count = int(trainer.state.opt_state.count)
+                trainer.state, loss = trainer.train_step(trainer.state,
+                                                         batch)
+                losses.append(float(loss))
+                if step in faulted:
+                    # every tensor but the 0-d counts (skipped moves on)
+                    after = [t for t in _state_tensors(trainer) if t.dim()]
+                    if not _same_bits(torch, [t for t in before if t.dim()],
+                                      after):
+                        raise AssertionError(
+                            f"faults: the state after the skipped step "
+                            f"{step} is not bitwise the state before it")
+                    if int(trainer.state.opt_state.count) != count:
+                        raise AssertionError(f"faults: the optimizer count "
+                                             f"advanced on step {step}")
+                    del before
+                step += 1
+        final = [t.detach().cpu().clone() for t in _state_tensors(trainer)]
+        skipped = int(trainer.state.opt_state.skipped)
+    del trainer
+    memory_before(torch, device)
+    return losses, final, skipped
+
+
+def guard_faults(torch, device):
+    """(b) ``--skip-nonfinite --faults nan@5,nan@18`` (18 inside the
+    second dispatch), with a constant lr and with a warm-up: the graphed
+    run through ``Trainer.fit`` against the eager run driven step by
+    step: the two steps' losses NaN, every other finite, 2 skipped, the
+    state bitwise unchanged across each faulted step, the count (and so
+    the lr row of the next step) not advanced, graphed == eager
+    bitwise."""
+    out, launches = {}, None
+    for sched, extra in (("constant", {}),
+                         ("warmup", dict(lr_schedule="cosine",
+                                         warmup_steps=10))):
+        flags = dict({"skip-nonfinite": True}, faults="nan@5,nan@18",
+                     **extra)
+        g = res_fit(torch, device, f"faults graphed ({sched} lr)",
+                    steps_per_dispatch=DISPATCH_K, **flags)
+        losses, final, skipped = _manual_eager(torch, device, (5, 18),
+                                               **flags)
+        bad = [i for i, x in enumerate(losses) if not math.isfinite(x)]
+        print(f"faults ({sched} lr): eager step losses "
+              f"{[round(x, 4) for x in losses]}; non-finite at steps {bad}, "
+              f"skipped {skipped} (graphed: "
+              f"{g['result']['skipped_updates']})", flush=True)
+        if bad != [5, 18] or skipped != 2 or \
+                g["result"]["skipped_updates"] != 2:
+            raise AssertionError(f"faults ({sched}): NaN at {bad}, skipped "
+                                 f"{skipped} / {g['result']['skipped_updates']}")
+        ends = {s: losses[s - 1] for s in g["losses"]}
+        if g["losses"] != ends or not _same_bits(torch, g["final"], final):
+            raise AssertionError(f"faults ({sched}): the graphed run differs "
+                                 "from the eager one")
+        out[sched] = dict(nan_steps=bad, skipped=skipped,
+                          graphed_equals_eager=True,
+                          step_ms_graphed=g["step_ms"])
+        launches = g["launches"] if launches is None else {
+            w: launches[w] + g["launches"][w] for w in launches}
+    return out, launches
+
+
+def guard_rollback(torch, device):
+    """(c) ``--rollback_after 2 --checkpoint_every 8 --async-checkpoint
+    --faults nan@9?max=1,nan@10?max=1`` without the guard, graphed at k 4
+    (a dispatch boundary at every snapshot step; the faults fire once, or
+    the rolled-back window would replay them): exactly one rollback, to
+    the step-8 snapshot, ``order_salt`` 1, no re-capture of the graph,
+    every loss after it finite; the restore's seconds."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        r = res_fit(torch, device, "rollback", steps_per_dispatch=4,
+                    checkpoint_dir=f"{tmp}/ck", checkpoint_every=8,
+                    **{"async-checkpoint": True},
+                    rollback_after=2, faults="nan@9?max=1,nan@10?max=1",
+                    inspect=lambda t: dict(salt=t.loader.order_salt,
+                                           rolled=t.rollbacks))
+    losses = [x["loss"] for x in r["records"] if "loss" in x]
+    last_bad = max(i for i, x in enumerate(losses) if not math.isfinite(x))
+    after = losses[last_bad + 1:]
+    print(f"rollback: {r['result']['rollbacks']} rollback(s) "
+          f"{r['rolled']}, order_salt {r['salt']}, graph captures "
+          f"{r['captures']}; losses "
+          f"logged {[round(x, 4) for x in losses]}", flush=True)
+    # the card captures the step once (the host runs no graph)
+    captures = 1 if device.type == "cuda" else 0
+    if (r["result"]["rollbacks"] != 1 or [x["step"] for x in r["rolled"]]
+            != [8] or r["salt"] != 1 or r["captures"] != captures
+            or not after or not all(math.isfinite(x) for x in after)):
+        raise AssertionError("rollback: expected one rollback to step 8, "
+                             "salt 1, one capture and finite losses after")
+    return dict(rollbacks=1, to_step=8, order_salt=1, recaptures=0,
+                restore_s=r["rolled"][0]["seconds"],
+                losses_after=len(after)), r["launches"]
+
+
+def _timed_cli(args, timeout=600):
+    """``python -m <port> args``, stdout and stderr merged, each line
+    stamped with the seconds since the launch: (rc, [(t, line)])."""
+    import threading
+
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.monotonic()
+    proc = subprocess.Popen([sys.executable, "-m", PKG, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=str(REPO_ROOT), env=env)
+    lines = []
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.monotonic() - t0, line.rstrip("\n")))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    return rc, lines, time.monotonic() - t0
+
+
+def _first(lines, text):
+    return next((t for t, line in lines if text in line), None)
+
+
+def _fail_cli(what, rc, lines):
+    tail = "\n".join(line for _, line in lines[-40:])
+    raise AssertionError(f"{what}: rc {rc}\n{tail}")
+
+
+def guard_cli(torch, device, straight):
+    """(d) The CLI at phase 7's flags, graphed (k 13): SIGTERM at step 7
+    -> exit 0 with the step-13 snapshot, and ``--resume`` from it ends
+    bitwise at phase 7's final params; ``--supervise 2`` with a crash at
+    step 20 (once) relaunches once, resumes from the step-13 snapshot and
+    ends bitwise there too; ``--rollback_after 1 --max_rollbacks 0`` with
+    a NaN at step 5 exits 44, not retried."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.registry import (  # noqa: E501
+        build_model,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as ckpt,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    # the restore's template: the CLI's model, on the host
+    cfg = config_from_args(build_argparser().parse_args(train_flags()))
+    template = build_model(cfg.model, device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+
+    def final_bitwise(ck, what):
+        step, params = ckpt.restore_params(str(ck), template)
+        same = step == len(straight["losses"]) and _same_bits(
+            torch, leaves(params), straight["final_params"])
+        print(f"{what}: final snapshot step {step}, params bitwise equal "
+              f"to phase 7's uninterrupted run: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{what}: not bitwise phase 7's run")
+
+    out = {}
+    base = train_flags(steps_per_dispatch=DISPATCH_K)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Path(tmp) / "sigterm"
+        rc, lines, wall = _timed_cli(base + [f"--checkpoint_dir={ck}",
+                                             "--faults=sigterm@7"])
+        if rc != 0 or ckpt.latest_step(str(ck)) != DISPATCH_K:
+            _fail_cli("sigterm", rc, lines)
+        t_sig = _first(lines, "injected SIGTERM")
+        in_proc = next(float(line.rsplit(", ", 1)[1].split("s after")[0])
+                       for _, line in lines if "s after the signal" in line)
+        out["sigterm"] = dict(signal_to_snapshot_s=in_proc,
+                              signal_to_exit_s=wall - t_sig, wall_s=wall)
+        rc, lines, wall = _timed_cli(base + [f"--checkpoint_dir={ck}",
+                                             "--resume"])
+        if rc != 0:
+            _fail_cli("sigterm resume", rc, lines)
+        out["sigterm"]["resume_wall_s"] = wall
+        out["sigterm"]["start_to_first_step_s"] = _first(
+            lines, "first dispatch done")
+        final_bitwise(ck, "sigterm + resume")
+
+        ck = Path(tmp) / "crash"
+        rc, lines, wall = _timed_cli(base + [
+            f"--checkpoint_dir={ck}", f"--checkpoint_every={DISPATCH_K}",
+            f"--faults=crash@20?once={tmp}/crashed", "--supervise=2",
+            "--supervise_backoff=0.1"])
+        attempts = [line for _, line in lines if "[supervise] attempt" in line]
+        if rc != 0 or len(attempts) != 2:
+            _fail_cli("supervise crash", rc, lines)
+        t_re = _first(lines, "[supervise] attempt 2")
+        t_step = next(t for t, line in lines
+                      if "first dispatch done" in line and t > t_re)
+        out["supervise"] = dict(relaunch_to_first_step_s=t_step - t_re,
+                                wall_s=wall, attempts=2)
+        final_bitwise(ck, "supervise crash + resume")
+
+        rc, lines, wall = _timed_cli(base + [
+            "--rollback_after=1", "--max_rollbacks=0", "--faults=nan@5",
+            "--supervise=2", "--supervise_backoff=0.1"])
+        text = "\n".join(line for _, line in lines)
+        if rc != 44 or "not retrying" not in text or \
+                "[supervise] attempt 2" in text:
+            _fail_cli("anomaly abort", rc, lines)
+        out["abort"] = dict(rc=rc, wall_s=wall, attempts=1)
+    print(f"cli: sigterm at step 7 -> snapshot "
+          f"{out['sigterm']['signal_to_snapshot_s']:.3f} s, exit "
+          f"{out['sigterm']['signal_to_exit_s']:.2f} s after the signal; "
+          f"resume to first step "
+          f"{out['sigterm']['start_to_first_step_s']:.2f} s; supervised "
+          f"relaunch to first step "
+          f"{out['supervise']['relaunch_to_first_step_s']:.2f} s; anomaly "
+          f"abort exit 44, one attempt", flush=True)
+    return out
+
+
+def guard_watchdog():
+    """(e) ``--hang_timeout 10 --faults peer_hang@4`` at 2 layers: exit
+    42 with the stack dump, 10-30 s after the hang."""
+    rc, lines, wall = _timed_cli(train_flags(
+        n_layers=2, steps_per_dispatch=DISPATCH_K, hang_timeout=10,
+        faults="peer_hang@4"), timeout=300)
+    t_hang = _first(lines, "injected peer_hang")
+    t_fire = _first(lines, "HANG DETECTED")
+    text = "\n".join(line for _, line in lines)
+    if rc != 42 or t_hang is None or t_fire is None or \
+            "Thread" not in text:
+        _fail_cli("watchdog", rc, lines)
+    secs = wall - t_hang
+    print(f"watchdog: exit 42 {secs:.2f} s after the hang (fired at "
+          f"{t_fire - t_hang:.2f} s), stack dump printed", flush=True)
+    if not 10.0 <= secs <= 30.0:
+        raise AssertionError(f"watchdog: exit {secs:.2f} s after the hang")
+    return dict(rc=42, hang_to_exit_s=secs, hang_to_fire_s=t_fire - t_hang)
+
+
+def resilience_full_width(torch, np, device, straight):
+    """Phase 19: (a)-(e) above; the flash launches of the in-process runs
+    (their counts set to 0 before each)."""
+    out = {}
+    out["happy"], l1 = guard_happy_path(torch, device)
+    out["faults"], l2 = guard_faults(torch, device)
+    out["rollback"], l3 = guard_rollback(torch, device)
+    out["cli"] = guard_cli(torch, device, straight)
+    out["watchdog"] = guard_watchdog()
+    launches = {w: l1[w] + l2[w] + l3[w] for w in l1}
+    return out, launches
+
+
 def _clone_tree(torch, tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
@@ -3721,6 +4175,22 @@ def main() -> int:
           f"{trained['step_ms_median']:.2f} ms; elementwise ('other') "
           f"{merge_ms:+.2f} ms/step over flash (the lse merges, the "
           f"splits and joins)", flush=True)
+    # B5 under quantized compute: every Linear quantizes its 4 sequence
+    # shards as 4 ranks would (fp8 takes no --ce_chunk)
+    seq_quant = {}
+    for fmt, ce in (("int8", 256), ("fp8", 0)):
+        q = train_full_width(torch, np, device, seq_group=LocalSeqGroup(4),
+                             profile=False, tag=f"train striped_flash {fmt}",
+                             attention="striped_flash", sp=4,
+                             matmul_dtype=fmt, ce_chunk=ce)
+        seq_quant[fmt] = {k: q[k] for k in (
+            "step_ms_median", "peak_memory_gib", "first_loss", "last3_loss",
+            "with_lse_launches", "gemm_launches")}
+        print(f"seqtrain {fmt}: step {q['step_ms_median']:.2f} ms vs bf16 "
+              f"{seq_trained['step_ms_median']:.2f} ms, peak memory "
+              f"{q['peak_memory_gib']:.2f} vs "
+              f"{seq_trained['peak_memory_gib']:.2f} GiB, with_lse "
+              f"launches {q['with_lse_launches']}", flush=True)
 
     phase("12 f32 training identity: ring_flash == striped_flash == flash")
     train_identity_seq(torch, np, device)
@@ -3748,7 +4218,6 @@ def main() -> int:
           "master weights")
     auto = measure_auto(torch, np, device)
     sliced = slice_full_width(torch, np, device, trained)
-    del trained["final_params"]
 
     phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
     quant = dict(products=check_qmm(torch, device),
@@ -3757,6 +4226,13 @@ def main() -> int:
     quant["identity"] = quant_identity(torch, np, device)
     quant["serve"] = quant_serve(torch, np, device)
     print("quant: " + json.dumps(quant), flush=True)
+
+    phase("19 resilience: guard, faults, rollback, SIGTERM, supervisor, "
+          "watchdog")
+    resilience, res_launches = resilience_full_width(torch, np, device,
+                                                     trained)
+    del trained["final_params"]
+    print("resilience: " + json.dumps(resilience), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -3786,7 +4262,10 @@ def main() -> int:
                             takes="head_dim 8/16/32/64/128, any T the "
                                   "blocks divide",
                             replaces=f"{tpu}:{line}",
-                            launches=trained["launches"][which],
+                            # phase 7's run and phase 19's in-process runs
+                            launches=(trained["launches"][which]
+                                      + res_launches[which]),
+                            launches_phase7=trained["launches"][which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
     # bf16 at head_dim 8 and 16 (simt), timed at (8, 1024, 16, d)
@@ -3809,6 +4288,8 @@ def main() -> int:
                               "divide",
                         replaces=f"{tpu}:445",
                         launches=seq_trained["with_lse_launches"],
+                        launches_int8=seq_quant["int8"]["with_lse_launches"],
+                        launches_fp8=seq_quant["fp8"]["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))
     kernels.append(dict(name="fused_layernorm", route="cuda",
                         source=src + "layernorm.cu", replaces=f"{tpu}:711",

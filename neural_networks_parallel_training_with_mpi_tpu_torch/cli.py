@@ -27,20 +27,30 @@ product, or with ``--matmul_dtype int8`` through int8 x int8 products
 (``ops.qmm``); ``--matmul_dtype fp8`` over them is refused with rc 2.
 Training ignores ``--quantize``, as the JAX CLI does.
 
-Not ported, and raising when set: the supervisor (``--supervise``) and
-the JAX platform knobs (``--num_devices``, ``--probe_timeout``).
+Resilience (``train.resilience``): ``--supervise N`` runs this same
+command as a child under the crash-restart supervisor (backoff
+``--supervise_backoff``, capped at ``--supervise_backoff_max``), adding
+``--resume`` when a checkpoint dir is set.  Training maps its failures to
+the exit-code contract: an anomaly abort exits 44, a lost peer (a
+collective that raised or timed out, a world that did not form) 43, a
+preemption notice answered with a final snapshot 47, and the hang
+watchdog 42.  ``--probe_timeout`` bounds the formation of a
+multi-process world (``parallel.distributed.preflight``).
+
+Not ported, and raising when set: the JAX platform knob
+``--num_devices``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from .config import build_argparser, config_from_args
 from .utils.logging import log
 
 # CLI-only flags of paths the port lacks -> their defaults
-_UNPORTED_CLI = {"supervise": 0, "num_devices": None, "probe_timeout": 60.0,
-                 "supervise_backoff": 1.0, "supervise_backoff_max": 60.0}
+_UNPORTED_CLI = {"num_devices": None}
 
 
 def _generate(args) -> int:
@@ -129,6 +139,23 @@ def _generate(args) -> int:
     return 0
 
 
+def _supervise(args, argv) -> int:
+    """``--supervise N``: this command, minus the supervisor flags and
+    plus ``--resume`` when a checkpoint dir is set, as the child of
+    ``train.resilience.supervise``; SIGUSR1 is forwarded to it."""
+    from .train.resilience import strip_supervisor_flags, supervise
+
+    child = strip_supervisor_flags(argv)
+    if args.checkpoint_dir and "--resume" not in child:
+        child.append("--resume")
+    pkg = __name__.rsplit(".", 1)[0]
+    return supervise([sys.executable, "-m", pkg, *child],
+                     max_restarts=args.supervise,
+                     backoff=args.supervise_backoff,
+                     backoff_cap=args.supervise_backoff_max,
+                     ckpt_dir=args.checkpoint_dir, forward_preempt=True)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
@@ -136,19 +163,45 @@ def main(argv=None) -> int:
         if getattr(args, name) != default:
             raise NotImplementedError(
                 f"--{name} is not ported to the PyTorch/CUDA package yet")
+    if args.supervise > 0:
+        return _supervise(args, argv)   # before any device or world
     if args.generate is not None:
         return _generate(args)
+    from .parallel.distributed import WORLD_TIMEOUT_ENV
+    from .train.resilience import (EXIT_ANOMALY, EXIT_DECOMMISSION,
+                                   EXIT_PEER, AnomalyAbort, is_peer_error)
     from .train.trainer import Trainer
 
+    os.environ[WORLD_TIMEOUT_ENV] = str(args.probe_timeout)
     device = "cpu" if args.platform == "cpu" else "cuda"
     cfg = config_from_args(args)
-    result = Trainer(cfg, device=device).fit()
+    try:
+        result = Trainer(cfg, device=device).fit()
+    except AnomalyAbort as e:
+        # the last good snapshot is kept (no final save); no relaunch
+        log(f"ERROR: anomaly abort: {e} (exit {EXIT_ANOMALY})")
+        return EXIT_ANOMALY
+    except Exception as e:
+        if not is_peer_error(e):
+            raise
+        import traceback
+
+        traceback.print_exc()
+        log(f"ERROR: peer loss: {type(e).__name__}: {e} (exit {EXIT_PEER})")
+        # a hard exit: the process group's threads may still hold the
+        # lost peer's sockets, and an ordinary teardown could block or
+        # abort over them
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(EXIT_PEER)
     log(f"done: final loss {result['final_loss']:.6f}, "
         f"{result['samples_per_sec']:.1f} samples/sec")
     val = {k: v for k, v in result.items() if k.startswith("val_")}
     if val:
         log("validation: " + ", ".join(f"{k[4:]} {v:.6f}"
                                        for k, v in sorted(val.items())))
+    if result.get("preempt_notice"):
+        return EXIT_DECOMMISSION
     return 0
 
 

@@ -14,7 +14,9 @@ it host arrays (``jax.device_get(tree)``).
   unstacked into one dict per layer otherwise);
 * ``tree_from_jax``    any tree — MLP params, optimizer state, a whole
   train state — with the NamedTuples mapped onto the port's classes of
-  the same name and the step counters as host ints;
+  the same name, ``TrainState.step`` as a host int and the optimizer
+  counts as 0-d int32 tensors (the port's optimizers count on the
+  device);
 * ``tree_to_numpy``    the way back: numpy leaves under the same names
   (NamedTuples as dicts of their fields), ready for
   ``jax.tree_util``-level comparison or for rebuilding the JAX state.
@@ -70,15 +72,17 @@ def _convert(node: Any, dtype: Optional[torch.dtype],
         if extra:
             raise ValueError(f"{type(node).__name__} fields {extra} have no "
                              "port counterpart yet")
-        return cls(**{f: _convert(fields[f], dtype, device)
-                      for f in cls._fields})
+        out = {f: _convert(fields[f], dtype, device) for f in cls._fields}
+        if cls is TrainState:
+            out["step"] = int(out["step"])
+        return cls(**out)
     if isinstance(node, list):
         return [_convert(v, dtype, device) for v in node]
     if isinstance(node, tuple):         # the empty qstate of a non-fp8 state
         return tuple(_convert(v, dtype, device) for v in node)
     a = np.asarray(node)
-    if a.ndim == 0 and a.dtype.kind in "iu":
-        return int(a)                  # step / optimizer counters
+    if a.ndim == 0 and a.dtype.kind in "iu":     # the counters
+        return torch.tensor(int(a), dtype=torch.int32, device=device)
     return _leaf(a, dtype, device)
 
 

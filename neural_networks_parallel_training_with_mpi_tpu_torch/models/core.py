@@ -120,7 +120,10 @@ class Linear:
     is the plain product; 'int8' and 'fp8' run it in the quantized
     domain (training: ``qdot``; serving: an int8 x int8 product against
     ``ops.quant`` PTQ weights).  ``q_role`` names this layer's fp8 amax
-    history (delayed scaling)."""
+    history (delayed scaling).  ``seq_shards``: the sequence shards an
+    input holds along its second-to-last axis (a ``LocalSeqGroup``'s
+    size), which the quantized backward treats as that many ranks
+    (``ops.qmm.qdot``)."""
 
     in_features: int
     out_features: int
@@ -129,6 +132,7 @@ class Linear:
     compute_dtype: Optional[torch.dtype] = None
     matmul_dtype: str = "bf16"
     q_role: str = ""
+    seq_shards: int = 1
 
     def init(self, generator: torch.Generator, device) -> Params:
         bound = 1.0 / math.sqrt(self.in_features)
@@ -171,7 +175,7 @@ class Linear:
                 qobserved[self.q_role] = (obs if prev is None
                                           else torch.maximum(prev, obs))
             y = qmm.qdot(x.to(cdt), params["w"], fmt=fmt,
-                         scales=a_amax).to(cdt)
+                         scales=a_amax, shards=self.seq_shards).to(cdt)
         else:
             y = torch.matmul(x.to(cdt), params["w"].to(cdt))
             if "w_scale" in params:

@@ -46,6 +46,7 @@ Not ported yet, and refused at construction: MoE FFNs, ``ulysses`` and
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -168,6 +169,9 @@ class Transformer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seq_group = seq_group
+        # the sequence shards this process holds: a LocalSeqGroup's rows
+        # quantize shard by shard in the backward, as its ranks would
+        self._seq_shards = len(seq_group.ranks) if seq_group else 1
         if cfg.attention == "auto":
             # a head_dim the flash kernels do not take is refused here
             # when auto picks flash for some length the model takes (a
@@ -191,7 +195,8 @@ class Transformer:
         c = self.cfg
         return Linear(i, o, use_bias=use_bias, param_dtype=c.param_dtype,
                       compute_dtype=c.compute_dtype,
-                      matmul_dtype=self._mm(role), q_role=role)
+                      matmul_dtype=self._mm(role), q_role=role,
+                      seq_shards=self._seq_shards)
 
     def _block_modules(self):
         c = self.cfg
@@ -392,10 +397,13 @@ class Transformer:
 
         c = self.cfg
         t, k = x.shape[1], c.ce_chunk
-        if t % k != 0:
+        # a quantized head's chunk must lie inside one sequence shard, as
+        # in JAX's per-shard scan: its rows are then one rank's
+        local = t if self._mm("head") == "bf16" else t // self._seq_shards
+        if local % k != 0:
             raise ValueError(
-                f"ce_chunk={k} must divide the local sequence length {t}")
-        head = self._head()
+                f"ce_chunk={k} must divide the local sequence length {local}")
+        head = dataclasses.replace(self._head(), seq_shards=1)
 
         def chunk_sum(w, xc, yc):
             logits = head.apply({"w": w}, xc).float()

@@ -8,17 +8,17 @@ mu, nu)``).  Where JAX builds new arrays, the port updates the parameter
 and state tensors IN PLACE with ``torch._foreach_*`` over the leaf lists
 (one launch per op for the whole tree instead of one per leaf) and hands
 back the same objects; each formula keeps JAX's order of operations, so
-the f32 results agree to rounding.  ``count`` is a host int: the lr
-schedule is read without a device sync.
+the f32 results agree to rounding.
 
-The step's host-computed scalars (the scheduled lr, Adam's two bias
-corrections) reach the update as ONE 1-D f32 device tensor,
-``Optimizer.scalars(count)`` copied to the card, and never as Python
-floats: a CUDA graph of the train step (``parallel.data_parallel.
-GraphedTrainStep``) would freeze a float into its kernels, while a
-tensor it reads is rewritten before every replay.  The values are
-computed in np.float32 on the host exactly as a Python scalar would be
-rounded, so the f32 results are bitwise those of the scalar form.
+``count`` is a 0-d int32 tensor on the params' device (JAX's leaf),
+advanced in place by the update.  The step's scalars (the scheduled lr,
+Adam's two bias corrections) are computed on the host in np.float32,
+exactly as a Python scalar would be rounded, for every count the run can
+reach (``steps``, required), and go to the device once as a table; each
+update reads its row at ``count`` on the device.  Nothing is read back
+to the host and no Python float reaches a kernel, so a CUDA graph of the
+train step (``parallel.data_parallel.GraphedTrainStep``) replays it, and
+the f32 results are bitwise those of the scalar form.
 
 ``sgd`` is torch-semantics SGD (dampening 0, no Nesterov):
 ``buf <- momentum * buf + grad``; ``param <- param - lr * buf``.
@@ -27,8 +27,17 @@ rounded, so the f32 results are bitwise those of the scalar form.
 state (``MasterState(master, inner)``) and writes it into the params,
 cast to their storage dtype, in place.
 
-Not ported yet, and refused at ``make``: lion, adafactor; and the
-wrapper ``with_skip_guard``.
+``with_skip_guard`` (``--skip-nonfinite``, ``--skip_threshold``) rejects
+a step whose global gradient norm is not finite (or above the threshold)
+on the device, with no host sync, so it runs inside a CUDA graph: every
+update takes an optional device bool ``ok``, computes its new values out
+of place, and writes ``torch.where(ok, new, old)`` into each tensor, so a
+rejected step leaves every bit as it was (``-0.0``, NaN and denormals
+included) and an accepted one writes exactly what the unguarded in-place
+update writes.  The count advances only on an accepted step, so the lr
+schedule does not either.
+
+Not ported yet, and refused at ``make``: lion, adafactor.
 """
 
 from __future__ import annotations
@@ -75,73 +84,127 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``update(grads, state, params, scalars_t=None)``: ``scalars_t`` is
-    the 1-D f32 device tensor of ``scalars(state.count)`` (None: copied
-    from the host here); ``scalars(count)`` the step's host values in
-    np.float32."""
+    """``update(grads, state, params, ok=None)``: ``ok`` a device bool;
+    False leaves params and state bitwise as they were.  The guard adds
+    ``update_with_norm(grads, state, params, norm) -> (params, state,
+    ok)``, JAX's seam for a caller that has the global gradient norm
+    already."""
     init: Callable[[Tree], Tree]
     update: Callable[..., Tuple[Tree, Tree]]
     name: str = "optimizer"
-    scalars: Optional[Callable[[int], np.ndarray]] = None
+    update_with_norm: Optional[Callable[..., Tuple[Tree, Tree,
+                                                   torch.Tensor]]] = None
 
 
-def _scalars_on(scalars: Optional[torch.Tensor], host: Callable,
-                count: int, params: List[torch.Tensor]) -> torch.Tensor:
-    return (scalars if scalars is not None
-            else device_scalars(host(count), params[0]))
+def _new_count(params: Tree) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32,
+                       device=leaves(params)[0].device)
+
+
+def _rows(host: Callable[[int], np.ndarray],
+          steps: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """count -> ``host(count)`` read on the count's device, from a table of
+    ``host(c)`` for c in 0..steps copied there on the first call (which
+    runs eagerly, before any CUDA graph capture).  A count past ``steps``
+    reads the last row."""
+    tables: dict = {}
+
+    def row(count: torch.Tensor) -> torch.Tensor:
+        table = tables.get(count.device)
+        if table is None:
+            table = device_scalars(
+                np.stack([host(c) for c in range(steps + 1)]), count)
+            tables[count.device] = table
+        idx = torch.clamp(count.long(), 0, steps)
+        return table.index_select(0, idx.reshape(1))[0]
+
+    return row
+
+
+def _step_count(count: torch.Tensor, ok: Optional[torch.Tensor]) -> None:
+    """count += 1, in place (not on a rejected step)."""
+    count.add_(1 if ok is None else ok.to(count.dtype))
+
+
+def _commit(dst: List[torch.Tensor], new: List[torch.Tensor],
+            ok: torch.Tensor) -> None:
+    """dst <- new where ``ok``, else dst unchanged, bitwise, in place."""
+    for d, n in zip(dst, new):
+        torch.where(ok, n, d, out=d)
+
+
+def _scaled(xs: List[torch.Tensor], factor: float,
+            ok: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    """xs * factor: in place (unguarded), or as new tensors that
+    :func:`_commit` writes back (guarded)."""
+    if ok is None:
+        torch._foreach_mul_(xs, factor)
+        return xs
+    return torch._foreach_mul(xs, factor)
 
 
 def _apply(params: List[torch.Tensor], steps: List[torch.Tensor],
-           lr_t: torch.Tensor) -> None:
-    """param <- param - (lr * step) cast to the param's dtype, in place."""
+           lr_t: torch.Tensor, ok: Optional[torch.Tensor] = None) -> None:
+    """param <- param - (lr * step) cast to the param's dtype, in place
+    (where ``ok``)."""
     upd = torch._foreach_mul([s.float() for s in steps], lr_t)
-    torch._foreach_sub_(params, [u.to(p.dtype) for u, p in zip(upd, params)])
+    upd = [u.to(p.dtype) for u, p in zip(upd, params)]
+    if ok is None:
+        torch._foreach_sub_(params, upd)
+    else:
+        _commit(params, torch._foreach_sub(params, upd), ok)
 
 
 class SGDState(NamedTuple):
-    count: int            # optimizer steps taken (drives lr schedules)
+    count: torch.Tensor   # optimizer steps taken (drives lr schedules)
     momentum_buf: Tree    # torch's momentum_buffer
 
 
-def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0) -> Optimizer:
-    """torch-semantics SGD (see the module docstring)."""
+def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0, *,
+        steps: int) -> Optimizer:
+    """torch-semantics SGD (see the module docstring); ``steps``: the
+    counts the run can reach."""
 
     def init(params: Tree) -> SGDState:
-        return SGDState(0, tree_map(torch.zeros_like, params))
+        return SGDState(_new_count(params), tree_map(torch.zeros_like, params))
 
-    def scalars(count: int) -> np.ndarray:
-        return np.array([_lr_at(lr, count)], np.float32)
+    row = _rows(lambda c: np.array([_lr_at(lr, c)], np.float32), steps)
 
     @torch.no_grad()
-    def update(grads: Tree, state: SGDState, params: Tree, scalars_t=None):
+    def update(grads: Tree, state: SGDState, params: Tree, ok=None):
         p, g = leaves(params), leaves(grads)
-        lr_t = _scalars_on(scalars_t, scalars, state.count, p)[0]
+        lr_t = row(state.count)[0]
         if weight_decay:
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
         step = g
         if momentum:
             buf = leaves(state.momentum_buf)
-            torch._foreach_mul_(buf, momentum)
-            torch._foreach_add_(buf, g)
-            step = buf
-        _apply(p, step, lr_t)
-        return params, SGDState(state.count + 1, state.momentum_buf)
+            step = _scaled(buf, momentum, ok)
+            torch._foreach_add_(step, g)
+            if ok is not None:
+                _commit(buf, step, ok)
+        _apply(p, step, lr_t, ok)
+        _step_count(state.count, ok)
+        return params, state
 
-    return Optimizer(init, update, f"sgd(lr={lr},m={momentum})", scalars)
+    return Optimizer(init, update, f"sgd(lr={lr},m={momentum})")
 
 
 class AdamState(NamedTuple):
-    count: int
+    count: torch.Tensor
     mu: Tree
     nu: Tree
 
 
 def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-         weight_decay: float = 0.0, decoupled: bool = False) -> Optimizer:
-    """Adam / AdamW (``decoupled=True``)."""
+         weight_decay: float = 0.0, decoupled: bool = False, *,
+         steps: int) -> Optimizer:
+    """Adam / AdamW (``decoupled=True``); ``steps``: the counts the run
+    can reach."""
 
     def init(params: Tree) -> AdamState:
-        return AdamState(0, tree_map(torch.zeros_like, params),
+        return AdamState(_new_count(params),
+                         tree_map(torch.zeros_like, params),
                          tree_map(torch.zeros_like, params))
 
     def scalars(count: int) -> np.ndarray:
@@ -152,38 +215,50 @@ def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          np.float32(1) - np.float32(b1) ** t,
                          np.float32(1) - np.float32(b2) ** t], np.float32)
 
+    row = _rows(scalars, steps)
+
     @torch.no_grad()
-    def update(grads: Tree, state: AdamState, params: Tree, scalars_t=None):
+    def update(grads: Tree, state: AdamState, params: Tree, ok=None):
         p, g = leaves(params), leaves(grads)
-        lr_t, bc1, bc2 = _scalars_on(scalars_t, scalars, state.count, p)
+        lr_t, bc1, bc2 = row(state.count)
         mu, nu = leaves(state.mu), leaves(state.nu)
         if weight_decay and not decoupled:
             g = torch._foreach_add(g, torch._foreach_mul(p, weight_decay))
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+        # guarded: each slot's new values are committed as soon as they
+        # exist (a rejected step keeps the old ones, and the update below
+        # is then discarded too), so at most one slot's copy is alive
+        mu_new = _scaled(mu, b1, ok)
+        torch._foreach_add_(mu_new, torch._foreach_mul(g, 1 - b1))
+        if ok is not None:
+            _commit(mu, mu_new, ok)
         g2 = torch._foreach_mul(g, 1 - b2)
         torch._foreach_mul_(g2, g)
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, g2)
+        nu_new = _scaled(nu, b2, ok)
+        torch._foreach_add_(nu_new, g2)
         del g2
-        upd = torch._foreach_div(mu, bc1)
-        den = torch._foreach_div(nu, bc2)
+        if ok is not None:
+            _commit(nu, nu_new, ok)
+        upd = torch._foreach_div(mu_new, bc1)
+        del mu_new
+        den = torch._foreach_div(nu_new, bc2)
+        del nu_new
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, eps)
         torch._foreach_div_(upd, den)
         del den
         if weight_decay and decoupled:
             torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
-        _apply(p, upd, lr_t)
-        return params, AdamState(state.count + 1, state.mu, state.nu)
+        _apply(p, upd, lr_t, ok)
+        _step_count(state.count, ok)
+        return params, state
 
     return Optimizer(init, update,
-                     f"{'adamw' if decoupled else 'adam'}(lr={lr})", scalars)
+                     f"{'adamw' if decoupled else 'adam'}(lr={lr})")
 
 
 def adamw(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 0.01) -> Optimizer:
-    return adam(lr, b1, b2, eps, weight_decay, decoupled=True)
+          weight_decay: float = 0.01, *, steps: int) -> Optimizer:
+    return adam(lr, b1, b2, eps, weight_decay, decoupled=True, steps=steps)
 
 
 def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
@@ -192,18 +267,55 @@ def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
     if max_norm <= 0:
         return opt
 
-    def update(grads, state, params, scalars_t=None):
+    def update(grads, state, params, ok=None):
         return opt.update(clip_by_global_norm(grads, max_norm), state, params,
-                          scalars_t)
+                          ok)
 
-    return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}",
-                     opt.scalars)
+    return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}")
+
+
+class GuardedState(NamedTuple):
+    """Opt state of :func:`with_skip_guard`: the count of REJECTED updates
+    (a 0-d int32 device tensor, advanced in place) and the wrapped
+    optimizer's state.  Its leaves flatten as JAX's ``GuardedState(skipped,
+    inner)``, so a snapshot's npz layout is the JAX package's."""
+
+    skipped: torch.Tensor
+    inner: Tree
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.inner.count
 
 
 def with_skip_guard(opt: Optimizer, skip_threshold: float = 0.0) -> Optimizer:
-    raise NotImplementedError(
-        "--skip-nonfinite/--skip_threshold (the guarded update) is not "
-        "ported yet")
+    """Reject non-finite (and, with ``skip_threshold > 0``, over-threshold)
+    updates on the device: the predicate ``ok`` is ``isfinite(norm)`` and
+    ``norm <= skip_threshold``, taken on the global norm of the REDUCED
+    gradient before any clipping the guard wraps.  A rejected step is a
+    bitwise no-op on params and the inner state (see the module
+    docstring); ``GuardedState.skipped`` counts it, and the inner count,
+    and so the lr schedule, stays where it was."""
+
+    def init(params: Tree) -> GuardedState:
+        return GuardedState(_new_count(params), opt.init(params))
+
+    @torch.no_grad()
+    def update_with_norm(grads: Tree, state: GuardedState, params: Tree,
+                         norm: torch.Tensor):
+        ok = torch.isfinite(norm)
+        if skip_threshold > 0:
+            ok = ok & (norm <= skip_threshold)
+        params, inner = opt.update(grads, state.inner, params, ok)
+        state.skipped.add_((~ok).to(state.skipped.dtype))
+        return params, GuardedState(state.skipped, inner), ok
+
+    def update(grads: Tree, state: GuardedState, params: Tree):
+        return update_with_norm(grads, state, params, global_norm(grads))[:2]
+
+    return Optimizer(init, update,
+                     f"guard(thr={skip_threshold}):{opt.name}",
+                     update_with_norm=update_with_norm)
 
 
 class MasterState(NamedTuple):
@@ -215,16 +327,8 @@ class MasterState(NamedTuple):
     inner: Tree
 
     @property
-    def count(self) -> int:
+    def count(self) -> torch.Tensor:
         return self.inner.count
-
-
-def advanced(state: Any, n: int) -> Any:
-    """An optimizer state whose step count is ``n`` further on (its
-    tensors are the same objects)."""
-    if isinstance(state, MasterState):
-        return state._replace(inner=advanced(state.inner, n))
-    return state._replace(count=state.count + n)
 
 
 def with_master_weights(opt: Optimizer) -> Optimizer:
@@ -244,24 +348,28 @@ def with_master_weights(opt: Optimizer) -> Optimizer:
         return MasterState(master, opt.init(master))
 
     @torch.no_grad()
-    def update(grads: Tree, state: MasterState, params: Tree, scalars_t=None):
+    def update(grads: Tree, state: MasterState, params: Tree, ok=None):
         g32 = tree_map(lambda g: g.float(), grads)
-        master, inner = opt.update(g32, state.inner, state.master, scalars_t)
+        master, inner = opt.update(g32, state.inner, state.master, ok)
+        # a rejected step left the master as it was: its cast is the
+        # params' bits already
         torch._foreach_copy_(leaves(params), leaves(master))
         return params, MasterState(master, inner)
 
-    return Optimizer(init, update, f"master:{opt.name}", opt.scalars)
+    return Optimizer(init, update, f"master:{opt.name}")
 
 
 def make(name: str, lr: LR, momentum: float = 0.0,
-         weight_decay: float = 0.0, grad_clip: float = 0.0) -> Optimizer:
-    """Build from config strings (``TrainConfig.optimizer``)."""
+         weight_decay: float = 0.0, grad_clip: float = 0.0, *,
+         steps: int) -> Optimizer:
+    """Build from config strings (``TrainConfig.optimizer``); ``steps``:
+    the counts the run can reach (its total steps)."""
     if name == "sgd":
-        opt = sgd(lr, momentum, weight_decay)
+        opt = sgd(lr, momentum, weight_decay, steps=steps)
     elif name == "adam":
-        opt = adam(lr, weight_decay=weight_decay)
+        opt = adam(lr, weight_decay=weight_decay, steps=steps)
     elif name == "adamw":
-        opt = adamw(lr, weight_decay=weight_decay or 0.01)
+        opt = adamw(lr, weight_decay=weight_decay or 0.01, steps=steps)
     elif name in ("lion", "adafactor"):
         raise NotImplementedError(f"--optimizer {name} is not ported yet")
     else:

@@ -209,39 +209,80 @@ def int8_serve_dot(x: torch.Tensor, w_q: torch.Tensor,
     return y.reshape(*x.shape[:-1], -1) * sx * w_scale.float()
 
 
+def _shard_rows(t: torch.Tensor, shards: int) -> list:
+    """``t`` (..., T, f) as the 2-D (rows, f) blocks of its ``shards``
+    contiguous sequence shards (T split along the second-to-last axis,
+    as ``parallel.sequence.LocalSeqGroup`` splits it)."""
+    if shards == 1:
+        return [t.reshape(-1, t.shape[-1])]
+    if t.dim() < 2 or t.shape[-2] % shards:
+        raise ValueError(f"sequence axis of {tuple(t.shape)} does not split "
+                         f"into {shards} shards")
+    t4 = t.reshape(-1, shards, t.shape[-2] // shards, t.shape[-1])
+    return [t4[:, s].reshape(-1, t.shape[-1]) for s in range(shards)]
+
+
+def _join_rows(parts: list, shape: torch.Size) -> torch.Tensor:
+    """The inverse of :func:`_shard_rows`: per-shard (rows, f) blocks back
+    to ``shape``."""
+    if len(parts) == 1:
+        return parts[0].reshape(shape)
+    lead = parts[0].shape[0] // (shape[-2] // len(parts))
+    return torch.cat([p.reshape(lead, -1, shape[-1]) for p in parts],
+                     dim=1).reshape(shape)
+
+
+def _sum_f32(parts: list, dtype: torch.dtype) -> torch.Tensor:
+    """Per-shard gradients, each in ``dtype`` as a shard's rank returns
+    it, summed in f32 in shard order (the seq all-reduce), in ``dtype``."""
+    if len(parts) == 1:
+        return parts[0].to(dtype)
+    total = parts[0].to(dtype).float()
+    for p in parts[1:]:
+        total = total + p.to(dtype).float()
+    return total.to(dtype)
+
+
 class _QDotInt8(torch.autograd.Function):
     """``x @ w`` in int8 both ways; f32 out, gradients in the inputs'
     dtypes.  Saves the full-precision operands: the backward's
-    contractions need scales over other axes than the forward's."""
+    contractions need scales over other axes than the forward's.
+    ``shards`` > 1: the rows are that many sequence shards held in one
+    process, and dw is computed as that many ranks would compute it
+    (column scales over each shard's rows, the parts summed in f32); the
+    forward and dx have per-row scales, the same either way."""
 
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, shards=1):
         qx, sx = _q8_rowwise(x.reshape(-1, x.shape[-1]))
         qw, sw = _q8_colwise(w)
         ctx.save_for_backward(x, w)
+        ctx.shards = shards
         y = _dot_int8(qx, qw) * sx * sw
         return y.reshape(*x.shape[:-1], w.shape[1])
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        x2 = x.reshape(-1, x.shape[-1])           # (N, in)
-        dy2 = dy.reshape(-1, dy.shape[-1])        # (N, out)
         dx = dw = None
         if ctx.needs_input_grad[0]:
             # dx = dy @ w.T, contracting over out: dy per row, w per
             # in-row (w's rows span out, so the row quantizer gives the
             # (in, 1) scales this contraction needs)
-            qdy, sdy = _q8_rowwise(dy2)
+            qdy, sdy = _q8_rowwise(dy.reshape(-1, dy.shape[-1]))
             qw, sw = _q8_rowwise(w)
             dx = (_dot_int8(qdy, qw.t()) * sdy * sw.reshape(1, -1)
                   ).reshape(x.shape).to(x.dtype)
         if ctx.needs_input_grad[1]:
             # dw = x.T @ dy, contracting over rows: both per column
-            qx, sx = _q8_colwise(x2)              # scales (1, in)
-            qdy, sdy = _q8_colwise(dy2)           # scales (1, out)
-            dw = (_dot_int8(qx.t(), qdy) * sx.t() * sdy).to(w.dtype)
-        return dx, dw
+            parts = []
+            for xs, dys in zip(_shard_rows(x, ctx.shards),
+                               _shard_rows(dy, ctx.shards)):
+                qx, sx = _q8_colwise(xs)          # scales (1, in)
+                qdy, sdy = _q8_colwise(dys)       # scales (1, out)
+                parts.append(_dot_int8(qx.t(), qdy) * sx.t() * sdy)
+            dw = _sum_f32(parts, w.dtype)
+        return dx, dw, None
 
 
 # ---------------------------------------------------------------------------
@@ -272,32 +313,44 @@ class _QDotFp8(torch.autograd.Function):
     delayed ``a_amax``, the weight's from its own amax) and an e5m2
     gradient; f32 out, gradients in the inputs' dtypes, none for
     ``a_amax``.  Saves the fp8 codes: the backward contracts against
-    exactly what the forward multiplied, at a quarter of f32's bytes."""
+    exactly what the forward multiplied, at a quarter of f32's bytes.
+    ``shards`` > 1: the gradient's e5m2 scale comes from each sequence
+    shard's own amax, as that many ranks would take it, and dw is the
+    f32 sum of the shards' parts."""
 
     @staticmethod
-    def forward(ctx, x, w, a_amax):
+    def forward(ctx, x, w, a_amax, shards=1):
         qx, sx = _cast_fp8(x.reshape(-1, x.shape[-1]), a_amax, E4M3_MAX,
                            torch.float8_e4m3fn)
         qw, sw = _cast_fp8(w, tensor_amax(w), E4M3_MAX, torch.float8_e4m3fn)
         ctx.save_for_backward(qx, sx, qw, sw)
         ctx.dtypes = (x.dtype, w.dtype)
         ctx.x_shape = x.shape
+        ctx.shards = shards
         y = _dot_fp8(qx, qw, sx, sw)
         return y.reshape(*x.shape[:-1], w.shape[1])
 
     @staticmethod
     def backward(ctx, dy):
         qx, sx, qw, sw = ctx.saved_tensors
-        dy2 = dy.reshape(-1, dy.shape[-1])
-        qdy, sdy = _cast_fp8(dy2, tensor_amax(dy2), E5M2_MAX,
-                             torch.float8_e5m2)
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = _dot_fp8(qdy, qw.t(), sdy, sw).reshape(ctx.x_shape).to(
-                ctx.dtypes[0])
-        if ctx.needs_input_grad[1]:
-            dw = _dot_fp8(qx.t(), qdy, sx, sdy).to(ctx.dtypes[1])
-        return dx, dw, None
+        shape = ctx.x_shape
+        dxs, dws = [], []
+        for qxs, dys in zip(
+                _shard_rows(qx.view(torch.uint8).reshape(*shape[:-1], -1),
+                            ctx.shards),
+                _shard_rows(dy, ctx.shards)):
+            qxs = qxs.view(qx.dtype)
+            qdy, sdy = _cast_fp8(dys, tensor_amax(dys), E5M2_MAX,
+                                 torch.float8_e5m2)
+            if ctx.needs_input_grad[0]:
+                dxs.append(_dot_fp8(qdy, qw.t(), sdy, sw))
+            if ctx.needs_input_grad[1]:
+                dws.append(_dot_fp8(qxs.t(), qdy, sx, sdy))
+        dx = (_join_rows(dxs, shape).to(ctx.dtypes[0])
+              if ctx.needs_input_grad[0] else None)
+        dw = _sum_f32(dws, ctx.dtypes[1]) if ctx.needs_input_grad[1] \
+            else None
+        return dx, dw, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +358,8 @@ class _QDotFp8(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 def qdot(x: torch.Tensor, w: torch.Tensor, *, fmt: str,
-         scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+         scales: Optional[torch.Tensor] = None,
+         shards: int = 1) -> torch.Tensor:
     """Low-precision ``x @ w`` (w: (in, out)) in format ``fmt``,
     differentiable with a low-precision backward; returns f32 (the caller
     casts to its compute dtype and adds the bias).
@@ -313,12 +367,17 @@ def qdot(x: torch.Tensor, w: torch.Tensor, *, fmt: str,
     ``scales`` is the fp8 delayed activation amax (a device scalar from
     :func:`delayed_amax`); None takes the amax of ``x`` itself (current
     scaling: eval and decode, which carry no calibration state).  int8
-    is always scaled dynamically."""
+    is always scaled dynamically.
+
+    ``shards``: the number of sequence shards ``x`` (..., T, in) holds
+    along its second-to-last axis (a ``LocalSeqGroup``'s size); the
+    backward then quantizes each shard's rows as its own rank would (the
+    JAX package's seq shards, the port's ``ProcessSeqGroup`` ranks)."""
     if fmt == "int8":
-        return _QDotInt8.apply(x, w)
+        return _QDotInt8.apply(x, w, shards)
     if fmt == "fp8":
         a = scales if scales is not None else tensor_amax(x)
-        return _QDotFp8.apply(x, w, a)
+        return _QDotFp8.apply(x, w, a, shards)
     if fmt == "bf16":
         raise ValueError("qdot is the quantized seam; bf16 is the plain "
                          "torch.matmul path (models.core.Linear)")

@@ -47,6 +47,14 @@ parallelism, the seq ranks, as the JAX step's ``pmax``), and after the
 update rolls the histories in place, in the replicated, ``zero1`` and
 ``sharded`` forms alike, so a CUDA graph's replay rolls them too.
 
+The guarded update (``ops.optim.with_skip_guard``): the step takes the
+global norm of the REDUCED gradient (the replicated step's mean
+gradient; under zero1 and ``sharded`` the replicated squares plus the
+all-reduced sharded squares, as for clipping) and hands it to the
+guard's ``update_with_norm``; a rejected step also leaves the fp8
+histories as they were.  Nothing syncs with the host, so a CUDA graph
+replays it.
+
 Not ported yet, and refused: ``with_metrics``.
 """
 
@@ -54,14 +62,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
 from ..ops import qmm
-from ..ops.optim import Optimizer, advanced, device_scalars
+from ..ops.optim import Optimizer, global_norm
 from ..train.state import TrainState
 from ..utils.checkpoint import flatten
 from ..utils.tree import leaves, unflatten
@@ -167,12 +174,19 @@ def _max_over_ranks(obs: Dict[str, torch.Tensor],
 
 
 @torch.no_grad()
-def _roll_qstate(state: TrainState, obs: Dict[str, torch.Tensor]) -> None:
-    """Roll ``state.qstate``'s histories in place with ``obs``."""
+def _roll_qstate(state: TrainState, obs: Dict[str, torch.Tensor],
+                 ok: Optional[torch.Tensor] = None) -> None:
+    """Roll ``state.qstate``'s histories in place with ``obs`` (not on a
+    step the guard rejected: ``ok`` False)."""
     new = qmm.update_qstate(state.qstate, obs)
     roles = list(state.qstate["amax"])
-    torch._foreach_copy_([state.qstate["amax"][r] for r in roles],
-                         [new["amax"][r] for r in roles])
+    old = [state.qstate["amax"][r] for r in roles]
+    rolled = [new["amax"][r] for r in roles]
+    if ok is None:
+        torch._foreach_copy_(old, rolled)
+    else:
+        for h, n in zip(old, rolled):
+            torch.where(ok, n, h, out=h)
 
 
 def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
@@ -186,7 +200,8 @@ def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
     device = leaves(params)[0].device
     state = optimizer.init(torch.zeros(shard, dtype=torch.float32,
                                        device=device))
-    return state, us.ShardedLayout([0] * len(leaves(state)), n,
+    return state, us.ShardedLayout([0 if x.dim() else None
+                                    for x in leaves(state)], n,
                                    world.data_rank, world.data_pg)
 
 
@@ -194,13 +209,13 @@ def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
 def zero1_shard_update(optimizer: Optimizer, state: TrainState,
                        s: torch.Tensor, c: torch.Tensor,
                        grads: List[torch.Tensor], world: World,
-                       grad_clip: float = 0.0,
-                       scalars: Optional[torch.Tensor] = None):
+                       grad_clip: float = 0.0):
     """The zero1 update of one step (see the module docstring):
     ``update_sharding.sharded_update`` of one leaf, the params and
     gradients flattened in JAX's leaf order (``ravel_pytree``'s) into one
     buffer padded to a multiple of N and planned along its only axis.
-    Returns (opt_state, global mean loss); params are written in place."""
+    Returns (opt_state, global mean loss, the guard's ``ok`` or None);
+    params are written in place."""
     n = world.dp
     by_id = {id(p): g for p, g in zip(leaves(state.params), grads)}
     ordered = [p for _, p in flatten(state.params)]
@@ -211,14 +226,14 @@ def zero1_shard_update(optimizer: Optimizer, state: TrainState,
                        + [s.new_zeros(pad, dtype=torch.float32)])
     flat_p = torch.cat([p.detach().reshape(-1) for p in ordered]
                        + [ordered[0].new_zeros(pad)])
-    opt_state, loss = us.sharded_update(
+    opt_state, loss, ok = us.sharded_update(
         optimizer, flat_p, state.opt_state, s, c, [flat_g], world,
-        grad_clip, scalars, plans=[us.LeafPlan(0, shard * n, shard)])
+        grad_clip, plans=[us.LeafPlan(0, shard * n, shard)])
     torch._foreach_copy_(
         [p.detach() for p in ordered],
         [part.view(p.shape) for part, p in zip(
             torch.split(flat_p[:sum(sizes)], sizes), ordered)])
-    return opt_state, loss
+    return opt_state, loss, ok
 
 
 def make_train_step(model, optimizer: Optimizer, world: World,
@@ -229,11 +244,8 @@ def make_train_step(model, optimizer: Optimizer, world: World,
                     grad_clip: float = 0.0,
                     with_metrics: bool = False
                     ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
-    """(state, this rank's batch[, scalars]) -> (state, global mean loss
-    as a device scalar).  Params and optimizer state are updated in place;
-    ``scalars`` is the optimizer's device scalars of this step
-    (``Optimizer.scalars(state.opt_state.count)`` on the device; None:
-    copied from the host).
+    """(state, this rank's batch) -> (state, global mean loss as a device
+    scalar).  Params and optimizer state are updated in place.
 
     ``update_sharding='sharded'`` takes the opt state of
     ``update_sharding.init_opt_state``, ``'zero1'`` that of
@@ -259,11 +271,11 @@ def make_train_step(model, optimizer: Optimizer, world: World,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     fp8 = qmm.model_format(model) == "fp8"
+    guarded = optimizer.update_with_norm is not None
     loss_fn = (make_qloss_fn(model, loss_name) if fp8
                else _lifted(make_loss_fn(model, loss_name)))
 
-    def step(state: TrainState, batch: Batch,
-             scalars: Optional[torch.Tensor] = None):
+    def step(state: TrainState, batch: Batch):
         # fp8: each role's delayed amax, read before anything updates
         qamax = qmm.delayed_amax(state.qstate) if fp8 else None
         s, c, grads, obs = _accumulated_sum_and_grads(
@@ -271,16 +283,16 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         if fp8:
             obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":
-            opt_state, loss = zero1_shard_update(
-                optimizer, state, s, c, grads, world, grad_clip, scalars)
+            opt_state, loss, ok = zero1_shard_update(
+                optimizer, state, s, c, grads, world, grad_clip)
         elif update_sharding == "sharded":
-            opt_state, loss = us.sharded_update(
+            opt_state, loss, ok = us.sharded_update(
                 optimizer, state.params, state.opt_state, s, c, grads,
-                world, grad_clip, scalars)
+                world, grad_clip)
         if update_sharding != "replicated":
             state = state._replace(step=state.step + 1, opt_state=opt_state)
             if fp8:
-                _roll_qstate(state, obs)
+                _roll_qstate(state, obs, ok)
             return state, loss
         if grad_reduction == "per_shard_mean":
             denom = torch.clamp(c, min=1.0)
@@ -302,22 +314,21 @@ def make_train_step(model, optimizer: Optimizer, world: World,
             loss = vals[-2][0] / total
         # grads now names the reduced gradients only: the backward's are
         # freed before the update, whose peak they would otherwise raise
-        params, opt_state = optimizer.update(
-            unflatten(state.params, grads), state.opt_state, state.params,
-            scalars)
+        ok = None
+        if guarded:     # the reduced gradient's norm, before any clipping
+            params, opt_state, ok = optimizer.update_with_norm(
+                unflatten(state.params, grads), state.opt_state,
+                state.params, global_norm(grads))
+        else:
+            params, opt_state = optimizer.update(
+                unflatten(state.params, grads), state.opt_state,
+                state.params)
         state = TrainState(state.step + 1, params, opt_state, state.qstate)
         if fp8:
-            _roll_qstate(state, obs)
+            _roll_qstate(state, obs, ok)
         return state, loss
 
     return step
-
-
-def _advanced(state: TrainState, n: int) -> TrainState:
-    """``state`` after ``n`` steps that updated its tensors in place (the
-    params, the opt state and the fp8 histories)."""
-    return state._replace(step=state.step + n,
-                          opt_state=advanced(state.opt_state, n))
 
 
 class GraphedTrainStep:
@@ -328,12 +339,11 @@ class GraphedTrainStep:
     dispatch, one per batch of ``batches`` (a ``ShardedLoader.
     epoch_groups`` group), and returns the state and a copy of the last
     step's loss (the graph's loss buffer is rewritten by the next replay).
-    The optimizer's scalars of all the group's steps go to the card in one
-    copy; each replay is then a copy of the batch and of its scalars into
-    the graph's static buffers and one ``cudaGraphLaunch``, on the
-    caller's stream, so anything the caller queues after the dispatch (the
-    lag-1 loss read, an async snapshot's device-to-host copy) runs after
-    the replays.
+    Each replay is a copy of the batch into the graph's static buffers and
+    one ``cudaGraphLaunch`` (the optimizer reads its lr and bias
+    corrections on the device, at its count), on the caller's stream, so
+    anything the caller queues after the dispatch (the lag-1 loss read, an
+    async snapshot's device-to-host copy) runs after the replays.
 
     The first step is the warm-up: it runs eagerly on a side stream (the
     kernels build, cuBLAS and NCCL set up, the allocator fills), then the
@@ -353,66 +363,57 @@ class GraphedTrainStep:
     counters hold the eager launches and :attr:`replays` x
     :attr:`launches_per_replay` the graphed ones."""
 
-    def __init__(self, step: Callable, optimizer: Optimizer,
-                 device: torch.device):
+    def __init__(self, step: Callable, device: torch.device):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{device}")
         qmm.fp8_dot_supported(device)
-        self.step, self.optimizer, self.device = step, optimizer, device
+        self.step, self.device = step, device
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
         self.state: Optional[TrainState] = None   # the captured tensors
         self.static_batch: Dict[str, torch.Tensor] = {}
-        self.static_scalars: Optional[torch.Tensor] = None
         self.static_loss: Optional[torch.Tensor] = None
         self.launches_per_replay: Dict[str, Any] = {}
         self.replays = 0
         self.eager_steps = 0
+        self.captures = 0
 
     def __call__(self, state: TrainState, batches: List[Batch]):
         if self.graph is not None and not self._captured_on(state):
             self.graph = None
-        count = state.opt_state.count
-        scalars = device_scalars(
-            np.stack([self.optimizer.scalars(count + i)
-                      for i in range(len(batches))]),
-            leaves(state.params)[0])
         loss = None
-        for i, batch in enumerate(batches):
+        for batch in batches:
             if self.graph is None:
-                state, loss = self._warm_up_and_capture(state, batch,
-                                                        scalars[i])
+                state, loss = self._warm_up_and_capture(state, batch)
             elif any(batch[k].shape != v.shape
                      for k, v in self.static_batch.items()):
-                state, loss = self.step(state, batch, scalars[i])
+                state, loss = self.step(state, batch)
                 self.eager_steps += 1
             else:
                 for k, v in self.static_batch.items():
                     v.copy_(batch[k])
-                self.static_scalars.copy_(scalars[i])
                 self.graph.replay()
                 self.replays += 1
-                state, loss = _advanced(state, 1), self.static_loss
+                # the replay updated the state's tensors in place
+                state, loss = (state._replace(step=state.step + 1),
+                               self.static_loss)
         return state, loss.clone()
 
-    def _warm_up_and_capture(self, state: TrainState, batch: Batch,
-                             scalars: torch.Tensor):
+    def _warm_up_and_capture(self, state: TrainState, batch: Batch):
         caller = torch.cuda.current_stream(self.device)
         self.stream = torch.cuda.Stream(self.device)
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            state, loss = self.step(state, batch, scalars)
+            state, loss = self.step(state, batch)
         caller.wait_stream(self.stream)
         self.eager_steps += 1
         self.static_batch = {k: v.clone() for k, v in batch.items()}
-        self.static_scalars = scalars.clone()
         before = fa.launch_counts()
         gemms = dict(qmm.library_gemm.launches)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self.stream):
-            _, self.static_loss = self.step(state, self.static_batch,
-                                            self.static_scalars)
+            _, self.static_loss = self.step(state, self.static_batch)
         captured = fa.launch_counts()
         fa.set_launch_counts(before)
         self.launches_per_replay = {
@@ -423,6 +424,7 @@ class GraphedTrainStep:
                      for k, v in qmm.library_gemm.launches.items()}}
         qmm.library_gemm.launches.update(gemms)
         self.graph, self.state = graph, state
+        self.captures += 1
         return state, loss
 
     def _captured_on(self, state: TrainState) -> bool:

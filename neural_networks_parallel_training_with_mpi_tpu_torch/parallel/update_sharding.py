@@ -129,16 +129,24 @@ class ShardedLayout:
         self.axes, self.n, self.index, self.group = axes, n, index, group
 
     @classmethod
-    def mirroring(cls, plans: List[LeafPlan], n_state_leaves: int, n: int,
+    def mirroring(cls, plans: List[LeafPlan], opt_state: Any, n: int,
                   index: int, group=None) -> "ShardedLayout":
         """The layout of optimizer slots that mirror the param tree
         (momentum, mu, nu, the master copy): slot leaf ``i`` follows
-        param leaf ``i % len(plans)``."""
-        if n_state_leaves % len(plans):
-            raise ValueError(f"{n_state_leaves} opt-state leaves do not "
+        param leaf ``i % len(plans)``; 0-d leaves (the optimizer's and the
+        skip guard's counts) are replicated."""
+        slots = [x for x in leaves(opt_state) if x.dim()]
+        if len(slots) % len(plans):
+            raise ValueError(f"{len(slots)} opt-state leaves do not "
                              f"mirror {len(plans)} params")
-        return cls([plans[i % len(plans)].axis
-                    for i in range(n_state_leaves)], n, index, group)
+        axes, i = [], 0
+        for x in leaves(opt_state):
+            if x.dim():
+                axes.append(plans[i % len(plans)].axis)
+                i += 1
+            else:
+                axes.append(None)
+        return cls(axes, n, index, group)
 
     def scatter(self, opt_state: Any, device=None) -> Any:
         """Global (padded) opt state -> this rank's slices, on ``device``
@@ -188,8 +196,7 @@ def init_opt_state(optimizer: Optimizer, params: Any, plan: Any,
         _slice(pad_leaf(p.detach(), pl).float(), pl.axis, n, index)
         for p, pl in zip(leaves(params), plans)])
     state = optimizer.init(sliced)
-    return state, ShardedLayout.mirroring(plans, len(leaves(state)), n,
-                                          index, group)
+    return state, ShardedLayout.mirroring(plans, state, n, index, group)
 
 
 def _sq(xs: List[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
@@ -203,12 +210,14 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
                    s: torch.Tensor, c: torch.Tensor,
                    grads: List[Optional[torch.Tensor]], world,
                    grad_clip: float = 0.0,
-                   scalars: Optional[torch.Tensor] = None,
                    plans: Optional[List[LeafPlan]] = None):
     """The per-leaf sharded update of one step from this rank's loss sum
     ``s``, count ``c`` and gradient sums ``grads`` (``params``' leaf
-    order): returns (opt_state, global mean loss).  ``params`` are written
-    in place.  ``grads`` is consumed: each entry is released once reduced,
+    order): returns (opt_state, global mean loss, ``ok``).  ``params`` are
+    written in place.  Under the skip guard (``optimizer.update_with_norm``)
+    the global norm of the reduced gradient, taken before clipping, goes
+    to the guard and ``ok`` is its verdict (None without the guard).
+    ``grads`` is consumed: each entry is released once reduced,
     so the full-size gradients are not held through the update (the
     replicated step drops them the same way).  ``plans``: one
     :class:`LeafPlan` per leaf; by default the params' :func:`plan_updates`
@@ -246,21 +255,29 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
         # this rank's slice of the (padded) param, updated in place
         p_mixed[i] = pad_leaf(ps[i].detach(), pl).narrow(
             pl.axis, idx * pl.shard, pl.shard)
-    if grad_clip > 0:
+    guarded = optimizer.update_with_norm is not None
+    norm = ok = None
+    if grad_clip > 0 or guarded:
         sq_sh = _sq([g for g, pl in zip(g_mixed, plans)
                      if pl.axis is not None], total)
         if world.initialized:
             dist.all_reduce(sq_sh, group=data_pg)
         norm = torch.sqrt(_sq([g for g, pl in zip(g_mixed, plans)
                                if pl.axis is None], total) + sq_sh)
+    if grad_clip > 0:
         scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-12),
                             max=1.0)
         g_mixed = torch._foreach_mul(g_mixed, scale)
-    _, opt_state = optimizer.update(unflatten(params, g_mixed), opt_state,
-                                    unflatten(params, p_mixed), scalars)
+    if guarded:
+        _, opt_state, ok = optimizer.update_with_norm(
+            unflatten(params, g_mixed), opt_state,
+            unflatten(params, p_mixed), norm)
+    else:
+        _, opt_state = optimizer.update(unflatten(params, g_mixed),
+                                        opt_state, unflatten(params, p_mixed))
     # one data rank: each slice is the whole param, already updated
     for p, part, pl in zip(ps, p_mixed, plans):
         if pl.axis is not None and n > 1:
             full = all_gather(part, pl.axis, n, data_pg)
             p.detach().copy_(full.narrow(pl.axis, 0, p.shape[pl.axis]))
-    return opt_state, loss
+    return opt_state, loss, ok

@@ -44,10 +44,27 @@ and expert x tensor layouts refused), the fp8 calibration state created
 with the params and restored with them (``TrainState.qstate``), and
 ``+matmul_dtype=...`` in :attr:`Trainer.layout_tag`.
 
+Resilience (``train.resilience``, ``utils.faults``, ``utils.watchdog``;
+the JAX loop's rules): ``--skip-nonfinite``/``--skip_threshold`` wrap the
+optimizer in ``ops.optim.with_skip_guard``; ``--faults`` fires each
+step's faults before its dispatch (a NaN only in that step's rows of a
+k-group); ``--rollback_after`` feeds every dispatch's last loss, read at
+lag 1 (before the next dispatch, and before a snapshot, which a bad
+streak skips), to a ``ResilienceMonitor`` whose rollback copies the
+newest verified snapshot (or the seeded init) INTO the live tensors, so a
+captured CUDA graph stays valid, and bumps the data order salt;
+SIGTERM/SIGINT (SIGUSR1: a preemption notice) are checked at each
+dispatch boundary, then the final snapshot is written and ``fit``
+returns (``preempted``; ``preempt_notice``); ``--hang_timeout`` runs a
+``HangWatchdog`` patted after each lag-1 read and suspended around saves
+and evals; ``--collective_timeout`` bounds the process group's
+collectives.  A signal loses no step: the dispatch in flight finishes and
+is saved, so the exit comes at most one dispatch (k steps) after it.
+
 Every flag of a path the port has not taken over yet (model-parallel
-axes, telemetry, tracing, resilience, SDC checks, elastic, RL, ...)
-raises ``NotImplementedError`` naming the flag when it is set to anything
-but its default; none is ignored.
+axes, telemetry, tracing, SDC checks, elastic, RL, ...) raises
+``NotImplementedError`` naming the flag when it is set to anything but
+its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
@@ -66,7 +83,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -87,9 +104,12 @@ from ..parallel.sequence import (
 )
 from ..utils import checkpoint as ckpt
 from ..utils import prng
+from ..utils.faults import FaultPlan
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
 from ..utils.tree import leaves
+from ..utils.watchdog import HangWatchdog
+from .resilience import AnomalyAbort, GracefulShutdown, ResilienceMonitor
 from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
@@ -105,15 +125,9 @@ _UNPORTED = {
     "xla_trace_dir": "--xla_trace_dir",
     "check_replicas_every": "--check_replicas_every",
     "sdc_check_every": "--sdc_check_every", "sdc_heal": "--no-sdc-heal",
-    "sdc_strikes": "--sdc_strikes", "hang_timeout": "--hang_timeout",
-    "skip_nonfinite": "--skip-nonfinite",
-    "skip_threshold": "--skip_threshold",
-    "rollback_after": "--rollback_after",
-    "max_rollbacks": "--max_rollbacks",
-    "loss_spike_factor": "--loss_spike_factor", "faults": "--faults",
+    "sdc_strikes": "--sdc_strikes",
     "elastic": "--elastic", "min_devices": "--min_devices",
     "elastic_batch": "--elastic_batch",
-    "collective_timeout": "--collective_timeout",
 }
 _UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
                   "expert": "--ep"}
@@ -121,6 +135,18 @@ _UNPORTED_MODEL = {"moe_experts": "--moe_experts",
                    "moe_expert_axis": "--ep",
                    "moe_capacity_factor": "--moe_capacity_factor",
                    "moe_top_k": "--moe_top_k"}
+
+
+def _sliced_layout(cfg: TrainConfig) -> bool:
+    """The JAX trainer's layouts that update and multiply their own
+    slices (pipe, expert, seq x tensor, expert x tensor): no global
+    norm, no ``ops.qmm`` seam."""
+    mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
+    pipeline, expert = mesh.pipe > 1, mesh.expert > 1
+    seq, tensor, fsdp = mesh.seq > 1, mesh.tensor > 1, mesh.fsdp > 1
+    sp_tp = seq and tensor and not (pipeline or expert or fsdp or moe)
+    ep_tp = tensor and not (pipeline or fsdp) and (expert or (seq and moe))
+    return pipeline or expert or sp_tp or ep_tp
 
 
 def check_matmul_dtype(cfg: TrainConfig) -> None:
@@ -133,24 +159,18 @@ def check_matmul_dtype(cfg: TrainConfig) -> None:
         raise ValueError(f"unknown --matmul_dtype {mm!r} "
                          "(choices: bf16, int8, fp8)")
     if mm != "bf16":
-        mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
-        pipeline, expert = mesh.pipe > 1, mesh.expert > 1
-        seq, tensor, fsdp = mesh.seq > 1, mesh.tensor > 1, mesh.fsdp > 1
-        sp_tp = seq and tensor and not (pipeline or expert or fsdp or moe)
-        ep_tp = tensor and not (pipeline or fsdp) and (expert
-                                                        or (seq and moe))
         if cfg.model.arch != "transformer":
             raise ValueError(
                 f"--matmul_dtype {mm} is the transformer's quantized "
                 "dense-projection seam; it does nothing for "
                 f"arch={cfg.model.arch!r}")
-        if pipeline or expert or sp_tp or ep_tp:
+        if _sliced_layout(cfg):
             raise NotImplementedError(
                 f"--matmul_dtype {mm} is wired on the DP, DP x seq "
                 "and GSPMD (tensor/fsdp) layouts; the pipe/expert/"
                 "seq-x-tensor layouts run their own sliced matmuls "
                 "outside the ops.qmm seam")
-        if moe:
+        if cfg.model.moe_experts > 0:
             raise ValueError(
                 f"--matmul_dtype {mm} covers the dense projections "
                 "(qkv/attn_out/ffn/head); the MoE expert einsums are "
@@ -160,6 +180,44 @@ def check_matmul_dtype(cfg: TrainConfig) -> None:
             "--matmul_dtype fp8 needs the delayed-scaling amax "
             "observations, which do not thread the --ce_chunk fused "
             "scan; use int8/bf16 with --ce_chunk, or drop it")
+
+
+def check_resilience(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for the guard and the watchdog, with its
+    messages: the guard needs the global norm seam, which the pipe,
+    expert and seq x tensor layouts lack; ``--hang_timeout`` needs the
+    lag-1 loss read (``log_every > 0``)."""
+    if (cfg.skip_nonfinite or cfg.skip_threshold > 0) and \
+            _sliced_layout(cfg):
+        raise NotImplementedError(
+            "--skip-nonfinite/--skip_threshold (the guarded "
+            "update) is wired into the plain DP, DP x seq, GSPMD "
+            "and sharded-update (zero1/'sharded') layouts; "
+            "pipe/expert/seq-x-tensor updates run on gradient "
+            "slices where a shard-local norm would desynchronize "
+            "the skip decision")
+    if cfg.hang_timeout and not cfg.log_every:
+        raise ValueError(
+            "--hang_timeout needs log_every > 0: the periodic loss "
+            "device_get is the loop's only blocking point, and without "
+            "it async dispatch would keep patting the watchdog while "
+            "the device is wedged")
+
+
+def _into(live: Any, new: Any) -> Any:
+    """``new``'s values in ``live``'s tensors (copied in place, so a CUDA
+    graph captured on them stays valid); host leaves come from ``new``."""
+    if isinstance(live, torch.Tensor):
+        with torch.no_grad():
+            live.copy_(new)
+        return live
+    if isinstance(live, dict):
+        return {k: _into(v, new[k]) for k, v in live.items()}
+    if isinstance(live, tuple) and hasattr(live, "_fields"):
+        return type(live)(*(_into(a, b) for a, b in zip(live, new)))
+    if isinstance(live, (list, tuple)):
+        return type(live)(_into(a, b) for a, b in zip(live, new))
+    return new
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
@@ -198,7 +256,12 @@ class Trainer:
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, dtype=cfg.param_dtype))
         check_matmul_dtype(cfg)
+        check_resilience(cfg)
         refuse_unported(cfg)
+        # parsed once: max=/once= counters live across epochs
+        self.fault_plan = FaultPlan.from_config(cfg.faults)
+        if self.fault_plan is not None:
+            self.fault_plan.check_ported()
         self.cfg = cfg
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
                      else None)
@@ -207,14 +270,18 @@ class Trainer:
             if sp not in (1, seq_group.size):
                 raise ValueError(f"--sp {sp} != the sequence group's "
                                  f"{seq_group.size} shards")
-            self.world = world_setup(device, dp=cfg.mesh.data)
+            self.world = world_setup(
+                device, dp=cfg.mesh.data,
+                collective_timeout=cfg.collective_timeout)
         else:
             if sp > 1 and attention not in SEQ_SHARDED_IMPLS:
                 raise ValueError(
                     f"--sp {sp} needs a sequence-sharded attention (ring, "
                     f"ring_flash, striped, striped_flash), not "
                     f"{attention!r}")
-            self.world = world_setup(device, sp=sp, dp=cfg.mesh.data)
+            self.world = world_setup(
+                device, sp=sp, dp=cfg.mesh.data,
+                collective_timeout=cfg.collective_timeout)
             if sp > 1:
                 seq_group = ProcessSeqGroup(self.world.seq_pg)
         if attention in SEQ_SHARDED_IMPLS and seq_group is None:
@@ -288,17 +355,23 @@ class Trainer:
         if self.k_dispatch > 1 and self.world.world_size > 1:
             # fail here, not at the first epoch_groups call
             raise NotImplementedError(MULTI_PROCESS_DISPATCH)
+        total_steps = cfg.nepochs * max(self.loader.steps_per_epoch, 1)
         lr = schedules.make(
-            cfg.lr_schedule, cfg.lr,
-            total_steps=cfg.nepochs * max(self.loader.steps_per_epoch, 1),
+            cfg.lr_schedule, cfg.lr, total_steps=total_steps,
             warmup_steps=cfg.warmup_steps, min_lr=cfg.min_lr)
         # the sharded updates clip inside the step, by the global norm
         step_clips = self.zero1 or self.sharded
         self.optimizer = optim_lib.make(
             cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
-            grad_clip=0.0 if step_clips else cfg.grad_clip)
+            grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps)
         if cfg.master_weights:
             self.optimizer = optim_lib.with_master_weights(self.optimizer)
+        # the guard wraps the master weights (a rejected step leaves the
+        # master as it was) and any clipping (its norm is the raw one)
+        self.guarded = cfg.skip_nonfinite or cfg.skip_threshold > 0
+        if self.guarded:
+            self.optimizer = optim_lib.with_skip_guard(self.optimizer,
+                                                       cfg.skip_threshold)
         # smoothing applies to the TRAIN loss only; eval reports the
         # unsmoothed loss
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
@@ -315,8 +388,7 @@ class Trainer:
         self.multi_step = None
         if self.k_dispatch > 1:
             self.multi_step = (
-                dp.GraphedTrainStep(self.train_step, self.optimizer,
-                                    self.device)
+                dp.GraphedTrainStep(self.train_step, self.device)
                 if self.device.type == "cuda" else self._eager_group)
         self.eval_step = dp.make_eval_step(
             self.model, self.world, loss_name=cfg.loss,
@@ -330,6 +402,8 @@ class Trainer:
         # of the resume's restore
         self.save_seconds: list = []
         self.restore_seconds: Optional[float] = None
+        # each anomaly rollback: the step restored and its host seconds
+        self.rollbacks: list = []
 
     def _loader(self, data, shuffle: bool) -> ShardedLoader:
         cfg = self.cfg
@@ -351,23 +425,24 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Seeded init, identical on every rank (no broadcast needed), drawn
         on the host so the CPU and the GPU start from the same params."""
+        self.state, self.layout = self._fresh_state()
+        return self.state
+
+    def _fresh_state(self) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
         params = self.model.init(prng.init_generator(self.cfg.seed))
         if not (self.zero1 or self.sharded):
-            self.state = TrainState.from_params(params, self.optimizer,
-                                                self.model)
-            return self.state
+            return TrainState.from_params(params, self.optimizer,
+                                          self.model), None
         w = self.world
         params = TrainState.from_params(params, None).params
         if self.zero1:
-            opt_state, self.layout = dp.zero1_opt_state(self.optimizer,
-                                                        params, w)
+            opt_state, layout = dp.zero1_opt_state(self.optimizer, params, w)
         else:
-            opt_state, self.layout = us.init_opt_state(
+            opt_state, layout = us.init_opt_state(
                 self.optimizer, params, us.plan_updates(params, w.dp), w.dp,
                 w.data_rank, w.data_pg)
-        self.state = TrainState(0, params, opt_state,
-                                qmm.init_qstate(self.model))
-        return self.state
+        return TrainState(0, params, opt_state,
+                          qmm.init_qstate(self.model)), layout
 
     def snapshot_state(self) -> TrainState:
         """The state a snapshot holds: under update sharding, the global
@@ -389,29 +464,58 @@ class Trainer:
         if not (cfg.resume and cfg.checkpoint_dir):
             return 0
         t0 = time.perf_counter()
+        if not self._restore_newest():
+            return 0
+        # the meta of the generation actually restored (the fallback chain
+        # may land below a corrupt newest one)
+        meta = ckpt.read_meta(cfg.checkpoint_dir, step=self.state.step) or {}
+        # a relaunch keeps a rollback's re-drawn data order
+        self.loader.order_salt = int(meta.get("order_salt", 0))
+        self.restore_seconds = time.perf_counter() - t0
+        log(f"resumed from {cfg.checkpoint_dir} at step {self.state.step} "
+            f"({self.restore_seconds:.3f}s)")
+        return self.state.step
+
+    def _restore_newest(self) -> bool:
+        """The newest verified snapshot of ``--checkpoint_dir`` copied into
+        the live state's tensors (False: there is none).  Under update
+        sharding the opt state restores into host tensors of the global
+        padded shapes, and each rank copies its own slice.  The fp8
+        histories restore with the rest: the delayed scaling continues
+        where the snapshot left it."""
         s = self.state
         template = s if self.layout is None else s._replace(
             opt_state=self.layout.host_template(s.opt_state))
-        # the fp8 histories restore with the rest: a resume continues the
-        # delayed scaling where the snapshot left it
-        restored = ckpt.restore(cfg.checkpoint_dir, template)
+        restored = ckpt.restore(self.cfg.checkpoint_dir, template)
         if restored is None:
-            return 0
+            return False
         if self.layout is not None:     # every rank keeps its own slice
             restored = restored._replace(opt_state=self.layout.scatter(
                 restored.opt_state, self.device))
-        # the meta of the generation actually restored (the fallback chain
-        # may land below a corrupt newest one)
-        meta = ckpt.read_meta(cfg.checkpoint_dir, step=restored.step) or {}
-        self.state = restored
-        # a relaunch keeps a rollback's re-drawn data order
-        self.loader.order_salt = int(meta.get("order_salt", 0))
+        self.state = _into(s, restored)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.restore_seconds = time.perf_counter() - t0
-        log(f"resumed from {cfg.checkpoint_dir} at step {restored.step} "
-            f"({self.restore_seconds:.3f}s)")
-        return restored.step
+        return True
+
+    def _rollback(self) -> int:
+        """Anomaly rollback: the newest verified snapshot (the seeded init
+        when there is none yet) copied into the live tensors, and the data
+        order re-drawn (``order_salt`` + 1) so the poison window is not
+        replayed as it was.  Returns the step to go on from."""
+        t0 = time.perf_counter()
+        restored = False
+        if self.cfg.checkpoint_dir:
+            ckpt.wait_pending()     # an in-flight async write may be newest
+            restored = self._restore_newest()
+        if not restored:
+            self.state = _into(self.state, self._fresh_state()[0])
+        self.loader.order_salt += 1
+        # the retrained window revisits saved step numbers with other
+        # state: the final save must not take them as written
+        self._last_saved_step = None
+        self.rollbacks.append({"step": self.state.step,
+                               "seconds": time.perf_counter() - t0})
+        return self.state.step
 
     def save(self, final: bool = False) -> None:
         """Snapshot the state into ``--checkpoint_dir`` (rank 0 writes).
@@ -461,69 +565,182 @@ class Trainer:
         last_loss = float("nan")
         step = start_step
         prev: Optional[tuple] = None   # (step, epoch, loss, step before)
+        # the newest dispatch's (step, loss) the monitor has not seen yet
+        pending: Optional[tuple] = None
         # one CUDA event after each dispatch (a step at k = 1): device time
         # per step without a host sync in the loop
         events, event_steps = [], []
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        # in-epoch offset, taken by the first epoch of a resumed run only
-        mid_epoch_start = start_step % spe
-        for epoch in range(start_step // spe, cfg.nepochs):
-            log(f"Starting epoch {epoch + 1}")
-            epoch_t0 = time.perf_counter()
-            loss = None
-            first, mid_epoch_start = mid_epoch_start, 0
-            if self.k_dispatch > 1:
-                dispatches = self.loader.epoch_groups(
-                    epoch, self.k_dispatch, start_step=first)
-            else:
-                dispatches = ((b, 1, self.loader.batch_rows(first + i))
-                              for i, b in enumerate(self.loader.epoch(
-                                  epoch, start_step=first)))
-            for batch, n_steps, rows in dispatches:
-                # lag-1 logging: the previous dispatch's loss is ready (or
-                # nearly) by the time this one's batch is here; a dispatch
-                # logs when it crossed a log_every boundary
-                if prev is not None and cfg.log_every and \
-                        prev[0] // cfg.log_every > prev[3] // cfg.log_every:
-                    last_loss = float(prev[2])
-                    self.metrics.write({
-                        "step": prev[0], "epoch": prev[1], "loss": last_loss,
-                        "samples_per_sec": thr.samples_per_sec})
-                if self.k_dispatch > 1:
-                    self.state, loss = self.multi_step(self.state, batch)
-                else:
-                    self.state, loss = self.train_step(self.state, batch)
-                if cuda:
-                    events.append(torch.cuda.Event(enable_timing=True))
-                    events[-1].record()
-                    event_steps.append(n_steps)
-                thr.add(rows)
-                prev = (step + n_steps, epoch, loss, step)
-                step += n_steps
-                if cfg.checkpoint_every and (step // cfg.checkpoint_every >
-                                             prev[3] // cfg.checkpoint_every):
-                    self.save()
-            if loss is not None:
-                last_loss = float(loss)
-            log(f"epoch {epoch + 1}: loss {last_loss:.6f} "
-                f"({time.perf_counter() - epoch_t0:.3f}s)")
-            if (self.val_data is not None and cfg.eval_every
-                    and (epoch + 1) % cfg.eval_every == 0):
-                ev = self.evaluate(self.val_data)
-                log("validation: " + ", ".join(
-                    f"{k} {v:.6f}" for k, v in sorted(ev.items())))
-                self.metrics.write({"step": step, "epoch": epoch,
-                                    **{f"val_{k}": v for k, v in ev.items()}})
-        if prev is not None and cfg.log_every and \
-                prev[0] // cfg.log_every > prev[3] // cfg.log_every:
-            self.metrics.write({"step": prev[0], "epoch": prev[1],
+        watchdog = HangWatchdog(cfg.hang_timeout or None)
+        monitor = (ResilienceMonitor(cfg.rollback_after, cfg.max_rollbacks,
+                                     cfg.loss_spike_factor)
+                   if cfg.rollback_after > 0 else None)
+        shutdown = GracefulShutdown()
+        dispatches = None
+        fit_t0 = time.perf_counter()
+        first_done = False
+
+        def observe() -> bool:
+            """The monitor reads the pending dispatch's loss (lag 1: the
+            next dispatch is not queued yet); True when it rolled back."""
+            nonlocal pending, step, prev
+            if monitor is None or pending is None:
+                return False
+            m_step, m_loss = pending
+            pending = None
+            action = monitor.observe(float(m_loss))
+            if action == "abort":
+                raise AnomalyAbort(
+                    f"training diverged at step {m_step}: "
+                    f"{monitor.bad_steps} bad steps and the rollback "
+                    f"budget (max_rollbacks={cfg.max_rollbacks}) is "
+                    "exhausted")
+            if action != "rollback":
+                return False
+            with watchdog.suspended():
+                step = self._rollback()
+            log(f"anomaly rollback #{monitor.rollbacks}: "
+                f"{cfg.rollback_after} consecutive bad steps — restored "
+                f"step {step}, re-drew the data order "
+                f"({self.rollbacks[-1]['seconds']:.3f}s)")
+            prev = None
+            return True
+
+        try:
+            with watchdog, shutdown:
+                epoch = start_step // spe
+                # in-epoch offset, taken by the first epoch of a resumed
+                # run (or after a rollback) only
+                mid_epoch_start = start_step % spe
+                while epoch < cfg.nepochs and not shutdown.requested:
+                    log(f"Starting epoch {epoch + 1}")
+                    epoch_t0 = time.perf_counter()
+                    loss = None
+                    rolled_back = False
+                    first, mid_epoch_start = mid_epoch_start, 0
+                    if self.k_dispatch > 1:
+                        dispatches = self.loader.epoch_groups(
+                            epoch, self.k_dispatch, start_step=first)
+                    else:
+                        dispatches = (
+                            ([b], 1, self.loader.batch_rows(first + i))
+                            for i, b in enumerate(self.loader.epoch(
+                                epoch, start_step=first)))
+                    for batches, n_steps, rows in dispatches:
+                        if shutdown.requested:
+                            break
+                        if observe():
+                            rolled_back = True
+                            break
+                        # lag-1 logging: the previous dispatch's loss is
+                        # ready (or nearly) by the time this one's batch
+                        # is here; a dispatch logs when it crossed a
+                        # log_every boundary
+                        if prev is not None and cfg.log_every and \
+                                prev[0] // cfg.log_every > \
+                                prev[3] // cfg.log_every:
+                            last_loss = float(prev[2])
+                            self.metrics.write({
+                                "step": prev[0], "epoch": prev[1],
                                 "loss": last_loss,
                                 "samples_per_sec": thr.samples_per_sec})
-        self.save(final=True)
+                        watchdog.pat()
+                        if self.fault_plan is not None:
+                            batches = [self.fault_plan.apply(
+                                step + i, b, ckpt_dir=cfg.checkpoint_dir)
+                                for i, b in enumerate(batches)]
+                        if self.k_dispatch > 1:
+                            self.state, loss = self.multi_step(self.state,
+                                                               batches)
+                        else:
+                            self.state, loss = self.train_step(self.state,
+                                                               batches[0])
+                        if cuda:
+                            events.append(torch.cuda.Event(
+                                enable_timing=True))
+                            events[-1].record()
+                            event_steps.append(n_steps)
+                        thr.add(rows)
+                        prev = (step + n_steps, epoch, loss, step)
+                        step += n_steps
+                        pending = (step, loss)
+                        if not first_done:  # a relaunch's time to work
+                            first_done = True
+                            if cuda:
+                                torch.cuda.synchronize(self.device)
+                            log(f"first dispatch done: steps {prev[3]}-"
+                                f"{step - 1}, "
+                                f"{time.perf_counter() - fit_t0:.3f}s into "
+                                "fit")
+                        if cfg.checkpoint_every and (
+                                step // cfg.checkpoint_every
+                                > prev[3] // cfg.checkpoint_every):
+                            # the snapshot syncs anyway: the monitor sees
+                            # this dispatch first, and a bad streak skips
+                            # it (it would rotate out the rollback target)
+                            if observe():
+                                rolled_back = True
+                                break
+                            if monitor is None or monitor.consecutive == 0:
+                                with watchdog.suspended():
+                                    self.save()
+                    if rolled_back:
+                        epoch, mid_epoch_start = divmod(step, spe)
+                        continue
+                    if loss is not None:
+                        last_loss = float(loss)
+                    if shutdown.requested:
+                        break
+                    log(f"epoch {epoch + 1}: loss {last_loss:.6f} "
+                        f"({time.perf_counter() - epoch_t0:.3f}s)")
+                    if (self.val_data is not None and cfg.eval_every
+                            and (epoch + 1) % cfg.eval_every == 0):
+                        with watchdog.suspended():
+                            ev = self.evaluate(self.val_data)
+                        log("validation: " + ", ".join(
+                            f"{k} {v:.6f}" for k, v in sorted(ev.items())))
+                        self.metrics.write({
+                            "step": step, "epoch": epoch,
+                            **{f"val_{k}": v for k, v in ev.items()}})
+                    epoch += 1
+                if prev is not None and cfg.log_every and \
+                        prev[0] // cfg.log_every > prev[3] // cfg.log_every:
+                    self.metrics.write({"step": prev[0], "epoch": prev[1],
+                                        "loss": last_loss,
+                                        "samples_per_sec": thr.samples_per_sec})
+                with watchdog.suspended():
+                    self.save(final=True)
+        except BaseException:
+            self.metrics.close()    # an aborted run's records stay on disk
+            raise
+        finally:
+            # an escaping exception (AnomalyAbort, a failed write) keeps
+            # the dispatch generator alive in its traceback: release its
+            # prefetch thread now
+            if dispatches is not None and hasattr(dispatches, "close"):
+                dispatches.close()
         result = {"final_loss": last_loss, "steps": step,
                   "samples_per_sec": thr.samples_per_sec}
+        if shutdown.requested:
+            shutdown_s = time.monotonic() - shutdown.t_signal
+            result.update(preempted=True, shutdown_s=shutdown_s)
+            if shutdown.noticed:
+                result["preempt_notice"] = True
+                log(f"preemption notice (signal {shutdown.signum}, grace "
+                    f"{shutdown.grace_s or 0:.1f}s): final checkpoint at "
+                    f"step {step}, exiting 47 (decommission), "
+                    f"{shutdown_s:.3f}s after the signal")
+            else:
+                log(f"preempted (signal {shutdown.signum}): final "
+                    f"checkpoint at step {step}, exiting 0, "
+                    f"{shutdown_s:.3f}s after the signal")
+        if monitor is not None:
+            result["rollbacks"] = monitor.rollbacks
+            result["bad_steps"] = monitor.bad_steps
+        if self.guarded:    # read once, off the hot path
+            result["skipped_updates"] = int(self.state.opt_state.skipped)
         fwd = getattr(self.model, "fwd_flops", None)
         if fwd is not None:
             sample = (1,) + tuple(self.data["x"].shape[1:])

@@ -37,14 +37,22 @@ sequence parallelism); under update sharding the Trainer hands ``save``
 the gathered global padded opt-state arrays (the JAX package's zero1 and
 ``sharded`` snapshot layout) and slices what ``restore`` returns.  A
 snapshot whose padding or layout differs from the template's is refused,
-naming the elastic reshard.  Not ported: the orbax layout, the elastic
-reshard itself and I/O fault injection.
+naming the elastic reshard.
+
+I/O fault injection (``utils.faults``: ``torn_ckpt``, ``ckpt_ioerr``):
+:func:`inject_io_fault` arms the next write to publish its payload
+without a manifest and die by SIGKILL, or to raise ``OSError`` (through
+the async error channel for an async save).  Not ported: the orbax
+layout and the elastic reshard itself.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
+import signal
+import sys
 import threading
 from pathlib import Path
 from typing import Any, Iterator, List, Optional, Tuple
@@ -70,6 +78,32 @@ _async_errors: List[BaseException] = []
 
 # (path, host array as stored, true dtype name) per leaf, in JAX order
 HostLeaves = List[Tuple[str, np.ndarray, str]]
+# armed I/O faults (utils.faults: torn_ckpt / ckpt_ioerr), consumed by the
+# next writes in order
+_io_fault: List[str] = []
+
+
+def inject_io_fault(kind: str) -> None:
+    """Arm a writer fault (``torn_ckpt`` | ``ckpt_ioerr``) for the next
+    snapshot write."""
+    if kind not in ("torn_ckpt", "ckpt_ioerr"):
+        raise ValueError(f"unknown checkpoint I/O fault {kind!r}")
+    _io_fault.append(kind)
+
+
+def _die_torn(d: Path, tmp: Path, target: Path, step: int) -> None:
+    """The injected torn write: publish the payload WITHOUT a manifest
+    (what a non-atomic writer leaves when the machine dies between the
+    payload and the commit marker), then die by SIGKILL.  A restore
+    treats the dir as uncommitted and falls back past it."""
+    if target.exists():
+        shutil.rmtree(target)
+    tmp.rename(target)
+    ckpt_manifest.fsync_path(d)
+    print(f"[faults] injected torn checkpoint write at step {step}: "
+          f"published {target.name} without a manifest, dying (SIGKILL)",
+          file=sys.stderr, flush=True)
+    os.kill(os.getpid(), signal.SIGKILL)
 
 
 def _rank() -> int:
@@ -226,6 +260,9 @@ def _write_npz(d: Path, step: int, host: HostLeaves, keep: int,
     read-back, everything is fsync'd, the manifest is written last, and
     one rename publishes the snapshot."""
     with _write_lock:
+        fault = _io_fault.pop(0) if _io_fault else None
+        if fault == "ckpt_ioerr":
+            raise OSError(f"injected ckpt_ioerr fault (step {step})")
         target = d / f"{_CKPT_PREFIX}{step}"
         tmp = d / f"{_TMP_PREFIX}{step}"
         d.mkdir(parents=True, exist_ok=True)
@@ -237,6 +274,8 @@ def _write_npz(d: Path, step: int, host: HostLeaves, keep: int,
         (tmp / LEAVES).write_text(json.dumps([p for p, _, _ in host]))
         (tmp / "meta.json").write_text(json.dumps(
             {"step": step, "format": "npz", **extra_meta}))
+        if fault == "torn_ckpt":
+            _die_torn(d, tmp, target, step)
         ckpt_manifest.commit(
             tmp, {"step": step, "format": "npz", "leaves": len(host),
                   "saved_world": extra_meta.get("saved_world")})
@@ -430,12 +469,14 @@ def _from_host(a: np.ndarray, dtype_name: str, like) -> Any:
     on the template's device."""
     if not isinstance(like, torch.Tensor):
         return int(a)
+    # ascontiguousarray makes a 0-d array 1-d: reshape back
     if dtype_name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.to(like.device).requires_grad_(like.requires_grad)
+    return t.reshape(a.shape).to(like.device).requires_grad_(
+        like.requires_grad)
 
 
 def _load(path: Path, template: Any, prefix: bool) -> Any:

@@ -80,7 +80,7 @@ SMALL_LM = dict(vocab_size=64, max_seq_len=32, n_layers=2, d_model=32,
 def make_state(step=0, in_features=2):
     model = MLP(in_features=in_features, hidden=(3,), out_features=1,
                 device="cpu")
-    opt = optim.sgd(lr=0.1, momentum=0.9)
+    opt = optim.sgd(lr=0.1, momentum=0.9, steps=0)
     state = TrainState.from_params(model.init(prng.init_generator(0)), opt)
     return state._replace(step=step)
 
@@ -180,7 +180,7 @@ def test_template_mismatch_fails_loudly(tmp_path, kind):
     else:
         model = MLP(device="cpu")
         other = TrainState.from_params(model.init(prng.init_generator(0)),
-                                       optim.adam(1e-3))
+                                       optim.adam(1e-3, steps=0))
     with pytest.raises(ValueError, match=kind):
         ckpt.restore(str(tmp_path), other)
 
@@ -366,7 +366,7 @@ def _port_lm_template(param_dtype):
     cfg = TransformerConfig(**SMALL_LM, param_dtype=param_dtype)
     model = Transformer(cfg, device="cpu")
     return TrainState.from_params(model.init(prng.init_generator(0)),
-                                  optim.adam(1e-3))
+                                  optim.adam(1e-3, steps=0))
 
 
 def _assert_matches_jax(port_tree, jax_tree):
@@ -410,7 +410,7 @@ def test_port_snapshot_restores_through_jax(tmp_path, dtype):
     jtemplate = _jax_lm_state(getattr(jnp, dtype))
     cfg = TransformerConfig(**SMALL_LM, param_dtype=getattr(torch, dtype))
     params = params_from_jax(jax.device_get(jtemplate.params), cfg, "cpu")
-    state = TrainState.from_params(params, optim.adam(1e-3))
+    state = TrainState.from_params(params, optim.adam(1e-3, steps=0))
     # distinct values in every leaf: a training step's worth of update
     with torch.no_grad():
         for _, p in ckpt.flatten(state.params):

@@ -11,7 +11,8 @@ atol: f32 on both sides, summation order only); the LM with Adam within
 the tolerance JAX's own k = 2 LM tests use against k = 1 (atol 1e-3, rtol
 1e-2: Adam's grad / sqrt(v) turns f32 summation noise in near-zero
 second moments into visible steps), its losses within 1e-5.  Also: the
-optimizer's device scalars bitwise against the Python-float update, the
+optimizer's scalars, read on the device at its count, bitwise against
+the Python-float update, the
 checkpoint crossing rule, a resume in the middle of a group and the
 refusals.
 """
@@ -317,7 +318,7 @@ def _python_float_update(name, lr, grads, params, state):
 def test_device_scalars_are_the_python_floats_bitwise(name):
     lr = schedules.make("cosine", 3e-3, total_steps=7, warmup_steps=2,
                         min_lr=1e-4)
-    opt = optim.make(name, lr, momentum=0.9)
+    opt = optim.make(name, lr, momentum=0.9, steps=7)
     rng = np.random.default_rng(0)
     shapes = [(5, 3), (3,), (7,)]
     params = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
@@ -330,15 +331,12 @@ def test_device_scalars_are_the_python_floats_bitwise(name):
     for _ in range(7):
         grads = [torch.tensor(rng.standard_normal(s), dtype=torch.float32)
                  for s in shapes]
-        scal = optim.device_scalars(opt.scalars(state.count), params[0])
-        params, state = opt.update(grads, state, params, scal)
+        params, state = opt.update(grads, state, params)
         _python_float_update(name, lr, grads, ref, ref_state)
         _assert_bitwise(params, ref)
-    assert state.count == ref_state["count"] == 7
-    # the scalars are f32 values of the Python ones
-    vals = opt.scalars(3)
-    assert vals.dtype == np.float32
-    assert vals[0] == np.float32(lr(3))
+    # the count is JAX's leaf: a 0-d int32 tensor, advanced on the device
+    assert state.count.dtype == torch.int32 and state.count.dim() == 0
+    assert int(state.count) == ref_state["count"] == 7
 
 
 # ---------------------------------------------------------------------------

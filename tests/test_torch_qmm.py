@@ -48,6 +48,7 @@ Tolerances:
   CUDA-graph-free bf16 no-op): bitwise.
 """
 
+import functools
 import os
 import pickle
 import subprocess
@@ -376,7 +377,7 @@ def _port_train(fmt, batches, p0, attention="dense", **kw):
     model = Transformer(TransformerConfig(**SMALL_LM, matmul_dtype=fmt,
                                           attention=attention, **kw),
                         device="cpu")
-    opt = optim.sgd(0.1, 0.9)
+    opt = optim.sgd(0.1, 0.9, steps=len(batches))
     state = TrainState.from_params(params_from_jax(p0, model.cfg, "cpu"),
                                    opt, model)
     step = dp.make_train_step(model, opt, world_setup("cpu"),
@@ -415,7 +416,7 @@ def test_bf16_default_is_exact_noop():
     for kw in ({}, {"matmul_dtype": "bf16"}):
         model = Transformer(TransformerConfig(**SMALL_LM, attention="dense",
                                               **kw), device="cpu")
-        opt = optim.sgd(0.1, 0.9)
+        opt = optim.sgd(0.1, 0.9, steps=len(batches))
         state = TrainState.from_params(params_from_jax(p0, model.cfg, "cpu"),
                                        opt, model)
         assert state.qstate == () and len(ckpt.flatten(state.qstate)) == 0
@@ -567,6 +568,7 @@ def _sp_flags(fmt):
     return flags + (["--ce_chunk", "8"] if fmt == "int8" else [])
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_sp_trajectory(fmt):
     """JAX's Trainer on a data=1 x seq=2 mesh (each seq shard quantizes
     its own rows and the fp8 observations are pmax'd over 'seq'): init
@@ -592,11 +594,9 @@ def test_sp2_process_ranks_match_jax_seq2(tmp_path):
     maxed over the seq ranks.  Both ranks hold the same params and
     histories, bitwise, and JAX's seq=2 trajectory within the bounds of
     the module docstring.  Readings: int8 losses 3.8e-5, params' change
-    5.2e-4; fp8 1.1e-7 and 8.0e-7.  Control: one process over a
-    ``LocalSeqGroup(2)`` (scales over the whole sequence) reads fp8
-    params' change 2.1e-2, past the bound; int8's 3.7e-3 stays within
-    it (the whole-sequence dw scales move the update less than a code
-    flip does)."""
+    5.2e-4; fp8 1.1e-7 and 8.0e-7.  One process over a
+    ``LocalSeqGroup(2)`` quantizes shard by shard too
+    (:func:`test_local_seq_group_matches_jax_seq2`)."""
     want = {fmt: _jax_sp_trajectory(fmt) for fmt in FORMATS}
     with open(tmp_path / "sp_in.pkl", "wb") as f:
         pickle.dump({fmt: (_sp_flags(fmt), want[fmt][0]) for fmt in FORMATS},
@@ -624,6 +624,35 @@ def test_sp2_process_ranks_match_jax_seq2(tmp_path):
                             jstate, init)
         if fmt == "fp8":
             assert all(h[0] > 0 for h in a["qstate"]["amax"].values())
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_local_seq_group_matches_jax_seq2(fmt):
+    """One process over a ``LocalSeqGroup(2)`` holds both halves of every
+    sequence; its quantized Linears compute dw (int8's column scales) and
+    the e5m2 gradient scale (fp8) per shard, as two ranks would, and sum
+    the shards' dw in f32.  So it follows JAX's seq=2 trajectory within
+    the bounds ``test_sp2_process_ranks_match_jax_seq2`` holds the
+    ``ProcessSeqGroup`` ranks to.  Before the per-shard backward (scales
+    over the whole sequence) the params' change read 3.7e-3 (int8) and
+    2.1e-2 (fp8, past the bound of 1e-2)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    init, jl, jstate = _jax_sp_trajectory(fmt)
+    trainer = Trainer(config_from_args(build_argparser().parse_args(
+        _sp_flags(fmt))), device="cpu", seq_group=LocalSeqGroup(2))
+    assert trainer.loader.sp == 1 and trainer.model._seq_shards == 2
+    trainer.state = TrainState.from_params(
+        params_from_jax(init, trainer.model.cfg, "cpu"), trainer.optimizer,
+        trainer.model)
+    losses = []
+    for epoch in range(2):
+        for batch in trainer.loader.epoch(epoch):
+            trainer.state, loss = trainer.train_step(trainer.state, batch)
+            losses.append(float(loss))
+    _assert_train_close(fmt, losses, jl, trainer.state, jstate, init)
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +753,7 @@ def test_pre_qstate_snapshot_restores(tmp_path):
     of a non-fp8 model (its leaves are the same); an fp8 template, which
     has more leaves, refuses it as JAX does."""
     _, m = _models("bf16")
-    opt = optim.sgd(1e-2, 0.9)
+    opt = optim.sgd(1e-2, 0.9, steps=0)
     real = TrainState.create(m, opt, torch.Generator().manual_seed(0))
     ckpt.save(str(tmp_path), LegacyTrainState(3, real.params,
                                               real.opt_state))

@@ -267,7 +267,7 @@ def test_scan_logits_match_loop_and_jax():
 
 
 def _port_trajectory(model, params, batches):
-    opt = optim.sgd(1e-2, 0.9)
+    opt = optim.sgd(1e-2, 0.9, steps=len(batches))
     state = TrainState.from_params(params, opt)
     step = dp.make_train_step(model, opt, world_setup("cpu"),
                               loss_name="cross_entropy")
@@ -366,7 +366,7 @@ def test_scan_interop_round_trips_a_jax_train_state():
 def _port_scan_state():
     model = _port(scan_layers=True)
     return TrainState.from_params(model.init(torch.Generator().manual_seed(0)),
-                                  optim.adam(1e-3))
+                                  optim.adam(1e-3, steps=0))
 
 
 def test_scan_snapshot_paths_are_jaxs(tmp_path):
@@ -440,7 +440,7 @@ def test_remat_scan_striped_flash_equals_flash():
         tree = dict(jp, blocks=_stack(jp["blocks"])) if group else jp
         params = params_from_jax(tree, model.cfg, "cpu")
         perm = striped_permutation(32, 4) if group else None
-        opt = optim.sgd(1e-2, 0.9)
+        opt = optim.sgd(1e-2, 0.9, steps=len(batches))
         state = TrainState.from_params(params, opt)
         step = dp.make_train_step(model, opt, world_setup("cpu"),
                                   loss_name="cross_entropy")

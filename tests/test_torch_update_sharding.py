@@ -238,10 +238,11 @@ def test_bf16_params_without_master_keep_f32_slots():
     t = Trainer(job(pconfig, "sharded", data=1, param_dtype="bfloat16"),
                 device="cpu")
     t.init_state()
-    before = [x.dtype for x in leaves(t.state.opt_state)]
+    # the slots (every leaf but the optimizer's 0-d int32 count)
+    before = [x.dtype for x in leaves(t.state.opt_state) if x.dim()]
     assert set(before) == {torch.float32}
     t.fit()
-    assert [x.dtype for x in leaves(t.state.opt_state)] == before
+    assert [x.dtype for x in leaves(t.state.opt_state) if x.dim()] == before
     assert {p.dtype for p in leaves(t.state.params)} == {torch.bfloat16}
 
 
@@ -249,7 +250,7 @@ def test_master_weights_init_copies_f32_params():
     """The master never aliases an f32 param it shadows (.float() of an
     f32 tensor is that tensor)."""
     params = {"w": torch.ones(3, 2)}
-    state = optim.with_master_weights(optim.sgd(0.1)).init(params)
+    state = optim.with_master_weights(optim.sgd(0.1, steps=0)).init(params)
     assert state.master["w"] is not params["w"]
     assert state.master["w"].data_ptr() != params["w"].data_ptr()
     assert state.count == 0
@@ -308,7 +309,7 @@ def test_restore_template_is_global_on_the_host():
     from one rank's slices with no collective; each rank then takes only
     its own slice of the restored arrays."""
     params = {"w": torch.zeros(65, 65), "b": torch.zeros(3)}
-    opt = optim.adam(1e-3)
+    opt = optim.adam(1e-3, steps=0)
     plan = us.plan_updates(params, 2)
     for index in (0, 1):
         local, layout = us.init_opt_state(opt, params, plan, 2, index)
@@ -330,7 +331,7 @@ def test_other_padding_names_elastic(tmp_path):
     replicated layout's shapes under the 2-rank sharded template) is
     refused with JAX's message naming --elastic."""
     params = {"w": torch.zeros(65, 65)}
-    opt = optim.adam(1e-3)
+    opt = optim.adam(1e-3, steps=0)
     ckpt.save(str(tmp_path), TrainState.from_params(params, opt))
     local, _ = us.init_opt_state(opt, params, us.plan_updates(params, 2),
                                  2, 0)
@@ -377,7 +378,7 @@ def test_update_sharding_implies_global_mean(layout):
     with pytest.raises(ValueError, match="global_mean"):
         Trainer(cfg, device="cpu")
     with pytest.raises(ValueError, match="global-mean"):
-        dp.make_train_step(None, optim.sgd(0.1), world_setup("cpu"),
+        dp.make_train_step(None, optim.sgd(0.1, steps=0), world_setup("cpu"),
                            grad_reduction="per_shard_mean",
                            update_sharding=layout)
 
@@ -392,5 +393,5 @@ def test_adafactor_stays_refused_under_update_sharding():
 
 def test_replicated_step_refuses_grad_clip():
     with pytest.raises(ValueError, match="with_clipping"):
-        dp.make_train_step(None, optim.sgd(0.1), world_setup("cpu"),
+        dp.make_train_step(None, optim.sgd(0.1, steps=0), world_setup("cpu"),
                            grad_clip=1.0)

@@ -61,7 +61,7 @@ def build(layout, fmt, init, world):
     cfg = TransformerConfig(**SMALL_LM, matmul_dtype=fmt,
                             attention="ring" if seq else "dense")
     model = Transformer(cfg, device="cpu", seq_group=seq)
-    opt = optim.adam(1e-2)
+    opt = optim.adam(1e-2, steps=STEPS)
     params = params_from_jax(init, cfg, "cpu")
     sharding = {"zero1": "zero1", "sharded": "sharded"}.get(layout,
                                                            "replicated")

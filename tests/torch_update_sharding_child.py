@@ -113,7 +113,9 @@ def main():
         return TrainState(t.state.step, t.state.params, global_opt(t))
 
     def shapes(tree):
-        return [tuple(x.shape) for x in leaves(tree)]
+        """The shapes of the leaves that hold values per element (not the
+        optimizer's 0-d count, which every rank holds whole)."""
+        return [tuple(x.shape) for x in leaves(tree) if x.dim()]
 
     out = {}
     if size == 4:       # DP x SP

@@ -233,19 +233,53 @@ Phases, each printing its own lines; any failure exits non-zero:
               and nu) bitwise unchanged across each faulted step and the
               count that picks the lr row not advanced, graphed == eager
               bitwise.  (c) a rollback (see ``guard_rollback``): one, to
-              the step-8 snapshot, order_salt 1, no re-capture; its
+              the step-8 snapshot, order_salt 1, no re-capture (traced:
+              one train_step event in the compile ledger); its
               restore s.  (d) the CLI as subprocesses: SIGTERM at step 7
               -> exit 0 with the step-13 snapshot, then ``--resume`` ends
               bitwise at phase 7's final params; ``--supervise 2`` with
-              a crash at step 20 relaunches once, resumes from step 13,
+              a crash at step 20 (and ``--telemetry_dir --trace``, read
+              by phase 20 (d)) relaunches once, resumes from step 13,
               ends bitwise there too; ``--rollback_after 1
               --max_rollbacks 0`` with a NaN at step 5 exits 44, not
-              retried; seconds from the signal to the snapshot and the
-              exit, and from a (re)launch to its first step.  (e) 2
+              retried (run beside (e)); seconds from the signal to the
+              snapshot and the exit, and from a (re)launch to its first
+              step.  (e) 2
               layers, ``--hang_timeout 10 --faults peer_hang@4``: exit 42
               with the threads' stacks, 10-30 s after the hang.  A
               ``resilience:`` JSON line holds the phase's numbers; the
               flash kernels' launches count phase 19's in-process runs.
+              (e)'s run has ``--telemetry_dir``: its flight recorder
+              writes ``postmortem.json`` (reason ``hang``) before exit 42.
+
+20. observability — phase 7's job with ``--telemetry_dir --trace
+              --metrics_every 1 --rollup_every 13``.  (a) against the
+              same run without them, graphed (k 13, 3 epochs) and eager
+              (2 epochs), each as the alternating pairs on, off, off,
+              on: final params, mu and nu of all four bitwise equal;
+              each run's step ms, the medians and the overhead between
+              them, peak memory, the host's launch calls per step, the
+              busy share graphed; ``metrics.jsonl``
+              holds one record per dispatch with every metric, the
+              records' MFU (989 TFLOP/s row, host wall) within 10% of
+              this script's (CUDA events), a rollup and a goodput record
+              (graphed: with its step anatomy) every 13 steps, a
+              heartbeat, exactly one capture event in the ledger;
+              ``tools/metrics_summary.py``, ``trace_report.py`` and
+              ``goodput_report.py`` read the directory; then graphed with
+              ``--skip-nonfinite --faults nan@5``: skipped reads 1 at both
+              dispatch ends and the flight recorder holds one skip.  (b)
+              f32, 2 layers, T 128: the card's metrics against the
+              host's within 1e-4 relative, flash and striped_flash over
+              ``LocalSeqGroup(4)`` (B5).  (c) ``--profile_dir``: a Chrome
+              trace of 3 steps naming B1-B3's and Adam's ``_foreach``
+              kernels; the profiler's cost per step.  (d) phase 19 (e)'s
+              hang postmortem, and phase 19 (d)'s supervised crash (run
+              with ``--telemetry_dir --trace``): the postmortem pointer,
+              and ``tools/trace_report.py`` merging the two
+              incarnations.  An
+              ``observability:`` JSON line holds the phase's numbers; the
+              flash kernels' launches count phase 20's in-process runs.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
@@ -2181,11 +2215,18 @@ def reference_job(card="auto"):
     """The reference's job as its README runs it, on the card
     (``--platform auto``) and on the host (``--platform cpu``): rc 0,
     three ``epoch n: loss`` lines, the same losses."""
-    losses = {}
-    for platform in (card, "cpu"):
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(platform):
         t0 = time.perf_counter()
         proc = run_cli(REFERENCE_JOB + ["--platform", platform])
-        secs = time.perf_counter() - t0
+        return proc, time.perf_counter() - t0
+
+    # the two processes run side by side (their seconds overlap)
+    with ThreadPoolExecutor(2) as pool:
+        runs = list(pool.map(run, (card, "cpu")))
+    losses = {}
+    for platform, (proc, secs) in zip((card, "cpu"), runs):
         got = epoch_losses(proc.stdout)
         print(f"reference job --platform {platform}: rc {proc.returncode}, "
               f"{secs:.1f} s, epoch losses {got}", flush=True)
@@ -2358,13 +2399,21 @@ def resume_full_width(torch, np, device, straight, **over):
         # --generate from the snapshot, as a user runs it: greedy, then
         # sampled (a near-constant greedy continuation of a barely trained
         # LM says little; the draws follow the whole distribution)
-        for temperature in (0.0, 1.0):
+        # the two processes run side by side (their seconds overlap)
+        from concurrent.futures import ThreadPoolExecutor
+
+        def cli_generate(temperature):
             t0 = time.perf_counter()
             proc = run_cli(train_flags(checkpoint_dir=ck, **over) + [
                 "--generate", ",".join(map(str, PROMPT)),
                 "--max_new_tokens", "32", "--temperature", str(temperature),
                 "--seed", "7"])
-            out[f"generate_s_t{temperature}"] = time.perf_counter() - t0
+            return proc, time.perf_counter() - t0
+
+        with ThreadPoolExecutor(2) as pool:
+            runs = list(pool.map(cli_generate, (0.0, 1.0)))
+        for temperature, (proc, secs) in zip((0.0, 1.0), runs):
+            out[f"generate_s_t{temperature}"] = secs
             if proc.returncode != 0:
                 raise AssertionError(f"--generate: rc {proc.returncode}\n"
                                      f"{proc.stdout[-2000:]}\n"
@@ -3896,30 +3945,42 @@ def guard_rollback(torch, device):
     (a dispatch boundary at every snapshot step; the faults fire once, or
     the rolled-back window would replay them): exactly one rollback, to
     the step-8 snapshot, ``order_salt`` 1, no re-capture of the graph,
-    every loss after it finite; the restore's seconds."""
+    every loss after it finite; the restore's seconds.  The run is traced
+    (``--trace_dir``): the compile ledger holds one train_step event, the
+    capture, and none for the rollback."""
+    import glob
     import tempfile
+
+    def inspect(t):
+        events = [e for f in glob.glob(f"{tmp}/trace/compiles-*.jsonl")
+                  for e in _jsonl(f) if e["name"].startswith("train_step")]
+        return dict(salt=t.loader.order_salt, rolled=t.rollbacks,
+                    ledger_events=len(events))
 
     with tempfile.TemporaryDirectory() as tmp:
         r = res_fit(torch, device, "rollback", steps_per_dispatch=4,
                     checkpoint_dir=f"{tmp}/ck", checkpoint_every=8,
                     **{"async-checkpoint": True},
                     rollback_after=2, faults="nan@9?max=1,nan@10?max=1",
-                    inspect=lambda t: dict(salt=t.loader.order_salt,
-                                           rolled=t.rollbacks))
+                    trace_dir=f"{tmp}/trace", inspect=inspect)
     losses = [x["loss"] for x in r["records"] if "loss" in x]
     last_bad = max(i for i, x in enumerate(losses) if not math.isfinite(x))
     after = losses[last_bad + 1:]
     print(f"rollback: {r['result']['rollbacks']} rollback(s) "
           f"{r['rolled']}, order_salt {r['salt']}, graph captures "
-          f"{r['captures']}; losses "
+          f"{r['captures']}, train_step events in the compile ledger "
+          f"{r['ledger_events']}; losses "
           f"logged {[round(x, 4) for x in losses]}", flush=True)
-    # the card captures the step once (the host runs no graph)
+    # the card captures the step once (the host runs no graph, and its
+    # ledger holds the eager step's one signature event)
     captures = 1 if device.type == "cuda" else 0
     if (r["result"]["rollbacks"] != 1 or [x["step"] for x in r["rolled"]]
             != [8] or r["salt"] != 1 or r["captures"] != captures
+            or r["ledger_events"] != 1
             or not after or not all(math.isfinite(x) for x in after)):
         raise AssertionError("rollback: expected one rollback to step 8, "
-                             "salt 1, one capture and finite losses after")
+                             "salt 1, one capture (one ledger event) and "
+                             "finite losses after")
     return dict(rollbacks=1, to_step=8, order_salt=1, recaptures=0,
                 restore_s=r["rolled"][0]["seconds"],
                 losses_after=len(after)), r["launches"]
@@ -3968,7 +4029,7 @@ def guard_cli(torch, device, straight):
     bitwise at phase 7's final params; ``--supervise 2`` with a crash at
     step 20 (once) relaunches once, resumes from the step-13 snapshot and
     ends bitwise there too; ``--rollback_after 1 --max_rollbacks 0`` with
-    a NaN at step 5 exits 44, not retried."""
+    a NaN at step 5 exits 44, not retried (``guard_abort``)."""
     import tempfile
     from pathlib import Path
 
@@ -4025,7 +4086,8 @@ def guard_cli(torch, device, straight):
         rc, lines, wall = _timed_cli(base + [
             f"--checkpoint_dir={ck}", f"--checkpoint_every={DISPATCH_K}",
             f"--faults=crash@20?once={tmp}/crashed", "--supervise=2",
-            "--supervise_backoff=0.1"])
+            "--supervise_backoff=0.1", f"--telemetry_dir={tmp}/t",
+            "--trace"])
         attempts = [line for _, line in lines if "[supervise] attempt" in line]
         if rc != 0 or len(attempts) != 2:
             _fail_cli("supervise crash", rc, lines)
@@ -4033,34 +4095,52 @@ def guard_cli(torch, device, straight):
         t_step = next(t for t, line in lines
                       if "first dispatch done" in line and t > t_re)
         out["supervise"] = dict(relaunch_to_first_step_s=t_step - t_re,
-                                wall_s=wall, attempts=2)
+                                wall_s=wall, attempts=2,
+                                **obs_crash_merge(f"{tmp}/t", lines))
         final_bitwise(ck, "supervise crash + resume")
 
-        rc, lines, wall = _timed_cli(base + [
-            "--rollback_after=1", "--max_rollbacks=0", "--faults=nan@5",
-            "--supervise=2", "--supervise_backoff=0.1"])
-        text = "\n".join(line for _, line in lines)
-        if rc != 44 or "not retrying" not in text or \
-                "[supervise] attempt 2" in text:
-            _fail_cli("anomaly abort", rc, lines)
-        out["abort"] = dict(rc=rc, wall_s=wall, attempts=1)
     print(f"cli: sigterm at step 7 -> snapshot "
           f"{out['sigterm']['signal_to_snapshot_s']:.3f} s, exit "
           f"{out['sigterm']['signal_to_exit_s']:.2f} s after the signal; "
           f"resume to first step "
           f"{out['sigterm']['start_to_first_step_s']:.2f} s; supervised "
           f"relaunch to first step "
-          f"{out['supervise']['relaunch_to_first_step_s']:.2f} s; anomaly "
-          f"abort exit 44, one attempt", flush=True)
+          f"{out['supervise']['relaunch_to_first_step_s']:.2f} s", flush=True)
     return out
 
 
+def guard_abort():
+    """(d) ``--rollback_after 1 --max_rollbacks 0`` with a NaN at step 5
+    under ``--supervise 2``: exit 44, not retried."""
+    rc, lines, wall = _timed_cli(train_flags(steps_per_dispatch=DISPATCH_K)
+                                 + ["--rollback_after=1", "--max_rollbacks=0",
+                                    "--faults=nan@5", "--supervise=2",
+                                    "--supervise_backoff=0.1"])
+    text = "\n".join(line for _, line in lines)
+    if rc != 44 or "not retrying" not in text or \
+            "[supervise] attempt 2" in text:
+        _fail_cli("anomaly abort", rc, lines)
+    print(f"cli: anomaly abort exit 44, one attempt ({wall:.1f} s)",
+          flush=True)
+    return dict(rc=rc, wall_s=wall, attempts=1)
+
+
 def guard_watchdog():
-    """(e) ``--hang_timeout 10 --faults peer_hang@4`` at 2 layers: exit
-    42 with the stack dump, 10-30 s after the hang."""
-    rc, lines, wall = _timed_cli(train_flags(
-        n_layers=2, steps_per_dispatch=DISPATCH_K, hang_timeout=10,
-        faults="peer_hang@4"), timeout=300)
+    """(e) ``--hang_timeout 10 --faults peer_hang@4`` at 2 layers, with
+    ``--telemetry_dir``: exit 42 with the stack dump, 10-30 s after the
+    hang, and the flight recorder's ``postmortem.json`` (reason ``hang``)
+    written before the exit (phase 20 (d) reads it)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, lines, wall = _timed_cli(train_flags(
+            n_layers=2, steps_per_dispatch=DISPATCH_K, hang_timeout=10,
+            faults="peer_hang@4", telemetry_dir=tmp), timeout=300)
+        try:
+            with open(f"{tmp}/postmortem.json") as f:
+                pm = json.load(f)
+        except (OSError, ValueError):
+            pm = {}
     t_hang = _first(lines, "injected peer_hang")
     t_fire = _first(lines, "HANG DETECTED")
     text = "\n".join(line for _, line in lines)
@@ -4069,10 +4149,17 @@ def guard_watchdog():
         _fail_cli("watchdog", rc, lines)
     secs = wall - t_hang
     print(f"watchdog: exit 42 {secs:.2f} s after the hang (fired at "
-          f"{t_fire - t_hang:.2f} s), stack dump printed", flush=True)
+          f"{t_fire - t_hang:.2f} s), stack dump printed; postmortem "
+          f"reason {pm.get('reason')!r}, {pm.get('n_records')} records",
+          flush=True)
     if not 10.0 <= secs <= 30.0:
         raise AssertionError(f"watchdog: exit {secs:.2f} s after the hang")
-    return dict(rc=42, hang_to_exit_s=secs, hang_to_fire_s=t_fire - t_hang)
+    if pm.get("reason") != "hang" or not any(
+            r.get("event") == "emergency" for r in pm.get("records", [])):
+        raise AssertionError(f"watchdog: no hang postmortem ({pm})")
+    return dict(rc=42, hang_to_exit_s=secs, hang_to_fire_s=t_fire - t_hang,
+                postmortem_reason=pm["reason"],
+                postmortem_records=pm["n_records"])
 
 
 def resilience_full_width(torch, np, device, straight):
@@ -4083,8 +4170,442 @@ def resilience_full_width(torch, np, device, straight):
     out["faults"], l2 = guard_faults(torch, device)
     out["rollback"], l3 = guard_rollback(torch, device)
     out["cli"] = guard_cli(torch, device, straight)
-    out["watchdog"] = guard_watchdog()
+    # (d)'s exit-44 run and (e) check exit codes, messages and a hang's
+    # seconds to exit (the watchdog's timeout and poll), not start-up
+    # times: their processes run side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        abort = pool.submit(guard_abort)
+        out["watchdog"] = guard_watchdog()
+        out["cli"]["abort"] = abort.result()
     launches = {w: l1[w] + l2[w] + l3[w] for w in l1}
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 20: observability (telemetry, tracing, the capture ledger, goodput,
+# the profiler, postmortems) on phase 7's job
+# ---------------------------------------------------------------------------
+
+# the telemetry flags of (a): a record per dispatch, the spans and the
+# ledger, a rollup and a goodput record per dispatch of 13 steps
+OBS_FLAGS = dict(trace=True, metrics_every=1, rollup_every=DISPATCH_K)
+# the records' MFU (host wall between dispatches) against this script's
+# (CUDA events): the two clocks measure the same steps
+OBS_MFU_RTOL = 0.10
+# (b): the card's f32 metrics against the host's, summation order only
+OBS_METRICS_RTOL = 1e-4
+OBS_METRICS = ("loss", "grad_norm", "param_norm", "update_ratio")
+# the kernels the profiler's Chrome trace must name (B1-B3 at T 1024 run
+# the serial backward: delta, dq, dkv) and Adam's _foreach kernels
+OBS_TRACE_KERNELS = ("flash_fwd_sm90_kernel", "flash_dq_sm90_kernel",
+                     "flash_dkv_sm90_kernel", "multi_tensor_apply_kernel")
+TOOLS = ("metrics_summary", "trace_report", "goodput_report")
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _obs_inspect(torch, on, profile):
+    """``res_fit``'s inspect: the fit's final state (before anything
+    else runs) and, with ``profile``, the host's launch API calls per
+    step under the profiler (one more dispatch of 13 replays, or 3 eager
+    steps, each with the telemetry's per-dispatch staging when it is on)
+    and, graphed, the device ms of one replay (the host held back)."""
+    def inspect(trainer):
+        cfg = trainer.cfg
+        out = dict(fit_final=[t.detach().cpu().clone()
+                              for t in _state_tensors(trainer)],
+                   step_flops=3.0 * trainer.model.fwd_flops(
+                       (cfg.batch_size, cfg.data.seq_len)),
+                   peak_total=(trainer.telemetry.peak_total if on else None))
+        if not profile:
+            return out
+        k = trainer.k_dispatch
+        # res_fit counts the fit's replays only
+        replays = getattr(trainer.multi_step, "replays", 0)
+        stage = trainer.telemetry._stage
+        if k > 1:
+            groups = trainer.loader.epoch_groups(0, k)
+            batches = next(groups)[0]
+            groups.close()
+
+            def run():
+                trainer.state, o = trainer.multi_step(trainer.state, batches)
+                if on:
+                    stage(o)
+        else:
+            batches = [b for _, b in zip(range(3), trainer.loader.epoch(0))]
+
+            def run():
+                for b in batches:
+                    trainer.state, o = trainer.train_step(trainer.state, b)
+                    if on:
+                        stage(o)
+        out["profile"] = launch_profile(torch, run, len(batches))
+        if k > 1 and trainer.device.type == "cuda":
+            out["replay_ms"] = time_ms(torch, trainer.multi_step.graph.replay,
+                                       10)
+            trainer.multi_step.replays = replays
+        return out
+    return inspect
+
+
+def _run_tool(tool, path):
+    # goodput_report's text view raises on every ledger (its glyph table
+    # lacks the "recovery" category); its --json view reads the same
+    # ledger
+    extra = ["--json"] if tool == "goodput_report" else []
+    proc = subprocess.run([sys.executable, str(REPO_ROOT / "tools" /
+                                               f"{tool}.py"), str(path),
+                           *extra],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(REPO_ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/{tool}.py {path}: rc "
+                             f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def obs_on_off(torch, device):
+    """(a) phase 7's job with the telemetry flags against the same run
+    without them, graphed (k 13, 3 epochs: the third dispatch is the
+    first whose record's host time is a whole dispatch of the loop's) and
+    eager (2 epochs), each mode as the alternating pairs on, off, off, on
+    (a drift of the card or the host along the four fits falls on both
+    sides alike): the final params, Adam's mu and nu of all four bitwise
+    equal; each run's step ms, the medians and the overhead between them,
+    peak memory, the host's launch calls per step and, graphed, the busy
+    share (the first run of each side profiled); the records: one per dispatch with
+    every metric and (from the second on) step_time_ms, samples_per_sec
+    and an mfu on the 989 TFLOP/s row within 10% of this script's; a
+    rollup and a goodput record (with its step anatomy) every 13 steps, a
+    heartbeat, exactly one capture in the ledger; the tools read the
+    directory.  Then graphed with ``--skip-nonfinite --faults nan@5``:
+    skipped reads 1 at every record, and the flight recorder holds the
+    skip."""
+    import shutil
+    import tempfile
+
+    import statistics
+
+    out, launches = {}, None
+    for mode, k, epochs in (("graphed", DISPATCH_K, 3), ("eager", 1, 2)):
+        runs = {True: [], False: []}
+        for on in (True, False, False, True):
+            tdir = tempfile.mkdtemp() if on else None
+            extra = dict(OBS_FLAGS, telemetry_dir=tdir) if on else {}
+            r = res_fit(torch, device, f"obs {mode} {'on' if on else 'off'}",
+                        inspect=_obs_inspect(torch, on, not runs[on]),
+                        nepochs=epochs, steps_per_dispatch=k, **extra)
+            r["tdir"] = tdir
+            runs[on].append(r)
+            launches = r["launches"] if launches is None else {
+                w: launches[w] + r["launches"][w] for w in launches}
+        on, off = runs[True][0], runs[False][0]
+        for r in runs[True][1:] + runs[False]:
+            if r["losses"] != on["losses"] or not _same_bits(
+                    torch, r["fit_final"], on["fit_final"]):
+                raise AssertionError(f"obs {mode}: telemetry changed the "
+                                     "losses or the final state")
+        shutil.rmtree(runs[True][1]["tdir"], ignore_errors=True)
+        ms_on = [r["step_ms"] for r in runs[True]]
+        ms_off = [r["step_ms"] for r in runs[False]]
+        med_on, med_off = statistics.median(ms_on), statistics.median(ms_off)
+        tdir = on["tdir"]
+        recs = _jsonl(f"{tdir}/metrics.jsonl")
+        steps = [x for x in recs if x["kind"] == "step"]
+        n = on["result"]["steps"]
+        want_steps = list(range(k, n + 1, k))
+        if [x["step"] for x in steps] != want_steps:
+            raise AssertionError(f"obs {mode}: records at "
+                                 f"{[x['step'] for x in steps]}")
+        keys = ("grad_norm", "param_norm", "update_ratio", "skipped", "loss")
+        timed = ("step_time_ms", "samples_per_sec", "mfu")
+        if not all(all(key in x and math.isfinite(x[key]) for key in keys)
+                   for x in steps) or not all(
+                all(key in x for key in timed) for x in steps[1:]):
+            raise AssertionError(f"obs {mode}: a record lacks a metric")
+        if on["peak_total"] != PEAK_FLOPS["torch.bfloat16"]:
+            raise AssertionError(f"obs {mode}: MFU over "
+                                 f"{on['peak_total']:.4g}, not 989e12")
+        # the records' steady MFU: graphed from the third dispatch,
+        # eager from step 4 (the first steps build and warm up)
+        steady = [x["mfu"] for x in steps
+                  if x["step"] > (2 * k if k > 1 else 3)]
+        rec_mfu = sorted(steady)[len(steady) // 2]
+        own_mfu = on["step_flops"] / (on["step_ms"] / 1e3 * PEAK_FLOPS[
+            "torch.bfloat16"])
+        if abs(rec_mfu / own_mfu - 1.0) > OBS_MFU_RTOL:
+            raise AssertionError(f"obs {mode}: the records' MFU "
+                                 f"{rec_mfu:.4f} vs {own_mfu:.4f}")
+        rollups = [x["step"] for x in recs if x["kind"] == "rollup"]
+        goodput = [x for x in recs if x["kind"] == "goodput"]
+        cadence = list(range(DISPATCH_K, n + 1, DISPATCH_K))
+        if sorted(set(rollups)) != cadence or sorted(
+                {x["step"] for x in goodput}) != cadence:
+            raise AssertionError(f"obs {mode}: rollups at {rollups}, "
+                                 f"goodput at "
+                                 f"{[x['step'] for x in goodput]}")
+        # the anatomy joins the capture's flops with a measured step: from
+        # the second record on (the first has no step time yet)
+        anatomy = [x.get("anatomy") for x in goodput]
+        graphs = mode == "graphed" and device.type == "cuda"
+        if graphs and not all(anatomy[1:]):
+            raise AssertionError("obs graphed: a goodput record without "
+                                 "its step anatomy")
+        if not os.path.exists(f"{tdir}/heartbeat-train-p0.json"):
+            raise AssertionError(f"obs {mode}: no heartbeat")
+        captures = [e for e in _jsonl(_one(f"{tdir}/trace/compiles-*.jsonl"))
+                    if e["name"].startswith("train_step")]
+        want_captures = 1
+        if len(captures) != want_captures or (
+                graphs and captures[0]["program"] != "cuda_graph"):
+            raise AssertionError(f"obs {mode}: {len(captures)} train_step "
+                                 "events in the ledger")
+        for tool in TOOLS:
+            _run_tool(tool, tdir if tool == "metrics_summary"
+                      else f"{tdir}/trace")
+        overhead = (med_on / med_off - 1.0) * 100.0
+        # in the order run: on, off, off, on
+        row = dict(step_ms_runs=[ms_on[0], ms_off[0], ms_off[1], ms_on[1]],
+                   step_ms_on=med_on, step_ms_off=med_off,
+                   overhead_pct=overhead,
+                   peak_gib_on=max(r["peak_gib"] for r in runs[True]),
+                   peak_gib_off=max(r["peak_gib"] for r in runs[False]),
+                   launch_calls_per_step_on=on["profile"][
+                       "launch_calls_per_step"],
+                   launch_calls_per_step_off=off["profile"][
+                       "launch_calls_per_step"],
+                   records=len(steps), record_mfu=rec_mfu, own_mfu=own_mfu,
+                   rollups=len(rollups), goodput_records=len(goodput),
+                   goodput_fraction=goodput[-1]["goodput_fraction"],
+                   anatomy=anatomy[-1], captures=len(captures),
+                   capture_s=captures[0].get("capture_s"), bitwise=True)
+        if graphs:
+            row.update(busy_on=on["replay_ms"] / on["step_ms"],
+                       busy_off=off["replay_ms"] / off["step_ms"],
+                       replay_ms_on=on["replay_ms"],
+                       replay_ms_off=off["replay_ms"])
+        out[mode] = row
+        print(f"obs {mode}: step ms on, off, off, on "
+              f"{', '.join(f'{x:.3f}' for x in row['step_ms_runs'])}: "
+              f"medians {med_on:.3f} ms with telemetry vs {med_off:.3f} ms "
+              f"without ({overhead:+.2f}%), peak memory "
+              f"{row['peak_gib_on']:.3f} vs {row['peak_gib_off']:.3f} GiB, "
+              f"host launch calls per step {row['launch_calls_per_step_on']:.1f}"
+              f" vs {row['launch_calls_per_step_off']:.1f}"
+              + (f", busy {100 * row['busy_on']:.1f}% vs "
+                 f"{100 * row['busy_off']:.1f}%" if graphs else "")
+              + f"; MFU records {rec_mfu:.4f} vs events {own_mfu:.4f}; "
+              f"{len(steps)} records, {len(rollups)} rollups, "
+              f"{len(goodput)} goodput, {len(captures)} capture; final "
+              "state bitwise equal", flush=True)
+        shutil.rmtree(tdir, ignore_errors=True)
+    # the guard's skip, seen through the cumulative counter at the
+    # dispatch ends
+    tdir = tempfile.mkdtemp()
+    r = res_fit(torch, device, "obs graphed nan@5", inspect=lambda t: dict(
+        recorder=list(t.telemetry.recorder.records)),
+        steps_per_dispatch=DISPATCH_K, telemetry_dir=tdir,
+        **{"skip-nonfinite": True, "faults": "nan@5"}, **OBS_FLAGS)
+    launches = {w: launches[w] + r["launches"][w] for w in launches}
+    steps = [x for x in _jsonl(f"{tdir}/metrics.jsonl")
+             if x["kind"] == "step"]
+    skips = [e for e in r["recorder"] if e.get("event") == "skip"]
+    shutil.rmtree(tdir, ignore_errors=True)
+    if [x["skipped"] for x in steps] != [1.0, 1.0] or [
+            (e["step"], e["fires"]) for e in skips] != [(DISPATCH_K, 1)]:
+        raise AssertionError(f"obs nan@5: skipped "
+                             f"{[x['skipped'] for x in steps]}, skip events "
+                             f"{skips}")
+    out["skip"] = dict(skipped=[x["skipped"] for x in steps],
+                       skip_events=len(skips))
+    print(f"obs nan@5: skipped {out['skip']['skipped']} at the dispatch "
+          f"ends {[x['step'] for x in steps]}, one skip event in the flight "
+          "recorder", flush=True)
+    return out, launches
+
+
+def _one(pattern):
+    import glob
+
+    found = glob.glob(pattern)
+    if len(found) != 1:
+        raise AssertionError(f"{pattern}: {found}")
+    return found[0]
+
+
+def obs_card_vs_host(torch, device):
+    """(b) f32, TF32 off, 2 layers, T 128 (ce_chunk 32: a chunk must lie
+    inside the 32 tokens of one of the 4 sequence shards), 3 steps of
+    batch 2: the card's
+    metrics records (loss, grad_norm, param_norm, update_ratio) against
+    the host's within 1e-4 relative, for the replicated step with flash
+    and for striped_flash over ``LocalSeqGroup(4)`` (B5 on the card).
+    Returns the largest relative differences and the card's B5 launches
+    (counts set to 0 before each card run)."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+
+    one_rank_group(torch, device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, launches = {}, {}
+    try:
+        for attention, sp in (("flash", 1), ("striped_flash", 4)):
+            recs = []
+            for dev in (device, torch.device("cpu")):
+                with tempfile.TemporaryDirectory() as tmp:
+                    flags = dict(n_layers=2, seq_len=128, n_samples=6,
+                                 batch_size=2, nepochs=1, ce_chunk=32,
+                                 compute_dtype="float32",
+                                 attention=attention, telemetry_dir=tmp,
+                                 metrics_every=1)
+                    if sp > 1:
+                        flags["sp"] = sp
+                    cfg = config_from_args(build_argparser().parse_args(
+                        train_flags(**flags)))
+                    t = Trainer(cfg, device=dev, seq_group=(
+                        LocalSeqGroup(sp) if sp > 1 else None))
+                    if dev.type == "cuda":
+                        fa.set_launch_counts()
+                    t.fit()
+                    if dev.type == "cuda":
+                        c = fa.launch_counts()
+                        launches[attention] = dict(c["all"],
+                                                   with_lse=c["with_lse"])
+                    recs.append([x for x in _jsonl(
+                        f"{tmp}/metrics.jsonl") if x["kind"] == "step"])
+                    del t
+            card, host = recs
+            if [x["step"] for x in card] != [1, 2, 3] or \
+                    [x["step"] for x in host] != [1, 2, 3]:
+                raise AssertionError(f"obs card vs host {attention}: "
+                                     "records")
+            worst = {m: max(abs(a[m] - b[m]) / abs(b[m])
+                            for a, b in zip(card, host)) for m in OBS_METRICS}
+            out[attention] = worst
+            print(f"obs card vs host {attention}"
+                  + (f" over LocalSeqGroup({sp})" if sp > 1 else "")
+                  + ": largest relative differences "
+                  + ", ".join(f"{m} {v:.3g}" for m, v in worst.items())
+                  + f" (bar {OBS_METRICS_RTOL}); card launches "
+                  f"{launches.get(attention)}", flush=True)
+            if max(worst.values()) > OBS_METRICS_RTOL:
+                raise AssertionError(f"obs card vs host {attention}: "
+                                     f"{worst}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    return out, launches
+
+
+def obs_profile(torch, device):
+    """(c) ``--profile_dir``: phase 7's job for 3 steps (24 samples) under
+    ``torch.profiler``, against the same 3 steps without it: the Chrome
+    trace names B1-B3's kernels and Adam's ``_foreach`` kernels (each at
+    least once: the profiler can drop a kernel's record); the profiler's
+    cost per step (the fit's wall, the trace export included)."""
+    import tempfile
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for prof in (False, True):
+            extra = dict(profile_dir=tmp) if prof else {}
+            runs[prof] = res_fit(torch, device,
+                                 f"obs profile {'on' if prof else 'off'}",
+                                 n_samples=24, nepochs=1, **extra)
+        path = _one(f"{tmp}/trace-*.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in names) for k in OBS_TRACE_KERNELS}
+    cost = (runs[True]["fit_s"] - runs[False]["fit_s"]) / 3 * 1e3
+    print(f"obs profile: {len(names)} kernels in the Chrome trace "
+          f"({size / 2 ** 20:.1f} MiB), {found}; fit {runs[True]['fit_s']:.2f}"
+          f" s with the profiler vs {runs[False]['fit_s']:.2f} s without: "
+          f"{cost:.1f} ms per step", flush=True)
+    # named, each; the counts are the trace's records, which the profiler
+    # can drop (the wrappers' counters, 36 each here, count launches)
+    if not all(found.values()):
+        raise AssertionError(f"obs profile: kernels {found}")
+    launches = {w: runs[True]["launches"][w] + runs[False]["launches"][w]
+                for w in runs[True]["launches"]}
+    return dict(kernels_found=found, trace_mib=size / 2 ** 20,
+                profiler_ms_per_step=cost,
+                fit_s_on=runs[True]["fit_s"],
+                fit_s_off=runs[False]["fit_s"]), launches
+
+
+def obs_crash_merge(tdir, lines):
+    """(d) phase 19 (d)'s supervised crash (step 20, once) ran with
+    ``--telemetry_dir tdir --trace``: the crash dumped the flight
+    recorder, the supervisor's log points at it, and
+    ``tools/trace_report.py`` merges the two incarnations of one run into
+    one timeline."""
+    text = "\n".join(line for _, line in lines)
+    with open(f"{tdir}/postmortem.json") as f:
+        pm = json.load(f)
+    proc = subprocess.run(
+        [sys.executable, str(REPO_ROOT / "tools" / "trace_report.py"),
+         f"{tdir}/trace", "--json"], capture_output=True, text=True,
+        timeout=120, cwd=str(REPO_ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"trace_report: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    merged = os.path.exists(f"{tdir}/trace/trace.json")
+    incs = sorted(g["incarnation"] for g in summary["groups"])
+    gaps = summary["relaunch_gaps"]
+    print(f"obs supervised crash: postmortem {pm['reason']!r}, pointer "
+          f"printed: {'child left a postmortem' in text}; trace_report "
+          f"merged run {summary['runs']} incarnations {incs}, relaunch gap "
+          f"{gaps[0]['gap_s'] if gaps else None} s", flush=True)
+    if "child left a postmortem" not in text or not pm["reason"].startswith(
+            "crash@20") or len(summary["runs"]) != 1 or incs != [0, 1] \
+            or len(gaps) != 1 or not merged:
+        raise AssertionError(f"obs supervised crash: {pm['reason']}, "
+                             f"{summary['runs']}, {incs}, {gaps}")
+    return dict(postmortem_reason=pm["reason"], incarnations=incs,
+                relaunch_gap_s=gaps[0]["gap_s"])
+
+
+def observability_full_width(torch, np, device, resilience):
+    """Phase 20: (a)-(c) above; (d) reads phase 19's results
+    (``resilience``): (e)'s run had ``--telemetry_dir`` (its postmortem:
+    reason ``hang``), (d)'s supervised crash ``--telemetry_dir --trace``
+    (``obs_crash_merge``).  Returns the phase's numbers and the flash
+    launches of its in-process runs (counts set to 0 before each)."""
+    out = {}
+    out["on_off"], l1 = obs_on_off(torch, device)
+    out["card_vs_host"], l2 = obs_card_vs_host(torch, device)
+    out["profile"], l3 = obs_profile(torch, device)
+    out["hang_postmortem"] = resilience["watchdog"]["postmortem_reason"]
+    out["supervised_crash"] = {
+        k: resilience["cli"]["supervise"][k]
+        for k in ("postmortem_reason", "incarnations", "relaunch_gap_s")}
+    launches = {w: l1[w] + l3[w] + sum(c[w] for c in l2.values())
+                for w in l1}
+    launches["with_lse"] = sum(c["with_lse"] for c in l2.values())
+    out["launches"] = launches
     return out, launches
 
 
@@ -4233,6 +4754,12 @@ def main() -> int:
                                                      trained)
     del trained["final_params"]
     print("resilience: " + json.dumps(resilience), flush=True)
+
+    phase("20 observability: telemetry, tracing, the capture ledger, "
+          "goodput, the profiler, postmortems")
+    observability, obs_launches = observability_full_width(
+        torch, np, device, resilience)
+    print("observability: " + json.dumps(observability), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -4262,10 +4789,13 @@ def main() -> int:
                             takes="head_dim 8/16/32/64/128, any T the "
                                   "blocks divide",
                             replaces=f"{tpu}:{line}",
-                            # phase 7's run and phase 19's in-process runs
+                            # phase 7's run and phases 19 and 20's
+                            # in-process runs
                             launches=(trained["launches"][which]
-                                      + res_launches[which]),
+                                      + res_launches[which]
+                                      + obs_launches[which]),
                             launches_phase7=trained["launches"][which],
+                            launches_phase20=obs_launches[which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
     # bf16 at head_dim 8 and 16 (simt), timed at (8, 1024, 16, d)
@@ -4287,7 +4817,9 @@ def main() -> int:
                         takes="head_dim 8/16/32/64/128, any T the blocks "
                               "divide",
                         replaces=f"{tpu}:445",
-                        launches=seq_trained["with_lse_launches"],
+                        launches=(seq_trained["with_lse_launches"]
+                                  + obs_launches["with_lse"]),
+                        launches_phase20=obs_launches["with_lse"],
                         launches_int8=seq_quant["int8"]["with_lse_launches"],
                         launches_fp8=seq_quant["fp8"]["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))

@@ -34,7 +34,8 @@ command as a child under the crash-restart supervisor (backoff
 the exit-code contract: an anomaly abort exits 44, a lost peer (a
 collective that raised or timed out, a world that did not form) 43, a
 preemption notice answered with a final snapshot 47, and the hang
-watchdog 42.  ``--probe_timeout`` bounds the formation of a
+watchdog 42 (after the flight recorder's postmortem, with
+``--telemetry_dir``).  ``--probe_timeout`` bounds the formation of a
 multi-process world (``parallel.distributed.preflight``).
 
 Not ported, and raising when set: the JAX platform knob
@@ -142,18 +143,53 @@ def _generate(args) -> int:
 def _supervise(args, argv) -> int:
     """``--supervise N``: this command, minus the supervisor flags and
     plus ``--resume`` when a checkpoint dir is set, as the child of
-    ``train.resilience.supervise``; SIGUSR1 is forwarded to it."""
+    ``train.resilience.supervise``; SIGUSR1 is forwarded to it.
+
+    With ``--telemetry_dir`` the supervisor also watches the child's own
+    heartbeat (``heartbeat-train-p<P>.json``) when ``--hang_timeout`` is
+    set, at max(4 x that timeout, 60 s), so the in-process watchdog fires
+    first; points the relaunch log at the child's ``postmortem.json``;
+    summarizes the child's ``kind="alert"`` records; and appends its
+    lifecycle records to ``supervisor-events.jsonl`` (in the trace
+    directory under ``--trace``/``--trace_dir``)."""
     from .train.resilience import strip_supervisor_flags, supervise
 
     child = strip_supervisor_flags(argv)
     if args.checkpoint_dir and "--resume" not in child:
         child.append("--resume")
+    heartbeat = postmortem = alerts = events = None
+    heartbeat_timeout = 0.0
+    if args.telemetry_dir:
+        # watch exactly THIS child's heartbeat, the role-qualified file
+        # its telemetry writes (never a co-resident process's)
+        from .train import trace as trace_lib
+        from .train.resilience import heartbeat_filename
+
+        heartbeat = os.path.join(args.telemetry_dir,
+                                 heartbeat_filename("train"))
+        postmortem = os.path.join(args.telemetry_dir, "postmortem.json")
+        alerts = os.path.join(args.telemetry_dir, "metrics.jsonl")
+        # the lifecycle JSONL beside the trace files (the goodput join),
+        # else directly under the telemetry dir
+        events_dir = (trace_lib.dir_from_config(args)
+                      if args.trace or args.trace_dir
+                      else args.telemetry_dir)
+        os.makedirs(events_dir, exist_ok=True)
+        events = os.path.join(events_dir, "supervisor-events.jsonl")
+        if args.hang_timeout > 0:
+            # 4x the in-process timeout: the child's own watchdog (and
+            # its postmortem) fires first
+            heartbeat_timeout = max(4.0 * args.hang_timeout, 60.0)
     pkg = __name__.rsplit(".", 1)[0]
     return supervise([sys.executable, "-m", pkg, *child],
                      max_restarts=args.supervise,
                      backoff=args.supervise_backoff,
                      backoff_cap=args.supervise_backoff_max,
-                     ckpt_dir=args.checkpoint_dir, forward_preempt=True)
+                     heartbeat_path=heartbeat,
+                     heartbeat_timeout=heartbeat_timeout,
+                     postmortem_path=postmortem, alerts_path=alerts,
+                     ckpt_dir=args.checkpoint_dir, events_path=events,
+                     forward_preempt=True)
 
 
 def main(argv=None) -> int:

@@ -27,6 +27,16 @@ the f32 results are bitwise those of the scalar form.
 state (``MasterState(master, inner)``) and writes it into the params,
 cast to their storage dtype, in place.
 
+Telemetry's ``update_ratio`` (``train.telemetry.update_with_metrics``)
+needs the norm of (new - old) params, and the updates here are in
+place: given a ``deltas`` list, an update forms each param write's new
+values out of place (as the guarded write does), appends the per-leaf
+f32 norms of (new - old) to it while both are alive, and then writes the
+same bits as without it.  The update's own delta, lr * step, is not
+used for it: it differs from new - old by the rounding of the f32
+subtraction, which is past 1e-5 of the norm once the update is small
+against the params.
+
 ``with_skip_guard`` (``--skip-nonfinite``, ``--skip_threshold``) rejects
 a step whose global gradient norm is not finite (or above the threshold)
 on the device, with no host sync, so it runs inside a CUDA graph: every
@@ -68,10 +78,20 @@ def device_scalars(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return h2d(np.asarray(values, np.float32), like.device)
 
 
+def leaf_norms(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Each f32 tensor's L2 norm.  On the host each accumulates in f64:
+    the CPU's f32 norm reduction drifts from the exact norm on a leaf as
+    large as the flagship's 32768 x 1024 LM head (the card's tree
+    reduction keeps f32's precision)."""
+    if xs[0].device.type == "cpu":
+        return list(torch._foreach_norm(xs, 2, dtype=torch.float64))
+    return list(torch._foreach_norm(xs))
+
+
 def global_norm(grads: Tree) -> torch.Tensor:
-    """L2 norm over every leaf (f32 accumulation), as a device scalar."""
-    norms = torch._foreach_norm([g.float() for g in leaves(grads)])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """L2 norm over every leaf, as an f32 device scalar."""
+    norms = leaf_norms([g.float() for g in leaves(grads)])
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
@@ -84,11 +104,13 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    """``update(grads, state, params, ok=None)``: ``ok`` a device bool;
-    False leaves params and state bitwise as they were.  The guard adds
-    ``update_with_norm(grads, state, params, norm) -> (params, state,
-    ok)``, JAX's seam for a caller that has the global gradient norm
-    already."""
+    """``update(grads, state, params, ok=None, deltas=None)``: ``ok`` a
+    device bool; False leaves params and state bitwise as they were.
+    ``deltas``, a list, receives the per-leaf f32 norms of each param
+    write's (new - old), in the order of the leaves (see the module
+    docstring).  The guard adds ``update_with_norm(grads, state, params,
+    norm, deltas=None) -> (params, state, ok)``, JAX's seam for a caller
+    that has the global gradient norm already."""
     init: Callable[[Tree], Tree]
     update: Callable[..., Tuple[Tree, Tree]]
     name: str = "optimizer"
@@ -143,16 +165,43 @@ def _scaled(xs: List[torch.Tensor], factor: float,
     return torch._foreach_mul(xs, factor)
 
 
+def _delta_norms(new: List[torch.Tensor],
+                 old: List[torch.Tensor]) -> List[torch.Tensor]:
+    if all(n.dtype == torch.float32 for n in new):
+        return leaf_norms(torch._foreach_sub(new, old))
+    return leaf_norms(torch._foreach_sub([n.float() for n in new],
+                                         [o.float() for o in old]))
+
+
+def _write(params: List[torch.Tensor], new: List[torch.Tensor],
+           ok: Optional[torch.Tensor],
+           deltas: Optional[List[torch.Tensor]]) -> None:
+    """params <- new (where ``ok``); first, given ``deltas``, the per-leaf
+    norms of (new - old) appended to it (0 where ``ok`` is False)."""
+    if deltas is not None:
+        norms = _delta_norms(new, params)
+        deltas.extend(norms if ok is None else
+                      [torch.where(ok, n, torch.zeros_like(n))
+                       for n in norms])
+    if ok is None:
+        torch._foreach_copy_(params, new)
+    else:
+        _commit(params, new, ok)
+
+
 def _apply(params: List[torch.Tensor], steps: List[torch.Tensor],
-           lr_t: torch.Tensor, ok: Optional[torch.Tensor] = None) -> None:
+           lr_t: torch.Tensor, ok: Optional[torch.Tensor],
+           deltas: Optional[List[torch.Tensor]]) -> None:
     """param <- param - (lr * step) cast to the param's dtype, in place
-    (where ``ok``)."""
+    (where ``ok``), recording into ``deltas`` (see :func:`_write`)."""
     upd = torch._foreach_mul([s.float() for s in steps], lr_t)
     upd = [u.to(p.dtype) for u, p in zip(upd, params)]
-    if ok is None:
+    if ok is None and deltas is None:
         torch._foreach_sub_(params, upd)
-    else:
-        _commit(params, torch._foreach_sub(params, upd), ok)
+        return
+    new = torch._foreach_sub(params, upd)
+    del upd
+    _write(params, new, ok, deltas)
 
 
 class SGDState(NamedTuple):
@@ -171,7 +220,8 @@ def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0, *,
     row = _rows(lambda c: np.array([_lr_at(lr, c)], np.float32), steps)
 
     @torch.no_grad()
-    def update(grads: Tree, state: SGDState, params: Tree, ok=None):
+    def update(grads: Tree, state: SGDState, params: Tree, ok=None,
+               deltas=None):
         p, g = leaves(params), leaves(grads)
         lr_t = row(state.count)[0]
         if weight_decay:
@@ -183,7 +233,7 @@ def sgd(lr: LR, momentum: float = 0.0, weight_decay: float = 0.0, *,
             torch._foreach_add_(step, g)
             if ok is not None:
                 _commit(buf, step, ok)
-        _apply(p, step, lr_t, ok)
+        _apply(p, step, lr_t, ok, deltas)
         _step_count(state.count, ok)
         return params, state
 
@@ -218,7 +268,8 @@ def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     row = _rows(scalars, steps)
 
     @torch.no_grad()
-    def update(grads: Tree, state: AdamState, params: Tree, ok=None):
+    def update(grads: Tree, state: AdamState, params: Tree, ok=None,
+               deltas=None):
         p, g = leaves(params), leaves(grads)
         lr_t, bc1, bc2 = row(state.count)
         mu, nu = leaves(state.mu), leaves(state.nu)
@@ -248,7 +299,7 @@ def adam(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         del den
         if weight_decay and decoupled:
             torch._foreach_add_(upd, torch._foreach_mul(p, weight_decay))
-        _apply(p, upd, lr_t, ok)
+        _apply(p, upd, lr_t, ok, deltas)
         _step_count(state.count, ok)
         return params, state
 
@@ -267,9 +318,9 @@ def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
     if max_norm <= 0:
         return opt
 
-    def update(grads, state, params, ok=None):
+    def update(grads, state, params, ok=None, deltas=None):
         return opt.update(clip_by_global_norm(grads, max_norm), state, params,
-                          ok)
+                          ok, deltas)
 
     return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}")
 
@@ -302,16 +353,17 @@ def with_skip_guard(opt: Optimizer, skip_threshold: float = 0.0) -> Optimizer:
 
     @torch.no_grad()
     def update_with_norm(grads: Tree, state: GuardedState, params: Tree,
-                         norm: torch.Tensor):
+                         norm: torch.Tensor, deltas=None):
         ok = torch.isfinite(norm)
         if skip_threshold > 0:
             ok = ok & (norm <= skip_threshold)
-        params, inner = opt.update(grads, state.inner, params, ok)
+        params, inner = opt.update(grads, state.inner, params, ok, deltas)
         state.skipped.add_((~ok).to(state.skipped.dtype))
         return params, GuardedState(state.skipped, inner), ok
 
-    def update(grads: Tree, state: GuardedState, params: Tree):
-        return update_with_norm(grads, state, params, global_norm(grads))[:2]
+    def update(grads: Tree, state: GuardedState, params: Tree, deltas=None):
+        return update_with_norm(grads, state, params, global_norm(grads),
+                                deltas)[:2]
 
     return Optimizer(init, update,
                      f"guard(thr={skip_threshold}):{opt.name}",
@@ -348,12 +400,18 @@ def with_master_weights(opt: Optimizer) -> Optimizer:
         return MasterState(master, opt.init(master))
 
     @torch.no_grad()
-    def update(grads: Tree, state: MasterState, params: Tree, ok=None):
+    def update(grads: Tree, state: MasterState, params: Tree, ok=None,
+               deltas=None):
         g32 = tree_map(lambda g: g.float(), grads)
+        # the recorded deltas are the params', not the master's
         master, inner = opt.update(g32, state.inner, state.master, ok)
         # a rejected step left the master as it was: its cast is the
         # params' bits already
-        torch._foreach_copy_(leaves(params), leaves(master))
+        if deltas is None:
+            torch._foreach_copy_(leaves(params), leaves(master))
+        else:
+            _write(leaves(params), [m.to(p.dtype) for m, p in zip(
+                leaves(master), leaves(params))], None, deltas)
         return params, MasterState(master, inner)
 
     return Optimizer(init, update, f"master:{opt.name}")

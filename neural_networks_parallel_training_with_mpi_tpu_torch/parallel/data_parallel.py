@@ -55,11 +55,22 @@ guard's ``update_with_norm``; a rejected step also leaves the fp8
 histories as they were.  Nothing syncs with the host, so a CUDA graph
 replays it.
 
-Not ported yet, and refused: ``with_metrics``.
+Telemetry (``with_metrics=True``, ``train.telemetry``): the step returns
+``(state, metrics)``, the ``METRIC_KEYS`` dict of device scalars, in
+place of the loss.  The grad norm is the reduced gradient's (the
+replicated step's, handed to the guard as its own norm; under zero1 and
+``sharded`` the replicated squares plus the all-reduced sharded
+squares); the update norm comes from the update itself (its ``deltas``
+list in ``ops.optim``: under zero1 and ``sharded`` each rank's slices,
+summed over the data ranks); the param norm from the full params
+after the update.  The update writes the same bits with metrics on and
+off.  Under :class:`GraphedTrainStep` the metrics are static output
+buffers of the graph, written in place by each replay.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -69,7 +80,10 @@ from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
 from ..ops import qmm
 from ..ops.optim import Optimizer, global_norm
+from ..train import telemetry
+from ..train import trace as trace_lib
 from ..train.state import TrainState
+from ..utils import compile_ledger
 from ..utils.checkpoint import flatten
 from ..utils.tree import leaves, unflatten
 from . import update_sharding as us
@@ -209,13 +223,13 @@ def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
 def zero1_shard_update(optimizer: Optimizer, state: TrainState,
                        s: torch.Tensor, c: torch.Tensor,
                        grads: List[torch.Tensor], world: World,
-                       grad_clip: float = 0.0):
+                       grad_clip: float = 0.0, with_metrics: bool = False):
     """The zero1 update of one step (see the module docstring):
     ``update_sharding.sharded_update`` of one leaf, the params and
     gradients flattened in JAX's leaf order (``ravel_pytree``'s) into one
     buffer padded to a multiple of N and planned along its only axis.
-    Returns (opt_state, global mean loss, the guard's ``ok`` or None);
-    params are written in place."""
+    Returns (opt_state, global mean loss, the guard's ``ok`` or None,
+    (grad norm, update norm) or None); params are written in place."""
     n = world.dp
     by_id = {id(p): g for p, g in zip(leaves(state.params), grads)}
     ordered = [p for _, p in flatten(state.params)]
@@ -226,14 +240,15 @@ def zero1_shard_update(optimizer: Optimizer, state: TrainState,
                        + [s.new_zeros(pad, dtype=torch.float32)])
     flat_p = torch.cat([p.detach().reshape(-1) for p in ordered]
                        + [ordered[0].new_zeros(pad)])
-    opt_state, loss, ok = us.sharded_update(
+    opt_state, loss, ok, norms = us.sharded_update(
         optimizer, flat_p, state.opt_state, s, c, [flat_g], world,
-        grad_clip, plans=[us.LeafPlan(0, shard * n, shard)])
+        grad_clip, plans=[us.LeafPlan(0, shard * n, shard)],
+        with_metrics=with_metrics)
     torch._foreach_copy_(
         [p.detach() for p in ordered],
         [part.view(p.shape) for part, p in zip(
             torch.split(flat_p[:sum(sizes)], sizes), ordered)])
-    return opt_state, loss, ok
+    return opt_state, loss, ok, norms
 
 
 def make_train_step(model, optimizer: Optimizer, world: World,
@@ -243,9 +258,10 @@ def make_train_step(model, optimizer: Optimizer, world: World,
                     update_sharding: str = "replicated",
                     grad_clip: float = 0.0,
                     with_metrics: bool = False
-                    ) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+                    ) -> Callable[..., Tuple[TrainState, Any]]:
     """(state, this rank's batch) -> (state, global mean loss as a device
-    scalar).  Params and optimizer state are updated in place.
+    scalar), or with ``with_metrics`` (state, the telemetry metrics dict
+    of device scalars).  Params and optimizer state are updated in place.
 
     ``update_sharding='sharded'`` takes the opt state of
     ``update_sharding.init_opt_state``, ``'zero1'`` that of
@@ -265,9 +281,6 @@ def make_train_step(model, optimizer: Optimizer, world: World,
             "(the gradient is shard-scattered there); on the replicated "
             "path the full mean gradient is local — wrap the optimizer "
             "with optim.with_clipping instead of silently not clipping")
-    if with_metrics:
-        raise NotImplementedError("with_metrics (on-device telemetry) is "
-                                  "not ported yet")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     fp8 = qmm.model_format(model) == "fp8"
@@ -283,16 +296,20 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         if fp8:
             obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":
-            opt_state, loss, ok = zero1_shard_update(
-                optimizer, state, s, c, grads, world, grad_clip)
+            opt_state, loss, ok, norms = zero1_shard_update(
+                optimizer, state, s, c, grads, world, grad_clip,
+                with_metrics)
         elif update_sharding == "sharded":
-            opt_state, loss, ok = us.sharded_update(
+            opt_state, loss, ok, norms = us.sharded_update(
                 optimizer, state.params, state.opt_state, s, c, grads,
-                world, grad_clip)
+                world, grad_clip, with_metrics=with_metrics)
         if update_sharding != "replicated":
             state = state._replace(step=state.step + 1, opt_state=opt_state)
             if fp8:
                 _roll_qstate(state, obs, ok)
+            if with_metrics:
+                return state, telemetry.metrics_vector(
+                    loss, norms[0], state.params, norms[1], opt_state)
             return state, loss
         if grad_reduction == "per_shard_mean":
             denom = torch.clamp(c, min=1.0)
@@ -314,8 +331,12 @@ def make_train_step(model, optimizer: Optimizer, world: World,
             loss = vals[-2][0] / total
         # grads now names the reduced gradients only: the backward's are
         # freed before the update, whose peak they would otherwise raise
-        ok = None
-        if guarded:     # the reduced gradient's norm, before any clipping
+        ok = metrics = None
+        if with_metrics:    # the guard takes the metrics' grad norm
+            params, opt_state, metrics, ok = telemetry.update_with_metrics(
+                optimizer, unflatten(state.params, grads), state.opt_state,
+                state.params, loss)
+        elif guarded:   # the reduced gradient's norm, before any clipping
             params, opt_state, ok = optimizer.update_with_norm(
                 unflatten(state.params, grads), state.opt_state,
                 state.params, global_norm(grads))
@@ -326,7 +347,7 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         state = TrainState(state.step + 1, params, opt_state, state.qstate)
         if fp8:
             _roll_qstate(state, obs, ok)
-        return state, loss
+        return state, (loss if metrics is None else metrics)
 
     return step
 
@@ -335,10 +356,11 @@ class GraphedTrainStep:
     """Multi-step dispatch on the card: ``step`` (a :func:`make_train_step`
     step) captured once as a CUDA graph and replayed once per step.
 
-    ``graphed(state, batches) -> (state, loss)`` runs the steps of one
+    ``graphed(state, batches) -> (state, out)`` runs the steps of one
     dispatch, one per batch of ``batches`` (a ``ShardedLoader.
     epoch_groups`` group), and returns the state and a copy of the last
-    step's loss (the graph's loss buffer is rewritten by the next replay).
+    step's output, its loss or its metrics dict (the graph's output
+    buffers are rewritten by the next replay).
     Each replay is a copy of the batch into the graph's static buffers and
     one ``cudaGraphLaunch`` (the optimizer reads its lr and bias
     corrections on the device, at its count), on the caller's stream, so
@@ -361,19 +383,30 @@ class GraphedTrainStep:
     counts are taken back and kept as :attr:`launches_per_replay` (every
     replay launches every kernel node of the graph once), so the
     counters hold the eager launches and :attr:`replays` x
-    :attr:`launches_per_replay` the graphed ones."""
+    :attr:`launches_per_replay` the graphed ones.
 
-    def __init__(self, step: Callable, device: torch.device):
+    Each capture is one event of the installed compile ledger
+    (``utils.compile_ledger.record_capture``: ``name``, the state and
+    batch signature, the capture's wall time, ``flops(batch)``, the
+    ``static`` settings in its fingerprint) inside a ``compile:<name>``
+    span; a replay records nothing."""
+
+    def __init__(self, step: Callable, device: torch.device,
+                 name: str = "train_step",
+                 flops: Optional[Callable[[Batch], Optional[float]]] = None,
+                 static: Optional[Dict[str, Any]] = None):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, not "
                              f"{device}")
         qmm.fp8_dot_supported(device)
         self.step, self.device = step, device
+        self.name, self.flops, self.static = name, flops, static
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.stream: Optional[torch.cuda.Stream] = None
         self.state: Optional[TrainState] = None   # the captured tensors
         self.static_batch: Dict[str, torch.Tensor] = {}
-        self.static_loss: Optional[torch.Tensor] = None
+        self.static_out: Any = None
+        self._signature: Optional[Dict[str, str]] = None
         self.launches_per_replay: Dict[str, Any] = {}
         self.replays = 0
         self.eager_steps = 0
@@ -382,13 +415,13 @@ class GraphedTrainStep:
     def __call__(self, state: TrainState, batches: List[Batch]):
         if self.graph is not None and not self._captured_on(state):
             self.graph = None
-        loss = None
+        out = None
         for batch in batches:
             if self.graph is None:
-                state, loss = self._warm_up_and_capture(state, batch)
+                state, out = self._warm_up_and_capture(state, batch)
             elif any(batch[k].shape != v.shape
                      for k, v in self.static_batch.items()):
-                state, loss = self.step(state, batch)
+                state, out = self.step(state, batch)
                 self.eager_steps += 1
             else:
                 for k, v in self.static_batch.items():
@@ -396,9 +429,11 @@ class GraphedTrainStep:
                 self.graph.replay()
                 self.replays += 1
                 # the replay updated the state's tensors in place
-                state, loss = (state._replace(step=state.step + 1),
-                               self.static_loss)
-        return state, loss.clone()
+                state, out = (state._replace(step=state.step + 1),
+                              self.static_out)
+        if isinstance(out, dict):
+            return state, {k: v.clone() for k, v in out.items()}
+        return state, out.clone()
 
     def _warm_up_and_capture(self, state: TrainState, batch: Batch):
         caller = torch.cuda.current_stream(self.device)
@@ -412,8 +447,12 @@ class GraphedTrainStep:
         before = fa.launch_counts()
         gemms = dict(qmm.library_gemm.launches)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            _, self.static_loss = self.step(state, self.static_batch)
+        sig = compile_ledger.signature((state, self.static_batch))
+        with trace_lib.span(f"compile:{self.name}"):
+            t0 = time.perf_counter()
+            with torch.cuda.graph(graph, stream=self.stream):
+                _, self.static_out = self.step(state, self.static_batch)
+            capture_s = time.perf_counter() - t0
         captured = fa.launch_counts()
         fa.set_launch_counts(before)
         self.launches_per_replay = {
@@ -425,6 +464,11 @@ class GraphedTrainStep:
         qmm.library_gemm.launches.update(gemms)
         self.graph, self.state = graph, state
         self.captures += 1
+        compile_ledger.record_capture(
+            self.name, self.captures, sig, self._signature, capture_s,
+            self.flops(batch) if self.flops is not None else None,
+            self.static)
+        self._signature = sig
         return state, loss
 
     def _captured_on(self, state: TrainState) -> bool:

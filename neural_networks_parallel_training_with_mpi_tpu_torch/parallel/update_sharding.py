@@ -18,7 +18,9 @@ buffer in ``parallel.data_parallel``) share for their optimizer state.
   the param in place.  Replicated leaves and the loss terms take one flat
   all-reduce over the whole world.  ``grad_clip`` clips by the GLOBAL
   norm: the replicated squares plus one scalar all-reduce of the sharded
-  squares.
+  squares.  Telemetry (``with_metrics``) takes that norm too, and the
+  update norm from the update's own slices: the replicated leaves' plus
+  one more scalar all-reduce of the sharded slices' squares.
 * **Snapshots** (:class:`ShardedLayout`): a snapshot holds the global
   padded opt-state arrays, as the JAX package writes them; they are
   gathered leaf by leaf to rank 0's host, which writes them, and every
@@ -210,11 +212,13 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
                    s: torch.Tensor, c: torch.Tensor,
                    grads: List[Optional[torch.Tensor]], world,
                    grad_clip: float = 0.0,
-                   plans: Optional[List[LeafPlan]] = None):
+                   plans: Optional[List[LeafPlan]] = None,
+                   with_metrics: bool = False):
     """The per-leaf sharded update of one step from this rank's loss sum
     ``s``, count ``c`` and gradient sums ``grads`` (``params``' leaf
-    order): returns (opt_state, global mean loss, ``ok``).  ``params`` are
-    written in place.  Under the skip guard (``optimizer.update_with_norm``)
+    order): returns (opt_state, global mean loss, ``ok``, and with
+    ``with_metrics`` the global (grad norm, update norm), else None).
+    ``params`` are written in place.  Under the skip guard (``optimizer.update_with_norm``)
     the global norm of the reduced gradient, taken before clipping, goes
     to the guard and ``ok`` is its verdict (None without the guard).
     ``grads`` is consumed: each entry is released once reduced,
@@ -257,7 +261,7 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
             pl.axis, idx * pl.shard, pl.shard)
     guarded = optimizer.update_with_norm is not None
     norm = ok = None
-    if grad_clip > 0 or guarded:
+    if grad_clip > 0 or guarded or with_metrics:
         sq_sh = _sq([g for g, pl in zip(g_mixed, plans)
                      if pl.axis is not None], total)
         if world.initialized:
@@ -268,16 +272,37 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
         scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-12),
                             max=1.0)
         g_mixed = torch._foreach_mul(g_mixed, scale)
+    deltas = [] if with_metrics else None
     if guarded:
         _, opt_state, ok = optimizer.update_with_norm(
             unflatten(params, g_mixed), opt_state,
-            unflatten(params, p_mixed), norm)
+            unflatten(params, p_mixed), norm, deltas=deltas)
     else:
         _, opt_state = optimizer.update(unflatten(params, g_mixed),
-                                        opt_state, unflatten(params, p_mixed))
+                                        opt_state,
+                                        unflatten(params, p_mixed),
+                                        deltas=deltas)
+    norms = None
+    if with_metrics:
+        # each rank's slices are disjoint: their squares sum over the
+        # data ranks (the zero padding's delta is 0)
+        sq = [d.square() for d in deltas]
+        u_rep = _sum([sq[i] for i, pl in enumerate(plans)
+                      if pl.axis is None], s)
+        u_sh = _sum([sq[i] for i, pl in enumerate(plans)
+                     if pl.axis is not None], s)
+        if n > 1 and world.initialized:
+            dist.all_reduce(u_sh, group=data_pg)
+        norms = (norm, torch.sqrt(u_rep + u_sh).float())
     # one data rank: each slice is the whole param, already updated
     for p, part, pl in zip(ps, p_mixed, plans):
         if pl.axis is not None and n > 1:
             full = all_gather(part, pl.axis, n, data_pg)
             p.detach().copy_(full.narrow(pl.axis, 0, p.shape[pl.axis]))
-    return opt_state, loss, ok
+    return opt_state, loss, ok, norms
+
+
+def _sum(xs: List[torch.Tensor], like: torch.Tensor) -> torch.Tensor:
+    if not xs:
+        return torch.zeros((), dtype=torch.float32, device=like.device)
+    return torch.stack(xs).sum()

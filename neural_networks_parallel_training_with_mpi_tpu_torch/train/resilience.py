@@ -17,6 +17,12 @@ The port's own copy of the training half of the JAX package's
   :data:`EXIT_DECOMMISSION`.
 * :func:`supervise` relaunches a crashed child with exponential backoff
   and a bounded number of restarts, by the exit-code contract below.
+  With the child's telemetry it also kills a child whose heartbeat went
+  stale (exit 42), points the relaunch log at the child's postmortem,
+  summarizes the alerts the child emitted, appends lifecycle records to
+  an events file (the goodput ledger's join key) and stamps every child
+  with the run identity (``NNPT_RUN_ID``, ``NNPT_INCARNATION``) the
+  trace files carry.
 
 Exit-code contract:
 
@@ -33,9 +39,9 @@ code         meaning                                       supervisor
 other        crash (segfault, OOM, fault injection, ...)   retry
 ===========  ============================================  =========
 
-Not ported yet: the SDC policy (45, Queue A item 3), the elastic
-capacity abort and probe-and-shrink relaunch (46, item 3) and the
-process-group supervisor of the serving fleet (item 6).
+Not ported yet: the SDC policy (45), the elastic capacity abort and
+probe-and-shrink relaunch (46) and the process-group supervisor of the
+serving fleet.
 """
 
 from __future__ import annotations
@@ -276,6 +282,112 @@ class GracefulShutdown:
         self._previous.clear()
 
 
+# run identity of a supervised job (train.trace reads them): one run id
+# across relaunches, the attempt number as the incarnation
+RUN_ID_ENV = "NNPT_RUN_ID"
+INCARNATION_ENV = "NNPT_INCARNATION"
+_PROCESS_ID_ENV = "NNPT_PROCESS_ID"
+
+
+def _append_event(path: Optional[str], rec: dict) -> None:
+    """Append one supervisor lifecycle record (launch / exit / relaunch)
+    to the ``events_path`` JSONL: ``utils/goodput.py`` prices the gap
+    between an exit and the next incarnation's first span as
+    ``relaunch_gap`` from these.  Best-effort: accounting must never take
+    down the supervisor."""
+    if not path:
+        return
+    try:
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+            f.flush()
+    except OSError:
+        pass
+
+
+def heartbeat_filename(role: str, process_id: Optional[int] = None
+                       ) -> str:
+    """Per-role/per-process heartbeat file name,
+    ``heartbeat-<role>-p<P>.json``; ``process_id`` defaults to
+    ``NNPT_PROCESS_ID``, else 0.  Stdlib-only, so the supervisor derives
+    its child's watch target without importing the telemetry module."""
+    if process_id is None:
+        try:
+            process_id = int(os.environ.get(_PROCESS_ID_ENV) or 0)
+        except ValueError:
+            process_id = 0
+    return f"heartbeat-{role}-p{int(process_id)}.json"
+
+
+def find_heartbeats(dirpath: str) -> List[str]:
+    """Every heartbeat file in a telemetry dir (the legacy shared
+    ``heartbeat.json`` and the per-role/process files)."""
+    import glob
+
+    return sorted(glob.glob(os.path.join(dirpath, "heartbeat*.json")))
+
+
+def heartbeat_age_s(path: str, now: Optional[float] = None
+                    ) -> Optional[float]:
+    """Seconds since the heartbeat was last refreshed (mtime: the atomic
+    replace bumps it on every write), or None if absent.  ``path`` may be
+    an exact heartbeat file, a telemetry DIRECTORY (the freshest
+    heartbeat within), or the legacy generic ``<dir>/heartbeat.json``,
+    which alone falls back to the freshest sibling: a missing
+    ROLE-QUALIFIED file does not, so the hang monitor never answers with
+    a co-resident process's fresher heartbeat."""
+    candidates = [path]
+    if os.path.isdir(path):
+        candidates = find_heartbeats(path)
+    elif (not os.path.exists(path)
+          and os.path.basename(path) == "heartbeat.json"):
+        candidates = find_heartbeats(os.path.dirname(path) or ".")
+    best: Optional[float] = None
+    for p in candidates:
+        try:
+            mtime = os.stat(p).st_mtime
+        except OSError:
+            continue
+        best = mtime if best is None else max(best, mtime)
+    if best is None:
+        return None
+    return max(0.0, (time.time() if now is None else now) - best)
+
+
+def alerts_between(path: Optional[str], start_pos: int):
+    """(``kind="alert"`` records appended to a metrics JSONL past byte
+    ``start_pos``, the new end position): the supervisor remembers the
+    size before each launch, so the scan covers one child's lifetime.  A
+    file that SHRANK rescans from 0; a torn tail line is skipped."""
+    if not path:
+        return [], start_pos
+    try:
+        size = os.path.getsize(path)
+    except OSError:
+        return [], start_pos
+    if size < start_pos:
+        start_pos = 0
+    if size == start_pos:
+        return [], size
+    out: List[dict] = []
+    try:
+        with open(path) as f:
+            f.seek(start_pos)
+            for line in f:
+                line = line.strip()
+                if not line or '"alert"' not in line:
+                    continue
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if isinstance(rec, dict) and rec.get("kind") == "alert":
+                    out.append(rec)
+    except OSError:
+        return [], start_pos
+    return out, size
+
+
 def strip_supervisor_flags(argv: Sequence[str]) -> List[str]:
     """``argv`` without the supervisor-only flags (``--supervise [N]``,
     ``--supervise_backoff [S]``, ``--supervise_backoff_max [S]``, in the
@@ -314,8 +426,13 @@ def supervise(cmd: Sequence[str], max_restarts: int,
               backoff: float = 1.0, backoff_cap: float = 60.0,
               env: Optional[dict] = None,
               log: Callable[[str], None] = None,
+              heartbeat_path: Optional[str] = None,
+              heartbeat_timeout: float = 0.0,
+              postmortem_path: Optional[str] = None,
               ckpt_dir: Optional[str] = None,
+              alerts_path: Optional[str] = None,
               jitter: float = 0.5,
+              events_path: Optional[str] = None,
               forward_preempt: bool = False,
               _sleep: Callable[[float], None] = time.sleep,
               _rand: Callable[[], float] = random.random) -> int:
@@ -328,18 +445,70 @@ def supervise(cmd: Sequence[str], max_restarts: int,
     ``backoff_cap`` and scaled by a uniform jitter in ``[1 - jitter, 1]``
     (downward only, so the cap stays a hard bound).  The relaunched
     command is the same; resuming is the child's job (the CLI appends
-    ``--resume`` when a checkpoint dir is set).  ``ckpt_dir``: each
-    relaunch logs the verified snapshot the child will resume from.
-    ``forward_preempt``: SIGUSR1 delivered to the supervisor is re-sent
-    to the running child, which answers the notice."""
+    ``--resume`` when a checkpoint dir is set).  Every child gets
+    ``NNPT_RUN_ID`` (the caller's, or one generated here for the whole
+    job) and ``NNPT_INCARNATION`` (the attempt number, from 0), so the
+    trace files of every incarnation merge into one timeline.
+
+    ``heartbeat_path`` + ``heartbeat_timeout``: a child whose heartbeat
+    goes stale for longer is killed and counted as :data:`EXIT_HANG`
+    (see :func:`_run_child`).  ``postmortem_path``: after an abnormal
+    exit, the log points at the postmortem the child's flight recorder
+    wrote during its lifetime.  ``alerts_path`` (the child's
+    metrics.jsonl): the ``kind="alert"`` records it emitted are
+    summarized next to each exit (observe-only: the exit code decides).
+    ``ckpt_dir``: each relaunch logs the verified snapshot the child will
+    resume from.  ``events_path``: launch / exit / relaunch records as
+    JSONL.  ``forward_preempt``: SIGUSR1 delivered to the supervisor is
+    re-sent to the running child, which answers the notice."""
     if log is None:
         log = lambda m: print(m, file=sys.stderr, flush=True)
+    child_env = dict(env if env is not None else os.environ)
+    run_id = child_env.get(RUN_ID_ENV) or (
+        f"run-{int(time.time())}-{os.getpid()}")
     attempt = 0
     while True:
         attempt += 1
+        child_env[RUN_ID_ENV] = run_id
+        child_env[INCARNATION_ENV] = str(attempt - 1)
         log(f"[supervise] attempt {attempt}: {' '.join(cmd)}")
-        rc = _run_child(cmd, env, log, (PREEMPT_SIGNAL,)
-                        if forward_preempt else ())
+        launched = time.time()
+        _append_event(events_path, {
+            "kind": "supervisor", "event": "launch",
+            "t": round(launched, 6), "run": run_id, "inc": attempt - 1})
+        alert_pos = 0
+        if alerts_path:
+            try:
+                alert_pos = os.path.getsize(alerts_path)
+            except OSError:
+                alert_pos = 0
+        rc = _run_child(cmd, child_env, heartbeat_path, heartbeat_timeout,
+                        log, (PREEMPT_SIGNAL,) if forward_preempt else ())
+        _append_event(events_path, {
+            "kind": "supervisor", "event": "exit",
+            "t": round(time.time(), 6), "run": run_id,
+            "inc": attempt - 1, "rc": rc})
+        if alerts_path:
+            alerts, _ = alerts_between(alerts_path, alert_pos)
+            if alerts:
+                by_name: dict = {}
+                for a in alerts:
+                    key = str(a.get("alert"))
+                    by_name[key] = by_name.get(key, 0) + 1
+                rendered = ", ".join(f"{k} x{v}"
+                                     for k, v in sorted(by_name.items()))
+                log(f"[supervise] {len(alerts)} telemetry alert(s) "
+                    f"during this child: {rendered} (observe-only; the "
+                    "exit code decides the relaunch)")
+        # any ABNORMAL exit, the no-retry anomaly abort (44) included,
+        # gets the pointer
+        if rc != EXIT_OK and postmortem_path:
+            try:
+                if os.stat(postmortem_path).st_mtime >= launched - 1.0:
+                    log(f"[supervise] child left a postmortem: "
+                        f"{postmortem_path}")
+            except OSError:
+                pass
         if rc in _NO_RETRY:
             if rc == EXIT_ANOMALY:
                 log("[supervise] child exited 44 (anomaly abort): "
@@ -362,6 +531,10 @@ def supervise(cmd: Sequence[str], max_restarts: int,
                   EXIT_PEER: "peer loss"}.get(rc, "crash")
         log(f"[supervise] child exit {rc} ({reason}); relaunching in "
             f"{delay:.1f}s ({restarts_used + 1}/{max_restarts})")
+        _append_event(events_path, {
+            "kind": "supervisor", "event": "relaunch",
+            "t": round(time.time(), 6), "run": run_id,
+            "inc": attempt, "delay_s": round(delay, 3), "reason": reason})
         if ckpt_dir:
             step, bad, _ = _restore_target(ckpt_dir)
             if step is not None:
@@ -376,11 +549,24 @@ def supervise(cmd: Sequence[str], max_restarts: int,
 
 
 def _run_child(cmd: Sequence[str], env: Optional[dict],
+               heartbeat_path: Optional[str], heartbeat_timeout: float,
                log: Callable[[str], None],
                forward_signals: Sequence[int] = ()) -> int:
-    """One child launch: a blocking call, re-sending ``forward_signals``
-    delivered to this process to the child while it runs."""
-    if not forward_signals:
+    """One child launch, re-sending ``forward_signals`` delivered to this
+    process to the child while it runs.  With a heartbeat to watch, a
+    child whose heartbeat goes stale for ``heartbeat_timeout`` seconds is
+    killed and reported as :data:`EXIT_HANG` — the EXTERNAL complement
+    to the in-process ``utils.watchdog.HangWatchdog``, for a process
+    frozen whole (its watchdog thread included).
+
+    The watch ARMS at the child's first heartbeat write (mtime newer than
+    the launch), as the in-process watchdog arms at its first pat: the
+    first step's kernel builds, warm-up and CUDA-graph capture can take
+    long and must not be killed as a hang, and a heartbeat left by an
+    earlier run does not count.  The symmetric cost: a child frozen
+    before its first dispatch is not caught here."""
+    hb = bool(heartbeat_path and heartbeat_timeout > 0)
+    if not hb and not forward_signals:
         return subprocess.call(list(cmd), env=env)
     child = subprocess.Popen(list(cmd), env=env)
     restore: dict = {}
@@ -398,7 +584,39 @@ def _run_child(cmd: Sequence[str], env: Optional[dict],
         except ValueError:   # not the main thread: no forwarding
             break
     try:
-        return child.wait()
+        if not hb:
+            return child.wait()
+        started = time.time()
+        poll_s = max(0.05, min(heartbeat_timeout / 4.0, 5.0))
+        armed = False
+        while True:
+            rc = child.poll()
+            if rc is not None:
+                return rc
+            age = heartbeat_age_s(heartbeat_path)
+            if not armed:
+                # armed once THIS child wrote it (mtime after launch)
+                if age is not None and age < time.time() - started:
+                    armed = True
+                else:
+                    time.sleep(poll_s)
+                    continue
+            idle = age if age is not None else time.time() - started
+            if idle > heartbeat_timeout:
+                log(f"[supervise] heartbeat stale for {idle:.0f}s "
+                    f"(> {heartbeat_timeout:.0f}s): killing child "
+                    f"{child.pid} as hung")
+                child.terminate()
+                try:
+                    child.wait(timeout=10)
+                except subprocess.TimeoutExpired:
+                    child.kill()
+                    child.wait()
+                # EXIT_HANG even when the child absorbed the SIGTERM and
+                # exited 0 after a final snapshot: a stalled child must be
+                # retried, not reported complete
+                return EXIT_HANG
+            time.sleep(poll_s)
     finally:
         for s, prev in restore.items():
             try:

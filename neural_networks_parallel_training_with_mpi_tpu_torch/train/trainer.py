@@ -61,10 +61,24 @@ and evals; ``--collective_timeout`` bounds the process group's
 collectives.  A signal loses no step: the dispatch in flight finishes and
 is saved, so the exit comes at most one dispatch (k steps) after it.
 
+Observability (``train.telemetry``, ``train.trace``,
+``utils.compile_ledger``, ``utils.profiling``; the JAX loop's points):
+``--telemetry_dir`` writes ``metrics.jsonl`` (one record per
+``--metrics_every`` boundary a dispatch crosses, its last step's on-device
+metrics read at lag 2, with ``step_time_ms``, ``samples_per_sec`` and
+``mfu``; ``kind="rollup"`` and ``kind="goodput"`` records every
+``--rollup_every`` steps; ``kind="alert"`` records unless
+``--no-alerts``), the heartbeat and, on an abnormal event, the flight
+recorder's ``postmortem.json``; ``--trace``/``--trace_dir`` write the
+host spans (load, dispatch, fetch, ckpt, rollback, eval) and the compile
+ledger (one event per CUDA-graph capture, or per new signature of an
+eager step); ``--profile_dir``/``--xla_trace_dir`` run
+``torch.profiler`` over the fit and write a Chrome trace; the hang
+watchdog writes the postmortem before exit 42.
+
 Every flag of a path the port has not taken over yet (model-parallel
-axes, telemetry, tracing, SDC checks, elastic, RL, ...) raises
-``NotImplementedError`` naming the flag when it is set to anything but
-its default; none is ignored.
+axes, SDC checks, elastic, RL, ...) raises ``NotImplementedError`` naming
+the flag when it is set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
@@ -103,12 +117,16 @@ from ..parallel.sequence import (
     striped_permutation,
 )
 from ..utils import checkpoint as ckpt
+from ..utils import compile_ledger
 from ..utils import prng
+from ..utils import profiling
 from ..utils.faults import FaultPlan
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
 from ..utils.tree import leaves
 from ..utils.watchdog import HangWatchdog
+from . import telemetry as telemetry_lib
+from . import trace as trace_lib
 from .resilience import AnomalyAbort, GracefulShutdown, ResilienceMonitor
 from .state import TrainState
 
@@ -116,13 +134,6 @@ from .state import TrainState
 _UNPORTED = {
     "workload": "--workload", "pp_interleave": "--pp_interleave",
     "vocab_parallel": "--vocab_parallel",
-    "profile_dir": "--profile_dir", "telemetry_dir": "--telemetry_dir",
-    "metrics_every": "--metrics_every",
-    "flight_recorder": "--flight_recorder",
-    "rollup_every": "--rollup_every", "alerts": "--no-alerts",
-    "trace": "--trace", "trace_dir": "--trace_dir",
-    "goodput": "--no-goodput", "goodput_target": "--goodput_target",
-    "xla_trace_dir": "--xla_trace_dir",
     "check_replicas_every": "--check_replicas_every",
     "sdc_check_every": "--sdc_check_every", "sdc_heal": "--no-sdc-heal",
     "sdc_strikes": "--sdc_strikes",
@@ -376,24 +387,55 @@ class Trainer:
         # unsmoothed loss
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
                       if cfg.label_smoothing else cfg.loss)
+        # on-device telemetry metrics: the step returns the metrics dict
+        # in place of its loss (every layout the port has carries them)
+        self.telemetry_metrics = bool(cfg.telemetry_dir
+                                      and cfg.metrics_every > 0)
         # the JAX seq path passes no grad_reduction: always global_mean
-        self.train_step = dp.make_train_step(
+        step = dp.make_train_step(
             self.model, self.optimizer, self.world, loss_name=train_loss,
             grad_reduction=(cfg.grad_reduction if seq_group is None
                             else "global_mean"),
             accum_steps=cfg.accum_steps,
             update_sharding=cfg.update_sharding,
-            grad_clip=cfg.grad_clip if step_clips else 0.0)
-        # k > 1: (state, group) -> (state, last loss), a group's steps
+            grad_clip=cfg.grad_clip if step_clips else 0.0,
+            with_metrics=self.telemetry_metrics)
+        # the compile ledger's seam (a pass-through without --trace): the
+        # eager step records each new signature, the graphed step each
+        # capture
+        step_name = f"train_step[{self.layout_tag}]"
+        self.train_step = compile_ledger.instrument(step, step_name)
+        # k > 1: (state, group) -> (state, last output), a group's steps
         self.multi_step = None
         if self.k_dispatch > 1:
             self.multi_step = (
-                dp.GraphedTrainStep(self.train_step, self.device)
+                dp.GraphedTrainStep(
+                    step, self.device, name=step_name,
+                    flops=lambda b: telemetry_lib.train_step_flops(
+                        self.model, tuple(b["x"].shape)),
+                    static={"layout": self.layout_tag, "loss": train_loss,
+                            "optimizer": self.optimizer.name,
+                            "accum_steps": cfg.accum_steps,
+                            "with_metrics": self.telemetry_metrics})
                 if self.device.type == "cuda" else self._eager_group)
-        self.eval_step = dp.make_eval_step(
-            self.model, self.world, loss_name=cfg.loss,
-            with_accuracy=(cfg.loss == "cross_entropy"))
+        self.eval_step = compile_ledger.instrument(
+            dp.make_eval_step(self.model, self.world, loss_name=cfg.loss,
+                              with_accuracy=(cfg.loss == "cross_entropy")),
+            f"eval_step[{self.layout_tag}]")
+        # the span tracer + compile ledger for this process (validates
+        # --trace's need for a directory here, before any work)
+        self.tracer = None
+        trace_dir = trace_lib.dir_from_config(cfg)
+        if trace_dir:
+            self.tracer = trace_lib.start_run(trace_dir)
         self.metrics = MetricsLogger(cfg.metrics_jsonl)
+        cuda = self.device.type == "cuda"
+        self.telemetry = telemetry_lib.Telemetry(
+            cfg, self.model, tuple(self.data["x"].shape[1:]),
+            n_devices=self.world.world_size,
+            device_kind=(torch.cuda.get_device_name(self.device) if cuda
+                         else "cpu"),
+            platform=self.device.type)
         self.state: Optional[TrainState] = None
         # the sharded opt state's place in the global snapshot arrays
         self.layout: Optional[us.ShardedLayout] = None
@@ -524,6 +566,9 @@ class Trainer:
         cfg = self.cfg
         if not cfg.checkpoint_dir:
             return
+        # a long write emits no dispatch: keep the supervisor's
+        # stale-heartbeat monitor from reading it as a hang
+        self.telemetry.alive()
         step = self.state.step
         if final and self._last_saved_step == step:
             ckpt.wait_pending()
@@ -538,15 +583,18 @@ class Trainer:
                      "update_sharding": cfg.update_sharding},
                  "consumed_samples": self.loader.consumed_samples(step)}
         t0 = time.perf_counter()
-        state = self.snapshot_state()
-        if cfg.async_checkpoint and not final:
-            ckpt.save_async(cfg.checkpoint_dir, state,
-                            keep=cfg.checkpoint_keep, extra_meta=extra)
-        else:
-            if final:   # drain in-flight writes before the last
-                ckpt.wait_pending()
-            ckpt.save(cfg.checkpoint_dir, state,
-                      keep=cfg.checkpoint_keep, extra_meta=extra)
+        # span "ckpt": this call's host cost (an async save's host copy);
+        # the writer thread's disk time is its own "ckpt_write" span
+        with trace_lib.span("ckpt", step=step, final=final):
+            state = self.snapshot_state()
+            if cfg.async_checkpoint and not final:
+                ckpt.save_async(cfg.checkpoint_dir, state,
+                                keep=cfg.checkpoint_keep, extra_meta=extra)
+            else:
+                if final:   # drain in-flight writes before the last
+                    ckpt.wait_pending()
+                ckpt.save(cfg.checkpoint_dir, state,
+                          keep=cfg.checkpoint_keep, extra_meta=extra)
         self.save_seconds.append(time.perf_counter() - t0)
 
     def fit(self) -> Dict[str, Any]:
@@ -561,6 +609,8 @@ class Trainer:
             f"({sum(p.numel() for p in leaves(self.state.params)):,} params) | "
             f"{self.loader.n} samples, {self.loader.steps_per_epoch} "
             "steps/epoch")
+        # the leader-only torch.profiler capture of the whole fit
+        profiler = profiling.trace(cfg.profile_dir or cfg.xla_trace_dir)
         thr = Throughput()
         last_loss = float("nan")
         step = start_step
@@ -573,7 +623,11 @@ class Trainer:
         if cuda:
             events.append(torch.cuda.Event(enable_timing=True))
             events[-1].record()
-        watchdog = HangWatchdog(cfg.hang_timeout or None)
+        # the watchdog's last act before exit 42 is a flight-recorder dump
+        # (a no-op with telemetry off)
+        watchdog = HangWatchdog(
+            cfg.hang_timeout or None,
+            on_timeout=lambda: telemetry_lib.emergency_dump("hang"))
         monitor = (ResilienceMonitor(cfg.rollback_after, cfg.max_rollbacks,
                                      cfg.loss_spike_factor)
                    if cfg.rollback_after > 0 else None)
@@ -590,7 +644,9 @@ class Trainer:
                 return False
             m_step, m_loss = pending
             pending = None
-            action = monitor.observe(float(m_loss))
+            with trace_lib.span("fetch", what="monitor", step=m_step):
+                m_val = float(m_loss)
+            action = monitor.observe(m_val)
             if action == "abort":
                 raise AnomalyAbort(
                     f"training diverged at step {m_step}: "
@@ -599,17 +655,19 @@ class Trainer:
                     "exhausted")
             if action != "rollback":
                 return False
-            with watchdog.suspended():
+            with trace_lib.span("rollback"), watchdog.suspended():
                 step = self._rollback()
             log(f"anomaly rollback #{monitor.rollbacks}: "
                 f"{cfg.rollback_after} consecutive bad steps — restored "
                 f"step {step}, re-drew the data order "
                 f"({self.rollbacks[-1]['seconds']:.3f}s)")
+            # a postmortem now, and again after the first record past it
+            self.telemetry.on_rollback(step, monitor.rollbacks)
             prev = None
             return True
 
         try:
-            with watchdog, shutdown:
+            with profiler, watchdog, shutdown:
                 epoch = start_step // spe
                 # in-epoch offset, taken by the first epoch of a resumed
                 # run (or after a rollback) only
@@ -628,6 +686,9 @@ class Trainer:
                             ([b], 1, self.loader.batch_rows(first + i))
                             for i, b in enumerate(self.loader.epoch(
                                 epoch, start_step=first)))
+                    # each next() is a "load" span (a pass-through when
+                    # tracing is off)
+                    dispatches = trace_lib.traced_iter("load", dispatches)
                     for batches, n_steps, rows in dispatches:
                         if shutdown.requested:
                             break
@@ -641,7 +702,9 @@ class Trainer:
                         if prev is not None and cfg.log_every and \
                                 prev[0] // cfg.log_every > \
                                 prev[3] // cfg.log_every:
-                            last_loss = float(prev[2])
+                            with trace_lib.span("fetch", what="log",
+                                                step=prev[0]):
+                                last_loss = float(prev[2])
                             self.metrics.write({
                                 "step": prev[0], "epoch": prev[1],
                                 "loss": last_loss,
@@ -651,12 +714,18 @@ class Trainer:
                             batches = [self.fault_plan.apply(
                                 step + i, b, ckpt_dir=cfg.checkpoint_dir)
                                 for i, b in enumerate(batches)]
-                        if self.k_dispatch > 1:
-                            self.state, loss = self.multi_step(self.state,
-                                                               batches)
-                        else:
-                            self.state, loss = self.train_step(self.state,
-                                                               batches[0])
+                        # "dispatch": the host's cost of queueing the step
+                        # (the card runs behind it)
+                        with trace_lib.span("dispatch", step=step):
+                            if self.k_dispatch > 1:
+                                self.state, out = self.multi_step(
+                                    self.state, batches)
+                            else:
+                                self.state, out = self.train_step(
+                                    self.state, batches[0])
+                        # with telemetry the step returns its metrics;
+                        # everything downstream keys off the loss
+                        loss = out["loss"] if isinstance(out, dict) else out
                         if cuda:
                             events.append(torch.cuda.Event(
                                 enable_timing=True))
@@ -666,6 +735,9 @@ class Trainer:
                         prev = (step + n_steps, epoch, loss, step)
                         step += n_steps
                         pending = (step, loss)
+                        # the lag-2 metrics read, record and heartbeat
+                        self.telemetry.on_dispatch(step, epoch, prev[3], out,
+                                                   n_steps, rows)
                         if not first_done:  # a relaunch's time to work
                             first_done = True
                             if cuda:
@@ -697,7 +769,8 @@ class Trainer:
                         f"({time.perf_counter() - epoch_t0:.3f}s)")
                     if (self.val_data is not None and cfg.eval_every
                             and (epoch + 1) % cfg.eval_every == 0):
-                        with watchdog.suspended():
+                        with trace_lib.span("eval", epoch=epoch), \
+                                watchdog.suspended():
                             ev = self.evaluate(self.val_data)
                         log("validation: " + ", ".join(
                             f"{k} {v:.6f}" for k, v in sorted(ev.items())))
@@ -710,10 +783,22 @@ class Trainer:
                     self.metrics.write({"step": prev[0], "epoch": prev[1],
                                         "loss": last_loss,
                                         "samples_per_sec": thr.samples_per_sec})
+                # drain the telemetry lag queue (every queued copy is
+                # complete by now) and write the final heartbeat at the
+                # real step
+                self.telemetry.flush(step=step)
+                if shutdown.requested:
+                    self.telemetry.on_preempted(shutdown.signum, step)
                 with watchdog.suspended():
                     self.save(final=True)
-        except BaseException:
+        except BaseException as exc:
+            # the flight recorder's dump is the black box a relaunch
+            # reads; then the handles close, and the spans reach disk
+            self.telemetry.on_abnormal_exit(exc)
             self.metrics.close()    # an aborted run's records stay on disk
+            self.telemetry.close()
+            if self.tracer is not None:
+                trace_lib.stop_run(self.tracer)
             raise
         finally:
             # an escaping exception (AnomalyAbort, a failed write) keeps
@@ -741,12 +826,13 @@ class Trainer:
             result["bad_steps"] = monitor.bad_steps
         if self.guarded:    # read once, off the hot path
             result["skipped_updates"] = int(self.state.opt_state.skipped)
-        fwd = getattr(self.model, "fwd_flops", None)
-        if fwd is not None:
-            sample = (1,) + tuple(self.data["x"].shape[1:])
-            # fwd + ~2x for the backward per sample
-            result["model_flops_per_sec"] = (3.0 * fwd(sample)
-                                             * thr.samples_per_sec)
+        step_flops = telemetry_lib.train_step_flops(
+            self.model, (1,) + tuple(self.data["x"].shape[1:]))
+        if step_flops is not None:
+            result["model_flops_per_sec"] = step_flops * thr.samples_per_sec
+            if self.telemetry.enabled:
+                result["mfu"] = (result["model_flops_per_sec"]
+                                 / self.telemetry.peak_total)
         if cuda:
             events[-1].synchronize()
             # a dispatch's ms shared equally by its steps
@@ -757,11 +843,15 @@ class Trainer:
             result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
                 self.device)
         if self.val_data is not None:
-            ev = self.evaluate(self.val_data)
+            with trace_lib.span("eval", final=True):
+                ev = self.evaluate(self.val_data)
             self.metrics.write({"step": step, "final": True,
                                 **{f"val_{k}": v for k, v in ev.items()}})
             result.update({f"val_{k}": v for k, v in ev.items()})
         self.metrics.close()
+        self.telemetry.close()
+        if self.tracer is not None:
+            trace_lib.stop_run(self.tracer)
         return result
 
     def evaluate(self, data=None) -> Dict[str, float]:
@@ -770,6 +860,9 @@ class Trainer:
         sums: Dict[str, float] = {}
         totals: Dict[str, float] = {}
         for batch in loader.epoch(0):
+            # an eval emits no dispatch: beat so the supervisor's
+            # stale-heartbeat monitor does not kill a long eval
+            self.telemetry.alive()
             m = {k: float(v) for k, v in
                  self.eval_step(self.state.params, batch).items()}
             c = m.pop("count")

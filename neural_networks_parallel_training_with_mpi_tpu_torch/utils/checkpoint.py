@@ -103,7 +103,19 @@ def _die_torn(d: Path, tmp: Path, target: Path, step: int) -> None:
     print(f"[faults] injected torn checkpoint write at step {step}: "
           f"published {target.name} without a manifest, dying (SIGKILL)",
           file=sys.stderr, flush=True)
+    _emergency_dump(f"torn_ckpt@{step} (injected)")
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _emergency_dump(reason: str) -> None:
+    """The injected deaths die WITH a postmortem for the supervisor's
+    relaunch log to point at (``train.telemetry``; a no-op when off)."""
+    try:
+        from ..train import telemetry
+
+        telemetry.emergency_dump(reason)
+    except Exception:
+        pass
 
 
 def _rank() -> int:
@@ -304,8 +316,12 @@ def save_async(directory: str, state: TrainState, keep: int = 3,
     extra = _with_world(extra_meta)
 
     def work():
+        from ..train import trace as trace_lib
+
         try:
-            _write_npz(Path(directory), step, host, keep, extra)
+            # span "ckpt_write": the writer's disk time on the timeline
+            with trace_lib.span("ckpt_write", step=step):
+                _write_npz(Path(directory), step, host, keep, extra)
         except Exception as e:  # noqa: BLE001 — raised by wait_pending
             with _err_lock:
                 _async_errors.append(e)

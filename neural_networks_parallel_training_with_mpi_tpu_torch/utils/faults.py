@@ -14,7 +14,8 @@ the group is dispatched):
                      when there is none), so its loss and gradient are NaN:
                      the bad batch the guarded update must reject.  Inside
                      a k-group only the faulted step's rows are poisoned.
-    ``crash``        ``os._exit(1)``: the crash the supervisor relaunches.
+    ``crash``        ``os._exit(1)``: the crash the supervisor relaunches
+                     (after the flight recorder's postmortem).
     ``sigterm``      SIGTERM to this process: the preemption the graceful
                      shutdown absorbs (final snapshot, exit 0).
     ``preempt``      SIGUSR1 with a notice file of ``grace=S`` seconds
@@ -80,6 +81,17 @@ def _process_index() -> int:
 
 def _say(msg: str) -> None:
     print(f"[faults] {msg}", file=sys.stderr, flush=True)
+
+
+def _emergency_dump(reason: str) -> None:
+    """The flight recorder's postmortem before an injected death
+    (``train.telemetry``; a no-op with telemetry off)."""
+    try:
+        from ..train import telemetry
+
+        telemetry.emergency_dump(reason)
+    except Exception:
+        pass
 
 
 @dataclasses.dataclass
@@ -269,6 +281,7 @@ class FaultPlan:
             elif f.kind == "device_loss":
                 _say(f"injected device_loss at step {step}: reporting a "
                      "lost local device, exiting 43")
+                _emergency_dump(f"device_loss@{step} (injected)")
                 os._exit(43)
             elif f.kind in ("torn_ckpt", "ckpt_ioerr"):
                 from . import checkpoint as ckpt_lib
@@ -281,6 +294,9 @@ class FaultPlan:
             elif f.kind == "crash":
                 _say(f"injected crash at step {step}")
                 sys.stdout.flush()
+                # a real segfault could not, but the stand-in dies WITH a
+                # postmortem for the supervisor's relaunch log
+                _emergency_dump(f"crash@{step} (injected)")
                 os._exit(1)
             elif f.kind == "sigterm":
                 _say(f"injected SIGTERM at step {step}")

@@ -9,8 +9,10 @@ read waits on the stream) or inside an NCCL/gloo collective.
 :class:`HangWatchdog` turns the silent stall into a loud failure: a
 daemon thread watches a heartbeat the train loop pats after each lag-1
 read, and when nothing happens for ``timeout_s`` it dumps the stack of
-every thread to stderr and hard-exits the process with 42 (a kernel or a
-collective stuck on the card cannot be interrupted from Python).
+every thread to stderr, calls ``on_timeout`` (the Trainer's flight-
+recorder dump, ``train.telemetry.emergency_dump("hang")``) and
+hard-exits the process with 42 (a kernel or a collective stuck on the
+card cannot be interrupted from Python).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import os
 import sys
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 
 class HangWatchdog:
@@ -32,9 +34,13 @@ class HangWatchdog:
     Known-long host phases (evals, checkpoint writes) run inside ``with
     wd.suspended():``; the clock resets when the phase ends."""
 
-    def __init__(self, timeout_s: Optional[float], _exit=os._exit):
+    def __init__(self, timeout_s: Optional[float], _exit=os._exit,
+                 on_timeout: Optional[Callable[[], object]] = None):
         self.timeout_s = timeout_s
         self._exit = _exit  # injectable for tests
+        # the last act before the hard exit, called once; what it raises
+        # is logged, never raised: the exit must happen regardless
+        self.on_timeout = on_timeout
         self._beat: Optional[float] = None  # None until armed by first pat
         self._suspended = 0
         self._stop = threading.Event()
@@ -75,6 +81,13 @@ class HangWatchdog:
                     sys.stderr.flush()
                 except Exception:
                     pass
+                if self.on_timeout is not None:
+                    try:
+                        self.on_timeout()
+                    except Exception as e:
+                        print(f"[watchdog] on_timeout failed: "
+                              f"{type(e).__name__}: {e}", file=sys.stderr,
+                              flush=True)
                 self._exit(42)
                 return  # only reached with an injected _exit (tests)
 

@@ -1,6 +1,9 @@
 """The port stands alone: no module of it, and not ``chip_smoke.py``,
-imports JAX or the JAX package; importing it loads no JAX; its entry
-points default to the GPU and refuse to run quietly on the CPU."""
+imports JAX or the JAX package, or loads a module of either by file
+path; importing it (the observability modules included) loads no JAX;
+its entry points default to the GPU and refuse to run quietly on the
+CPU.  ``tools/``, which loads the JAX package's stdlib-only modules by
+path, is not part of the port."""
 
 import ast
 import os
@@ -41,6 +44,21 @@ def test_no_jax_imports(path):
     assert not (_imported_roots(path) & set(FORBIDDEN))
 
 
+# ways to run a module's code without an import statement
+_PATH_LOADERS = ("spec_from_file_location", "SourceFileLoader",
+                 "run_path", "import_module", "exec(", "__import__(\"jax",
+                 "__import__('jax")
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_loaded_by_file_path(path):
+    """No loader at all: a path into the JAX package (``chip_smoke.py``
+    names the TPU kernels' file in its report) cannot become a module."""
+    text = path.read_text()
+    assert not [w for w in _PATH_LOADERS if w in text]
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONSTARTUP", None)
@@ -55,6 +73,10 @@ def test_importing_the_port_loads_no_jax():
             ".interop, neural_networks_parallel_training_with_mpi_tpu_torch"
             ".cli, neural_networks_parallel_training_with_mpi_tpu_torch"
             ".train.trainer\n"
+            "from neural_networks_parallel_training_with_mpi_tpu_torch.train "
+            "import telemetry, trace\n"
+            "from neural_networks_parallel_training_with_mpi_tpu_torch.utils "
+            "import compile_ledger, goodput, jsonl, profiling, sketches\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"

@@ -158,32 +158,37 @@ Phases, each printing its own lines; any failure exits non-zero:
               (events) over the step: the device's busy share.  Then an
               f32, TF32-off, 2-layer identity: 3 SGD steps through the
               graph against the eager steps.
-17. slice   — (a) the ``attention="auto"`` rows, in bf16 and in f32:
+17. slice   — first phase 7's job cut to 2 layers (full width), eager:
+              the reference of 17 (b)-(e) and 19 (d).
+              (a) the ``attention="auto"`` rows, in bf16 and in f32:
               dense (the plain path, f32 scores) against flash, forward
               + backward of the op alone at T 256-8192 and the full train
-              step of phase 7's model at T 256-4096 (B x T = 8192 tokens,
-              causal, 16 heads of 64; dense training at T 8192 would not
-              fit), a table on one line each; the measured row beside
-              the port's ``AUTO_FLASH_MIN_SEQ[('cuda', dtype)]`` (the
-              phase fails where they disagree beyond a 5% tie), and
-              ``auto`` through the model launching flash at a row and
-              not under it.  Then phase 7's job (b) with ``--remat``
-              under ``full``, ``dots`` and ``dots_no_batch`` (the
-              forward kernel launches 24 times per step: the block's
-              forward runs again in the backward), each also under
-              ``--steps_per_dispatch 13`` (bitwise equal to its eager
-              run); (c) with ``--scan-layers``, its snapshot
-              decoded by ``--generate`` (greedy) against ``generate()``;
-              (d) with ``--update_sharding sharded`` and ``zero1``
-              (bitwise: one card shards nothing); (e) with bf16 params,
+              step of phase 7's model cut to 4 layers at T 256-4096 (B x
+              T = 8192 tokens, causal, 16 heads of 64; dense training at
+              T 8192 would not fit) beside the step with no layers, a
+              table on one line each; the measured row beside the port's
+              ``AUTO_FLASH_MIN_SEQ[('cuda', dtype)]`` (the phase fails
+              where they disagree beyond a 5% tie of the two steps
+              carried to 12 layers: the time above the no-layer step
+              times 3), and ``auto`` through
+              the model launching flash at a row and not under it.  Then
+              the 2-layer job (b) with ``--remat`` under ``full``,
+              ``dots`` and ``dots_no_batch`` (the forward kernel launches
+              twice per layer and step: the block's forward runs again in
+              the backward), each also under ``--steps_per_dispatch 13``
+              (bitwise equal to its eager run); (c) with
+              ``--scan-layers``, its snapshot decoded by ``--generate``
+              (greedy) against ``generate()``; (d) with
+              ``--update_sharding sharded`` and ``zero1`` (bitwise: one
+              card shards nothing); (e) with bf16 params,
               ``--update_sharding sharded --master-weights``, eager and
               graphed (every param the bf16 cast of its master, bitwise;
-              the loss falls 1 nat); each against phase 7: losses and
-              final params (bitwise, or phase 8's f32 tolerance: printed
-              which), step time, tokens/s, MFU and peak memory.  (f) f32,
-              2 layers: remat + scan_layers with striped_flash over
-              ``LocalSeqGroup(4)`` against flash without either (phase
-              12's bars).
+              the loss falls 1 nat); each against the 2-layer run: losses
+              and final params (bitwise, or phase 8's f32 tolerance:
+              printed which), step time, tokens/s, MFU and peak memory.
+              (f) f32, 2 layers: remat + scan_layers with striped_flash
+              over ``LocalSeqGroup(4)`` against flash without either
+              (phase 12's bars).
 18. quant   — quantized compute (``ops.qmm``, ``ops.quant``): (a) the
               three products of a quantized Linear (forward, dx, dw)
               at phase 7's projection shapes (8192 rows; 1024->3072,
@@ -207,8 +212,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               product, every GEMM kernel one of theirs), then
               ``--steps_per_dispatch 13`` bitwise equal to eager; step
               ms, tokens/s and peak memory beside bf16 and the largest
-              |loss - bf16 loss|; two more eager int8 runs witness where
-              int8's early gap to bf16 comes from: ce_chunk 0 (no
+              |loss - bf16 loss|; two more eager int8 runs (one epoch)
+              witness where int8's early gap to bf16 comes from:
+              ce_chunk 0 (no
               chunked head, no recompute) and the head left unquantized
               (``--quantize_skip head``).  (d) f32, 2 layers, T 128: int8
               and fp8 on the card against the host (losses 1e-4 int8,
@@ -222,10 +228,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               line holds the phase's numbers.
 
 19. resilience — phase 7's job (graphed, k 13, unless a part says
-              otherwise).  (a) ``--skip-nonfinite`` against the same run
-              without it, 4 epochs, graphed and eager: losses and final
-              state bitwise equal; step ms, the guard's overhead and
-              peak memory.  (b) ``--skip-nonfinite --faults
+              otherwise), (b)-(d) cut to 2 layers (full width).  (a)
+              ``--skip-nonfinite`` against the same run without it, 2
+              epochs, graphed and eager: losses and final state bitwise
+              equal; step ms, the guard's overhead and peak memory.
+              (b) ``--skip-nonfinite --faults
               nan@5,nan@18``, constant lr and a cosine schedule with 10
               warm-up steps: the graphed run through ``Trainer.fit``
               against an eager run driven step by step: NaN losses at
@@ -237,7 +244,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               one train_step event in the compile ledger); its
               restore s.  (d) the CLI as subprocesses: SIGTERM at step 7
               -> exit 0 with the step-13 snapshot, then ``--resume`` ends
-              bitwise at phase 7's final params; ``--supervise 2`` with
+              bitwise at the 2-layer eager run's final params;
+              ``--supervise 2`` with
               a crash at step 20 (and ``--telemetry_dir --trace``, read
               by phase 20 (d)) relaunches once, resumes from step 13,
               ends bitwise there too; ``--rollback_after 1
@@ -281,8 +289,38 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``observability:`` JSON line holds the phase's numbers; the
               flash kernels' launches count phase 20's in-process runs.
 
+21. consistency + elastic — (a) the fingerprint kernel
+              (``csrc/fingerprint.cu``) on phase 7's final training state
+              (params, Adam's mu and nu, the count: 657,942,529 values,
+              2.63 GB, uploaded from a host copy): its per-leaf and
+              chained digests equal the plain version's on the card and
+              on the host, bitwise; one flipped bit changes the digest
+              (an f32 leaf, the count, a bf16 copy of a param); its
+              time (CUDA events, median of 20) beside the bytes bound
+              and the plain version's.  (b) Two replicas of that state
+              on the card, bit 9 of one element of replica 1 flipped:
+              the per-leaf digest matrix through
+              ``utils.consistency.localize`` names that leaf, replica 1
+              and one element; ``heal_replication`` restores replica 1
+              bitwise; ``digest_report`` of the (1, 2) matrix reads
+              ``local: [0]`` before and ``{}`` after.  (c) Phase 7's job
+              cut to 2 layers (full width), 2 rows a step, zero1: 2 gloo
+              ranks of the CLI on the host write a snapshot after one
+              step (started first, run beside (a)-(b)); ``--elastic
+              --elastic_batch global`` resumes it at dp=1 on the card
+              under ``--steps_per_dispatch 2 --sdc_check_every 1`` (the
+              replica floor at 1): params and moments equal the
+              snapshot's arrays bitwise (zero1's padding cut off), the
+              topology record reads dp 2 -> 1 and accumulation 1 -> 2,
+              two more steps finite with one capture, and the fingerprint
+              and flash kernels launched in that run (counters set to 0
+              just before it).  (d) ``--min_devices 2`` on one card:
+              ``CapacityAbort`` naming exit 46.  An ``sdc_elastic:`` JSON
+              line holds the phase's numbers.
+
 The last lines are the kernels JSON line (each kernel with the head_dims
-and blocks it takes), the ``nvidia-smi`` line and ``{"ok": true,
+and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
+``nvidia-smi`` line and ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -2446,6 +2484,10 @@ def resume_full_width(torch, np, device, straight, **over):
 # ---------------------------------------------------------------------------
 
 DISPATCH_K = 13   # one dispatch per epoch of the 219M LM's 13 steps
+# the depth phases 17 (c) and 19 (b)-(d) cut phase 7's job to (full
+# width): their checks hold runs to a reference of the same depth, and
+# their cost is processes, snapshots and restores, which the depth sets
+CUT_LAYERS = 2
 # the host's launch APIs counted per step under the profiler
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
                "cudaMemcpyAsync", "cudaMemsetAsync")
@@ -2742,6 +2784,9 @@ def dispatch_identity(torch, np, device, n_layers=2, steps=3, batch=8,
 # beside the rest: the full step is measured up to T 4096 (38.6 GiB of
 # them in bf16)
 AUTO_TOKENS = 8192
+# the full step's model: phase 7's cut to 4 layers (full width), so the
+# 160 steps of the two dtypes' sweeps fit the script's time limit
+AUTO_LAYERS = 4
 AUTO_OP_T = (256, 512, 1024, 2048, 4096, 8192)
 AUTO_STEP_T = (256, 512, 1024, 2048, 4096)
 # a row that disagrees with the measurement only where the two full steps
@@ -2783,7 +2828,9 @@ def auto_step_ms(torch, device, kw, step_t, steps):
     """Dense against flash in the full train step of phase 7's model
     (``kw``), at each T of ``step_t``: ``max_seq_len`` = T (the positions
     are learned), Adam, the median of ``steps`` steps after 2, one event
-    after each step as phase 7 times them."""
+    after each step as phase 7 times them.  ``base``: the same step with
+    no layers (embedding, head, loss, Adam), what the layers' time sits
+    on."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
         Transformer, TransformerConfig,
     )
@@ -2810,10 +2857,14 @@ def auto_step_ms(torch, device, kw, step_t, steps):
                             generator=g).to(device)
         batch = {"x": ids[:, :-1], "y": ids[:, 1:]}
         step_ms[t] = {}
-        for name in ("dense", "flash"):
+        for name in ("dense", "flash", "base"):
+            layers = 0 if name == "base" else kw["n_layers"]
             model = Transformer(TransformerConfig(
-                **dict(kw, max_seq_len=t), attention=name), device=device)
-            params = dict(params0, pos={"table": params0["pos"]["table"][:t]})
+                **dict(kw, max_seq_len=t, n_layers=layers),
+                attention="dense" if name == "base" else name),
+                device=device)
+            params = dict(params0, pos={"table": params0["pos"]["table"][:t]},
+                          blocks=params0["blocks"][:layers])
             opt = optim.adam(1e-4, steps=steps + 2)
             state = TrainState.from_params(params, opt)
             step = dp.make_train_step(model, opt, world,
@@ -2845,8 +2896,10 @@ def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
     A dtype's row is the smallest T from which flash is no slower in the
     full step at that T and every longer one (None: at no T).  The phase
     fails when the port's ``AUTO_FLASH_MIN_SEQ`` row disagrees with the
-    measurement at a T where the two steps are further apart than
-    ``AUTO_TIE``.  Then ``attention="auto"`` through the model: flash
+    measurement at a T where the two steps, carried to phase 7's full
+    depth, are further apart than ``AUTO_TIE``: each step's time above
+    the no-layer ``base`` is the layers', scaled by ``BIG["n_layers"] /
+    AUTO_LAYERS``, so the cut depth dilutes no gap.  Then ``attention="auto"`` through the model: flash
     launches at a row and not just under it, nor at any T for a dtype
     without a row."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
@@ -2863,7 +2916,7 @@ def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
         kw = dict(BIG, activation="gelu", pos_encoding="learned",
-                  ce_chunk=256, compute_dtype=dtype)
+                  ce_chunk=256, compute_dtype=dtype, n_layers=AUTO_LAYERS)
         kw.update(over)
         op = auto_op_ms(torch, device, dtype, op_t)
         print(f"auto op {name} (fwd+bwd ms, 16 heads of 64, B x T = "
@@ -2871,9 +2924,16 @@ def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
                   f"T {t}: dense {r['dense']:.3f} flash {r['flash']:.3f}"
                   for t, r in op.items()), flush=True)
         step_ms = auto_step_ms(torch, device, kw, step_t, steps)
-        print(f"auto step {name} (ms, phase 7's model, B x T = 8192, "
-              f"Adam): " + "; ".join(
-                  f"T {t}: dense {r['dense']:.2f} flash {r['flash']:.2f}"
+        depth = BIG["n_layers"] / kw["n_layers"]
+        full = {t: {k: r["base"] + (r[k] - r["base"]) * depth
+                    for k in ("dense", "flash")}
+                for t, r in step_ms.items()}
+        print(f"auto step {name} (ms, phase 7's model at "
+              f"{kw['n_layers']} layers, B x T = 8192, Adam; no layers; "
+              f"carried to {BIG['n_layers']} layers): " + "; ".join(
+                  f"T {t}: dense {r['dense']:.2f} flash {r['flash']:.2f} "
+                  f"base {r['base']:.2f} ({full[t]['dense']:.2f} / "
+                  f"{full[t]['flash']:.2f})"
                   for t, r in step_ms.items()), flush=True)
         row = None
         for t in sorted(step_ms, reverse=True):
@@ -2883,7 +2943,7 @@ def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
         shipped = sq.AUTO_FLASH_MIN_SEQ.get(("cuda", dtype))
         # the shipped row's pick at each T, and how much slower it is
         stale = {}
-        for t, r in step_ms.items():
+        for t, r in full.items():
             pick = "flash" if shipped is not None and t >= shipped \
                 else "dense"
             other = "dense" if pick == "flash" else "flash"
@@ -2920,15 +2980,15 @@ def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
         if routed != want:
             raise AssertionError(f"auto {name} routed {routed}, expected "
                                  f"{want}")
-        out[name] = dict(op_ms=op, step_ms=step_ms, measured_row=row,
-                         shipped_row=shipped)
+        out[name] = dict(op_ms=op, step_ms=step_ms, full_depth_ms=full,
+                         measured_row=row, shipped_row=shipped)
     return out
 
 
-def against(torch, tag, run, ref, exact=False):
-    """``run``'s losses and final params against ``ref``'s (phase 7's):
-    bitwise, or within phase 8's f32 tolerance (``exact``: bitwise
-    only); prints which."""
+def against(torch, tag, run, ref, exact=False, ref_name="phase 7"):
+    """``run``'s losses and final params against ``ref``'s (phase 7's, or
+    ``ref_name``'s): bitwise, or within phase 8's f32 tolerance
+    (``exact``: bitwise only); prints which."""
     loss_diff = max(abs(a - b) for a, b in zip(run["losses"], ref["losses"]))
     loss_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(run["losses"], ref["losses"]))
@@ -2939,14 +2999,15 @@ def against(torch, tag, run, ref, exact=False):
     within = loss_rel <= 1e-5 and all(
         bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
         for a, b in pairs)
-    print(f"{tag} against phase 7: largest loss difference {loss_diff:.3g} "
+    print(f"{tag} against {ref_name}: largest loss difference "
+          f"{loss_diff:.3g} "
           f"({loss_rel:.3g} relative), largest param difference "
           f"{param_diff:.3g}: " + ("bitwise" if bitwise else
                                   "within phase 8's f32 tolerance" if within
                                   else "DIFFERENT"), flush=True)
     if len(pairs) != len(ref["final_params"]) or not (
             bitwise or (within and not exact)):
-        raise AssertionError(f"{tag} differs from phase 7's run"
+        raise AssertionError(f"{tag} differs from {ref_name}'s run"
                              + (" (bitwise required)" if exact else ""))
     return dict(bitwise=bitwise, loss_max_abs_diff=loss_diff,
                 param_max_abs_diff=param_diff)
@@ -3036,25 +3097,29 @@ def remat_scan_identity(torch, np, device, n_layers=2, steps=3, batch=8,
     return dict(param_max_abs_diff=worst)
 
 
-def slice_full_width(torch, np, device, trained, **over):
-    """Phase 17 (b)-(f) on phase 7's job (``over``: its flags changed, as
-    a CPU rehearsal shrinks it); ``trained`` is phase 7's run (its losses
-    and final params).  The graphed runs need the card."""
+def slice_full_width(torch, np, device, short, **over):
+    """Phase 17 (b)-(f) on phase 7's job cut to ``CUT_LAYERS`` layers at
+    full width (``over``: its flags changed, as a CPU rehearsal shrinks
+    it); ``short`` is that job's eager run (its losses and final params),
+    which every run here is held against.  The graphed runs need the
+    card."""
     import tempfile
 
     cuda = device.type == "cuda"
     keep = ("step_ms_median", "peak_memory_gib", "memory_before_gib", "mfu",
             "tokens_per_s", "launches", "first_loss", "last3_loss")
+    cut = dict(over, n_layers=CUT_LAYERS)
+    ref = f"the {CUT_LAYERS}-layer run"
 
     def train(tag, **flags):
         run = train_full_width(torch, np, device, keep_final=True,
-                               profile=False, tag=tag, **over, **flags)
+                               profile=False, tag=tag, **cut, **flags)
         numbers = {k: run[k] for k in keep if k in run}
         if cuda:
             print(f"{tag}: step {run['step_ms_median']:.2f} ms vs "
-                  f"{trained['step_ms_median']:.2f} ms, peak memory "
+                  f"{short['step_ms_median']:.2f} ms, peak memory "
                   f"{run['peak_memory_gib']:.2f} GiB vs "
-                  f"{trained['peak_memory_gib']:.2f} GiB (phase 7); flash "
+                  f"{short['peak_memory_gib']:.2f} GiB ({ref}); flash "
                   f"launches {run['launches']}", flush=True)
         return run, numbers
 
@@ -3066,12 +3131,12 @@ def slice_full_width(torch, np, device, trained, **over):
         run, out[f"remat_{policy}"] = train(f"remat {policy}", remat=True,
                                             remat_policy=policy)
         out[f"remat_{policy}"].update(
-            against(torch, f"remat {policy}", run, trained))
+            against(torch, f"remat {policy}", run, short, ref_name=ref))
         if cuda:
             graphed = dispatch_full_width(
                 torch, np, device, run, exact=True, profile=False,
                 tag=f"remat {policy} dispatch", remat=True,
-                remat_policy=policy, **over)
+                remat_policy=policy, **cut)
             out[f"remat_{policy}"].update(
                 graphed_step_ms_median=graphed["step_ms_median"],
                 graphed_peak_memory_gib=graphed["peak_memory_gib"],
@@ -3081,16 +3146,18 @@ def slice_full_width(torch, np, device, trained, **over):
     with tempfile.TemporaryDirectory() as ck:
         run, out["scan_layers"] = train("scan_layers", checkpoint_dir=ck,
                                         **{"scan-layers": True})
-        out["scan_layers"].update(against(torch, "scan_layers", run, trained))
+        out["scan_layers"].update(against(torch, "scan_layers", run, short,
+                                          ref_name=ref))
         del run
         out["scan_layers"].update(scan_generate(
-            torch, device, ck, **over, **{"scan-layers": True}))
+            torch, device, ck, **cut, **{"scan-layers": True}))
     # (d) the sharded updates: N = 1 shards nothing, so bitwise
     for how in ("sharded", "zero1"):
         run, out[f"update_sharding_{how}"] = train(
             f"update_sharding {how}", update_sharding=how)
         out[f"update_sharding_{how}"].update(against(
-            torch, f"update_sharding {how}", run, trained, exact=True))
+            torch, f"update_sharding {how}", run, short, exact=True,
+            ref_name=ref))
         del run
     # (e) bf16 params, the f32 master in the sharded state; eager, graphed
     flags = dict(param_dtype="bfloat16", update_sharding="sharded",
@@ -3100,7 +3167,7 @@ def slice_full_width(torch, np, device, trained, **over):
     if cuda:
         graphed = dispatch_full_width(torch, np, device, run, profile=False,
                                       tag="master weights dispatch",
-                                      inspect=master_check, **over, **flags)
+                                      inspect=master_check, **cut, **flags)
         out["master_weights"].update(
             graphed_step_ms_median=graphed["step_ms_median"],
             graphed_peak_memory_gib=graphed["peak_memory_gib"],
@@ -3491,7 +3558,8 @@ def quant_train_full_width(torch, np, device, trained, **over):
     for name, extra in (("int8 ce_chunk 0", dict(ce_chunk=0)),
                         ("int8 head unquantized",
                          dict(ce_chunk=int8_ce, quantize_skip="head"))):
-        flags = dict(over, matmul_dtype="int8", **extra)
+        # the first 6 steps are compared: one epoch
+        flags = dict(dict(over, nepochs=1), matmul_dtype="int8", **extra)
         cfg = config_from_args(build_argparser().parse_args(
             train_flags(**flags)))
         run = train_full_width(torch, np, device, profile=False,
@@ -3810,7 +3878,7 @@ def res_fit(torch, device, tag, inspect=None, **over):
 
 def guard_happy_path(torch, device):
     """(a) ``--skip-nonfinite`` against the same run without it, graphed
-    (k 13) and eager, 4 epochs: losses and final state bitwise equal; the
+    (k 13) and eager, 2 epochs: losses and final state bitwise equal; the
     guard's overhead on the step time and peak memory."""
     out, runs = {}, {}
     for mode, k in (("graphed", DISPATCH_K), ("eager", 1)):
@@ -3819,7 +3887,7 @@ def guard_happy_path(torch, device):
             extra = {"skip-nonfinite": True} if guard else {}
             runs[(mode, guard)] = res_fit(
                 torch, device, f"guard {mode} {'on' if guard else 'off'}",
-                nepochs=4, steps_per_dispatch=k, **extra)
+                nepochs=2, steps_per_dispatch=k, **extra)
         on, off = runs[(mode, True)], runs[(mode, False)]
         if on["losses"] != off["losses"] or not all(
                 math.isfinite(x) for x in on["losses"].values()):
@@ -3902,7 +3970,8 @@ def _manual_eager(torch, device, faulted, **over):
 
 def guard_faults(torch, device):
     """(b) ``--skip-nonfinite --faults nan@5,nan@18`` (18 inside the
-    second dispatch), with a constant lr and with a warm-up: the graphed
+    second dispatch) at ``CUT_LAYERS`` layers, with a constant lr and with
+    a warm-up: the graphed
     run through ``Trainer.fit`` against the eager run driven step by
     step: the two steps' losses NaN, every other finite, 2 skipped, the
     state bitwise unchanged across each faulted step, the count (and so
@@ -3913,7 +3982,7 @@ def guard_faults(torch, device):
                          ("warmup", dict(lr_schedule="cosine",
                                          warmup_steps=10))):
         flags = dict({"skip-nonfinite": True}, faults="nan@5,nan@18",
-                     **extra)
+                     n_layers=CUT_LAYERS, **extra)
         g = res_fit(torch, device, f"faults graphed ({sched} lr)",
                     steps_per_dispatch=DISPATCH_K, **flags)
         losses, final, skipped = _manual_eager(torch, device, (5, 18),
@@ -3941,7 +4010,8 @@ def guard_faults(torch, device):
 
 def guard_rollback(torch, device):
     """(c) ``--rollback_after 2 --checkpoint_every 8 --async-checkpoint
-    --faults nan@9?max=1,nan@10?max=1`` without the guard, graphed at k 4
+    --faults nan@9?max=1,nan@10?max=1`` without the guard, at
+    ``CUT_LAYERS`` layers, graphed at k 4
     (a dispatch boundary at every snapshot step; the faults fire once, or
     the rolled-back window would replay them): exactly one rollback, to
     the step-8 snapshot, ``order_salt`` 1, no re-capture of the graph,
@@ -3959,6 +4029,7 @@ def guard_rollback(torch, device):
 
     with tempfile.TemporaryDirectory() as tmp:
         r = res_fit(torch, device, "rollback", steps_per_dispatch=4,
+                    n_layers=CUT_LAYERS,
                     checkpoint_dir=f"{tmp}/ck", checkpoint_every=8,
                     **{"async-checkpoint": True},
                     rollback_after=2, faults="nan@9?max=1,nan@10?max=1",
@@ -4024,12 +4095,14 @@ def _fail_cli(what, rc, lines):
 
 
 def guard_cli(torch, device, straight):
-    """(d) The CLI at phase 7's flags, graphed (k 13): SIGTERM at step 7
-    -> exit 0 with the step-13 snapshot, and ``--resume`` from it ends
-    bitwise at phase 7's final params; ``--supervise 2`` with a crash at
-    step 20 (once) relaunches once, resumes from the step-13 snapshot and
-    ends bitwise there too; ``--rollback_after 1 --max_rollbacks 0`` with
-    a NaN at step 5 exits 44, not retried (``guard_abort``)."""
+    """(d) The CLI at phase 7's flags cut to ``CUT_LAYERS`` layers,
+    graphed (k 13): SIGTERM at step 7 -> exit 0 with the step-13
+    snapshot, and ``--resume`` from it ends bitwise at ``straight``'s
+    final params (the same job's eager run, in process);
+    ``--supervise 2`` with a crash at step 20 (once) relaunches once,
+    resumes from the step-13 snapshot and ends bitwise there too;
+    ``--rollback_after 1 --max_rollbacks 0`` with a NaN at step 5 exits
+    44, not retried (``guard_abort``)."""
     import tempfile
     from pathlib import Path
 
@@ -4047,7 +4120,8 @@ def guard_cli(torch, device, straight):
     )
 
     # the restore's template: the CLI's model, on the host
-    cfg = config_from_args(build_argparser().parse_args(train_flags()))
+    cfg = config_from_args(build_argparser().parse_args(train_flags(
+        n_layers=CUT_LAYERS)))
     template = build_model(cfg.model, device="cpu").init(
         torch.Generator().manual_seed(SEED))
 
@@ -4056,13 +4130,15 @@ def guard_cli(torch, device, straight):
         same = step == len(straight["losses"]) and _same_bits(
             torch, leaves(params), straight["final_params"])
         print(f"{what}: final snapshot step {step}, params bitwise equal "
-              f"to phase 7's uninterrupted run: {same}", flush=True)
+              f"to the uninterrupted {CUT_LAYERS}-layer run: {same}",
+              flush=True)
         if not same:
-            raise AssertionError(f"{what}: not bitwise phase 7's run")
+            raise AssertionError(f"{what}: not bitwise the uninterrupted "
+                                 "run")
 
-    out = {}
-    base = train_flags(steps_per_dispatch=DISPATCH_K)
-    with tempfile.TemporaryDirectory() as tmp:
+    base = train_flags(steps_per_dispatch=DISPATCH_K, n_layers=CUT_LAYERS)
+
+    def sigterm_chain(tmp):
         ck = Path(tmp) / "sigterm"
         rc, lines, wall = _timed_cli(base + [f"--checkpoint_dir={ck}",
                                              "--faults=sigterm@7"])
@@ -4071,17 +4147,18 @@ def guard_cli(torch, device, straight):
         t_sig = _first(lines, "injected SIGTERM")
         in_proc = next(float(line.rsplit(", ", 1)[1].split("s after")[0])
                        for _, line in lines if "s after the signal" in line)
-        out["sigterm"] = dict(signal_to_snapshot_s=in_proc,
-                              signal_to_exit_s=wall - t_sig, wall_s=wall)
+        out = dict(signal_to_snapshot_s=in_proc,
+                   signal_to_exit_s=wall - t_sig, wall_s=wall)
         rc, lines, wall = _timed_cli(base + [f"--checkpoint_dir={ck}",
                                              "--resume"])
         if rc != 0:
             _fail_cli("sigterm resume", rc, lines)
-        out["sigterm"]["resume_wall_s"] = wall
-        out["sigterm"]["start_to_first_step_s"] = _first(
-            lines, "first dispatch done")
+        out["resume_wall_s"] = wall
+        out["start_to_first_step_s"] = _first(lines, "first dispatch done")
         final_bitwise(ck, "sigterm + resume")
+        return out
 
+    def crash_chain(tmp):
         ck = Path(tmp) / "crash"
         rc, lines, wall = _timed_cli(base + [
             f"--checkpoint_dir={ck}", f"--checkpoint_every={DISPATCH_K}",
@@ -4094,10 +4171,19 @@ def guard_cli(torch, device, straight):
         t_re = _first(lines, "[supervise] attempt 2")
         t_step = next(t for t, line in lines
                       if "first dispatch done" in line and t > t_re)
-        out["supervise"] = dict(relaunch_to_first_step_s=t_step - t_re,
-                                wall_s=wall, attempts=2,
-                                **obs_crash_merge(f"{tmp}/t", lines))
+        out = dict(relaunch_to_first_step_s=t_step - t_re, wall_s=wall,
+                   attempts=2, **obs_crash_merge(f"{tmp}/t", lines))
         final_bitwise(ck, "supervise crash + resume")
+        return out
+
+    # the two chains are independent processes: side by side
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        crash = pool.submit(crash_chain, tmp)
+        out["sigterm"] = sigterm_chain(tmp)
+        out["supervise"] = crash.result()
 
     print(f"cli: sigterm at step 7 -> snapshot "
           f"{out['sigterm']['signal_to_snapshot_s']:.3f} s, exit "
@@ -4111,8 +4197,10 @@ def guard_cli(torch, device, straight):
 
 def guard_abort():
     """(d) ``--rollback_after 1 --max_rollbacks 0`` with a NaN at step 5
-    under ``--supervise 2``: exit 44, not retried."""
-    rc, lines, wall = _timed_cli(train_flags(steps_per_dispatch=DISPATCH_K)
+    under ``--supervise 2``, at ``CUT_LAYERS`` layers: exit 44, not
+    retried."""
+    rc, lines, wall = _timed_cli(train_flags(steps_per_dispatch=DISPATCH_K,
+                                             n_layers=CUT_LAYERS)
                                  + ["--rollback_after=1", "--max_rollbacks=0",
                                     "--faults=nan@5", "--supervise=2",
                                     "--supervise_backoff=0.1"])
@@ -4162,22 +4250,28 @@ def guard_watchdog():
                 postmortem_records=pm["n_records"])
 
 
-def resilience_full_width(torch, np, device, straight):
+def resilience_full_width(torch, np, device, straight, background=None):
     """Phase 19: (a)-(e) above; the flash launches of the in-process runs
-    (their counts set to 0 before each)."""
+    (their counts set to 0 before each).  ``background()``, called once
+    (a)'s timed runs are done, starts host work that runs beside the rest
+    (phase 21's writer)."""
     out = {}
     out["happy"], l1 = guard_happy_path(torch, device)
+    if background is not None:
+        background()
     out["faults"], l2 = guard_faults(torch, device)
     out["rollback"], l3 = guard_rollback(torch, device)
-    out["cli"] = guard_cli(torch, device, straight)
-    # (d)'s exit-44 run and (e) check exit codes, messages and a hang's
-    # seconds to exit (the watchdog's timeout and poll), not start-up
-    # times: their processes run side by side
+    # (d)'s chains, its exit-44 run and (e) run side by side: their checks
+    # are exit codes, messages, bitwise snapshots and a hang's seconds to
+    # exit (the watchdog's timeout and poll); their start-up and
+    # signal-to-exit seconds are read under that load
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         abort = pool.submit(guard_abort)
+        cli = pool.submit(guard_cli, torch, device, straight)
         out["watchdog"] = guard_watchdog()
+        out["cli"] = cli.result()
         out["cli"]["abort"] = abort.result()
     launches = {w: l1[w] + l2[w] + l3[w] for w in l1}
     return out, launches
@@ -4609,6 +4703,354 @@ def observability_full_width(torch, np, device, resilience):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 21: replica consistency (the fingerprint kernel, localize, heal)
+# and elastic resume (N -> M reshard, batch policy, capacity floor)
+# ---------------------------------------------------------------------------
+
+# the elastic snapshot's job: phase 7's flags cut to 2 layers (full
+# width), 2 rows a step, zero1 over 2 gloo ranks on the host
+ELASTIC_FLAGS = dict(n_layers=2, batch_size=2, n_samples=2,
+                     update_sharding="zero1")
+
+
+def keep_state(stash):
+    """An ``inspect`` hook for ``train_full_width``: a host copy of the
+    trainer's replicated leaves, in the fingerprint's order, into
+    ``stash`` (prints nothing)."""
+    def inspect(trainer):
+        from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (  # noqa: E501
+            consistency,
+        )
+
+        stash["leaves"] = [(n, t.detach().cpu()) for n, t in
+                           consistency.replicated_leaves(trainer.state)]
+        return {}
+    return inspect
+
+
+def elastic_writer(tmp, ck):
+    """Start phase 21 (c)'s writer: 2 gloo ranks of the CLI on the host
+    (``CUDA_VISIBLE_DEVICES`` empty), zero1, one step, one snapshot."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    flags = train_flags(platform="cpu", nepochs=1, checkpoint_dir=ck,
+                        **ELASTIC_FLAGS)
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", RANK=str(rank),
+                   WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), OMP_NUM_THREADS="2")
+        env.pop("NNPT_FAULTS", None)
+        log = open(f"{tmp}/writer{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", PKG, *flags], stdout=log,
+            stderr=subprocess.STDOUT, env=env,
+            cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    return procs
+
+
+def fp_full_width(torch, np, device, host_leaves):
+    """(a) The digest kernel on the whole training state (params, Adam's
+    mu and nu, the count): bitwise equal to the plain version on the card
+    and on the host's copy; one flipped bit changes it (an f32 leaf, a
+    bf16 copy of a param, the count); its time (CUDA events, median of
+    20) beside the bytes bound and the plain version's.  (b) Two replicas
+    on the card, bit 9 of one element of replica 1 flipped: the per-leaf
+    digests through the localization core name that leaf, replica 1 and 1
+    element; the heal restores replica 1 bitwise; ``digest_report`` of the
+    (1, 2) matrix is ``local: [0]`` before and ``{}`` after."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        fingerprint as fp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        consistency,
+        faults,
+    )
+
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    names = [n for n, _ in host_leaves]
+    host = [t for _, t in host_leaves]
+    cards = [t.to(device) for t in host]
+    n_bytes = sum(t.numel() * t.element_size() for t in host)
+    n_values = sum(t.numel() for t in host)
+    table = fp.launch_table(cards)
+    d_k, f_k = fp.fingerprint(cards, table)
+    d_p, f_p = fp.fingerprint_reference(cards)
+    d_h, _ = fp.fingerprint_reference(host)
+    d_k, d_p = d_k.cpu(), d_p.cpu()
+    # the kernel's two outputs against the plain version's: the digests
+    # (held bitwise, against the card's and the host's) and the folds
+    mismatches = int((d_k != d_p).sum()) + int((d_k != d_h).sum())
+    digest_err = int((d_k - d_p).abs().max())
+    fold_err = float((f_k.cpu() - f_p.cpu()).abs().max())
+    if mismatches:
+        raise AssertionError(f"fingerprint: kernel digests differ from the "
+                             f"plain version's ({mismatches} of "
+                             f"{2 * (len(names) + 1)})")
+    fold_rel = abs(float(f_k[-1]) - float(f_p[-1])) / abs(float(f_p[-1]))
+    if fold_rel > 1e-4:
+        raise AssertionError(f"fingerprint fold {float(f_k[-1])} vs plain "
+                             f"{float(f_p[-1])}")
+    digest = int(d_k[-1])
+
+    def chained(tensors):
+        return int(fp.fingerprint(tensors)[0][-1])
+
+    flips = {}
+    big = max((i for i, t in enumerate(cards) if t.is_floating_point()),
+              key=lambda i: cards[i].numel())
+    count = next(i for i, n in enumerate(names) if n.endswith(".count"))
+    for what, i, bit in (("f32 leaf", big, 9), ("count", count, 0)):
+        faults.flip_bit_in_shard(cards[i], 0, bit)
+        flipped = chained(cards)
+        faults.flip_bit_in_shard(cards[i], 0, bit)
+        flips[what] = [names[i], flipped != digest]
+        if flipped == digest or chained(cards) != digest:
+            raise AssertionError(f"fingerprint: a flipped bit in {what} "
+                                 f"{names[i]} left the digest unchanged")
+    param = next(i for i, n in enumerate(names) if n.startswith(".params")
+                 and cards[i].dim() == 2)
+    copy = cards[param].to(torch.bfloat16)
+    if not torch.equal(fp.fingerprint([copy])[0].cpu(),
+                       fp.fingerprint_reference([copy])[0].cpu()):
+        raise AssertionError("fingerprint: the bf16 copy's digest differs "
+                             "from the plain version's")
+    base = chained([copy])
+    faults.flip_bit_in_shard(copy, 0, 3)
+    flips["bf16 copy"] = [names[param], chained([copy]) != base]
+    if not flips["bf16 copy"][1]:
+        raise AssertionError("fingerprint: a flipped bit in the bf16 copy "
+                             "left the digest unchanged")
+    del copy
+    ms = median_ms(torch, lambda: fp.fingerprint(cards, table), runs=20)
+    plain_ms = median_ms(torch, lambda: fp.fingerprint_reference(cards),
+                         runs=5, warmup=1)
+    bound = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"fingerprint: {len(names)} leaves, {n_values:,} values, "
+          f"{n_bytes / 1e9:.3f} GB: kernel == plain == host, bitwise "
+          f"(digest {digest:#010x}, {mismatches} mismatches, largest "
+          f"|difference| {digest_err}; fold {float(f_k[-1]):.6g}, largest "
+          f"|difference| {fold_err:.3g}, the sum's {fold_rel:.2e} "
+          f"relative); a flipped bit changes it: "
+          f"{flips}; kernel {ms:.4f} ms (median of 20) vs bound "
+          f"{bound:.4f} ms ({bound / ms:.1%}), plain {plain_ms:.4f} ms",
+          flush=True)
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                  bound_by="bytes", library_ms=None, bytes=n_bytes,
+                  values=n_values, leaves=len(names),
+                  max_abs_err=max(digest_err, fold_err),
+                  digest_mismatches=mismatches, digest_max_abs_err=digest_err,
+                  fold_max_abs_err=fold_err, fold_rel_err=fold_rel)
+    del table
+
+    # (b) two replicas on the card
+    rep1 = [t.clone() for t in cards]
+    trees = [dict(enumerate(cards)), dict(enumerate(rep1))]
+    victim = next(i for i, n in enumerate(names)
+                  if n.startswith(".opt_state.mu") and rep1[i].dim() == 2)
+    faults.flip_bit_in_shard(rep1[victim], 0, 9)
+    mat = np.stack([consistency.leaf_digest_array(cards),
+                    consistency.leaf_digest_array(rep1)])
+    chains = np.array([[fp.chain(mat[0].tolist()),
+                        fp.chain(mat[1].tolist())]], np.uint32)
+    before = consistency.digest_report(chains)
+    sync()
+    t0 = time.perf_counter()
+    report = consistency.localize(
+        names, mat, lambda j: [cards[j], rep1[j]], ["replica0", "replica1"])
+    sync()
+    localize_s = time.perf_counter() - t0
+    if (list(report) != [names[victim]]
+            or report[names[victim]]["shards"] != [1]
+            or report[names[victim]]["n_bad_elements"] != 1
+            or before.get("local") != [0] or before.get("cross") != []):
+        raise AssertionError(f"localize: {report}, verdict {before}; "
+                             f"expected {names[victim]}, replica 1, 1 "
+                             "element, local [0]")
+    keyed = {f"[{victim}]": report[names[victim]]}
+    t0 = time.perf_counter()
+    consistency.heal_replication(trees, keyed)
+    sync()
+    heal_s = time.perf_counter() - t0
+    after = np.array([[chained(cards), chained(rep1)]], np.uint32)
+    healed = _same_bits(torch, rep1, cards)
+    if not healed or consistency.digest_report(after) != {}:
+        raise AssertionError("heal: replica 1 is not replica 0 bitwise "
+                             "after the heal")
+    print(f"localize + heal on the card: {names[victim]} replica 1, "
+          f"{report[names[victim]]['n_bad_elements']} element, max |diff| "
+          f"{report[names[victim]]['max_abs_diff']:.3g}; digest_report "
+          f"before {before}, after {{}}; localize {localize_s:.3f} s, heal "
+          f"{heal_s * 1e3:.2f} ms; replica 1 bitwise replica 0", flush=True)
+    local = dict(leaf=names[victim], verdict_before=before,
+                 localize_s=localize_s, heal_ms=heal_s * 1e3,
+                 healed_bitwise=healed, flips=flips, fold_rel=fold_rel)
+    del rep1, trees, cards
+    return timing, local
+
+
+def elastic_resume(torch, np, device, writer, ck):
+    """(c) The 2-rank zero1 snapshot resumed with ``--elastic
+    --elastic_batch global`` at dp=1 on the card, under
+    ``--steps_per_dispatch 2`` with ``--sdc_check_every 1`` (the replica
+    floor at 1: one card is one replica, so the digest of every dispatch
+    is judged against itself): params and moments equal the snapshot's
+    arrays bitwise (the flat buffers' padding cut off); the topology
+    record 2 -> 1 with accumulation 1 -> 2; two more steps, finite, one
+    capture; the fingerprint and flash launches of the run."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        fingerprint as fp,
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as ckpt,
+    )
+
+    t0 = time.perf_counter()
+    for proc, log in writer:
+        rc = proc.wait(timeout=600)
+        log.flush()
+        if rc != 0:
+            with open(log.name) as f:
+                raise AssertionError(f"elastic writer rc {rc}:\n"
+                                     f"{f.read()[-3000:]}")
+    wait_s = time.perf_counter() - t0
+    step = ckpt.latest_step(ck)
+    with np.load(f"{ck}/ckpt-{step}/state.npz") as z:
+        saved = [z[f"leaf_{i}"] for i in range(
+            sum(k.startswith("leaf_") for k in z.files))]
+    meta = ckpt.read_meta(ck)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = config_from_args(build_argparser().parse_args(train_flags(
+            nepochs=3, checkpoint_dir=ck, resume=True, elastic=True,
+            elastic_batch="global", steps_per_dispatch=2,
+            sdc_check_every=1, telemetry_dir=f"{tmp}/t",
+            metrics_every=1, **ELASTIC_FLAGS)))
+        floor = trainer_mod.SDC_MIN_REPLICAS
+        trainer_mod.SDC_MIN_REPLICAS = 1
+        try:
+            trainer = trainer_mod.Trainer(cfg, device=device)
+            trainer.init_state()
+            resumed = trainer.maybe_resume()
+            restored = [a for _, a, _ in
+                        ckpt.host_state(trainer.snapshot_state())]
+            exact = len(restored) == len(saved) and all(
+                a.shape == b.shape and np.array_equal(a, b)
+                or (a.ndim == 1 and a.shape[0] >= b.shape[0]
+                    and np.array_equal(a[:b.shape[0]], b)
+                    and not np.any(a[b.shape[0]:]))
+                for a, b in zip(saved, restored))
+            if not exact or resumed != step:
+                raise AssertionError(f"elastic restore: step {resumed} vs "
+                                     f"{step}; arrays bitwise: {exact}")
+            fa.set_launch_counts()
+            fp.fingerprint.launches = 0
+            result = trainer.fit()
+            fp_launches = fp.fingerprint.launches
+            counts = fa.launch_counts()["all"]
+        finally:
+            trainer_mod.SDC_MIN_REPLICAS = floor
+        with open(f"{tmp}/t/metrics.jsonl") as f:
+            recs = [json.loads(line) for line in f]
+    cuda = device.type == "cuda"
+    graphed = trainer.multi_step
+    captures = graphed.captures if cuda else 0
+    flash = {k: counts[k] + (graphed.replays * graphed.launches_per_replay[
+        "all"][k] if cuda else 0) for k in counts}
+    topo = [r for r in recs if r.get("kind") == "topology"]
+    losses = [r["loss"] for r in recs if r.get("kind") == "step"]
+    ok = (len(topo) == 1 and topo[0]["from_world"]["dp"] == 2
+          and topo[0]["to_world"]["dp"] == 1
+          and topo[0]["accum_steps"] == [1, 2]
+          and result["steps"] == step + 2
+          and losses and all(math.isfinite(x) for x in losses)
+          and result.get("sdc_incidents") == 0
+          # the card's kernels (the host runs their plain versions)
+          and (not cuda or (captures == 1 and fp_launches > 0
+                            and all(flash.values()))))
+    print(f"elastic: a dp=2 zero1 snapshot (step {step}, saved_world "
+          f"{meta['saved_world']}) resumed at dp=1 under --elastic_batch "
+          f"global: restored params and moments bitwise {exact}; topology "
+          f"{topo[0] if topo else None}; steps {step + 1}-"
+          f"{result['steps']} losses {losses}, captures "
+          f"{captures}; fingerprint launches {fp_launches}, flash "
+          f"{flash}; waited {wait_s:.1f} s for the host writer", flush=True)
+    if not ok:
+        raise AssertionError("elastic resume: the checks above failed")
+    return dict(step=step, restored_bitwise=exact,
+                accum_steps=topo[0]["accum_steps"], losses=losses,
+                captures=captures, fp_launches=fp_launches,
+                flash_launches=flash, writer_wait_s=wait_s)
+
+
+def capacity_floor(device):
+    """(d) A Trainer asking for 2 devices on one card: CapacityAbort,
+    naming exit 46."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.resilience import (  # noqa: E501
+        CapacityAbort,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+
+    cfg = config_from_args(build_argparser().parse_args(
+        ["--min_devices", "2"]))
+    try:
+        Trainer(cfg, device=device)
+    except CapacityAbort as e:
+        print(f"capacity floor: {e}", flush=True)
+        if "exit 46" not in str(e):
+            raise AssertionError("CapacityAbort does not name exit 46")
+        return dict(raised=True)
+    raise AssertionError("--min_devices 2 on one card did not raise")
+
+
+def stop_writer(writer):
+    """Kill what is left of (c)'s host writer and close its logs."""
+    for proc, log in writer:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def sdc_elastic_full_width(torch, np, device, host_leaves, tmp, writer=None):
+    """Phase 21: (a) and (b) on the card, then (c), whose host writer
+    (``writer``, writing under ``tmp``; started here when not given) ran
+    beside them, then (d)."""
+    t0 = time.perf_counter()
+    ck = f"{tmp}/ck"
+    if writer is None:
+        writer = elastic_writer(tmp, ck)
+    try:
+        timing, local = fp_full_width(torch, np, device, host_leaves)
+        elastic = elastic_resume(torch, np, device, writer, ck)
+    finally:
+        stop_writer(writer)
+    floor = capacity_floor(device)
+    out = dict(fingerprint=timing, localize_heal=local, elastic=elastic,
+               capacity=floor, seconds=time.perf_counter() - t0)
+    print("sdc_elastic: " + json.dumps(out), flush=True)
+    return out
+
+
 def _clone_tree(torch, tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().clone()
@@ -4668,7 +5110,10 @@ def main() -> int:
     small_timing = time_flash_small(torch, device)
 
     phase("7 train the 219M LM at full width through the flash kernels")
-    trained = train_full_width(torch, np, device, keep_final=True)
+    # phase 21 fingerprints this run's final state (a host copy)
+    final_state = {}
+    trained = train_full_width(torch, np, device, keep_final=True,
+                               inspect=keep_state(final_state))
 
     phase("8 f32 training identity: flash == dense")
     train_identity(torch, np, device)
@@ -4737,8 +5182,13 @@ def main() -> int:
 
     phase("17 slice: the auto row, --remat, --scan-layers, update sharding, "
           "master weights")
+    # phase 7's job cut to CUT_LAYERS layers (full width), eager: the
+    # reference of 17 (c) and 19 (d)
+    short = train_full_width(torch, np, device, keep_final=True,
+                             profile=False, n_layers=CUT_LAYERS,
+                             tag=f"train {CUT_LAYERS} layers")
     auto = measure_auto(torch, np, device)
-    sliced = slice_full_width(torch, np, device, trained)
+    sliced = slice_full_width(torch, np, device, short)
 
     phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
     quant = dict(products=check_qmm(torch, device),
@@ -4748,18 +5198,36 @@ def main() -> int:
     quant["serve"] = quant_serve(torch, np, device)
     print("quant: " + json.dumps(quant), flush=True)
 
-    phase("19 resilience: guard, faults, rollback, SIGTERM, supervisor, "
-          "watchdog")
-    resilience, res_launches = resilience_full_width(torch, np, device,
-                                                     trained)
-    del trained["final_params"]
-    print("resilience: " + json.dumps(resilience), flush=True)
+    # phase 21 (c)'s snapshot is written on the host by 2 gloo ranks,
+    # started once phase 19's timed runs are done (beside its (b)-(e))
+    import shutil
+    import tempfile
 
-    phase("20 observability: telemetry, tracing, the capture ledger, "
-          "goodput, the profiler, postmortems")
-    observability, obs_launches = observability_full_width(
-        torch, np, device, resilience)
-    print("observability: " + json.dumps(observability), flush=True)
+    elastic_tmp = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
+    writer = []
+    try:
+        phase("19 resilience: guard, faults, rollback, SIGTERM, supervisor, "
+              "watchdog")
+        resilience, res_launches = resilience_full_width(
+            torch, np, device, short, background=lambda: writer.extend(
+                elastic_writer(elastic_tmp, f"{elastic_tmp}/ck")))
+        del trained["final_params"]
+        print("resilience: " + json.dumps(resilience), flush=True)
+
+        phase("20 observability: telemetry, tracing, the capture ledger, "
+              "goodput, the profiler, postmortems")
+        observability, obs_launches = observability_full_width(
+            torch, np, device, resilience)
+        print("observability: " + json.dumps(observability), flush=True)
+
+        phase("21 replica consistency and elastic resume: the fingerprint "
+              "kernel, localize + heal, N -> M restore, the capacity floor")
+        sdc = sdc_elastic_full_width(torch, np, device,
+                                     final_state.pop("leaves"), elastic_tmp,
+                                     writer)
+    finally:
+        stop_writer(writer)
+        shutil.rmtree(elastic_tmp, ignore_errors=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -4789,13 +5257,17 @@ def main() -> int:
                             takes="head_dim 8/16/32/64/128, any T the "
                                   "blocks divide",
                             replaces=f"{tpu}:{line}",
-                            # phase 7's run and phases 19 and 20's
+                            # phase 7's run and phases 19, 20 and 21's
                             # in-process runs
                             launches=(trained["launches"][which]
                                       + res_launches[which]
-                                      + obs_launches[which]),
+                                      + obs_launches[which]
+                                      + sdc["elastic"]["flash_launches"][
+                                          which]),
                             launches_phase7=trained["launches"][which],
                             launches_phase20=obs_launches[which],
+                            launches_phase21=sdc["elastic"][
+                                "flash_launches"][which],
                             max_abs_err=flash_err[which],
                             **flash_timing[which]))
     # bf16 at head_dim 8 and 16 (simt), timed at (8, 1024, 16, d)
@@ -4828,6 +5300,20 @@ def main() -> int:
                         takes="any rows, d_model up to 4096, f32 or bf16",
                         launches=ln_launches, max_abs_err=ln_err,
                         **ln_timing))
+    # no Pallas counterpart: XLA ops in the JAX package
+    fp_timing = sdc["fingerprint"]
+    kernels.append(dict(
+        name="fingerprint", route="cuda", source=src + "fingerprint.cu",
+        replaces="none (no pl.pallas_call): XLA ops of "
+                 "neural_networks_parallel_training_with_mpi_tpu/utils/"
+                 "consistency.py:329 (Fingerprinter.device_fp)",
+        takes="any number of leaves in one launch: f32, bf16, f16, int32, "
+              "int8, uint8/bool, int64",
+        launches=sdc["elastic"]["fp_launches"],
+        **{k: fp_timing[k] for k in (
+            "max_abs_err", "digest_mismatches", "digest_max_abs_err",
+            "fold_max_abs_err", "fold_rel_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "bytes")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,12 @@ collective that raised or timed out, a world that did not form) 43, a
 preemption notice answered with a final snapshot 47, and the hang
 watchdog 42 (after the flight recorder's postmortem, with
 ``--telemetry_dir``).  ``--probe_timeout`` bounds the formation of a
-multi-process world (``parallel.distributed.preflight``).
+multi-process world (``parallel.distributed.preflight``).  An SDC abort
+(a replica divergence the replay reproduced, or a device over its
+``--sdc_strikes``) exits 45 and a world below ``--min_devices`` 46, which
+the supervisor does not retry; under ``--supervise N --elastic`` a streak
+of peer-loss exits probes the world (``parallel.distributed.probe_world``
+with its local fallback) and relaunches at the one that answers.
 
 Not ported, and raising when set: the JAX platform knob
 ``--num_devices``.
@@ -180,6 +185,16 @@ def _supervise(args, argv) -> int:
             # 4x the in-process timeout: the child's own watchdog (and
             # its postmortem) fires first
             heartbeat_timeout = max(4.0 * args.hang_timeout, 60.0)
+    probe = None
+    if args.elastic:
+        def probe():
+            # the probe's rendezvous runs in a subprocess: this process
+            # never joins a world
+            from .parallel.distributed import probe_world
+
+            return probe_world(timeout_s=args.probe_timeout,
+                               log=lambda m: print(m, file=sys.stderr,
+                                                   flush=True))
     pkg = __name__.rsplit(".", 1)[0]
     return supervise([sys.executable, "-m", pkg, *child],
                      max_restarts=args.supervise,
@@ -188,8 +203,9 @@ def _supervise(args, argv) -> int:
                      heartbeat_path=heartbeat,
                      heartbeat_timeout=heartbeat_timeout,
                      postmortem_path=postmortem, alerts_path=alerts,
-                     ckpt_dir=args.checkpoint_dir, events_path=events,
-                     forward_preempt=True)
+                     ckpt_dir=args.checkpoint_dir, elastic=args.elastic,
+                     min_devices=args.min_devices, probe=probe,
+                     events_path=events, forward_preempt=True)
 
 
 def main(argv=None) -> int:
@@ -204,8 +220,10 @@ def main(argv=None) -> int:
     if args.generate is not None:
         return _generate(args)
     from .parallel.distributed import WORLD_TIMEOUT_ENV
-    from .train.resilience import (EXIT_ANOMALY, EXIT_DECOMMISSION,
-                                   EXIT_PEER, AnomalyAbort, is_peer_error)
+    from .train.resilience import (EXIT_ANOMALY, EXIT_CAPACITY,
+                                   EXIT_DECOMMISSION, EXIT_PEER, EXIT_SDC,
+                                   AnomalyAbort, CapacityAbort, SDCAbort,
+                                   is_peer_error)
     from .train.trainer import Trainer
 
     os.environ[WORLD_TIMEOUT_ENV] = str(args.probe_timeout)
@@ -217,6 +235,15 @@ def main(argv=None) -> int:
         # the last good snapshot is kept (no final save); no relaunch
         log(f"ERROR: anomaly abort: {e} (exit {EXIT_ANOMALY})")
         return EXIT_ANOMALY
+    except SDCAbort as e:
+        # no final save (it would snapshot corrupt state); no relaunch
+        # (it would replay the bug, or reuse the failing device)
+        log(f"ERROR: SDC abort: {e} (exit {EXIT_SDC})")
+        return EXIT_SDC
+    except CapacityAbort as e:
+        # a relaunch cannot create devices
+        log(f"ERROR: capacity abort: {e} (exit {EXIT_CAPACITY})")
+        return EXIT_CAPACITY
     except Exception as e:
         if not is_peer_error(e):
             raise

@@ -168,6 +168,18 @@ class ShardedLoader:
         full_epochs, in_epoch = divmod(global_step, spe)
         return full_epochs * self.n + min(in_epoch * self.batch_size, self.n)
 
+    def start_for_samples(self, samples: int) -> tuple:
+        """(epoch, start_step) under THIS loader's batch size for a run
+        that has consumed ``samples`` order slots: the inverse of
+        :meth:`consumed_samples`, for an elastic resume whose batch size
+        changed with the world.  An offset off a batch boundary rounds
+        DOWN (retrains up to batch_size - 1 samples, skips none)."""
+        epoch, offset = divmod(max(0, int(samples)), self.n)
+        if offset >= self.steps_per_epoch * self.batch_size:
+            # the old batch size covered an epoch tail this one drops
+            return epoch + 1, 0
+        return epoch, offset // self.batch_size
+
     def epoch(self, epoch: int, start_step: int = 0
               ) -> Iterator[Dict[str, torch.Tensor]]:
         """This rank's device batches ``{"x", "y", "mask"}`` of one epoch;

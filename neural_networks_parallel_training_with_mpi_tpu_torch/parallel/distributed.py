@@ -24,7 +24,18 @@ or coordinator raises a typed :class:`WorldFormationError` within
 (``--collective_timeout``) bounds every collective: gloo raises and NCCL's
 async error handling aborts a rank whose peer is gone.  :func:`probe_world`
 runs the rendezvous in a subprocess under a hard timeout and reports the
-world that answered.
+world that answered, or, when the configured world does not form, this
+host's cards, marked degraded (the elastic supervisor's probe).
+
+Replica consistency (``utils.consistency``, the trainer's SDC check)
+reads the world as ``(nodes, LOCAL_WORLD_SIZE)``: rank r is local rank
+``r % L`` of node ``r // L`` (torchrun's ``LOCAL_WORLD_SIZE``, default
+the whole world as one node), the counterpart of the JAX package's
+``(processes, local devices)`` digest matrix.  :func:`node_group` is the
+per-node process group its heal broadcasts over, and
+:func:`allgather_host_array` / :func:`cross_host_report` gather small host
+arrays over a gloo group (the world's own under gloo, a second one beside
+NCCL).
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ import time
 from dataclasses import dataclass
 from datetime import timedelta
 from pathlib import Path
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -65,6 +77,9 @@ class PeerMissing(WorldFormationError):
 # the rendezvous stores stay alive with the process: rank 0's serves the
 # peers' last reads
 _STORES: List[Any] = []
+# groups formed for replica consistency (node groups, the host gloo
+# group), and the world's collective timeout that bounds them too
+_GROUPS: Dict[Any, Any] = {}
 
 
 def _wait_keys(store, keys: List[str], deadline: float) -> List[str]:
@@ -143,7 +158,7 @@ from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
     distributed as d)
 w = d._launcher_world()
 n = 1
-if w is not None and w[2] > 1:
+if w is not None and w[2] > 1 and not os.environ.get("_NNPT_PROBE_LOCAL"):
     d.preflight(w[0], d._preflight_port(w[1]), w[2], w[3],
                 float(os.environ["_NNPT_PROBE_TIMEOUT"]))
     n = w[2]
@@ -154,31 +169,65 @@ print("PROBE_WORLD|" + json.dumps({"n_processes": n,
 """
 
 
-def probe_world(timeout_s: Optional[float] = None) -> Optional[dict]:
+def probe_world(timeout_s: Optional[float] = None,
+                log=None) -> Optional[dict]:
     """The world that answers now, found in a SUBPROCESS under a hard
     timeout (so a dead peer can never hang the caller): the launcher
     environment's rendezvous (on the port after the preflight's, so it
     never meets a live world's), then this host's card count.  Returns
-    ``{"n_processes", "n_devices", "local_devices"}``, or None when the
-    world does not form within ``timeout_s`` (default
-    ``NNPT_WORLD_TIMEOUT_S``)."""
+    ``{"n_processes", "n_devices", "local_devices", "degraded"}``.  As
+    the JAX package's ``parallel/mesh.py`` ``probe_world`` (what the
+    elastic supervisor calls): a launcher world that does not form within
+    ``timeout_s`` (default ``NNPT_WORLD_TIMEOUT_S``) is probed again as
+    this host alone (``n_processes`` 1, ``n_devices`` its cards),
+    ``degraded`` True when a bigger world had been configured; None only
+    when even that fails."""
     timeout_s = _world_timeout() if timeout_s is None else timeout_s
-    env = dict(os.environ, _NNPT_PROBE_ROOT=str(
-        Path(__file__).resolve().parents[2]),
-        _NNPT_PROBE_TIMEOUT=str(timeout_s))
     w = _launcher_world()
-    if w is not None:
-        env[PREFLIGHT_PORT_ENV] = str(_preflight_port(w[1]) + 1)
-    try:
-        out = subprocess.run([sys.executable, "-c", _PROBE_SRC],
-                             capture_output=True, text=True, env=env,
-                             timeout=timeout_s + 30.0)
-    except subprocess.TimeoutExpired:
+
+    def attempt(local: bool) -> Optional[dict]:
+        env = dict(os.environ, _NNPT_PROBE_ROOT=str(
+            Path(__file__).resolve().parents[2]),
+            _NNPT_PROBE_TIMEOUT=str(timeout_s))
+        env.pop("_NNPT_PROBE_LOCAL", None)
+        if local:
+            env["_NNPT_PROBE_LOCAL"] = "1"
+        if w is not None:
+            env[PREFLIGHT_PORT_ENV] = str(_preflight_port(w[1]) + 1)
+        try:
+            out = subprocess.run([sys.executable, "-c", _PROBE_SRC],
+                                 capture_output=True, text=True, env=env,
+                                 timeout=timeout_s + 30.0)
+        except subprocess.TimeoutExpired:
+            if log:
+                log(f"[probe] world probe timed out after {timeout_s:.0f}s"
+                    + (" (local)" if local else " (full world)"))
+            return None
+        for line in out.stdout.splitlines():
+            if line.startswith("PROBE_WORLD|"):
+                return json.loads(line.split("|", 1)[1])
+        if log:
+            tail = (out.stderr or out.stdout).strip().splitlines()[-1:] \
+                or [""]
+            log(f"[probe] world probe rc={out.returncode}: {tail[0][:200]}")
         return None
-    for line in out.stdout.splitlines():
-        if line.startswith("PROBE_WORLD|"):
-            return json.loads(line.split("|", 1)[1])
-    return None
+
+    multi = w is not None and w[2] > 1
+    res = attempt(local=False)
+    if res is not None:
+        res["degraded"] = False
+        return res
+    if not multi:
+        return None
+    if log:
+        log("[probe] full world unreachable; probing local topology")
+    res = attempt(local=True)
+    if res is None:
+        return None
+    res["n_processes"] = 1
+    res["n_devices"] = res["local_devices"]
+    res["degraded"] = True
+    return res
 
 
 @dataclass(frozen=True)
@@ -246,6 +295,7 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
         kw = {}
         if collective_timeout > 0:
             kw["timeout"] = timedelta(seconds=collective_timeout)
+            _GROUPS["timeout"] = kw["timeout"]
             # a timed-out NCCL collective tears the rank down instead of
             # leaving it blocked on the stream
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
@@ -280,3 +330,139 @@ def describe(world: World) -> str:
         return f"data={world.dp} seq={world.sp}"
     return f"data={world.world_size}" if world.world_size > 1 \
         else "single-device"
+
+
+# ---- replica consistency: nodes, node groups, host gathers ---------------
+
+LOCAL_WORLD_SIZE_ENV = "LOCAL_WORLD_SIZE"
+
+
+def _size_rank() -> tuple:
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def is_multi_host() -> bool:
+    """True in a world of more than one process (the JAX package's
+    multi-host test: here every rank is its own process)."""
+    return _size_rank()[0] > 1
+
+
+def local_world_size() -> int:
+    """Ranks per node: torchrun's ``LOCAL_WORLD_SIZE``, else the whole
+    world (one node).  It must divide the world size."""
+    size, _ = _size_rank()
+    local = int(os.environ.get(LOCAL_WORLD_SIZE_ENV) or size)
+    if local < 1 or size % local:
+        raise ValueError(f"{LOCAL_WORLD_SIZE_ENV}={local} does not divide "
+                         f"the world of {size} rank(s)")
+    return local
+
+
+def node_layout() -> tuple:
+    """(nodes, ranks per node, this rank's node, its local rank)."""
+    size, rank = _size_rank()
+    local = local_world_size()
+    return size // local, local, rank // local, rank % local
+
+
+def _new_group(ranks: List[int], backend: Optional[str] = None):
+    kw = {}
+    if "timeout" in _GROUPS:
+        kw["timeout"] = _GROUPS["timeout"]
+    if backend is not None:
+        kw["backend"] = backend
+    return dist.new_group(ranks, **kw)
+
+
+def node_group():
+    """This rank's node's process group, over which a divergence is
+    localized and healed.  The first call forms one group per node, so
+    every rank must make it, in the same order (``dist.new_group`` is
+    collective).  None in a world of one node: the whole world."""
+    n_nodes, local, node, _ = node_layout()
+    if n_nodes == 1:
+        return None
+    key = ("node", n_nodes, local)
+    if key not in _GROUPS:
+        mine = None
+        for k in range(n_nodes):
+            pg = _new_group(list(range(k * local, (k + 1) * local)))
+            if k == node:
+                mine = pg
+        _GROUPS[key] = mine
+    return _GROUPS[key]
+
+
+def host_group():
+    """The gloo group that carries host arrays: the world's own under
+    gloo, a second group over every rank beside NCCL (formed at the first
+    call: every rank must make it)."""
+    if dist.get_backend() == "gloo":
+        return None
+    if "host" not in _GROUPS:
+        size, _ = _size_rank()
+        _GROUPS["host"] = _new_group(list(range(size)), backend="gloo")
+    return _GROUPS["host"]
+
+
+def allgather_host_array(x: Any) -> np.ndarray:
+    """Every rank's host array ``x``, stacked along a new leading axis in
+    rank order (``x[None]`` in a world of one), over :func:`host_group`.
+    The transport under every SDC verdict: identical on every rank."""
+    a = np.asarray(x)
+    if not is_multi_host():
+        return a[None]
+    wide = np.float64 if a.dtype.kind == "f" else np.int64
+    t = torch.from_numpy(np.ascontiguousarray(a.astype(wide)))
+    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t, group=host_group())
+    return torch.stack(out).numpy().astype(a.dtype)
+
+
+def cross_report(gathered: Dict[str, np.ndarray], local: int,
+                 atol: float = 0.0) -> dict:
+    """Pure host math behind :func:`cross_host_report`: each leaf's
+    gathered ``(world, ...)`` array, the node representatives (local rank
+    0 of every node) compared with node 0's.  Returns ``{leaf:
+    {"processes": [nodes], "max_abs_diff"}}``; both-NaN positions are in
+    lockstep, a NaN on one side is an infinite difference."""
+    report: dict = {}
+    for name, leaf in gathered.items():
+        rows = np.asarray(leaf)[::local]
+        ref = np.asarray(rows[0], np.float64)
+        bad, worst = [], 0.0
+        for i in range(1, rows.shape[0]):
+            a = np.asarray(rows[i], np.float64)
+            diff = np.where(np.isnan(a) & np.isnan(ref), 0.0,
+                            np.abs(a - ref))
+            m = float(np.max(diff, initial=0.0))
+            if np.isnan(m):
+                m = float("inf")
+            if m > atol:
+                bad.append(i)
+                worst = max(worst, m)
+        if bad:
+            report[name] = {"processes": bad, "max_abs_diff": worst}
+    return report
+
+
+def cross_host_report(x: Dict[str, Any], atol: float = 0.0) -> dict:
+    """The cross-node sweep (the JAX package's ``cross_host_report``,
+    nodes in the place of processes): one gather of every rank's small
+    per-leaf arrays, then :func:`cross_report`, identical on every rank.
+    A world of one node reports healthy without communicating."""
+    n_nodes, local, _, _ = node_layout()
+    if n_nodes == 1:
+        return {}
+    names = sorted(x)
+    arrays = [np.asarray(x[n], np.float64) for n in names]
+    # one gather of every leaf, flattened end to end (f64 holds the
+    # uint32 digests exactly)
+    flat = allgather_host_array(np.concatenate(
+        [a.reshape(-1) for a in arrays]))
+    ends = np.cumsum([a.size for a in arrays])
+    return cross_report(
+        {n: flat[:, e - a.size:e].reshape((-1,) + a.shape)
+         for n, a, e in zip(names, arrays, ends)}, local, atol)

@@ -22,7 +22,17 @@ The port's own copy of the training half of the JAX package's
   summarizes the alerts the child emitted, appends lifecycle records to
   an events file (the goodput ledger's join key) and stamps every child
   with the run identity (``NNPT_RUN_ID``, ``NNPT_INCARNATION``) the
-  trace files carry.
+  trace files carry.  With ``elastic``, a streak of peer-loss exits
+  runs a topology probe and relaunches the child at the world that
+  answered (:func:`degrade_env`: one process), parks below
+  ``min_devices`` and exits :data:`EXIT_CAPACITY` when the budget runs
+  out, and restores the original world when it answers again.
+* :class:`SDCPolicy` is the per-device strike ledger of the trainer's
+  replica-consistency check (``utils.consistency``): a transient
+  divergence is healed, a deterministic one or a device over its strike
+  budget aborts with :class:`SDCAbort` (exit :data:`EXIT_SDC`).
+  :class:`CapacityAbort` (exit :data:`EXIT_CAPACITY`) is a world below
+  ``--min_devices``.
 
 Exit-code contract:
 
@@ -34,14 +44,16 @@ code         meaning                                       supervisor
 43           peer loss: a collective raised/timed out or   retry
              world formation failed
 44           anomaly abort: rollback budget exhausted      stop
+45           SDC abort: a replica divergence the replay    stop
+             reproduced, or a device over its strikes
+46           capacity abort: fewer devices than            stop
+             ``--min_devices``
 47           decommission: a preemption notice was         stop
              answered with a final snapshot
 other        crash (segfault, OOM, fault injection, ...)   retry
 ===========  ============================================  =========
 
-Not ported yet: the SDC policy (45), the elastic capacity abort and
-probe-and-shrink relaunch (46) and the process-group supervisor of the
-serving fleet.
+Not ported yet: the process-group supervisor of the serving fleet.
 """
 
 from __future__ import annotations
@@ -64,16 +76,58 @@ EXIT_HANG = 42          # utils.watchdog.HangWatchdog
 EXIT_PEER = 43          # a collective raised/timed out, or world formation
                         # failed (parallel.distributed typed errors)
 EXIT_ANOMALY = 44       # ResilienceMonitor exhausted its rollback budget
+EXIT_SDC = 45           # deterministic replica divergence / SDC strikes
+EXIT_CAPACITY = 46      # healthy capacity stayed below --min_devices
 EXIT_DECOMMISSION = 47  # preemption notice answered: final snapshot, retire
 
-# exit codes the supervisor must NOT retry: 0 is success; 44 is a
-# deterministic training failure a relaunch would only replay; 47 is a
-# node going away on purpose
-_NO_RETRY = (EXIT_OK, EXIT_ANOMALY, EXIT_DECOMMISSION)
+# exit codes the supervisor must NOT retry: 0 is success; 44 and 45 are
+# deterministic training failures a relaunch would only replay; 46 means
+# the hardware floor cannot be met (a relaunch cannot create cards); 47
+# is a node going away on purpose
+_NO_RETRY = (EXIT_OK, EXIT_ANOMALY, EXIT_SDC, EXIT_CAPACITY,
+             EXIT_DECOMMISSION)
+
+# exit codes that count toward the elastic peer-loss streak: explicit peer
+# loss, and hangs (a dead peer often shows as a stalled collective)
+_PEER_LOSS_CODES = (EXIT_PEER, EXIT_HANG)
 
 
 class AnomalyAbort(RuntimeError):
     """Training diverged past the rollback budget; maps to exit 44."""
+
+
+class CapacityAbort(RuntimeError):
+    """The healthy world is smaller than ``--min_devices``; maps to exit
+    46, which the supervisor does not retry (a relaunch cannot create
+    cards)."""
+
+
+class SDCAbort(RuntimeError):
+    """Silent data corruption the run must not survive: the replay
+    reproduced the divergence (a software bug a relaunch would replay), or
+    one device blew its transient-strike budget (hardware to drain).  Maps
+    to exit 45, which the supervisor does not retry."""
+
+
+class SDCPolicy:
+    """Per-device strike ledger for TRANSIENT (replay-clean, healed)
+    divergences.  ``record(devices)`` charges one strike to each named
+    device and returns the devices now over budget (empty: keep going)."""
+
+    def __init__(self, strikes: int = 3):
+        if strikes < 1:
+            raise ValueError(f"sdc strike budget must be >= 1, got "
+                             f"{strikes}")
+        self.strikes = strikes
+        self.counts: dict = {}
+        self.incidents = 0   # fingerprint mismatches observed
+        self.healed = 0      # transient incidents healed in-process
+
+    def record(self, devices: Sequence[str]) -> List[str]:
+        self.incidents += 1
+        for d in devices:
+            self.counts[d] = self.counts.get(d, 0) + 1
+        return [d for d in devices if self.counts[d] >= self.strikes]
 
 
 # torch's distributed errors, and the port's world-formation errors
@@ -391,7 +445,9 @@ def alerts_between(path: Optional[str], start_pos: int):
 def strip_supervisor_flags(argv: Sequence[str]) -> List[str]:
     """``argv`` without the supervisor-only flags (``--supervise [N]``,
     ``--supervise_backoff [S]``, ``--supervise_backoff_max [S]``, in the
-    ``--flag value`` and ``--flag=value`` forms)."""
+    ``--flag value`` and ``--flag=value`` forms).  The elastic flags
+    (``--elastic``, ``--min_devices``) stay: the child enforces the
+    capacity floor itself (exit 46)."""
     flags = ("--supervise", "--supervise_backoff", "--supervise_backoff_max")
     out: List[str] = []
     skip = False
@@ -422,6 +478,72 @@ def _restore_target(ckpt_dir: str):
     return None, bad, None
 
 
+# the launcher environment a degraded relaunch rewrites (the port's world
+# channel, parallel.distributed): the rendezvous, then the rank keys
+_COORD_ENV_KEYS = ("MASTER_ADDR", "MASTER_PORT", "NNPT_PREFLIGHT_PORT")
+_RANK_ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+DEGRADED_ENV = "NNPT_ELASTIC_DEGRADED"  # marks a shrunken-world child
+
+
+def degrade_env(env: dict, probe: dict) -> dict:
+    """Rewrite a child environment to the probed (shrunken) world: the
+    rendezvous and the rank keys are dropped, so the child forms a world
+    of one process (``parallel.distributed.world_setup`` without a
+    launcher), and :data:`DEGRADED_ENV` records the probed device count.
+    Returns the same dict, mutated.
+
+    Only the collapse to one process is supported, as in the JAX package:
+    a local probe cannot say which ranks survive, so a degraded world of
+    several processes raises instead of relaunching a child with a stale
+    ``RANK``."""
+    n_proc = int(probe.get("n_processes", 1))
+    if n_proc > 1:
+        raise ValueError(
+            "degraded multi-process worlds are unsupported (probe "
+            f"reported n_processes={n_proc}): surviving peer ranks "
+            "cannot be reassigned from a local probe")
+    for k in _COORD_ENV_KEYS + _RANK_ENV_KEYS:
+        env.pop(k, None)
+    env[_PROCESS_ID_ENV] = "0"
+    env[DEGRADED_ENV] = str(int(probe.get("n_devices", 0)))
+    return env
+
+
+_PROBE_LOCAL_SRC = (
+    "import json, torch; "
+    "n = torch.cuda.device_count() if torch.cuda.is_available() else 1; "
+    "print('PROBE_WORLD|' + json.dumps({'n_processes': 1, "
+    "'n_devices': n, 'local_devices': n}))"
+)
+
+
+def default_probe(timeout_s: float = 60.0,
+                  env: Optional[dict] = None) -> Optional[dict]:
+    """LOCAL capacity probe for the generic supervisor: a subprocess
+    reports this host's cards under a hard timeout, with the rendezvous
+    keys stripped so it can never block on a dead world (the world-aware
+    probe is ``parallel.distributed.probe_world``, which the CLI wires).
+    ``degraded`` is True whenever the environment had configured a bigger
+    world.  Returns the probe dict or None."""
+    env = dict(os.environ if env is None else env)
+    had_world = (any(k in env for k in _COORD_ENV_KEYS)
+                 or int(env.get("WORLD_SIZE") or 1) > 1)
+    for k in _COORD_ENV_KEYS + _RANK_ENV_KEYS:
+        env.pop(k, None)
+    try:
+        out = subprocess.run([sys.executable, "-c", _PROBE_LOCAL_SRC],
+                             capture_output=True, text=True, env=env,
+                             timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        return None
+    for line in out.stdout.splitlines():
+        if line.startswith("PROBE_WORLD|"):
+            res = json.loads(line.split("|", 1)[1])
+            res["degraded"] = had_world
+            return res
+    return None
+
+
 def supervise(cmd: Sequence[str], max_restarts: int,
               backoff: float = 1.0, backoff_cap: float = 60.0,
               env: Optional[dict] = None,
@@ -432,6 +554,10 @@ def supervise(cmd: Sequence[str], max_restarts: int,
               ckpt_dir: Optional[str] = None,
               alerts_path: Optional[str] = None,
               jitter: float = 0.5,
+              elastic: bool = False,
+              min_devices: int = 0,
+              probe: Optional[Callable[[], Optional[dict]]] = None,
+              elastic_after: int = 2,
               events_path: Optional[str] = None,
               forward_preempt: bool = False,
               _sleep: Callable[[float], None] = time.sleep,
@@ -440,8 +566,8 @@ def supervise(cmd: Sequence[str], max_restarts: int,
     code.
 
     ``max_restarts`` bounds RELAUNCHES (the first launch is free).  Exits
-    0, 44 and 47 stop at once; anything else (42, 43, a crash, a signal
-    death) is retried after ``backoff * 2^k`` seconds, capped at
+    0, 44, 45, 46 and 47 stop at once; anything else (42, 43, a crash, a
+    signal death) is retried after ``backoff * 2^k`` seconds, capped at
     ``backoff_cap`` and scaled by a uniform jitter in ``[1 - jitter, 1]``
     (downward only, so the cap stays a hard bound).  The relaunched
     command is the same; resuming is the child's job (the CLI appends
@@ -449,6 +575,21 @@ def supervise(cmd: Sequence[str], max_restarts: int,
     ``NNPT_RUN_ID`` (the caller's, or one generated here for the whole
     job) and ``NNPT_INCARNATION`` (the attempt number, from 0), so the
     trace files of every incarnation merge into one timeline.
+
+    ``elastic`` (the JAX package's policy): after ``elastic_after``
+    CONSECUTIVE peer-loss exits (43 or 42: a world that keeps failing to
+    form) run ``probe`` (default :func:`default_probe`; the CLI passes
+    ``parallel.distributed.probe_world``, degraded to this host when the
+    world does not form) and relaunch at the world that answered: a
+    degraded probe rewrites the child's environment (:func:`degrade_env`), so the child forms one
+    process and rides its elastic restore.  Only a positively identified
+    original rank 0 may continue alone (any other rank is fenced and
+    retries its world: two partition survivors must not both lead over
+    one checkpoint dir).  A probe that fails retries the same world; one
+    below ``min_devices`` parks and re-polls with the same backoff,
+    consuming the restart budget, and exhausting it returns
+    :data:`EXIT_CAPACITY`.  A probe that finds the full world again after
+    a degraded relaunch restores the original environment (grow-back).
 
     ``heartbeat_path`` + ``heartbeat_timeout``: a child whose heartbeat
     goes stale for longer is killed and counted as :data:`EXIT_HANG`
@@ -458,15 +599,28 @@ def supervise(cmd: Sequence[str], max_restarts: int,
     metrics.jsonl): the ``kind="alert"`` records it emitted are
     summarized next to each exit (observe-only: the exit code decides).
     ``ckpt_dir``: each relaunch logs the verified snapshot the child will
-    resume from.  ``events_path``: launch / exit / relaunch records as
-    JSONL.  ``forward_preempt``: SIGUSR1 delivered to the supervisor is
-    re-sent to the running child, which answers the notice."""
+    resume from, with its saving world.  ``events_path``: launch / exit /
+    relaunch records as JSONL.  ``forward_preempt``: SIGUSR1 delivered to
+    the supervisor is re-sent to the running child, which answers the
+    notice."""
     if log is None:
         log = lambda m: print(m, file=sys.stderr, flush=True)
-    child_env = dict(env if env is not None else os.environ)
+
+    def next_delay(restarts_used: int) -> float:
+        d = min(backoff * (2.0 ** restarts_used), backoff_cap)
+        if jitter > 0:
+            d *= 1.0 - jitter * _rand()
+        return d
+
+    base_env = env if env is not None else os.environ
+    child_env = dict(base_env)
     run_id = child_env.get(RUN_ID_ENV) or (
         f"run-{int(time.time())}-{os.getpid()}")
+    # the original world, for grow-back after a degraded relaunch
+    world_keys = _COORD_ENV_KEYS + _RANK_ENV_KEYS + (_PROCESS_ID_ENV,)
+    orig_world = {k: base_env.get(k) for k in world_keys}
     attempt = 0
+    peer_streak = 0
     while True:
         attempt += 1
         child_env[RUN_ID_ENV] = run_id
@@ -513,20 +667,27 @@ def supervise(cmd: Sequence[str], max_restarts: int,
             if rc == EXIT_ANOMALY:
                 log("[supervise] child exited 44 (anomaly abort): "
                     "deterministic training failure — not retrying")
+            elif rc == EXIT_SDC:
+                log("[supervise] child exited 45 (SDC abort): "
+                    "deterministic replica divergence or device strike "
+                    "budget exhausted — not retrying")
+            elif rc == EXIT_CAPACITY:
+                log("[supervise] child exited 46 (capacity abort): the "
+                    "healthy world is below --min_devices — not retrying "
+                    "(a relaunch cannot create devices)")
             elif rc == EXIT_DECOMMISSION:
                 log("[supervise] child exited 47 (decommission): retired "
                     "on a preemption notice — not retrying")
             else:
                 log("[supervise] child completed (exit 0)")
             return rc
+        peer_streak = peer_streak + 1 if rc in _PEER_LOSS_CODES else 0
         restarts_used = attempt - 1
         if restarts_used >= max_restarts:
             log(f"[supervise] giving up: {max_restarts} restarts exhausted "
                 f"(last exit {rc})")
             return rc
-        delay = min(backoff * (2.0 ** restarts_used), backoff_cap)
-        if jitter > 0:
-            delay *= 1.0 - jitter * _rand()
+        delay = next_delay(restarts_used)
         reason = {EXIT_HANG: "watchdog hang",
                   EXIT_PEER: "peer loss"}.get(rc, "crash")
         log(f"[supervise] child exit {rc} ({reason}); relaunching in "
@@ -536,16 +697,90 @@ def supervise(cmd: Sequence[str], max_restarts: int,
             "t": round(time.time(), 6), "run": run_id,
             "inc": attempt, "delay_s": round(delay, 3), "reason": reason})
         if ckpt_dir:
-            step, bad, _ = _restore_target(ckpt_dir)
+            step, bad, path = _restore_target(ckpt_dir)
             if step is not None:
+                world = ckpt_manifest.world_line(
+                    ckpt_manifest.snapshot_meta(path))
                 log(f"[supervise] relaunch resumes from verified snapshot "
                     f"step {step}"
+                    + (f" [{world}]" if world else "")
                     + (f" ({bad} unverified generation(s) will be "
                        "quarantined on restore)" if bad else ""))
             else:
                 log(f"[supervise] no verified snapshot in {ckpt_dir}: "
                     "relaunch restarts from scratch")
         _sleep(delay)
+        # ---- elastic probe-and-shrink, after REPEATED peer loss ---------
+        if not (elastic and peer_streak >= elastic_after):
+            continue
+        orig_multi = (any(orig_world.get(k) for k in _COORD_ENV_KEYS)
+                      or int(orig_world.get("WORLD_SIZE") or 1) > 1)
+        rank_raw = orig_world.get("RANK")
+        if orig_multi and (rank_raw is None or int(rank_raw) != 0):
+            log("[supervise] elastic: original rank "
+                f"{'unknown (no RANK)' if rank_raw is None else rank_raw}"
+                " is fenced from degraded relaunch (only a positively-"
+                "identified rank 0 may continue as a shrunken world — "
+                "two partition survivors must not both become single-"
+                "process leaders over the same checkpoint dir); "
+                "retrying at the current world")
+            continue
+        prober = probe if probe is not None else default_probe
+        floor = max(1, int(min_devices))
+        parked = False
+        while True:
+            res = prober()
+            if res is None and not parked:
+                log("[supervise] elastic probe failed (no topology "
+                    "answer); retrying at the current world")
+                break
+            n = int(res.get("n_devices", 0)) if res is not None else -1
+            if res is not None and n >= floor:
+                if res.get("degraded"):
+                    try:
+                        child_env = degrade_env(dict(child_env), res)
+                    except ValueError as e:
+                        log(f"[supervise] {e}; retrying at the current "
+                            "world")
+                        break
+                    log(f"[supervise] topology probe: {n} healthy "
+                        f"device(s) across "
+                        f"{res.get('n_processes', '?')} process(es) — "
+                        "relaunching at the DEGRADED world")
+                else:
+                    log(f"[supervise] topology probe: {n} healthy "
+                        f"device(s) across "
+                        f"{res.get('n_processes', '?')} process(es)")
+                    if DEGRADED_ENV in child_env:
+                        for k, v in orig_world.items():
+                            if v is None:
+                                child_env.pop(k, None)
+                            else:
+                                child_env[k] = v
+                        child_env.pop(DEGRADED_ENV, None)
+                        log("[supervise] probe reports the full world "
+                            "healthy: restoring the original topology "
+                            "for the relaunch (grow-back)")
+                peer_streak = 0
+                break
+            # below the floor (or, once parked, a probe that failed):
+            # park and re-poll, consuming the restart budget
+            parked = True
+            shown = (f"{n} healthy device(s)" if res is not None
+                     else "no topology answer (probe failed)")
+            attempt += 1
+            restarts_used = attempt - 1
+            if restarts_used >= max_restarts:
+                log(f"[supervise] capacity shortfall: probe found "
+                    f"{shown} < --min_devices {floor} and the "
+                    f"restart budget is exhausted — exiting "
+                    f"{EXIT_CAPACITY} (capacity abort)")
+                return EXIT_CAPACITY
+            delay = next_delay(restarts_used)
+            log(f"[supervise] capacity shortfall: {shown} "
+                f"< --min_devices {floor}; re-probing in {delay:.1f}s "
+                f"({restarts_used + 1}/{max_restarts})")
+            _sleep(delay)
 
 
 def _run_child(cmd: Sequence[str], env: Optional[dict],

@@ -58,9 +58,11 @@ Layout under ``--telemetry_dir``::
     postmortem.json   flight-recorder dump, written on abnormal events
 
 Everything is zero-cost when ``telemetry_dir`` is unset, and file writes
-are leader-only (rank 0).  Not ported yet: the SDC and topology records
-(``on_sdc``, ``on_topology``) come with their callers, and the serving
-scheduler's records with its telemetry.
+are leader-only (rank 0).  ``kind="sdc"`` records (:meth:`Telemetry.on_sdc`,
+the trainer's replica-consistency incidents; ``tools/sdc_report.py``) and
+``kind="topology"`` records (:meth:`Telemetry.on_topology`, an elastic
+resume onto another world; ``tools/metrics_summary.py``) share the stream.
+Not ported yet: the serving scheduler's records with its telemetry.
 """
 
 from __future__ import annotations
@@ -795,6 +797,46 @@ class Telemetry:
         # alive() beats between the rollback and the next dispatch must
         # report the restored step, not the abandoned timeline's
         self.heartbeat.last_step = int(step)
+
+    def on_sdc(self, record: Dict[str, Any]) -> None:
+        """A silent-data-corruption incident (the trainer's fingerprint
+        check): the full record into the stream (``kind="sdc"``), an
+        ``sdc`` flight-recorder event and a postmortem now, re-dumped
+        after the next step record so its tail shows whether the run
+        kept training past the incident."""
+        if not self.enabled:
+            return
+        rec = {"kind": "sdc",
+               "t": round(time.perf_counter() - self._t0, 6), **record}
+        self.recorder.event(
+            "sdc", int(record.get("step", -1)),
+            verdict=record.get("verdict"), action=record.get("action"),
+            leaves=record.get("leaves"), devices=record.get("devices"))
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
+        self.recorder.dump("sdc")
+        self.recorder.arm_dump("sdc")
+
+    def on_topology(self, step: int, change: Dict[str, Any]) -> None:
+        """An elastic resume onto another world than the snapshot's: not a
+        failure (no postmortem), but the moment the batch or accumulation
+        may have changed: a ``kind="topology"`` record and a flight-
+        recorder event."""
+        if not self.enabled:
+            return
+        rec = {"kind": "topology", "step": int(step),
+               "t": round(time.perf_counter() - self._t0, 6), **change}
+        self.recorder.event(
+            "topology", int(step),
+            from_devices=(change.get("from_world") or {}).get("n_devices"),
+            to_devices=(change.get("to_world") or {}).get("n_devices"),
+            policy=change.get("policy"),
+            batch_size=change.get("batch_size"),
+            accum_steps=change.get("accum_steps"))
+        if self._jsonl is not None:
+            self._jsonl.write(json.dumps(rec) + "\n")
+            self._jsonl.flush()
 
     def on_abnormal_exit(self, exc: BaseException) -> None:
         from .resilience import AnomalyAbort

@@ -76,9 +76,36 @@ eager step); ``--profile_dir``/``--xla_trace_dir`` run
 ``torch.profiler`` over the fit and write a Chrome trace; the hang
 watchdog writes the postmortem before exit 42.
 
+Replica consistency (``utils.consistency``, ``ops.fingerprint``; the JAX
+loop's rules and messages): ``--sdc_check_every N`` launches the
+fingerprint kernel on the replicated state after every dispatch that
+crosses a multiple of N, reads it at lag 2, gathers every rank's digest
+into the ``(nodes, LOCAL_WORLD_SIZE)`` matrix and, on a mismatch,
+localizes the diverged leaves (per-leaf digests, majority vote per node),
+heals them in place from the majority rank (a broadcast in the node's
+group), replays the last dispatch on a copy of the healed state and
+fingerprints it: a divergence the replay reproduces aborts
+(``SDCAbort``, exit 45), a transient one is charged to the rank's strike
+budget (``--sdc_strikes``; over it: exit 45) and, with healing on, the run
+goes on; a divergence between nodes rolls back to the newest verified
+snapshot.  Every snapshot first drains the queue, so no unchecked state
+reaches disk.  ``--check_replicas_every`` rides the same path,
+detect-only.  The check is off below two replicas (one rank), with the
+JAX trainer's log line.  ``--faults bitflip|desync`` corrupt one rank's
+state in place; ``desync?det`` wraps the step (a CUDA graph captures it).
+
+Elastic resume (``--elastic``, ``--elastic_batch``, ``--min_devices``): a
+world below ``--min_devices`` (world size x one card per rank) raises
+``CapacityAbort`` (exit 46); a ``--resume`` of a snapshot saved by
+another data-rank count re-pads the sharded optimizer state
+(``utils.checkpoint``), applies the batch policy (``global``: keep the
+global batch, raise ``accum_steps``; ``per_device``: keep each rank's
+rows), maps the step counter onto the new loader through
+``consumed_samples`` and records the change (``kind="topology"``).
+
 Every flag of a path the port has not taken over yet (model-parallel
-axes, SDC checks, elastic, RL, ...) raises ``NotImplementedError`` naming
-the flag when it is set to anything but its default; none is ignored.
+axes, RL, ...) raises ``NotImplementedError`` naming the flag when it is
+set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
@@ -110,6 +137,7 @@ from ..ops import optim as optim_lib
 from ..ops import qmm
 from ..ops import schedules
 from ..parallel import data_parallel as dp
+from ..parallel import distributed
 from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
 from ..parallel.sequence import (
@@ -118,27 +146,24 @@ from ..parallel.sequence import (
 )
 from ..utils import checkpoint as ckpt
 from ..utils import compile_ledger
+from ..utils import consistency
 from ..utils import prng
 from ..utils import profiling
-from ..utils.faults import FaultPlan
+from ..utils.faults import FaultPlan, wrap_step_with_desync
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
-from ..utils.tree import leaves
+from ..utils.tree import leaves, tree_map
 from ..utils.watchdog import HangWatchdog
 from . import telemetry as telemetry_lib
 from . import trace as trace_lib
-from .resilience import AnomalyAbort, GracefulShutdown, ResilienceMonitor
+from .resilience import (AnomalyAbort, CapacityAbort, GracefulShutdown,
+                         ResilienceMonitor, SDCAbort, SDCPolicy)
 from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {
     "workload": "--workload", "pp_interleave": "--pp_interleave",
     "vocab_parallel": "--vocab_parallel",
-    "check_replicas_every": "--check_replicas_every",
-    "sdc_check_every": "--sdc_check_every", "sdc_heal": "--no-sdc-heal",
-    "sdc_strikes": "--sdc_strikes",
-    "elastic": "--elastic", "min_devices": "--min_devices",
-    "elastic_batch": "--elastic_batch",
 }
 _UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
                   "expert": "--ep"}
@@ -146,6 +171,9 @@ _UNPORTED_MODEL = {"moe_experts": "--moe_experts",
                    "moe_expert_axis": "--ep",
                    "moe_capacity_factor": "--moe_capacity_factor",
                    "moe_top_k": "--moe_top_k"}
+# the replica check runs with at least this many replicas (ranks): one
+# replica has nothing to compare (the JAX trainer's rule)
+SDC_MIN_REPLICAS = 2
 
 
 def _sliced_layout(cfg: TrainConfig) -> bool:
@@ -295,6 +323,14 @@ class Trainer:
                 collective_timeout=cfg.collective_timeout)
             if sp > 1:
                 seq_group = ProcessSeqGroup(self.world.seq_pg)
+        # the capacity floor: a world below --min_devices does not train
+        # (exit 46, which the supervisor does not retry); one card per rank
+        n_devices = self.world.world_size
+        if cfg.min_devices and n_devices < cfg.min_devices:
+            raise CapacityAbort(
+                f"{n_devices} healthy device(s) < --min_devices "
+                f"{cfg.min_devices}: refusing to train below the capacity "
+                "floor (exit 46; raise capacity or lower --min_devices)")
         if attention in SEQ_SHARDED_IMPLS and seq_group is None:
             raise ValueError(
                 f"attention={attention!r} needs the sequence split over "
@@ -358,6 +394,15 @@ class Trainer:
             self.data, val = train_val_split(self.data,
                                              cfg.data.val_fraction, cfg.seed)
             self.val_data = val or None
+        # elastic resume onto another data-rank count: the batch policy
+        # applies before the loader and the step are built
+        self._topology_change: Optional[dict] = None
+        self._restored_world: Optional[dict] = None
+        # position = step + _step_offset (0 except after an elastic resume
+        # whose batch size changed with the world)
+        self._step_offset = 0
+        self._resume_plan: Optional[tuple] = None
+        cfg = self.cfg = self._elastic_preflight(cfg)
         self.loader = self._loader(self.data, shuffle=cfg.shuffle)
         self.k_dispatch = int(cfg.steps_per_dispatch)
         if self.k_dispatch < 1:
@@ -400,6 +445,20 @@ class Trainer:
             update_sharding=cfg.update_sharding,
             grad_clip=cfg.grad_clip if step_clips else 0.0,
             with_metrics=self.telemetry_metrics)
+        # desync@N?det: the step itself drifts on every data rank but the
+        # first, the bug the SDC replay must reproduce
+        det = self.fault_plan.det_desync() if self.fault_plan else None
+        if det is not None:
+            if self.zero1 or self.sharded:
+                raise NotImplementedError(
+                    "desync?det perturbs the fully-replicated train state "
+                    "inside the step; it is wired on the plain DP and "
+                    "DP x seq layouts (replicated update)")
+            step = wrap_step_with_desync(step, det.start, det.eps,
+                                         self.world.data_rank)
+        # the SDC replay re-runs a dispatch eagerly with this step (no
+        # capture, no ledger event)
+        self._replay_step = step
         # the compile ledger's seam (a pass-through without --trace): the
         # eager step records each new signature, the graphed step each
         # capture
@@ -446,6 +505,15 @@ class Trainer:
         self.restore_seconds: Optional[float] = None
         # each anomaly rollback: the step restored and its host seconds
         self.rollbacks: list = []
+        # silent-data-corruption defense: --sdc_check_every heals;
+        # --check_replicas_every rides the same lag-2 fingerprint path,
+        # detect-only (a divergence localizes, triages and raises)
+        self.sdc_every = (int(cfg.sdc_check_every)
+                          or int(cfg.check_replicas_every))
+        self.sdc_heal = bool(cfg.sdc_heal) and int(cfg.sdc_check_every) > 0
+        self._fp: Optional[consistency.Fingerprinter] = None
+        self._sdc_policy: Optional[SDCPolicy] = None
+        self._sdc_batch = None   # the last dispatch's batches, for replay
 
     def _loader(self, data, shuffle: bool) -> ShardedLoader:
         cfg = self.cfg
@@ -456,6 +524,74 @@ class Trainer:
             full_batch=cfg.full_batch, remainder=cfg.data.remainder,
             backend=cfg.data.backend, seq_rank=w.seq_rank, sp=w.sp,
             seq_permutation=self.seq_permutation)
+
+    def _elastic_preflight(self, cfg: TrainConfig) -> TrainConfig:
+        """Detect a resume onto another data-rank count than the snapshot's
+        (the newest VERIFIED generation's, the one restore lands on) before
+        the loader and the step exist, and apply ``--elastic_batch``:
+        ``per_device`` keeps each rank's rows (the global batch follows
+        the world, rounded to a multiple of the new count); ``global``
+        keeps the global batch and, on a shrink, raises ``accum_steps`` by
+        the same factor when each rank's rows stay divisible."""
+        if not (cfg.elastic and cfg.resume and cfg.checkpoint_dir):
+            return cfg
+        step = ckpt.newest_verified_step(cfg.checkpoint_dir)
+        meta = (ckpt.read_meta(cfg.checkpoint_dir, step=step)
+                if step is not None else None) or {}
+        saved = meta.get("saved_world") or {}
+        saved_dp = int(saved.get("dp") or 0)
+        new_dp = self.world.dp
+        if not saved_dp or saved_dp == new_dp:
+            return cfg
+        n = self.world.world_size
+        change = {
+            "from_world": saved,
+            "to_world": {"n_devices": n, "n_processes": n, "dp": new_dp},
+            "policy": cfg.elastic_batch,
+            "batch_size": [cfg.batch_size, cfg.batch_size],
+            "accum_steps": [cfg.accum_steps, cfg.accum_steps],
+        }
+        if cfg.elastic_batch == "per_device" and not cfg.full_batch:
+            new_bs = max(new_dp,
+                         (round(cfg.batch_size * new_dp / saved_dp)
+                          // new_dp) * new_dp or new_dp)
+            change["batch_size"][1] = new_bs
+            cfg = dataclasses.replace(cfg, batch_size=new_bs)
+        elif cfg.elastic_batch == "global" and saved_dp > new_dp:
+            factor = math.ceil(saved_dp / new_dp)
+            new_accum = cfg.accum_steps * factor
+            bs = (self.data["x"].shape[0] if cfg.full_batch
+                  else cfg.batch_size)
+            if math.ceil(bs / new_dp) % new_accum == 0:
+                change["accum_steps"][1] = new_accum
+                cfg = dataclasses.replace(cfg, accum_steps=new_accum)
+        self._topology_change = change
+        log(f"[elastic] resuming a dp={saved_dp} checkpoint on dp="
+            f"{new_dp} ({saved.get('n_devices', '?')} -> {n} devices), "
+            f"policy={cfg.elastic_batch}: batch {change['batch_size'][0]} "
+            f"-> {change['batch_size'][1]}, accum "
+            f"{change['accum_steps'][0]} -> {change['accum_steps'][1]}")
+        return cfg
+
+    def _remap_step_offset(self, meta: dict, start_step: int) -> None:
+        """After an elastic resume that changed the batch size, map the
+        restored generation's step counter onto this loader's (epoch,
+        in-epoch step) through its ``consumed_samples``; keyed to the
+        generation actually restored (a rollback may land on another)."""
+        self._step_offset = 0
+        self._resume_plan = None
+        change = self._topology_change
+        if (change is None or change["batch_size"][0]
+                == change["batch_size"][1]
+                or meta.get("consumed_samples") is None):
+            return
+        plan = self.loader.start_for_samples(int(meta["consumed_samples"]))
+        spe = max(self.loader.steps_per_epoch, 1)
+        self._resume_plan = plan
+        self._step_offset = plan[0] * spe + plan[1] - start_step
+        log(f"[elastic] batch size changed with the world: resuming at "
+            f"epoch {plan[0]}, in-epoch step {plan[1]} from "
+            f"consumed_samples={meta['consumed_samples']}")
 
     def _eager_group(self, state: TrainState, batches):
         """A dispatch's steps one by one: the CPU's multi-step path."""
@@ -513,6 +649,11 @@ class Trainer:
         meta = ckpt.read_meta(cfg.checkpoint_dir, step=self.state.step) or {}
         # a relaunch keeps a rollback's re-drawn data order
         self.loader.order_salt = int(meta.get("order_salt", 0))
+        if cfg.elastic:
+            # lineage: a shrunken world's saves carry the ORIGINAL world
+            self._restored_world = (meta.get("restored_world")
+                                    or meta.get("saved_world"))
+        self._remap_step_offset(meta, self.state.step)
         self.restore_seconds = time.perf_counter() - t0
         log(f"resumed from {cfg.checkpoint_dir} at step {self.state.step} "
             f"({self.restore_seconds:.3f}s)")
@@ -528,7 +669,8 @@ class Trainer:
         s = self.state
         template = s if self.layout is None else s._replace(
             opt_state=self.layout.host_template(s.opt_state))
-        restored = ckpt.restore(self.cfg.checkpoint_dir, template)
+        restored = ckpt.restore(self.cfg.checkpoint_dir, template,
+                                elastic=self.cfg.elastic)
         if restored is None:
             return False
         if self.layout is not None:     # every rank keeps its own slice
@@ -551,6 +693,11 @@ class Trainer:
             restored = self._restore_newest()
         if not restored:
             self.state = _into(self.state, self._fresh_state()[0])
+            self._step_offset, self._resume_plan = 0, None
+        else:   # the offset of the generation this landed on
+            self._remap_step_offset(ckpt.read_meta(
+                self.cfg.checkpoint_dir, step=self.state.step) or {},
+                self.state.step)
         self.loader.order_salt += 1
         # the retrained window revisits saved step numbers with other
         # state: the final save must not take them as written
@@ -558,6 +705,242 @@ class Trainer:
         self.rollbacks.append({"step": self.state.step,
                                "seconds": time.perf_counter() - t0})
         return self.state.step
+
+    # ---- silent-data-corruption defense ---------------------------------
+    def _build_fingerprinter(self) -> None:
+        """The fingerprint over this layout's replicated leaves, when
+        there are at least :data:`SDC_MIN_REPLICAS` replicas (ranks); the
+        node groups and the host group form here, on every rank."""
+        fpr = consistency.Fingerprinter(
+            self.state, sharded_opt=self.layout is not None)
+        if fpr.n_leaves and self.world.world_size >= SDC_MIN_REPLICAS:
+            self._fp = fpr
+            self._sdc_policy = SDCPolicy(self.cfg.sdc_strikes)
+            if distributed.is_multi_host():
+                distributed.node_group()
+                distributed.host_group()
+        else:
+            self._fp = None
+            log("[sdc] replica checking disabled: no replicated leaves "
+                "with >= 2 device shards in this layout/mesh")
+
+    def _sdc_observe(self, at_step: int, fp, watchdog,
+                     draining: bool = False) -> str:
+        """Consume one lag-2 fingerprint: this rank's digest, gathered
+        from every rank into the ``(nodes, LOCAL_WORLD_SIZE)`` matrix, so
+        every rank forms the same verdict and takes the same branch (the
+        incident path runs collectives).  Returns ``"ok"``, ``"healed"``
+        or ``"rollback"``."""
+        digests, folds = consistency.Fingerprinter.fetch(fp)
+        n_nodes, local, _, _ = distributed.node_layout()
+        mat = distributed.allgather_host_array(digests).reshape(
+            n_nodes, local)
+        verdict = consistency.digest_report(mat)
+        if not verdict:
+            return "ok"
+        folds = distributed.allgather_host_array(folds).reshape(-1)
+        return self._sdc_incident(at_step, verdict, folds, watchdog,
+                                  draining)
+
+    def _sdc_localize(self):
+        """(this node's report, the merged report of every node, the
+        gathered per-leaf digest matrix).  Per leaf, the majority of the
+        node's ranks is the reference (``consistency.localize``); a
+        diverged leaf's copies are all-gathered in the node's group for
+        its magnitudes; the node reports are then shared, so the merged
+        one is the same on every rank."""
+        fpr = self._fp
+        names = fpr.paths
+        mat = distributed.allgather_host_array(fpr.leaf_digests(self.state))
+        n_nodes, local, node, _ = distributed.node_layout()
+        leaves_ = fpr.leaves(self.state)
+        group = distributed.node_group()
+
+        def fetch(j):
+            t = leaves_[j].detach().contiguous()
+            got = [torch.empty_like(t) for _ in range(local)]
+            torch.distributed.all_gather(got, t, group=group)
+            return got
+
+        base = node * local
+        mine = consistency.localize(
+            names, mat[base:base + local], fetch,
+            [f"rank{base + i}" for i in range(local)])
+        reports = [mine]
+        if n_nodes > 1:
+            reports = [None] * torch.distributed.get_world_size()
+            torch.distributed.all_gather_object(
+                reports, mine, group=distributed.host_group())
+            reports = reports[::local]
+        merged: dict = {}
+        for rep in reports:
+            for name, r in rep.items():
+                m = merged.setdefault(name, {
+                    "shards": [], "devices": [], "max_abs_diff": 0.0,
+                    "n_bad_elements": 0,
+                    "reference_shard": r["reference_shard"]})
+                m["shards"] += r["shards"]
+                m["devices"] += r["devices"]
+                m["max_abs_diff"] = max(m["max_abs_diff"],
+                                        r["max_abs_diff"])
+                m["n_bad_elements"] += r["n_bad_elements"]
+        return mine, merged, mat
+
+    @torch.no_grad()
+    def _sdc_heal(self, report: dict) -> None:
+        """Each diverged leaf of this node broadcast in place from its
+        majority rank over the node's group (a captured CUDA graph stays
+        valid)."""
+        if not report:
+            return
+        _, local, node, _ = distributed.node_layout()
+        group = distributed.node_group()
+        leaves_ = dict(zip(self._fp.paths, self._fp.leaves(self.state)))
+        for name, r in report.items():
+            torch.distributed.broadcast(
+                leaves_[name].detach(), src=node * local
+                + r["reference_shard"], group=group)
+
+    def _sdc_replay(self, leaf_mat: np.ndarray) -> str:
+        """Re-run the last dispatch, eagerly, on a consistency-restored
+        copy of the state and fingerprint the result:
+        ``"deterministic"`` when the replicas diverge again (a bug in the
+        step), else ``"transient"``.  The live state is already healed
+        within each node; a leaf that still differs BETWEEN nodes is
+        broadcast into the copy from the lowest rank holding its majority
+        value (after the heal), so the replay tests the step, not the
+        divergence it started from.  ``leaf_mat``: the gathered
+        ``(ranks, leaves)`` per-leaf digests before the heal."""
+        if self._sdc_batch is None:
+            return "unknown"
+        state = tree_map(
+            lambda t: t.detach().clone().requires_grad_(t.requires_grad),
+            self.state)
+        _, local, _, _ = distributed.node_layout()
+        copies = self._fp.leaves(state)
+        for j in range(leaf_mat.shape[1]):
+            # each rank's digest after its node's heal: the node majority
+            healed = []
+            for base in range(0, leaf_mat.shape[0], local):
+                col = leaf_mat[base:base + local, j].tolist()
+                healed += [max(col, key=lambda v: (col.count(v),
+                                                   -col.index(v)))] * local
+            if len(set(healed)) > 1:
+                top = max(healed, key=lambda v: (healed.count(v),
+                                                 -healed.index(v)))
+                torch.distributed.broadcast(copies[j].detach(),
+                                            src=healed.index(top))
+        for batch in self._sdc_batch:
+            state, _ = self._replay_step(state, batch)
+        digests, _ = consistency.Fingerprinter.fetch(
+            self._fp.compute(state))
+        n_nodes, local, _, _ = distributed.node_layout()
+        mat = distributed.allgather_host_array(digests).reshape(
+            n_nodes, local)
+        return ("deterministic" if consistency.digest_report(mat)
+                else "transient")
+
+    def _sdc_incident(self, at_step: int, fp_verdict: dict, folds,
+                      watchdog, draining: bool) -> str:
+        """Fingerprint mismatch: localize, heal this node's leaves in
+        place, replay-triage, record, then abort, roll back or keep the
+        healed state.  ``fp_verdict`` is the same on every rank, so every
+        branch that reaches a collective is taken by all ranks together.
+        Healing before the triage changes no outcome: every branch but
+        "healed" raises or rolls the state back."""
+        cfg = self.cfg
+        log(f"[sdc] fingerprint mismatch detected for step {at_step} "
+            f"(checked at lag 2): localizing...")
+        with watchdog.suspended():
+            mine, report, leaf_mat = self._sdc_localize()
+            cross = {}
+            if fp_verdict.get("cross"):
+                # which leaves and nodes: each node's per-leaf digests
+                # against node 0's (collective; symmetric as fp_verdict)
+                cross = distributed.cross_host_report(
+                    consistency.leaf_digests(
+                        self.state, sharded_opt=self.layout is not None))
+            devices = sorted({d for r in report.values()
+                              for d in r["devices"]})
+            self._sdc_heal(mine)
+            replay_verdict = self._sdc_replay(leaf_mat)
+            cross_procs = list(fp_verdict.get("cross", []))
+            strike_keys = devices + [f"process:{p}" for p in cross_procs]
+            record = {
+                "step": int(at_step),
+                "leaves": {k: {"shards": r["shards"],
+                               "devices": r["devices"],
+                               "max_abs_diff": float(r["max_abs_diff"]),
+                               "n_bad_elements": int(r["n_bad_elements"])}
+                           for k, r in report.items()},
+                "devices": devices,
+                "cross_host": ({k: v["processes"] for k, v in cross.items()}
+                               if cross else {}),
+                "float_folds": [float(f) for f in folds],
+                "verdict": replay_verdict,
+            }
+            if replay_verdict == "deterministic":
+                record["action"] = "abort_deterministic"
+                self.telemetry.on_sdc(record)
+                names = (sorted(report) or sorted(cross)
+                         or ["<unlocalized>"])
+                raise SDCAbort(
+                    f"replica divergence at step {at_step} REPRODUCED on "
+                    f"replay from a consistency-restored state — "
+                    f"deterministic software bug in the step function "
+                    f"(diverged leaves: {names[:5]}); a relaunch would "
+                    "replay it.  Suspects: an update that is not the same "
+                    "on every rank, a nondeterministic kernel, or an "
+                    "injected desync?det")
+            exhausted = self._sdc_policy.record(strike_keys)
+            if exhausted:
+                record["action"] = "abort_strikes"
+                record["strikes"] = dict(self._sdc_policy.counts)
+                self.telemetry.on_sdc(record)
+                raise SDCAbort(
+                    f"transient replica divergence at step {at_step}, but "
+                    f"{exhausted} exceeded the strike budget "
+                    f"(--sdc_strikes {cfg.sdc_strikes}; counts "
+                    f"{self._sdc_policy.counts}) — repeatedly flaky "
+                    "hardware; drain the device instead of relaunching")
+            if not self.sdc_heal:
+                record["action"] = "detect_only"
+                self.telemetry.on_sdc(record)
+                worst = sorted(((k, r["max_abs_diff"])
+                                for k, r in report.items()),
+                               key=lambda kv: -kv[1])[:5]
+                raise AssertionError(
+                    f"replica divergence in train state @ step {at_step}: "
+                    f"{len(report)} replicated leaves differ across device "
+                    f"shards (worst: {worst}; cross-host: "
+                    f"{record['cross_host']}); replay says "
+                    f"{replay_verdict}.  Healing is off on this path — "
+                    "use --sdc_check_every/--sdc_heal to heal instead of "
+                    "dying")
+            if cross_procs or (cross and not report):
+                # nodes disagree while each is consistent: no local
+                # majority is the truth — roll back to the newest
+                # verified snapshot (the same bytes on every rank)
+                record["action"] = "rollback"
+                self.telemetry.on_sdc(record)
+                if draining:
+                    raise RuntimeError(
+                        f"[sdc] cross-host divergence detected at step "
+                        f"{at_step} during the final drain — refusing to "
+                        "write a final snapshot from unreconcilable "
+                        "state; relaunch/resume from the newest verified "
+                        "checkpoint")
+                return "rollback"
+            record["action"] = "healed"
+            record["strikes"] = dict(self._sdc_policy.counts)
+            self.telemetry.on_sdc(record)
+            if report:
+                self._sdc_policy.healed += 1
+                log(f"[sdc] transient divergence healed at step {at_step}: "
+                    f"{len(report)} leaf/leaves restored from the majority "
+                    f"shard (implicated: {devices}; strikes "
+                    f"{self._sdc_policy.counts})")
+            return "healed"
 
     def save(self, final: bool = False) -> None:
         """Snapshot the state into ``--checkpoint_dir`` (rank 0 writes).
@@ -581,7 +964,10 @@ class Trainer:
                      "mesh": {"data": w.dp, "fsdp": 1, "pipe": 1,
                               "expert": 1, "seq": w.sp, "tensor": 1},
                      "update_sharding": cfg.update_sharding},
-                 "consumed_samples": self.loader.consumed_samples(step)}
+                 "consumed_samples": self.loader.consumed_samples(
+                     step + self._step_offset)}
+        if self._restored_world:
+            extra["restored_world"] = self._restored_world
         t0 = time.perf_counter()
         # span "ckpt": this call's host cost (an async save's host copy);
         # the writer thread's disk time is its own "ckpt_write" span
@@ -603,6 +989,9 @@ class Trainer:
             self.init_state()
         spe = max(self.loader.steps_per_epoch, 1)
         start_step = self.maybe_resume()
+        if self._topology_change is not None:
+            self.telemetry.on_topology(start_step,
+                                       dict(self._topology_change))
         cuda = self.device.type == "cuda"
         log(f"mesh: {describe(self.world)} | layout: {self.layout_tag} | "
             f"model: {cfg.model.arch} "
@@ -635,6 +1024,37 @@ class Trainer:
         dispatches = None
         fit_t0 = time.perf_counter()
         first_done = False
+        # the SDC fingerprints in flight: (step, handle), read at lag 2
+        sdc_q: list = []
+        if self.sdc_every:
+            self._build_fingerprinter()
+
+        def sdc_pump(keep: int, draining: bool = False) -> str:
+            """Observe queued fingerprints down to ``keep`` entries (1:
+            the lag-2 discipline; 0: drain, before a snapshot and at the
+            end).  Returns "ok", "healed" (the queue is dropped: older
+            fingerprints predate the heal) or "rollback"."""
+            while len(sdc_q) > keep:
+                act = self._sdc_observe(*sdc_q.pop(0), watchdog=watchdog,
+                                        draining=draining)
+                if act == "healed":
+                    sdc_q.clear()
+                    return "healed"
+                if act == "rollback":
+                    return "rollback"
+            return "ok"
+
+        def sdc_rollback(why: str) -> None:
+            """A divergence between nodes: restore the newest verified
+            snapshot, re-draw the data order, drop both lag queues."""
+            nonlocal step, prev, pending
+            with trace_lib.span("rollback"), watchdog.suspended():
+                step = self._rollback()
+            log(f"{why} — restored step {step}, re-drew the data order")
+            self.telemetry.on_rollback(step,
+                                       monitor.rollbacks if monitor else 0)
+            prev = pending = None
+            sdc_q.clear()
 
         def observe() -> bool:
             """The monitor reads the pending dispatch's loss (lag 1: the
@@ -664,14 +1084,16 @@ class Trainer:
             # a postmortem now, and again after the first record past it
             self.telemetry.on_rollback(step, monitor.rollbacks)
             prev = None
+            sdc_q.clear()   # fingerprints of the abandoned timeline
             return True
 
         try:
             with profiler, watchdog, shutdown:
-                epoch = start_step // spe
-                # in-epoch offset, taken by the first epoch of a resumed
-                # run (or after a rollback) only
-                mid_epoch_start = start_step % spe
+                # the loader's position: the step plus the elastic offset
+                epoch, mid_epoch_start = divmod(
+                    start_step + self._step_offset, spe)
+                # the in-epoch offset is taken by the first epoch of a
+                # resumed run (or after a rollback) only
                 while epoch < cfg.nepochs and not shutdown.requested:
                     log(f"Starting epoch {epoch + 1}")
                     epoch_t0 = time.perf_counter()
@@ -714,6 +1136,16 @@ class Trainer:
                             batches = [self.fault_plan.apply(
                                 step + i, b, ckpt_dir=cfg.checkpoint_dir)
                                 for i, b in enumerate(batches)]
+                            # bitflip/desync corrupt one rank's state, in
+                            # place, before the dispatch
+                            for i in range(n_steps):
+                                self.fault_plan.apply_state(
+                                    step + i, self.state,
+                                    replica=self.world.data_rank,
+                                    n_replicas=self.world.dp,
+                                    sharded_opt=self.layout is not None)
+                        if self._fp is not None:
+                            self._sdc_batch = batches   # for the replay
                         # "dispatch": the host's cost of queueing the step
                         # (the card runs behind it)
                         with trace_lib.span("dispatch", step=step):
@@ -746,6 +1178,18 @@ class Trainer:
                                 f"{step - 1}, "
                                 f"{time.perf_counter() - fit_t0:.3f}s into "
                                 "fit")
+                        if (self._fp is not None and step // self.sdc_every
+                                > prev[3] // self.sdc_every):
+                            # the digest of the state this dispatch left
+                            # (queued behind it on the stream), read at
+                            # lag 2; before the snapshot block, so a
+                            # corruption is handled before it reaches disk
+                            sdc_q.append((step, self._fp.compute(
+                                self.state)))
+                            if sdc_pump(keep=1) == "rollback":
+                                sdc_rollback("[sdc] cross-host divergence")
+                                rolled_back = True
+                                break
                         if cfg.checkpoint_every and (
                                 step // cfg.checkpoint_every
                                 > prev[3] // cfg.checkpoint_every):
@@ -756,10 +1200,19 @@ class Trainer:
                                 rolled_back = True
                                 break
                             if monitor is None or monitor.consecutive == 0:
+                                # no snapshot of state the fingerprint
+                                # has not cleared
+                                if sdc_pump(keep=0) == "rollback":
+                                    sdc_rollback("[sdc] cross-host "
+                                                 "divergence at a snapshot "
+                                                 "boundary")
+                                    rolled_back = True
+                                    break
                                 with watchdog.suspended():
                                     self.save()
                     if rolled_back:
-                        epoch, mid_epoch_start = divmod(step, spe)
+                        epoch, mid_epoch_start = divmod(
+                            step + self._step_offset, spe)
                         continue
                     if loss is not None:
                         last_loss = float(loss)
@@ -783,6 +1236,9 @@ class Trainer:
                     self.metrics.write({"step": prev[0], "epoch": prev[1],
                                         "loss": last_loss,
                                         "samples_per_sec": thr.samples_per_sec})
+                # drain the SDC queue: a divergence found here heals (or
+                # aborts) before the final snapshot can capture it
+                sdc_pump(keep=0, draining=True)
                 # drain the telemetry lag queue (every queued copy is
                 # complete by now) and write the final heartbeat at the
                 # real step
@@ -824,6 +1280,9 @@ class Trainer:
         if monitor is not None:
             result["rollbacks"] = monitor.rollbacks
             result["bad_steps"] = monitor.bad_steps
+        if self._sdc_policy is not None:
+            result["sdc_incidents"] = self._sdc_policy.incidents
+            result["sdc_healed"] = self._sdc_policy.healed
         if self.guarded:    # read once, off the hot path
             result["skipped_updates"] = int(self.state.opt_state.skipped)
         step_flops = telemetry_lib.train_step_flops(

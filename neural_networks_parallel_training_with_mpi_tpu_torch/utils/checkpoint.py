@@ -37,13 +37,19 @@ sequence parallelism); under update sharding the Trainer hands ``save``
 the gathered global padded opt-state arrays (the JAX package's zero1 and
 ``sharded`` snapshot layout) and slices what ``restore`` returns.  A
 snapshot whose padding or layout differs from the template's is refused,
-naming the elastic reshard.
+naming the elastic reshard, unless ``restore(..., elastic=True)``: then an
+OPTIMIZER-state leaf (the template's ``opt_state`` field, by field order)
+whose one differing dimension is padding for another data-rank count is
+re-padded (:func:`_repad_axis`: zeros only move, a nonzero tail raises),
+which also converts sharded <-> replicated layouts of one optimizer; a
+param of another length still refuses.  Replicated state restores on any
+world as it is.
 
 I/O fault injection (``utils.faults``: ``torn_ckpt``, ``ckpt_ioerr``):
 :func:`inject_io_fault` arms the next write to publish its payload
 without a manifest and die by SIGKILL, or to raise ``OSError`` (through
 the async error channel for an async save).  Not ported: the orbax
-layout and the elastic reshard itself.
+layout.
 """
 
 from __future__ import annotations
@@ -402,7 +408,8 @@ def _quarantine(path: Path, problems: List[str]) -> None:
 
 
 def restore(directory: str, template: TrainState,
-            step: Optional[int] = None) -> Optional[TrainState]:
+            step: Optional[int] = None,
+            elastic: bool = False) -> Optional[TrainState]:
     """Load the newest VERIFIED (or a given) snapshot into the structure of
     ``template`` (the freshly initialised state): every leaf's shape and
     dtype must match, and each tensor lands on its template leaf's device
@@ -411,8 +418,11 @@ def restore(directory: str, template: TrainState,
     Every candidate's manifest is checked before anything is read; a
     generation that fails is quarantined and the chain falls back to the
     next-newest one, returning None only when none is left.  An explicit
-    ``step=`` raises instead of substituting another generation."""
-    return _restore_chain(directory, template, step, prefix=False)
+    ``step=`` raises instead of substituting another generation.
+    ``elastic`` arms the cross-world reshard of the sharded-update
+    optimizer state (see the module docstring)."""
+    return _restore_chain(directory, template, step, prefix=False,
+                          elastic=elastic)
 
 
 def restore_params(directory: str, params: Any,
@@ -427,7 +437,7 @@ def restore_params(directory: str, params: Any,
 
 
 def _restore_chain(directory: str, template: Any, step: Optional[int],
-                   prefix: bool) -> Optional[Any]:
+                   prefix: bool, elastic: bool = False) -> Optional[Any]:
     _join_pending()  # never race an in-flight writer's pruning
     d = Path(directory)
     if _rank() == 0:
@@ -446,7 +456,7 @@ def _restore_chain(directory: str, template: Any, step: Optional[int],
                 f"checkpoint {match[0].name} fails verification: "
                 f"{'; '.join(problems)} — run tools/ckpt_fsck.py, or drop "
                 "step= to fall back to the newest verified snapshot")
-        return _load(match[0], template, prefix)
+        return _load(match[0], template, prefix, elastic)
     # a manifest-less dir NEWER than the newest committed generation is
     # torn-writer debris (quarantined); one OLDER, or in a directory with
     # no committed generation at all, may be a pre-manifest snapshot: left
@@ -462,7 +472,7 @@ def _restore_chain(directory: str, template: Any, step: Optional[int],
                 log(f"checkpoint: left {len(maybe_legacy)} manifest-less "
                     f"snapshot(s) untouched ({', '.join(maybe_legacy)}); "
                     "tools/ckpt_fsck.py --adopt makes them restorable")
-            return _load(path, template, prefix)
+            return _load(path, template, prefix, elastic)
         if (not (path / ckpt_manifest.MANIFEST).exists()
                 and (path / "meta.json").exists()
                 and (newest_committed is None or s < newest_committed)):
@@ -495,17 +505,68 @@ def _from_host(a: np.ndarray, dtype_name: str, like) -> Any:
         like.requires_grad)
 
 
-def _load(path: Path, template: Any, prefix: bool) -> Any:
+def _repad_axis(saved: np.ndarray, want_shape: tuple, leaf_idx: int
+                ) -> np.ndarray:
+    """Re-pad a sharded-update optimizer-state leaf whose padded dimension
+    was sized for another data-rank count: zero1's flat buffer is
+    ``ceil(P/N)*N`` long, the ``sharded`` layout pads one dimension of each
+    leaf the same way, and a replicated snapshot is the padding-free case,
+    so N -> M, sharded -> replicated and back are one move: grow or shrink
+    the ONE differing dimension, where only zeros may move.  A nonzero
+    tail is not padding and would drop optimizer state: raise."""
+    cur = np.asarray(saved)
+    diff = [d for d in range(cur.ndim) if cur.shape[d] != want_shape[d]]
+    assert len(diff) == 1, (cur.shape, want_shape)  # caller-checked
+    axis = diff[0]
+    new_len = want_shape[axis]
+    if new_len < cur.shape[axis]:
+        tail = np.take(cur, range(new_len, cur.shape[axis]), axis=axis)
+        if np.any(tail != 0):
+            raise ValueError(
+                f"cannot reshard checkpoint leaf {leaf_idx}: truncating "
+                f"dim {axis} {cur.shape[axis]} -> {new_len} would drop "
+                f"{int(np.count_nonzero(tail))} nonzero entries — not "
+                "update-sharding padding; wrong model/optimizer config?")
+        return np.ascontiguousarray(np.take(cur, range(new_len), axis=axis))
+    widths = [(0, 0)] * cur.ndim
+    widths[axis] = (0, new_len - cur.shape[axis])
+    return np.pad(cur, widths)
+
+
+def _opt_range(template: Any) -> Tuple[int, int]:
+    """[start, end) of the template's ``opt_state`` leaves in flatten
+    order, from its field order (the only leaves an elastic restore may
+    re-pad); empty without an ``opt_state`` field."""
+    n = len(flatten(template))
+    if not (_is_namedtuple(template) and "opt_state" in template._fields):
+        return n, n
+    fields = list(template._fields)
+    start = sum(len(flatten(getattr(template, f)))
+                for f in fields[:fields.index("opt_state")])
+    return start, start + len(flatten(template.opt_state))
+
+
+def _load(path: Path, template: Any, prefix: bool,
+          elastic: bool = False) -> Any:
     """Read ``state.npz`` into ``template``'s structure.  ``prefix``: the
     template covers the first leaves only (the params-only restore).  A
     snapshot of a tensor-parallel layout (``qkv_tp`` > 1 in its meta,
-    qkv columns in per-shard order) is refused."""
+    qkv columns in per-shard order) is refused.  ``elastic``: see
+    :func:`restore`."""
     meta = json.loads((path / "meta.json").read_text()) \
         if (path / "meta.json").exists() else {}
     if int(meta.get("qkv_tp", 1)) != 1:
         raise NotImplementedError(
             f"{path} was saved by a tensor-parallel layout "
             f"(qkv_tp={meta['qkv_tp']}); its qkv column order is not ported")
+    saved_world = meta.get("saved_world") or {}
+    n_now = current_world()["n_devices"]
+    if elastic and saved_world and saved_world.get("n_devices") != n_now:
+        log(f"checkpoint: elastic restore of a "
+            f"{saved_world.get('n_devices')}-device snapshot onto "
+            f"{n_now} device(s) ({path.name})")
+    opt_start, opt_end = _opt_range(template)
+    resharded: List[int] = []
     want = flatten(template)
     with np.load(path / "state.npz") as data:
         n_saved = sum(1 for k in data.files if k.startswith("leaf_"))
@@ -533,17 +594,30 @@ def _load(path: Path, template: Any, prefix: bool) -> Any:
             w_shape = tuple(like.shape) if isinstance(like, torch.Tensor) \
                 else ()
             if tuple(a.shape) != w_shape:
-                raise ValueError(
-                    f"checkpoint leaf {i} ({p}) shape {tuple(a.shape)} != "
-                    f"expected {w_shape} — wrong model config? (a "
-                    "sharded-update snapshot from a different world size "
-                    "— or a sharded<->replicated layout change — needs "
-                    "the elastic reshard path: --elastic)")
+                if (elastic and opt_start <= i < opt_end
+                        and a.ndim == len(w_shape) and dt == w_dtype
+                        and sum(a.shape[d] != w_shape[d]
+                                for d in range(a.ndim)) == 1):
+                    a = _repad_axis(a, w_shape, i)
+                    resharded.append(i)
+                else:
+                    raise ValueError(
+                        f"checkpoint leaf {i} ({p}) shape {tuple(a.shape)}"
+                        f" != expected {w_shape} — wrong model config?"
+                        + ("" if elastic else
+                           " (a sharded-update snapshot from a different "
+                           "world size — or a sharded<->replicated layout "
+                           "change — needs the elastic reshard path: "
+                           "--elastic)"))
             if dt != w_dtype:
                 raise ValueError(
                     f"checkpoint leaf {i} ({p}) dtype {dt} != expected "
                     f"{w_dtype} — wrong precision/optimizer config?")
             out.append(_from_host(a, dt, like))
+    if resharded:
+        log(f"checkpoint: resharded {len(resharded)} sharded-update "
+            f"opt-state leaf/leaves for the new data-axis size (leaf "
+            f"{resharded[:4]}{'...' if len(resharded) > 4 else ''})")
     return _rebuild(template, iter(out))
 
 

@@ -163,6 +163,42 @@ def verify(snap_dir: Path) -> List[str]:
     return problems
 
 
+def snapshot_meta(snap_dir: Path) -> dict:
+    """The snapshot's ``meta.json`` dict ({} when absent or unreadable):
+    the stdlib-side read the supervisor's relaunch report shares."""
+    try:
+        meta = json.loads((Path(snap_dir) / "meta.json").read_text())
+    except (OSError, ValueError):
+        return {}
+    return meta if isinstance(meta, dict) else {}
+
+
+def world_line(meta: dict) -> str:
+    """One line of a snapshot's topology lineage for audit logs: the
+    SAVING world, plus the world the run first restored from when they
+    differ (a shrunken world's saves never shadow the original topology).
+    Empty for snapshots without world metadata."""
+    saved = meta.get("saved_world")
+    if not isinstance(saved, dict):
+        return ""
+
+    def fmt(w: dict) -> str:
+        parts = [f"{w.get('n_devices', '?')}d"]
+        if w.get("n_processes", 1) != 1:
+            parts.append(f"{w['n_processes']}p")
+        if w.get("dp"):
+            parts.append(f"dp={w['dp']}")
+        if w.get("update_sharding") not in (None, "replicated"):
+            parts.append(str(w["update_sharding"]))
+        return "/".join(parts)
+
+    line = f"saved_world {fmt(saved)}"
+    restored = meta.get("restored_world")
+    if isinstance(restored, dict) and restored != saved:
+        line += f", restored_world {fmt(restored)}"
+    return line
+
+
 def quarantine(snap_dir: Path) -> Path:
     """Rename a failed snapshot out of the restore namespace
     (``ckpt-8`` -> ``corrupt-ckpt-8``, ``.1``/``.2``... on collision) so

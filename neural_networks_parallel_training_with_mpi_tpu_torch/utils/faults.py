@@ -33,14 +33,31 @@ the group is dispatched):
                      time out, exit 43).
     ``device_loss``  report a lost local device: exit 43.
 
+Silent-data-corruption kinds, fired by :meth:`FaultPlan.apply_state` on
+the train state about to run that step (in place, so a CUDA graph captured
+on it stays valid), on the rank whose data-rank index is ``shard`` only:
+
+    ``bitflip``      flip bit ``bit=B`` (default 12) of the middle element
+                     of one replicated float param leaf (``param=SUBSTR``,
+                     else candidate ``start % n``); shard ``shard=K``
+                     (default 1): the cosmic ray the fingerprint must
+                     detect, localize, triage as transient and heal.
+    ``desync``       add ``eps=V`` (default 1e-3) to one replicated float
+                     OPTIMIZER-state leaf of that shard: a garbled update,
+                     transient like ``bitflip``.  With ``det`` it moves
+                     into the step function (:func:`wrap_step_with_desync`):
+                     every data rank but the first drifts from optimizer
+                     step ``start`` on, the replay reproduces it, and the
+                     run aborts with exit 45.
+
 Options: ``max=N`` (fire at most N times in this process), ``once=PATH``
 (at most once while the marker file exists: survives a relaunch),
-``proc=K`` (fire on rank K only), ``grace=S`` (preempt), ``ms=M`` (slow).
+``proc=K`` (fire on rank K only), ``grace=S`` (preempt), ``ms=M`` (slow),
+``param=``/``shard=``/``bit=``/``eps=``/``det`` (the SDC kinds).
 
 Parsed, with the JAX package's grammar and errors, but refused when the
-plan is built into a run: ``bitflip``/``desync`` and their options
-(replica consistency, ROADMAP Queue A item 3) and the serving-fleet,
-handoff and control-plane kinds (item 6).
+plan is built into a run: the serving-fleet, handoff and control-plane
+kinds (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -59,11 +76,11 @@ KINDS = ("nan", "crash", "sigterm", "torn_ckpt", "corrupt_ckpt",
          "device_loss", "replica_kill", "stall_drain", "preempt", "slow",
          "handoff_kill", "handoff_kill_post", "decode_kill",
          "handoff_stall", "router_kill", "fleet_kill")
+# the kinds that corrupt the train state (apply_state), not the batch
+STATE_KINDS = ("bitflip", "desync")
 # kinds parsed for the grammar's sake whose paths are not ported, with the
 # ROADMAP Queue A item that ports them
 UNPORTED_KINDS = {
-    "bitflip": "replica consistency / SDC (Queue A item 3)",
-    "desync": "replica consistency / SDC (Queue A item 3)",
     **{k: "the serving fleet (Queue A item 6)" for k in (
         "replica_kill", "stall_drain", "handoff_kill", "handoff_kill_post",
         "decode_kill", "handoff_stall", "router_kill", "fleet_kill")},
@@ -101,7 +118,7 @@ class _Fault:
     end: int                      # inclusive
     max_fires: Optional[int] = None
     once_marker: Optional[str] = None
-    param: Optional[str] = None   # bitflip/desync (not ported)
+    param: Optional[str] = None   # bitflip/desync: leaf substring
     shard: int = 1
     bit: int = 12
     eps: float = 1e-3
@@ -215,6 +232,89 @@ def _corrupt_newest(ckpt_dir: Optional[str], step: int) -> None:
          f"in {snap.name}/{victim.name}")
 
 
+def _replicated_float_leaves(tree):
+    """(name, tensor) of the float leaves of ``tree`` in the JAX package's
+    flatten order: the candidate victims of the SDC kinds."""
+    from .consistency import replicated_leaves
+
+    if tree is None:
+        return
+    for name, leaf in replicated_leaves(tree):
+        if leaf.is_floating_point():
+            yield name, leaf
+
+
+def flip_bit_in_shard(leaf, shard_idx: int, bit: int,
+                      elem: Optional[int] = None, replica: int = 0,
+                      n_replicas: int = 1):
+    """Flip bit ``bit`` of element ``elem`` (default: the middle of the
+    flat tensor) of ``leaf`` in place, on the replica whose data-rank index
+    is ``shard_idx`` (mod ``n_replicas``) only: physically diverged
+    replicas of a leaf every rank claims to hold identically, which is
+    what a hardware SDC looks like.  Returns ``leaf``."""
+    import numpy as np
+    import torch
+
+    if shard_idx % max(n_replicas, 1) != replica:
+        return leaf
+    width = leaf.element_size() * 8
+    ints = {8: torch.uint8, 16: torch.int16, 32: torch.int32,
+            64: torch.int64}[width]
+    flat = leaf.detach().view(-1).view(ints)
+    elem = flat.numel() // 2 if elem is None else elem % flat.numel()
+    word = flat[elem:elem + 1].cpu().numpy().copy()
+    u = word.view(f"uint{width}")
+    u ^= np.asarray(1 << (bit % width), u.dtype)
+    with torch.no_grad():
+        flat[elem:elem + 1].copy_(torch.from_numpy(word))
+    return leaf
+
+
+def perturb_shard(leaf, shard_idx: int, eps: float, replica: int = 0,
+                  n_replicas: int = 1):
+    """Add ``eps`` to every element of ``leaf`` in place on the replica
+    whose data-rank index is ``shard_idx`` only (the ``desync`` kind's
+    garbled update).  Returns ``leaf``."""
+    import torch
+
+    if shard_idx % max(n_replicas, 1) == replica:
+        with torch.no_grad():
+            leaf.add_(torch.tensor(eps, dtype=leaf.dtype,
+                                   device=leaf.device))
+    return leaf
+
+
+def wrap_step_with_desync(step_fn, start: int, eps: float, replica: int):
+    """The DETERMINISTIC desync (``desync@N?det``): after each step, from
+    optimizer step ``start`` on, every data rank but the first adds ``eps
+    * replica`` to the first float param leaf, inside the step function —
+    the stand-in for an update that is not the same on every rank.  The
+    condition is read from the optimizer's count on the device, so the
+    wrapped step can be captured as a CUDA graph.  The SDC replay
+    reproduces it and must return the deterministic verdict (exit 45)."""
+    import numpy as np
+    import torch
+
+    from .consistency import replicated_leaves
+
+    delta = float(np.float32(eps) * np.float32(replica))
+
+    def wrapped(state, batch):
+        state, out = step_fn(state, batch)
+        if replica:
+            leaf = next(t for _, t in replicated_leaves(state.params)
+                        if t.is_floating_point())
+            count = getattr(state.opt_state, "count", None)
+            with torch.no_grad():
+                if isinstance(count, torch.Tensor):
+                    leaf.add_((count >= start).to(leaf.dtype) * delta)
+                elif state.step >= start:
+                    leaf.add_(delta)
+        return state, out
+
+    return wrapped
+
+
 def _poison(batch: Dict) -> Dict:
     """NaN into ``mask`` (multiplied into every loss term and the count),
     or into every float leaf when there is no mask."""
@@ -259,10 +359,65 @@ class FaultPlan:
                     f"{UNPORTED_KINDS[f.kind]}, not ported to the "
                     "PyTorch/CUDA package yet")
 
+    def det_desync(self) -> Optional[_Fault]:
+        """The deterministic in-step desync, if any (the Trainer wraps its
+        step with it; :meth:`apply_state` never fires it)."""
+        for f in self.faults:
+            if f.kind == "desync" and f.det:
+                return f
+        return None
+
+    def apply_state(self, step: int, state, replica: int = 0,
+                    n_replicas: int = 1, sharded_opt: bool = False,
+                    what: str = "train state"):
+        """Fire the due ``bitflip``/``desync`` faults on ``state`` in place
+        and return it.  ``replica``/``n_replicas``: this rank's data-rank
+        index and the data-rank count (the candidates are the replicated
+        float leaves: none with one replica, and no optimizer leaf under
+        ``sharded_opt``).  Every rank calls it at the same step; only the
+        rank whose index is ``shard`` (mod ``n_replicas``) is corrupted."""
+        for f in self.faults:
+            if (f.kind not in STATE_KINDS or f.det
+                    or (f.proc is not None and _process_index() != f.proc)
+                    or not f.should_fire(step)):
+                continue
+            target = (state.params if f.kind == "bitflip"
+                      else None if sharded_opt else state.opt_state)
+            cands = (list(_replicated_float_leaves(target))
+                     if n_replicas >= 2 else [])
+            if not cands:
+                _say(f"{f.kind} at step {step}: no replicated float leaves "
+                     f"in {what} to corrupt")
+                continue
+            f.mark_fired()
+            if f.param:
+                named = [c for c in cands if f.param in c[0]]
+                if not named:
+                    raise ValueError(
+                        f"{f.kind} param={f.param!r} matches no replicated "
+                        f"float leaf (candidates: {[n for n, _ in cands]})")
+                name, leaf = named[0]
+            else:
+                name, leaf = cands[f.start % len(cands)]
+            shard = f.shard % n_replicas
+            if shard != replica:
+                continue
+            if f.kind == "bitflip":
+                flip_bit_in_shard(leaf, shard, f.bit, replica=replica,
+                                  n_replicas=n_replicas)
+                detail = f"bit {f.bit}"
+            else:
+                perturb_shard(leaf, shard, f.eps, replica=replica,
+                              n_replicas=n_replicas)
+                detail = f"eps {f.eps}"
+            _say(f"injected {f.kind} at step {step}: {detail} in shard "
+                 f"{shard} of {name}")
+        return state
+
     def apply(self, step: int, batch: Dict,
               ckpt_dir: Optional[str] = None) -> Dict:
         for f in self.faults:
-            if f.kind in UNPORTED_KINDS:
+            if f.kind in UNPORTED_KINDS or f.kind in STATE_KINDS:
                 continue
             if f.proc is not None and _process_index() != f.proc:
                 continue

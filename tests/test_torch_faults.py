@@ -105,7 +105,7 @@ def test_fault_firing_and_env_fallback(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("bitflip@1", "item 3"), ("desync@2?det", "item 3"),
+    ("fleet_kill@1", "item 6"), ("handoff_stall@2", "item 6"),
     ("replica_kill@1", "item 6"), ("router_kill@3", "item 6")])
 def test_unported_kinds_refused_naming_their_item(spec, item):
     cfg = config_from_args(build_argparser().parse_args(

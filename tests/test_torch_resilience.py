@@ -596,17 +596,19 @@ def test_preflight_raises_typed_errors_within_its_timeout():
 def test_probe_world_reports_the_world_or_none_within_its_timeout(
         monkeypatch):
     """No launcher: the probe reports this host.  A launcher world whose
-    rank 0 never answers: None, within the probe's bound."""
+    rank 0 never answers: this host alone, degraded, within the probe's
+    bound."""
     for k in ("RANK", "WORLD_SIZE"):
         monkeypatch.delenv(k, raising=False)
     assert distributed.probe_world(timeout_s=1.0) == dict(
-        n_processes=1, n_devices=1, local_devices=1)
+        n_processes=1, n_devices=1, local_devices=1, degraded=False)
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
     monkeypatch.setenv("MASTER_PORT", str(_free_port()))
     t0 = time.monotonic()
-    assert distributed.probe_world(timeout_s=1.0) is None
+    assert distributed.probe_world(timeout_s=1.0) == dict(
+        n_processes=1, n_devices=1, local_devices=1, degraded=True)
     assert time.monotonic() - t0 < 60
 
 

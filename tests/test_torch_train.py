@@ -511,12 +511,15 @@ def test_interop_round_trips_a_jax_train_state():
     ["--ep", "2"], ["--fsdp", "2"],
     # the observability flags are ported
     # (tests/test_torch_telemetry.py::test_observability_flags_are_ported)
-    ["--check_replicas_every", "2"],
-    # the resilience flags are ported (tests/test_torch_resilience.py);
-    # the fault kinds of replica consistency (Queue A item 3) are not
-    ["--faults", "desync@1"], ["--sdc_check_every", "2"],
-    ["--pp_interleave", "2"], ["--sdc_strikes", "5"],
-    ["--elastic_batch", "per_device"], ["--workload", "rl"], ["--elastic"],
+    # the resilience flags are ported (tests/test_torch_resilience.py),
+    # and replica consistency and elastic resume
+    # (tests/test_torch_sdc.py, tests/test_torch_elastic.py); the
+    # serving-fleet fault kinds (Queue A item 6) and the flags of the
+    # model-parallel layouts and RL are not
+    ["--vocab_parallel"],
+    ["--faults", "replica_kill@1"], ["--moe_top_k", "2"],
+    ["--pp_interleave", "2"], ["--moe_capacity_factor", "2"],
+    ["--ep", "4"], ["--workload", "rl"], ["--data_backend", "native"],
     ["--attention", "dense_blockwise"],
     # ported, but not over the pipeline layout (JAX's refusals)
     ["--matmul_dtype", "fp8", "--dataset", "lm", "--pp", "2"],
@@ -530,9 +533,10 @@ def test_unported_flags_raise(flags):
 
 
 # --quantize, --probe_timeout and --supervise are ported
-# (tests/test_torch_quant.py, tests/test_torch_resilience.py): the fault
-# kinds of items 3 and 6 take their places
-@pytest.mark.parametrize("flags", [["--faults", "bitflip@1"],
+# (tests/test_torch_quant.py, tests/test_torch_resilience.py), and the
+# SDC fault kinds (tests/test_torch_sdc.py): fault kinds of item 6 take
+# their places
+@pytest.mark.parametrize("flags", [["--faults", "handoff_kill@1"],
                                    ["--faults", "replica_kill@1"],
                                    ["--num_devices", "4"]])
 def test_unported_cli_flags_raise(flags):

@@ -318,6 +318,28 @@ Phases, each printing its own lines; any failure exits non-zero:
               ``CapacityAbort`` naming exit 46.  An ``sdc_elastic:`` JSON
               line holds the phase's numbers.
 
+22. tensor parallelism — (a) Megatron's f / g on the flagship FFN pair
+              (column- then row-split) over ``LocalTensorGroup(4)`` and
+              through the NCCL autograd functions of a 1-rank
+              ``ProcessTensorGroup``, and the vocab-parallel
+              cross-entropy over 4 shards of the (8, 1024, 32768)
+              logits, f32 and bf16, against their dense forms (outputs
+              and gradients).  (b) Phase 7's job, DP x TP over
+              ``LocalTensorGroup(4)`` at full depth and width (ce_chunk
+              0, refused with ``--tp``): 2 epochs eager (the 1-nat loss
+              check, step ms, tokens/s, peak memory, a profile), B1-B3
+              launched 12 x 4 times a step, all on the sm90 design; then
+              2 epochs at ``--steps_per_dispatch 13``, bitwise to them.
+              (c) f32: 3 SGD steps of DP x TP == the dense step at 2
+              layers (params within 1e-6).  (d) sp 2 x tp 2 with
+              ``striped_flash`` and ``--vocab_parallel`` at 2 layers: 26
+              bf16 steps (B5 2 x 2^2 x 2 launches a step) and its f32
+              identity with ``striped_flash`` alone.  (e) ulysses over
+              ``LocalSeqGroup(4)`` and dense_blockwise against dense
+              attention, f32 at (8, 1024, 16, 64), outputs and
+              gradients; each trained 26 bf16 steps at 2 layers.  A
+              ``tensor_parallel:`` JSON line holds the phase's numbers.
+
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
 ``nvidia-smi`` line and ``{"ok": true,
@@ -1495,11 +1517,13 @@ def one_rank_group(torch, device):
                             world_size=1)
 
 
-def ring_blocks(attention, s):
+def ring_blocks(attention, s, tp=1):
     """Block calls per layer and step of each flash kernel: 1 for flash,
-    S^2 for striped_flash, S(S+1)/2 for causal ring_flash."""
-    return {"flash": 1, "striped_flash": s * s,
-            "ring_flash": s * (s + 1) // 2}[attention]
+    S^2 for striped_flash, S(S+1)/2 for causal ring_flash, none for the
+    plain attentions; each of ``tp`` tensor shards makes its own."""
+    return tp * {"flash": 1, "striped_flash": s * s,
+                 "ring_flash": s * (s + 1) // 2, "ulysses": 0,
+                 "dense_blockwise": 0, "dense": 0}[attention]
 
 
 def flat_params(params):
@@ -1538,9 +1562,11 @@ def fwd_launches_per_layer(model_cfg):
 
 
 def train_full_width(torch, np, device, seq_group=None, keep_final=False,
-                     profile=True, inspect=None, tag=None, **over):
+                     profile=True, inspect=None, tag=None, tensor_group=None,
+                     **over):
     """Train through the port's own Trainer and CLI config (over
-    ``seq_group`` for a sequence-sharded attention); check finite, falling
+    ``seq_group`` for a sequence-sharded attention, ``tensor_group`` for
+    tensor parallelism); check finite, falling
     losses and the flash launch counts; print step time, tokens/s, MFU,
     peak memory and (``profile``) a profile of 3 more steps.  Returns the
     printed numbers and every step's loss; with ``keep_final``, also a
@@ -1570,7 +1596,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
             train_flags(metrics_jsonl=metrics, **over))
         cfg = config_from_args(args)
         before = memory_before(torch, device)
-        trainer = Trainer(cfg, device=device, seq_group=seq_group)
+        trainer = Trainer(cfg, device=device, seq_group=seq_group,
+                          tensor_group=tensor_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
         if device.type == "cuda":
@@ -1604,7 +1631,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                              f"{tail:.4f} is not 1 nat below the first "
                              f"{losses[0]:.4f}")
     s_n = 1 if seq_group is None else seq_group.size
-    per_step = m.n_layers * ring_blocks(m.attention, s_n)
+    t_n = 1 if tensor_group is None else tensor_group.size
+    per_step = m.n_layers * ring_blocks(m.attention, s_n, t_n)
     expect = per_step * steps if device.type == "cuda" else 0
     want = dict.fromkeys(fa.COUNTERS, expect)
     want["fwd"] = expect * fwd_launches_per_layer(m)
@@ -2525,7 +2553,7 @@ def launch_profile(torch, run, n_steps):
 
 def dispatch_full_width(torch, np, device, eager, seq_group=None,
                         k=DISPATCH_K, exact=False, tag=None, inspect=None,
-                        profile=True, **over):
+                        profile=True, tensor_group=None, **over):
     """Phase 7's job (phase 11's with ``seq_group``) with
     ``--steps_per_dispatch k`` through the Trainer: on the card each
     dispatch replays the train step's CUDA graph.  Its losses at the
@@ -2561,7 +2589,8 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         cfg = config_from_args(build_argparser().parse_args(train_flags(
             metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
         before = memory_before(torch, device)
-        trainer = Trainer(cfg, device=device, seq_group=seq_group)
+        trainer = Trainer(cfg, device=device, seq_group=seq_group,
+                          tensor_group=tensor_group)
         trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -2608,7 +2637,8 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
                                               "tolerance"))
     # flash launches by design: eager (warm-up) + replays x captured
     s_n = 1 if seq_group is None else seq_group.size
-    expect = m.n_layers * ring_blocks(m.attention, s_n) * steps
+    t_n = 1 if tensor_group is None else tensor_group.size
+    expect = m.n_layers * ring_blocks(m.attention, s_n, t_n) * steps
     want = dict.fromkeys(fa.COUNTERS, expect)
     want["fwd"] = expect * fwd_launches_per_layer(m)
     per_replay = graphed.launches_per_replay
@@ -5059,6 +5089,337 @@ def _clone_tree(torch, tree):
     return [_clone_tree(torch, v) for v in tree]
 
 
+# ---------------------------------------------------------------------------
+# phase 22: tensor parallelism and the ulysses / dense_blockwise attentions
+# ---------------------------------------------------------------------------
+
+# tensor shards of the flagship DP x TP run, all on the one card
+TP_SHARDS = 4
+
+
+def _rel_err(torch, got, want):
+    """Largest |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def check_megatron_ops(torch, device):
+    """(a) f / g and the vocab-parallel cross-entropy against their dense
+    forms on the card: the flagship FFN pair (8192 x 1024 -> 4096 -> 1024,
+    GELU) column- then row-split over ``LocalTensorGroup(4)`` and through
+    the autograd functions of a ``ProcessTensorGroup`` over the 1-rank
+    NCCL group; the CE over the flagship's logits (8, 1024, 32768) split 4
+    ways, its max and sum-exp in f32 under bf16 compute.  Outputs and
+    every gradient, relative to the dense form's largest value, within
+    ``TOL``'s rtol of the dtype (TF32 off)."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        losses,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        megatron,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one_rank_group(torch, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        rtol = TOL[str(dtype)][0]
+        x = torch.randn(8192, 1024, device=device, generator=gen)
+        w1 = torch.randn(1024, 4096, device=device, generator=gen) * 0.03
+        w2 = torch.randn(4096, 1024, device=device, generator=gen) * 0.02
+        ct = torch.randn(8192, 1024, device=device, generator=gen)
+
+        def dense(x, w1, w2):
+            return F.gelu(x.to(dtype) @ w1.to(dtype),
+                          approximate="tanh") @ w2.to(dtype)
+
+        def split(group, shards):
+            def fn(x, w1, w2):
+                h = group.f(x.to(dtype))
+                return group.g([F.gelu(h @ a.to(dtype), approximate="tanh")
+                                @ b.to(dtype) for a, b in zip(
+                                    w1.chunk(shards, 1), w2.chunk(shards, 0))])
+            return fn
+
+        def run(fn):
+            ins = [t.clone().requires_grad_() for t in (x, w1, w2)]
+            y = fn(*ins)
+            (y.float() * ct).sum().backward()
+            return [y] + [t.grad for t in ins]
+
+        want = run(dense)
+        for tag, group, n in (
+                ("local4", megatron.LocalTensorGroup(TP_SHARDS), TP_SHARDS),
+                ("nccl1", megatron.ProcessTensorGroup(dist.group.WORLD), 1)):
+            got = run(split(group, n))
+            errs = [_rel_err(torch, g, w) for g, w in zip(got, want)]
+            out[f"fg_{tag}_{name}"] = max(errs)
+            if max(errs) > rtol:
+                raise AssertionError(f"megatron f/g {tag} {name}: relative "
+                                     f"errors (y, dx, dw1, dw2) {errs} over "
+                                     f"{rtol}")
+        # the vocab-parallel CE at the flagship's logits shape
+        h = torch.randn(8, 1024, 1024, device=device, generator=gen)
+        head = torch.randn(1024, 32768, device=device, generator=gen) * 0.03
+        tgt = torch.randint(0, 32768, (8, 1024), device=device,
+                            generator=gen)
+        mask = torch.ones(8, device=device)
+
+        def ce_dense(h, head):
+            logits = (h.to(dtype) @ head.to(dtype)).float()
+            return losses.softmax_cross_entropy(logits, tgt, mask)[0]
+
+        def ce_split(h, head):
+            group = megatron.LocalTensorGroup(TP_SHARDS)
+            logits = megatron.vocab_parallel_logits(
+                h, list(head.chunk(TP_SHARDS, 1)), group,
+                compute_dtype=dtype)
+            assert all(lg.dtype == torch.float32 for lg in logits)
+            return megatron.vocab_parallel_cross_entropy(logits, tgt, mask,
+                                                         group)[0]
+
+        def ce_run(fn):
+            ins = [t.clone().requires_grad_() for t in (h, head)]
+            s = fn(*ins)
+            s.backward()
+            return [s.detach()] + [t.grad for t in ins]
+
+        want = ce_run(ce_dense)
+        got = ce_run(ce_split)
+        errs = [_rel_err(torch, g, w) for g, w in zip(got, want)]
+        out[f"vocab_ce_{name}"] = max(errs)
+        if max(errs) > rtol:
+            raise AssertionError(f"vocab-parallel CE {name}: relative errors "
+                                 f"(loss, dh, dhead) {errs} over {rtol}")
+        print(f"megatron {name}: f/g over LocalTensorGroup(4) and a 1-rank "
+              f"NCCL ProcessTensorGroup against the dense FFN, largest "
+              f"relative error {out[f'fg_local4_{name}']:.3g} / "
+              f"{out[f'fg_nccl1_{name}']:.3g}; vocab-parallel CE over 4 "
+              f"shards at (8, 1024, 32768) {out[f'vocab_ce_{name}']:.3g} "
+              f"(loss {float(got[0]):.4f} vs {float(want[0]):.4f})",
+              flush=True)
+    return out
+
+
+def tp_identity_runs(torch, device, attention="flash", tp=TP_SHARDS,
+                     seq_size=1, vocab_parallel=False, n_layers=2, steps=3,
+                     batch=8):
+    """Full width at ``n_layers`` layers, f32 with TF32 off, SGD-momentum:
+    ``steps`` steps of the dense data-parallel step (over a
+    ``LocalSeqGroup(seq_size)`` for a sequence-sharded attention) and of
+    the tensor-parallel one over ``LocalTensorGroup(tp)`` (DP x TP, or
+    sp_tp with the qkv columns permuted and ``vocab_parallel``) from the
+    same params and batches.  Returns ((losses, params), (losses, params
+    in the dense order), the flash launches of the tensor-parallel run)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+        optim,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+        gspmd,
+        megatron,
+        sequence as sq,
+        spmd,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(BIG, n_layers=n_layers, activation="gelu",
+              pos_encoding="learned", attention=attention)
+    data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
+    world = world_setup(device)
+    seq = sq.LocalSeqGroup(seq_size) if seq_size > 1 else None
+    perm = (sq.striped_permutation(kw["max_seq_len"], seq_size)
+            if attention.startswith("striped") else None)
+    model = Transformer(TransformerConfig(**kw), device=device,
+                        seq_group=seq)
+    init = model.init(torch.Generator().manual_seed(SEED + 22))
+    runs = []
+    for tensor in (False, True):
+        opt = optim.sgd(1e-2, 0.9, steps=steps)
+        # a copy each: the update writes the params in place
+        params = tree_map(lambda t: t.detach().clone(), init)
+        if not tensor:
+            step = dp.make_train_step(model, opt, world, "cross_entropy")
+        elif seq is None:
+            step = gspmd.make_gspmd_train_step(
+                model, opt, world, megatron.LocalTensorGroup(tp),
+                "cross_entropy")
+        else:
+            params = spmd.permute_params(model, params, tp)
+            step = spmd.make_sp_tp_train_step(
+                model, opt, world, megatron.LocalTensorGroup(tp), seq,
+                "cross_entropy", vocab_parallel=vocab_parallel)
+        state = TrainState.from_params(params, opt)
+        loader = ShardedLoader(data, batch, device=device, shuffle=False,
+                               seq_permutation=perm)
+        fa.set_launch_counts()
+        losses = []
+        for _, b in zip(range(steps), loader.epoch(0)):
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        launches = fa.launch_counts()
+        final = state.params
+        if tensor and seq is not None:
+            final = spmd.permute_params(model, final, tp, inverse=True)
+        runs.append((losses, [p.detach() for p in flat_params(final)]))
+    return runs[0], runs[1], launches
+
+
+def check_tp_identity(torch, device, tag, bar=1e-6, **kw):
+    """The tensor-parallel run against the dense one: losses to rtol 1e-5
+    and params within ``bar`` (phase 12's tolerance: f32 on both sides,
+    the row-parallel sums and the vocab-parallel CE reassociate only)."""
+    (ld, pd), (lt, pt), launches = tp_identity_runs(torch, device, **kw)
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lt, ld))
+    worst = max(float((a - b).abs().max()) for a, b in zip(pt, pd))
+    print(f"{tag}: losses {lt} vs {ld}; params max |diff| {worst:.3e}; "
+          f"flash launches {launches['all']}, with_lse "
+          f"{launches['with_lse']}", flush=True)
+    if not (loss_ok and worst <= bar):
+        raise AssertionError(f"{tag}: the tensor-parallel run differs from "
+                             "the dense one")
+    return dict(losses=lt, dense_losses=ld, param_max_abs_diff=worst,
+                launches=launches)
+
+
+def check_ulysses_blockwise(torch, device, shape=FLASH_SHAPE, seq_size=4):
+    """(e) ulysses over ``LocalSeqGroup(4)`` and dense_blockwise against
+    dense attention at T 1024, f32 (TF32 off): the output and the q, k, v
+    gradients (``GRAD_TOL``); the forward+backward ms of each (CUDA
+    events, median of 5)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        sequence as sq,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    q, k, v, do = (torch.randn(*shape, device=device, generator=gen)
+                   for _ in range(4))
+    group = sq.LocalSeqGroup(seq_size)
+    impls = {"dense": lambda a, b, c: sq.attention_reference(a, b, c),
+             "ulysses": lambda a, b, c: sq.ulysses_attention(a, b, c, group),
+             "dense_blockwise": sq.attention_dense_blockwise}
+
+    def fwd_bwd(fn):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*ins)
+        (o * do).sum().backward()
+        return [o.detach()] + [t.grad for t in ins]
+
+    want = fwd_bwd(impls["dense"])
+    rtol, atol = GRAD_TOL["torch.float32"]
+    out = {}
+    for name in ("ulysses", "dense_blockwise"):
+        got = fwd_bwd(impls[name])
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        ok = all(bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+                 for g, w in zip(got, want))
+        ms = median_ms(torch, lambda fn=impls[name]: fwd_bwd(fn), runs=5,
+                       warmup=1)
+        out[name] = dict(max_abs_err=errs, fwd_bwd_ms=ms)
+        print(f"{name} f32 {shape} vs dense: largest |diff| (out, dq, dk, "
+              f"dv) {errs}; forward+backward {ms:.2f} ms", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} differs from dense attention")
+    out["dense"] = dict(fwd_bwd_ms=median_ms(
+        torch, lambda: fwd_bwd(impls["dense"]), runs=5, warmup=1))
+    return out
+
+
+def tensor_parallel_full_width(torch, np, device):
+    """Phase 22: (a) the Megatron ops; (b) the flagship LM at full depth
+    and width, DP x TP over ``LocalTensorGroup(4)``: 2 epochs eager, then
+    2 at ``--steps_per_dispatch 13`` bitwise to them (B1-B3 12 x 4 per
+    step, all sm90); (c) f32 DP x TP == dense DP at 2 layers; (d) DP x SP
+    x TP, striped_flash over ``LocalSeqGroup(2)`` x ``LocalTensorGroup(2)``
+    with ``--vocab_parallel`` at 2 layers (bf16 step, B5 2 x 4 x 2 per
+    step) and its f32 identity with striped_flash without TP; (e)
+    ulysses and dense_blockwise against dense, f32 at T 1024, and their
+    bf16 steps at 2 layers."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    t0 = time.perf_counter()
+    out = {"ops": check_megatron_ops(torch, device)}
+    tp_over = dict(tp=TP_SHARDS, ce_chunk=0)
+    eager = train_full_width(torch, np, device,
+                             tensor_group=LocalTensorGroup(TP_SHARDS),
+                             keep_final=True, tag="train dp x tp4",
+                             **tp_over)
+    graphed = dispatch_full_width(torch, np, device, eager,
+                                  tensor_group=LocalTensorGroup(TP_SHARDS),
+                                  exact=True, profile=False,
+                                  tag="dispatch dp x tp4", **tp_over)
+    del eager["final_params"]
+    out["dp_tp"] = {k: eager[k] for k in (
+        "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
+        "launches", "launches_by_design", "first_loss", "last3_loss",
+        "steps") if k in eager}
+    out["dp_tp"]["profile_ms_per_step"] = eager.get("profile_ms_per_step")
+    out["dp_tp_graphed"] = {k: graphed[k] for k in (
+        "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
+        "launches", "bitwise", "replays", "launches_per_replay")}
+    out["identity_dp_tp"] = check_tp_identity(
+        torch, device, "train f32 identity dp x tp4 == dp (2 layers, 3 "
+        "steps)")
+    sp_tp = train_full_width(torch, np, device, seq_group=LocalSeqGroup(2),
+                             tensor_group=LocalTensorGroup(2), profile=False,
+                             n_layers=CUT_LAYERS, attention="striped_flash",
+                             sp=2, tp=2, vocab_parallel=True, ce_chunk=0,
+                             tag="train sp2 x tp2 striped_flash "
+                                 "vocab_parallel 2 layers")
+    out["sp_tp"] = {k: sp_tp[k] for k in (
+        "step_ms_median", "tokens_per_s", "peak_memory_gib", "launches",
+        "with_lse_launches", "first_loss", "last3_loss", "steps")}
+    out["identity_sp_tp"] = check_tp_identity(
+        torch, device, "train f32 identity sp2 x tp2 striped_flash "
+        "vocab_parallel == striped_flash (2 layers, 3 steps)",
+        attention="striped_flash", tp=2, seq_size=2, vocab_parallel=True)
+    out["ulysses_blockwise"] = check_ulysses_blockwise(torch, device)
+    for attention, kw in (("ulysses", dict(seq_group=LocalSeqGroup(4),
+                                           sp=4)),
+                          ("dense_blockwise", {})):
+        r = train_full_width(torch, np, device, profile=False,
+                             n_layers=CUT_LAYERS, attention=attention,
+                             tag=f"train {attention} 2 layers", **kw)
+        out[f"train_{attention}"] = {k: r[k] for k in (
+            "step_ms_median", "tokens_per_s", "peak_memory_gib",
+            "first_loss", "last3_loss")}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 22: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -5228,6 +5589,11 @@ def main() -> int:
     finally:
         stop_writer(writer)
         shutil.rmtree(elastic_tmp, ignore_errors=True)
+
+    phase("22 tensor parallelism: Megatron f/g and the vocab-parallel CE, DP "
+          "x TP, DP x SP x TP, ulysses and dense_blockwise")
+    tensor = tensor_parallel_full_width(torch, np, device)
+    print("tensor_parallel: " + json.dumps(tensor), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -5245,6 +5611,10 @@ def main() -> int:
                     replaces=f"{tpu}:486", launches=served["launches"],
                     max_abs_err=max_err, other_shapes=other_shapes,
                     **timing)]
+    # phase 22 (b): the DP x TP run, eager and graphed
+    tp_launches = {w: tensor["dp_tp"]["launches"][w]
+                   + tensor["dp_tp_graphed"]["launches"][w]
+                   for w in ("fwd", "dq", "dkv")}
     for which, line in (("fwd", 97), ("dq", 255), ("dkv", 296)):
         # bf16 on the tensor cores; f32 on csrc/flash_attention.cu
         kernels.append(dict(name=f"flash_attention_{which}", route="cuda",
@@ -5263,8 +5633,10 @@ def main() -> int:
                                       + res_launches[which]
                                       + obs_launches[which]
                                       + sdc["elastic"]["flash_launches"][
-                                          which]),
+                                          which]
+                                      + tp_launches[which]),
                             launches_phase7=trained["launches"][which],
+                            launches_phase22=tp_launches[which],
                             launches_phase20=obs_launches[which],
                             launches_phase21=sdc["elastic"][
                                 "flash_launches"][which],
@@ -5290,8 +5662,12 @@ def main() -> int:
                               "divide",
                         replaces=f"{tpu}:445",
                         launches=(seq_trained["with_lse_launches"]
-                                  + obs_launches["with_lse"]),
+                                  + obs_launches["with_lse"]
+                                  + tensor["sp_tp"]["with_lse_launches"]),
                         launches_phase20=obs_launches["with_lse"],
+                        # phase 22 (d): sp 2 x tp 2, 2 layers
+                        launches_phase22=tensor["sp_tp"][
+                            "with_lse_launches"],
                         launches_int8=seq_quant["int8"]["with_lse_launches"],
                         launches_fp8=seq_quant["fp8"]["with_lse_launches"],
                         max_abs_err=lse_err, **lse_timing))

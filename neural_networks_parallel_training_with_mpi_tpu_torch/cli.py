@@ -71,6 +71,12 @@ def _generate(args) -> int:
     from .utils import prng
 
     cfg = config_from_args(args)
+    if cfg.mesh.tensor > 1:
+        from .train.trainer import QUEUE_A4
+
+        # the JAX package's models/generate_tp.py
+        raise NotImplementedError(f"--generate under --tp (tensor-parallel "
+                                  f"decode) is {QUEUE_A4}")
     if cfg.model.arch != "transformer":
         log("ERROR: --generate needs a transformer model (--dataset lm "
             "or --arch transformer)")
@@ -111,6 +117,14 @@ def _generate(args) -> int:
             log(f"ERROR: no checkpoint under {cfg.checkpoint_dir}")
             return 2
         step, params = restored
+        # a seq x tensor snapshot holds its qkv columns permuted (its
+        # meta's qkv_tp): the decoder reads the dense order
+        saved_tp = int((ckpt.read_meta(cfg.checkpoint_dir, step=step)
+                        or {}).get("qkv_tp", 1))
+        if saved_tp > 1:
+            from .parallel.spmd import permute_params
+
+            params = permute_params(model, params, saved_tp, inverse=True)
         log(f"restored step {step} from {cfg.checkpoint_dir}")
     else:
         log("note: no --checkpoint_dir; generating from a fresh init")

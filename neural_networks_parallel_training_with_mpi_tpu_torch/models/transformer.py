@@ -9,14 +9,15 @@ attn_out, ln2, ff_in, ff_gate, ff_out}``, ``ln_f``, ``head/w``), so the
 serving path (``models.generate``, ``serve.paged_kv``) and the parity
 tests share one layout.
 
-Attention: ``dense`` (plain PyTorch) or ``flash`` (the hand-written CUDA
+Attention: ``dense`` (plain PyTorch), ``dense_blockwise`` (the same,
+one query block at a time) or ``flash`` (the hand-written CUDA
 kernels of ``ops.flash_attention``, forward and backward; K/V repeated to
 full heads first, as the JAX package does); ``auto`` is dense or flash by
 the device, the compute dtype and the sequence length
 (``parallel.sequence.resolve_attention_impl``; a head_dim the kernels do
 not take, where auto would pick flash, is refused at construction).  The
-sequence-sharded impls ``ring``, ``ring_flash``, ``striped`` and
-``striped_flash`` run over the sequence
+sequence-sharded impls ``ring``, ``ring_flash``, ``striped``,
+``striped_flash`` and ``ulysses`` run over the sequence
 group the model is built with (``parallel.sequence``), and the tokens sit
 at their global positions (``global_positions``) for the position
 embedding and RoPE.  Training adds ``fwd_flops`` and the fused
@@ -40,8 +41,7 @@ and report this step's observed amax (:meth:`forward` with
 they are: dequantized in the product (``matmul_dtype`` bf16) or as an
 int8 x int8 product (int8).
 
-Not ported yet, and refused at construction: MoE FFNs, ``ulysses`` and
-``dense_blockwise`` attention.
+Not ported yet, and refused at construction: MoE FFNs.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ import torch
 from ..ops import losses as losses_lib
 from ..ops.rope import rope_rotate
 from ..parallel.sequence import (
-    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, global_positions,
+    SEQ_SHARDED_IMPLS, global_positions,
     resolve_attention_impl, sequence_sharded_attention,
 )
 from ..utils.platform import DeviceLike, resolve_device
@@ -97,8 +97,9 @@ class TransformerConfig:
     activation: str = "gelu"
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
-    # auto | dense | flash | ring | ring_flash | striped | striped_flash
-    # (auto: parallel.sequence.resolve_attention_impl)
+    # auto | dense | dense_blockwise | flash | ring | ring_flash | striped
+    # | striped_flash | ulysses (auto: parallel.sequence.
+    # resolve_attention_impl)
     attention: str = "auto"
     pos_encoding: str = "learned"      # learned | rope
     rope_theta: float = 10000.0
@@ -146,12 +147,7 @@ class Transformer:
         sequence-sharded attentions run over; they need one."""
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE FFNs are not ported yet")
-        if cfg.attention in UNPORTED_IMPLS:
-            raise NotImplementedError(
-                f"attention={cfg.attention!r} is not ported yet; the port "
-                "has dense, flash, ring, ring_flash, striped and "
-                "striped_flash attention")
-        if cfg.attention not in ("auto", "dense", "flash") \
+        if cfg.attention not in ("auto", "dense", "dense_blockwise", "flash") \
                 + SEQ_SHARDED_IMPLS:
             raise ValueError(f"unknown attention {cfg.attention!r}")
         if cfg.attention in SEQ_SHARDED_IMPLS and seq_group is None:
@@ -267,8 +263,15 @@ class Transformer:
     def embed(self, params: Params, ids: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
         """Token (+ learned position) embedding -> compute dtype."""
+        return self.add_pos(params, params["embed"]["table"][ids],
+                            positions)
+
+    def add_pos(self, params: Params, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+        """The learned position rows added to looked-up token rows ``x``,
+        then the compute dtype: the part of :meth:`embed` that a
+        vocab-parallel lookup (``parallel.megatron``) shares."""
         c = self.cfg
-        x = params["embed"]["table"][ids]
         if c.pos_encoding != "rope":
             x = x + params["pos"]["table"][positions]
         return x.to(c.compute_dtype)

@@ -70,6 +70,14 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor,
     """Correct-prediction (sum, count), per example (token hits averaged
     over the token dims first)."""
     hit = (logits.argmax(dim=-1) == labels.long()).float()
+    return reduce_example_hits(hit, mask)
+
+
+def reduce_example_hits(hit: torch.Tensor, mask: Optional[torch.Tensor]
+                        ) -> Pair:
+    """Example-level (sum, count) of a per-token hit tensor ((B,) or
+    (B, T, ...)): the mean over the token dims, then the per-example mask;
+    shared with the vocab-parallel accuracy (``parallel.megatron``)."""
     return _masked(hit.reshape(hit.shape[0], -1).mean(dim=-1), mask)
 
 

@@ -287,12 +287,20 @@ def make_train_step(model, optimizer: Optimizer, world: World,
     guarded = optimizer.update_with_norm is not None
     loss_fn = (make_qloss_fn(model, loss_name) if fp8
                else _lifted(make_loss_fn(model, loss_name)))
+    # a tensor-parallel model over a process group: the leaves, loss sum
+    # and count this rank adds to the world's all-reduce
+    contributes = getattr(model, "contributes", None)
 
     def step(state: TrainState, batch: Batch):
         # fp8: each role's delayed amax, read before anything updates
         qamax = qmm.delayed_amax(state.qstate) if fp8 else None
         s, c, grads, obs = _accumulated_sum_and_grads(
             loss_fn, state.params, batch, accum_steps, qamax)
+        keep = None if contributes is None else contributes(state.params)
+        if keep is not None:
+            grads = [g if k else torch.zeros_like(g)
+                     for g, k in zip(grads, keep)]
+            s, c = torch.zeros_like(s), torch.zeros_like(c)
         if fp8:
             obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":
@@ -485,16 +493,24 @@ def make_eval_step(model, world: World, loss_name: str = "mse",
     """(params, batch) -> {"loss", "count"[, "accuracy", "example_count"]}
     as global means over all ranks (device scalars)."""
     base = losses_lib.get(loss_name)
+    # a tensor-parallel model: its own sums under --vocab_parallel, and
+    # every sum counted once per tensor group
+    eval_sums = getattr(model, "eval_sums", None)
+    contributes = getattr(model, "contributes", None)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        pred = model.apply(params, batch["x"])
-        s, c = base(pred, batch["y"], batch.get("mask"))
-        vals = [s, c]
-        if with_accuracy:
-            vals += list(losses_lib.accuracy(pred, batch["y"],
-                                             batch.get("mask")))
+        vals = (None if eval_sums is None
+                else eval_sums(params, batch, with_accuracy))
+        if vals is None:
+            pred = model.apply(params, batch["x"])
+            vals = list(base(pred, batch["y"], batch.get("mask")))
+            if with_accuracy:
+                vals += list(losses_lib.accuracy(pred, batch["y"],
+                                                 batch.get("mask")))
         sums = torch.stack([v.float() for v in vals])
+        if contributes is not None and contributes(params) is not None:
+            sums = torch.zeros_like(sums)
         if world.initialized:
             dist.all_reduce(sums)
         out = {"loss": sums[0] / sums[1], "count": sums[1]}

@@ -7,12 +7,14 @@ with ``torchrun``, whose ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (and
 ``MASTER_ADDR``/``MASTER_PORT``) environment it reads.  Nothing of a
 cluster is discovered otherwise: with no launcher the world is one process.
 
-Under sequence parallelism (``sp > 1``) the world is a ``data x seq``
-grid: rank = data_index * sp + seq_index (``seq`` minor to ``data``, as
-in the JAX package's ``parallel/mesh.py`` ``AXIS_ORDER``), with one
-process group per data index over its ``sp`` sequence ranks, and one per
-sequence index over its ``dp`` data ranks (the sharded weight update's
-collectives).
+Under sequence and tensor parallelism (``sp > 1``, ``tp > 1``) the world
+is a ``data x seq x tensor`` grid: rank = (data_index * sp + seq_index) *
+tp + tensor_index (``tensor`` minor to ``seq``, ``seq`` to ``data``, as in
+the JAX package's ``parallel/mesh.py`` ``AXIS_ORDER``, so a tensor group
+sits on adjacent ranks, on one node's NVLink), with one process group per
+(data, tensor) index over its ``sp`` sequence ranks, one per (seq,
+tensor) index over its ``dp`` data ranks (the sharded weight update's
+collectives), and one per (data, seq) index over its ``tp`` tensor ranks.
 
 Fail-fast world formation (the JAX package's ``parallel/mesh.py``): before
 ``init_process_group`` a multi-process world meets in a bounded
@@ -238,20 +240,27 @@ class World:
     sp: int = 1
     # this rank's sequence process group (sp > 1 only)
     seq_pg: Optional[Any] = None
-    # this rank's data process group (sp > 1 only; None: the whole world)
+    # this rank's data process group (sp or tp > 1; None: the whole world)
     data_pg: Optional[Any] = None
+    tp: int = 1
+    # this rank's tensor process group (tp > 1 only)
+    tensor_pg: Optional[Any] = None
 
     @property
     def dp(self) -> int:
-        return self.world_size // self.sp
+        return self.world_size // (self.sp * self.tp)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // self.sp
+        return self.rank // (self.sp * self.tp)
 
     @property
     def seq_rank(self) -> int:
-        return self.rank % self.sp
+        return (self.rank // self.tp) % self.sp
+
+    @property
+    def tensor_rank(self) -> int:
+        return self.rank % self.tp
 
     @property
     def initialized(self) -> bool:
@@ -261,9 +270,10 @@ class World:
 
 
 def world_setup(device: DeviceLike = None, sp: int = 1,
-                dp: int = -1, collective_timeout: float = 0.0) -> World:
+                dp: int = -1, collective_timeout: float = 0.0,
+                tp: int = 1) -> World:
     """Form the world; returns this process's rank, the world size, its
-    device and, for ``sp > 1``, its sequence group.
+    device and, for ``sp > 1`` / ``tp > 1``, its sequence / tensor group.
 
     * An already initialised process group is used as it is.
     * Under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set) the group
@@ -276,9 +286,9 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
     The device is ``cuda:LOCAL_RANK`` by default (raising without a GPU);
     ``device="cpu"`` asks for the host.
 
-    ``dp`` x ``sp`` must equal the world size (``dp=-1``: whatever ``sp``
-    leaves); with ``sp > 1`` every rank takes part in forming every data
-    index's sequence group (``dist.new_group`` is collective).
+    ``dp`` x ``sp`` x ``tp`` must equal the world size (``dp=-1``:
+    whatever ``sp`` and ``tp`` leave); every rank takes part in forming
+    every group (``dist.new_group`` is collective).
     """
     dev = resolve_device(device)
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
@@ -306,28 +316,45 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
         rank, size = dist.get_rank(), dist.get_world_size()
     else:
         rank, size = 0, 1
-    if sp < 1 or size % sp or (dp != -1 and dp * sp != size):
+    if sp < 1 or tp < 1 or size % (sp * tp) or (
+            dp != -1 and dp * sp * tp != size):
+        what = f"--dp {dp} x --sp {sp}" + (f" x --tp {tp}" if tp > 1 else "")
         raise ValueError(
-            f"--dp {dp} x --sp {sp} does not fit a world of {size} "
+            f"{what} does not fit a world of {size} "
             f"process(es){'' if size > 1 else ' (launch with torchrun)'}")
-    seq_pg = data_pg = None
-    if sp > 1:
-        for d in range(size // sp):
-            pg = dist.new_group(list(range(d * sp, (d + 1) * sp)))
-            if d == rank // sp:
-                seq_pg = pg
-        for s in range(sp):
-            pg = dist.new_group(list(range(s, size, sp)))
-            if s == rank % sp:
-                data_pg = pg
-    return World(rank, size, dev, sp, seq_pg, data_pg)
+    n_dp = size // (sp * tp)
+    grid = np.arange(size).reshape(n_dp, sp, tp)
+    seq_pg = data_pg = tensor_pg = None
+    if sp > 1 or tp > 1:
+        # (axis moved last, the groups along it): each rank's group is the
+        # one through its own grid point
+        for axis in (1, 0, 2):
+            if axis != 0 and grid.shape[axis] == 1:
+                continue
+            lines = np.moveaxis(grid, axis, -1).reshape(-1, grid.shape[axis])
+            mine = None
+            for line in lines:
+                pg = dist.new_group([int(r) for r in line])
+                if rank in line:
+                    mine = pg
+            if axis == 1:
+                seq_pg = mine
+            elif axis == 0:
+                data_pg = mine
+            else:
+                tensor_pg = mine
+    return World(rank, size, dev, sp, seq_pg, data_pg, tp, tensor_pg)
 
 
 def describe(world: World) -> str:
-    """``data=N seq=S`` for a sequence-parallel world, ``data=N`` for a
-    data-parallel one, ``single-device`` for one process."""
-    if world.sp > 1:
-        return f"data={world.dp} seq={world.sp}"
+    """``data=N seq=S tensor=T`` (the axes above 1 past data) for a
+    sequence- or tensor-parallel world, ``data=N`` for a data-parallel
+    one, ``single-device`` for one process."""
+    if world.sp > 1 or world.tp > 1:
+        return " ".join([f"data={world.dp}"]
+                        + [f"{k}={n}" for k, n in (("seq", world.sp),
+                                                   ("tensor", world.tp))
+                           if n > 1])
     return f"data={world.world_size}" if world.world_size > 1 \
         else "single-device"
 

@@ -1,4 +1,5 @@
-"""Sequence parallelism: ring and striped attention over a sequence group.
+"""Sequence parallelism: ring, striped and Ulysses attention over a
+sequence group, and dense attention one query block at a time.
 
 The port of the JAX package's ``parallel/sequence.py``.  A sequence
 sharded S ways is attended to without one shard ever holding the full
@@ -29,8 +30,14 @@ group, which splits it into S contiguous shards.  Positions are global
 r*T_local .. (r+1)*T_local - 1, striped layouts (inputs permuted by
 :func:`striped_permutation`) give it r, r + S, r + 2S, ...
 
-Not ported yet, and refused: ``ulysses`` (all-to-all heads <-> sequence)
-and ``dense_blockwise``.
+``ulysses`` (DeepSpeed-Ulysses) trades the sequence split for a head
+split with an all-to-all, attends over the full sequence with
+``attention_reference`` on H/S heads, and all-to-alls back: over a
+``ProcessSeqGroup`` by ``all_to_all_single`` inside an autograd function
+whose backward is the inverse all-to-all, over a ``LocalSeqGroup`` by
+regrouping the list of shards.  ``dense_blockwise`` is
+``attention_reference`` computed one query block at a time, so the
+(B, H, T, T) scores never exist at once.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ NEG_INF = -1e30
 
 SEQ_SHARDED_IMPLS = ("ring", "ring_flash", "striped", "striped_flash",
                      "ulysses")
-UNPORTED_IMPLS = ("ulysses", "dense_blockwise")
 
 Block = Tuple[torch.Tensor, ...]
 
@@ -82,6 +88,23 @@ class LocalSeqGroup:
     def join(self, outs: List[torch.Tensor],
              blocks: List[Block]) -> torch.Tensor:
         return torch.cat(outs, dim=1)
+
+    def to_heads(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """(B, T, H, D), the S sequence shards side by side -> the S head
+        groups (B, T, H/S, D) over the whole sequence: shard d of the
+        all-to-all's output is every shard's head group d, joined along
+        the sequence."""
+        shards = self.split(x)
+        return [torch.cat([sh.chunk(self.size, dim=2)[d] for sh in shards],
+                          dim=1) for d in range(self.size)]
+
+    def to_seq(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        """The inverse regrouping: head groups back to the S sequence
+        shards, joined along the sequence."""
+        t_local = outs[0].shape[1] // self.size
+        return torch.cat([torch.cat([o[:, s * t_local:(s + 1) * t_local]
+                                     for o in outs], dim=2)
+                          for s in range(self.size)], dim=1)
 
 
 class _Shift(torch.autograd.Function):
@@ -116,6 +139,38 @@ class _Tie(torch.autograd.Function):
                                for s, dt, dev in ctx.metas)
 
 
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` between sequence and head sharding, as the
+    JAX package's ``lax.all_to_all(tiled=True)``: ``to_heads`` (B, T/S,
+    H, D) -> (B, T, H/S, D), ``to_seq`` the inverse; the backward of each
+    is the other."""
+
+    @staticmethod
+    def forward(ctx, group, to_heads, x):
+        ctx.group, ctx.to_heads = group, to_heads
+        return _all_to_all(group, x, to_heads)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, _all_to_all(ctx.group, grad, not ctx.to_heads)
+
+
+def _all_to_all(group, x: torch.Tensor, to_heads: bool) -> torch.Tensor:
+    s = group.size
+    b, t, h, d = x.shape
+    if to_heads:    # send head group j of my rows to rank j
+        send = x.reshape(b, t, s, h // s, d).permute(2, 0, 1, 3, 4)
+    else:           # send my heads' rows of sequence shard j to rank j
+        send = x.reshape(b, s, t // s, h, d).permute(1, 0, 2, 3, 4)
+    send = send.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group.pg)
+    if to_heads:    # recv[j]: rank j's rows of my head group
+        return recv.permute(1, 0, 2, 3, 4).reshape(b, s * t, h // s, d)
+    # recv[j]: my rows of rank j's head group
+    return recv.permute(1, 2, 0, 3, 4).reshape(b, t // s, s * h, d)
+
+
 class ProcessSeqGroup:
     """One shard per rank of the process group ``pg``."""
 
@@ -137,6 +192,12 @@ class ProcessSeqGroup:
     def join(self, outs: List[torch.Tensor],
              blocks: List[Block]) -> torch.Tensor:
         return _Tie.apply(outs[0], *blocks[0])
+
+    def to_heads(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return [_AllToAll.apply(self, True, x)]
+
+    def to_seq(self, outs: List[torch.Tensor]) -> torch.Tensor:
+        return _AllToAll.apply(self, False, outs[0])
 
     def exchange(self, xs: Sequence[torch.Tensor],
                  forward: bool) -> List[torch.Tensor]:
@@ -183,8 +244,9 @@ def _shard_positions(r: int, s: int, t_local: int, striped: bool,
 def global_positions(impl: str, group, t: int,
                      device=None) -> torch.Tensor:
     """Global positions of the ``t`` tokens this process holds under the
-    impl's layout: striped shard r holds r + i*S, contiguous ring shard r
-    holds r*T_local + i, dense/flash see the full sequence.  Under a local
+    impl's layout: striped shard r holds r + i*S, contiguous ring and
+    Ulysses shard r holds r*T_local + i, dense/flash see the full
+    sequence.  Under a local
     group ``t`` covers all S shards and the result is their
     concatenation."""
     if impl not in SEQ_SHARDED_IMPLS or group is None:
@@ -214,6 +276,63 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scores = torch.where(mask[None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_dense_blockwise(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              scale: Optional[float] = None,
+                              q_chunk: int = 256) -> torch.Tensor:
+    """:func:`attention_reference` one query block of ``q_chunk`` rows at
+    a time: each row still sees every key before its softmax, so the
+    math is the same, but only one block's (B, H, C, T) scores live at
+    once.  A ``q_chunk`` that does not divide T becomes the largest
+    divisor of T below it (the JAX package's rule)."""
+    b, t, h, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    if t % q_chunk:
+        q_chunk = next(c for c in range(min(q_chunk, t), 0, -1)
+                       if t % c == 0)
+    t_k = k.shape[1]
+    kt = k.transpose(1, 2).float()                  # (B, H, Tk, D)
+    vt = v.transpose(1, 2)
+    pos_k = torch.arange(t_k, device=q.device)
+    outs = []
+    for i in range(0, t, q_chunk):
+        q_blk = q[:, i:i + q_chunk].transpose(1, 2).float()
+        scores = torch.einsum("bhqd,bhkd->bhqk", q_blk, kt) * scale
+        if causal:
+            rows = i + torch.arange(q_chunk, device=q.device)
+            mask = pos_k[None, :] <= rows[:, None]
+            scores = torch.where(mask[None, None], scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", probs, vt))
+    return torch.cat(outs, dim=2).transpose(1, 2)   # (B, T, H, D)
+
+
+def ulysses_attention(q, k, v, group, causal: bool = True,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """DeepSpeed-Ulysses attention: all-to-all from sequence to head
+    sharding, :func:`attention_reference` over the full sequence on H/S
+    heads, all-to-all back (the JAX package's ``ulysses_attention``).
+    Needs ``n_heads % S == 0``."""
+    s, h = group.size, q.shape[2]
+    if h % s != 0:
+        raise ValueError(f"n_heads={h} not divisible by seq axis size {s}")
+    outs = [attention_reference(qh, kh, vh, causal=causal, scale=scale)
+            for qh, kh, vh in zip(group.to_heads(q), group.to_heads(k),
+                                  group.to_heads(v))]
+    return group.to_seq(outs)
+
+
+def validate_ulysses_under_tp(n_heads: int, tp: int, sp: int,
+                              seq_axis: str = "seq") -> None:
+    """Under Megatron TP Ulysses spreads this rank's ``n_heads // tp``
+    local heads over the ``sp`` sequence shards, which must divide them
+    (the JAX package's rule and message)."""
+    if (n_heads // tp) % sp:
+        raise ValueError(
+            f"ulysses under TP redistributes the {n_heads // tp} "
+            f"local heads over {seq_axis}={sp}: not divisible")
 
 
 def _ring(q, k, v, group, block_fn, merge, init):
@@ -431,8 +550,6 @@ def sequence_sharded_attention(impl: str, q, k, v, *, group=None,
     """Dispatch by impl name.  With ``rope_theta``, q and k are rotated by
     their GLOBAL positions first (:func:`global_positions`), so the K that
     travels the ring is already rotated correctly."""
-    if impl in UNPORTED_IMPLS:
-        raise NotImplementedError(f"attention={impl!r} is not ported yet")
     impl = resolve_attention_impl(impl, q.shape[1], q.device.type, q.dtype,
                                   q.shape[-1], (block_q, block_k), scale)
     if impl in SEQ_SHARDED_IMPLS and group is None:
@@ -444,6 +561,10 @@ def sequence_sharded_attention(impl: str, q, k, v, *, group=None,
         k = rope_rotate(k, positions, rope_theta)
     if impl == "dense":
         return attention_reference(q, k, v, causal=causal, scale=scale)
+    if impl == "dense_blockwise":
+        return attention_dense_blockwise(q, k, v, causal=causal, scale=scale)
+    if impl == "ulysses":
+        return ulysses_attention(q, k, v, group, causal=causal, scale=scale)
     if impl == "flash":
         _check_default_scale("flash_attention", scale, q.shape[-1])
         return flash_attention(q, k, v, causal, block_q, block_k)

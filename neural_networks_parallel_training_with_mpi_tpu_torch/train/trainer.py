@@ -103,20 +103,37 @@ global batch, raise ``accum_steps``; ``per_device``: keep each rank's
 rows), maps the step counter onto the new loader through
 ``consumed_samples`` and records the change (``kind="topology"``).
 
-Every flag of a path the port has not taken over yet (model-parallel
-axes, RL, ...) raises ``NotImplementedError`` naming the flag when it is
-set to anything but its default; none is ignored.
+Every flag of a path the port has not taken over yet (the pipe, expert
+and fsdp axes, RL, ...) raises ``NotImplementedError`` naming the flag
+when it is set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
-(``ring``, ``ring_flash``, ``striped``, ``striped_flash``) trains on a
-``data x seq`` world of ``--dp`` x S torchrun ranks, each holding T/S
-columns of its data rows (``parallel.sequence.ProcessSeqGroup``); it
-raises in a world too small for it.  ``Trainer(cfg, device,
-seq_group=LocalSeqGroup(S))`` instead runs all S shards in this process,
-as the JAX Trainer takes an explicit ``mesh=``.  Either way the step's
-gradient is the global-batch mean over every token (``global_mean``), as
-the JAX package's seq path computes it whatever ``--grad_reduction``
-says.
+(``ring``, ``ring_flash``, ``striped``, ``striped_flash``, ``ulysses``)
+trains on a ``data x seq`` world of ``--dp`` x S torchrun ranks, each
+holding T/S columns of its data rows (``parallel.sequence.
+ProcessSeqGroup``); it raises in a world too small for it.
+``Trainer(cfg, device, seq_group=LocalSeqGroup(S))`` instead runs all S
+shards in this process, as the JAX Trainer takes an explicit ``mesh=``.
+Either way the step's gradient is the global-batch mean over every token
+(``global_mean``), as the JAX package's seq path computes it whatever
+``--grad_reduction`` says.
+
+Tensor parallelism (``--tp T``; the JAX trainer's routing and refusals):
+without ``--sp`` the DP x TP step of ``parallel.gspmd`` (Megatron blocks
+over the tensor group, params in the dense order, a snapshot's
+``qkv_tp`` 1); with ``--sp`` the DP x SP x TP step of ``parallel.spmd``
+(``sp_tp``: qkv columns stored permuted, ``qkv_tp`` = T in a snapshot,
+``--vocab_parallel``, the clip inside the step, no guard and loss-only
+telemetry, as in JAX).  The world is ``data x seq x tensor`` torchrun
+ranks (``parallel.megatron.ProcessTensorGroup``), or ``Trainer(cfg,
+device, tensor_group=LocalTensorGroup(T))`` runs the T shards in this
+process, beside ``seq_group``.  A resume re-permutes params and every
+optimizer slot when the snapshot's ``qkv_tp`` differs from this
+layout's (JAX's ``_reconcile_qkv_tp``).  Held out, raising
+``NotImplementedError`` that names ROADMAP Queue A item 4: ``--fsdp``;
+``--update_sharding sharded``, ``--matmul_dtype int8|fp8``,
+``--sdc_check_every``, ``--check_replicas_every`` and ``--elastic``
+under ``--tp``.
 """
 
 from __future__ import annotations
@@ -138,10 +155,12 @@ from ..ops import qmm
 from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel import distributed
+from ..parallel import gspmd, spmd
 from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
+from ..parallel.megatron import ProcessTensorGroup, permute_qkv
 from ..parallel.sequence import (
-    SEQ_SHARDED_IMPLS, UNPORTED_IMPLS, ProcessSeqGroup, resolve_attention_impl,
+    SEQ_SHARDED_IMPLS, ProcessSeqGroup, resolve_attention_impl,
     striped_permutation,
 )
 from ..utils import checkpoint as ckpt
@@ -163,10 +182,10 @@ from .state import TrainState
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {
     "workload": "--workload", "pp_interleave": "--pp_interleave",
-    "vocab_parallel": "--vocab_parallel",
 }
-_UNPORTED_MESH = {"fsdp": "--fsdp", "tensor": "--tp", "pipe": "--pp",
-                  "expert": "--ep"}
+_UNPORTED_MESH = {"pipe": "--pp", "expert": "--ep"}
+# the model-parallel layouts' next pieces (ROADMAP Queue A item 4)
+QUEUE_A4 = "held out of the port so far: ROADMAP Queue A item 4"
 _UNPORTED_MODEL = {"moe_experts": "--moe_experts",
                    "moe_expert_axis": "--ep",
                    "moe_capacity_factor": "--moe_capacity_factor",
@@ -243,6 +262,68 @@ def check_resilience(cfg: TrainConfig) -> None:
             "the device is wedged")
 
 
+def check_tensor_layout(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for the tensor axis, with its messages and
+    exception types (``--vocab_parallel`` only on seq x tensor;
+    ``--ce_chunk`` not under a non-pipeline tensor axis; ``zero1`` not
+    under GSPMD or seq x tensor; ``sharded`` not under seq x tensor;
+    ``per_shard_mean`` neither), then the combinations the port holds
+    out (ROADMAP Queue A item 4)."""
+    mesh = cfg.mesh
+    if mesh.fsdp > 1:
+        raise NotImplementedError(f"--fsdp (= {mesh.fsdp}) is {QUEUE_A4}")
+    tensor = mesh.tensor > 1
+    sp_tp = tensor and mesh.seq > 1
+    gspmd_on = tensor and not sp_tp
+    if sp_tp and cfg.grad_reduction != "global_mean":
+        raise ValueError("pipeline/expert/seq-x-tensor steps always use "
+                         "global_mean gradient semantics")
+    if cfg.vocab_parallel and not sp_tp:
+        raise ValueError(
+            "--vocab_parallel shards the embedding/head over 'tensor' "
+            "on the seq x tensor path (--sp > 1 and --tp > 1); other "
+            "layouts keep them replicated")
+    if cfg.model.ce_chunk > 0 and tensor:
+        raise ValueError(
+            "--ce_chunk (fused chunked cross-entropy) is wired on "
+            "the data-parallel/ZeRO-1, sequence-parallel, and "
+            "pipeline step paths; with non-pipeline tp/ep/fsdp "
+            "axes use --vocab_parallel (seq x tensor) or drop "
+            "--ce_chunk")
+    if cfg.update_sharding == "zero1" and tensor:
+        raise NotImplementedError(
+            "update_sharding='zero1' is the flat-buffer shard_map DP "
+            "and DP x seq layout; the automatic per-leaf form "
+            "(update_sharding='sharded') covers the GSPMD path too")
+    if cfg.update_sharding == "sharded" and sp_tp:
+        raise NotImplementedError(
+            "update_sharding='sharded' is wired into the shard_map DP "
+            "/ DP x seq and GSPMD (tensor/fsdp) layouts; the "
+            "pipe/expert/seq-x-tensor layouts own their slicing")
+    if gspmd_on and cfg.grad_reduction != "global_mean":
+        raise ValueError(
+            "grad_reduction='per_shard_mean' (the reference's :188-197 "
+            "semantics) is only available on the pure-DP shard_map path; "
+            "GSPMD global semantics always compute the exact global mean")
+    if cfg.model.scan_layers and gspmd_on:
+        raise ValueError(
+            "scan_layers stacks blocks for a depth-independent compile "
+            "on the plain DP / DP x seq / seq x tensor paths; the "
+            "pipeline/GSPMD/expert layouts own their own stacking and "
+            "sharding")
+    if not tensor:
+        return
+    held = [("--update_sharding sharded", cfg.update_sharding == "sharded"),
+            (f"--matmul_dtype {cfg.model.matmul_dtype}",
+             cfg.model.matmul_dtype != "bf16"),
+            ("--sdc_check_every", cfg.sdc_check_every > 0),
+            ("--check_replicas_every", cfg.check_replicas_every > 0),
+            ("--elastic", bool(cfg.elastic))]
+    for flag, on in held:
+        if on:
+            raise NotImplementedError(f"{flag} under --tp is {QUEUE_A4}")
+
+
 def _into(live: Any, new: Any) -> Any:
     """``new``'s values in ``live``'s tensors (copied in place, so a CUDA
     graph captured on them stays valid); host leaves come from ``new``."""
@@ -277,26 +358,39 @@ def refuse_unported(cfg: TrainConfig) -> None:
                                   "--gamma, ...) are not ported yet")
     if cfg.data.backend == "native":
         raise NotImplementedError("--data_backend native is not ported yet")
-    if cfg.model.attention in UNPORTED_IMPLS:
-        raise NotImplementedError(
-            f"--attention {cfg.model.attention} is not ported to the "
-            "PyTorch/CUDA package yet")
 
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: DeviceLike = None,
-                 seq_group=None):
+                 seq_group=None, tensor_group=None):
         """``seq_group``: an explicit sequence group (``LocalSeqGroup``)
         for the sequence-sharded attentions; by default ``--sp > 1`` forms
-        a ``ProcessSeqGroup`` from the torchrun world."""
+        a ``ProcessSeqGroup`` from the torchrun world.  ``tensor_group``
+        likewise (``LocalTensorGroup``; by default ``--tp > 1`` forms a
+        ``ProcessTensorGroup``)."""
         if cfg.param_dtype:
             if cfg.param_dtype not in ("float32", "bfloat16", "float16"):
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, dtype=cfg.param_dtype))
+        # a local group's size is the layout's axis, as --sp / --tp would
+        # set it for a process group
+        for group, axis, flag, what in ((seq_group, "seq", "--sp",
+                                         "sequence"),
+                                        (tensor_group, "tensor", "--tp",
+                                         "tensor")):
+            if group is None:
+                continue
+            n = getattr(cfg.mesh, axis)
+            if n not in (1, group.size):
+                raise ValueError(f"{flag} {n} != the {what} group's "
+                                 f"{group.size} shards")
+            cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
+                cfg.mesh, **{axis: group.size}))
         check_matmul_dtype(cfg)
         check_resilience(cfg)
         refuse_unported(cfg)
+        check_tensor_layout(cfg)
         # parsed once: max=/once= counters live across epochs
         self.fault_plan = FaultPlan.from_config(cfg.faults)
         if self.fault_plan is not None:
@@ -304,25 +398,28 @@ class Trainer:
         self.cfg = cfg
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
                      else None)
-        sp = cfg.mesh.seq
-        if seq_group is not None:
-            if sp not in (1, seq_group.size):
-                raise ValueError(f"--sp {sp} != the sequence group's "
-                                 f"{seq_group.size} shards")
-            self.world = world_setup(
-                device, dp=cfg.mesh.data,
-                collective_timeout=cfg.collective_timeout)
-        else:
-            if sp > 1 and attention not in SEQ_SHARDED_IMPLS:
-                raise ValueError(
-                    f"--sp {sp} needs a sequence-sharded attention (ring, "
-                    f"ring_flash, striped, striped_flash), not "
-                    f"{attention!r}")
-            self.world = world_setup(
-                device, sp=sp, dp=cfg.mesh.data,
-                collective_timeout=cfg.collective_timeout)
-            if sp > 1:
-                seq_group = ProcessSeqGroup(self.world.seq_pg)
+        sp, tp = cfg.mesh.seq, cfg.mesh.tensor
+        if seq_group is None and sp > 1 and \
+                attention not in SEQ_SHARDED_IMPLS:
+            raise ValueError(
+                f"--sp {sp} needs a sequence-sharded attention (ring, "
+                f"ring_flash, striped, striped_flash, ulysses), not "
+                f"{attention!r}")
+        # the process groups of the axes no local group stands for
+        self.world = world_setup(
+            device, sp=1 if seq_group is not None else sp,
+            tp=1 if tensor_group is not None else tp, dp=cfg.mesh.data,
+            collective_timeout=cfg.collective_timeout)
+        if seq_group is None and sp > 1:
+            seq_group = ProcessSeqGroup(self.world.seq_pg)
+        if tensor_group is None and tp > 1:
+            tensor_group = ProcessTensorGroup(self.world.tensor_pg)
+        self.tensor_group = tensor_group
+        # the JAX trainer's routing: seq x tensor, or tensor alone (GSPMD)
+        self.sp_tp = tp > 1 and sp > 1
+        self.gspmd = tp > 1 and not self.sp_tp
+        # the qkv column order of this layout's params and snapshots
+        self.qkv_tp = tp if self.sp_tp else 1
         # the capacity floor: a world below --min_devices does not train
         # (exit 46, which the supervisor does not retry); one card per rank
         n_devices = self.world.world_size
@@ -353,7 +450,8 @@ class Trainer:
         self.zero1 = cfg.update_sharding == "zero1"
         self.sharded = cfg.update_sharding == "sharded"
         # the JAX trainer's name of the step's program
-        self.layout_tag = "sp" if seq_group is not None else "dp"
+        self.layout_tag = ("sp_tp" if self.sp_tp else "gspmd" if self.gspmd
+                           else "sp" if seq_group is not None else "dp")
         if cfg.update_sharding != "replicated":
             self.layout_tag += f"+{cfg.update_sharding}"
         if cfg.model.matmul_dtype != "bf16":
@@ -415,8 +513,9 @@ class Trainer:
         lr = schedules.make(
             cfg.lr_schedule, cfg.lr, total_steps=total_steps,
             warmup_steps=cfg.warmup_steps, min_lr=cfg.min_lr)
-        # the sharded updates clip inside the step, by the global norm
-        step_clips = self.zero1 or self.sharded
+        # the sharded updates and sp_tp clip inside the step, by the
+        # global norm
+        step_clips = self.zero1 or self.sharded or self.sp_tp
         self.optimizer = optim_lib.make(
             cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
             grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps)
@@ -433,23 +532,48 @@ class Trainer:
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
                       if cfg.label_smoothing else cfg.loss)
         # on-device telemetry metrics: the step returns the metrics dict
-        # in place of its loss (every layout the port has carries them)
+        # in place of its loss (every layout but sp_tp, whose JAX step
+        # returns its loss only)
         self.telemetry_metrics = bool(cfg.telemetry_dir
-                                      and cfg.metrics_every > 0)
-        # the JAX seq path passes no grad_reduction: always global_mean
-        step = dp.make_train_step(
-            self.model, self.optimizer, self.world, loss_name=train_loss,
-            grad_reduction=(cfg.grad_reduction if seq_group is None
-                            else "global_mean"),
-            accum_steps=cfg.accum_steps,
-            update_sharding=cfg.update_sharding,
-            grad_clip=cfg.grad_clip if step_clips else 0.0,
-            with_metrics=self.telemetry_metrics)
+                                      and cfg.metrics_every > 0
+                                      and not self.sp_tp)
+        with_acc = cfg.loss == "cross_entropy"
+        if self.sp_tp:
+            step = spmd.make_sp_tp_train_step(
+                self.model, self.optimizer, self.world, tensor_group,
+                seq_group, loss_name=train_loss,
+                accum_steps=cfg.accum_steps, grad_clip=cfg.grad_clip,
+                vocab_parallel=cfg.vocab_parallel)
+            eval_step = spmd.make_sp_tp_eval_step(
+                self.model, self.world, tensor_group, seq_group,
+                loss_name=cfg.loss, with_accuracy=with_acc,
+                vocab_parallel=cfg.vocab_parallel)
+        elif self.gspmd:
+            step = gspmd.make_gspmd_train_step(
+                self.model, self.optimizer, self.world, tensor_group,
+                loss_name=train_loss, accum_steps=cfg.accum_steps,
+                with_metrics=self.telemetry_metrics)
+            eval_step = gspmd.make_gspmd_eval_step(
+                self.model, self.world, tensor_group, loss_name=cfg.loss,
+                with_accuracy=with_acc)
+        else:
+            # the JAX seq path passes no grad_reduction: always global_mean
+            step = dp.make_train_step(
+                self.model, self.optimizer, self.world, loss_name=train_loss,
+                grad_reduction=(cfg.grad_reduction if seq_group is None
+                                else "global_mean"),
+                accum_steps=cfg.accum_steps,
+                update_sharding=cfg.update_sharding,
+                grad_clip=cfg.grad_clip if step_clips else 0.0,
+                with_metrics=self.telemetry_metrics)
+            eval_step = dp.make_eval_step(self.model, self.world,
+                                          loss_name=cfg.loss,
+                                          with_accuracy=with_acc)
         # desync@N?det: the step itself drifts on every data rank but the
         # first, the bug the SDC replay must reproduce
         det = self.fault_plan.det_desync() if self.fault_plan else None
         if det is not None:
-            if self.zero1 or self.sharded:
+            if self.zero1 or self.sharded or tp > 1:
                 raise NotImplementedError(
                     "desync?det perturbs the fully-replicated train state "
                     "inside the step; it is wired on the plain DP and "
@@ -478,9 +602,7 @@ class Trainer:
                             "with_metrics": self.telemetry_metrics})
                 if self.device.type == "cuda" else self._eager_group)
         self.eval_step = compile_ledger.instrument(
-            dp.make_eval_step(self.model, self.world, loss_name=cfg.loss,
-                              with_accuracy=(cfg.loss == "cross_entropy")),
-            f"eval_step[{self.layout_tag}]")
+            eval_step, f"eval_step[{self.layout_tag}]")
         # the span tracer + compile ledger for this process (validates
         # --trace's need for a directory here, before any work)
         self.tracer = None
@@ -608,6 +730,8 @@ class Trainer:
 
     def _fresh_state(self) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
         params = self.model.init(prng.init_generator(self.cfg.seed))
+        # sp_tp: each tensor shard's heads one contiguous qkv slice
+        params = spmd.permute_params(self.model, params, self.qkv_tp)
         if not (self.zero1 or self.sharded):
             return TrainState.from_params(params, self.optimizer,
                                           self.model), None
@@ -673,6 +797,7 @@ class Trainer:
                                 elastic=self.cfg.elastic)
         if restored is None:
             return False
+        restored = self._reconcile_qkv_tp(restored)
         if self.layout is not None:     # every rank keeps its own slice
             restored = restored._replace(opt_state=self.layout.scatter(
                 restored.opt_state, self.device))
@@ -680,6 +805,43 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return True
+
+    def _reconcile_qkv_tp(self, restored: TrainState) -> TrainState:
+        """A snapshot saved with another qkv column order (its meta's
+        ``qkv_tp``; 1, the dense order, when absent) re-permuted into this
+        layout's, params and every optimizer slot alike (the slots mirror
+        the params' layout): dense -> sp_tp, sp_tp -> dense, and across
+        tensor sizes (JAX's ``_reconcile_qkv_tp``).  Bitwise: a gather."""
+        meta = ckpt.read_meta(self.cfg.checkpoint_dir,
+                              step=restored.step) or {}
+        saved_tp = int(meta.get("qkv_tp", 1))
+        if saved_tp == self.qkv_tp or not (
+                isinstance(restored.params, dict)
+                and "blocks" in restored.params):
+            return restored
+        if self.layout is not None:
+            raise NotImplementedError(
+                f"resuming a qkv_tp={saved_tp} snapshot under "
+                f"--update_sharding {self.cfg.update_sharding} (its "
+                f"optimizer state is flat) is {QUEUE_A4}")
+        c = self.model.cfg
+
+        def fix(tree):
+            if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+                return type(tree)(*(fix(x) for x in tree))
+            if not (isinstance(tree, dict) and "blocks" in tree):
+                return tree
+            b = tree["blocks"]
+            for tp, inverse in ((saved_tp, True), (self.qkv_tp, False)):
+                if tp > 1:
+                    b = permute_qkv(b, c.d_model, c.n_heads, tp,
+                                    inverse=inverse, kv_heads=c.kv_heads)
+            return dict(tree, blocks=b)
+
+        log(f"checkpoint: qkv columns re-permuted from qkv_tp={saved_tp} "
+            f"to this layout's qkv_tp={self.qkv_tp}")
+        return restored._replace(params=fix(restored.params),
+                                 opt_state=fix(restored.opt_state))
 
     def _rollback(self) -> int:
         """Anomaly rollback: the newest verified snapshot (the seeded init
@@ -958,11 +1120,13 @@ class Trainer:
             return
         self._last_saved_step = step
         w = self.world
-        extra = {"qkv_tp": 1, "order_salt": int(self.loader.order_salt),
+        extra = {"qkv_tp": self.qkv_tp,
+                 "order_salt": int(self.loader.order_salt),
                  "saved_world": {
                      "dp": int(self.loader.dp),
                      "mesh": {"data": w.dp, "fsdp": 1, "pipe": 1,
-                              "expert": 1, "seq": w.sp, "tensor": 1},
+                              "expert": 1, "seq": w.sp,
+                              "tensor": cfg.mesh.tensor},
                      "update_sharding": cfg.update_sharding},
                  "consumed_samples": self.loader.consumed_samples(
                      step + self._step_offset)}

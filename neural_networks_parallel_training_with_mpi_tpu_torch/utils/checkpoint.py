@@ -549,16 +549,13 @@ def _opt_range(template: Any) -> Tuple[int, int]:
 def _load(path: Path, template: Any, prefix: bool,
           elastic: bool = False) -> Any:
     """Read ``state.npz`` into ``template``'s structure.  ``prefix``: the
-    template covers the first leaves only (the params-only restore).  A
-    snapshot of a tensor-parallel layout (``qkv_tp`` > 1 in its meta,
-    qkv columns in per-shard order) is refused.  ``elastic``: see
-    :func:`restore`."""
+    template covers the first leaves only (the params-only restore).  The
+    leaves come back as they were saved: a seq x tensor snapshot
+    (``qkv_tp`` > 1 in its meta) holds its qkv columns permuted, which the
+    caller reconciles (the trainer's resume, ``--generate``).
+    ``elastic``: see :func:`restore`."""
     meta = json.loads((path / "meta.json").read_text()) \
         if (path / "meta.json").exists() else {}
-    if int(meta.get("qkv_tp", 1)) != 1:
-        raise NotImplementedError(
-            f"{path} was saved by a tensor-parallel layout "
-            f"(qkv_tp={meta['qkv_tp']}); its qkv column order is not ported")
     saved_world = meta.get("saved_world") or {}
     n_now = current_world()["n_devices"]
     if elastic and saved_world and saved_world.get("n_devices") != n_now:

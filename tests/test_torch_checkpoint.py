@@ -188,15 +188,22 @@ def test_template_mismatch_fails_loudly(tmp_path, kind):
 @pytest.mark.parametrize("how", ["restore", "restore_params"])
 def test_tensor_parallel_snapshot_is_refused(tmp_path, how):
     """A snapshot whose meta records a tensor-parallel qkv layout holds its
-    qkv columns in per-shard order: both restores refuse it rather than
-    load permuted weights, and it is not quarantined."""
+    qkv columns in per-shard order.  Tensor parallelism is ported: neither
+    restore refuses it any more; both return its leaves as saved, bitwise,
+    and its meta keeps ``qkv_tp`` for the caller that reconciles the
+    order (the trainer's resume, ``--generate``:
+    tests/test_torch_sp_tp.py).  It is not quarantined."""
     state = make_state(step=4)
     ckpt.save(str(tmp_path), state, extra_meta={"qkv_tp": 2})
-    with pytest.raises(NotImplementedError, match="qkv_tp=2"):
-        if how == "restore":
-            ckpt.restore(str(tmp_path), make_state())
-        else:
-            ckpt.restore_params(str(tmp_path), make_state().params)
+    if how == "restore":
+        got = ckpt.restore(str(tmp_path), make_state())
+        _leaves_equal(got, state)
+    else:
+        step, params = ckpt.restore_params(str(tmp_path),
+                                           make_state().params)
+        assert step == 4
+        _leaves_equal(params, state.params)
+    assert ckpt.read_meta(str(tmp_path))["qkv_tp"] == 2
     assert _steps(tmp_path) == [4]
 
 

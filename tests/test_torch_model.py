@@ -160,13 +160,15 @@ def test_init_tree_matches_jax_layout():
         assert jshapes == tshapes
 
 
-# "ring": the sequence-sharded family; ring and striped are ported
-# (tests/test_torch_sequence.py), ulysses is not.  "fp8": fp8 is ported
+# "ring": the sequence-sharded family is ported (ring and striped:
+# tests/test_torch_sequence.py; ulysses: tests/test_torch_megatron.py), so
+# ulysses without a sequence group is refused as every seq impl is, with
+# a ValueError naming the group.  "fp8": fp8 is ported
 # (tests/test_torch_qmm.py), over MoE FFNs it still refuses
-@pytest.mark.parametrize("bad", [dict(moe_experts=2),
-                                 dict(matmul_dtype="fp8", moe_experts=2),
-                                 dict(attention="ulysses")],
-                         ids=["moe", "fp8", "ring"])
-def test_unported_configs_refuse(bad):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("bad,exc", [
+    (dict(moe_experts=2), NotImplementedError),
+    (dict(matmul_dtype="fp8", moe_experts=2), NotImplementedError),
+    (dict(attention="ulysses"), ValueError)], ids=["moe", "fp8", "ring"])
+def test_unported_configs_refuse(bad, exc):
+    with pytest.raises(exc):
         Transformer(TransformerConfig(**SMALL, **bad), device="cpu")

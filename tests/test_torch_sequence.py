@@ -236,8 +236,8 @@ def test_ring_flash_skips_future_blocks_and_striped_runs_all():
 
 def test_sequence_sharded_attention_rope_and_refusals():
     """RoPE by global position before the ring equals rotating the whole
-    sequence and attending densely; ulysses/dense_blockwise raise, and a
-    seq impl needs a group."""
+    sequence and attending densely; ulysses and dense_blockwise (ported)
+    equal dense attention, and a seq impl needs a group."""
     q, k, v = map(torch.tensor, _qkv())
     perm = torch.tensor(sq.striped_permutation(32, 4))
     got = sq.sequence_sharded_attention(
@@ -247,9 +247,10 @@ def test_sequence_sharded_attention_rope_and_refusals():
                                          rope_theta=100.0)
     np.testing.assert_allclose(got.numpy(), want[:, perm].numpy(), **TOL)
     for impl in ("ulysses", "dense_blockwise"):
-        with pytest.raises(NotImplementedError):
-            sq.sequence_sharded_attention(impl, q, k, v,
-                                          group=sq.LocalSeqGroup(2))
+        got = sq.sequence_sharded_attention(impl, q, k, v,
+                                            group=sq.LocalSeqGroup(2),
+                                            rope_theta=100.0)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
     with pytest.raises(ValueError, match="sequence group"):
         sq.sequence_sharded_attention("ring", q, k, v)
 

@@ -1563,7 +1563,7 @@ def fwd_launches_per_layer(model_cfg):
 
 def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                      profile=True, inspect=None, tag=None, tensor_group=None,
-                     **over):
+                     fsdp_group=None, **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention, ``tensor_group`` for
     tensor parallelism); check finite, falling
@@ -1586,7 +1586,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         Trainer,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
-        leaves,
+        leaves, tree_map,
     )
 
     one_rank_group(torch, device)
@@ -1597,7 +1597,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         cfg = config_from_args(args)
         before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group,
-                          tensor_group=tensor_group)
+                          tensor_group=tensor_group, fsdp_group=fsdp_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
         if device.type == "cuda":
@@ -1610,6 +1610,10 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         gemms = dict(qmm.library_gemm.launches)
         final = ([p.detach().cpu() for p in flat_params(trainer.state.params)]
                  if keep_final else None)
+        # keep_final="tree": the host tree too (phase 23 (c) slices it)
+        final_tree = (tree_map(lambda p: p.detach().cpu(),
+                               trainer.state.params)
+                      if keep_final == "tree" else None)
         inspected = inspect(trainer) if inspect is not None else {}
         launches, with_lse = counts["all"], counts["with_lse"]
         with open(metrics) as f:
@@ -1668,7 +1672,7 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         if profile:
             out.update(profile_training(torch, trainer))
     print(f"{tag}: " + json.dumps(out), flush=True)
-    return dict(out, losses=losses, final_params=final)
+    return dict(out, losses=losses, final_params=final, final_tree=final_tree)
 
 
 def _kernel_class(name):
@@ -2553,7 +2557,8 @@ def launch_profile(torch, run, n_steps):
 
 def dispatch_full_width(torch, np, device, eager, seq_group=None,
                         k=DISPATCH_K, exact=False, tag=None, inspect=None,
-                        profile=True, tensor_group=None, **over):
+                        profile=True, tensor_group=None, fsdp_group=None,
+                        **over):
     """Phase 7's job (phase 11's with ``seq_group``) with
     ``--steps_per_dispatch k`` through the Trainer: on the card each
     dispatch replays the train step's CUDA graph.  Its losses at the
@@ -2590,7 +2595,7 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
             metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
         before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group,
-                          tensor_group=tensor_group)
+                          tensor_group=tensor_group, fsdp_group=fsdp_group)
         trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -2654,9 +2659,14 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     if total != want or (seq_group is not None and with_lse != expect):
         raise AssertionError(f"{tag}: flash launches {total}, with_lse "
                              f"{with_lse}, expected {want}")
-    # the loop's numbers: every dispatch after the first (warm-up, capture)
+    # the loop's numbers: every dispatch after the first (warm-up, capture);
+    # a run of one dispatch: the device time of one replay (10 timed, the
+    # host held back)
     step_ms = sorted(result["step_ms"][k:])
-    med = step_ms[len(step_ms) // 2]
+    if step_ms:
+        med, med_from = step_ms[len(step_ms) // 2], "loop"
+    else:
+        med, med_from = time_ms(torch, graphed.graph.replay, 10), "replay"
     tokens = cfg.batch_size * cfg.data.seq_len
     flops = 3.0 * trainer.model.fwd_flops((cfg.batch_size, cfg.data.seq_len))
     # the quantized products: eager (warm-up) + replays x captured
@@ -2668,6 +2678,7 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
                with_lse_launches=with_lse,
                launches_per_replay=per_replay, replays=graphed.replays,
                eager_steps=graphed.eager_steps, step_ms_median=med,
+               step_ms_from=med_from,
                first_dispatch_ms_per_step=result["step_ms"][0],
                tokens_per_s=tokens / med * 1e3,
                mfu=flops / (med / 1e3 * PEAK_FLOPS["torch.bfloat16"]),
@@ -3454,7 +3465,7 @@ def quant_step_design(cfg):
     return 3 * per_block * m.n_layers + head
 
 
-def profile_quant_step(torch, trainer, fmt):
+def profile_quant_step(torch, trainer, fmt, per_step=None):
     """(b) One more eager step of ``trainer`` under ``torch.profiler``:
     the quantized products it runs (``aten::_int_mm`` /
     ``aten::_scaled_mm``) must number ``quant_step_design``, no f32 or
@@ -3488,7 +3499,7 @@ def profile_quant_step(torch, trainer, fmt):
                 q_kernels[kern.name] = q_kernels.get(kern.name, 0) + 1
         elif ev.name in plain_ops:
             n_plain += 1
-    want = quant_step_design(trainer.cfg)
+    want = per_step or quant_step_design(trainer.cfg)
     print(f"profile {fmt} step: {n_q} {q_op} (by design {want}), {n_plain} "
           f"f32/bf16 products; GEMM kernels recorded: " + ", ".join(
               f"{name[:80]} {ms:.2f} ms" for name, ms in sorted(
@@ -4395,9 +4406,9 @@ def _run_tool(tool, path):
 
 
 def obs_on_off(torch, device):
-    """(a) phase 7's job with the telemetry flags against the same run
-    without them, graphed (k 13, 3 epochs: the third dispatch is the
-    first whose record's host time is a whole dispatch of the loop's) and
+    """(a) phase 7's job at 2 layers with the telemetry flags against the
+    same run without them, graphed (k 13, 3 epochs: the third dispatch is
+    the first whose record's host time is a whole dispatch of the loop's) and
     eager (2 epochs), each mode as the alternating pairs on, off, off, on
     (a drift of the card or the host along the four fits falls on both
     sides alike): the final params, Adam's mu and nu of all four bitwise
@@ -4422,9 +4433,11 @@ def obs_on_off(torch, device):
         for on in (True, False, False, True):
             tdir = tempfile.mkdtemp() if on else None
             extra = dict(OBS_FLAGS, telemetry_dir=tdir) if on else {}
+            # phase 7's job cut to 2 layers, for the time limit
             r = res_fit(torch, device, f"obs {mode} {'on' if on else 'off'}",
                         inspect=_obs_inspect(torch, on, not runs[on]),
-                        nepochs=epochs, steps_per_dispatch=k, **extra)
+                        nepochs=epochs, steps_per_dispatch=k,
+                        n_layers=CUT_LAYERS, **extra)
             r["tdir"] = tdir
             runs[on].append(r)
             launches = r["launches"] if launches is None else {
@@ -4535,6 +4548,7 @@ def obs_on_off(torch, device):
     r = res_fit(torch, device, "obs graphed nan@5", inspect=lambda t: dict(
         recorder=list(t.telemetry.recorder.records)),
         steps_per_dispatch=DISPATCH_K, telemetry_dir=tdir,
+        n_layers=CUT_LAYERS,
         **{"skip-nonfinite": True, "faults": "nan@5"}, **OBS_FLAGS)
     launches = {w: launches[w] + r["launches"][w] for w in launches}
     steps = [x for x in _jsonl(f"{tdir}/metrics.jsonl")
@@ -5208,14 +5222,15 @@ def check_megatron_ops(torch, device):
 
 def tp_identity_runs(torch, device, attention="flash", tp=TP_SHARDS,
                      seq_size=1, vocab_parallel=False, n_layers=2, steps=3,
-                     batch=8):
+                     batch=8, matmul_dtype="bf16"):
     """Full width at ``n_layers`` layers, f32 with TF32 off, SGD-momentum:
     ``steps`` steps of the dense data-parallel step (over a
     ``LocalSeqGroup(seq_size)`` for a sequence-sharded attention) and of
     the tensor-parallel one over ``LocalTensorGroup(tp)`` (DP x TP, or
     sp_tp with the qkv columns permuted and ``vocab_parallel``) from the
-    same params and batches.  Returns ((losses, params), (losses, params
-    in the dense order), the flash launches of the tensor-parallel run)."""
+    same params and batches; ``matmul_dtype`` int8 / fp8 quantizes both.
+    Returns ((losses, params), (losses, params in the dense order), the
+    flash launches of the tensor-parallel run, the initial params)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
         text_dataset,
     )
@@ -5249,7 +5264,8 @@ def tp_identity_runs(torch, device, attention="flash", tp=TP_SHARDS,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kw = dict(BIG, n_layers=n_layers, activation="gelu",
-              pos_encoding="learned", attention=attention)
+              pos_encoding="learned", attention=attention,
+              matmul_dtype=matmul_dtype)
     data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
     world = world_setup(device)
     seq = sq.LocalSeqGroup(seq_size) if seq_size > 1 else None
@@ -5274,7 +5290,7 @@ def tp_identity_runs(torch, device, attention="flash", tp=TP_SHARDS,
             step = spmd.make_sp_tp_train_step(
                 model, opt, world, megatron.LocalTensorGroup(tp), seq,
                 "cross_entropy", vocab_parallel=vocab_parallel)
-        state = TrainState.from_params(params, opt)
+        state = TrainState.from_params(params, opt, model)
         loader = ShardedLoader(data, batch, device=device, shuffle=False,
                                seq_permutation=perm)
         fa.set_launch_counts()
@@ -5287,14 +5303,14 @@ def tp_identity_runs(torch, device, attention="flash", tp=TP_SHARDS,
         if tensor and seq is not None:
             final = spmd.permute_params(model, final, tp, inverse=True)
         runs.append((losses, [p.detach() for p in flat_params(final)]))
-    return runs[0], runs[1], launches
+    return runs[0], runs[1], launches, flat_params(init)
 
 
 def check_tp_identity(torch, device, tag, bar=1e-6, **kw):
     """The tensor-parallel run against the dense one: losses to rtol 1e-5
     and params within ``bar`` (phase 12's tolerance: f32 on both sides,
     the row-parallel sums and the vocab-parallel CE reassociate only)."""
-    (ld, pd), (lt, pt), launches = tp_identity_runs(torch, device, **kw)
+    (ld, pd), (lt, pt), launches, _ = tp_identity_runs(torch, device, **kw)
     loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lt, ld))
     worst = max(float((a - b).abs().max()) for a, b in zip(pt, pd))
     print(f"{tag}: losses {lt} vs {ld}; params max |diff| {worst:.3e}; "
@@ -5373,13 +5389,16 @@ def tensor_parallel_full_width(torch, np, device):
     tp_over = dict(tp=TP_SHARDS, ce_chunk=0)
     eager = train_full_width(torch, np, device,
                              tensor_group=LocalTensorGroup(TP_SHARDS),
-                             keep_final=True, tag="train dp x tp4",
+                             keep_final="tree", tag="train dp x tp4",
                              **tp_over)
     graphed = dispatch_full_width(torch, np, device, eager,
                                   tensor_group=LocalTensorGroup(TP_SHARDS),
                                   exact=True, profile=False,
                                   tag="dispatch dp x tp4", **tp_over)
     del eager["final_params"]
+    # phase 23 reads the bf16 losses (a) and the dense final params (c)
+    out["dp_tp_losses"] = eager["losses"]
+    final_tree = eager.pop("final_tree")
     out["dp_tp"] = {k: eager[k] for k in (
         "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
         "launches", "launches_by_design", "first_loss", "last3_loss",
@@ -5416,8 +5435,559 @@ def tensor_parallel_full_width(torch, np, device):
             "first_loss", "last3_loss")}
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 22: {out['seconds']:.1f} s", flush=True)
+    return out, final_tree
+
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the GSPMD layout's memory half (--fsdp, the sliced state) and
+# the combinations held out of --tp until it (int8/fp8, sharded, the
+# replica check, --generate)
+# ---------------------------------------------------------------------------
+
+# per rank of --tp 4, the flagship's params + Adam's mu and nu (f32): the
+# 12 layers' qkv / ff_in / attn_out / ff_out slices and the head's vocab
+# slice beside the whole embeddings and norms, worked out from the rules
+TP4_VALUES = 80_837_632
+# the quantized training's code-flip bounds (tests/test_torch_qmm.py):
+# losses, and the params' change against the dense quantized step's
+QUANT_LOSS_RTOL = {"int8": 1e-4, "fp8": 5e-4}
+QUANT_UPDATE_RL2 = 1e-2
+
+
+class _TensorRank:
+    """Rank ``rank`` of a tensor process group of ``size``, as
+    ``StateLayout`` reads it to slice (no collective is made)."""
+
+    pg = None
+
+    def __init__(self, size, rank):
+        self.size, self.rank = size, rank
+
+
+def quant_tp_full_width(torch, np, device, bf16_losses):
+    """(a) Phase 7's job at full depth and width, DP x TP over
+    ``LocalTensorGroup(4)``, int8 and fp8 (ce_chunk 0, as ``--tp``
+    requires): one epoch eager (its products counted against tp x the
+    dense step's design, one step profiled: no unquantized product) and
+    one graphed (k 13, bitwise to eager); B1-B3 48 a step, all sm90; the
+    largest |loss - phase 22's bf16 TP loss| over the epoch.  Then the
+    f32 identity at 2 layers: the TP quantized step within the
+    code-flip bounds of the dense quantized step."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+
+    cuda = device.type == "cuda"
+    out = {}
+    for fmt in ("int8", "fp8"):
+        flags = dict(tp=TP_SHARDS, ce_chunk=0, matmul_dtype=fmt, nepochs=1)
+        cfg = config_from_args(build_argparser().parse_args(
+            train_flags(**flags)))
+        per_step = TP_SHARDS * quant_step_design(cfg)
+        inspect = ((lambda t, f=fmt: profile_quant_step(torch, t, f,
+                                                         per_step))
+                   if cuda else None)
+        run = train_full_width(torch, np, device, keep_final=True,
+                               profile=False, inspect=inspect,
+                               tensor_group=LocalTensorGroup(TP_SHARDS),
+                               tag=f"tp4 quant {fmt}", **flags)
+        want = {"int8": 0, "fp8": 0}
+        want[fmt] = per_step * run["steps"] if cuda else 0
+        if run["gemm_launches"] != want:
+            raise AssertionError(f"tp4 quant {fmt}: products "
+                                 f"{run['gemm_launches']}, by design {want}")
+        delta = max(abs(a - b) for a, b in zip(run["losses"], bf16_losses))
+        res = dict(losses=[round(x, 4) for x in run["losses"]],
+                   max_abs_loss_diff_vs_bf16_tp=delta,
+                   gemm_launches=run["gemm_launches"],
+                   products_per_step=per_step, launches=run["launches"],
+                   **{k: run[k] for k in ("step_ms_median", "tokens_per_s",
+                                          "peak_memory_gib",
+                                          "profiled_products",
+                                          "profiled_plain_products",
+                                          "gemm_kernels") if k in run})
+        if cuda:
+            graphed = dispatch_full_width(
+                torch, np, device, run, exact=True, profile=False,
+                tensor_group=LocalTensorGroup(TP_SHARDS),
+                tag=f"tp4 quant {fmt} dispatch", **flags)
+            res.update(graphed_step_ms_median=graphed["step_ms_median"],
+                       graphed_step_ms_from=graphed["step_ms_from"],
+                       graphed_tokens_per_s=graphed["tokens_per_s"],
+                       graphed_peak_memory_gib=graphed["peak_memory_gib"],
+                       graphed_bitwise=graphed["bitwise"],
+                       graphed_launches=graphed["launches"])
+            print(f"tp4 quant {fmt}: step {run['step_ms_median']:.2f} ms "
+                  f"eager, {graphed['step_ms_median']:.2f} ms graphed (one "
+                  f"replay's device time); "
+                  f"{run['tokens_per_s']:.0f} tokens/s eager; peak memory "
+                  f"{run['peak_memory_gib']:.2f} GiB; largest |loss - bf16 "
+                  f"TP loss| {delta:.4f}", flush=True)
+        (ld, pd), (lt, pt), _, p0 = tp_identity_runs(torch, device,
+                                                     matmul_dtype=fmt)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lt, ld))
+        num = sum(float(((a - b).double() ** 2).sum())
+                  for a, b in zip(pt, pd))
+        den = sum(float(((b - z.to(b.device)).double() ** 2).sum())
+                  for b, z in zip(pd, p0))
+        update_rl2 = (num / den) ** 0.5
+        res.update(identity_loss_rel=loss_rel, identity_update_rl2=update_rl2)
+        print(f"tp4 quant {fmt} f32 identity (2 layers, 3 steps): losses "
+              f"{lt} vs dense {ld} (largest relative {loss_rel:.2e}, bound "
+              f"{QUANT_LOSS_RTOL[fmt]}); params' change {update_rl2:.2e} "
+              f"relative (bound {QUANT_UPDATE_RL2})", flush=True)
+        if loss_rel > QUANT_LOSS_RTOL[fmt] or update_rl2 > QUANT_UPDATE_RL2:
+            raise AssertionError(f"tp4 quant {fmt}: the TP quantized step "
+                                 "is outside the code-flip bounds of the "
+                                 "dense quantized step")
+        out[fmt] = res
+        del run
     return out
 
+
+def _trainer(torch, device, steps=None, **over):
+    """A Trainer of ``train_flags(**over)`` (its extra keywords:
+    ``seq_group``, ``tensor_group``, ``fsdp_group``), its seeded state
+    and, with ``steps``, that many eager steps of its first epoch (their
+    losses in ``trainer.losses``)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+
+    groups = {k: over.pop(k) for k in ("seq_group", "tensor_group",
+                                       "fsdp_group") if k in over}
+    trainer = Trainer(config_from_args(build_argparser().parse_args(
+        train_flags(**over))), device=device, **groups)
+    trainer.init_state()
+    trainer.losses = []
+    for _, batch in zip(range(steps or 0), trainer.loader.epoch(0)):
+        trainer.state, loss = trainer.train_step(trainer.state, batch)
+        trainer.losses.append(float(loss))
+    return trainer
+
+
+F32_2L = dict(n_layers=CUT_LAYERS, dtype="float32", compute_dtype="float32",
+              optimizer="sgd", lr=1e-2, momentum=0.9, ce_chunk=0)
+
+
+FSDP_SLICES = 4
+
+
+def fsdp_on_card(torch, np, device):
+    """(b) ``--fsdp 4`` on the card over a local fsdp group: each leaf the
+    rules split on an fsdp dim held as its 4 slices, stacked, joined
+    where its block uses it and its gradient split back into them.  At 2
+    layers, f32 with TF32 off, 3 SGD steps: params within 1e-6 of the
+    replicated DP step's; then the bf16 step at full width, 2 layers, one
+    epoch eager and one graphed (k 13, bitwise)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.fsdp import (  # noqa: E501
+        LocalFsdpGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one_rank_group(torch, device)
+    dense = _trainer(torch, device, steps=3, **F32_2L)
+    fsdp = _trainer(torch, device, steps=3, fsdp=FSDP_SLICES,
+                    fsdp_group=LocalFsdpGroup(FSDP_SLICES), **F32_2L)
+    lay = fsdp.state_layout
+    held = leaves(fsdp.state.params)
+    split = [j for j, st in enumerate(lay.stored) if st.fsdp is not None]
+    stacked = all(held[j].shape[0] == FSDP_SLICES
+                  and held[j].dim() == len(lay.shapes[j]) + 1
+                  for j in split)
+    split_values = sum(held[j].numel() for j in split)
+    whole_values = sum(x.numel() for x in held)
+    if fsdp.layout_tag != "gspmd" or not split or not stacked:
+        raise AssertionError(f"fsdp: layout {fsdp.layout_tag}, "
+                             f"{len(split)} leaves held as stacked slices")
+    worst = max(float((a - b).abs().max()) for a, b in zip(
+        flat_params(fsdp.whole_params()), flat_params(dense.state.params)))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fsdp.losses,
+                                                       dense.losses))
+    print(f"fsdp f32 identity (2 layers, 3 steps, a local fsdp group of "
+          f"{FSDP_SLICES}: {len(split)} of {len(held)} leaves held as "
+          f"{FSDP_SLICES} stacked slices, {split_values:,} of "
+          f"{whole_values:,} values): losses {fsdp.losses} vs "
+          f"{dense.losses}; params max |diff| {worst:.3e}", flush=True)
+    if worst > 1e-6 or loss_rel > 1e-5:
+        raise AssertionError("fsdp: the f32 step differs from the "
+                             "replicated DP step")
+    del dense, fsdp
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    over = dict(n_layers=CUT_LAYERS, ce_chunk=0, fsdp=FSDP_SLICES)
+    eager = train_full_width(torch, np, device, keep_final=True,
+                             profile=False,
+                             fsdp_group=LocalFsdpGroup(FSDP_SLICES),
+                             tag="fsdp4 bf16 2 layers", **over)
+    out = dict(identity_params_max_abs_diff=worst,
+               identity_loss_rel=loss_rel, split_leaves=len(split),
+               split_values=split_values, whole_values=whole_values,
+               **{k: eager[k] for k in ("step_ms_median", "tokens_per_s",
+                                        "peak_memory_gib", "launches")
+                  if k in eager})
+    if device.type == "cuda":
+        graphed = dispatch_full_width(
+            torch, np, device, eager, exact=True, profile=False,
+            fsdp_group=LocalFsdpGroup(FSDP_SLICES),
+            tag="fsdp4 bf16 2 layers dispatch", **over)
+        out.update(graphed_step_ms_median=graphed["step_ms_median"],
+                   graphed_bitwise=graphed["bitwise"],
+                   graphed_launches=graphed["launches"])
+    return out
+
+
+def sliced_state_on_card(torch, device, dense_tree):
+    """(c) Tensor rank 0's slices of ``--tp 4`` built on the card from the
+    flagship's params (phase 22's final dense tree): the params and
+    Adam's mu and nu, ``torch.cuda.memory_allocated``'s growth against
+    the 0.97 GB worked out from the rules (80,837,632 values x 12 bytes);
+    then every rank's slices joined as a snapshot gathers them, bitwise
+    the dense params."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.registry import (  # noqa: E501
+        build_model,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        optim,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        tensor_parallel as tp_lib,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves, tree_map,
+    )
+
+    model = build_model(config_from_args(build_argparser().parse_args(
+        train_flags(tp=TP_SHARDS, ce_chunk=0))).model, device=device)
+    layouts = [tp_lib.state_layout(model, dense_tree,
+                                   _TensorRank(TP_SHARDS, r))
+               for r in range(TP_SHARDS)]
+    host = [lay.local(dense_tree) for lay in layouts]
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device) if cuda else 0
+    params = tree_map(lambda t: t.to(device), host[0])
+    opt = optim.adam(1e-3, steps=1).init(params)
+    if cuda:
+        torch.cuda.synchronize()
+    grown = (torch.cuda.memory_allocated(device) - before) if cuda else 0
+    values = sum(t.numel() for t in leaves(params))
+    slots = sum(x.numel() for x in leaves(opt) if x.dim())
+    want = TP4_VALUES * 12
+    del params, opt
+    joined = [layouts[0].join_leaf([leaves(h)[j] for h in host], j)
+              for j in range(len(layouts[0].specs))]
+    dense = leaves(dense_tree)
+    bitwise = len(joined) == len(dense) and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(joined, dense))
+    whole = sum(t.numel() for t in dense)
+    print(f"sliced state, tensor rank 0 of --tp 4: {values:,} param values "
+          f"+ {slots:,} in mu and nu (of {whole:,} whole); "
+          f"memory_allocated grew {grown / 1e9:.4f} GB against "
+          f"{want / 1e9:.4f} GB worked out ({whole * 12 / 1e9:.2f} GB "
+          f"whole); the 4 ranks' slices joined: bitwise the dense params "
+          f"{bitwise}", flush=True)
+    if values != TP4_VALUES or slots != 2 * TP4_VALUES or not bitwise or (
+            cuda and not want <= grown < want + 64 * 2 ** 20):
+        raise AssertionError("sliced state: the counts, the memory or the "
+                             "join differ from the rules'")
+    return dict(param_values=values, slot_values=slots, whole_values=whole,
+                memory_grown_bytes=grown, worked_out_bytes=want,
+                gathered_bitwise=bitwise)
+
+
+def _state_bits(torch, trainer):
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    s = trainer.state
+    return [t.detach().cpu() for t in leaves((s.params, s.opt_state))]
+
+
+def sharded_under_tp(torch, device, ck, after_save=None):
+    """(d) ``--update_sharding sharded`` under ``--tp 4`` at 2 layers (one
+    card: one data rank, so the plans split nothing): bitwise to the
+    replicated update over 3 steps.  And a ``qkv_tp`` 2 snapshot (``--sp
+    2 --tp 2`` striped_flash, Adam) resumed under ``--tp 4 --update_sharding
+    sharded``: params and every optimizer slot re-permuted into the dense
+    order, bitwise the saver's state de-permuted.  The snapshot is written
+    first and ``after_save()`` runs then, so what it starts runs beside
+    the rest.  Returns (the result, the saver's
+    params de-permuted on the card: (f)'s reference)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        spmd,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves,
+    )
+
+    over = dict(n_layers=CUT_LAYERS, tp=TP_SHARDS, ce_chunk=0)
+    # lr 1e-5: the params stay near the seeded init, so (f)'s sampled
+    # tokens spread over the vocabulary (at 1e-3 three steps collapse
+    # them onto one frequent byte, whatever the qkv order)
+    saver = _trainer(torch, device, steps=3, checkpoint_dir=ck,
+                     n_layers=CUT_LAYERS, sp=2, tp=2, ce_chunk=0, lr=1e-5,
+                     attention="striped_flash",
+                     seq_group=LocalSeqGroup(2),
+                     tensor_group=LocalTensorGroup(2))
+    saver.save(final=True)
+    if after_save is not None:
+        after_save()
+
+    def dense(tree):     # the qkv columns back in the dense order
+        return (spmd.permute_params(saver.model, tree, 2, inverse=True)
+                if isinstance(tree, dict) else tree)
+
+    opt = saver.state.opt_state
+    ref = dense(saver.state.params)
+    want = [t.detach().cpu() for t in leaves((
+        ref, type(opt)(*map(dense, opt))))]
+    del saver, opt
+    runs = {}
+    for layout in ("replicated", "sharded"):
+        t = _trainer(torch, device, steps=3, update_sharding=layout,
+                     tensor_group=LocalTensorGroup(TP_SHARDS), **over)
+        runs[layout] = (t.losses, _state_bits(torch, t), t.layout_tag)
+        del t
+    bitwise = runs["replicated"][0] == runs["sharded"][0] and _same_bits(
+        torch, runs["replicated"][1], runs["sharded"][1])
+    t = _trainer(torch, device, update_sharding="sharded", resume=True,
+                 checkpoint_dir=ck, tensor_group=LocalTensorGroup(TP_SHARDS),
+                 **over)
+    t.maybe_resume()
+    resumed = _same_bits(torch, _state_bits(torch, t), want)
+    del t
+    print(f"sharded under tp4 (2 layers, 3 steps): {runs['sharded'][2]} "
+          f"bitwise to {runs['replicated'][2]} {bitwise}; a qkv_tp 2 "
+          f"snapshot (sp 2 x tp 2, Adam) resumed under --tp 4 "
+          f"--update_sharding sharded: params and mu, nu re-permuted, "
+          f"bitwise the saver's de-permuted {resumed}", flush=True)
+    if not (bitwise and resumed):
+        raise AssertionError("sharded under tp: not bitwise")
+    return dict(bitwise_to_replicated=bitwise,
+                qkv_tp_resume_bitwise=resumed), ref
+
+
+def replica_check_under_tp(torch, np, device):
+    """(e) The replica check under ``--tp 4`` at 2 layers, two replicas
+    on the card (phase 21's way): the fingerprint kernel over the leaves
+    the layout holds replicated (JAX's ``Fingerprinter``'s), kernel ==
+    plain version bitwise; a bit flipped in a whole leaf of replica 1 is
+    seen, localized and healed; one flipped in a sliced leaf (a qkv
+    weight) leaves the digest as it was, unchecked as in JAX."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        fingerprint as fp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        consistency,
+        faults,
+    )
+
+    t = _trainer(torch, device, steps=1, n_layers=CUT_LAYERS, tp=TP_SHARDS,
+                 ce_chunk=0, tensor_group=LocalTensorGroup(TP_SHARDS))
+    fpr = consistency.Fingerprinter(t.state, skip=t._unreplicated())
+    names = fpr.paths
+    first = fp.fingerprint.launches
+    rep0 = [x.detach() for x in fpr.leaves(t.state)]
+    rep1 = [x.clone() for x in rep0]
+    kernel_ok = torch.equal(fp.fingerprint(rep0)[0].cpu(),
+                            fp.fingerprint_reference(rep0)[0].cpu())
+
+    def chained(tensors):
+        return int(fp.fingerprint(tensors)[0][-1])
+
+    base = chained(rep0)
+    victim = next(i for i, n in enumerate(names) if "['ln1']" in n)
+    faults.flip_bit_in_shard(rep1[victim], 0, 9)
+    mat = np.stack([consistency.leaf_digest_array(rep0),
+                    consistency.leaf_digest_array(rep1)])
+    chains = np.array([[fp.chain(mat[0].tolist()),
+                        fp.chain(mat[1].tolist())]], np.uint32)
+    before = consistency.digest_report(chains)
+    report = consistency.localize(names, mat, lambda j: [rep0[j], rep1[j]],
+                                  ["replica0", "replica1"])
+    consistency.heal_replication(
+        [dict(enumerate(rep0)), dict(enumerate(rep1))],
+        {f"[{victim}]": report[names[victim]]})
+    healed = _same_bits(torch, rep1, rep0) and chained(rep1) == base
+    qkv = t.state.params["blocks"][0]["qkv"]["w"]
+    unchecked = not any("['qkv']['w']" in n for n in names)
+    faults.flip_bit_in_shard(qkv, 0, 9)
+    sliced_silent = chained(fpr.leaves(t.state)) == base
+    faults.flip_bit_in_shard(qkv, 0, 9)
+    launches = fp.fingerprint.launches - first
+    print(f"replica check under tp4 (2 layers): {len(names)} replicated "
+          f"leaves of {len(consistency.replicated_leaves(t.state))} "
+          f"fingerprinted, kernel == plain {kernel_ok}; a flip in "
+          f"{names[victim]}: verdict {before}, localized "
+          f"{list(report)}, healed {healed}; a flip in a qkv weight (sliced, "
+          f"not fingerprinted {unchecked}): digest unchanged {sliced_silent}; "
+          f"fingerprint launches {launches}", flush=True)
+    if not (kernel_ok and before.get("local") == [0]
+            and list(report) == [names[victim]] and healed and unchecked
+            and sliced_silent):
+        raise AssertionError("replica check under tp: a verdict differs")
+    return dict(leaves=len(names), localized=list(report), healed=healed,
+                sliced_leaf_unchecked=sliced_silent, launches=launches)
+
+
+# sampled (the seed's draws): every logit shapes the tokens
+GENERATE_FLAGS = ["--generate", ",".join(map(str, PROMPT)),
+                  "--max_new_tokens", "16", "--temperature", "1.0"]
+
+
+def start_generate_under_tp(ck):
+    """(f) ``--generate`` under ``--tp 4`` through the CLI from (d)'s
+    ``qkv_tp`` 2 snapshot, beside the same command without ``--tp``,
+    sampled at temperature 1 from the seed; the two processes start here
+    and run beside (d) and (e)."""
+    flags = train_flags(checkpoint_dir=ck, n_layers=CUT_LAYERS, ce_chunk=0)
+    return [subprocess.Popen([sys.executable, "-m", PKG, *flags,
+                              *GENERATE_FLAGS,
+                              *extra], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             cwd=str(REPO_ROOT))
+            for extra in ([], ["--tp", str(TP_SHARDS)])]
+
+
+def reference_decode(torch, device, params):
+    """(f)'s reference: the CLI's decode of :data:`GENERATE_FLAGS` run in
+    this process on ``params``, the saver's live params de-permuted, not
+    read back from the snapshot."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
+        build_argparser, config_from_args,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.generate import (  # noqa: E501
+        generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.registry import (  # noqa: E501
+        build_model,
+    )
+
+    args = build_argparser().parse_args(train_flags(
+        n_layers=CUT_LAYERS, ce_chunk=0) + GENERATE_FLAGS)
+    cfg = config_from_args(args)
+    model = build_model(cfg.model, device=device)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    out = generate(model, params, [PROMPT], args.max_new_tokens,
+                   temperature=args.temperature, top_k=args.top_k,
+                   top_p=args.top_p, generator=generator,
+                   prefill_chunk=args.prefill_chunk, device=device)
+    return [int(t) for t in out[0].tolist()]
+
+
+def generate_under_tp(procs, reference):
+    """(f) The two ``--generate`` processes' tokens: the same (both
+    reconcile the snapshot into dense params and decode on one card), and
+    those of ``reference`` (:func:`reference_decode`), so the snapshot's
+    qkv columns were put back in the dense order; at least half of the 16
+    sampled tokens distinct, so a wrong order could not print the same
+    ones."""
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (o, e) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"--generate: rc {p.returncode}\n"
+                                 f"{o[-2000:]}\n{e[-2000:]}")
+    ids = [[int(x) for x in o.strip().splitlines()[-1].split(",")]
+           for o, _ in outs]
+    new = ids[1][len(PROMPT):]
+    distinct = len(set(new))
+    print(f"generate --tp 4 (sampled, 16 tokens from a qkv_tp 2 snapshot): "
+          f"{new}; without --tp {ids[0][len(PROMPT):]}; the saver's live "
+          f"params {reference[len(PROMPT):]}; equal {ids[0] == ids[1]} / "
+          f"{ids[1] == reference}; {distinct} distinct", flush=True)
+    if ids[0] != ids[1] or len(ids[0]) != len(PROMPT) + 16:
+        raise AssertionError("--generate --tp 4 differs from --generate")
+    if ids[1] != reference:
+        raise AssertionError("--generate --tp 4 differs from the decode of "
+                             "the saver's own params")
+    if distinct < 8:
+        raise AssertionError(f"--generate: {distinct} distinct tokens of "
+                             "16, too few to tell the qkv orders apart")
+    return dict(tokens=new, equal=True, equal_to_reference=True,
+                distinct=distinct)
+
+
+def gspmd_memory_half(torch, np, device, tensor, tp_final):
+    """Phase 23: (a)-(f) above; its seconds."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    t0 = time.perf_counter()
+    marks = [t0]
+
+    def mark():
+        marks.append(time.perf_counter())
+
+    out = {"quant_tp": quant_tp_full_width(torch, np, device,
+                                           tensor["dp_tp_losses"])}
+    mark()
+    out["fsdp"] = fsdp_on_card(torch, np, device)
+    mark()
+    out["sliced_state"] = sliced_state_on_card(torch, device, tp_final)
+    mark()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            out["sharded_tp"], ref = sharded_under_tp(
+                torch, device, tmp,
+                after_save=lambda: procs.extend(start_generate_under_tp(
+                    tmp)))
+            reference = reference_decode(torch, device, ref)
+            del ref
+            mark()
+            out["replica_check_tp"] = replica_check_under_tp(torch, np,
+                                                             device)
+            mark()
+            out["generate_tp"] = generate_under_tp(procs, reference)
+            mark()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    # (f)'s processes run beside (d) and (e): its seconds are its wait
+    out["seconds_by_part"] = dict(zip("abcdef", np.diff(marks).round(1)
+                                      .tolist()))
+    # B1-B3 of the main path's runs: (a) eager and graphed, (b)
+    launches = {w: 0 for w in fa.COUNTERS}
+    for run in (out["quant_tp"]["int8"], out["quant_tp"]["fp8"],
+                out["fsdp"]):
+        for key in ("launches", "graphed_launches"):
+            for w in fa.COUNTERS:
+                launches[w] += run.get(key, {}).get(w, 0)
+    out["flash_launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 23: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -5592,8 +6162,15 @@ def main() -> int:
 
     phase("22 tensor parallelism: Megatron f/g and the vocab-parallel CE, DP "
           "x TP, DP x SP x TP, ulysses and dense_blockwise")
-    tensor = tensor_parallel_full_width(torch, np, device)
+    tensor, tp_final = tensor_parallel_full_width(torch, np, device)
     print("tensor_parallel: " + json.dumps(tensor), flush=True)
+
+    phase("23 the GSPMD layout's memory half: int8/fp8 under TP, --fsdp, "
+          "the sliced state, sharded under TP, the replica check under "
+          "TP, --generate --tp")
+    gspmd_mem = gspmd_memory_half(torch, np, device, tensor, tp_final)
+    del tp_final
+    print("gspmd_memory_half: " + json.dumps(gspmd_mem), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -5634,9 +6211,12 @@ def main() -> int:
                                       + obs_launches[which]
                                       + sdc["elastic"]["flash_launches"][
                                           which]
-                                      + tp_launches[which]),
+                                      + tp_launches[which]
+                                      + gspmd_mem["flash_launches"][which]),
                             launches_phase7=trained["launches"][which],
                             launches_phase22=tp_launches[which],
+                            launches_phase23=gspmd_mem["flash_launches"][
+                                which],
                             launches_phase20=obs_launches[which],
                             launches_phase21=sdc["elastic"][
                                 "flash_launches"][which],
@@ -5686,6 +6266,8 @@ def main() -> int:
         takes="any number of leaves in one launch: f32, bf16, f16, int32, "
               "int8, uint8/bool, int64",
         launches=sdc["elastic"]["fp_launches"],
+        # phase 23 (e)'s digests of two replicas: checks, not the path
+        launches_phase23_checks=gspmd_mem["replica_check_tp"]["launches"],
         **{k: fp_timing[k] for k in (
             "max_abs_err", "digest_mismatches", "digest_max_abs_err",
             "fold_max_abs_err", "fold_rel_err", "ms", "plain_ms",

@@ -71,12 +71,9 @@ def _generate(args) -> int:
     from .utils import prng
 
     cfg = config_from_args(args)
-    if cfg.mesh.tensor > 1:
-        from .train.trainer import QUEUE_A4
-
-        # the JAX package's models/generate_tp.py
-        raise NotImplementedError(f"--generate under --tp (tensor-parallel "
-                                  f"decode) is {QUEUE_A4}")
+    # as the JAX CLI: the mesh flags (--tp, --fsdp, ...) do not apply, a
+    # snapshot of any layout is reconciled into dense params below and
+    # decoded on one device
     if cfg.model.arch != "transformer":
         log("ERROR: --generate needs a transformer model (--dataset lm "
             "or --arch transformer)")
@@ -219,7 +216,8 @@ def _supervise(args, argv) -> int:
                      postmortem_path=postmortem, alerts_path=alerts,
                      ckpt_dir=args.checkpoint_dir, elastic=args.elastic,
                      min_devices=args.min_devices, probe=probe,
-                     events_path=events, forward_preempt=True)
+                     events_path=events, forward_preempt=True,
+                     model_ranks=args.sp * args.tp * args.fsdp)
 
 
 def main(argv=None) -> int:

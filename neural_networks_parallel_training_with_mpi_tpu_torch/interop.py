@@ -17,6 +17,9 @@ it host arrays (``jax.device_get(tree)``).
   the same name, ``TrainState.step`` as a host int and the optimizer
   counts as 0-d int32 tensors (the port's optimizers count on the
   device);
+* ``rank_state_from_jax``  JAX's global params -> one rank's train
+  state: its tensor / fsdp slices under a sliced layout (``--tp`` /
+  ``--fsdp`` over process groups), the optimizer initialised on them;
 * ``tree_to_numpy``    the way back: numpy leaves under the same names
   (NamedTuples as dicts of their fields), ready for
   ``jax.tree_util``-level comparison or for rebuilding the JAX state.
@@ -148,3 +151,16 @@ def tree_to_numpy(tree: Any) -> Any:
     if isinstance(tree, int):
         return np.asarray(tree, np.int32)
     return tree
+
+
+def rank_state_from_jax(trainer, params: Any, device: DeviceLike = None):
+    """JAX's global params (a host tree of numpy arrays, in the layout's
+    qkv order) -> ``trainer``'s fresh train state on this rank and its
+    sharded-update layout (``Trainer.state_from_params``): under a sliced
+    layout only this rank's tensor / fsdp slices of each leaf, the
+    optimizer initialised on them."""
+    cfg = getattr(trainer.model, "cfg", None)
+    device = device or trainer.device
+    full = (params_from_jax(params, cfg, device) if cfg is not None
+            else tree_from_jax(params, device))
+    return trainer.state_from_params(full)

@@ -88,16 +88,24 @@ def leaf_norms(xs: List[torch.Tensor]) -> List[torch.Tensor]:
     return list(torch._foreach_norm(xs))
 
 
-def global_norm(grads: Tree) -> torch.Tensor:
+def combine_norms(norms: List[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm from per-leaf norms, as an f32 scalar.  A
+    sliced state's ``parallel.tensor_parallel.StateLayout.combine`` takes
+    its place where each rank holds only slices."""
+    return torch.linalg.vector_norm(torch.stack(list(norms))).float()
+
+
+def global_norm(grads: Tree, combine: Callable = combine_norms
+                ) -> torch.Tensor:
     """L2 norm over every leaf, as an f32 device scalar."""
-    norms = leaf_norms([g.float() for g in leaves(grads)])
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    return combine(leaf_norms([g.float() for g in leaves(grads)]))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tree:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        combine: Callable = combine_norms) -> Tree:
     """Scale the whole tree so its global L2 norm is <= ``max_norm``; the
     scale stays on the device (no sync)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, combine)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads)
 
@@ -312,15 +320,16 @@ def adamw(lr: LR, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return adam(lr, b1, b2, eps, weight_decay, decoupled=True, steps=steps)
 
 
-def with_clipping(opt: Optimizer, max_norm: float) -> Optimizer:
+def with_clipping(opt: Optimizer, max_norm: float,
+                  combine: Callable = combine_norms) -> Optimizer:
     """Clip the (already all-reduced) gradients by their global L2 norm
-    before the wrapped update."""
+    (per-leaf norms joined by ``combine``) before the wrapped update."""
     if max_norm <= 0:
         return opt
 
     def update(grads, state, params, ok=None, deltas=None):
-        return opt.update(clip_by_global_norm(grads, max_norm), state, params,
-                          ok, deltas)
+        return opt.update(clip_by_global_norm(grads, max_norm, combine),
+                          state, params, ok, deltas)
 
     return Optimizer(opt.init, update, f"clip({max_norm}):{opt.name}")
 
@@ -419,9 +428,10 @@ def with_master_weights(opt: Optimizer) -> Optimizer:
 
 def make(name: str, lr: LR, momentum: float = 0.0,
          weight_decay: float = 0.0, grad_clip: float = 0.0, *,
-         steps: int) -> Optimizer:
+         steps: int, combine: Callable = combine_norms) -> Optimizer:
     """Build from config strings (``TrainConfig.optimizer``); ``steps``:
-    the counts the run can reach (its total steps)."""
+    the counts the run can reach (its total steps); ``combine`` joins the
+    clip's per-leaf norms."""
     if name == "sgd":
         opt = sgd(lr, momentum, weight_decay, steps=steps)
     elif name == "adam":
@@ -432,4 +442,4 @@ def make(name: str, lr: LR, momentum: float = 0.0,
         raise NotImplementedError(f"--optimizer {name} is not ported yet")
     else:
         raise ValueError(f"unknown optimizer {name!r}")
-    return with_clipping(opt, grad_clip)
+    return with_clipping(opt, grad_clip, combine)

@@ -54,7 +54,7 @@ products stay in the compute dtype (the flash kernels).
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -243,46 +243,162 @@ def _sum_f32(parts: list, dtype: torch.dtype) -> torch.Tensor:
     return total.to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# the spans of the scales
+# ---------------------------------------------------------------------------
+#
+# The JAX package's GSPMD step quantizes global-view tensors.  Where a
+# tensor group splits a dim a scale is taken over, the port takes that
+# amax as the max over the group (``group.max``: over the shards held
+# here, then over the ranks of a process group), so every shard
+# quantizes with the scale the whole tensor would get and the codes are
+# JAX's.  A column-parallel product (x whole, w split on its output
+# columns) needs it in the backward: dy's rows and w's rows span the
+# split output.  A row-parallel product (x split on its columns, w on its
+# rows) needs it in the forward: x's rows and w's columns span the split
+# contraction.  fp8's per-tensor weight amax of a split operand is the
+# group's max too.  The partial products are summed by the caller
+# (``g``) or, for a column-parallel dx, here and by ``f``'s backward.
+# The ranks that hold other rows of the global batch (data x fsdp;
+# ``parallel.distributed.BatchGroup``) do the same for dw's column
+# scales, which span every row, and fp8's gradient amax.  A dense
+# product (:func:`qdot`) spans only its own operands.
+
+def _own(amaxes: list) -> list:
+    return amaxes
+
+
+def _over(group) -> Callable[[list], list]:
+    """Each amax of the shards held here replaced by their max over
+    ``group``."""
+    def reduce(amaxes):
+        m = group.max(amaxes)
+        return [m] * len(amaxes)
+    return reduce
+
+
+def _each_over(group) -> Callable[[list], list]:
+    """Each amax maxed over ``group`` on its own (one collective per
+    distinct amax)."""
+    def reduce(amaxes):
+        done = {}
+        for a in amaxes:
+            if id(a) not in done:
+                done[id(a)] = group.max([a])
+        return [done[id(a)] for a in amaxes]
+    return reduce
+
+
+class _Span(NamedTuple):
+    """The reductions of a product's amaxes: ``k`` of those taken over a
+    split contraction, ``n`` over a split output, ``rows`` over the
+    batch's rows.  Each maps the per-operand amaxes to the scales'."""
+    k: Callable[[list], list] = _own
+    n: Callable[[list], list] = _own
+    rows: Callable[[list], list] = _own
+
+
+_DENSE = _Span()
+
+
+def _split_span(group, batch, split: str) -> _Span:
+    """The span of a ``"col"``- or ``"row"``-parallel product over
+    ``group``, its rows over ``batch`` (None: the rows held here are the
+    batch)."""
+    over = _over(group)
+    return _Span(k=over if split == "row" else _own,
+                 n=over if split == "col" else _own,
+                 rows=_own if batch is None else _each_over(batch))
+
+
+def _amaxes(ts, axis: Optional[int]) -> list:
+    """Each tensor's f32 amax over ``axis`` (None: per tensor)."""
+    return [t.detach().abs().amax().float() if axis is None
+            else t.detach().abs().amax(dim=axis).float() for t in ts]
+
+
+def _q8(x: torch.Tensor, amax: torch.Tensor, axis: int
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops.quant.quantize_array`` with the amax given: int8 codes over
+    ``axis`` and the f32 scale, ``axis`` kept at 1."""
+    amax = amax.float()
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax)).unsqueeze(axis)
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _pairs(n: int, ws) -> range:
+    """The products of ``n`` xs and ``ws``: x ``i % n`` times w ``i``
+    (``n`` 1: one x times every w, a column-parallel product's shards;
+    else pairwise)."""
+    if n not in (1, len(ws)):
+        raise ValueError(f"{n} xs do not pair with {len(ws)} ws")
+    return range(len(ws))
+
+
 class _QDotInt8(torch.autograd.Function):
-    """``x @ w`` in int8 both ways; f32 out, gradients in the inputs'
-    dtypes.  Saves the full-precision operands: the backward's
-    contractions need scales over other axes than the forward's.
+    """``x @ w`` in int8 both ways for each pair of ``xws`` (its first
+    ``n`` are the xs, the rest the ws; see :func:`_pairs`); f32 outs,
+    gradients in the inputs' dtypes.  Saves the full-precision operands:
+    the backward's contractions need scales over other axes than the
+    forward's.  ``span``: the reductions of the amaxes (:class:`_Span`).
     ``shards`` > 1: the rows are that many sequence shards held in one
     process, and dw is computed as that many ranks would compute it
     (column scales over each shard's rows, the parts summed in f32); the
     forward and dx have per-row scales, the same either way."""
 
     @staticmethod
-    def forward(ctx, x, w, shards=1):
-        qx, sx = _q8_rowwise(x.reshape(-1, x.shape[-1]))
-        qw, sw = _q8_colwise(w)
-        ctx.save_for_backward(x, w)
-        ctx.shards = shards
-        y = _dot_int8(qx, qw) * sx * sw
-        return y.reshape(*x.shape[:-1], w.shape[1])
+    def forward(ctx, span, shards, n, *xws):
+        xs, ws = xws[:n], xws[n:]
+        x2s = [x.reshape(-1, x.shape[-1]) for x in xs]
+        qxs = [_q8(x, a, -1) for x, a in zip(x2s, span.k(_amaxes(x2s, -1)))]
+        qws = [_q8(w, a, 0) for w, a in zip(ws, span.k(_amaxes(ws, 0)))]
+        ctx.span, ctx.shards, ctx.n = span, shards, n
+        ctx.save_for_backward(*xws)
+        outs = []
+        for i in _pairs(n, ws):
+            (qx, sx), (qw, sw) = qxs[i % n], qws[i]
+            outs.append((_dot_int8(qx, qw) * sx * sw).reshape(
+                *xs[i % n].shape[:-1], ws[i].shape[1]))
+        return tuple(outs)
 
     @staticmethod
-    def backward(ctx, dy):
-        x, w = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
+    def backward(ctx, *dys):
+        span, n = ctx.span, ctx.n
+        saved = ctx.saved_tensors
+        xs, ws = saved[:n], saved[n:]
+        need = ctx.needs_input_grad[3:]
+        dxs, dws = [None] * n, [None] * len(ws)
+        if any(need[:n]):
             # dx = dy @ w.T, contracting over out: dy per row, w per
             # in-row (w's rows span out, so the row quantizer gives the
             # (in, 1) scales this contraction needs)
-            qdy, sdy = _q8_rowwise(dy.reshape(-1, dy.shape[-1]))
-            qw, sw = _q8_rowwise(w)
-            dx = (_dot_int8(qdy, qw.t()) * sdy * sw.reshape(1, -1)
-                  ).reshape(x.shape).to(x.dtype)
-        if ctx.needs_input_grad[1]:
+            dy2s = [d.reshape(-1, d.shape[-1]) for d in dys]
+            a_dy, a_w = span.n(_amaxes(dy2s, -1)), span.n(_amaxes(ws, -1))
+            for i in _pairs(n, ws):
+                qdy, sdy = _q8(dy2s[i], a_dy[i], -1)
+                qw, sw = _q8(ws[i], a_w[i], -1)
+                part = _dot_int8(qdy, qw.t()) * sdy * sw.reshape(1, -1)
+                j = i % n
+                dxs[j] = part if dxs[j] is None else dxs[j] + part
+            dxs = [d.reshape(x.shape).to(x.dtype) for d, x in zip(dxs, xs)]
+        if any(need[n:]):
             # dw = x.T @ dy, contracting over rows: both per column
-            parts = []
-            for xs, dys in zip(_shard_rows(x, ctx.shards),
-                               _shard_rows(dy, ctx.shards)):
-                qx, sx = _q8_colwise(xs)          # scales (1, in)
-                qdy, sdy = _q8_colwise(dys)       # scales (1, out)
-                parts.append(_dot_int8(qx.t(), qdy) * sx.t() * sdy)
-            dw = _sum_f32(parts, w.dtype)
-        return dx, dw, None
+            def cols(t):
+                rows = _shard_rows(t, ctx.shards)
+                return [_q8(r, a, 0)
+                        for r, a in zip(rows, span.rows(_amaxes(rows, 0)))]
+
+            qxcs = [cols(x) for x in xs]
+            for i in _pairs(n, ws):
+                parts = [_dot_int8(qx.t(), qd) * sx.t() * sd
+                         for (qx, sx), (qd, sd) in zip(qxcs[i % n],
+                                                       cols(dys[i]))]
+                dws[i] = _sum_f32(parts, ws[i].dtype)
+        return (None, None, None, *dxs, *dws)
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -309,48 +425,68 @@ def _cast_fp8(x: torch.Tensor, amax: torch.Tensor, fmt_max: float,
 
 
 class _QDotFp8(torch.autograd.Function):
-    """``x @ w`` with e4m3 operands (the activation's scale from the
-    delayed ``a_amax``, the weight's from its own amax) and an e5m2
-    gradient; f32 out, gradients in the inputs' dtypes, none for
-    ``a_amax``.  Saves the fp8 codes: the backward contracts against
-    exactly what the forward multiplied, at a quarter of f32's bytes.
-    ``shards`` > 1: the gradient's e5m2 scale comes from each sequence
-    shard's own amax, as that many ranks would take it, and dw is the
-    f32 sum of the shards' parts."""
+    """``x @ w`` with e4m3 operands for each pair of ``xws`` (as
+    :class:`_QDotInt8`; the activations' scale from ``a_amax``, the
+    delayed amax or the caller's current one, each weight's from its own
+    amax) and an e5m2 gradient; f32 outs, gradients in the inputs'
+    dtypes, none for ``a_amax``.  Saves the fp8 codes: the backward
+    contracts against exactly what the forward multiplied, at a quarter
+    of f32's bytes.  ``shards`` > 1: the gradient's e5m2 scale comes from
+    each sequence shard's own amax, as that many ranks would take it,
+    and dw is the f32 sum of the shards' parts."""
 
     @staticmethod
-    def forward(ctx, x, w, a_amax, shards=1):
-        qx, sx = _cast_fp8(x.reshape(-1, x.shape[-1]), a_amax, E4M3_MAX,
-                           torch.float8_e4m3fn)
-        qw, sw = _cast_fp8(w, tensor_amax(w), E4M3_MAX, torch.float8_e4m3fn)
-        ctx.save_for_backward(qx, sx, qw, sw)
-        ctx.dtypes = (x.dtype, w.dtype)
-        ctx.x_shape = x.shape
-        ctx.shards = shards
-        y = _dot_fp8(qx, qw, sx, sw)
-        return y.reshape(*x.shape[:-1], w.shape[1])
+    def forward(ctx, span, shards, n, a_amax, *xws):
+        xs, ws = xws[:n], xws[n:]
+        qxs = [_cast_fp8(x.reshape(-1, x.shape[-1]), a_amax, E4M3_MAX,
+                         torch.float8_e4m3fn) for x in xs]
+        # a split weight's per-tensor amax spans all of it
+        qws = [_cast_fp8(w, a, E4M3_MAX, torch.float8_e4m3fn)
+               for w, a in zip(ws, span.k(span.n(_amaxes(ws, None))))]
+        ctx.save_for_backward(*[t for q in qxs + qws for t in q])
+        ctx.span, ctx.shards, ctx.n = span, shards, n
+        ctx.x_shapes = [x.shape for x in xs]
+        ctx.dtypes = [t.dtype for t in xws]
+        return tuple(_dot_fp8(qxs[i % n][0], qws[i][0], qxs[i % n][1],
+                              qws[i][1]).reshape(*xs[i % n].shape[:-1],
+                                                 ws[i].shape[1])
+                     for i in _pairs(n, ws))
 
     @staticmethod
-    def backward(ctx, dy):
-        qx, sx, qw, sw = ctx.saved_tensors
-        shape = ctx.x_shape
-        dxs, dws = [], []
-        for qxs, dys in zip(
-                _shard_rows(qx.view(torch.uint8).reshape(*shape[:-1], -1),
-                            ctx.shards),
-                _shard_rows(dy, ctx.shards)):
-            qxs = qxs.view(qx.dtype)
-            qdy, sdy = _cast_fp8(dys, tensor_amax(dys), E5M2_MAX,
-                                 torch.float8_e5m2)
-            if ctx.needs_input_grad[0]:
-                dxs.append(_dot_fp8(qdy, qw.t(), sdy, sw))
-            if ctx.needs_input_grad[1]:
-                dws.append(_dot_fp8(qxs.t(), qdy, sx, sdy))
-        dx = (_join_rows(dxs, shape).to(ctx.dtypes[0])
-              if ctx.needs_input_grad[0] else None)
-        dw = _sum_f32(dws, ctx.dtypes[1]) if ctx.needs_input_grad[1] \
-            else None
-        return dx, dw, None, None
+    def backward(ctx, *dys):
+        span, n, shards = ctx.span, ctx.n, ctx.shards
+        saved = ctx.saved_tensors
+        qxs = [saved[2 * i:2 * i + 2] for i in range(n)]
+        qws = [saved[2 * (n + i):2 * (n + i) + 2] for i in range(len(dys))]
+        need = ctx.needs_input_grad[4:]
+        # each rank's rows of every dy; the e5m2 amax of each spans what
+        # the layout splits of dy and the batch's rows
+        blocks = [_shard_rows(dy, shards) for dy in dys]
+        qdys = [[] for _ in dys]
+        for s in range(shards):
+            part = [b[s] for b in blocks]
+            for i, (d, a) in enumerate(zip(part, span.rows(span.n(
+                    _amaxes(part, None))))):
+                qdys[i].append(_cast_fp8(d, a, E5M2_MAX, torch.float8_e5m2))
+        dxs, dws = [None] * n, [None] * len(dys)
+        if any(need[:n]):
+            for i in _pairs(n, qws):
+                qw, sw = qws[i]
+                j = i % n
+                d = _join_rows([_dot_fp8(qdy, qw.t(), sdy, sw)
+                                for qdy, sdy in qdys[i]], ctx.x_shapes[j])
+                dxs[j] = d if dxs[j] is None else dxs[j] + d
+            dxs = [d.to(dt) for d, dt in zip(dxs, ctx.dtypes)]
+        if any(need[n:]):
+            for i in _pairs(n, qws):
+                qx, sx = qxs[i % n]
+                rows = _shard_rows(qx.view(torch.uint8).reshape(
+                    *ctx.x_shapes[i % n][:-1], -1), shards)
+                dws[i] = _sum_f32([_dot_fp8(r.view(qx.dtype).t(), qdy, sx,
+                                            sdy)
+                                   for r, (qdy, sdy) in zip(rows, qdys[i])],
+                                  ctx.dtypes[n + i])
+        return (None, None, None, None, *dxs, *dws)
 
 
 # ---------------------------------------------------------------------------
@@ -374,14 +510,46 @@ def qdot(x: torch.Tensor, w: torch.Tensor, *, fmt: str,
     backward then quantizes each shard's rows as its own rank would (the
     JAX package's seq shards, the port's ``ProcessSeqGroup`` ranks)."""
     if fmt == "int8":
-        return _QDotInt8.apply(x, w, shards)
+        return _QDotInt8.apply(_DENSE, shards, 1, x, w)[0]
     if fmt == "fp8":
         a = scales if scales is not None else tensor_amax(x)
-        return _QDotFp8.apply(x, w, a, shards)
+        return _QDotFp8.apply(_DENSE, shards, 1, a, x, w)[0]
     if fmt == "bf16":
         raise ValueError("qdot is the quantized seam; bf16 is the plain "
                          "torch.matmul path (models.core.Linear)")
     raise ValueError(f"unknown qdot format {fmt!r}; have {FORMATS}")
+
+
+def qdot_col(x: torch.Tensor, ws, *, fmt: str, group,
+             scales: Optional[torch.Tensor] = None, batch=None):
+    """A column-parallel ``x @ w`` for each shard's ``w`` of ``ws`` (the
+    shards ``group`` holds here; ``x`` whole): a list of f32 outputs.
+    The backward's dx is the sum of the shards' parts (``f``'s backward
+    then sums the ranks').  ``scales`` as :func:`qdot`; ``batch`` the
+    batch ranks' group (see above)."""
+    span = _split_span(group, batch, "col")
+    if fmt == "int8":
+        return list(_QDotInt8.apply(span, 1, 1, x, *ws))
+    if fmt == "fp8":
+        a = scales if scales is not None else span.rows([tensor_amax(x)])[0]
+        return list(_QDotFp8.apply(span, 1, 1, a, x, *ws))
+    raise ValueError(f"unknown qdot format {fmt!r}; have {FORMATS[1:]}")
+
+
+def qdot_row(xs, ws, *, fmt: str, group,
+             scales: Optional[torch.Tensor] = None, batch=None):
+    """A row-parallel ``x @ w`` per shard (``x`` and ``w`` split on the
+    contraction): the list of f32 partial products, for ``g`` to sum.
+    fp8's current scaling (``scales`` None) takes the group's amax of the
+    ``xs``."""
+    span, n = _split_span(group, batch, "row"), len(xs)
+    if fmt == "int8":
+        return list(_QDotInt8.apply(span, 1, n, *xs, *ws))
+    if fmt == "fp8":
+        a = (scales if scales is not None
+             else span.rows(span.k(_amaxes(xs, None)))[0])
+        return list(_QDotFp8.apply(span, 1, n, a, *xs, *ws))
+    raise ValueError(f"unknown qdot format {fmt!r}; have {FORMATS[1:]}")
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,17 @@ rank holds loss terms over its sequence columns, so the one all-reduce
 over the whole world is the JAX step's psum over ``data`` and ``seq``
 (``reduce_axes``); the Trainer runs that path with ``global_mean``.
 
+Under tensor parallelism and fsdp (``parallel.gspmd``, ``parallel.spmd``:
+the model is a ``tensor_parallel.TensorParallelModel`` whose
+``StateLayout`` says which slices this rank holds) the all-reduce runs
+over ``World.replica_pg``, the ranks holding the same slices (every rank
+but the tensor and fsdp ones: a whole leaf's gradient, equal on each
+tensor rank, is counted once), after an fsdp stage: an fsdp-split leaf's
+gradient came back reduce-scattered from its gather, and the leaves fsdp
+keeps whole, the loss sum and the count are summed over the fsdp group
+first.  The norms (guard, telemetry) come from the layout's ``combine``:
+JAX's global-view norms over the slices.
+
 Two gradient semantics (``TrainConfig.grad_reduction``):
 
 * ``global_mean``: gradient of the global-batch mean loss, sum(grad sums)
@@ -79,7 +90,7 @@ import torch.distributed as dist
 from ..ops import flash_attention as fa
 from ..ops import losses as losses_lib
 from ..ops import qmm
-from ..ops.optim import Optimizer, global_norm
+from ..ops.optim import Optimizer, combine_norms, global_norm
 from ..train import telemetry
 from ..train import trace as trace_lib
 from ..train.state import TrainState
@@ -203,6 +214,29 @@ def _roll_qstate(state: TrainState, obs: Dict[str, torch.Tensor],
             torch.where(ok, n, h, out=h)
 
 
+def _all_reduce(vals: List[torch.Tensor], group) -> List[torch.Tensor]:
+    """``vals`` summed over ``group`` in one flat f32 ``all_reduce``."""
+    flat = torch.cat([v.reshape(-1).float() for v in vals])
+    dist.all_reduce(flat, group=group)
+    return [part.view(v.shape) for part, v in zip(
+        torch.split(flat, [v.numel() for v in vals]), vals)]
+
+
+def _fsdp_reduce(layout, grads: List[torch.Tensor], s: torch.Tensor,
+                 c: torch.Tensor):
+    """The fsdp stage of the gradient reduction: the gradients of the
+    leaves fsdp keeps whole, and the loss sum and count, summed over the
+    fsdp group (an fsdp-split leaf's gradient came back reduce-scattered
+    from its gather); ``grads`` is updated in place.  Returns (s, c)."""
+    whole = [i for i, st in enumerate(layout.stored) if st.fsdp is None]
+    vals = _all_reduce([grads[i] for i in whole] + [s.reshape(1),
+                                                     c.reshape(1)],
+                       layout.fsdp_pg)
+    for i, v in zip(whole, vals):
+        grads[i] = v
+    return vals[-2][0], vals[-1][0]
+
+
 def zero1_opt_state(optimizer: Optimizer, params: Any, world: World):
     """(this rank's opt state, its ``update_sharding.ShardedLayout``) for
     ``update_sharding='zero1'``: the optimizer initialised on one flat f32
@@ -287,20 +321,17 @@ def make_train_step(model, optimizer: Optimizer, world: World,
     guarded = optimizer.update_with_norm is not None
     loss_fn = (make_qloss_fn(model, loss_name) if fp8
                else _lifted(make_loss_fn(model, loss_name)))
-    # a tensor-parallel model over a process group: the leaves, loss sum
-    # and count this rank adds to the world's all-reduce
-    contributes = getattr(model, "contributes", None)
-
     def step(state: TrainState, batch: Batch):
         # fp8: each role's delayed amax, read before anything updates
         qamax = qmm.delayed_amax(state.qstate) if fp8 else None
         s, c, grads, obs = _accumulated_sum_and_grads(
             loss_fn, state.params, batch, accum_steps, qamax)
-        keep = None if contributes is None else contributes(state.params)
-        if keep is not None:
-            grads = [g if k else torch.zeros_like(g)
-                     for g, k in zip(grads, keep)]
-            s, c = torch.zeros_like(s), torch.zeros_like(c)
+        # a tensor-parallel / fsdp model's state layout (built by its
+        # first forward): the global-view norms, and the fsdp stage
+        layout = getattr(model, "layout", None)
+        combine = layout.combine if layout is not None else combine_norms
+        if layout is not None and layout.fsdp_pg is not None:
+            s, c = _fsdp_reduce(layout, grads, s, c)
         if fp8:
             obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":
@@ -310,14 +341,17 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         elif update_sharding == "sharded":
             opt_state, loss, ok, norms = us.sharded_update(
                 optimizer, state.params, state.opt_state, s, c, grads,
-                world, grad_clip, with_metrics=with_metrics)
+                world, grad_clip, with_metrics=with_metrics,
+                plans=None if layout is None else layout.update_plans(
+                    world.dp), layout=layout)
         if update_sharding != "replicated":
             state = state._replace(step=state.step + 1, opt_state=opt_state)
             if fp8:
                 _roll_qstate(state, obs, ok)
             if with_metrics:
                 return state, telemetry.metrics_vector(
-                    loss, norms[0], state.params, norms[1], opt_state)
+                    loss, norms[0], state.params, norms[1], opt_state,
+                    combine)
             return state, loss
         if grad_reduction == "per_shard_mean":
             denom = torch.clamp(c, min=1.0)
@@ -325,10 +359,7 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         else:
             vals = list(grads) + [s.reshape(1), c.reshape(1)]
         if world.initialized:
-            flat = torch.cat([v.reshape(-1).float() for v in vals])
-            dist.all_reduce(flat)
-            vals = [part.view(v.shape) for part, v in zip(
-                torch.split(flat, [v.numel() for v in vals]), vals)]
+            vals = _all_reduce(vals, world.replica_pg)
         if grad_reduction == "per_shard_mean":
             n = world.world_size if world.initialized else 1
             grads = [g / n for g in vals[:-1]]
@@ -343,11 +374,11 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         if with_metrics:    # the guard takes the metrics' grad norm
             params, opt_state, metrics, ok = telemetry.update_with_metrics(
                 optimizer, unflatten(state.params, grads), state.opt_state,
-                state.params, loss)
+                state.params, loss, combine)
         elif guarded:   # the reduced gradient's norm, before any clipping
             params, opt_state, ok = optimizer.update_with_norm(
                 unflatten(state.params, grads), state.opt_state,
-                state.params, global_norm(grads))
+                state.params, global_norm(grads, combine))
         else:
             params, opt_state = optimizer.update(
                 unflatten(state.params, grads), state.opt_state,
@@ -493,10 +524,8 @@ def make_eval_step(model, world: World, loss_name: str = "mse",
     """(params, batch) -> {"loss", "count"[, "accuracy", "example_count"]}
     as global means over all ranks (device scalars)."""
     base = losses_lib.get(loss_name)
-    # a tensor-parallel model: its own sums under --vocab_parallel, and
-    # every sum counted once per tensor group
+    # a tensor-parallel model: its own sums under --vocab_parallel
     eval_sums = getattr(model, "eval_sums", None)
-    contributes = getattr(model, "contributes", None)
 
     @torch.no_grad()
     def eval_step(params, batch):
@@ -509,10 +538,8 @@ def make_eval_step(model, world: World, loss_name: str = "mse",
                 vals += list(losses_lib.accuracy(pred, batch["y"],
                                                  batch.get("mask")))
         sums = torch.stack([v.float() for v in vals])
-        if contributes is not None and contributes(params) is not None:
-            sums = torch.zeros_like(sums)
-        if world.initialized:
-            dist.all_reduce(sums)
+        # every batch rank once: each tensor rank holds the same sums
+        world.batch_all_reduce(sums)
         out = {"loss": sums[0] / sums[1], "count": sums[1]}
         if with_accuracy:
             out["accuracy"] = sums[2] / sums[3]

@@ -7,14 +7,20 @@ with ``torchrun``, whose ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (and
 ``MASTER_ADDR``/``MASTER_PORT``) environment it reads.  Nothing of a
 cluster is discovered otherwise: with no launcher the world is one process.
 
-Under sequence and tensor parallelism (``sp > 1``, ``tp > 1``) the world
-is a ``data x seq x tensor`` grid: rank = (data_index * sp + seq_index) *
-tp + tensor_index (``tensor`` minor to ``seq``, ``seq`` to ``data``, as in
-the JAX package's ``parallel/mesh.py`` ``AXIS_ORDER``, so a tensor group
-sits on adjacent ranks, on one node's NVLink), with one process group per
-(data, tensor) index over its ``sp`` sequence ranks, one per (seq,
-tensor) index over its ``dp`` data ranks (the sharded weight update's
-collectives), and one per (data, seq) index over its ``tp`` tensor ranks.
+Under fsdp, sequence and tensor parallelism (``fsdp > 1``, ``sp > 1``,
+``tp > 1``) the world is a ``data x fsdp x seq x tensor`` grid: rank =
+((data_index * fsdp + fsdp_index) * sp + seq_index) * tp + tensor_index
+(``tensor`` minor, then ``seq``, ``fsdp``, ``data``, as in the JAX
+package's ``parallel/mesh.py`` ``AXIS_ORDER``, so a tensor group sits on
+adjacent ranks, on one node's NVLink).  Its process groups run along one
+axis each through every grid point: ``seq_pg`` over the ``sp`` sequence
+ranks, ``data_pg`` over the ``dp`` data ranks (the sharded weight
+update's collectives), ``fsdp_pg`` over the ``fsdp`` ranks (the gathers
+of ``parallel.fsdp``) and ``tensor_pg`` over the ``tp`` tensor ranks;
+``replica_pg`` runs over the data x seq ranks of one (fsdp, tensor) index,
+the ranks that hold the same slices of the state, over which a gradient
+is all-reduced.  The batch is split over data x fsdp (the JAX package's
+``DATA_AXES``).
 
 Fail-fast world formation (the JAX package's ``parallel/mesh.py``): before
 ``init_process_group`` a multi-process world meets in a bounded
@@ -240,19 +246,29 @@ class World:
     sp: int = 1
     # this rank's sequence process group (sp > 1 only)
     seq_pg: Optional[Any] = None
-    # this rank's data process group (sp or tp > 1; None: the whole world)
+    # this rank's data process group (a model axis > 1; None: the world)
     data_pg: Optional[Any] = None
     tp: int = 1
     # this rank's tensor process group (tp > 1 only)
     tensor_pg: Optional[Any] = None
+    fsdp: int = 1
+    # this rank's fsdp process group (fsdp > 1 only)
+    fsdp_pg: Optional[Any] = None
+    # the data x seq ranks of this rank's (fsdp, tensor) index (tp or
+    # fsdp > 1; None: the whole world)
+    replica_pg: Optional[Any] = None
 
     @property
     def dp(self) -> int:
-        return self.world_size // (self.sp * self.tp)
+        return self.world_size // (self.fsdp * self.sp * self.tp)
 
     @property
     def data_rank(self) -> int:
-        return self.rank // (self.sp * self.tp)
+        return self.rank // (self.fsdp * self.sp * self.tp)
+
+    @property
+    def fsdp_rank(self) -> int:
+        return (self.rank // (self.sp * self.tp)) % self.fsdp
 
     @property
     def seq_rank(self) -> int:
@@ -263,17 +279,56 @@ class World:
         return self.rank % self.tp
 
     @property
+    def batch_shards(self) -> int:
+        """The batch's row shards: data x fsdp."""
+        return self.dp * self.fsdp
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's row shard of the batch (data major)."""
+        return self.data_rank * self.fsdp + self.fsdp_rank
+
+    @property
     def initialized(self) -> bool:
         """True when a process group carries the collectives (the
         gradient all-reduce runs then, even in a world of one)."""
         return dist.is_available() and dist.is_initialized()
 
+    def batch_all_reduce(self, x: torch.Tensor) -> None:
+        """Sum ``x`` in place over every rank holding other batch rows
+        and the same model slices: the fsdp ranks, then the data x seq
+        ranks (each tensor rank once)."""
+        if self.fsdp_pg is not None:
+            dist.all_reduce(x, group=self.fsdp_pg)
+        if self.initialized:
+            dist.all_reduce(x, group=self.replica_pg)
+
+
+class BatchGroup:
+    """The ranks holding other rows of the global batch and the same model
+    slices (data x fsdp), as ``ops.qmm``'s global-view scales read them:
+    ``max`` is the elementwise max over them."""
+
+    def __init__(self, world: World):
+        self.world = world
+
+    def max(self, parts) -> torch.Tensor:
+        out = parts[0].detach().clone()
+        for p in parts[1:]:
+            out = torch.maximum(out, p.detach())
+        if self.world.fsdp_pg is not None:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                            group=self.world.fsdp_pg)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=self.world.replica_pg)
+        return out
+
 
 def world_setup(device: DeviceLike = None, sp: int = 1,
                 dp: int = -1, collective_timeout: float = 0.0,
-                tp: int = 1) -> World:
+                tp: int = 1, fsdp: int = 1) -> World:
     """Form the world; returns this process's rank, the world size, its
-    device and, for ``sp > 1`` / ``tp > 1``, its sequence / tensor group.
+    device and, for ``sp``, ``tp`` or ``fsdp`` > 1, its process groups.
 
     * An already initialised process group is used as it is.
     * Under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set) the group
@@ -286,9 +341,9 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
     The device is ``cuda:LOCAL_RANK`` by default (raising without a GPU);
     ``device="cpu"`` asks for the host.
 
-    ``dp`` x ``sp`` x ``tp`` must equal the world size (``dp=-1``:
-    whatever ``sp`` and ``tp`` leave); every rank takes part in forming
-    every group (``dist.new_group`` is collective).
+    ``dp`` x ``fsdp`` x ``sp`` x ``tp`` must equal the world size
+    (``dp=-1``: whatever the others leave); every rank takes part in
+    forming every group (``dist.new_group`` is collective).
     """
     dev = resolve_device(device)
     local_rank = int(os.environ.get("LOCAL_RANK", "0"))
@@ -316,45 +371,44 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
         rank, size = dist.get_rank(), dist.get_world_size()
     else:
         rank, size = 0, 1
-    if sp < 1 or tp < 1 or size % (sp * tp) or (
-            dp != -1 and dp * sp * tp != size):
-        what = f"--dp {dp} x --sp {sp}" + (f" x --tp {tp}" if tp > 1 else "")
+    model = fsdp * sp * tp
+    if min(sp, tp, fsdp) < 1 or size % model or (
+            dp != -1 and dp * model != size):
+        what = (f"--dp {dp}" + (f" x --fsdp {fsdp}" if fsdp > 1 else "")
+                + f" x --sp {sp}" + (f" x --tp {tp}" if tp > 1 else ""))
         raise ValueError(
             f"{what} does not fit a world of {size} "
             f"process(es){'' if size > 1 else ' (launch with torchrun)'}")
-    n_dp = size // (sp * tp)
-    grid = np.arange(size).reshape(n_dp, sp, tp)
-    seq_pg = data_pg = tensor_pg = None
-    if sp > 1 or tp > 1:
-        # (axis moved last, the groups along it): each rank's group is the
-        # one through its own grid point
-        for axis in (1, 0, 2):
-            if axis != 0 and grid.shape[axis] == 1:
+    grid = np.arange(size).reshape(size // model, fsdp, sp, tp)
+    pgs: Dict[str, Any] = {}
+    if model > 1:
+        # (the axes moved last, the groups along them): each rank's group
+        # is the one through its own grid point
+        for name, axes in (("seq", (2,)), ("data", (0,)), ("tensor", (3,)),
+                           ("fsdp", (1,)), ("replica", (0, 2))):
+            n = int(np.prod([grid.shape[a] for a in axes]))
+            if (name == "replica" and fsdp * tp == 1) or (
+                    n == 1 and name not in ("data", "replica")):
                 continue
-            lines = np.moveaxis(grid, axis, -1).reshape(-1, grid.shape[axis])
-            mine = None
+            lines = np.moveaxis(grid, axes, range(4 - len(axes), 4)
+                                ).reshape(-1, n)
             for line in lines:
                 pg = dist.new_group([int(r) for r in line])
                 if rank in line:
-                    mine = pg
-            if axis == 1:
-                seq_pg = mine
-            elif axis == 0:
-                data_pg = mine
-            else:
-                tensor_pg = mine
-    return World(rank, size, dev, sp, seq_pg, data_pg, tp, tensor_pg)
+                    pgs[name] = pg
+    return World(rank, size, dev, sp, pgs.get("seq"), pgs.get("data"), tp,
+                 pgs.get("tensor"), fsdp, pgs.get("fsdp"),
+                 pgs.get("replica"))
 
 
 def describe(world: World) -> str:
-    """``data=N seq=S tensor=T`` (the axes above 1 past data) for a
-    sequence- or tensor-parallel world, ``data=N`` for a data-parallel
-    one, ``single-device`` for one process."""
-    if world.sp > 1 or world.tp > 1:
+    """``data=N fsdp=F seq=S tensor=T`` (the axes above 1 past data) for a
+    world with a model axis, ``data=N`` for a data-parallel one,
+    ``single-device`` for one process."""
+    axes = (("fsdp", world.fsdp), ("seq", world.sp), ("tensor", world.tp))
+    if any(n > 1 for _, n in axes):
         return " ".join([f"data={world.dp}"]
-                        + [f"{k}={n}" for k, n in (("seq", world.sp),
-                                                   ("tensor", world.tp))
-                           if n > 1])
+                        + [f"{k}={n}" for k, n in axes if n > 1])
     return f"data={world.world_size}" if world.world_size > 1 \
         else "single-device"
 

@@ -36,7 +36,11 @@ returns on each rank, which is the same on every rank of the group.
 
 :func:`shard_layer` cuts one layer's dense (or permuted) leaves into the
 per-shard trees :func:`tp_block_apply` reads, as views (``torch.chunk``)
-whose backward writes each shard's gradient into the dense leaf.
+whose backward writes each shard's gradient into the dense leaf (a local
+group's whole state); under a process group each rank holds its own
+slices already (``parallel.tensor_parallel.StateLayout``).  Under
+``--matmul_dtype int8|fp8`` the block's products run through
+``ops.qmm.qdot_col`` / ``qdot_row``, whose scales span the split dims.
 """
 
 from __future__ import annotations
@@ -308,9 +312,51 @@ def shard_layer(layer: Dict[str, Any], tp: int,
 # the block
 # ---------------------------------------------------------------------------
 
+def _col(fmt: str, role: str, h: torch.Tensor, lps, name: str, group,
+         cdt, qscales, qobs, batch=None) -> List[torch.Tensor]:
+    """A column-parallel Linear of every shard held here: ``h`` (whole,
+    after ``f``) times each shard's columns, plus its bias, in ``cdt``;
+    under int8/fp8 through ``ops.qmm.qdot_col``."""
+    ws = [lp[name]["w"] for lp in lps]
+    if fmt == "bf16":
+        ys = [h.to(cdt) @ w.to(cdt) for w in ws]
+    else:
+        from ..ops import qmm
+
+        if qobs is not None and fmt == "fp8":
+            qobs[role] = qmm.tensor_amax(h)
+        a = None if qscales is None or fmt != "fp8" else qscales.get(role)
+        ys = [y.to(cdt) for y in qmm.qdot_col(h.to(cdt), ws, fmt=fmt,
+                                              group=group, scales=a,
+                                              batch=batch)]
+    return [y + lp[name]["b"].to(cdt) for y, lp in zip(ys, lps)]
+
+
+def _row(fmt: str, role: str, xs: List[torch.Tensor], lps, name: str,
+         group, cdt, qscales, qobs, batch=None) -> List[torch.Tensor]:
+    """A row-parallel Linear's partial products (no bias), for ``g`` to
+    sum; under int8/fp8 through ``ops.qmm.qdot_row``, whose scales span
+    the whole contraction (a max over the group)."""
+    ws = [lp[name]["w"] for lp in lps]
+    if fmt == "bf16":
+        return [x.to(cdt) @ w.to(cdt) for x, w in zip(xs, ws)]
+    from ..ops import qmm
+
+    if qobs is not None and fmt == "fp8":
+        # the shards held here; the step maxes it over the ranks
+        qobs[role] = functools.reduce(torch.maximum,
+                                      [qmm.tensor_amax(x) for x in xs])
+    a = None if qscales is None or fmt != "fp8" else qscales.get(role)
+    return [y.to(cdt) for y in qmm.qdot_row([x.to(cdt) for x in xs], ws,
+                                            fmt=fmt, group=group, scales=a,
+                                            batch=batch)]
+
+
 def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
-                   group, attention_fn: Optional[Callable] = None
-                   ) -> torch.Tensor:
+                   group, attention_fn: Optional[Callable] = None,
+                   qscales=None, qobs=None,
+                   mm: Optional[Callable[[str], str]] = None,
+                   batch=None) -> torch.Tensor:
     """One transformer block with the tensor dimension split over
     ``group``: ``layer_shards`` are the per-shard trees of the shards this
     process holds (:func:`shard_layer`), qkv / ff_in / ff_gate holding
@@ -321,7 +367,14 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
     ``attention_fn(q, k, v)`` (each (B, T, H/tp, hd)) overrides the
     attention: the TP x SP composition point (a sequence-sharded impl,
     which rotates RoPE by global positions itself).  Default: dense causal
-    attention over the whole local sequence, RoPE at positions 0..T-1."""
+    attention over the whole local sequence, RoPE at positions 0..T-1.
+
+    ``mm(role)``: the matmul format of a projection role (the model's
+    ``_mm``; default the config's ``matmul_dtype``).  Under int8/fp8 the
+    products run through ``ops.qmm``'s tensor-parallel seam; fp8 reads
+    ``qscales`` and writes each role's observed amax into ``qobs``;
+    ``batch``: the batch ranks' group of the global-view scales
+    (``parallel.distributed.BatchGroup``)."""
     f, g = make_megatron_ops(group)
     cdt = cfg.compute_dtype
     tp = group.size
@@ -329,6 +382,9 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
     kv_local = cfg.kv_heads // tp
     hd = cfg.head_dim
     ln = LayerNorm(cfg.d_model, param_dtype=cfg.param_dtype)
+    if mm is None:
+        def mm(role):
+            return cfg.matmul_dtype
     if attention_fn is None:
         if cfg.pos_encoding == "rope":
             from ..ops.rope import rope_rotate
@@ -342,13 +398,13 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
             def attention_fn(q, k, v):
                 return attention_reference(q, k, v, causal=True)
     rep = layer_shards[0]       # the replicated leaves, shared by every shard
+    q8 = (qscales, qobs, batch)
 
     # attention: column-parallel qkv, local heads, row-parallel out
     h = f(ln.apply(rep["ln1"], x))
-    partials = []
-    for lp in layer_shards:
-        qkv = (h.to(cdt) @ lp["qkv"]["w"].to(cdt)
-               + lp["qkv"]["b"].to(cdt))
+    outs = []
+    for qkv in _col(mm("qkv"), "qkv", h, layer_shards, "qkv", group, cdt,
+                    *q8):
         b, t, _ = qkv.shape
         q_w, kv_w = heads_local * hd, kv_local * hd
         q = qkv[..., :q_w].reshape(b, t, heads_local, hd)
@@ -358,31 +414,26 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
             groups = heads_local // kv_local
             k = torch.repeat_interleave(k, groups, dim=2)
             v = torch.repeat_interleave(v, groups, dim=2)
-        out = attention_fn(q, k, v).reshape(b, t, q_w)
-        partials.append(out @ lp["attn_out"]["w"].to(cdt))
-    attn = g(partials) + rep["attn_out"]["b"].to(cdt)
+        outs.append(attention_fn(q, k, v).reshape(b, t, q_w))
+    attn = (g(_row(mm("attn_out"), "attn_out", outs, layer_shards,
+                   "attn_out", group, cdt, *q8))
+            + rep["attn_out"]["b"].to(cdt))
     x = x + attn.to(x.dtype)
 
     # FFN: column-parallel in, row-parallel out
     h = f(ln.apply(rep["ln2"], x))
-    ff = (g([tp_ffn_hidden(cfg, lp, h) @ lp["ff_out"]["w"].to(cdt)
-             for lp in layer_shards])
+    hid = _col(mm("ff_in"), "ff_in", h, layer_shards, "ff_in", group, cdt,
+               *q8)
+    if cfg.activation == "swiglu":
+        gates = _col(mm("ff_gate"), "ff_gate", h, layer_shards, "ff_gate",
+                     group, cdt, *q8)
+        hid = [F.silu(gt) * hh for gt, hh in zip(gates, hid)]
+    else:
+        hid = [ACTIVATIONS[cfg.activation](hh) for hh in hid]
+    ff = (g(_row(mm("ff_out"), "ff_out", hid, layer_shards, "ff_out", group,
+                 cdt, *q8))
           + rep["ff_out"]["b"].to(cdt))
     return x + ff.to(x.dtype)
-
-
-def tp_ffn_hidden(cfg, lp: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
-    """Column-parallel FFN hidden of one shard: ``act(h W_in + b)``, or
-    for SwiGLU ``silu(h W_gate + b_g) * (h W_in + b)``; the gate shares
-    ff_in's column split, so the product of the two local shards is the
-    local shard of the product."""
-    cdt = cfg.compute_dtype
-    hh = h.to(cdt) @ lp["ff_in"]["w"].to(cdt) + lp["ff_in"]["b"].to(cdt)
-    if cfg.activation == "swiglu":
-        gate = F.silu(h.to(cdt) @ lp["ff_gate"]["w"].to(cdt)
-                      + lp["ff_gate"]["b"].to(cdt))
-        return gate * hh
-    return ACTIVATIONS[cfg.activation](hh)
 
 
 # ---------------------------------------------------------------------------

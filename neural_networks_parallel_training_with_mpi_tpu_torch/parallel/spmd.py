@@ -12,7 +12,10 @@ as the JAX package saves it.  ``vocab_parallel`` splits the embedding
 table on its rows and the LM head on its columns over the tensor group
 and trains on the vocab-parallel cross-entropy, so the full (B, T, V)
 logits never exist.  ``grad_clip`` clips by the global norm, which every
-rank holds whole (``parallel.tensor_parallel``).
+rank takes over its own slices (``parallel.tensor_parallel``): under a
+process group each rank holds only its tensor slice of the split leaves,
+params and optimizer slots, as JAX's ``shard_map`` specs slice them over
+``tensor``.
 """
 
 from __future__ import annotations
@@ -86,8 +89,8 @@ def _validate_vocab_parallel(model, tp: int, loss_name: str) -> None:
             "not wired on the sharded loss)")
 
 
-def _sp_tp_forward(model, group, seq_group, vocab_parallel: bool = False
-                   ) -> TensorParallelModel:
+def _sp_tp_forward(model, group, seq_group, vocab_parallel: bool = False,
+                   layout=None) -> TensorParallelModel:
     """The shared SP x TP forward: embedding at the shard's global
     positions, Megatron blocks with the sequence-sharded attention, the
     final LayerNorm and head (vocab-split under ``vocab_parallel``)."""
@@ -97,15 +100,17 @@ def _sp_tp_forward(model, group, seq_group, vocab_parallel: bool = False
                          f"{SEQ_SHARDED_IMPLS}, got {c.attention!r}")
     return TensorParallelModel(model, group, qkv_order="permuted",
                                seq_group=seq_group,
-                               vocab_parallel=vocab_parallel)
+                               vocab_parallel=vocab_parallel, layout=layout)
 
 
 def make_sp_tp_train_step(model, optimizer: Optimizer, world: World, group,
                           seq_group, loss_name: str = "cross_entropy",
                           accum_steps: int = 1, grad_clip: float = 0.0,
-                          vocab_parallel: bool = False):
+                          vocab_parallel: bool = False, layout=None):
     """(state, this rank's batch) -> (state, global mean loss) over a
-    data x seq x tensor world, with the JAX package's checks."""
+    data x seq x tensor world, with the JAX package's checks; ``layout``:
+    the params' ``tensor_parallel.StateLayout`` (sliced under a process
+    group)."""
     tp, sp = group.size, seq_group.size
     if tp < 2 or sp < 2:
         raise ValueError(f"SP x TP needs tensor>1 and seq>1; got "
@@ -117,20 +122,22 @@ def make_sp_tp_train_step(model, optimizer: Optimizer, world: World, group,
     if vocab_parallel:
         _validate_vocab_parallel(model, tp, loss_name)
     if grad_clip > 0:
-        optimizer = optim_lib.with_clipping(optimizer, grad_clip)
+        optimizer = optim_lib.with_clipping(
+            optimizer, grad_clip, optim_lib.combine_norms if layout is None
+            else layout.combine)
     return dp.make_train_step(
-        _sp_tp_forward(model, group, seq_group, vocab_parallel), optimizer,
-        world, loss_name=loss_name, accum_steps=accum_steps)
+        _sp_tp_forward(model, group, seq_group, vocab_parallel, layout),
+        optimizer, world, loss_name=loss_name, accum_steps=accum_steps)
 
 
 def make_sp_tp_eval_step(model, world: World, group, seq_group,
                          loss_name: str = "cross_entropy",
                          with_accuracy: bool = False,
-                         vocab_parallel: bool = False):
+                         vocab_parallel: bool = False, layout=None):
     """(params, batch) -> metrics, as ``data_parallel.make_eval_step``
     (the vocab-parallel loss and accuracy under ``vocab_parallel``)."""
     if vocab_parallel:
         _validate_vocab_parallel(model, group.size, loss_name)
     return dp.make_eval_step(
-        _sp_tp_forward(model, group, seq_group, vocab_parallel), world,
-        loss_name=loss_name, with_accuracy=with_accuracy)
+        _sp_tp_forward(model, group, seq_group, vocab_parallel, layout),
+        world, loss_name=loss_name, with_accuracy=with_accuracy)

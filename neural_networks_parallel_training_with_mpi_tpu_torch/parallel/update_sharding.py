@@ -30,6 +30,15 @@ buffer in ``parallel.data_parallel``) share for their optimizer state.
 Under ``data x seq`` the sequence ranks of one data index hold the same
 slices: a sharded gradient slice is all-reduced over the sequence group
 after the data reduce-scatter (JAX's ``extra_reduce_axes``).
+
+On the GSPMD layout (``--tp`` / ``--fsdp``) the plans are JAX's
+``gspmd_opt_specs`` (``parallel.tensor_parallel.StateLayout.
+update_plans``): each leaf's largest dim the tensor and fsdp axes leave
+whole that the data ranks divide, unpadded, taken on the rank's own
+tensor / fsdp slice of the leaf; the params keep their slices, the
+optimizer state is split further over the data ranks, and the replicated
+leaves and loss terms are all-reduced over the ranks holding the same
+slices (``World.replica_pg``).
 """
 
 from __future__ import annotations
@@ -213,7 +222,7 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
                    grads: List[Optional[torch.Tensor]], world,
                    grad_clip: float = 0.0,
                    plans: Optional[List[LeafPlan]] = None,
-                   with_metrics: bool = False):
+                   with_metrics: bool = False, layout=None):
     """The per-leaf sharded update of one step from this rank's loss sum
     ``s``, count ``c`` and gradient sums ``grads`` (``params``' leaf
     order): returns (opt_state, global mean loss, ``ok``, and with
@@ -226,18 +235,25 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
     replicated step drops them the same way).  ``plans``: one
     :class:`LeafPlan` per leaf; by default the params' :func:`plan_updates`
     over the data ranks, which depends on their shapes only, as the opt
-    state's does (``zero1`` passes its one flat buffer's)."""
+    state's does (``zero1`` passes its one flat buffer's).
+
+    ``layout``: a sliced state's ``parallel.tensor_parallel.StateLayout``
+    (``params`` and ``grads`` this rank's tensor / fsdp slices, the fsdp
+    stage of the reduction done): the norms count each slice once over
+    the tensor and fsdp groups."""
     if plans is None:
         plans = plan_leaves(plan_updates(params, world.dp))
     ps = leaves(params)
     n, idx, data_pg = world.dp, world.data_rank, world.data_pg
+    owner = ([True] * len(ps) if layout is None or not layout.sliced
+             else layout.owner)
     rep = [i for i, pl in enumerate(plans) if pl.axis is None]
     vals = [grads[i].float() for i in rep] + [s.reshape(1), c.reshape(1)]
     for i in rep:
         grads[i] = None
     if world.initialized:
         flat = torch.cat([v.reshape(-1).float() for v in vals])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=world.replica_pg)
         vals = [part.view(v.shape) for part, v in zip(
             torch.split(flat, [v.numel() for v in vals]), vals)]
     total = vals[-1][0]
@@ -262,12 +278,15 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
     guarded = optimizer.update_with_norm is not None
     norm = ok = None
     if grad_clip > 0 or guarded or with_metrics:
-        sq_sh = _sq([g for g, pl in zip(g_mixed, plans)
-                     if pl.axis is not None], total)
+        sq_sh = _sq([g for g, pl, o in zip(g_mixed, plans, owner)
+                     if pl.axis is not None and o], total)
         if world.initialized:
             dist.all_reduce(sq_sh, group=data_pg)
-        norm = torch.sqrt(_sq([g for g, pl in zip(g_mixed, plans)
-                               if pl.axis is None], total) + sq_sh)
+        sq = _sq([g for g, pl, o in zip(g_mixed, plans, owner)
+                  if pl.axis is None and o], total) + sq_sh
+        if layout is not None and layout.sliced:
+            sq = layout.sum_over_model(sq)
+        norm = torch.sqrt(sq)
     if grad_clip > 0:
         scale = torch.clamp(grad_clip / torch.clamp(norm, min=1e-12),
                             max=1.0)
@@ -288,12 +307,15 @@ def sharded_update(optimizer: Optimizer, params: Any, opt_state: Any,
         # data ranks (the zero padding's delta is 0)
         sq = [d.square() for d in deltas]
         u_rep = _sum([sq[i] for i, pl in enumerate(plans)
-                      if pl.axis is None], s)
+                      if pl.axis is None and owner[i]], s)
         u_sh = _sum([sq[i] for i, pl in enumerate(plans)
-                     if pl.axis is not None], s)
+                     if pl.axis is not None and owner[i]], s)
         if n > 1 and world.initialized:
             dist.all_reduce(u_sh, group=data_pg)
-        norms = (norm, torch.sqrt(u_rep + u_sh).float())
+        u = u_rep + u_sh
+        if layout is not None and layout.sliced:
+            u = layout.sum_over_model(u)
+        norms = (norm, torch.sqrt(u).float())
     # one data rank: each slice is the whole param, already updated
     for p, part, pl in zip(ps, p_mixed, plans):
         if pl.axis is not None and n > 1:

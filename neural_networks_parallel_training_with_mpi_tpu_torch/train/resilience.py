@@ -485,7 +485,7 @@ _RANK_ENV_KEYS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
 DEGRADED_ENV = "NNPT_ELASTIC_DEGRADED"  # marks a shrunken-world child
 
 
-def degrade_env(env: dict, probe: dict) -> dict:
+def degrade_env(env: dict, probe: dict, model_ranks: int = 1) -> dict:
     """Rewrite a child environment to the probed (shrunken) world: the
     rendezvous and the rank keys are dropped, so the child forms a world
     of one process (``parallel.distributed.world_setup`` without a
@@ -495,13 +495,27 @@ def degrade_env(env: dict, probe: dict) -> dict:
     Only the collapse to one process is supported, as in the JAX package:
     a local probe cannot say which ranks survive, so a degraded world of
     several processes raises instead of relaunching a child with a stale
-    ``RANK``."""
+    ``RANK``.
+
+    ``model_ranks``: the ranks one model replica spans (``--sp`` x
+    ``--tp`` x ``--fsdp``).  The JAX package's degraded child keeps its
+    mesh flags over the host's devices, and its mesh does not form when
+    they do not hold them; the port's child of one process holds one
+    card, so a layout over more than one rank raises here instead of
+    relaunching a child that cannot form its groups (the snapshots are
+    dense: a relaunch at ``--tp 1 --fsdp 1`` resumes them)."""
     n_proc = int(probe.get("n_processes", 1))
     if n_proc > 1:
         raise ValueError(
             "degraded multi-process worlds are unsupported (probe "
             f"reported n_processes={n_proc}): surviving peer ranks "
             "cannot be reassigned from a local probe")
+    if model_ranks > 1:
+        raise ValueError(
+            f"a degraded world of one process holds one card, not the "
+            f"{model_ranks} ranks of one replica's seq x tensor x fsdp "
+            "groups (snapshots are dense: relaunch with --sp 1 --tp 1 "
+            "--fsdp 1 to resume at one card)")
     for k in _COORD_ENV_KEYS + _RANK_ENV_KEYS:
         env.pop(k, None)
     env[_PROCESS_ID_ENV] = "0"
@@ -560,6 +574,7 @@ def supervise(cmd: Sequence[str], max_restarts: int,
               elastic_after: int = 2,
               events_path: Optional[str] = None,
               forward_preempt: bool = False,
+              model_ranks: int = 1,
               _sleep: Callable[[float], None] = time.sleep,
               _rand: Callable[[], float] = random.random) -> int:
     """Run ``cmd`` under the crash-restart policy; return the final exit
@@ -602,7 +617,8 @@ def supervise(cmd: Sequence[str], max_restarts: int,
     resume from, with its saving world.  ``events_path``: launch / exit /
     relaunch records as JSONL.  ``forward_preempt``: SIGUSR1 delivered to
     the supervisor is re-sent to the running child, which answers the
-    notice."""
+    notice.  ``model_ranks``: the ranks one replica spans, which a
+    degraded world must hold (:func:`degrade_env`)."""
     if log is None:
         log = lambda m: print(m, file=sys.stderr, flush=True)
 
@@ -738,7 +754,8 @@ def supervise(cmd: Sequence[str], max_restarts: int,
             if res is not None and n >= floor:
                 if res.get("degraded"):
                     try:
-                        child_env = degrade_env(dict(child_env), res)
+                        child_env = degrade_env(dict(child_env), res,
+                                                model_ranks)
                     except ValueError as e:
                         log(f"[supervise] {e}; retrying at the current "
                             "world")

@@ -75,7 +75,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.optim import GuardedState, Optimizer, global_norm
+from ..ops.optim import GuardedState, Optimizer, combine_norms, global_norm
 from ..utils import goodput as goodput_lib
 from ..utils.logging import is_leader, log
 from ..utils.sketches import EmaZScore, ErrorBudget, Gauge, QuantileSketch
@@ -154,7 +154,7 @@ def train_step_flops(model, batch_shape: Tuple[int, ...]) -> Optional[float]:
 @torch.no_grad()
 def update_with_metrics(optimizer: Optimizer, grads: Pytree,
                         opt_state: Pytree, params: Pytree,
-                        loss: torch.Tensor
+                        loss: torch.Tensor, combine=combine_norms
                         ) -> Tuple[Pytree, Pytree, Dict[str, torch.Tensor],
                                    Optional[torch.Tensor]]:
     """Apply the update AND compute the metrics in one pass, PROVIDED
@@ -167,7 +167,7 @@ def update_with_metrics(optimizer: Optimizer, grads: Pytree,
     the guard then skips its own reduction, so metrics + guard together
     cost ONE norm pass.  The update norm is recorded by the update itself
     (its ``deltas`` list), which writes the bits it writes unrecorded: params are bitwise equal with telemetry on and off."""
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, combine)
     ok, deltas = None, []
     if optimizer.update_with_norm is not None:
         new_params, new_opt, ok = optimizer.update_with_norm(
@@ -176,16 +176,13 @@ def update_with_metrics(optimizer: Optimizer, grads: Pytree,
         new_params, new_opt = optimizer.update(grads, opt_state, params,
                                                deltas=deltas)
     return new_params, new_opt, metrics_vector(
-        loss, gnorm, new_params, _norm_of(deltas), new_opt), ok
-
-
-def _norm_of(norms) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(list(norms))).float()
+        loss, gnorm, new_params, combine(deltas), new_opt, combine), ok
 
 
 def metrics_vector(loss: torch.Tensor, grad_norm: torch.Tensor,
                    new_params: Pytree, update_norm: torch.Tensor,
-                   new_opt: Pytree) -> Dict[str, torch.Tensor]:
+                   new_opt: Pytree, combine=combine_norms
+                   ) -> Dict[str, torch.Tensor]:
     """Assemble the ``METRIC_KEYS`` dict from an already-applied update —
     the single construction point shared by :func:`update_with_metrics`
     (the replicated path, whole-tree grad norm) and the sharded-update
@@ -194,7 +191,7 @@ def metrics_vector(loss: torch.Tensor, grad_norm: torch.Tensor,
     slices, summed over the data ranks).  ``new_params`` is the FULL
     tree (after the all-gather), so the param norm is local math,
     identical on every replica; ``update_norm`` is ||new - old||."""
-    pnorm = global_norm(new_params)
+    pnorm = global_norm(new_params, combine)
     if isinstance(new_opt, GuardedState):
         # CUMULATIVE rejections, not a per-step delta: the host samples
         # the stream (metrics_every, and k>1 dispatches report only their

@@ -103,8 +103,8 @@ global batch, raise ``accum_steps``; ``per_device``: keep each rank's
 rows), maps the step counter onto the new loader through
 ``consumed_samples`` and records the change (``kind="topology"``).
 
-Every flag of a path the port has not taken over yet (the pipe, expert
-and fsdp axes, RL, ...) raises ``NotImplementedError`` naming the flag
+Every flag of a path the port has not taken over yet (the pipe and
+expert axes, RL, ...) raises ``NotImplementedError`` naming the flag
 when it is set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
@@ -118,22 +118,30 @@ Either way the step's gradient is the global-batch mean over every token
 (``global_mean``), as the JAX package's seq path computes it whatever
 ``--grad_reduction`` says.
 
-Tensor parallelism (``--tp T``; the JAX trainer's routing and refusals):
-without ``--sp`` the DP x TP step of ``parallel.gspmd`` (Megatron blocks
-over the tensor group, params in the dense order, a snapshot's
-``qkv_tp`` 1); with ``--sp`` the DP x SP x TP step of ``parallel.spmd``
-(``sp_tp``: qkv columns stored permuted, ``qkv_tp`` = T in a snapshot,
-``--vocab_parallel``, the clip inside the step, no guard and loss-only
-telemetry, as in JAX).  The world is ``data x seq x tensor`` torchrun
-ranks (``parallel.megatron.ProcessTensorGroup``), or ``Trainer(cfg,
-device, tensor_group=LocalTensorGroup(T))`` runs the T shards in this
-process, beside ``seq_group``.  A resume re-permutes params and every
-optimizer slot when the snapshot's ``qkv_tp`` differs from this
-layout's (JAX's ``_reconcile_qkv_tp``).  Held out, raising
-``NotImplementedError`` that names ROADMAP Queue A item 4: ``--fsdp``;
-``--update_sharding sharded``, ``--matmul_dtype int8|fp8``,
-``--sdc_check_every``, ``--check_replicas_every`` and ``--elastic``
-under ``--tp``.
+Tensor parallelism and fsdp (``--tp T``, ``--fsdp F``; the JAX
+trainer's routing and refusals): without ``--sp`` the GSPMD step of
+``parallel.gspmd`` (Megatron blocks over the tensor group, fsdp-split
+leaves gathered one block at a time, params in the dense order, a
+snapshot's ``qkv_tp`` 1); with ``--sp`` the DP x SP x TP step of
+``parallel.spmd`` (``sp_tp``: qkv columns stored permuted, ``qkv_tp`` = T
+in a snapshot, ``--vocab_parallel``, the clip inside the step, no guard
+and loss-only telemetry, as in JAX).  The world is ``data x fsdp x seq x
+tensor`` torchrun ranks (``parallel.megatron.ProcessTensorGroup``,
+``parallel.fsdp.ProcessFsdpGroup``), each holding only its slices of the
+state (``parallel.tensor_parallel.StateLayout``); a snapshot gathers
+them to rank 0's host in the dense layout and a restore slices it for
+this rank, whatever tp / fsdp saved it.  ``Trainer(cfg, device,
+tensor_group=LocalTensorGroup(T))`` runs the T shards in this process
+with the state whole, beside ``seq_group``; ``fsdp_group=LocalFsdpGroup(F)``
+holds the F fsdp slices of each split leaf in this process, stacked.  ``--update_sharding
+sharded`` splits the optimizer state further over the data ranks
+(JAX's ``gspmd_opt_specs``); ``--matmul_dtype int8|fp8`` runs the
+products through ``ops.qmm``'s tensor-parallel seam; the replica check
+fingerprints the leaves the layout holds replicated; ``--elastic``
+resumes over another data-rank count with tp and fsdp kept.  A resume
+re-permutes params and every optimizer slot when the snapshot's
+``qkv_tp`` differs from this layout's (JAX's ``_reconcile_qkv_tp``);
+under ``zero1`` that raises (its flat buffer has no per-leaf slots).
 """
 
 from __future__ import annotations
@@ -155,10 +163,13 @@ from ..ops import qmm
 from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel import distributed
-from ..parallel import gspmd, spmd
+from ..parallel import gspmd, megatron, spmd
+from ..parallel import tensor_parallel as tp_lib
 from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
-from ..parallel.megatron import ProcessTensorGroup, permute_qkv
+from ..parallel.fsdp import ProcessFsdpGroup, all_gather_dim
+from ..parallel.megatron import (LocalTensorGroup, ProcessTensorGroup,
+                                 qkv_tp_permutation)
 from ..parallel.sequence import (
     SEQ_SHARDED_IMPLS, ProcessSeqGroup, resolve_attention_impl,
     striped_permutation,
@@ -171,7 +182,7 @@ from ..utils import profiling
 from ..utils.faults import FaultPlan, wrap_step_with_desync
 from ..utils.logging import MetricsLogger, Throughput, log
 from ..utils.platform import DeviceLike
-from ..utils.tree import leaves, tree_map
+from ..utils.tree import leaves, tree_map, unflatten
 from ..utils.watchdog import HangWatchdog
 from . import telemetry as telemetry_lib
 from . import trace as trace_lib
@@ -262,19 +273,43 @@ def check_resilience(cfg: TrainConfig) -> None:
             "the device is wedged")
 
 
-def check_tensor_layout(cfg: TrainConfig) -> None:
-    """The JAX trainer's rules for the tensor axis, with its messages and
-    exception types (``--vocab_parallel`` only on seq x tensor;
-    ``--ce_chunk`` not under a non-pipeline tensor axis; ``zero1`` not
-    under GSPMD or seq x tensor; ``sharded`` not under seq x tensor;
-    ``per_shard_mean`` neither), then the combinations the port holds
-    out (ROADMAP Queue A item 4)."""
+def check_fsdp_layout(cfg: TrainConfig) -> None:
+    """The JAX trainer's routing refusals that an fsdp axis meets (pipe x
+    fsdp; fsdp beside seq or expert outside their wired mixes), with its
+    messages."""
     mesh = cfg.mesh
-    if mesh.fsdp > 1:
-        raise NotImplementedError(f"--fsdp (= {mesh.fsdp}) is {QUEUE_A4}")
-    tensor = mesh.tensor > 1
-    sp_tp = tensor and mesh.seq > 1
-    gspmd_on = tensor and not sp_tp
+    if mesh.fsdp <= 1:
+        return
+    pipeline, expert, seq = mesh.pipe > 1, mesh.expert > 1, mesh.seq > 1
+    if pipeline:
+        unwired = [name for name, on in (("seq", seq), ("fsdp", True),
+                                         ("expert", expert)) if on]
+        raise NotImplementedError(
+            f"pipe composes with the data, tensor, expert (MoE), and "
+            f"seq (seq-sharded attention) axes in any mix; got pipe x "
+            f"{unwired} — fsdp's parameter sharding is the GSPMD "
+            "path's job (compose parallel.* step builders directly)")
+    exclusive = [name for name, on in (("seq", seq), ("tensor/fsdp", True),
+                                       ("expert", expert)) if on]
+    if len(exclusive) > 1:
+        raise NotImplementedError(
+            f"wired combinations: one of seq/tensor/fsdp/expert alone, "
+            f"pipe x tensor, seq x tensor, seq x expert, expert x "
+            f"tensor, or seq x expert x tensor (all x data); got "
+            f"{exclusive} — compose parallel.* step builders directly "
+            "for other mixes")
+
+
+def check_tensor_layout(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for the tensor and fsdp axes, with its
+    messages and exception types (``--vocab_parallel`` only on seq x
+    tensor; ``--ce_chunk`` not under a non-pipeline tensor or fsdp axis;
+    ``zero1`` not under GSPMD or seq x tensor; ``sharded`` not under seq x
+    tensor; ``per_shard_mean`` and ``--scan-layers`` not under GSPMD)."""
+    mesh = cfg.mesh
+    tensor, fsdp = mesh.tensor > 1, mesh.fsdp > 1
+    sp_tp = tensor and mesh.seq > 1 and not fsdp
+    gspmd_on = (tensor or fsdp) and not sp_tp
     if sp_tp and cfg.grad_reduction != "global_mean":
         raise ValueError("pipeline/expert/seq-x-tensor steps always use "
                          "global_mean gradient semantics")
@@ -283,14 +318,14 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "--vocab_parallel shards the embedding/head over 'tensor' "
             "on the seq x tensor path (--sp > 1 and --tp > 1); other "
             "layouts keep them replicated")
-    if cfg.model.ce_chunk > 0 and tensor:
+    if cfg.model.ce_chunk > 0 and (tensor or fsdp):
         raise ValueError(
             "--ce_chunk (fused chunked cross-entropy) is wired on "
             "the data-parallel/ZeRO-1, sequence-parallel, and "
             "pipeline step paths; with non-pipeline tp/ep/fsdp "
             "axes use --vocab_parallel (seq x tensor) or drop "
             "--ce_chunk")
-    if cfg.update_sharding == "zero1" and tensor:
+    if cfg.update_sharding == "zero1" and (tensor or fsdp):
         raise NotImplementedError(
             "update_sharding='zero1' is the flat-buffer shard_map DP "
             "and DP x seq layout; the automatic per-leaf form "
@@ -311,17 +346,6 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "on the plain DP / DP x seq / seq x tensor paths; the "
             "pipeline/GSPMD/expert layouts own their own stacking and "
             "sharding")
-    if not tensor:
-        return
-    held = [("--update_sharding sharded", cfg.update_sharding == "sharded"),
-            (f"--matmul_dtype {cfg.model.matmul_dtype}",
-             cfg.model.matmul_dtype != "bf16"),
-            ("--sdc_check_every", cfg.sdc_check_every > 0),
-            ("--check_replicas_every", cfg.check_replicas_every > 0),
-            ("--elastic", bool(cfg.elastic))]
-    for flag, on in held:
-        if on:
-            raise NotImplementedError(f"{flag} under --tp is {QUEUE_A4}")
 
 
 def _into(live: Any, new: Any) -> Any:
@@ -362,12 +386,13 @@ def refuse_unported(cfg: TrainConfig) -> None:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: DeviceLike = None,
-                 seq_group=None, tensor_group=None):
+                 seq_group=None, tensor_group=None, fsdp_group=None):
         """``seq_group``: an explicit sequence group (``LocalSeqGroup``)
         for the sequence-sharded attentions; by default ``--sp > 1`` forms
         a ``ProcessSeqGroup`` from the torchrun world.  ``tensor_group``
         likewise (``LocalTensorGroup``; by default ``--tp > 1`` forms a
-        ``ProcessTensorGroup``)."""
+        ``ProcessTensorGroup``), and ``fsdp_group`` (``LocalFsdpGroup``;
+        by default ``--fsdp > 1`` forms a ``ProcessFsdpGroup``)."""
         if cfg.param_dtype:
             if cfg.param_dtype not in ("float32", "bfloat16", "float16"):
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
@@ -378,7 +403,9 @@ class Trainer:
         for group, axis, flag, what in ((seq_group, "seq", "--sp",
                                          "sequence"),
                                         (tensor_group, "tensor", "--tp",
-                                         "tensor")):
+                                         "tensor"),
+                                        (fsdp_group, "fsdp", "--fsdp",
+                                         "fsdp")):
             if group is None:
                 continue
             n = getattr(cfg.mesh, axis)
@@ -387,6 +414,7 @@ class Trainer:
                                  f"{group.size} shards")
             cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
                 cfg.mesh, **{axis: group.size}))
+        check_fsdp_layout(cfg)
         check_matmul_dtype(cfg)
         check_resilience(cfg)
         refuse_unported(cfg)
@@ -395,10 +423,18 @@ class Trainer:
         self.fault_plan = FaultPlan.from_config(cfg.faults)
         if self.fault_plan is not None:
             self.fault_plan.check_ported()
+            mesh = cfg.mesh
+            if self.fault_plan.det_desync() is not None and (
+                    cfg.update_sharding != "replicated" or mesh.tensor > 1
+                    or mesh.fsdp > 1):
+                raise NotImplementedError(
+                    "desync?det perturbs the fully-replicated train state "
+                    "inside the step; it is wired on the plain DP and "
+                    "DP x seq layouts (replicated update)")
         self.cfg = cfg
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
                      else None)
-        sp, tp = cfg.mesh.seq, cfg.mesh.tensor
+        sp, tp, n_fsdp = cfg.mesh.seq, cfg.mesh.tensor, cfg.mesh.fsdp
         if seq_group is None and sp > 1 and \
                 attention not in SEQ_SHARDED_IMPLS:
             raise ValueError(
@@ -409,15 +445,20 @@ class Trainer:
         self.world = world_setup(
             device, sp=1 if seq_group is not None else sp,
             tp=1 if tensor_group is not None else tp, dp=cfg.mesh.data,
-            collective_timeout=cfg.collective_timeout)
+            collective_timeout=cfg.collective_timeout,
+            fsdp=1 if fsdp_group is not None else n_fsdp)
         if seq_group is None and sp > 1:
             seq_group = ProcessSeqGroup(self.world.seq_pg)
+        if fsdp_group is None and n_fsdp > 1:
+            fsdp_group = ProcessFsdpGroup(self.world.fsdp_pg)
+        # the JAX trainer's routing: seq x tensor, or tensor / fsdp (GSPMD)
+        self.sp_tp = tp > 1 and sp > 1
+        self.gspmd = (tp > 1 or n_fsdp > 1) and not self.sp_tp
         if tensor_group is None and tp > 1:
             tensor_group = ProcessTensorGroup(self.world.tensor_pg)
-        self.tensor_group = tensor_group
-        # the JAX trainer's routing: seq x tensor, or tensor alone (GSPMD)
-        self.sp_tp = tp > 1 and sp > 1
-        self.gspmd = tp > 1 and not self.sp_tp
+        elif tensor_group is None and self.gspmd:
+            tensor_group = LocalTensorGroup(1)
+        self.tensor_group, self.fsdp_group = tensor_group, fsdp_group
         # the qkv column order of this layout's params and snapshots
         self.qkv_tp = tp if self.sp_tp else 1
         # the capacity floor: a world below --min_devices does not train
@@ -481,6 +522,19 @@ class Trainer:
                              f"{cfg.label_smoothing}")
         self.model = build_model(cfg.model, device=self.device,
                                  seq_group=seq_group)
+        # where the state's bytes live (tensor / fsdp slices under
+        # process groups; whole under a local group), from the global init
+        self.state_layout: Optional[tp_lib.StateLayout] = None
+        # the seeded init drawn for the layout, kept for the first state
+        self._init_params = None
+        if self.gspmd or self.sp_tp:
+            self._init_params = self._global_init()
+            self.state_layout = tp_lib.state_layout(
+                self.model, self._init_params, tensor_group, fsdp_group,
+                qkv_order="permuted" if self.sp_tp else "dense",
+                vocab_parallel=cfg.vocab_parallel)
+        combine = (optim_lib.combine_norms if self.state_layout is None
+                   else self.state_layout.combine)
         if attention == "auto":     # refuse a length flash cannot take
             m = self.model.cfg
             resolve_attention_impl(
@@ -518,7 +572,8 @@ class Trainer:
         step_clips = self.zero1 or self.sharded or self.sp_tp
         self.optimizer = optim_lib.make(
             cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
-            grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps)
+            grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps,
+            combine=combine)
         if cfg.master_weights:
             self.optimizer = optim_lib.with_master_weights(self.optimizer)
         # the guard wraps the master weights (a rejected step leaves the
@@ -543,19 +598,22 @@ class Trainer:
                 self.model, self.optimizer, self.world, tensor_group,
                 seq_group, loss_name=train_loss,
                 accum_steps=cfg.accum_steps, grad_clip=cfg.grad_clip,
-                vocab_parallel=cfg.vocab_parallel)
+                vocab_parallel=cfg.vocab_parallel, layout=self.state_layout)
             eval_step = spmd.make_sp_tp_eval_step(
                 self.model, self.world, tensor_group, seq_group,
                 loss_name=cfg.loss, with_accuracy=with_acc,
-                vocab_parallel=cfg.vocab_parallel)
+                vocab_parallel=cfg.vocab_parallel, layout=self.state_layout)
         elif self.gspmd:
             step = gspmd.make_gspmd_train_step(
                 self.model, self.optimizer, self.world, tensor_group,
                 loss_name=train_loss, accum_steps=cfg.accum_steps,
-                with_metrics=self.telemetry_metrics)
+                with_metrics=self.telemetry_metrics,
+                layout=self.state_layout,
+                update_sharding=cfg.update_sharding,
+                grad_clip=cfg.grad_clip if step_clips else 0.0)
             eval_step = gspmd.make_gspmd_eval_step(
                 self.model, self.world, tensor_group, loss_name=cfg.loss,
-                with_accuracy=with_acc)
+                with_accuracy=with_acc, layout=self.state_layout)
         else:
             # the JAX seq path passes no grad_reduction: always global_mean
             step = dp.make_train_step(
@@ -573,11 +631,6 @@ class Trainer:
         # first, the bug the SDC replay must reproduce
         det = self.fault_plan.det_desync() if self.fault_plan else None
         if det is not None:
-            if self.zero1 or self.sharded or tp > 1:
-                raise NotImplementedError(
-                    "desync?det perturbs the fully-replicated train state "
-                    "inside the step; it is wired on the plain DP and "
-                    "DP x seq layouts (replicated update)")
             step = wrap_step_with_desync(step, det.start, det.eps,
                                          self.world.data_rank)
         # the SDC replay re-runs a dispatch eagerly with this step (no
@@ -641,7 +694,8 @@ class Trainer:
         cfg = self.cfg
         w = self.world
         return ShardedLoader(
-            data, cfg.batch_size, rank=w.data_rank, world_size=w.dp,
+            data, cfg.batch_size, rank=w.batch_rank,
+            world_size=w.batch_shards,
             device=self.device, shuffle=shuffle, seed=cfg.seed,
             full_batch=cfg.full_batch, remainder=cfg.data.remainder,
             backend=cfg.data.backend, seq_rank=w.seq_rank, sp=w.sp,
@@ -662,7 +716,7 @@ class Trainer:
                 if step is not None else None) or {}
         saved = meta.get("saved_world") or {}
         saved_dp = int(saved.get("dp") or 0)
-        new_dp = self.world.dp
+        new_dp = self.world.batch_shards
         if not saved_dp or saved_dp == new_dp:
             return cfg
         n = self.world.world_size
@@ -728,10 +782,33 @@ class Trainer:
         self.state, self.layout = self._fresh_state()
         return self.state
 
-    def _fresh_state(self) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
+    def _global_init(self):
+        """The seeded init, whole (the dense order; ``sp_tp``'s qkv
+        columns permuted)."""
         params = self.model.init(prng.init_generator(self.cfg.seed))
         # sp_tp: each tensor shard's heads one contiguous qkv slice
-        params = spmd.permute_params(self.model, params, self.qkv_tp)
+        return spmd.permute_params(self.model, params, self.qkv_tp)
+
+    @property
+    def _sliced(self) -> Optional[tp_lib.StateLayout]:
+        """The state layout when this rank holds slices, else None."""
+        lay = self.state_layout
+        return lay if lay is not None and lay.sliced else None
+
+    def _fresh_state(self) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
+        params, self._init_params = self._init_params, None
+        return self.state_from_params(self._global_init() if params is None
+                                      else params)
+
+    def state_from_params(self, params
+                          ) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
+        """A fresh train state (and its sharded-update layout) from the
+        global ``params`` in this layout's qkv order: this rank's slices of
+        them, the optimizer initialised on those slices."""
+        if self.state_layout is not None:
+            params = self.state_layout.conform(params)
+        if self._sliced is not None:
+            params = self._sliced.local(params)
         if not (self.zero1 or self.sharded):
             return TrainState.from_params(params, self.optimizer,
                                           self.model), None
@@ -740,20 +817,81 @@ class Trainer:
         if self.zero1:
             opt_state, layout = dp.zero1_opt_state(self.optimizer, params, w)
         else:
+            plans = (us.plan_updates(params, w.dp)
+                     if self.state_layout is None
+                     else self.state_layout.update_plans(w.dp))
             opt_state, layout = us.init_opt_state(
-                self.optimizer, params, us.plan_updates(params, w.dp), w.dp,
-                w.data_rank, w.data_pg)
+                self.optimizer, params, plans, w.dp, w.data_rank, w.data_pg)
         return TrainState(0, params, opt_state,
                           qmm.init_qstate(self.model)), layout
 
     def snapshot_state(self) -> TrainState:
-        """The state a snapshot holds: under update sharding, the global
-        padded opt-state arrays on rank 0's host (every rank joins the
-        leaf-by-leaf gather; the others hold nothing and write nothing)."""
-        s = self.state
-        if self.layout is None:
-            return s
-        return s._replace(opt_state=self.layout.gather_to_host(s.opt_state))
+        """The state a snapshot holds: the dense global arrays, on rank 0's
+        host when any are sliced (every rank joins the leaf-by-leaf
+        gathers, so a card holds one whole leaf at a time beside its
+        slices; the others hold nothing and write nothing): the params
+        over the tensor and fsdp groups, the opt state over the data
+        ranks first under update sharding (its global padded arrays, as
+        the JAX package writes them)."""
+        s, lay = self.state, self._sliced
+        if lay is None:
+            if self.layout is None:
+                return s
+            return s._replace(
+                opt_state=self.layout.gather_to_host(s.opt_state))
+        root = self.world.rank == 0
+        params = [lay.gather_leaf(x, j) for j, x in
+                  enumerate(leaves(s.params))]
+        params = unflatten(s.params, [x.cpu() for x in params]) \
+            if root else None
+        opt = []
+        for k, (x, j) in enumerate(zip(leaves(s.opt_state),
+                                       lay.mirror(s.opt_state))):
+            a = None if self.layout is None else self.layout.axes[k]
+            if a is not None and self.layout.n > 1:
+                x = all_gather_dim(x, a, self.layout.group, self.layout.n)
+            x = lay.gather_leaf(x, j)      # every rank joins the gather
+            opt.append(x.cpu() if root else None)
+        opt = unflatten(s.opt_state, opt) if root else None
+        return s._replace(params=params, opt_state=opt)
+
+    def whole_params(self):
+        """The global params (the dense tree in this layout's qkv order) on
+        every rank: gathered over the tensor and fsdp groups when this
+        rank holds slices (collective), else the live params."""
+        lay = self._sliced
+        if lay is None:
+            return self.state.params
+        return unflatten(self.state.params, [
+            lay.gather_leaf(x.detach(), j)
+            for j, x in enumerate(leaves(self.state.params))])
+
+    def _host_template(self) -> TrainState:
+        """Uninitialised host tensors of the snapshot's global shapes (no
+        collective), the restore's template."""
+        s, lay = self.state, self._sliced
+        if lay is None:
+            if self.layout is None:
+                return s
+            return s._replace(
+                opt_state=self.layout.host_template(s.opt_state))
+
+        def empty(x, shape):
+            return torch.empty(shape, dtype=x.dtype)
+
+        params = unflatten(s.params, [
+            empty(x, lay.global_shape(x, j))
+            for j, x in enumerate(leaves(s.params))])
+        opt = []
+        for k, (x, j) in enumerate(zip(leaves(s.opt_state),
+                                       lay.mirror(s.opt_state))):
+            shape = lay.global_shape(x, j)
+            a = None if self.layout is None else self.layout.axes[k]
+            if a is not None:
+                shape[a] *= self.layout.n
+            opt.append(empty(x, shape))
+        return s._replace(params=params,
+                          opt_state=unflatten(s.opt_state, opt))
 
     def maybe_resume(self) -> int:
         """Restore the newest verified snapshot of ``--checkpoint_dir``
@@ -791,13 +929,17 @@ class Trainer:
         histories restore with the rest: the delayed scaling continues
         where the snapshot left it."""
         s = self.state
-        template = s if self.layout is None else s._replace(
-            opt_state=self.layout.host_template(s.opt_state))
-        restored = ckpt.restore(self.cfg.checkpoint_dir, template,
+        restored = ckpt.restore(self.cfg.checkpoint_dir,
+                                self._host_template(),
                                 elastic=self.cfg.elastic)
         if restored is None:
             return False
         restored = self._reconcile_qkv_tp(restored)
+        lay = self._sliced
+        if lay is not None:     # this rank's tensor / fsdp slices
+            restored = restored._replace(
+                params=lay.local(restored.params),
+                opt_state=lay.local(restored.opt_state, mirrors=True))
         if self.layout is not None:     # every rank keeps its own slice
             restored = restored._replace(opt_state=self.layout.scatter(
                 restored.opt_state, self.device))
@@ -819,24 +961,40 @@ class Trainer:
                 isinstance(restored.params, dict)
                 and "blocks" in restored.params):
             return restored
-        if self.layout is not None:
+        if self.zero1:
             raise NotImplementedError(
                 f"resuming a qkv_tp={saved_tp} snapshot under "
-                f"--update_sharding {self.cfg.update_sharding} (its "
-                f"optimizer state is flat) is {QUEUE_A4}")
+                "--update_sharding zero1 (its optimizer state is one flat "
+                "buffer, with no per-leaf slots to re-permute) is "
+                f"{QUEUE_A4}")
         c = self.model.cfg
+
+        def perm(tp):
+            return qkv_tp_permutation(c.d_model, c.n_heads, tp, c.kv_heads)
+
+        # saved -> dense -> this layout's, composed into one gather
+        idx = np.arange(c.qkv_dim)
+        if saved_tp > 1:
+            idx = idx[np.argsort(perm(saved_tp))]
+        if self.qkv_tp > 1:
+            idx = idx[perm(self.qkv_tp)]
+
+        def fix_leaf(names, leaf):
+            # a padded (sharded-update) slot keeps its zero tail
+            if "qkv" not in names or not isinstance(leaf, torch.Tensor):
+                return leaf
+            n = len(idx)
+            head = leaf.detach()[..., :n].index_select(
+                -1, torch.as_tensor(idx, device=leaf.device))
+            return torch.cat([head, leaf.detach()[..., n:]], -1)
 
         def fix(tree):
             if isinstance(tree, tuple) and hasattr(tree, "_fields"):
                 return type(tree)(*(fix(x) for x in tree))
             if not (isinstance(tree, dict) and "blocks" in tree):
                 return tree
-            b = tree["blocks"]
-            for tp, inverse in ((saved_tp, True), (self.qkv_tp, False)):
-                if tp > 1:
-                    b = permute_qkv(b, c.d_model, c.n_heads, tp,
-                                    inverse=inverse, kv_heads=c.kv_heads)
-            return dict(tree, blocks=b)
+            return dict(tree, blocks=megatron.map_with_path(
+                fix_leaf, tree["blocks"]))
 
         log(f"checkpoint: qkv columns re-permuted from qkv_tp={saved_tp} "
             f"to this layout's qkv_tp={self.qkv_tp}")
@@ -874,7 +1032,8 @@ class Trainer:
         there are at least :data:`SDC_MIN_REPLICAS` replicas (ranks); the
         node groups and the host group form here, on every rank."""
         fpr = consistency.Fingerprinter(
-            self.state, sharded_opt=self.layout is not None)
+            self.state, sharded_opt=self.layout is not None and
+            self.state_layout is None, skip=self._unreplicated())
         if fpr.n_leaves and self.world.world_size >= SDC_MIN_REPLICAS:
             self._fp = fpr
             self._sdc_policy = SDCPolicy(self.cfg.sdc_strikes)
@@ -885,6 +1044,26 @@ class Trainer:
             self._fp = None
             log("[sdc] replica checking disabled: no replicated leaves "
                 "with >= 2 device shards in this layout/mesh")
+
+    def _unreplicated(self) -> frozenset:
+        """The ids of the state's tensors JAX's layout does not hold
+        replicated: the leaves the rules split over tensor or fsdp (and
+        the optimizer slots mirroring them, which a local group holds
+        whole all the same), and the optimizer leaves the sharded update
+        splits over the data ranks."""
+        lay, s = self.state_layout, self.state
+        if lay is None:
+            return frozenset()
+        split = [sp.tensor is not None or sp.fsdp is not None
+                 for sp in lay.specs]
+        out = {id(x) for x, sp in zip(leaves(s.params), split) if sp}
+        axes = (self.layout.axes if self.layout is not None
+                else [None] * len(leaves(s.opt_state)))
+        for x, j, a in zip(leaves(s.opt_state), lay.mirror(s.opt_state),
+                           axes):
+            if a is not None or (j >= 0 and split[j]):
+                out.add(id(x))
+        return frozenset(out)
 
     def _sdc_observe(self, at_step: int, fp, watchdog,
                      draining: bool = False) -> str:
@@ -1019,9 +1198,9 @@ class Trainer:
             if fp_verdict.get("cross"):
                 # which leaves and nodes: each node's per-leaf digests
                 # against node 0's (collective; symmetric as fp_verdict)
+                d = self._fp.leaf_digests(self.state)
                 cross = distributed.cross_host_report(
-                    consistency.leaf_digests(
-                        self.state, sharded_opt=self.layout is not None))
+                    {n: d[i:i + 1] for i, n in enumerate(self._fp.paths)})
             devices = sorted({d for r in report.values()
                               for d in r["devices"]})
             self._sdc_heal(mine)
@@ -1124,7 +1303,8 @@ class Trainer:
                  "order_salt": int(self.loader.order_salt),
                  "saved_world": {
                      "dp": int(self.loader.dp),
-                     "mesh": {"data": w.dp, "fsdp": 1, "pipe": 1,
+                     "mesh": {"data": w.dp, "fsdp": cfg.mesh.fsdp,
+                              "pipe": 1,
                               "expert": 1, "seq": w.sp,
                               "tensor": cfg.mesh.tensor},
                      "update_sharding": cfg.update_sharding},
@@ -1307,7 +1487,8 @@ class Trainer:
                                     step + i, self.state,
                                     replica=self.world.data_rank,
                                     n_replicas=self.world.dp,
-                                    sharded_opt=self.layout is not None)
+                                    sharded_opt=self.layout is not None,
+                                    skip=self._unreplicated())
                         if self._fp is not None:
                             self._sdc_batch = batches   # for the replay
                         # "dispatch": the host's cost of queueing the step

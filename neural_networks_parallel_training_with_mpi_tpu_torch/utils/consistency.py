@@ -284,9 +284,14 @@ class Fingerprinter:
 
     _RING = 4   # pinned buffers: two wait in the lag queue, one fills
 
-    def __init__(self, tree: Tree, sharded_opt: bool = False):
+    def __init__(self, tree: Tree, sharded_opt: bool = False,
+                 skip: frozenset = frozenset()):
+        """``skip``: the ids of ``tree``'s tensors the layout does not hold
+        replicated (a tensor or fsdp slice; the JAX ``Fingerprinter``
+        skips every leaf that is not fully replicated)."""
         self.sharded_opt = sharded_opt
-        self.paths = [n for n, _ in replicated_leaves(tree, sharded_opt)]
+        self.paths = [n for n, t in replicated_leaves(tree, sharded_opt)
+                      if id(t) not in skip]
         self.n_leaves = len(self.paths)
         self._pinned: List[Tuple[torch.Tensor, torch.Tensor]] = []
         self._n = 0

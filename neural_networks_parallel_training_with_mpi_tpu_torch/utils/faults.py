@@ -232,15 +232,17 @@ def _corrupt_newest(ckpt_dir: Optional[str], step: int) -> None:
          f"in {snap.name}/{victim.name}")
 
 
-def _replicated_float_leaves(tree):
+def _replicated_float_leaves(tree, skip: frozenset = frozenset()):
     """(name, tensor) of the float leaves of ``tree`` in the JAX package's
-    flatten order: the candidate victims of the SDC kinds."""
+    flatten order, but those whose ids are in ``skip`` (a layout's slices,
+    which JAX does not hold replicated): the candidate victims of the SDC
+    kinds."""
     from .consistency import replicated_leaves
 
     if tree is None:
         return
     for name, leaf in replicated_leaves(tree):
-        if leaf.is_floating_point():
+        if leaf.is_floating_point() and id(leaf) not in skip:
             yield name, leaf
 
 
@@ -369,7 +371,8 @@ class FaultPlan:
 
     def apply_state(self, step: int, state, replica: int = 0,
                     n_replicas: int = 1, sharded_opt: bool = False,
-                    what: str = "train state"):
+                    what: str = "train state",
+                    skip: frozenset = frozenset()):
         """Fire the due ``bitflip``/``desync`` faults on ``state`` in place
         and return it.  ``replica``/``n_replicas``: this rank's data-rank
         index and the data-rank count (the candidates are the replicated
@@ -383,7 +386,7 @@ class FaultPlan:
                 continue
             target = (state.params if f.kind == "bitflip"
                       else None if sharded_opt else state.opt_state)
-            cands = (list(_replicated_float_leaves(target))
+            cands = (list(_replicated_float_leaves(target, skip))
                      if n_replicas >= 2 else [])
             if not cands:
                 _say(f"{f.kind} at step {step}: no replicated float leaves "

@@ -666,3 +666,85 @@ def test_port_elastic_restore_reads_jaxs_two_device_snapshot(tmp_path,
     assert len(got) == len(want)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------- elastic resume with tp / fsdp kept
+
+TP_ELASTIC = {"tp": (["--dp", "2", "--tp", "2"], ["--tp", "2"]),
+              "fsdp": (["--dp", "2", "--fsdp", "2"], ["--fsdp", "2"])}
+
+
+def _tp_elastic_flags(mesh, ck, resume=False):
+    from torch_fsdp_child import LM
+
+    flags = LM + mesh + ["--checkpoint_dir", ck]
+    if resume:
+        flags += ["--resume", "--elastic", "--nepochs", "2"]
+    return flags
+
+
+@pytest.fixture(scope="module")
+def tp_elastic(tmp_path_factory):
+    """4 gloo ranks (``--dp 2 --tp 2``; ``--dp 2 --fsdp 2``) save, then 2
+    ranks (``--tp 2``; ``--fsdp 2``) resume under ``--elastic``; the JAX
+    Trainer does the same on ``data=2 x tensor=2`` -> ``tensor=2`` (and
+    the fsdp meshes) of host devices."""
+    from torch_fsdp_child import spawn as spawn_fsdp
+
+    tmp = tmp_path_factory.mktemp("tp_elastic")
+    want, inits = {}, {}
+    for name, (big, small) in TP_ELASTIC.items():
+        jd = str(tmp / f"jax_{name}")
+        for mesh, resume in ((big, False), (small, True)):
+            jcfg = jconfig.config_from_args(jconfig.build_argparser()
+                                            .parse_args(_tp_elastic_flags(
+                                                mesh, jd, resume)))
+            m = jcfg.mesh
+            n = max(m.data, 1) * m.fsdp * m.tensor
+            jt = JaxTrainer(jcfg, mesh=make_mesh(
+                m, devices=jax.devices("cpu")[:n]))
+            jt.init_state()
+            if not resume:
+                inits[name] = jax.device_get(jt.state.params)
+            jt.fit()
+        want[name] = (jax.device_get(jt.state.params), jt._topology_change)
+    for stage, size, resume in (("save", 4, False), ("resume", 2, True)):
+        (tmp / stage).mkdir()
+        jobs = {name: {"flags": _tp_elastic_flags(
+            meshes[1 if resume else 0], str(tmp / name), resume),
+            "fit": True, "init": inits[name]}
+            for name, meshes in TP_ELASTIC.items()}
+        outs = spawn_fsdp(str(tmp / stage), size, jobs)
+    return outs, want
+
+
+@pytest.mark.parametrize("name", list(TP_ELASTIC))
+def test_elastic_resume_keeps_tp_and_fsdp(tp_elastic, name):
+    """A 4 -> 2 rank elastic resume at tp 2 (and at fsdp 2): the dense
+    snapshot restores into each rank's slices of the smaller world, the
+    batch policy and the topology record are JAX's, and the run ends
+    where JAX's does (its GSPMD tolerance: params rtol 2e-4, atol
+    1e-5)."""
+    from test_torch_fsdp import assert_params_close
+
+    outs, want = tp_elastic
+    params, change = want[name]
+    # the batch shards: data (x fsdp), 2 -> 1 under tp, 4 -> 2 under fsdp
+    saved = {"tp": 2, "fsdp": 4}[name]
+    assert change["from_world"]["dp"] == saved
+    assert change["to_world"]["dp"] == saved // 2
+    for out in outs:
+        got = out[name]
+        assert got["layout"] == "gspmd"
+        assert_params_close(got["params"], params)
+
+
+def test_degrade_env_refuses_a_replica_of_several_ranks():
+    """A degraded world is one process on one card: a ``--tp`` / ``--fsdp``
+    / ``--sp`` replica of several ranks cannot relaunch there."""
+    with pytest.raises(ValueError, match="holds one card"):
+        res.degrade_env({"WORLD_SIZE": "4"},
+                        {"n_processes": 1, "n_devices": 1}, model_ranks=2)
+    assert res.degrade_env({"WORLD_SIZE": "4"},
+                           {"n_processes": 1, "n_devices": 1},
+                           model_ranks=1)["NNPT_PROCESS_ID"] == "0"

@@ -898,3 +898,138 @@ def test_cli_trains_quantized(capsys, fmt, extra):
         losses[f] = float(out.split("done: final loss ")[1].split(",")[0])
     assert np.isfinite(losses[fmt])
     assert abs(losses[fmt] - losses["bf16"]) < 0.05, losses
+
+
+# ---------------------------------------------------------------------------
+# the GSPMD layout (--tp / --fsdp): ops.qmm's tensor-parallel seam
+# ---------------------------------------------------------------------------
+
+def _tp_xw(seed=0, rows=24, k=32, n=48):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * 0.2).astype(np.float32)
+    dy = rng.standard_normal((rows, n)).astype(np.float32)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("mode", ["col", "row"])
+def test_tp_qdot_takes_the_whole_tensors_scales(fmt, mode):
+    """A column- and a row-parallel quantized product over a
+    ``LocalTensorGroup(2)``: every scale an amax over a split dim takes is
+    the group's max, so the shards quantize with the whole tensor's codes
+    and their results (summed where the layout sums them) are the dense
+    ``qdot``'s within its product tolerance, in both directions."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+
+    x, w, dy = _tp_xw()
+    group = LocalTensorGroup(2)
+
+    def dense():
+        xt = torch.tensor(x, requires_grad=True)
+        wt = torch.tensor(w, requires_grad=True)
+        y = qmm.qdot(xt, wt, fmt=fmt)
+        (y * torch.tensor(dy)).sum().backward()
+        return y.detach(), xt.grad, wt.grad
+
+    def split():
+        xt = torch.tensor(x, requires_grad=True)
+        wt = torch.tensor(w, requires_grad=True)
+        if mode == "col":
+            parts = qmm.qdot_col(xt, list(wt.chunk(2, 1)), fmt=fmt,
+                                 group=group)
+            y = torch.cat(parts, -1)
+        else:
+            parts = qmm.qdot_row(list(xt.chunk(2, 1)), list(wt.chunk(2, 0)),
+                                 fmt=fmt, group=group)
+            y = group.g(parts)
+        (y * torch.tensor(dy)).sum().backward()
+        return y.detach(), xt.grad, wt.grad
+
+    for got, want in zip(split(), dense()):
+        _close(got, want, QDOT_RTOL[fmt])
+
+
+QUANT_GSPMD = {f"{fmt}_{name}": extra + ["--matmul_dtype", fmt]
+               for fmt in FORMATS
+               for name, extra in (("dp_tp", ["--dp", "2", "--tp", "2"]),
+                                   ("dp_fsdp", ["--dp", "2", "--fsdp",
+                                                "2"]))}
+
+
+def _jax_gspmd_state(flags):
+    """(init params, losses, final host state) of JAX's GSPMD Trainer."""
+    from test_torch_fsdp import jax_mesh
+
+    jcfg, mesh = jax_mesh(list(flags))
+    jt = JaxTrainer(jcfg, mesh=mesh)
+    jt.init_state()
+    init = jax.device_get(jt.state.params)
+    losses = []
+    for epoch in range(jt.cfg.nepochs):
+        for batch in jt.loader.epoch(epoch):
+            jt.state, loss = jt.train_step(jt.state, batch)
+            losses.append(float(loss))
+    return init, losses, jax.device_get(jt.state)
+
+
+@pytest.fixture(scope="module")
+def gspmd_quant_ranks(tmp_path_factory):
+    """``--matmul_dtype int8|fp8`` under ``--dp 2 --tp 2`` and ``--dp 2
+    --fsdp 2`` over 4 gloo ranks of ``tests/torch_fsdp_child.py``, from
+    JAX's inits."""
+    from torch_fsdp_child import LM
+    from torch_fsdp_child import spawn as spawn_fsdp
+
+    tmp = tmp_path_factory.mktemp("gspmd_quant")
+    want = {name: _jax_gspmd_state(tuple(LM + extra))
+            for name, extra in QUANT_GSPMD.items()}
+    jobs = {name: {"flags": LM + extra, "init": want[name][0]}
+            for name, extra in QUANT_GSPMD.items()}
+    return want, spawn_fsdp(str(tmp), 4, jobs)
+
+
+@pytest.mark.parametrize("name", list(QUANT_GSPMD))
+def test_gspmd_quantized_ranks_match_jax(gspmd_quant_ranks, name):
+    """JAX's GSPMD step quantizes global-view tensors; the port's tensor
+    ranks take each split amax as the group's max (and fp8's observations
+    over every rank), so the trajectory is JAX's on the same mesh within
+    the code-flip bounds (the module docstring's table), the fp8
+    histories included, and every rank holds the same histories."""
+    want, outs = gspmd_quant_ranks
+    init, jl, jstate = want[name]
+    fmt = name.split("_")[0]
+    for out in outs:
+        got = out[name]
+        assert got["layout"] == f"gspmd+matmul_dtype={fmt}"
+        _assert_train_close(fmt, got["outs"], jl,
+                            TrainState(0, got["params"], (), got["qstate"]),
+                            jstate, init)
+        _assert_trees(got["qstate"], outs[0][name]["qstate"], exact=True)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_tp_local_group_matches_jax_gspmd(fmt):
+    """One process over a ``LocalTensorGroup(2)``: the same bounds against
+    JAX's ``data=1 x tensor=2`` GSPMD Trainer."""
+    from torch_fsdp_child import LM
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.interop import (
+        rank_state_from_jax,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+
+    flags = LM + ["--tp", "2", "--matmul_dtype", fmt]
+    init, jl, jstate = _jax_gspmd_state(tuple(flags))
+    trainer = Trainer(config_from_args(build_argparser().parse_args(flags)),
+                      device="cpu", tensor_group=LocalTensorGroup(2))
+    trainer.state, _ = rank_state_from_jax(trainer, init)
+    losses = []
+    for batch in trainer.loader.epoch(0):
+        trainer.state, loss = trainer.train_step(trainer.state, batch)
+        losses.append(float(loss))
+    _assert_train_close(fmt, losses, jl, trainer.state, jstate, init)

@@ -465,3 +465,113 @@ def test_the_jobs_cover_every_layout_the_port_has():
                for n in SDC_JOBS}
     assert layouts == {"replicated", "zero1", "sharded"}
     assert any(SDC_JOBS[n][0].get("lm") for n in SDC_JOBS)
+
+
+# ------------------------------------- the replica check on sliced layouts
+
+SLICED = {"dp_tp": ["--dp", "2", "--tp", "2"],
+          "dp_fsdp": ["--dp", "2", "--fsdp", "2"]}
+
+
+def _sliced_flags(name, extra=()):
+    from torch_fsdp_child import LM
+
+    return LM + SLICED[name] + ["--nepochs", "3", "--sdc_check_every", "1",
+                                *extra]
+
+
+@pytest.fixture(scope="module")
+def sliced_runs(tmp_path_factory):
+    """``--dp 2 --tp 2`` and ``--dp 2 --fsdp 2`` over 4 gloo ranks (one
+    node) with the check on every step, and ``--dp 2 --tp 2`` with a bit
+    flipped in a whole leaf on data rank 1 at step 3."""
+    from torch_fsdp_child import spawn as spawn_fsdp
+
+    tmp = tmp_path_factory.mktemp("sdc_sliced")
+    jobs = {name: {"flags": _sliced_flags(name), "fit": True}
+            for name in SLICED}
+    jobs["flip"] = {"flags": _sliced_flags("dp_tp", [
+        "--faults", "bitflip@3?shard=1&bit=9"]), "fit": True}
+    return spawn_fsdp(str(tmp), 4, jobs)
+
+
+@pytest.mark.parametrize("name", list(SLICED))
+def test_sliced_layouts_fingerprint_jaxs_replicated_leaves(
+        sliced_runs, devices, name):
+    """JAX's ``Fingerprinter`` covers the leaves the layout holds fully
+    replicated; the port's fingerprint covers the same leaves (JAX's
+    ``.step`` is a host int in the port), on every rank, and a clean run
+    raises no incident."""
+    from neural_networks_parallel_training_with_mpi_tpu.utils import (
+        consistency as jcons,
+    )
+
+    flags = _sliced_flags(name)
+    jcfg = jconfig.config_from_args(jconfig.build_argparser().parse_args(
+        flags))
+    jt = JaxTrainer(jcfg, mesh=make_mesh(jcfg.mesh, devices=devices[:4]))
+    jt.init_state()
+    want = set(jcons.Fingerprinter(jt.state, jt.mesh).paths) - {".step"}
+    for out in sliced_runs:
+        got = out[name]
+        assert set(got["fp"]) == want
+        assert got["sdc"] == (0, 0)
+    assert any("['ln1']" in p for p in want)
+    assert not any("['qkv']['w']" in p for p in want)
+
+
+def test_a_flipped_whole_leaf_is_healed_on_a_sliced_layout(sliced_runs):
+    """A bit flipped in a whole (replicated) leaf on data rank 1's ranks
+    is detected, localized and healed from the majority; every rank ends
+    with the params the ranks gathered on rank 0."""
+    outs = [out["flip"] for out in sliced_runs]
+    assert outs[0]["sdc"] == (1, 1)
+    for out in outs:
+        jax.tree_util.tree_map(np.testing.assert_array_equal,
+                               out["params"], outs[0]["params"])
+
+
+def test_a_flipped_sliced_leaf_is_not_checked_as_in_jax():
+    """The fingerprint leaves out the leaves the layout slices (a
+    ``LocalTensorGroup(2)`` holds them whole all the same): a bit
+    flipped in a qkv weight leaves the digest as it was; one in a
+    LayerNorm scale changes it.  The fault kinds pick no sliced leaf."""
+    from torch_fsdp_child import LM
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        consistency,
+    )
+
+    t = Trainer(config_from_args(build_argparser().parse_args(
+        LM + ["--tp", "2"])), device="cpu",
+        tensor_group=LocalTensorGroup(2))
+    t.init_state()
+    skip = t._unreplicated()
+    fp = consistency.Fingerprinter(t.state, skip=skip)
+
+    def digest():
+        d, _ = consistency.Fingerprinter.fetch(fp.compute(t.state))
+        return int(d[0])
+
+    before = digest()
+    faults.flip_bit_in_shard(t.state.params["blocks"][0]["qkv"]["w"], 0, 9)
+    assert digest() == before
+    faults.flip_bit_in_shard(t.state.params["blocks"][0]["ln1"]["scale"], 0,
+                             9)
+    assert digest() != before
+    names = [n for n, _ in faults._replicated_float_leaves(t.state.params,
+                                                           skip)]
+    assert names and not any("['qkv']" in n for n in names)
+
+
+def test_det_desync_refused_on_fsdp_and_tensor_layouts():
+    """JAX's ``test_det_desync_refused_on_sharded_state_layouts`` on its
+    ``data=4 x fsdp=2`` mesh, and the tensor axis: JAX's message."""
+    for mesh in (pconfig.MeshConfig(data=4, fsdp=2),
+                 pconfig.MeshConfig(tensor=2)):
+        cfg = pconfig.TrainConfig(mesh=mesh, faults="desync@2?det")
+        with pytest.raises(NotImplementedError, match="desync"):
+            Trainer(cfg, device="cpu")

@@ -47,7 +47,7 @@ from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron impo
     LocalTensorGroup,
 )
 from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (
-    QUEUE_A4, Trainer,
+    QUEUE_A4, Trainer, check_fsdp_layout, check_tensor_layout,
 )
 from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
     checkpoint as ckpt,
@@ -124,9 +124,13 @@ def assert_outputs_close(got, want):
 # ---------------------------------------------------------------------------
 
 def _spec_dim(spec):
-    """A JAX PartitionSpec on a data x tensor mesh as the port's rule."""
-    dims = [i for i, a in enumerate(spec) if a == "tensor"]
-    return dims[0] if dims else None
+    """A JAX PartitionSpec as the port's rule: the dims of its tensor and
+    fsdp axes."""
+    def dim(axis):
+        dims = [i for i, a in enumerate(spec) if a == axis]
+        return dims[0] if dims else None
+
+    return tp.LeafSpec(dim("tensor"), dim("fsdp"))
 
 
 @pytest.mark.parametrize("flags", [
@@ -145,11 +149,11 @@ def test_slice_rules_match_jax_param_specs(flags, tensor):
     model = build_model(cfg.model, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     got = tp.param_specs(model, params, tensor)
-    assert (jax.tree_util.tree_leaves(got, is_leaf=lambda x: x is None)
-            == jax.tree_util.tree_leaves(want, is_leaf=lambda x: x is None))
-    assert jax.tree_util.tree_structure(
-        got, is_leaf=lambda x: x is None) == jax.tree_util.tree_structure(
-        want, is_leaf=lambda x: x is None)
+    leaf = lambda x: isinstance(x, tp.LeafSpec)  # noqa: E731
+    assert (jax.tree_util.tree_leaves(got, is_leaf=leaf)
+            == jax.tree_util.tree_leaves(want, is_leaf=leaf))
+    assert jax.tree_util.tree_structure(got, is_leaf=leaf) == \
+        jax.tree_util.tree_structure(want, is_leaf=leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -372,17 +376,78 @@ HELD_OUT = [
 
 
 @pytest.mark.parametrize("flags", HELD_OUT, ids=lambda f: "_".join(f[-2:]))
-def test_held_out_combinations_name_queue_a_item_4(flags):
+def test_formerly_held_combinations_build(flags):
+    """The combinations ROADMAP Queue A item 4 held out of ``--tp`` until
+    the state could be sliced now pass the layout checks and build; a
+    world of one process has no room for ``--fsdp 2`` but a local fsdp
+    group of 2."""
     cfg = config_from_args(build_argparser().parse_args(flags))
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        Trainer(cfg, device="cpu")
+    check_fsdp_layout(cfg)
+    check_tensor_layout(cfg)
+    groups = {"tensor_group": LocalTensorGroup(2)} if cfg.mesh.tensor > 1 \
+        else {}
+    if cfg.mesh.seq > 1:
+        from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+            LocalSeqGroup,
+        )
+
+        groups["seq_group"] = LocalSeqGroup(2)
+    if cfg.mesh.fsdp > 1:
+        from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.fsdp import (  # noqa: E501
+            LocalFsdpGroup,
+        )
+
+        with pytest.raises(ValueError, match="does not fit a world of 1"):
+            Trainer(cfg, device="cpu")
+        t = Trainer(cfg, device="cpu", fsdp_group=LocalFsdpGroup(2))
+        assert t.gspmd and t.state_layout.fsdp_pg is None
+    else:
+        assert Trainer(cfg, device="cpu", **groups).state_layout is not None
 
 
-def test_generate_under_tp_is_held_out():
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        cli.main(lm_flags("mha", "--tp", "2") + ["--generate", "1,2",
-                                                "--platform", "cpu"])
+def test_generate_ignores_mesh_flags(tmp_path, capsys):
+    """``--generate`` under ``--tp`` decodes as JAX's CLI does: the mesh
+    flags do not apply, and the tokens are those of the run without
+    them."""
+    flags = lm_flags("mha") + ["--generate", "1,2", "--platform", "cpu",
+                               "--max_new_tokens", "4"]
+    outs = []
+    for extra in ([], ["--tp", "2"], ["--fsdp", "2"]):
+        assert cli.main(flags + extra) == 0
+        outs.append([ln for ln in capsys.readouterr().out.splitlines()
+                     if ln.startswith("1,2,")])
+    assert outs[0] and outs[0] == outs[1] == outs[2]
     assert "Queue A item 4" in QUEUE_A4
+
+
+@pytest.mark.parametrize("saver", ["port", "jax"])
+def test_generate_under_tp_prints_jaxs_tokens(tmp_path, capsys, saver):
+    """One ``--tp 2`` snapshot (saved by the port's GSPMD trainer, or by
+    JAX's): both CLIs' ``--generate --tp 2`` print the same greedy ids."""
+    from neural_networks_parallel_training_with_mpi_tpu import cli as jcli
+
+    d = str(tmp_path / "ck")
+    flags = lm_flags("mha", "--tp", "2", "--nepochs", "1",
+                     "--checkpoint_dir", d)
+    if saver == "port":
+        _port(flags, tensor_group=LocalTensorGroup(2)).fit()
+        # the JAX package's restore reads its template's treedef beside
+        # the arrays
+        jt = _jax_trainer(flags)
+        jt.init_state()
+        (ckpt._snapshot_dirs(d)[-1][1] / "treedef.pkl").write_bytes(
+            pickle.dumps(jax.tree_util.tree_structure(jt.state)))
+    else:
+        _jax_trainer(flags).fit()
+    capsys.readouterr()
+    gen = flags + ["--generate", "1,2,3", "--max_new_tokens", "8",
+                   "--platform", "cpu"]
+    lines = []
+    for main in (cli.main, jcli.main):
+        assert main(gen) == 0
+        lines.append(capsys.readouterr().out.strip().splitlines()[-1])
+    assert lines[0] == lines[1] and lines[0].startswith("1,2,3,")
+    assert len(lines[0].split(",")) == 11
 
 
 def test_tp_without_a_world_raises_and_the_group_must_fit():

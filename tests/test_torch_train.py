@@ -507,13 +507,14 @@ def test_interop_round_trips_a_jax_train_state():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    # --tp, ulysses, --vocab_parallel and dense_blockwise are ported
-    # (tests/test_torch_tensor_parallel.py, tests/test_torch_sp_tp.py,
-    # tests/test_torch_megatron.py); their combinations held out of the
-    # port (ROADMAP Queue A item 4) take their places
-    ["--tp", "2", "--update_sharding", "sharded"],
+    # --tp, --fsdp, ulysses, --vocab_parallel and dense_blockwise are
+    # ported with their combinations (tests/test_torch_tensor_parallel.py,
+    # tests/test_torch_sp_tp.py, tests/test_torch_megatron.py,
+    # tests/test_torch_fsdp.py); their mixes with the pipe and expert
+    # axes (ROADMAP Queue A item 4) take their places
+    ["--tp", "2", "--pp", "2"],
     ["--sp", "2", "--attention", "ulysses", "--fsdp", "2"], ["--pp", "2"],
-    ["--ep", "2"], ["--fsdp", "2"],
+    ["--ep", "2"], ["--fsdp", "2", "--pp", "2"],
     # the observability flags are ported
     # (tests/test_torch_telemetry.py::test_observability_flags_are_ported)
     # the resilience flags are ported (tests/test_torch_resilience.py),
@@ -522,12 +523,12 @@ def test_interop_round_trips_a_jax_train_state():
     # serving-fleet fault kinds (Queue A item 6) and the flags of the
     # model-parallel layouts and RL are not
     ["--vocab_parallel", "--sp", "2", "--tp", "2", "--attention", "ring",
-     "--dataset", "lm", "--elastic"],
+     "--dataset", "lm", "--ep", "2"],
     ["--faults", "replica_kill@1"], ["--moe_top_k", "2"],
     ["--pp_interleave", "2"], ["--moe_capacity_factor", "2"],
     ["--ep", "4"], ["--workload", "rl"], ["--data_backend", "native"],
     ["--attention", "dense_blockwise", "--tp", "2", "--dataset", "lm",
-     "--matmul_dtype", "int8"],
+     "--pp", "2"],
     # ported, but not over the pipeline layout (JAX's refusals)
     ["--matmul_dtype", "fp8", "--dataset", "lm", "--pp", "2"],
     ["--moe_experts", "4"], ["--skip-nonfinite", "--pp", "2"],

@@ -395,3 +395,129 @@ def test_replicated_step_refuses_grad_clip():
     with pytest.raises(ValueError, match="with_clipping"):
         dp.make_train_step(None, optim.sgd(0.1, steps=0), world_setup("cpu"),
                            grad_clip=1.0)
+
+
+# ---------------------------------------------------------------------------
+# --update_sharding sharded on the GSPMD layout (--tp / --fsdp): JAX's
+# gspmd_opt_specs on each rank's slices, over 4 gloo ranks
+# ---------------------------------------------------------------------------
+
+GSPMD_SHARDED = {
+    "fsdp_sharded": ["--dp", "2", "--fsdp", "2", "--update_sharding",
+                     "sharded"],
+    "fsdp_replicated": ["--dp", "2", "--fsdp", "2"],
+    "tp_sharded": ["--dp", "2", "--tp", "2", "--update_sharding", "sharded",
+                   "--grad_clip", "0.05", "--skip-nonfinite"],
+    "tp_replicated": ["--dp", "2", "--tp", "2", "--grad_clip", "0.05",
+                      "--skip-nonfinite"],
+}
+
+
+@pytest.fixture(scope="module")
+def gspmd_ranks(tmp_path_factory):
+    """The GSPMD jobs over 4 gloo ranks of ``tests/torch_fsdp_child.py``
+    from JAX's inits, and a ``qkv_tp`` 2 snapshot (``--sp 2 --tp 2`` over
+    local groups) resumed under ``--dp 4`` and ``--dp 2 --tp 2`` with
+    ``--update_sharding sharded``, and ``--dp 2 --tp 2`` replicated."""
+    from test_torch_fsdp import jax_trajectory
+    from torch_fsdp_child import LM
+    from torch_fsdp_child import spawn as spawn_fsdp
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    tmp = tmp_path_factory.mktemp("gspmd_sharded")
+    ck = str(tmp / "sp_tp")
+    saver = Trainer(pconfig.config_from_args(pconfig.build_argparser()
+                                             .parse_args(
+        LM + ["--sp", "2", "--tp", "2", "--attention", "ring",
+              "--checkpoint_dir", ck])), device="cpu",
+        seq_group=LocalSeqGroup(2), tensor_group=LocalTensorGroup(2))
+    saver.fit()
+    jobs = {name: {"flags": LM + extra,
+                   "init": jax_trajectory(tuple(LM + extra))[0]}
+            for name, extra in GSPMD_SHARDED.items()}
+    for name, extra in (("resume_dp", ["--dp", "4"]),
+                        ("resume_tp", ["--dp", "2", "--tp", "2"])):
+        jobs[name] = {"flags": LM + extra + [
+            "--update_sharding", "sharded", "--resume", "--nepochs", "2",
+            "--checkpoint_dir", ck], "fit": True}
+    jobs["resume_plain"] = {"flags": LM + [
+        "--dp", "2", "--tp", "2", "--resume", "--nepochs", "2",
+        "--checkpoint_dir", ck], "fit": True}
+    return spawn_fsdp(str(tmp), 4, jobs)
+
+
+@pytest.mark.parametrize("name", ["fsdp_sharded", "tp_sharded"])
+def test_gspmd_sharded_matches_jax_and_replicated(gspmd_ranks, name):
+    """JAX's ``test_sharded_gspmd_parity_and_opt_specs``: the sharded
+    update's trajectory equals JAX's on the same mesh and the replicated
+    update's at its pinned tolerance (losses rel 1e-5; params rtol 2e-5,
+    atol 1e-6), the clip and the guard included; each rank holds its
+    tensor / fsdp slice of the params and 1/dp of that again of each
+    optimizer slot the plan splits."""
+    from test_torch_fsdp import (assert_outputs_close, assert_params_close,
+                                 jax_trajectory)
+    from torch_fsdp_child import LM
+
+    _, want, want_params = jax_trajectory(tuple(LM + GSPMD_SHARDED[name]))
+    rep = name.replace("sharded", "replicated")
+    for out in gspmd_ranks:
+        got = out[name]
+        assert got["layout"] == "gspmd+sharded"
+        assert_outputs_close(got["outs"], want)
+        assert_params_close(got["params"], want_params)
+        np.testing.assert_allclose(got["outs"], out[rep]["outs"], rtol=1e-5)
+        assert_params_close(got["params"], out[rep]["params"],
+                            rtol=2e-5, atol=1e-6)
+        # SGD momentum: one slot, split over the 2 data ranks where the
+        # plan finds a dim
+        assert got["held"]["opt"] < out[rep]["held"]["opt"]
+        assert got["held"]["params"] == out[rep]["held"]["params"]
+
+
+def test_qkv_tp_resume_under_sharded_repermutes_every_slot(gspmd_ranks):
+    """A ``qkv_tp`` 2 snapshot resumed under ``sharded`` (the slots
+    re-permuted into the dense order, on the DP layout's padded arrays and
+    on the GSPMD layout's slices) trains on as the replicated update
+    does."""
+    for out in gspmd_ranks:
+        for name in ("resume_dp", "resume_tp"):
+            jax.tree_util.tree_map(
+                lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-5,
+                                                        atol=1e-6),
+                out[name]["params"], out["resume_plain"]["params"])
+
+
+def test_zero1_keeps_refusing_a_qkv_tp_resume(tmp_path, monkeypatch):
+    """zero1's flat buffer has no per-leaf slots to re-permute: a zero1
+    snapshot whose meta names another qkv_tp still raises, naming ROADMAP
+    Queue A item 4 (no layout writes one: zero1 never runs beside a
+    tensor axis)."""
+    from torch_fsdp_child import LM
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as pckpt,
+    )
+
+    ck = str(tmp_path / "ck")
+    flags = LM + ["--update_sharding", "zero1", "--checkpoint_dir", ck]
+
+    def port(extra=()):
+        return Trainer(pconfig.config_from_args(pconfig.build_argparser()
+                                                .parse_args(flags
+                                                            + list(extra))),
+                       device="cpu")
+
+    port().fit()
+    read_meta = pckpt.read_meta
+    monkeypatch.setattr(pckpt, "read_meta", lambda *a, **k: dict(
+        read_meta(*a, **k) or {}, qkv_tp=2))
+    t = port(["--resume"])
+    t.init_state()
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        t.maybe_resume()

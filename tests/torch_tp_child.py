@@ -42,25 +42,19 @@ def lm_flags(variant="mha", *extra):
 
 
 def set_init(trainer, init):
-    """The trainer's state from the JAX init (a host tree)."""
+    """The trainer's state from the JAX init (a host tree of the global
+    params): this rank's slices of it under a sliced layout."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.interop import (
-        params_from_jax, tree_from_jax,
-    )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
-        TrainState,
+        rank_state_from_jax,
     )
 
-    cfg = getattr(trainer.model, "cfg", None)
-    params = (params_from_jax(init, cfg, "cpu") if cfg is not None
-              else tree_from_jax(init, "cpu"))
-    trainer.state = TrainState.from_params(params, trainer.optimizer,
-                                           trainer.model)
+    trainer.state, trainer.layout = rank_state_from_jax(trainer, init)
 
 
 def run(trainer, init, max_steps=None):
     """Every step of the trainer's epochs (at most ``max_steps``) from the
-    JAX init: (per-step losses, or metrics dicts, and the final params as
-    numpy)."""
+    JAX init: (per-step losses, or metrics dicts, and the final global
+    params as numpy)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.interop import (
         tree_to_numpy,
     )
@@ -74,7 +68,7 @@ def run(trainer, init, max_steps=None):
             trainer.state, out = trainer.train_step(trainer.state, batch)
             outs.append({k: float(v) for k, v in out.items()}
                         if isinstance(out, dict) else float(out))
-    return outs, tree_to_numpy(trainer.state.params)
+    return outs, tree_to_numpy(trainer.whole_params())
 
 
 def ops(inputs):

@@ -133,34 +133,35 @@ Phases, each printing its own lines; any failure exits non-zero:
               module): the toy regression against the plain-torch
               reference loop, digits >= 0.95, both byte LMs under the
               unigram perplexity; prints each value.
-15. resume   — phase 7's flags with ``--checkpoint_dir``: one epoch (13
+15. resume   — first phase 7's job cut to 2 layers (full width), eager:
+              the reference of 15, 16, 17 (b)-(e) and 19 (d).  Its flags
+              with ``--checkpoint_dir``: one epoch (13
               steps) and its snapshot, then a new ``Trainer`` with
               ``--nepochs 2 --resume --async-checkpoint
               --checkpoint_every 13``: steps 14-26's losses and the final
-              params against phase 7's uninterrupted run, bitwise (the
+              params against the uninterrupted 2-layer run, bitwise (the
               largest differences are printed);
               the async snapshot of step 26 restored and equal to the
               state, leaf for leaf; ``--generate`` of 32 tokens from it as
               a subprocess equal to the in-process ``generate()``, greedy
               and sampled (temperature 1, the same seed).  Prints the
               snapshot's bytes and the save and restore seconds.
-16. dispatch — ``--steps_per_dispatch 13``: phase 7's job, then phase
-              11's striped_flash job over ``LocalSeqGroup(4)``, each train
-              step captured once as a CUDA graph and replayed (one
-              dispatch per epoch).  Losses at the dispatch ends and the
-              final params against phases 7 and 11's eager runs (bitwise,
-              or phase 8's f32 tolerance); each flash kernel's launches
-              by design (the warm-up step's counters + replays x the
-              launches captured) equal to 12 (x 16 striped) x steps; step
-              ms, tokens/s, MFU and peak memory beside the eager run's;
-              the host's launch calls per step under the profiler (one
-              more dispatch, 3 eager steps); one replay's device time
+16. dispatch — ``--steps_per_dispatch 13``: phase 7's job at 2 layers,
+              then phase 11's striped_flash job over ``LocalSeqGroup(4)``,
+              each train step captured once as a CUDA graph and replayed
+              (one dispatch per epoch).  Losses at the dispatch ends and
+              the final params against phase 15's 2-layer and phase 11's
+              eager runs (bitwise, or phase 8's f32 tolerance); each flash
+              kernel's launches by design (the warm-up step's counters +
+              replays x the launches captured) equal to layers (x 16
+              striped) x steps; step ms, tokens/s, MFU and peak memory
+              beside the eager run's; for the 2-layer job also the host's
+              launch calls per step under the profiler (one more
+              dispatch, 3 eager steps) and one replay's device time
               (events) over the step: the device's busy share.  Then an
               f32, TF32-off, 2-layer identity: 3 SGD steps through the
               graph against the eager steps.
-17. slice   — first phase 7's job cut to 2 layers (full width), eager:
-              the reference of 17 (b)-(e) and 19 (d).
-              (a) the ``attention="auto"`` rows, in bf16 and in f32:
+17. slice   — (a) the ``attention="auto"`` rows, in bf16 and in f32:
               dense (the plain path, f32 scores) against flash, forward
               + backward of the op alone at T 256-8192 and the full train
               step of phase 7's model cut to 4 layers at T 256-4096 (B x
@@ -280,8 +281,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               f32, 2 layers, T 128: the card's metrics against the
               host's within 1e-4 relative, flash and striped_flash over
               ``LocalSeqGroup(4)`` (B5).  (c) ``--profile_dir``: a Chrome
-              trace of 3 steps naming B1-B3's and Adam's ``_foreach``
-              kernels; the profiler's cost per step.  (d) phase 19 (e)'s
+              trace of 3 steps at 2 layers naming B1-B3's and Adam's
+              ``_foreach`` kernels; the profiler's cost per step.  (d) phase 19 (e)'s
               hang postmortem, and phase 19 (d)'s supervised crash (run
               with ``--telemetry_dir --trace``): the postmortem pointer,
               and ``tools/trace_report.py`` merging the two
@@ -339,6 +340,51 @@ Phases, each printing its own lines; any failure exits non-zero:
               attention, f32 at (8, 1024, 16, 64), outputs and
               gradients; each trained 26 bf16 steps at 2 layers.  A
               ``tensor_parallel:`` JSON line holds the phase's numbers.
+
+23. the GSPMD layout's memory half — (a) phase 7's job, DP x TP over
+              ``LocalTensorGroup(4)`` under ``--matmul_dtype int8`` and
+              ``fp8`` (ce_chunk 0): one epoch eager (products counted
+              against 4 x the dense step's design, one step profiled: no
+              unquantized product) and one graphed (k 13, bitwise), and
+              each one's 2-layer f32 identity to the dense quantized
+              step within the code-flip bounds.  (b) ``--fsdp 4`` over
+              ``LocalFsdpGroup(4)`` at 2 layers: the split leaves held as
+              4 stacked slices, f32 params within 1e-6 of DP, bf16 eager
+              and graphed (bitwise).  (c) Tensor rank 0's ``--tp 4``
+              state built on the card from phase 22's params: its values
+              and ``memory_allocated`` growth against the worked-out
+              bytes; the 4 ranks' slices joined bitwise.  (d)
+              ``--update_sharding sharded`` under ``--tp 4`` bitwise to
+              the replicated update, and a ``qkv_tp`` 2 snapshot resumed
+              under it bitwise.  (e) The replica check under ``--tp 4``:
+              a flip in a whole leaf seen, localized and healed, one in a
+              sliced leaf unchecked (as in JAX).  (f) ``--generate --tp
+              4`` through the CLI from (d)'s snapshot: the same 16
+              sampled tokens as without ``--tp`` and as a decode of the
+              saver's live params.  A ``gspmd_memory_half:`` JSON line.
+
+24. pipeline parallelism — ``parallel.pipeline`` over local pipe groups
+              (one card runs the stages in turn: no bubble shows).  (f)'s
+              snapshot first: 2 layers, ``--pp 2 --tp 2``, 3 Adam steps
+              at lr 1e-5, and its ``--generate`` process beside the rest.
+              (a) f32, TF32 off: 3 SGD steps of ``--pp 2`` at 2 layers and
+              of ``--pp 2 --pp_interleave 2`` at 4 layers, full width,
+              params within 1e-6 of the dense DP step's; B1-B3 (simt)
+              launched once per layer, microbatch and step.  (b) Phase
+              7's job at 12 layers under ``--pp 4`` over
+              ``LocalPipeGroup(4)``, one epoch eager (the 1-nat check,
+              step ms, tokens/s, peak memory, a profile), B1-B3 12 x 4
+              times a step (4 microbatches of 2 rows), all on the sm90
+              design; then one epoch at ``--steps_per_dispatch 13``,
+              bitwise to it.  (c) The same job under ``--pp 4
+              --pp_interleave 3``.  (d) ``--pp 2`` x ``LocalTensorGroup(2)``
+              at 12 layers.  (e) ``--pp 2`` x ``LocalSeqGroup(2)`` with
+              ``striped_flash`` at 2 layers (B5 2 x 2^2 x 2 a step) and
+              its f32 identity to the dense striped_flash step.  (f) The
+              CLI's 16 sampled tokens equal a decode of the saver's live
+              params, unstacked and de-permuted in this process, at least
+              8 distinct.  A ``pipeline:`` JSON line; phase 24's B1-B3
+              and B5 launches join the kernels line's counts.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -1383,14 +1429,15 @@ def profile_serving(torch, make_scheduler, requests):
     (a fresh scheduler, so every request is admitted at once).  Prints
     the device's busy share of the window, device kernels per forward
     pass, and the top kernels by device time.  The profiler's own cost
-    lengthens the window, so the busy share is a lower bound."""
+    lengthens the window, so the busy share is a lower bound.  Only the
+    device's activity is recorded: the host's operators, which nothing
+    here reads, cost most of the profiler's processing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sched = make_scheduler()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         drive(sched, requests)
         torch.cuda.synchronize()
@@ -1554,6 +1601,12 @@ def memory_before(torch, device):
     return torch.cuda.memory_allocated(device)
 
 
+def microbatches(cfg):
+    """Microbatches of a step: the pipeline's S x accum_steps (each one
+    launches every kernel of a layer), else 1."""
+    return cfg.mesh.pipe * cfg.accum_steps if cfg.mesh.pipe > 1 else 1
+
+
 def fwd_launches_per_layer(model_cfg):
     """Forward kernel launches per layer and step: under --remat the
     block's forward runs again in the backward, and no policy saves an
@@ -1566,7 +1619,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                      fsdp_group=None, **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention, ``tensor_group`` for
-    tensor parallelism); check finite, falling
+    tensor parallelism; under ``pp=S`` the pipeline's every microbatch
+    launches the flash kernels); check finite, falling
     losses and the flash launch counts; print step time, tokens/s, MFU,
     peak memory and (``profile``) a profile of 3 more steps.  Returns the
     printed numbers and every step's loss; with ``keep_final``, also a
@@ -1636,7 +1690,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                              f"{losses[0]:.4f}")
     s_n = 1 if seq_group is None else seq_group.size
     t_n = 1 if tensor_group is None else tensor_group.size
-    per_step = m.n_layers * ring_blocks(m.attention, s_n, t_n)
+    per_step = (m.n_layers * ring_blocks(m.attention, s_n, t_n)
+                * microbatches(cfg))
     expect = per_step * steps if device.type == "cuda" else 0
     want = dict.fromkeys(fa.COUNTERS, expect)
     want["fwd"] = expect * fwd_launches_per_layer(m)
@@ -1686,7 +1741,7 @@ def _kernel_class(name):
     return "other"
 
 
-def profile_training(torch, trainer, n_steps=3):
+def profile_training(torch, trainer, n_steps=1):
     """Where the step's device time goes: ``n_steps`` more steps of the
     same trainer under ``torch.profiler``.  Device busy share of the
     window, and the flash / GEMM / optimizer / other shares of device
@@ -2364,8 +2419,10 @@ def resume_full_width(torch, np, device, straight, **over):
     (13 steps) and a snapshot; a new Trainer with ``--nepochs 2
     --resume`` (and an async snapshot at the last step) against
     ``straight``, phase 7's uninterrupted run; the async snapshot restored
-    against the live state; ``--generate`` from it as a subprocess against
-    the in-process ``generate()``."""
+    against the live state; ``--generate`` from the first snapshot as
+    subprocesses (run beside the resume) against the in-process
+    ``generate()`` over the first run's live params."""
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -2400,6 +2457,7 @@ def resume_full_width(torch, np, device, straight, **over):
                     if "loss" in r}
 
     out = {}
+    procs = {}
     with tempfile.TemporaryDirectory() as tmp:
         ck = Path(tmp) / "ck"
         first = trainer(nepochs=1, checkpoint_dir=ck)
@@ -2407,101 +2465,109 @@ def resume_full_width(torch, np, device, straight, **over):
         n_params = sum(p.numel() for p in leaves(first.state.params))
         save_s = first.save_seconds[-1]
         spe = r1["steps"]     # 13 at full width
-        del first
         out.update(first_steps=spe, save_s=save_s,
                    snapshot_bytes=snapshot_bytes(ck / f"ckpt-{spe}"),
                    expected_bytes=n_params * 12)
         if ckpt.latest_step(str(ck)) != spe:
             raise AssertionError(f"resume: {spe} steps, newest snapshot "
                                  f"{ckpt.latest_step(str(ck))}")
-        metrics = Path(tmp) / "resumed.jsonl"
-        second = trainer("--resume", "--async-checkpoint", nepochs=2,
-                         checkpoint_dir=ck, checkpoint_every=spe,
-                         metrics_jsonl=metrics)
-        r2 = second.fit()
-        out.update(restore_s=second.restore_seconds,
-                   async_save_host_s=second.save_seconds[0])
-        losses = step_losses(metrics)
-        steps = list(range(spe + 1, 2 * spe + 1))
-        if sorted(losses) != steps or r2["steps"] != 2 * spe:
-            raise AssertionError(f"resume: steps {sorted(losses)}, "
-                                 f"{r2['steps']} in all")
-        want = straight["losses"][spe:2 * spe]
-        got = [losses[s] for s in steps]
-        loss_diff = max(abs(a - b) for a, b in zip(got, want))
-        param_diff = max(
-            float((a.detach().cpu() - b).abs().max())
-            for a, b in zip(leaves(second.state.params),
-                            straight["final_params"]))
-        out.update(loss_max_abs_diff=loss_diff,
-                   param_max_abs_diff=param_diff,
-                   bitwise=loss_diff == 0 and param_diff == 0)
-        print(f"resume: steps {spe + 1}-{2 * spe} losses "
-              f"{[round(x, 4) for x in got]}; "
-              f"against the uninterrupted run: largest loss difference "
-              f"{loss_diff:.3g}, largest param difference {param_diff:.3g}"
-              f" (bitwise: {out['bitwise']})", flush=True)
-        # every op on this path is deterministic (same kernels, inputs and
-        # order), so anything short of bitwise is a resume fault
-        if not out["bitwise"]:
-            raise AssertionError(
-                f"resume: not bitwise: losses differ by {loss_diff}, params "
-                f"by {param_diff}")
-        # the async snapshot of the last step against the state it holds
-        if ckpt.latest_step(str(ck)) != 2 * spe:
-            raise AssertionError(f"resume: newest snapshot "
-                                 f"{ckpt.latest_step(str(ck))}, expected "
-                                 f"{2 * spe}")
-        sync()
-        t0 = time.perf_counter()
-        restored = ckpt.restore(str(ck), second.state)
-        sync()
-        out["restore_again_s"] = time.perf_counter() - t0
-        mismatched = [i for i, (a, b) in enumerate(zip(
-            ckpt.flatten(restored), ckpt.flatten(second.state)))
-            if not (torch.equal(a[1], b[1]) if isinstance(a[1], torch.Tensor)
-                    else a[1] == b[1])]
-        if mismatched:
-            raise AssertionError(f"resume: the async snapshot differs from "
-                                 f"the state at step {2 * spe} in leaves "
-                                 f"{mismatched[:8]}")
-        out["async_snapshot_bytes"] = snapshot_bytes(ck / f"ckpt-{2 * spe}")
-        # --generate from the snapshot, as a user runs it: greedy, then
+        # --generate from this snapshot, as a user runs it: greedy, then
         # sampled (a near-constant greedy continuation of a barely trained
-        # LM says little; the draws follow the whole distribution)
-        # the two processes run side by side (their seconds overlap)
-        from concurrent.futures import ThreadPoolExecutor
-
-        def cli_generate(temperature):
-            t0 = time.perf_counter()
-            proc = run_cli(train_flags(checkpoint_dir=ck, **over) + [
-                "--generate", ",".join(map(str, PROMPT)),
-                "--max_new_tokens", "32", "--temperature", str(temperature),
-                "--seed", "7"])
-            return proc, time.perf_counter() - t0
-
-        with ThreadPoolExecutor(2) as pool:
-            runs = list(pool.map(cli_generate, (0.0, 1.0)))
-        for temperature, (proc, secs) in zip((0.0, 1.0), runs):
-            out[f"generate_s_t{temperature}"] = secs
-            if proc.returncode != 0:
-                raise AssertionError(f"--generate: rc {proc.returncode}\n"
-                                     f"{proc.stdout[-2000:]}\n"
-                                     f"{proc.stderr[-2000:]}")
-            cli_ids = [int(t) for t in
-                       proc.stdout.strip().splitlines()[-1].split(",")]
-            ids = generate(second.model, restored.params, [PROMPT], 32,
-                           temperature=temperature,
-                           generator=torch.Generator(device).manual_seed(7),
-                           device=device)[0].tolist()
-            print(f"generate (temperature {temperature}): --generate "
-                  f"printed {cli_ids[len(PROMPT):]}; in-process "
-                  f"{ids[len(PROMPT):]}", flush=True)
-            if cli_ids != ids or len(ids) != len(PROMPT) + 32:
+        # LM says little; the draws follow the whole distribution).  The
+        # processes read a hard-linked copy (the resume's snapshots and
+        # pruning leave it as it is) and run beside the resume
+        gen_ck = Path(tmp) / "gen"
+        shutil.copytree(ck, gen_ck, copy_function=os.link)
+        for temperature in (0.0, 1.0):
+            procs[temperature] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", PKG,
+                 *train_flags(checkpoint_dir=gen_ck, **over),
+                 "--generate", ",".join(map(str, PROMPT)),
+                 "--max_new_tokens", "32", "--temperature", str(temperature),
+                 "--seed", "7"], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, cwd=str(REPO_ROOT)))
+        reference = (first.model, first.state.params)
+        del first
+        try:
+            metrics = Path(tmp) / "resumed.jsonl"
+            second = trainer("--resume", "--async-checkpoint", nepochs=2,
+                             checkpoint_dir=ck, checkpoint_every=spe,
+                             metrics_jsonl=metrics)
+            r2 = second.fit()
+            out.update(restore_s=second.restore_seconds,
+                       async_save_host_s=second.save_seconds[0])
+            losses = step_losses(metrics)
+            steps = list(range(spe + 1, 2 * spe + 1))
+            if sorted(losses) != steps or r2["steps"] != 2 * spe:
+                raise AssertionError(f"resume: steps {sorted(losses)}, "
+                                     f"{r2['steps']} in all")
+            want = straight["losses"][spe:2 * spe]
+            got = [losses[s] for s in steps]
+            loss_diff = max(abs(a - b) for a, b in zip(got, want))
+            param_diff = max(
+                float((a.detach().cpu() - b).abs().max())
+                for a, b in zip(leaves(second.state.params),
+                                straight["final_params"]))
+            out.update(loss_max_abs_diff=loss_diff,
+                       param_max_abs_diff=param_diff,
+                       bitwise=loss_diff == 0 and param_diff == 0)
+            print(f"resume: steps {spe + 1}-{2 * spe} losses "
+                  f"{[round(x, 4) for x in got]}; "
+                  f"against the uninterrupted run: largest loss difference "
+                  f"{loss_diff:.3g}, largest param difference "
+                  f"{param_diff:.3g} (bitwise: {out['bitwise']})", flush=True)
+            # every op on this path is deterministic (same kernels, inputs
+            # and order), so anything short of bitwise is a resume fault
+            if not out["bitwise"]:
                 raise AssertionError(
-                    f"--generate's ids (temperature {temperature}) differ "
-                    "from the in-process generate()'s")
-        del restored, second
+                    f"resume: not bitwise: losses differ by {loss_diff}, "
+                    f"params by {param_diff}")
+            # the async snapshot of the last step against the state it holds
+            if ckpt.latest_step(str(ck)) != 2 * spe:
+                raise AssertionError(f"resume: newest snapshot "
+                                     f"{ckpt.latest_step(str(ck))}, expected "
+                                     f"{2 * spe}")
+            sync()
+            t0 = time.perf_counter()
+            restored = ckpt.restore(str(ck), second.state)
+            sync()
+            out["restore_again_s"] = time.perf_counter() - t0
+            mismatched = [i for i, (a, b) in enumerate(zip(
+                ckpt.flatten(restored), ckpt.flatten(second.state)))
+                if not (torch.equal(a[1], b[1])
+                        if isinstance(a[1], torch.Tensor) else a[1] == b[1])]
+            if mismatched:
+                raise AssertionError(f"resume: the async snapshot differs "
+                                     f"from the state at step {2 * spe} in "
+                                     f"leaves {mismatched[:8]}")
+            out["async_snapshot_bytes"] = snapshot_bytes(
+                ck / f"ckpt-{2 * spe}")
+            del restored, second
+            model, params = reference
+            for temperature, (t0, proc) in procs.items():
+                stdout, stderr = proc.communicate(timeout=600)
+                out[f"generate_s_t{temperature}"] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    raise AssertionError(f"--generate: rc {proc.returncode}\n"
+                                         f"{stdout[-2000:]}\n{stderr[-2000:]}")
+                cli_ids = [int(t) for t in
+                           stdout.strip().splitlines()[-1].split(",")]
+                ids = generate(
+                    model, params, [PROMPT], 32, temperature=temperature,
+                    generator=torch.Generator(device).manual_seed(7),
+                    device=device)[0].tolist()
+                print(f"generate (temperature {temperature}): --generate "
+                      f"printed {cli_ids[len(PROMPT):]}; in-process "
+                      f"{ids[len(PROMPT):]}", flush=True)
+                if cli_ids != ids or len(ids) != len(PROMPT) + 32:
+                    raise AssertionError(
+                        f"--generate's ids (temperature {temperature}) differ "
+                        "from the in-process generate()'s")
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     print(f"resume: snapshot {out['snapshot_bytes']:,} bytes (params + Adam "
           f"mu and nu: {out['expected_bytes']:,}); save {save_s:.2f} s, "
           f"resume restore "
@@ -2643,7 +2709,8 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     # flash launches by design: eager (warm-up) + replays x captured
     s_n = 1 if seq_group is None else seq_group.size
     t_n = 1 if tensor_group is None else tensor_group.size
-    expect = m.n_layers * ring_blocks(m.attention, s_n, t_n) * steps
+    expect = (m.n_layers * ring_blocks(m.attention, s_n, t_n) * steps
+              * microbatches(cfg))
     want = dict.fromkeys(fa.COUNTERS, expect)
     want["fwd"] = expect * fwd_launches_per_layer(m)
     per_replay = graphed.launches_per_replay
@@ -3073,10 +3140,20 @@ def master_check(trainer):
                 master_dtype=str(ms[0].dtype).replace("torch.", ""))
 
 
-def scan_generate(torch, device, ck, **over):
+def start_scan_generate(ck, **over):
     """``--generate`` (greedy, 32 tokens) from a ``--scan-layers``
-    snapshot as a subprocess, against the in-process ``generate()`` over
-    the restored stacked tree."""
+    snapshot as a subprocess, started here to run beside other work."""
+    flags = train_flags(checkpoint_dir=ck, **over)
+    return subprocess.Popen([sys.executable, "-m", PKG, *flags,
+                             "--generate", ",".join(map(str, PROMPT)),
+                             "--max_new_tokens", "32", "--temperature", "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(REPO_ROOT))
+
+
+def scan_generate(torch, device, ck, proc, **over):
+    """:func:`start_scan_generate`'s process against the in-process
+    ``generate()`` over the restored stacked tree."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         build_argparser, config_from_args,
     )
@@ -3091,13 +3168,12 @@ def scan_generate(torch, device, ck, **over):
     )
 
     flags = train_flags(checkpoint_dir=ck, **over)
-    proc = run_cli(flags + ["--generate", ",".join(map(str, PROMPT)),
-                            "--max_new_tokens", "32", "--temperature", "0"])
+    stdout, stderr = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise AssertionError(f"--generate (scan_layers): rc "
-                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n"
-                             f"{proc.stderr[-2000:]}")
-    cli_ids = [int(t) for t in proc.stdout.strip().splitlines()[-1].split(",")]
+                             f"{proc.returncode}\n{stdout[-2000:]}\n"
+                             f"{stderr[-2000:]}")
+    cli_ids = [int(t) for t in stdout.strip().splitlines()[-1].split(",")]
     model = build_model(config_from_args(
         build_argparser().parse_args(flags)).model, device=device)
     _, params = ckpt.restore_params(ck, model.init(
@@ -3183,39 +3259,50 @@ def slice_full_width(torch, np, device, short, **over):
                 graphed_peak_memory_gib=graphed["peak_memory_gib"],
                 graphed_bitwise=graphed["bitwise"])
         del run
-    # (c) scan_layers, then --generate from its snapshot
+    # (c) scan_layers, then --generate from its snapshot: the process
+    # runs beside (d)-(f)
+    scan = dict(cut, **{"scan-layers": True})
     with tempfile.TemporaryDirectory() as ck:
         run, out["scan_layers"] = train("scan_layers", checkpoint_dir=ck,
                                         **{"scan-layers": True})
         out["scan_layers"].update(against(torch, "scan_layers", run, short,
                                           ref_name=ref))
         del run
-        out["scan_layers"].update(scan_generate(
-            torch, device, ck, **cut, **{"scan-layers": True}))
-    # (d) the sharded updates: N = 1 shards nothing, so bitwise
-    for how in ("sharded", "zero1"):
-        run, out[f"update_sharding_{how}"] = train(
-            f"update_sharding {how}", update_sharding=how)
-        out[f"update_sharding_{how}"].update(against(
-            torch, f"update_sharding {how}", run, short, exact=True,
-            ref_name=ref))
-        del run
-    # (e) bf16 params, the f32 master in the sharded state; eager, graphed
-    flags = dict(param_dtype="bfloat16", update_sharding="sharded",
-                 **{"master-weights": True})
-    run, out["master_weights"] = train("master weights",
-                                       inspect=master_check, **flags)
-    if cuda:
-        graphed = dispatch_full_width(torch, np, device, run, profile=False,
-                                      tag="master weights dispatch",
-                                      inspect=master_check, **cut, **flags)
-        out["master_weights"].update(
-            graphed_step_ms_median=graphed["step_ms_median"],
-            graphed_peak_memory_gib=graphed["peak_memory_gib"],
-            graphed_bitwise=graphed["bitwise"])
-    del run
-    # (f) the f32 identity of remat + scan_layers on the striped ring
-    out["identity"] = remat_scan_identity(torch, np, device)
+        proc = start_scan_generate(ck, **scan)
+        try:
+            # (d) the sharded updates: N = 1 shards nothing, so bitwise
+            for how in ("sharded", "zero1"):
+                run, out[f"update_sharding_{how}"] = train(
+                    f"update_sharding {how}", update_sharding=how)
+                out[f"update_sharding_{how}"].update(against(
+                    torch, f"update_sharding {how}", run, short, exact=True,
+                    ref_name=ref))
+                del run
+            # (e) bf16 params, the f32 master in the sharded state; eager,
+            # graphed
+            flags = dict(param_dtype="bfloat16", update_sharding="sharded",
+                         **{"master-weights": True})
+            run, out["master_weights"] = train("master weights",
+                                               inspect=master_check, **flags)
+            if cuda:
+                graphed = dispatch_full_width(
+                    torch, np, device, run, profile=False,
+                    tag="master weights dispatch", inspect=master_check,
+                    **cut, **flags)
+                out["master_weights"].update(
+                    graphed_step_ms_median=graphed["step_ms_median"],
+                    graphed_peak_memory_gib=graphed["peak_memory_gib"],
+                    graphed_bitwise=graphed["bitwise"])
+            del run
+            # (f) the f32 identity of remat + scan_layers on the striped
+            # ring
+            out["identity"] = remat_scan_identity(torch, np, device)
+            out["scan_layers"].update(scan_generate(torch, device, ck, proc,
+                                                    **scan))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     print("slice: " + json.dumps(out), flush=True)
     return out
 
@@ -4300,18 +4387,20 @@ def resilience_full_width(torch, np, device, straight, background=None):
     out["happy"], l1 = guard_happy_path(torch, device)
     if background is not None:
         background()
-    out["faults"], l2 = guard_faults(torch, device)
-    out["rollback"], l3 = guard_rollback(torch, device)
-    # (d)'s chains, its exit-44 run and (e) run side by side: their checks
-    # are exit codes, messages, bitwise snapshots and a hang's seconds to
-    # exit (the watchdog's timeout and poll); their start-up and
-    # signal-to-exit seconds are read under that load
+    # (d)'s chains, its exit-44 run and (e) are processes, run side by
+    # side and beside (b) and (c): their checks are exit codes, messages,
+    # bitwise snapshots and a hang's seconds to exit (the watchdog's
+    # timeout and poll); their start-up and signal-to-exit seconds, and
+    # (c)'s restore seconds, are read under that load
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         abort = pool.submit(guard_abort)
         cli = pool.submit(guard_cli, torch, device, straight)
-        out["watchdog"] = guard_watchdog()
+        watchdog = pool.submit(guard_watchdog)
+        out["faults"], l2 = guard_faults(torch, device)
+        out["rollback"], l3 = guard_rollback(torch, device)
+        out["watchdog"] = watchdog.result()
         out["cli"] = cli.result()
         out["cli"]["abort"] = abort.result()
     launches = {w: l1[w] + l2[w] + l3[w] for w in l1}
@@ -4657,8 +4746,9 @@ def obs_card_vs_host(torch, device):
 
 
 def obs_profile(torch, device):
-    """(c) ``--profile_dir``: phase 7's job for 3 steps (24 samples) under
-    ``torch.profiler``, against the same 3 steps without it: the Chrome
+    """(c) ``--profile_dir``: phase 7's job at 2 layers for 3 steps (24
+    samples) under ``torch.profiler``, against the same 3 steps without
+    it: the Chrome
     trace names B1-B3's kernels and Adam's ``_foreach`` kernels (each at
     least once: the profiler can drop a kernel's record); the profiler's
     cost per step (the fit's wall, the trace export included)."""
@@ -4670,7 +4760,8 @@ def obs_profile(torch, device):
             extra = dict(profile_dir=tmp) if prof else {}
             runs[prof] = res_fit(torch, device,
                                  f"obs profile {'on' if prof else 'off'}",
-                                 n_samples=24, nepochs=1, **extra)
+                                 n_samples=24, nepochs=1,
+                                 n_layers=CUT_LAYERS, **extra)
         path = _one(f"{tmp}/trace-*.json")
         size = os.path.getsize(path)
         with open(path) as f:
@@ -4683,7 +4774,7 @@ def obs_profile(torch, device):
           f" s with the profiler vs {runs[False]['fit_s']:.2f} s without: "
           f"{cost:.1f} ms per step", flush=True)
     # named, each; the counts are the trace's records, which the profiler
-    # can drop (the wrappers' counters, 36 each here, count launches)
+    # can drop (the wrappers' counters, 6 each here, count launches)
     if not all(found.values()):
         raise AssertionError(f"obs profile: kernels {found}")
     launches = {w: runs[True]["launches"][w] + runs[False]["launches"][w]
@@ -5551,9 +5642,9 @@ def quant_tp_full_width(torch, np, device, bf16_losses):
 
 def _trainer(torch, device, steps=None, **over):
     """A Trainer of ``train_flags(**over)`` (its extra keywords:
-    ``seq_group``, ``tensor_group``, ``fsdp_group``), its seeded state
-    and, with ``steps``, that many eager steps of its first epoch (their
-    losses in ``trainer.losses``)."""
+    ``seq_group``, ``tensor_group``, ``fsdp_group``), its
+    seeded state and, with ``steps``, that many eager steps of its first
+    epoch (their losses in ``trainer.losses``)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         build_argparser, config_from_args,
     )
@@ -5562,7 +5653,8 @@ def _trainer(torch, device, steps=None, **over):
     )
 
     groups = {k: over.pop(k) for k in ("seq_group", "tensor_group",
-                                       "fsdp_group") if k in over}
+                                       "fsdp_group")
+              if k in over}
     trainer = Trainer(config_from_args(build_argparser().parse_args(
         train_flags(**over))), device=device, **groups)
     trainer.init_state()
@@ -5990,6 +6082,262 @@ def gspmd_memory_half(torch, np, device, tensor, tp_final):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: pipeline parallelism (--pp, --pp_interleave); one card runs the
+# stages of a LocalPipeGroup in this process, one after the other
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES = 4
+
+
+def pipe_identity_runs(torch, device, pipe=2, interleave=1, n_layers=2,
+                       steps=3, batch=8, attention="flash", seq_size=1):
+    """Full width at ``n_layers`` layers, f32 with TF32 off, SGD-momentum:
+    ``steps`` steps of the dense data-parallel step (over a
+    ``LocalSeqGroup(seq_size)`` for a sequence-sharded attention) and of
+    the pipeline step over ``LocalPipeGroup(pipe)`` (``interleave``
+    virtual stages per stage), from the same params and batches.
+    Returns ((losses, params), (losses, params in the dense per-layer
+    order), the pipeline run's flash launches)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+        optim,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+        pipeline as pp,
+        sequence as sq,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(BIG, n_layers=n_layers, activation="gelu",
+              pos_encoding="learned", attention=attention)
+    data = text_dataset(TEXT_FILE, kw["max_seq_len"], kw["vocab_size"])
+    world = world_setup(device)
+    seq = sq.LocalSeqGroup(seq_size) if seq_size > 1 else None
+    perm = (sq.striped_permutation(kw["max_seq_len"], seq_size)
+            if attention.startswith("striped") else None)
+    model = Transformer(TransformerConfig(**kw), device=device,
+                        seq_group=seq)
+    init = model.init(torch.Generator().manual_seed(SEED + 24))
+    runs = []
+    for piped in (False, True):
+        opt = optim.sgd(1e-2, 0.9, steps=steps)
+        # a copy each: the update writes the params in place
+        params = tree_map(lambda t: t.detach().clone(), init)
+        if piped:
+            params = dict(params, blocks=pp.to_pipeline_blocks(
+                params["blocks"], model.cfg, pipe, 1, interleave))
+            step = pp.make_pipeline_train_step(
+                model, opt, world, pp.LocalPipeGroup(pipe), "cross_entropy",
+                interleave=interleave)
+        else:
+            step = dp.make_train_step(model, opt, world, "cross_entropy")
+        state = TrainState.from_params(params, opt, model)
+        loader = ShardedLoader(data, batch, device=device, shuffle=False,
+                               seq_permutation=perm)
+        fa.set_launch_counts()
+        losses = []
+        for _, b in zip(range(steps), loader.epoch(0)):
+            state, loss = step(state, b)
+            losses.append(float(loss))
+        launches = fa.launch_counts()
+        final = state.params
+        if piped:
+            final = dict(final, blocks=pp.dense_layer_blocks(final["blocks"]))
+        runs.append((losses, [p.detach() for p in flat_params(final)]))
+    return runs[0], runs[1], launches
+
+
+def check_pipe_identity(torch, device, tag, bar=1e-6, **kw):
+    """The pipeline run against the dense one: losses to rtol 1e-5 and
+    params within ``bar`` (f32 on both sides: the microbatches' gradient
+    sums reassociate only); its flash launches, on the simt kernels in
+    f32, one set per layer, microbatch and ring block."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    (ld, pd), (lp, pp_), launches = pipe_identity_runs(torch, device, **kw)
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lp, ld))
+    worst = max(float((a - b).abs().max()) for a, b in zip(pp_, pd))
+    n_layers, steps = kw.get("n_layers", 2), kw.get("steps", 3)
+    seq_size = kw.get("seq_size", 1)
+    blocks = ring_blocks(kw.get("attention", "flash"), seq_size)
+    expect = (n_layers * blocks * kw.get("pipe", 2) * steps
+              if device.type == "cuda" else 0)
+    want = {"all": dict.fromkeys(fa.COUNTERS, expect),
+            "with_lse": expect if seq_size > 1 else 0}
+    got = {"all": launches["all"], "with_lse": launches["with_lse"]}
+    print(f"{tag}: losses {lp} vs {ld}; params max |diff| {worst:.3e}; "
+          f"flash launches {launches['all']} (simt {launches['simt']}), "
+          f"with_lse {launches['with_lse']}; expected {want}", flush=True)
+    if not (loss_ok and worst <= bar):
+        raise AssertionError(f"{tag}: the pipeline run differs from the "
+                             "dense one")
+    if got != want:
+        raise AssertionError(f"{tag}: flash launches {got}, expected {want}")
+    return dict(losses=lp, dense_losses=ld, param_max_abs_diff=worst,
+                launches=launches["all"], with_lse=launches["with_lse"])
+
+
+def start_generate_from_pipe(ck):
+    """(f) ``--generate`` through the CLI from the ``--pp 2 --tp 2``
+    snapshot (the mesh flags accepted and ignored, as JAX's CLI), sampled
+    at temperature 1 from the seed; the process starts here and runs
+    beside (a)-(e)."""
+    flags = train_flags(checkpoint_dir=ck, n_layers=CUT_LAYERS, ce_chunk=0,
+                        pp=2, tp=2)
+    return subprocess.Popen([sys.executable, "-m", PKG, *flags,
+                             *GENERATE_FLAGS], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(REPO_ROOT))
+
+
+def generate_from_pipe(proc, reference):
+    """(f) The ``--generate`` process's tokens against ``reference``
+    (:func:`reference_decode` of the saver's live params, unstacked and
+    de-permuted in this process), at least half of the 16 distinct."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"--generate from a pipe snapshot: rc "
+                             f"{proc.returncode}\n{out[-2000:]}\n"
+                             f"{err[-2000:]}")
+    ids = [int(x) for x in out.strip().splitlines()[-1].split(",")]
+    new = ids[len(PROMPT):]
+    distinct = len(set(new))
+    print(f"generate from a --pp 2 --tp 2 snapshot (sampled, 16 tokens): "
+          f"{new}; the saver's live params {reference[len(PROMPT):]}; "
+          f"equal {ids == reference}; {distinct} distinct", flush=True)
+    if ids != reference or len(ids) != len(PROMPT) + 16:
+        raise AssertionError("--generate from a pipe snapshot differs from "
+                             "the decode of the saver's own params")
+    if distinct < 8:
+        raise AssertionError(f"--generate: {distinct} distinct tokens of "
+                             "16, too few to tell the layouts apart")
+    return dict(tokens=new, equal=True, distinct=distinct)
+
+
+def pipeline_full_width(torch, np, device):
+    """Phase 24: (f)'s snapshot (2 layers, ``--pp 2 --tp 2`` over local
+    groups, 3 Adam steps at lr 1e-5: near the init) and its ``--generate``
+    process first, beside the rest; (a) f32 identities: ``--pp 2`` at 2
+    layers and ``--pp 2 --pp_interleave 2`` at 4 layers == the dense DP
+    step within 1e-6; (b) phase 7's job at 12 layers under ``--pp 4``
+    over ``LocalPipeGroup(4)``, one epoch eager (the 1-nat check, step
+    ms, tokens/s, peak memory, B1-B3 12 x 4 a step all on sm90, a
+    profile) and one at ``--steps_per_dispatch 13``, bitwise to it; (c)
+    ``--pp 4 --pp_interleave 3``; (d) ``--pp 2`` x ``LocalTensorGroup(2)``
+    at 12 layers; (e) ``--pp 2`` x ``LocalSeqGroup(2)`` with
+    ``striped_flash`` at 2 layers (B5 2 x 2^2 x 2 a step) and its f32
+    identity to the dense striped_flash step; (f) the tokens."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        pipeline as pp,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    keys = ("step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
+            "launches", "launches_by_design", "with_lse_launches",
+            "first_loss", "last3_loss", "steps", "profile_ms_per_step")
+    proc = None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            saver = _trainer(torch, device, steps=3, checkpoint_dir=tmp,
+                             n_layers=CUT_LAYERS, pp=2, tp=2, ce_chunk=0,
+                             lr=1e-5, tensor_group=LocalTensorGroup(2))
+            saver.save(final=True)
+            proc = start_generate_from_pipe(tmp)
+            params = dict(saver.state.params, blocks=pp.dense_layer_blocks(
+                saver.state.params["blocks"], saver.model.cfg, 2))
+            reference = reference_decode(torch, device, params)
+            del saver, params
+            out["identity_pp2"] = check_pipe_identity(
+                torch, device, "pipe f32 identity --pp 2 == dp (2 layers, "
+                "3 steps)", pipe=2)
+            out["identity_pp2_interleave2"] = check_pipe_identity(
+                torch, device, "pipe f32 identity --pp 2 --pp_interleave 2 "
+                "== dp (4 layers, 3 steps)", pipe=2, interleave=2,
+                n_layers=4)
+            pp4 = dict(pp=PIPE_STAGES, nepochs=1)
+            eager = train_full_width(
+                torch, np, device, keep_final=True, tag="train pp4", **pp4)
+            graphed = dispatch_full_width(
+                torch, np, device, eager, exact=True, profile=False, tag="dispatch pp4", **pp4)
+            del eager["final_params"]
+            out["pp4"] = {k: eager[k] for k in keys if k in eager}
+            out["pp4_graphed"] = {k: graphed[k] for k in (
+                "step_ms_median", "step_ms_from", "tokens_per_s", "mfu",
+                "peak_memory_gib", "launches", "bitwise", "replays",
+                "launches_per_replay")}
+            inter = train_full_width(
+                torch, np, device, profile=False,
+                tag="train pp4 interleave 3",
+                pp_interleave=3, **pp4)
+            out["pp4_interleave3"] = {k: inter[k] for k in keys if k in inter}
+            pp_tp = train_full_width(
+                torch, np, device, tensor_group=LocalTensorGroup(2),
+                profile=False,
+                tag="train pp2 x tp2", pp=2, tp=2, nepochs=1)
+            out["pp2_tp2"] = {k: pp_tp[k] for k in keys if k in pp_tp}
+            pp_sp = train_full_width(
+                torch, np, device, seq_group=LocalSeqGroup(2),
+                profile=False,
+                n_layers=CUT_LAYERS, attention="striped_flash", sp=2, pp=2,
+                tag="train pp2 x sp2 striped_flash 2 layers")
+            out["pp2_sp2"] = {k: pp_sp[k] for k in keys if k in pp_sp}
+            out["identity_pp2_sp2"] = check_pipe_identity(
+                torch, device, "pipe f32 identity --pp 2 x sp2 "
+                "striped_flash == striped_flash (2 layers, 3 steps)",
+                pipe=2, attention="striped_flash", seq_size=2)
+            out["generate"] = generate_from_pipe(proc, reference)
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # B1-B3 and B5 of the main path's runs: (b) eager and graphed, (c),
+    # (d), (e)
+    runs = (out["pp4"], out["pp4_graphed"], out["pp4_interleave3"],
+            out["pp2_tp2"], out["pp2_sp2"])
+    out["flash_launches"] = {w: sum(r["launches"][w] for r in runs)
+                             for w in out["pp4"]["launches"]}
+    out["with_lse_launches"] = out["pp2_sp2"]["with_lse_launches"]
+    out["bubble_fraction"] = {
+        "pp4": pp.bubble_fraction(PIPE_STAGES, PIPE_STAGES),
+        "pp4_interleave3": pp.bubble_fraction(PIPE_STAGES, PIPE_STAGES, 3),
+        "pp2": pp.bubble_fraction(2, 2)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 24: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6043,7 +6391,7 @@ def main() -> int:
     phase("7 train the 219M LM at full width through the flash kernels")
     # phase 21 fingerprints this run's final state (a host copy)
     final_state = {}
-    trained = train_full_width(torch, np, device, keep_final=True,
+    trained = train_full_width(torch, np, device,
                                inspect=keep_state(final_state))
 
     phase("8 f32 training identity: flash == dense")
@@ -6079,7 +6427,7 @@ def main() -> int:
         q = train_full_width(torch, np, device, seq_group=LocalSeqGroup(4),
                              profile=False, tag=f"train striped_flash {fmt}",
                              attention="striped_flash", sp=4,
-                             matmul_dtype=fmt, ce_chunk=ce)
+                             matmul_dtype=fmt, ce_chunk=ce, nepochs=1)
         seq_quant[fmt] = {k: q[k] for k in (
             "step_ms_median", "peak_memory_gib", "first_loss", "last3_loss",
             "with_lse_launches", "gemm_launches")}
@@ -6100,31 +6448,36 @@ def main() -> int:
     reference_job()
     quality_bars(device)
 
-    phase("15 resume: checkpoint, resume and --generate of the 219M LM")
-    resume_full_width(torch, np, device, trained)
+    phase("15 resume: checkpoint, resume and --generate of the 219M LM at "
+          f"{CUT_LAYERS} layers")
+    # phase 7's job cut to CUT_LAYERS layers (full width), eager: the
+    # reference of 15, 16 (a), 17 (c) and 19 (d)
+    short = train_full_width(torch, np, device, keep_final=True,
+                             profile=False, n_layers=CUT_LAYERS,
+                             tag=f"train {CUT_LAYERS} layers")
+    resume_full_width(torch, np, device, short, n_layers=CUT_LAYERS)
 
     phase("16 dispatch: --steps_per_dispatch as CUDA-graph replay")
-    dispatch_full_width(torch, np, device, trained)
+    dispatch_full_width(torch, np, device, short, n_layers=CUT_LAYERS,
+                        tag=f"dispatch {CUT_LAYERS} layers")
+    # the striped job unprofiled, for the time limit: its graphed step,
+    # bitwise identity and launches by design stay
     dispatch_full_width(torch, np, device, seq_trained,
-                        seq_group=LocalSeqGroup(4),
+                        seq_group=LocalSeqGroup(4), profile=False,
                         attention="striped_flash", sp=4)
     del seq_trained["final_params"]
     dispatch_identity(torch, np, device)
 
     phase("17 slice: the auto row, --remat, --scan-layers, update sharding, "
           "master weights")
-    # phase 7's job cut to CUT_LAYERS layers (full width), eager: the
-    # reference of 17 (c) and 19 (d)
-    short = train_full_width(torch, np, device, keep_final=True,
-                             profile=False, n_layers=CUT_LAYERS,
-                             tag=f"train {CUT_LAYERS} layers")
     auto = measure_auto(torch, np, device)
     sliced = slice_full_width(torch, np, device, short)
 
     phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
     quant = dict(products=check_qmm(torch, device),
                  card_vs_host=qdot_card_vs_host(torch, device))
-    quant["train"] = quant_train_full_width(torch, np, device, trained)
+    quant["train"] = quant_train_full_width(torch, np, device, trained,
+                                            nepochs=1)
     quant["identity"] = quant_identity(torch, np, device)
     quant["serve"] = quant_serve(torch, np, device)
     print("quant: " + json.dumps(quant), flush=True)
@@ -6142,7 +6495,6 @@ def main() -> int:
         resilience, res_launches = resilience_full_width(
             torch, np, device, short, background=lambda: writer.extend(
                 elastic_writer(elastic_tmp, f"{elastic_tmp}/ck")))
-        del trained["final_params"]
         print("resilience: " + json.dumps(resilience), flush=True)
 
         phase("20 observability: telemetry, tracing, the capture ledger, "
@@ -6171,6 +6523,12 @@ def main() -> int:
     gspmd_mem = gspmd_memory_half(torch, np, device, tensor, tp_final)
     del tp_final
     print("gspmd_memory_half: " + json.dumps(gspmd_mem), flush=True)
+
+    phase("24 pipeline parallelism: --pp and --pp_interleave over a local "
+          "pipe group, pipe x tensor, pipe x seq, --generate from a pipe "
+          "snapshot")
+    pipeline = pipeline_full_width(torch, np, device)
+    print("pipeline: " + json.dumps(pipeline), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -6212,10 +6570,13 @@ def main() -> int:
                                       + sdc["elastic"]["flash_launches"][
                                           which]
                                       + tp_launches[which]
-                                      + gspmd_mem["flash_launches"][which]),
+                                      + gspmd_mem["flash_launches"][which]
+                                      + pipeline["flash_launches"][which]),
                             launches_phase7=trained["launches"][which],
                             launches_phase22=tp_launches[which],
                             launches_phase23=gspmd_mem["flash_launches"][
+                                which],
+                            launches_phase24=pipeline["flash_launches"][
                                 which],
                             launches_phase20=obs_launches[which],
                             launches_phase21=sdc["elastic"][
@@ -6243,8 +6604,11 @@ def main() -> int:
                         replaces=f"{tpu}:445",
                         launches=(seq_trained["with_lse_launches"]
                                   + obs_launches["with_lse"]
-                                  + tensor["sp_tp"]["with_lse_launches"]),
+                                  + tensor["sp_tp"]["with_lse_launches"]
+                                  + pipeline["with_lse_launches"]),
                         launches_phase20=obs_launches["with_lse"],
+                        # phase 24 (e): pp 2 x sp 2, 2 layers
+                        launches_phase24=pipeline["with_lse_launches"],
                         # phase 22 (d): sp 2 x tp 2, 2 layers
                         launches_phase22=tensor["sp_tp"][
                             "with_lse_launches"],

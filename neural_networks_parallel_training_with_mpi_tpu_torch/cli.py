@@ -106,6 +106,15 @@ def _generate(args) -> int:
     params = model.init(prng.init_generator(cfg.seed))
     if cfg.checkpoint_dir:
         try:
+            # a pipeline snapshot's blocks are stage-stacked: the template
+            # takes the stack the snapshot holds
+            stack = ckpt.block_stack(cfg.checkpoint_dir, params)
+            if len(stack) >= 2:
+                from .parallel.pipeline import stack_blocks
+
+                params = dict(params, blocks=stack_blocks(
+                    params["blocks"], stack[-2],
+                    stack[0] if len(stack) == 3 else 1))
             restored = ckpt.restore_params(cfg.checkpoint_dir, params)
         except ValueError as e:
             log(f"ERROR: cannot restore {cfg.checkpoint_dir}: {e}")
@@ -114,14 +123,16 @@ def _generate(args) -> int:
             log(f"ERROR: no checkpoint under {cfg.checkpoint_dir}")
             return 2
         step, params = restored
-        # a seq x tensor snapshot holds its qkv columns permuted (its
-        # meta's qkv_tp): the decoder reads the dense order
+        # a seq x tensor or pipeline snapshot holds its qkv columns
+        # permuted (its meta's qkv_tp), a pipeline's blocks stage-stacked:
+        # the decoder reads the dense per-layer order (JAX's
+        # _dense_decode_params)
         saved_tp = int((ckpt.read_meta(cfg.checkpoint_dir, step=step)
                         or {}).get("qkv_tp", 1))
-        if saved_tp > 1:
-            from .parallel.spmd import permute_params
+        from .parallel.pipeline import dense_layer_blocks
 
-            params = permute_params(model, params, saved_tp, inverse=True)
+        params = dict(params, blocks=dense_layer_blocks(
+            params["blocks"], model.cfg, saved_tp))
         log(f"restored step {step} from {cfg.checkpoint_dir}")
     else:
         log("note: no --checkpoint_dir; generating from a fresh init")

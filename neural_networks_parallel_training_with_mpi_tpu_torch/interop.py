@@ -11,15 +11,18 @@ it host arrays (``jax.device_get(tree)``).
 
 * ``params_from_jax``  a Transformer tree in ``cfg.param_dtype`` (a
   ``scan_layers`` tree stays stacked when ``cfg.scan_layers``, and is
-  unstacked into one dict per layer otherwise);
+  unstacked into one dict per layer otherwise; a pipeline tree's
+  stage-stacked ``(S, per, ...)`` or ``(v, S, per, ...)`` blocks stay
+  stacked, the layout ``parallel.pipeline`` trains);
 * ``tree_from_jax``    any tree — MLP params, optimizer state, a whole
   train state — with the NamedTuples mapped onto the port's classes of
   the same name, ``TrainState.step`` as a host int and the optimizer
   counts as 0-d int32 tensors (the port's optimizers count on the
   device);
 * ``rank_state_from_jax``  JAX's global params -> one rank's train
-  state: its tensor / fsdp slices under a sliced layout (``--tp`` /
-  ``--fsdp`` over process groups), the optimizer initialised on them;
+  state: its tensor / fsdp / pipeline-stage slices under a sliced layout
+  (``--tp`` / ``--fsdp`` / ``--pp`` over process groups), the optimizer
+  initialised on them;
 * ``tree_to_numpy``    the way back: numpy leaves under the same names
   (NamedTuples as dicts of their fields), ready for
   ``jax.tree_util``-level comparison or for rebuilding the JAX state.
@@ -102,7 +105,11 @@ def params_from_jax(tree: Any, cfg: TransformerConfig,
     tensors in ``cfg.param_dtype`` on ``device`` (default: cuda)."""
     tree = dict(tree)
     stacked = isinstance(tree["blocks"], dict)
-    if cfg.scan_layers:
+    stack = np.ndim(tree["blocks"]["qkv"]["w"]) - 2 if stacked else 0
+    if stack >= 2:      # a pipeline's (S, per) or (v, S, per) stack
+        n = {int(np.prod(np.shape(a)[:stack]))
+             for a in _leaves(tree["blocks"])}
+    elif cfg.scan_layers:
         if not stacked:
             raise ValueError("config has scan_layers=True but the tree's "
                              "blocks are a per-layer list")
@@ -155,10 +162,11 @@ def tree_to_numpy(tree: Any) -> Any:
 
 def rank_state_from_jax(trainer, params: Any, device: DeviceLike = None):
     """JAX's global params (a host tree of numpy arrays, in the layout's
-    qkv order) -> ``trainer``'s fresh train state on this rank and its
-    sharded-update layout (``Trainer.state_from_params``): under a sliced
-    layout only this rank's tensor / fsdp slices of each leaf, the
-    optimizer initialised on them."""
+    qkv order; a pipeline's blocks stage-stacked) -> ``trainer``'s fresh
+    train state on this rank and its sharded-update layout
+    (``Trainer.state_from_params``): under a sliced layout only this
+    rank's tensor / fsdp / stage slices of each leaf, the optimizer
+    initialised on them."""
     cfg = getattr(trainer.model, "cfg", None)
     device = device or trainer.device
     full = (params_from_jax(params, cfg, device) if cfg is not None

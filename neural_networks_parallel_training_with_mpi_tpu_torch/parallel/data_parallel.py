@@ -22,7 +22,9 @@ but the tensor and fsdp ones: a whole leaf's gradient, equal on each
 tensor rank, is counted once), after an fsdp stage: an fsdp-split leaf's
 gradient came back reduce-scattered from its gather, and the leaves fsdp
 keeps whole, the loss sum and the count are summed over the fsdp group
-first.  The norms (guard, telemetry) come from the layout's ``combine``:
+first.  Under pipeline parallelism (``parallel.pipeline``) the leaves
+every stage holds (the embedding, the final norm, the head), the loss sum
+and the count are summed over the pipe group the same way.  The norms (guard, telemetry) come from the layout's ``combine``:
 JAX's global-view norms over the slices.
 
 Two gradient semantics (``TrainConfig.grad_reduction``):
@@ -222,16 +224,20 @@ def _all_reduce(vals: List[torch.Tensor], group) -> List[torch.Tensor]:
         torch.split(flat, [v.numel() for v in vals]), vals)]
 
 
-def _fsdp_reduce(layout, grads: List[torch.Tensor], s: torch.Tensor,
-                 c: torch.Tensor):
-    """The fsdp stage of the gradient reduction: the gradients of the
-    leaves fsdp keeps whole, and the loss sum and count, summed over the
-    fsdp group (an fsdp-split leaf's gradient came back reduce-scattered
-    from its gather); ``grads`` is updated in place.  Returns (s, c)."""
-    whole = [i for i, st in enumerate(layout.stored) if st.fsdp is None]
+def _axis_reduce(layout, axis: str, grads: List[torch.Tensor],
+                 s: torch.Tensor, c: torch.Tensor):
+    """The fsdp or pipe stage of the gradient reduction: the gradients of
+    the leaves that ``axis`` keeps whole, and the loss sum and count,
+    summed over that axis's group (an fsdp-split leaf's gradient came
+    back reduce-scattered from its gather; a pipe-split leaf, a stage's
+    block, is its stage's own, while the embedding and the head have
+    their gradient on one stage only); ``grads`` is updated in place.
+    Returns (s, c)."""
+    whole = [i for i, st in enumerate(layout.stored)
+             if getattr(st, axis) is None]
     vals = _all_reduce([grads[i] for i in whole] + [s.reshape(1),
                                                      c.reshape(1)],
-                       layout.fsdp_pg)
+                       getattr(layout, f"{axis}_pg"))
     for i, v in zip(whole, vals):
         grads[i] = v
     return vals[-2][0], vals[-1][0]
@@ -330,8 +336,9 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         # first forward): the global-view norms, and the fsdp stage
         layout = getattr(model, "layout", None)
         combine = layout.combine if layout is not None else combine_norms
-        if layout is not None and layout.fsdp_pg is not None:
-            s, c = _fsdp_reduce(layout, grads, s, c)
+        for axis in ("fsdp", "pipe"):
+            if getattr(layout, f"{axis}_pg", None) is not None:
+                s, c = _axis_reduce(layout, axis, grads, s, c)
         if fp8:
             obs = _max_over_ranks(obs, world)
         if update_sharding == "zero1":

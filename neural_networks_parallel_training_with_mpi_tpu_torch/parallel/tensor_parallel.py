@@ -75,11 +75,13 @@ Tree = Any
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
-    """The dim of a leaf split over the tensor group and the one split
-    over the fsdp group (None: whole on that axis)."""
+    """The dim of a leaf split over the tensor group, the one split over
+    the fsdp group and the stage dim split over the pipe group (None:
+    whole on that axis)."""
 
     tensor: Optional[int] = None
     fsdp: Optional[int] = None
+    pipe: Optional[int] = None
 
 
 WHOLE = LeafSpec()
@@ -185,14 +187,16 @@ class StateLayout:
     params' GLOBAL shapes ``shapes`` (in ``leaves`` order).  A leaf's
     tensor slice is held here when ``group`` is a process group (a local
     group keeps it whole), its fsdp slice when ``fsdp_group`` is given
-    (every slice, stacked, under a local one).
+    (every slice, stacked, under a local one), its pipeline stage's slice
+    when ``pipe_group`` is a process group (``parallel.pipeline``; a
+    local one keeps every stage).
     ``qkv_dense``: the params keep the dense qkv column order (the GSPMD
     layout), so a held tensor slice of a qkv leaf is its head-aligned
     columns."""
 
     def __init__(self, spec_tree: Tree, shapes: List[Tuple[int, ...]],
                  names: List[Tuple[str, ...]], group, fsdp_group=None,
-                 qkv_dense: bool = False, head_dims=None):
+                 qkv_dense: bool = False, head_dims=None, pipe_group=None):
         self.spec_tree = spec_tree
         self.specs: List[LeafSpec] = [
             s for _, s in _spec_items(spec_tree)]
@@ -200,7 +204,13 @@ class StateLayout:
         self.group, self.fsdp_group = group, fsdp_group
         self.tp, self.fsdp = group.size, _group_size(fsdp_group)
         self.tensor_sliced = hasattr(group, "pg") and self.tp > 1
-        self.sliced = self.tensor_sliced or fsdp_group is not None
+        self.pipe_group = pipe_group
+        self.pp = _group_size(pipe_group)
+        # the pipe process group; None: no pipe, or every stage held here
+        self.pipe_pg = (pipe_group.pg if hasattr(pipe_group, "pg")
+                        and self.pp > 1 else None)
+        self.sliced = (self.tensor_sliced or fsdp_group is not None
+                       or self.pipe_pg is not None)
         # the fsdp process group; None: no fsdp, or every slice held here
         self.fsdp_pg = getattr(fsdp_group, "pg", None)
         self._qkv_perm = None
@@ -210,13 +220,16 @@ class StateLayout:
         self.stored = [self._stored(s) for s in self.specs]
         t_rank = group.rank if self.tensor_sliced else 0
         f_rank = fsdp_group.rank if self.fsdp_pg is not None else 0
+        p_rank = pipe_group.rank if self.pipe_pg is not None else 0
         self.owner = [(st.tensor is not None or t_rank == 0)
                       and (st.fsdp is not None or f_rank == 0)
+                      and (st.pipe is not None or p_rank == 0)
                       for st in self.stored]
 
     def _stored(self, spec: LeafSpec) -> LeafSpec:
         return LeafSpec(spec.tensor if self.tensor_sliced else None,
-                        spec.fsdp if self.fsdp_group is not None else None)
+                        spec.fsdp if self.fsdp_group is not None else None,
+                        spec.pipe if self.pipe_pg is not None else None)
 
     # ---- the optimizer slots mirror the params ----
     def mirror(self, tree: Tree) -> List[int]:
@@ -254,6 +267,8 @@ class StateLayout:
             x = x.chunk(self.tp, spec.tensor)[self.group.rank]
         if spec.fsdp is not None:
             x = self.fsdp_group.slice(x, spec.fsdp)
+        if spec.pipe is not None:
+            x = x.chunk(self.pp, spec.pipe)[self.pipe_group.rank]
         return x.clone()
 
     def conform(self, params: Tree) -> Tree:
@@ -275,9 +290,12 @@ class StateLayout:
 
     def gather_leaf(self, x: torch.Tensor, j: int) -> torch.Tensor:
         """One leaf whole from every rank's slice (collective over the
-        fsdp and tensor groups), qkv columns back in the dense order."""
+        pipe, fsdp and tensor groups), qkv columns back in the dense
+        order."""
         spec, qkv = self._spec_of(j)
         x = x.detach()
+        if spec.pipe is not None:
+            x = fsdp_lib.all_gather_dim(x, spec.pipe, self.pipe_pg, self.pp)
         if spec.fsdp is not None:
             x = self.fsdp_group.whole(x, spec.fsdp)
         if spec.tensor is not None:
@@ -312,6 +330,8 @@ class StateLayout:
             shape[spec.tensor] *= self.tp
         if spec.fsdp is not None:
             shape[spec.fsdp] *= self.fsdp
+        if spec.pipe is not None:
+            shape[spec.pipe] *= self.pp
         return shape
 
     # ---- the forward's gathers ----
@@ -328,8 +348,10 @@ class StateLayout:
     def combine(self, norms: List[torch.Tensor]) -> torch.Tensor:
         """The global norm from per-leaf norms of this rank's slices (in
         param order): the owned leaves' squares summed over the tensor
-        and fsdp groups (no process group: every slice is here)."""
-        if not self.tensor_sliced and self.fsdp_pg is None:
+        and fsdp groups, and over the pipe group (no process group: every
+        slice is here)."""
+        if not (self.tensor_sliced or self.fsdp_pg is not None
+                or self.pipe_pg is not None):
             return combine_norms(norms)
         sq = torch.stack([n.float().square() for n, o
                           in zip(norms, self.owner) if o]
@@ -340,11 +362,14 @@ class StateLayout:
         return self.combine(leaf_norms([x.float() for x in xs]))
 
     def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the tensor and fsdp groups (in place)."""
+        """``x`` summed over the tensor, fsdp and pipe groups (in
+        place)."""
         if self.tensor_sliced:
             dist.all_reduce(x, group=self.group.pg)
         if self.fsdp_pg is not None:
             dist.all_reduce(x, group=self.fsdp_pg)
+        if self.pipe_pg is not None:
+            dist.all_reduce(x, group=self.pipe_pg)
         return x
 
     # ---- the sharded update over the data ranks ----
@@ -391,10 +416,18 @@ def _spec_items(tree, path=()):
 
 def state_layout(model, params: Tree, group, fsdp_group=None,
                  qkv_order: str = "dense",
-                 vocab_parallel: bool = False) -> StateLayout:
+                 vocab_parallel: bool = False, pipe_group=None,
+                 interleave: int = 1) -> StateLayout:
     """The :class:`StateLayout` of ``model``'s global ``params`` (the
-    dense init, or under ``qkv_order="permuted"`` the ``sp_tp`` one)."""
-    if qkv_order == "permuted":
+    dense init, or under ``qkv_order="permuted"`` the ``sp_tp`` one; with
+    ``pipe_group``, the stage-stacked pipeline params of
+    ``parallel.pipeline``, whose qkv columns are permuted for the tensor
+    group)."""
+    if pipe_group is not None:
+        from .pipeline import pipeline_param_specs
+
+        spec_tree = pipeline_param_specs(params, group.size, interleave)
+    elif qkv_order == "permuted":
         from .spmd import sp_tp_param_specs
 
         spec_tree = megatron.map_with_path(
@@ -410,7 +443,8 @@ def state_layout(model, params: Tree, group, fsdp_group=None,
     paths = megatron.leaf_paths(params)
     return StateLayout(spec_tree, [tuple(x.shape) for _, x in paths],
                        [n for n, _ in paths], group, fsdp_group,
-                       qkv_dense=qkv_order == "dense", head_dims=head_dims)
+                       qkv_dense=qkv_order == "dense" and pipe_group is None,
+                       head_dims=head_dims, pipe_group=pipe_group)
 
 
 class TensorParallelModel:

@@ -103,9 +103,9 @@ global batch, raise ``accum_steps``; ``per_device``: keep each rank's
 rows), maps the step counter onto the new loader through
 ``consumed_samples`` and records the change (``kind="topology"``).
 
-Every flag of a path the port has not taken over yet (the pipe and
-expert axes, RL, ...) raises ``NotImplementedError`` naming the flag
-when it is set to anything but its default; none is ignored.
+Every flag of a path the port has not taken over yet (the expert axis,
+MoE, RL, ...) raises ``NotImplementedError`` naming the flag when it is
+set to anything but its default; none is ignored.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``, ``ulysses``)
@@ -142,6 +142,21 @@ resumes over another data-rank count with tp and fsdp kept.  A resume
 re-permutes params and every optimizer slot when the snapshot's
 ``qkv_tp`` differs from this layout's (JAX's ``_reconcile_qkv_tp``);
 under ``zero1`` that raises (its flat buffer has no per-leaf slots).
+
+Pipeline parallelism (``--pp S``, ``--pp_interleave v``; the JAX
+trainer's routing and refusals): the ring schedule of
+``parallel.pipeline`` over S stages, with ``n_microbatches = S x
+accum_steps`` (the eval at S), composed with the data, tensor (Megatron
+blocks, qkv columns stored permuted, ``qkv_tp`` = T in a snapshot) and
+seq (a sequence-sharded attention) axes.  The state holds the blocks
+stage-stacked, ``(S, per, ...)`` or ``(v, S, per, ...)``, as JAX's, the
+optimizer slots mirroring them; over torchrun ranks
+(``parallel.pipeline.ProcessPipeGroup``) each rank holds its stage's
+slice of every block leaf, a snapshot gathers the stages to rank 0 in the
+stacked layout and a restore slices it; in a world of one process (no
+torchrun) ``--pp S`` runs the S stages here (``LocalPipeGroup(S)``).  The
+clip runs inside the step; no guard, no ``--matmul_dtype``, no update
+sharding and loss-only telemetry, as in JAX.
 """
 
 from __future__ import annotations
@@ -164,12 +179,14 @@ from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel import distributed
 from ..parallel import gspmd, megatron, spmd
+from ..parallel import pipeline as pp
 from ..parallel import tensor_parallel as tp_lib
 from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
 from ..parallel.fsdp import ProcessFsdpGroup, all_gather_dim
 from ..parallel.megatron import (LocalTensorGroup, ProcessTensorGroup,
                                  qkv_tp_permutation)
+from ..parallel.pipeline import LocalPipeGroup, ProcessPipeGroup
 from ..parallel.sequence import (
     SEQ_SHARDED_IMPLS, ProcessSeqGroup, resolve_attention_impl,
     striped_permutation,
@@ -191,10 +208,8 @@ from .resilience import (AnomalyAbort, CapacityAbort, GracefulShutdown,
 from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
-_UNPORTED = {
-    "workload": "--workload", "pp_interleave": "--pp_interleave",
-}
-_UNPORTED_MESH = {"pipe": "--pp", "expert": "--ep"}
+_UNPORTED = {"workload": "--workload"}
+_UNPORTED_MESH = {"expert": "--ep"}
 # the model-parallel layouts' next pieces (ROADMAP Queue A item 4)
 QUEUE_A4 = "held out of the port so far: ROADMAP Queue A item 4"
 _UNPORTED_MODEL = {"moe_experts": "--moe_experts",
@@ -300,17 +315,32 @@ def check_fsdp_layout(cfg: TrainConfig) -> None:
             "for other mixes")
 
 
+def check_pipe_layout(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for the pipe axis that no other axis
+    meets, with its messages: a transformer only; ``--pp_interleave``
+    only under ``--pp``."""
+    pipeline = cfg.mesh.pipe > 1
+    if pipeline and cfg.model.arch != "transformer":
+        raise ValueError("pipe axis > 1 requires the transformer model")
+    if cfg.pp_interleave > 1 and not pipeline:
+        raise ValueError("--pp_interleave needs the pipeline layout "
+                         "(--pp > 1); it schedules virtual stage-slices "
+                         "per pipeline device")
+
+
 def check_tensor_layout(cfg: TrainConfig) -> None:
-    """The JAX trainer's rules for the tensor and fsdp axes, with its
-    messages and exception types (``--vocab_parallel`` only on seq x
-    tensor; ``--ce_chunk`` not under a non-pipeline tensor or fsdp axis;
-    ``zero1`` not under GSPMD or seq x tensor; ``sharded`` not under seq x
-    tensor; ``per_shard_mean`` and ``--scan-layers`` not under GSPMD)."""
+    """The JAX trainer's rules for the tensor, fsdp and pipe axes, with
+    its messages and exception types (``global_mean`` only on pipe and
+    seq x tensor; ``--vocab_parallel`` only on seq x tensor;
+    ``--ce_chunk`` not under a non-pipeline tensor or fsdp axis; ``zero1``
+    not under GSPMD, pipe or seq x tensor; ``sharded`` not under pipe or
+    seq x tensor; ``per_shard_mean`` and ``--scan-layers`` not under
+    GSPMD, and ``--scan-layers`` not under pipe)."""
     mesh = cfg.mesh
-    tensor, fsdp = mesh.tensor > 1, mesh.fsdp > 1
-    sp_tp = tensor and mesh.seq > 1 and not fsdp
-    gspmd_on = (tensor or fsdp) and not sp_tp
-    if sp_tp and cfg.grad_reduction != "global_mean":
+    tensor, fsdp, pipeline = mesh.tensor > 1, mesh.fsdp > 1, mesh.pipe > 1
+    sp_tp = tensor and mesh.seq > 1 and not (fsdp or pipeline)
+    gspmd_on = (tensor or fsdp) and not (sp_tp or pipeline)
+    if (sp_tp or pipeline) and cfg.grad_reduction != "global_mean":
         raise ValueError("pipeline/expert/seq-x-tensor steps always use "
                          "global_mean gradient semantics")
     if cfg.vocab_parallel and not sp_tp:
@@ -318,19 +348,19 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "--vocab_parallel shards the embedding/head over 'tensor' "
             "on the seq x tensor path (--sp > 1 and --tp > 1); other "
             "layouts keep them replicated")
-    if cfg.model.ce_chunk > 0 and (tensor or fsdp):
+    if cfg.model.ce_chunk > 0 and not pipeline and (tensor or fsdp):
         raise ValueError(
             "--ce_chunk (fused chunked cross-entropy) is wired on "
             "the data-parallel/ZeRO-1, sequence-parallel, and "
             "pipeline step paths; with non-pipeline tp/ep/fsdp "
             "axes use --vocab_parallel (seq x tensor) or drop "
             "--ce_chunk")
-    if cfg.update_sharding == "zero1" and (tensor or fsdp):
+    if cfg.update_sharding == "zero1" and (tensor or fsdp or pipeline):
         raise NotImplementedError(
             "update_sharding='zero1' is the flat-buffer shard_map DP "
             "and DP x seq layout; the automatic per-leaf form "
             "(update_sharding='sharded') covers the GSPMD path too")
-    if cfg.update_sharding == "sharded" and sp_tp:
+    if cfg.update_sharding == "sharded" and (sp_tp or pipeline):
         raise NotImplementedError(
             "update_sharding='sharded' is wired into the shard_map DP "
             "/ DP x seq and GSPMD (tensor/fsdp) layouts; the "
@@ -340,7 +370,7 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "grad_reduction='per_shard_mean' (the reference's :188-197 "
             "semantics) is only available on the pure-DP shard_map path; "
             "GSPMD global semantics always compute the exact global mean")
-    if cfg.model.scan_layers and gspmd_on:
+    if cfg.model.scan_layers and (gspmd_on or pipeline):
         raise ValueError(
             "scan_layers stacks blocks for a depth-independent compile "
             "on the plain DP / DP x seq / seq x tensor paths; the "
@@ -391,8 +421,10 @@ class Trainer:
         for the sequence-sharded attentions; by default ``--sp > 1`` forms
         a ``ProcessSeqGroup`` from the torchrun world.  ``tensor_group``
         likewise (``LocalTensorGroup``; by default ``--tp > 1`` forms a
-        ``ProcessTensorGroup``), and ``fsdp_group`` (``LocalFsdpGroup``;
-        by default ``--fsdp > 1`` forms a ``ProcessFsdpGroup``)."""
+        ``ProcessTensorGroup``) and ``fsdp_group`` (``LocalFsdpGroup``; by
+        default ``--fsdp > 1`` forms a ``ProcessFsdpGroup``).  ``--pp > 1``
+        runs every stage here (``LocalPipeGroup``) in a world of one
+        process, else one stage per rank (``ProcessPipeGroup``)."""
         if cfg.param_dtype:
             if cfg.param_dtype not in ("float32", "bfloat16", "float16"):
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
@@ -415,6 +447,7 @@ class Trainer:
             cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
                 cfg.mesh, **{axis: group.size}))
         check_fsdp_layout(cfg)
+        check_pipe_layout(cfg)
         check_matmul_dtype(cfg)
         check_resilience(cfg)
         refuse_unported(cfg)
@@ -426,7 +459,7 @@ class Trainer:
             mesh = cfg.mesh
             if self.fault_plan.det_desync() is not None and (
                     cfg.update_sharding != "replicated" or mesh.tensor > 1
-                    or mesh.fsdp > 1):
+                    or mesh.fsdp > 1 or mesh.pipe > 1):
                 raise NotImplementedError(
                     "desync?det perturbs the fully-replicated train state "
                     "inside the step; it is wired on the plain DP and "
@@ -435,32 +468,44 @@ class Trainer:
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
                      else None)
         sp, tp, n_fsdp = cfg.mesh.seq, cfg.mesh.tensor, cfg.mesh.fsdp
+        n_pipe = cfg.mesh.pipe
         if seq_group is None and sp > 1 and \
                 attention not in SEQ_SHARDED_IMPLS:
             raise ValueError(
                 f"--sp {sp} needs a sequence-sharded attention (ring, "
                 f"ring_flash, striped, striped_flash, ulysses), not "
                 f"{attention!r}")
+        pipe_group = None
+        if n_pipe > 1 and distributed.process_count() == 1:
+            # one process (no torchrun): every stage runs here
+            pipe_group = LocalPipeGroup(n_pipe)
         # the process groups of the axes no local group stands for
         self.world = world_setup(
             device, sp=1 if seq_group is not None else sp,
             tp=1 if tensor_group is not None else tp, dp=cfg.mesh.data,
             collective_timeout=cfg.collective_timeout,
-            fsdp=1 if fsdp_group is not None else n_fsdp)
+            fsdp=1 if fsdp_group is not None else n_fsdp,
+            pp=1 if pipe_group is not None else n_pipe)
         if seq_group is None and sp > 1:
             seq_group = ProcessSeqGroup(self.world.seq_pg)
         if fsdp_group is None and n_fsdp > 1:
             fsdp_group = ProcessFsdpGroup(self.world.fsdp_pg)
-        # the JAX trainer's routing: seq x tensor, or tensor / fsdp (GSPMD)
-        self.sp_tp = tp > 1 and sp > 1
-        self.gspmd = (tp > 1 or n_fsdp > 1) and not self.sp_tp
+        if pipe_group is None and n_pipe > 1:
+            pipe_group = ProcessPipeGroup(self.world.pipe_pg)
+        # the JAX trainer's routing: pipe (x tensor x seq), seq x tensor,
+        # or tensor / fsdp (GSPMD)
+        self.pipeline = n_pipe > 1
+        self.pipe_group = pipe_group
+        self.sp_tp = tp > 1 and sp > 1 and not self.pipeline
+        self.gspmd = ((tp > 1 or n_fsdp > 1) and not self.sp_tp
+                      and not self.pipeline)
         if tensor_group is None and tp > 1:
             tensor_group = ProcessTensorGroup(self.world.tensor_pg)
         elif tensor_group is None and self.gspmd:
             tensor_group = LocalTensorGroup(1)
         self.tensor_group, self.fsdp_group = tensor_group, fsdp_group
         # the qkv column order of this layout's params and snapshots
-        self.qkv_tp = tp if self.sp_tp else 1
+        self.qkv_tp = tp if self.sp_tp or self.pipeline else 1
         # the capacity floor: a world below --min_devices does not train
         # (exit 46, which the supervisor does not retry); one card per rank
         n_devices = self.world.world_size
@@ -491,7 +536,8 @@ class Trainer:
         self.zero1 = cfg.update_sharding == "zero1"
         self.sharded = cfg.update_sharding == "sharded"
         # the JAX trainer's name of the step's program
-        self.layout_tag = ("sp_tp" if self.sp_tp else "gspmd" if self.gspmd
+        self.layout_tag = ("pipe" if self.pipeline else "sp_tp" if self.sp_tp
+                           else "gspmd" if self.gspmd
                            else "sp" if seq_group is not None else "dp")
         if cfg.update_sharding != "replicated":
             self.layout_tag += f"+{cfg.update_sharding}"
@@ -522,17 +568,24 @@ class Trainer:
                              f"{cfg.label_smoothing}")
         self.model = build_model(cfg.model, device=self.device,
                                  seq_group=seq_group)
+        if self.pipeline:   # JAX's checks, before the stages are stacked
+            pp._validate_pipe(self.model, pipe_group.size, tp,
+                              seq_group.size if seq_group else 1,
+                              cfg.pp_interleave)
         # where the state's bytes live (tensor / fsdp slices under
         # process groups; whole under a local group), from the global init
         self.state_layout: Optional[tp_lib.StateLayout] = None
         # the seeded init drawn for the layout, kept for the first state
         self._init_params = None
-        if self.gspmd or self.sp_tp:
+        if self.gspmd or self.sp_tp or self.pipeline:
             self._init_params = self._global_init()
             self.state_layout = tp_lib.state_layout(
-                self.model, self._init_params, tensor_group, fsdp_group,
-                qkv_order="permuted" if self.sp_tp else "dense",
-                vocab_parallel=cfg.vocab_parallel)
+                self.model, self._init_params,
+                tensor_group or LocalTensorGroup(1), fsdp_group,
+                qkv_order="dense" if self.gspmd else "permuted",
+                vocab_parallel=cfg.vocab_parallel,
+                pipe_group=pipe_group if self.pipeline else None,
+                interleave=cfg.pp_interleave)
         combine = (optim_lib.combine_norms if self.state_layout is None
                    else self.state_layout.combine)
         if attention == "auto":     # refuse a length flash cannot take
@@ -567,9 +620,10 @@ class Trainer:
         lr = schedules.make(
             cfg.lr_schedule, cfg.lr, total_steps=total_steps,
             warmup_steps=cfg.warmup_steps, min_lr=cfg.min_lr)
-        # the sharded updates and sp_tp clip inside the step, by the
-        # global norm
-        step_clips = self.zero1 or self.sharded or self.sp_tp
+        # the sharded updates, sp_tp and the pipeline clip inside the
+        # step, by the global norm
+        step_clips = self.zero1 or self.sharded or self.sp_tp or \
+            self.pipeline
         self.optimizer = optim_lib.make(
             cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
             grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps,
@@ -587,13 +641,27 @@ class Trainer:
         train_loss = (f"{cfg.loss}@{cfg.label_smoothing}"
                       if cfg.label_smoothing else cfg.loss)
         # on-device telemetry metrics: the step returns the metrics dict
-        # in place of its loss (every layout but sp_tp, whose JAX step
-        # returns its loss only)
+        # in place of its loss (every layout but sp_tp and the pipeline,
+        # whose JAX steps return their loss only)
         self.telemetry_metrics = bool(cfg.telemetry_dir
                                       and cfg.metrics_every > 0
-                                      and not self.sp_tp)
+                                      and not (self.sp_tp or self.pipeline))
         with_acc = cfg.loss == "cross_entropy"
-        if self.sp_tp:
+        if self.pipeline:
+            # accumulation folds into the schedule: accum_steps x more
+            # microbatches per step; the eval at the natural count
+            pipe_kw = dict(interleave=cfg.pp_interleave,
+                           tensor_group=tensor_group if tp > 1 else None,
+                           layout=self.state_layout)
+            step = pp.make_pipeline_train_step(
+                self.model, self.optimizer, self.world, pipe_group,
+                loss_name=train_loss,
+                n_microbatches=pipe_group.size * cfg.accum_steps,
+                grad_clip=cfg.grad_clip, **pipe_kw)
+            eval_step = pp.make_pipeline_eval_step(
+                self.model, self.world, pipe_group, loss_name=cfg.loss,
+                with_accuracy=with_acc, **pipe_kw)
+        elif self.sp_tp:
             step = spmd.make_sp_tp_train_step(
                 self.model, self.optimizer, self.world, tensor_group,
                 seq_group, loss_name=train_loss,
@@ -783,11 +851,17 @@ class Trainer:
         return self.state
 
     def _global_init(self):
-        """The seeded init, whole (the dense order; ``sp_tp``'s qkv
-        columns permuted)."""
-        params = self.model.init(prng.init_generator(self.cfg.seed))
+        """The seeded init, whole (the dense order; ``sp_tp``'s and the
+        pipeline's qkv columns permuted, the pipeline's blocks
+        stage-stacked)."""
+        generator = prng.init_generator(self.cfg.seed)
+        if self.pipeline:
+            return pp.init_pipeline_params(
+                self.model, generator, self.pipe_group.size, self.qkv_tp,
+                self.cfg.pp_interleave)
         # sp_tp: each tensor shard's heads one contiguous qkv slice
-        return spmd.permute_params(self.model, params, self.qkv_tp)
+        return spmd.permute_params(self.model, self.model.init(generator),
+                                   self.qkv_tp)
 
     @property
     def _sliced(self) -> Optional[tp_lib.StateLayout]:
@@ -803,8 +877,9 @@ class Trainer:
     def state_from_params(self, params
                           ) -> Tuple[TrainState, Optional[us.ShardedLayout]]:
         """A fresh train state (and its sharded-update layout) from the
-        global ``params`` in this layout's qkv order: this rank's slices of
-        them, the optimizer initialised on those slices."""
+        global ``params`` in this layout's qkv order (the pipeline's blocks
+        stage-stacked): this rank's slices of them, the optimizer
+        initialised on those slices."""
         if self.state_layout is not None:
             params = self.state_layout.conform(params)
         if self._sliced is not None:
@@ -1047,7 +1122,7 @@ class Trainer:
 
     def _unreplicated(self) -> frozenset:
         """The ids of the state's tensors JAX's layout does not hold
-        replicated: the leaves the rules split over tensor or fsdp (and
+        replicated: the leaves the rules split over tensor, fsdp or pipe (and
         the optimizer slots mirroring them, which a local group holds
         whole all the same), and the optimizer leaves the sharded update
         splits over the data ranks."""
@@ -1055,7 +1130,7 @@ class Trainer:
         if lay is None:
             return frozenset()
         split = [sp.tensor is not None or sp.fsdp is not None
-                 for sp in lay.specs]
+                 or sp.pipe is not None for sp in lay.specs]
         out = {id(x) for x, sp in zip(leaves(s.params), split) if sp}
         axes = (self.layout.axes if self.layout is not None
                 else [None] * len(leaves(s.opt_state)))
@@ -1304,7 +1379,7 @@ class Trainer:
                  "saved_world": {
                      "dp": int(self.loader.dp),
                      "mesh": {"data": w.dp, "fsdp": cfg.mesh.fsdp,
-                              "pipe": 1,
+                              "pipe": cfg.mesh.pipe,
                               "expert": 1, "seq": w.sp,
                               "tensor": cfg.mesh.tensor},
                      "update_sharding": cfg.update_sharding},

@@ -383,6 +383,40 @@ def newest_verified_step(directory: str) -> Optional[int]:
     return None
 
 
+def block_stack(directory: str, params: Any,
+                step: Optional[int] = None) -> tuple:
+    """The leading stack dims of a transformer snapshot's blocks, read
+    from the header of its first ``params/blocks/.../qkv/w`` leaf (2-d per
+    layer) in the newest verified (or a given) generation, in either
+    package's snapshots: ``()`` for per-layer blocks or no blocks, ``(L,)``
+    for a ``scan_layers`` stack, ``(S, per)`` or ``(v, S, per)`` for a
+    pipeline's.  The leaf is found by its path in the snapshot's
+    ``leaves.json``; the JAX package's snapshots have none, and there by
+    its path in ``params`` (a template of the same model, in any blocks
+    layout: each keeps one block's key order, so the leaf has the same
+    index in all).  Nothing but the header is read."""
+    import zipfile
+
+    step = newest_verified_step(directory) if step is None else step
+    snaps = [p for s, p in _snapshot_dirs(Path(directory)) if s == step]
+    if not snaps:
+        return ()
+    saved = snaps[0] / LEAVES
+    paths = (json.loads(saved.read_text()) if saved.exists()
+             else [p for p, _ in flatten(TrainState(0, params, None))])
+    qkv = next((i for i, p in enumerate(paths)
+                if p.startswith("params/blocks/") and p.endswith("qkv/w")),
+               None)
+    if qkv is None:
+        return ()
+    with zipfile.ZipFile(snaps[0] / "state.npz") as z:
+        with z.open(f"leaf_{qkv}.npy") as f:
+            version = np.lib.format.read_magic(f)
+            shape = (np.lib.format.read_array_header_1_0(f) if version[0] == 1
+                     else np.lib.format.read_array_header_2_0(f))[0]
+    return tuple(shape[:-2])
+
+
 def verify(directory: str, step: Optional[int] = None) -> bool:
     """With ``step``: that generation has a valid manifest and every file
     matches it.  Without: ANY generation does (the chain restore walks)."""

@@ -507,13 +507,15 @@ def test_interop_round_trips_a_jax_train_state():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    # --tp, --fsdp, ulysses, --vocab_parallel and dense_blockwise are
-    # ported with their combinations (tests/test_torch_tensor_parallel.py,
-    # tests/test_torch_sp_tp.py, tests/test_torch_megatron.py,
-    # tests/test_torch_fsdp.py); their mixes with the pipe and expert
-    # axes (ROADMAP Queue A item 4) take their places
-    ["--tp", "2", "--pp", "2"],
-    ["--sp", "2", "--attention", "ulysses", "--fsdp", "2"], ["--pp", "2"],
+    # --tp, --fsdp, ulysses, --vocab_parallel, dense_blockwise, --pp and
+    # --pp_interleave are ported with their combinations
+    # (tests/test_torch_tensor_parallel.py, tests/test_torch_sp_tp.py,
+    # tests/test_torch_megatron.py, tests/test_torch_fsdp.py,
+    # tests/test_torch_pipeline*.py); their mixes with the expert axis and
+    # MoE (ROADMAP Queue A item 4) take their places
+    ["--tp", "2", "--pp", "2", "--ep", "2", "--dataset", "lm"],
+    ["--sp", "2", "--attention", "ulysses", "--fsdp", "2"],
+    ["--pp", "2", "--moe_experts", "4", "--dataset", "lm"],
     ["--ep", "2"], ["--fsdp", "2", "--pp", "2"],
     # the observability flags are ported
     # (tests/test_torch_telemetry.py::test_observability_flags_are_ported)
@@ -525,13 +527,15 @@ def test_interop_round_trips_a_jax_train_state():
     ["--vocab_parallel", "--sp", "2", "--tp", "2", "--attention", "ring",
      "--dataset", "lm", "--ep", "2"],
     ["--faults", "replica_kill@1"], ["--moe_top_k", "2"],
-    ["--pp_interleave", "2"], ["--moe_capacity_factor", "2"],
+    ["--pp_interleave", "2", "--pp", "2", "--n_layers", "4", "--dataset",
+     "lm", "--ep", "2"], ["--moe_capacity_factor", "2"],
     ["--ep", "4"], ["--workload", "rl"], ["--data_backend", "native"],
     ["--attention", "dense_blockwise", "--tp", "2", "--dataset", "lm",
-     "--pp", "2"],
+     "--pp", "2", "--ep", "2"],
     # ported, but not over the pipeline layout (JAX's refusals)
     ["--matmul_dtype", "fp8", "--dataset", "lm", "--pp", "2"],
-    ["--moe_experts", "4"], ["--skip-nonfinite", "--pp", "2"],
+    ["--moe_experts", "4"],
+    ["--skip-nonfinite", "--pp", "2", "--dataset", "lm"],
     ["--optimizer", "lion"], ["--dataset", "cifar10"],
 ], ids=lambda f: f[0].lstrip("-"))
 def test_unported_flags_raise(flags):

@@ -220,7 +220,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               (``--quantize_skip head``).  (d) f32, 2 layers, T 128: int8
               and fp8 on the card against the host (losses 1e-4 int8,
               5e-4 fp8 relative; the params' change 1e-2 relative L2).
-              (e) phase 4's serving traffic (32 requests on 16 slots)
+              (e) phase 4's serving traffic (16 of its requests on 16 slots)
               with bf16 weights, int8 PTQ weights (dequant) and PTQ with
               int8 compute, each arm twice in the order A B C C B A:
               tokens/s, TTFT, ITL, param bytes; at the flagship f32
@@ -385,6 +385,37 @@ Phases, each printing its own lines; any failure exits non-zero:
               params, unstacked and de-permuted in this process, at least
               8 distinct.  A ``pipeline:`` JSON line; phase 24's B1-B3
               and B5 launches join the kernels line's counts.
+
+25. MoE and expert parallelism — (a) one MoE layer at the flagship
+              shape (d_model 1024, d_ff 4096, 8 experts, 8 x 1024
+              tokens), forward and backward: the index dispatch and
+              combine against the one-hot einsum form (f32 and bf16 top-1
+              outputs bitwise, f32 top-2 within 1e-6 of their largest
+              magnitude, f32 gradients within 1e-5 relative), each form's
+              time beside the expert FFN's.
+              (b) The flagship LM with 8 Switch top-1 experts (924.5M
+              params) under ``--ep 4`` over ``LocalExpertGroup(4)``
+              (ce_chunk 0, as JAX requires there): one epoch eager (the
+              1-nat check, step ms, tokens/s, peak memory, a profile with
+              the dispatch/combine class, the final snapshot), B1-B3 12 a
+              step (one launch over the 4 shards' rows), all sm90; then
+              one epoch at ``--steps_per_dispatch 13``, bitwise to it.
+              (c) ``--moe_top_k 2`` on the plain DP step (ce_chunk 256)
+              at full depth, eager (with a profile) and graphed,
+              bitwise.  (d) f32, TF32 off, 2
+              layers: ``--ep 4`` with aux weight 0 and a capacity of its
+              groups' tokens == the dense MoE DP step within 1e-6 (whose
+              first loss is the forward's cross-entropy: no aux); ``--sp
+              2 --ep 2`` striped_flash (B5) and ``--ep 2 --tp 2`` at T 128
+              on the card == the host's (a subprocess of this script, run
+              beside the rest) within 1e-5.  (e) ``--generate`` through
+              the CLI from (b)'s snapshot: 16 sampled tokens equal the
+              decode of (b)'s final params.  (f) The MoE
+              LM in bf16 behind the fused paged scheduler (8 requests; B4
+              n_layers x passes), then f32 at 2 layers with a drop-free
+              capacity: fused == gathered == ``generate()`` and the card's
+              tokens == the host's.  A ``moe:`` JSON line; phase 25's B1-B3,
+              B4 and B5 launches join the kernels line's counts.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -1616,7 +1647,7 @@ def fwd_launches_per_layer(model_cfg):
 
 def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                      profile=True, inspect=None, tag=None, tensor_group=None,
-                     fsdp_group=None, **over):
+                     fsdp_group=None, expert_group=None, **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention, ``tensor_group`` for
     tensor parallelism; under ``pp=S`` the pipeline's every microbatch
@@ -1651,7 +1682,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
         cfg = config_from_args(args)
         before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group,
-                          tensor_group=tensor_group, fsdp_group=fsdp_group)
+                          tensor_group=tensor_group, fsdp_group=fsdp_group,
+                          expert_group=expert_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
         if device.type == "cuda":
@@ -1725,12 +1757,13 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                    / 2 ** 30, memory_before_gib=before / 2 ** 30,
                    step_ms_all=[round(x, 3) for x in result["step_ms"]])
         if profile:
-            out.update(profile_training(torch, trainer))
+            out.update(profile_training(torch, trainer,
+                                        moe=m.moe_experts > 0))
     print(f"{tag}: " + json.dumps(out), flush=True)
     return dict(out, losses=losses, final_params=final, final_tree=final_tree)
 
 
-def _kernel_class(name):
+def _kernel_class(name, moe=False):
     n = name.lower()
     if "flash_" in n:
         return "flash"
@@ -1738,10 +1771,15 @@ def _kernel_class(name):
         return "gemm"
     if "foreach" in n or "multi_tensor" in n:
         return "optimizer"
+    # an MoE step: the index kernels of the dispatch (index_copy and its
+    # backward's gather) and the combine (index_select and its backward's
+    # index_add), beside the embedding's and the loss's few
+    if moe and "index" in n:
+        return "dispatch/combine"
     return "other"
 
 
-def profile_training(torch, trainer, n_steps=1):
+def profile_training(torch, trainer, n_steps=1, moe=False):
     """Where the step's device time goes: ``n_steps`` more steps of the
     same trainer under ``torch.profiler``.  Device busy share of the
     window, and the flash / GEMM / optimizer / other shares of device
@@ -1768,7 +1806,7 @@ def profile_training(torch, trainer, n_steps=1):
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
-            c = _kernel_class(ev.name)
+            c = _kernel_class(ev.name, moe)
             by_class[c] = by_class.get(c, 0.0) + ev.device_time_total
     busy = sum(by_name.values())
     print(f"profile: {n_steps} steps, wall {wall_us / 1e3:.1f} ms, device "
@@ -1781,7 +1819,7 @@ def profile_training(torch, trainer, n_steps=1):
         for c, v in shares.items()), flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {100 * us / max(busy, 1e-9):5.1f}% {us / 1e3:8.2f} ms  "
-              f"[{_kernel_class(name)}] {name[:100]}", flush=True)
+              f"[{_kernel_class(name, moe)}] {name[:100]}", flush=True)
     # the host side: operators by their own CPU time (the Python between
     # them is not in any operator)
     host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
@@ -2624,7 +2662,7 @@ def launch_profile(torch, run, n_steps):
 def dispatch_full_width(torch, np, device, eager, seq_group=None,
                         k=DISPATCH_K, exact=False, tag=None, inspect=None,
                         profile=True, tensor_group=None, fsdp_group=None,
-                        **over):
+                        expert_group=None, **over):
     """Phase 7's job (phase 11's with ``seq_group``) with
     ``--steps_per_dispatch k`` through the Trainer: on the card each
     dispatch replays the train step's CUDA graph.  Its losses at the
@@ -2661,7 +2699,8 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
             metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
         before = memory_before(torch, device)
         trainer = Trainer(cfg, device=device, seq_group=seq_group,
-                          tensor_group=tensor_group, fsdp_group=fsdp_group)
+                          tensor_group=tensor_group, fsdp_group=fsdp_group,
+                          expert_group=expert_group)
         trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -3714,14 +3753,14 @@ def quant_train_full_width(torch, np, device, trained, **over):
     return out
 
 
-def quant_identity(torch, np, device, n_layers=2, steps=3, batch=2,
-                   seq_len=128, int8_ce_chunk=64, **over):
-    """(d) f32, TF32 off, full width at ``n_layers`` layers, T
-    ``seq_len``: 3 SGD-momentum steps under int8 (ce_chunk 64) and fp8
-    from the same params and batches on the card and on the host; losses
-    within QTRAIN_LOSS_RTOL and the params' change within
-    QTRAIN_UPDATE_RL2, which the host's unquantized run (the plain f32
-    product) must exceed against the host's quantized one."""
+def quant_runs(torch, device, names=("bf16", "int8", "fp8"), n_layers=2,
+               steps=3, batch=2, seq_len=128, int8_ce_chunk=64, **over):
+    """(d)'s training runs on ``device``: f32, TF32 off, full width at
+    ``n_layers`` layers, T ``seq_len``, ``steps`` SGD-momentum steps from
+    the same params and batches under each format of ``names`` (bf16: the
+    plain f32 product, unquantized; int8 at ce_chunk ``int8_ce_chunk``;
+    fp8 at 0).  Each run's (losses, final params, initial params), the
+    params on the host."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
         text_dataset,
     )
@@ -3749,36 +3788,50 @@ def quant_identity(torch, np, device, n_layers=2, steps=3, batch=2,
               param_dtype=torch.float32, compute_dtype=torch.float32)
     kw.update(over, max_seq_len=seq_len)
     data = text_dataset(TEXT_FILE, seq_len, kw["vocab_size"])
+    ce_chunk = {"bf16": int8_ce_chunk, "int8": int8_ce_chunk, "fp8": 0}
 
-    def train(fmt, ce, dev):
+    def train(fmt):
         model = Transformer(TransformerConfig(**kw, matmul_dtype=fmt,
-                                              ce_chunk=ce), device=dev)
+                                              ce_chunk=ce_chunk[fmt]),
+                            device=device)
         params = model.init(torch.Generator().manual_seed(SEED + 7))
         p0 = [p.detach().cpu().clone() for p in flat_params(params)]
         opt = optim.sgd(1e-2, 0.9, steps=steps)
         state = TrainState.from_params(params, opt, model)
-        step = dp.make_train_step(model, opt, world_setup(dev),
+        step = dp.make_train_step(model, opt, world_setup(device),
                                   loss_name="cross_entropy")
         losses = []
-        loader = ShardedLoader(data, batch, device=dev, shuffle=False)
+        loader = ShardedLoader(data, batch, device=device, shuffle=False)
         for _, b in zip(range(steps), loader.epoch(0)):
             state, loss = step(state, b)
             losses.append(float(loss))
         return losses, [p.detach().cpu() for p in
                         flat_params(state.params)], p0
 
+    return {fmt: train(fmt) for fmt in names}
+
+
+def quant_identity(torch, np, device, host, n_layers=2, steps=3,
+                   seq_len=128, **kw):
+    """(d) :func:`quant_runs` under int8 and fp8 on the card against
+    ``host``, the host's three runs at the same arguments (made by a
+    subprocess beside the phase: :func:`start_quant_host`,
+    :func:`read_quant_host`): losses within QTRAIN_LOSS_RTOL and the
+    params' change within QTRAIN_UPDATE_RL2, which the host's unquantized
+    run (the plain f32 product) must exceed against the host's quantized
+    one."""
     def update_rl2(got, want, p0):
         return float(sum(float(((a - b) ** 2).sum())
                          for a, b in zip(got, want)) ** 0.5
                      / sum(float(((b - z) ** 2).sum())
                            for b, z in zip(want, p0)) ** 0.5)
 
-    cpu = torch.device("cpu")
-    plain = train("bf16", int8_ce_chunk, cpu)
+    card = quant_runs(torch, device, ("int8", "fp8"), n_layers=n_layers,
+                      steps=steps, seq_len=seq_len, **kw)
+    plain = host["bf16"]
     out = {}
-    for fmt, ce in (("int8", int8_ce_chunk), ("fp8", 0)):
-        (lc, pc, p0c), (lh, ph, p0h) = (train(fmt, ce, device),
-                                        train(fmt, ce, cpu))
+    for fmt in ("int8", "fp8"):
+        (lc, pc, p0c), (lh, ph, p0h) = card[fmt], host[fmt]
         if not all(torch.equal(a, b) for a, b in zip(p0c + p0h,
                                                      p0h + plain[2])):
             raise AssertionError(f"quant identity {fmt}: the runs start "
@@ -3803,6 +3856,46 @@ def quant_identity(torch, np, device, n_layers=2, steps=3, batch=2,
                                  f"{control:.3g})")
         out[fmt] = dict(loss_rel=loss_rel, update_rel_l2=rl2,
                         control_update_rel_l2=control)
+    return out
+
+
+def start_quant_host(tmp):
+    """(d)'s host runs (unquantized, int8, fp8) in a subprocess of this
+    script, started at the phase's head and read by
+    :func:`read_quant_host`."""
+    path = f"{tmp}/quant_host.npz"
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    proc = subprocess.Popen([sys.executable, __file__, "--quant-host", path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(REPO_ROOT), env=env)
+    return proc, path
+
+
+def write_quant_host(torch, np, path):
+    """The host side of (d): :func:`quant_runs`' three runs on the host,
+    their losses, final params and initial params saved at ``path``."""
+    runs = quant_runs(torch, torch.device("cpu"))
+    arrays = {}
+    for fmt, (losses, params, p0) in runs.items():
+        arrays[f"{fmt}/losses"] = np.asarray(losses, np.float64)
+        for i, (p, z) in enumerate(zip(params, p0)):
+            arrays[f"{fmt}/p/{i}"] = p.numpy()
+            arrays[f"{fmt}/p0/{i}"] = z.numpy()
+    np.savez(path, **arrays)
+
+
+def read_quant_host(torch, np, proc, path):
+    o, e = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"quant identity host runs: rc "
+                             f"{proc.returncode}\n{o[-2000:]}\n{e[-2000:]}")
+    z = np.load(path)
+    out = {}
+    for fmt in ("bf16", "int8", "fp8"):
+        n = sum(1 for k in z.files if k.startswith(f"{fmt}/p/"))
+        out[fmt] = ([float(x) for x in z[f"{fmt}/losses"]],
+                    [torch.from_numpy(z[f"{fmt}/p/{i}"]) for i in range(n)],
+                    [torch.from_numpy(z[f"{fmt}/p0/{i}"]) for i in range(n)])
     return out
 
 
@@ -3866,7 +3959,8 @@ def ptq_token_identity(torch, np, device, cfg=None, n_new=16):
 
 def quant_serve(torch, np, device, **traffic):
     """(e) Phase 4's LM and traffic (``serve_setup``'s defaults: 32
-    requests of 64-768 prompt and 32-128 new tokens on 16 slots) with
+    requests of 64-768 prompt and 32-128 new tokens on 16 slots; main
+    passes ``n_requests=16``) with
     bf16 weights, int8 PTQ weights through the dequant product, and PTQ
     weights with int8 compute, each arm measured twice in the order
     A B C C B A (drift on the card or the host lands on both sides of
@@ -5653,7 +5747,7 @@ def _trainer(torch, device, steps=None, **over):
     )
 
     groups = {k: over.pop(k) for k in ("seq_group", "tensor_group",
-                                       "fsdp_group")
+                                       "fsdp_group", "expert_group")
               if k in over}
     trainer = Trainer(config_from_args(build_argparser().parse_args(
         train_flags(**over))), device=device, **groups)
@@ -5967,10 +6061,11 @@ def start_generate_under_tp(ck):
             for extra in ([], ["--tp", str(TP_SHARDS)])]
 
 
-def reference_decode(torch, device, params):
+def reference_decode(torch, device, params, **over):
     """(f)'s reference: the CLI's decode of :data:`GENERATE_FLAGS` run in
     this process on ``params``, the saver's live params de-permuted, not
-    read back from the snapshot."""
+    read back from the snapshot (``over``: more model flags, e.g. an MoE
+    model's, or its depth)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         build_argparser, config_from_args,
     )
@@ -5982,7 +6077,8 @@ def reference_decode(torch, device, params):
     )
 
     args = build_argparser().parse_args(train_flags(
-        n_layers=CUT_LAYERS, ce_chunk=0) + GENERATE_FLAGS)
+        **dict(dict(n_layers=CUT_LAYERS, ce_chunk=0), **over))
+        + GENERATE_FLAGS)
     cfg = config_from_args(args)
     model = build_model(cfg.model, device=device)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -6213,23 +6309,24 @@ def start_generate_from_pipe(ck):
                             cwd=str(REPO_ROOT))
 
 
-def generate_from_pipe(proc, reference):
+def generate_from_pipe(proc, reference, what="a --pp 2 --tp 2 snapshot"):
     """(f) The ``--generate`` process's tokens against ``reference``
     (:func:`reference_decode` of the saver's live params, unstacked and
-    de-permuted in this process), at least half of the 16 distinct."""
+    de-permuted in this process), at least half of the 16 distinct;
+    ``what`` names the snapshot (phase 25 (e) reads its MoE one here)."""
     out, err = proc.communicate(timeout=600)
     if proc.returncode != 0:
-        raise AssertionError(f"--generate from a pipe snapshot: rc "
+        raise AssertionError(f"--generate from {what}: rc "
                              f"{proc.returncode}\n{out[-2000:]}\n"
                              f"{err[-2000:]}")
     ids = [int(x) for x in out.strip().splitlines()[-1].split(",")]
     new = ids[len(PROMPT):]
     distinct = len(set(new))
-    print(f"generate from a --pp 2 --tp 2 snapshot (sampled, 16 tokens): "
+    print(f"generate from {what} (sampled, 16 tokens): "
           f"{new}; the saver's live params {reference[len(PROMPT):]}; "
           f"equal {ids == reference}; {distinct} distinct", flush=True)
     if ids != reference or len(ids) != len(PROMPT) + 16:
-        raise AssertionError("--generate from a pipe snapshot differs from "
+        raise AssertionError(f"--generate from {what} differs from "
                              "the decode of the saver's own params")
     if distinct < 8:
         raise AssertionError(f"--generate: {distinct} distinct tokens of "
@@ -6335,6 +6432,486 @@ def pipeline_full_width(torch, np, device):
         "pp2": pp.bubble_fraction(2, 2)}
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 24: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: MoE and expert parallelism
+# ---------------------------------------------------------------------------
+
+MOE_EXPERTS = 8      # bench.py's _MOE_EXPERTS: the Switch top-1 LM
+EP_SHARDS = 4
+MOE_FLAGS = dict(moe_experts=MOE_EXPERTS)
+# the card-vs-host identities of (d): 2 layers at full width, T 128
+MOE_HOST = dict(n_layers=CUT_LAYERS, seq_len=128, batch_size=4,
+                n_samples=12, nepochs=1, dtype="float32",
+                compute_dtype="float32", optimizer="sgd", lr=1e-2,
+                momentum=0.9, ce_chunk=0, attention="flash", **MOE_FLAGS)
+MOE_HOST_JOBS = {"sp2_ep2_striped_flash": dict(sp=2, ep=2,
+                                               attention="striped_flash"),
+                 # EP x TP runs Megatron attention over the whole local
+                 # sequence: dense, as JAX's step
+                 "ep2_tp2": dict(ep=2, tp=2, attention="dense")}
+MOE_HOST_STEPS = 3
+
+
+def _moe_layer_inputs(torch, device, dtype, top_k, seed=SEED + 25):
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.moe import (  # noqa: E501
+        MoEFFN,
+    )
+
+    b = BIG
+    layer = MoEFFN(b["d_model"], b["d_ff"], MOE_EXPERTS, router_top_k=top_k,
+                   compute_dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = layer.init(gen, device)
+    x = torch.randn((8, b["max_seq_len"], b["d_model"]), generator=gen,
+                    device=device)
+    ct = torch.randn(x.shape, generator=gen, device=device)
+    return layer, params, x.to(dtype), ct
+
+
+def _moe_fwd_bwd(torch, fn, layer, params, x, ct):
+    """(y, aux, dx, dparams) of sum(y * ct) + sum(aux) through ``fn``."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        leaves, tree_map,
+    )
+
+    ps = tree_map(lambda t: t.detach().requires_grad_(), params)
+    xx = x.detach().requires_grad_()
+    y, aux = fn(layer, ps, xx)
+    ((y.float() * ct).sum() + aux.sum()).backward()
+    return y.detach(), aux.detach(), xx.grad, [p.grad for p in leaves(ps)]
+
+
+def check_moe_layer(torch, device):
+    """(a) One MoE layer at the flagship shape (d 1024, f 4096, 8
+    experts, 8 x 1024 tokens), forward and backward: the index dispatch
+    and combine against the one-hot einsum form, f32 (TF32 off) top-1
+    and bf16 top-1 (outputs bitwise), f32 top-2 (within 1e-6 of the
+    outputs' largest magnitude); every gradient
+    within 1e-5 relative in f32 (the combine weight's gradient is a
+    length-d dot product the einsum reduces in another order); the time
+    of each form, forward and forward + backward, in bf16, beside the
+    expert FFN's alone."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.moe import (  # noqa: E501
+        _join_groups, dispatch_combine_onehot,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    index = lambda layer, p, x: layer.apply(p, x)  # noqa: E731
+    onehot = dispatch_combine_onehot
+    out = {}
+    for tag, dtype, top_k in (("f32 top-1", torch.float32, 1),
+                              ("f32 top-2", torch.float32, 2),
+                              ("bf16 top-1", torch.bfloat16, 1)):
+        layer, params, x, ct = _moe_layer_inputs(torch, device, dtype,
+                                                 top_k)
+        yi, ai, gi, pi = _moe_fwd_bwd(torch, index, layer, params, x, ct)
+        yo, ao, go, po = _moe_fwd_bwd(torch, onehot, layer, params, x, ct)
+        y_diff = float((yi.float() - yo.float()).abs().max())
+        scale = float(yo.float().abs().max())
+        g_rel = max(float(((a.float() - b.float()).abs().max())
+                          / max(float(b.float().abs().max()), 1e-30))
+                    for a, b in zip([gi] + pi, [go] + po))
+        bitwise = bool(torch.equal(yi, yo))
+        print(f"moe layer {tag} (8, 1024, 1024), {MOE_EXPERTS} experts, "
+              f"capacity {layer._capacity(8 * 1024)}: index vs one-hot "
+              f"outputs max |diff| {y_diff:.3g} (of max |y| {scale:.3g}; "
+              f"bitwise {bitwise}), aux {float(ai[0]):.6f} vs "
+              f"{float(ao[0]):.6f}, gradients' largest relative diff "
+              f"{g_rel:.3g}", flush=True)
+        if not torch.equal(ai, ao):
+            raise AssertionError(f"moe layer {tag}: the aux differs")
+        # top-1: one product per output in either form, so bitwise in
+        # both dtypes
+        ok = bitwise if top_k == 1 else y_diff <= 1e-6 * scale
+        if dtype == torch.float32:
+            ok = ok and g_rel <= 1e-5
+        if not ok:
+            raise AssertionError(f"moe layer {tag}: the index form differs "
+                                 "from the one-hot einsum form")
+        out[tag] = dict(out_max_abs_diff=y_diff, out_max_abs=scale,
+                        bitwise=bitwise, grad_max_rel_diff=g_rel)
+    # times in bf16 (the training dtype): forward, forward + backward
+    layer, params, x, ct = _moe_layer_inputs(torch, device, torch.bfloat16,
+                                             1)
+    slots = _join_groups(torch.zeros(
+        (1, MOE_EXPERTS, layer._capacity(8 * 1024), x.shape[-1]),
+        dtype=x.dtype, device=device)).normal_()
+    timing = {}
+    for name, fn in (("index", index), ("onehot", onehot)):
+        timing[f"{name}_fwd_ms"] = median_ms(
+            torch, lambda: fn(layer, params, x), runs=10)
+        timing[f"{name}_fwd_bwd_ms"] = median_ms(
+            torch, lambda: _moe_fwd_bwd(torch, fn, layer, params, x, ct),
+            runs=10)
+    timing["experts_fwd_ms"] = median_ms(
+        torch, lambda: layer.experts_ffn(params["experts"], slots), runs=10)
+    print("moe layer bf16 times (ms, medians): " + json.dumps(
+        {k: round(v, 4) for k, v in timing.items()}) + "; the dispatch and "
+          "combine (index) take the layer's forward less the experts': "
+          f"{timing['index_fwd_ms'] - timing['experts_fwd_ms']:.4f} ms",
+          flush=True)
+    out["times"] = timing
+    return out
+
+
+def moe_identity_ep_dense(torch, device, n_layers=CUT_LAYERS, steps=3,
+                          batch=8):
+    """(d) f32, TF32 off, full width at ``n_layers`` layers, SGD-momentum:
+    ``steps`` steps of the expert step over ``LocalExpertGroup(4)`` with
+    aux weight 0 and of the plain DP step over the dense MoE model (every
+    expert here, the batch one routing group), each with the capacity of
+    its groups' tokens (no token dropped), from the same params and
+    batches: losses within 1e-5 relative, params within 1e-6.  The DP
+    step's first loss is the forward's cross-entropy of the first batch:
+    the aux is not in its loss (JAX's data_parallel step)."""
+    import dataclasses
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.datasets import (  # noqa: E501
+        text_dataset,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.data.loader import (  # noqa: E501
+        ShardedLoader,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, TransformerConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        losses as losses_lib,
+        optim,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        data_parallel as dp,
+        expert as ep,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.distributed import (  # noqa: E501
+        world_setup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.state import (  # noqa: E501
+        TrainState,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tokens = batch * BIG["max_seq_len"]
+    base = TransformerConfig(**dict(BIG, n_layers=n_layers),
+                             activation="gelu", pos_encoding="learned",
+                             attention="flash", moe_experts=MOE_EXPERTS)
+    data = text_dataset(TEXT_FILE, base.max_seq_len, base.vocab_size)
+    world = world_setup(device)
+    group = ep.LocalExpertGroup(EP_SHARDS)
+    init = Transformer(base, device=device).init(
+        torch.Generator().manual_seed(SEED + 25))
+    runs = []
+    for expert in (True, False):
+        cfg = dataclasses.replace(base, moe_capacity=(
+            tokens // EP_SHARDS if expert else tokens))
+        model = Transformer(cfg, device=device,
+                            expert_group=group if expert else None)
+        opt = optim.sgd(1e-2, 0.9, steps=steps)
+        params = tree_map(lambda t: t.detach().clone(), init)
+        step = (ep.make_moe_train_step(model, opt, world, group,
+                                       aux_weight=0.0) if expert
+                else dp.make_train_step(model, opt, world, "cross_entropy"))
+        state = TrainState.from_params(params, opt, model)
+        loader = ShardedLoader(data, batch, device=device, shuffle=False)
+        losses, first = [], None
+        for i, b in zip(range(steps), loader.epoch(0)):
+            if i == 0 and not expert:
+                with torch.no_grad():
+                    s, c = losses_lib.softmax_cross_entropy(
+                        model.forward(state.params, b["x"]), b["y"],
+                        b.get("mask"))
+                    first = float(s / c)
+            state, out = step(state, b)
+            losses.append(float(out["loss"] if expert else out))
+        runs.append((losses, [p.detach() for p in flat_params(
+            state.params)], first))
+    (le, pe, _), (ld, pd, first) = runs
+    worst = max(float((a - b).abs().max()) for a, b in zip(pe, pd))
+    loss_ok = all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(le, ld))
+    no_aux = abs(first - ld[0]) <= 1e-5 * abs(ld[0])
+    print(f"moe f32 identity --ep {EP_SHARDS} (aux weight 0) == the dense "
+          f"MoE DP step ({n_layers} layers, {steps} steps, capacity = the "
+          f"tokens): losses {le} vs {ld}; params max |diff| {worst:.3e}; "
+          f"the DP step's first loss {ld[0]:.6f} vs the forward's CE "
+          f"{first:.6f} (no aux)", flush=True)
+    if not (loss_ok and worst <= 1e-6 and no_aux):
+        raise AssertionError("moe f32 identity: --ep 4 differs from the "
+                             "dense MoE step, or the DP loss holds an aux")
+    return dict(losses=le, dense_losses=ld, param_max_abs_diff=worst,
+                dp_first_loss_vs_forward=[ld[0], first])
+
+
+def moe_host_runs(torch, device, out_path=None):
+    """(d) :data:`MOE_HOST_JOBS` through the Trainer over local groups on
+    ``device``, f32 (TF32 off), :data:`MOE_HOST_STEPS` steps each: the
+    losses and final params (host numpy) by job; with ``out_path``, saved
+    there (the host's run, a subprocess of this script)."""
+    import numpy as np
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.expert import (  # noqa: E501
+        LocalExpertGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    platform = {} if device.type == "cuda" else dict(platform="cpu")
+    out = {}
+    for name, job in MOE_HOST_JOBS.items():
+        groups = dict(expert_group=LocalExpertGroup(job["ep"]))
+        if job.get("sp"):
+            groups["seq_group"] = LocalSeqGroup(job["sp"])
+        if job.get("tp"):
+            groups["tensor_group"] = LocalTensorGroup(job["tp"])
+        fa.set_launch_counts()
+        t = _trainer(torch, device, steps=MOE_HOST_STEPS,
+                     **dict(MOE_HOST, **job, **platform, **groups))
+        out[name] = dict(losses=t.losses, params=[
+            p.detach().cpu().numpy() for p in flat_params(t.state.params)],
+            launches=fa.launch_counts())
+        del t
+    if out_path is not None:
+        flat = {f"{n}/{i}": a for n, r in out.items()
+                for i, a in enumerate(r["params"])}
+        np.savez(out_path, **flat)
+        with open(out_path + ".json", "w") as f:
+            json.dump({n: r["losses"] for n, r in out.items()}, f)
+    return out
+
+
+def start_moe_host_runs(tmp):
+    """(d)'s host runs in a subprocess of this script (the CPU's threads
+    beside the card's work); :func:`moe_card_vs_host` reads them."""
+    path = f"{tmp}/moe_host.npz"
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    proc = subprocess.Popen([sys.executable, __file__, "--moe-host", path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(REPO_ROOT), env=env)
+    return proc, path
+
+
+def moe_card_vs_host(torch, np, device, proc, path):
+    """(d) the card's runs of :data:`MOE_HOST_JOBS` against the host's:
+    losses within 1e-5 relative, params within 1e-5 (absolute and
+    relative); the card's B1-B3 (simt in f32) and B5 launches by
+    design."""
+    card = moe_host_runs(torch, device)
+    o, e = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"moe host runs: rc {proc.returncode}\n"
+                             f"{o[-2000:]}\n{e[-2000:]}")
+    host = np.load(path)
+    with open(path + ".json") as f:
+        host_losses = json.load(f)
+    out = {}
+    for name, job in MOE_HOST_JOBS.items():
+        got = card[name]
+        want = [host[f"{name}/{i}"] for i in range(len(got["params"]))]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+            got["losses"], host_losses[name]))
+        worst = max(float(np.max(np.abs(a - b) / (1e-5 + np.abs(b))))
+                    for a, b in zip(got["params"], want))
+        ok = loss_rel <= 1e-5 and all(
+            np.allclose(a, b, rtol=1e-5, atol=1e-5)
+            for a, b in zip(got["params"], want))
+        blocks = ring_blocks(job.get("attention", "flash"), job.get("sp", 1),
+                             job.get("tp", 1))
+        expect = (MOE_HOST["n_layers"] * blocks * MOE_HOST_STEPS
+                  if device.type == "cuda" else 0)
+        launches = got["launches"]
+        print(f"moe card vs host {name} (f32, {MOE_HOST['n_layers']} "
+              f"layers, T {MOE_HOST['seq_len']}, {MOE_HOST_STEPS} steps): "
+              f"losses {got['losses']} vs {host_losses[name]} (largest "
+              f"relative diff {loss_rel:.3g}); params' largest |diff| / "
+              f"(1e-5 + |host|) {worst:.3g}; flash launches "
+              f"{launches['all']} (simt {launches['simt']}), with_lse "
+              f"{launches['with_lse']}; expected {expect} each", flush=True)
+        if not ok:
+            raise AssertionError(f"moe card vs host {name}: beyond 1e-5")
+        if launches["all"] != dict.fromkeys(launches["all"], expect) or (
+                job.get("sp") and launches["with_lse"] != expect):
+            raise AssertionError(f"moe card vs host {name}: flash launches "
+                                 f"{launches}, expected {expect}")
+        out[name] = dict(losses=got["losses"], host_losses=host_losses[name],
+                         loss_max_rel_diff=loss_rel, launches=launches["all"],
+                         with_lse_launches=launches["with_lse"])
+    return out
+
+
+def start_moe_generate(ck):
+    """(e) ``--generate`` through the CLI from (b)'s ``--ep 4`` snapshot
+    (12 layers; the mesh flags accepted and ignored, as JAX's CLI),
+    sampled at temperature 1 from the seed; it runs beside (d) and
+    (f)."""
+    flags = train_flags(checkpoint_dir=ck, ce_chunk=0, ep=EP_SHARDS,
+                        **MOE_FLAGS)
+    return subprocess.Popen([sys.executable, "-m", PKG, *flags,
+                             *GENERATE_FLAGS], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(REPO_ROOT))
+
+
+def moe_serve(torch, np, device):
+    """(f) The MoE LM (12 layers, 8 experts, bf16) behind the fused
+    paged scheduler: 8 seeded requests, each call routing all its lanes;
+    every request finishes, the allocator drains, paged attention (B4)
+    launches n_layers x passes.  Then f32 (TF32 off) at 2 layers with the
+    capacity factor 8 (no token dropped): fused == gathered ==
+    ``generate()`` on the card (``token_identity``), and the card's fused
+    tokens against the host's (the kernel's plain version) on ragged
+    requests."""
+    import dataclasses
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    cfg = dataclasses.replace(big_config(torch), moe_experts=MOE_EXPERTS)
+    served = serve_full_width(torch, np, device, checks=False,
+                              tag="serve moe", cfg=cfg, n_requests=8,
+                              slots=8, p_lo=32, p_hi=256, n_lo=16, n_hi=48)
+    # capacity factor E: no call drops a token, so generate() (one
+    # request a call) and the scheduler (every lane a call) route alike
+    small = dataclasses.replace(big_config(torch, n_layers=2,
+                                           dtype=torch.float32),
+                                moe_experts=MOE_EXPERTS,
+                                moe_capacity_factor=float(MOE_EXPERTS))
+    token_identity(torch, np, device, cfg=small, tag=" moe")
+    model = Transformer(small, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 2))
+    rng = np.random.default_rng(SEED + 2)
+    requests = [(rng.integers(0, small.vocab_size, p).tolist(), 12)
+                for p in (7, 60, 200)]
+    geom = dict(slots=4, block_size=16, max_len=small.max_seq_len,
+                prefill_chunk=256, attn_impl="fused",
+                num_blocks=4 * -(-small.max_seq_len // 16) + 1)
+    card = drive(Scheduler(model, params, ServeConfig(**geom),
+                           device=device), requests)[1]
+    cpu = torch.device("cpu")
+    host_model = Transformer(small, device=cpu)
+    host = drive(Scheduler(host_model, tree_map(lambda t: t.cpu(), params),
+                           ServeConfig(**geom), device=cpu), requests)[1]
+    print(f"tokens f32 moe card vs host (2 layers, {len(requests)} ragged "
+          f"requests, 12 new each): equal {card == host}", flush=True)
+    if card != host:
+        raise AssertionError("moe serving: the card's tokens differ from "
+                             "the host's")
+    return dict(serve=served, card_vs_host_equal=True)
+
+
+MOE_KEYS = ("step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
+            "launches", "launches_by_design", "with_lse_launches",
+            "first_loss", "last3_loss", "steps", "profile_ms_per_step",
+            "profile_shares", "n_params", "save_s", "snapshot_bytes")
+
+
+def moe_full_width(torch, np, device):
+    """Phase 25: (d)'s host runs start first, in a subprocess; (a) the
+    layer; (b) the flagship MoE LM (924M params) under ``--ep 4`` over
+    ``LocalExpertGroup(4)`` at full width, ce_chunk 0, one epoch eager
+    (the 1-nat check, step ms, tokens/s, peak memory, B1-B3 12 a step all
+    on sm90, a profile with the dispatch/combine class, the final
+    snapshot (e) decodes) and one graphed (k 13, bitwise); (c)
+    ``--moe_top_k 2`` on the plain DP step (ce_chunk 256) at full width,
+    eager (with a profile) and graphed (bitwise); (e)'s ``--generate``
+    process starts; (d) the f32 identities; (f) serving; (e) the tokens
+    against the decode of (b)'s final params."""
+    import tempfile
+    from pathlib import Path
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.expert import (  # noqa: E501
+        LocalExpertGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            host_proc, host_path = start_moe_host_runs(tmp)
+            procs.append(host_proc)
+            out["layer"] = check_moe_layer(torch, device)
+            ep4 = dict(ep=EP_SHARDS, ce_chunk=0, nepochs=1, **MOE_FLAGS)
+            ck = Path(tmp) / "ck"
+            eager = train_full_width(
+                torch, np, device, keep_final="tree", tag="train moe ep4",
+                checkpoint_dir=ck, inspect=lambda t: dict(
+                    save_s=t.save_seconds[-1], snapshot_bytes=snapshot_bytes(
+                        ck / f"ckpt-{int(t.state.step)}")),
+                expert_group=LocalExpertGroup(EP_SHARDS), **ep4)
+            graphed = dispatch_full_width(
+                torch, np, device, eager, exact=True, profile=False,
+                tag="dispatch moe ep4",
+                expert_group=LocalExpertGroup(EP_SHARDS), **ep4)
+            del eager["final_params"]
+            out["ep4"] = {k: eager[k] for k in MOE_KEYS if k in eager}
+            out["ep4_graphed"] = {k: graphed[k] for k in (
+                "step_ms_median", "step_ms_from", "tokens_per_s", "mfu",
+                "peak_memory_gib", "launches", "bitwise", "replays",
+                "launches_per_replay")}
+            top2 = dict(moe_top_k=2, nepochs=1, **MOE_FLAGS)
+            dense = train_full_width(torch, np, device, keep_final=True,
+                                     tag="train moe top-2 dp", **top2)
+            dense_g = dispatch_full_width(
+                torch, np, device, dense, exact=True, profile=False,
+                tag="dispatch moe top-2 dp", **top2)
+            del dense["final_params"]
+            out["dp_top2"] = {k: dense[k] for k in MOE_KEYS if k in dense}
+            out["dp_top2_graphed"] = {k: dense_g[k] for k in (
+                "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
+                "launches", "bitwise", "replays")}
+            # (e) after the timed runs: the process shares the card
+            gen = start_moe_generate(ck)
+            procs.append(gen)
+            reference = reference_decode(
+                torch, device, tree_map(lambda t: t.to(device),
+                                        eager.pop("final_tree")),
+                n_layers=BIG["n_layers"], **MOE_FLAGS)
+            out["identity_ep4_dense"] = moe_identity_ep_dense(torch, device)
+            out["card_vs_host"] = moe_card_vs_host(torch, np, device,
+                                                   host_proc, host_path)
+            out["serve"] = moe_serve(torch, np, device)
+            out["generate"] = generate_from_pipe(
+                gen, reference, what="(b)'s --ep 4 MoE snapshot")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    runs = (out["ep4"], out["ep4_graphed"], out["dp_top2"],
+            out["dp_top2_graphed"])
+    out["flash_launches"] = {w: sum(r["launches"][w] for r in runs)
+                             for w in out["ep4"]["launches"]}
+    out["with_lse_launches"] = out["card_vs_host"][
+        "sp2_ep2_striped_flash"]["with_lse_launches"]
+    out["paged_launches"] = out["serve"]["serve"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 25: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -6474,12 +7051,26 @@ def main() -> int:
     sliced = slice_full_width(torch, np, device, short)
 
     phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
+    # (d)'s host runs, in a subprocess beside (a)-(c)
+    import shutil
+    import tempfile
+
+    quant_tmp = tempfile.mkdtemp(prefix="chip-smoke-quant-")
+    quant_host = start_quant_host(quant_tmp)
     quant = dict(products=check_qmm(torch, device),
                  card_vs_host=qdot_card_vs_host(torch, device))
     quant["train"] = quant_train_full_width(torch, np, device, trained,
                                             nepochs=1)
-    quant["identity"] = quant_identity(torch, np, device)
-    quant["serve"] = quant_serve(torch, np, device)
+    try:
+        quant["identity"] = quant_identity(
+            torch, np, device, read_quant_host(torch, np, *quant_host))
+    finally:
+        if quant_host[0].poll() is None:
+            quant_host[0].kill()
+            quant_host[0].wait()
+        shutil.rmtree(quant_tmp, ignore_errors=True)
+    # 16 of phase 4's requests an arm's run, for the time limit
+    quant["serve"] = quant_serve(torch, np, device, n_requests=16)
     print("quant: " + json.dumps(quant), flush=True)
 
     # phase 21 (c)'s snapshot is written on the host by 2 gloo ranks,
@@ -6529,6 +7120,12 @@ def main() -> int:
           "snapshot")
     pipeline = pipeline_full_width(torch, np, device)
     print("pipeline: " + json.dumps(pipeline), flush=True)
+
+    phase("25 MoE and expert parallelism: the layer, --ep 4, top-2 on DP, "
+          "the f32 identities, --generate from (b)'s snapshot, MoE "
+          "serving")
+    moe = moe_full_width(torch, np, device)
+    print("moe: " + json.dumps(moe), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -6543,7 +7140,9 @@ def main() -> int:
                            "in-kernel merge in split order",
                     takes="head_dim 32/64/128; pool blocks of any multiple "
                           "of 16 keys (16, 32, 64, 128 checked)",
-                    replaces=f"{tpu}:486", launches=served["launches"],
+                    replaces=f"{tpu}:486",
+                    launches=served["launches"] + moe["paged_launches"],
+                    launches_phase25=moe["paged_launches"],
                     max_abs_err=max_err, other_shapes=other_shapes,
                     **timing)]
     # phase 22 (b): the DP x TP run, eager and graphed
@@ -6571,13 +7170,15 @@ def main() -> int:
                                           which]
                                       + tp_launches[which]
                                       + gspmd_mem["flash_launches"][which]
-                                      + pipeline["flash_launches"][which]),
+                                      + pipeline["flash_launches"][which]
+                                      + moe["flash_launches"][which]),
                             launches_phase7=trained["launches"][which],
                             launches_phase22=tp_launches[which],
                             launches_phase23=gspmd_mem["flash_launches"][
                                 which],
                             launches_phase24=pipeline["flash_launches"][
                                 which],
+                            launches_phase25=moe["flash_launches"][which],
                             launches_phase20=obs_launches[which],
                             launches_phase21=sdc["elastic"][
                                 "flash_launches"][which],
@@ -6605,7 +7206,10 @@ def main() -> int:
                         launches=(seq_trained["with_lse_launches"]
                                   + obs_launches["with_lse"]
                                   + tensor["sp_tp"]["with_lse_launches"]
-                                  + pipeline["with_lse_launches"]),
+                                  + pipeline["with_lse_launches"]
+                                  + moe["with_lse_launches"]),
+                        # phase 25 (d): sp 2 x ep 2, f32, 2 layers
+                        launches_phase25=moe["with_lse_launches"],
                         launches_phase20=obs_launches["with_lse"],
                         # phase 24 (e): pp 2 x sp 2, 2 layers
                         launches_phase24=pipeline["with_lse_launches"],
@@ -6645,4 +7249,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--moe-host"], ["--quant-host"]):
+        # phase 25 (d)'s and phase 18 (d)'s host runs, subprocesses of
+        # the card's run
+        import numpy
+        import torch
+
+        if sys.argv[1] == "--moe-host":
+            moe_host_runs(torch, torch.device("cpu"), sys.argv[2])
+        else:
+            write_quant_host(torch, numpy, sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

@@ -43,6 +43,13 @@ the supervisor does not retry; under ``--supervise N --elastic`` a streak
 of peer-loss exits probes the world (``parallel.distributed.probe_world``
 with its local fallback) and relaunches at the one that answers.
 
+MoE: ``--moe_experts N`` (``--moe_top_k``, ``--moe_capacity_factor``)
+gives every block a routed expert FFN; ``--ep E`` splits the experts (and
+the batch rows) over E expert shards, with ``--sp`` and / or ``--tp``
+(``train.trainer``), in one process as a ``LocalExpertGroup`` or over
+torchrun ranks; ``--ep E`` without ``--moe_experts`` means 2E experts.
+``--generate`` decodes an MoE snapshot of any of these layouts.
+
 Not ported, and raising when set: the JAX platform knob
 ``--num_devices``.
 """
@@ -123,7 +130,8 @@ def _generate(args) -> int:
             log(f"ERROR: no checkpoint under {cfg.checkpoint_dir}")
             return 2
         step, params = restored
-        # a seq x tensor or pipeline snapshot holds its qkv columns
+        # a seq x tensor, expert x tensor or pipeline snapshot holds its
+        # qkv columns
         # permuted (its meta's qkv_tp), a pipeline's blocks stage-stacked:
         # the decoder reads the dense per-layer order (JAX's
         # _dense_decode_params)

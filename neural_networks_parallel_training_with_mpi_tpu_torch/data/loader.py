@@ -10,8 +10,10 @@ One host-side iterator per rank that
 * pads the final/uneven global batch to a multiple of the world size with
   a validity mask (or drops it), and
 * hands rank ``r`` the contiguous rows ``r*n/W .. (r+1)*n/W`` of the padded
-  global batch — the rows dim-0 sharding over the data axis gives device
-  ``r`` in the JAX package — placed on the device through
+  global batch — the rows dim-0 sharding over the batch axes gives device
+  ``r`` in the JAX package (data x fsdp, and x expert on the expert
+  layouts, whose shards each carry their own rows: the trainer passes
+  ``World.batch_rank`` / ``batch_shards``) — placed on the device through
   ``utils.platform.h2d`` (pinned, no stream sync),
 * under sequence parallelism (``sp > 1``) then hands sequence rank ``s``
   the contiguous columns ``s*T/sp .. (s+1)*T/sp`` of every rank >= 2

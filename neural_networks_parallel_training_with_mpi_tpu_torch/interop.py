@@ -2,7 +2,10 @@
 
 The JAX package's parameters are nested dicts and lists (the Transformer:
 ``embed/table``, ``pos/table``, ``blocks[i]/{ln1, qkv, attn_out, ln2,
-ff_in, ff_gate, ff_out}/{w, b, scale, bias}``, ``ln_f``, ``head/w``; the
+ff_in, ff_gate, ff_out}/{w, b, scale, bias}``, or with an MoE FFN
+``blocks[i]/moe/{gate/w (d, E), experts/{w_in, b_in, w_out, b_out[,
+w_gate, b_gate]}}`` (and the int8 ``w_*_scale`` of ``ops.quant``),
+``ln_f``, ``head/w``; the
 MLP: a list ``[{w, b}, {}, {w, b}]``); its optimizer and train states are
 NamedTuples (``SGDState(count, momentum_buf)``, ``AdamState(count, mu,
 nu)``, ``TrainState(step, params, opt_state, qstate)``).  The port uses

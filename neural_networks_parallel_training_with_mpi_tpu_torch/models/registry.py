@@ -15,9 +15,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None,
-                seq_group=None):
-    """``seq_group``: the sequence group of the sequence-sharded attentions
-    (transformer only)."""
+                seq_group=None, expert_group=None):
+    """``seq_group``: the sequence group of the sequence-sharded attentions,
+    ``expert_group`` the expert group of an MoE model's expert-parallel
+    layouts (transformer only)."""
     pdt = DTYPES[cfg.dtype]
     cdt = DTYPES[cfg.compute_dtype]
     if cfg.arch == "mlp":
@@ -35,8 +36,11 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None,
             d_ff=cfg.d_ff, attention=cfg.attention, param_dtype=pdt,
             compute_dtype=cdt, remat=cfg.remat,
             remat_policy=cfg.remat_policy,
-            moe_experts=cfg.moe_experts, ce_chunk=cfg.ce_chunk,
+            moe_experts=cfg.moe_experts,
+            moe_capacity_factor=cfg.moe_capacity_factor,
+            moe_top_k=cfg.moe_top_k, ce_chunk=cfg.ce_chunk,
             matmul_dtype=cfg.matmul_dtype,
             matmul_skip=tuple(cfg.matmul_skip), scan_layers=cfg.scan_layers)
-        return Transformer(tc, device=device, seq_group=seq_group)
+        return Transformer(tc, device=device, seq_group=seq_group,
+                           expert_group=expert_group)
     raise ValueError(f"unknown arch {cfg.arch!r}")

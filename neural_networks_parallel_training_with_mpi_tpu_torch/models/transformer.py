@@ -41,7 +41,16 @@ and report this step's observed amax (:meth:`forward` with
 they are: dequantized in the product (``matmul_dtype`` bf16) or as an
 int8 x int8 product (int8).
 
-Not ported yet, and refused at construction: MoE FFNs.
+MoE (``moe_experts`` > 0, ``models.moe.MoEFFN``): each block's FFN is
+the routed mixture of experts, in the block shared by the training
+forward, the KV-cache decode and the paged server.  Its routing groups are
+the rows of each expert shard an ``expert_group``
+(``parallel.expert.LocalExpertGroup`` / ``ProcessExpertGroup``) holds
+here times the shards of the sequence group, so each routes alone as a
+JAX device does; a decode call routes all its lanes as one group.
+``forward(..., return_aux=True)`` returns the load-balance aux summed
+over the layers, one per routing group (``parallel.expert``'s steps weight
+it into the loss; the plain DP step drops it, as JAX's does).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from ..parallel.sequence import (
 )
 from ..utils.platform import DeviceLike, resolve_device
 from .core import ACTIVATIONS, Embedding, LayerNorm, Linear, make_remat
+from .moe import MoEFFN
 
 NEG_INF = -1e30
 
@@ -106,6 +116,9 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None
     scan_layers: bool = False
     moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_capacity: Optional[int] = None   # per group and expert; None: factor
+    moe_top_k: int = 1                   # 1 = Switch; k > 1 = GShard top-k
     matmul_dtype: str = "bf16"            # bf16 | int8 | fp8 (ops.qmm)
     # projection roles kept on the plain product under int8/fp8
     matmul_skip: Tuple[str, ...] = ()
@@ -142,11 +155,12 @@ class Transformer:
     attention, so the three cannot drift apart."""
 
     def __init__(self, cfg: TransformerConfig, device: DeviceLike = None,
-                 seq_group=None):
+                 seq_group=None, expert_group=None):
         """``seq_group``: the sequence group (``parallel.sequence``) the
-        sequence-sharded attentions run over; they need one."""
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("MoE FFNs are not ported yet")
+        sequence-sharded attentions run over; they need one.
+        ``expert_group``: the expert group (``parallel.expert``) of an MoE
+        model's expert-parallel layouts (None: every expert here, the
+        rows routed as one group per sequence shard)."""
         if cfg.attention not in ("auto", "dense", "dense_blockwise", "flash") \
                 + SEQ_SHARDED_IMPLS:
             raise ValueError(f"unknown attention {cfg.attention!r}")
@@ -165,6 +179,7 @@ class Transformer:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.seq_group = seq_group
+        self.expert_group = expert_group
         # the sequence shards this process holds: a LocalSeqGroup's rows
         # quantize shard by shard in the backward, as its ranks would
         self._seq_shards = len(seq_group.ranks) if seq_group else 1
@@ -176,6 +191,8 @@ class Transformer:
             resolve_attention_impl("auto", cfg.max_seq_len,
                                    self.device.type, cfg.compute_dtype,
                                    cfg.head_dim, blocks=None)
+        if cfg.moe_experts > 0:     # a top-k out of range raises here
+            self.moe()
         # the block wrapper of --remat (an unknown policy raises here)
         self._remat = make_remat(cfg.remat_policy) if cfg.remat else None
 
@@ -201,12 +218,25 @@ class Transformer:
             "qkv": self._linear("qkv", c.d_model, c.qkv_dim),
             "attn_out": self._linear("attn_out", c.d_model, c.d_model),
             "ln2": LayerNorm(c.d_model, param_dtype=c.param_dtype),
-            "ff_in": self._linear("ff_in", c.d_model, c.d_ff),
         }
+        if c.moe_experts > 0:
+            mods["moe"] = self.moe()
+            return mods
+        mods["ff_in"] = self._linear("ff_in", c.d_model, c.d_ff)
         if c.activation == "swiglu":
             mods["ff_gate"] = self._linear("ff_gate", c.d_model, c.d_ff)
         mods["ff_out"] = self._linear("ff_out", c.d_ff, c.d_model)
         return mods
+
+    def moe(self) -> MoEFFN:
+        """The block's MoE FFN (``moe_experts`` > 0)."""
+        c = self.cfg
+        return MoEFFN(c.d_model, c.d_ff, c.moe_experts,
+                      capacity_factor=c.moe_capacity_factor,
+                      capacity=c.moe_capacity, activation=c.activation,
+                      param_dtype=c.param_dtype,
+                      compute_dtype=c.compute_dtype,
+                      router_top_k=c.moe_top_k)
 
     def _head(self) -> Linear:
         c = self.cfg
@@ -218,7 +248,9 @@ class Transformer:
         skipped roles run the plain product and carry none."""
         c = self.cfg
         roles = ["qkv", "attn_out", "ff_in", "ff_out", "head"]
-        if c.activation == "swiglu":
+        if c.moe_experts > 0:   # the expert products are outside the seam
+            roles = ["qkv", "attn_out", "head"]
+        elif c.activation == "swiglu":
             roles.insert(3, "ff_gate")
         return tuple(r for r in roles if r not in c.matmul_skip)
 
@@ -244,9 +276,7 @@ class Transformer:
             blocks.append({name: m.init(generator, dev)
                            for name, m in self._block_modules().items()})
         if c.scan_layers:   # stacked layout: leaves (n_layers, ...)
-            blocks = {name: {k: torch.stack([b[name][k] for b in blocks])
-                             for k in blocks[0][name]}
-                      for name in blocks[0]}
+            blocks = _stack(blocks)
         out = {
             "embed": Embedding(c.vocab_size, c.d_model,
                                c.param_dtype).init(generator, dev),
@@ -287,13 +317,21 @@ class Transformer:
 
     def block(self, params: Params, x: torch.Tensor, positions: torch.Tensor,
               attend: Callable, qscales=None, qobs=None) -> torch.Tensor:
+        """:meth:`block_aux` without the MoE aux: the decode paths'."""
+        return self.block_aux(params, x, positions, attend, qscales,
+                              qobs)[0]
+
+    def block_aux(self, params: Params, x: torch.Tensor,
+                  positions: torch.Tensor, attend: Callable, qscales=None,
+                  qobs=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One pre-LN block on ``x`` (B, W, D) whose rows sit at
         ``positions`` ((W,) or (B, W), used by RoPE).  ``attend(q, k, v)``
         (q (B, W, H, hd), k/v (B, W, KV, hd) after RoPE) returns the
         attention output (B, W, H, hd): the dense forward, the KV-cache
         decode and the paged server differ only there.  Under fp8 the
         Linears read ``qscales`` and write their observations into the
-        dict ``qobs`` (when given)."""
+        dict ``qobs`` (when given).  Returns (x, the MoE aux per routing
+        group, or None for a dense FFN)."""
         c = self.cfg
         mods = self._block_modules()
         qkw = ({"qscales": qscales, "qobserved": qobs}
@@ -306,7 +344,11 @@ class Transformer:
         out = attend(q, k, v).to(x.dtype).reshape(*x.shape[:2], c.d_model)
         x = x + mods["attn_out"].apply(params["attn_out"], out, **qkw)
         h = mods["ln2"].apply(params["ln2"], x)
-        return x + self._ffn(mods, params, h, **qkw).to(x.dtype)
+        if c.moe_experts > 0:
+            ff, aux = mods["moe"].apply(params["moe"], h, self.expert_group,
+                                        seq_shards=self._seq_shards)
+            return x + ff.to(x.dtype), aux
+        return x + self._ffn(mods, params, h, **qkw).to(x.dtype), None
 
     def attend(self, q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> torch.Tensor:
@@ -323,13 +365,20 @@ class Transformer:
     def backbone(self, params: Params, ids: torch.Tensor, qscales=None,
                  qobs: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
+        """:meth:`backbone_aux`'s hidden states."""
+        return self.backbone_aux(params, ids, qscales, qobs)[0]
+
+    def backbone_aux(self, params: Params, ids: torch.Tensor, qscales=None,
+                     qobs: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Embedding + all blocks -> (B, T, d_model) pre-head hidden
         states: the trunk shared by :meth:`forward` and the fused loss.
         fp8: the blocks read ``qscales``; given a dict ``qobs``, each
         block role's observed amax, maxed over the layers, lands in it.
         Each block observes into a dict of its own, which it returns, so
         the forward that ``--remat`` runs again in the backward observes
-        into a dict nobody reads."""
+        into a dict nobody reads.  Also returns the MoE aux summed over
+        the layers, one per routing group (None for dense FFNs)."""
         c = self.cfg
         positions = global_positions(c.attention, self.seq_group,
                                      ids.shape[1], ids.device)
@@ -338,8 +387,9 @@ class Transformer:
 
         def block_fn(layer, h):
             obs = {} if collect else None
-            return self.block(layer, h, positions, self.attend,
-                              qscales=qscales, qobs=obs), obs
+            h, aux = self.block_aux(layer, h, positions, self.attend,
+                                    qscales=qscales, qobs=obs)
+            return h, obs, aux
 
         if self._remat is not None:
             block_fn = self._remat(block_fn)
@@ -348,13 +398,16 @@ class Transformer:
                 if r != "head":
                     qobs[r] = torch.zeros((), dtype=torch.float32,
                                           device=x.device)
+        aux_total = None
         for layer in layer_params(params):
-            x, obs = block_fn(layer, x)
+            x, obs, aux = block_fn(layer, x)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
             if collect:
                 for r in qobs:
                     if r in obs:
                         qobs[r] = torch.maximum(qobs[r], obs[r])
-        return x
+        return x, aux_total
 
     def final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         c = self.cfg
@@ -362,29 +415,42 @@ class Transformer:
             params["ln_f"], x)
 
     def forward(self, params: Params, ids: torch.Tensor, qscales=None,
-                return_qobs: bool = False):
+                return_qobs: bool = False, return_aux: bool = False):
         """ids (B, T) -> f32 logits (B, T, vocab); with ``return_qobs``,
         (logits, {role: observed amax}): the fp8 step's calibration
         input (empty unless the model is fp8).  ``qscales`` is the
         per-role delayed amax (``ops.qmm.delayed_amax``); None is current
-        scaling."""
+        scaling.  With ``return_aux``, (logits, aux): the MoE
+        load-balance aux summed over the layers, (G,) f32 with one entry
+        per routing group (zeros (1,) for dense FFNs)."""
         qobs = {} if return_qobs else None
-        x = self.backbone(params, ids, qscales=qscales, qobs=qobs)
+        x, aux = self.backbone_aux(params, ids, qscales=qscales, qobs=qobs)
         logits = self.head_logits(params, x, qscales=qscales, qobserved=qobs)
+        if return_aux:
+            if aux is None:
+                aux = torch.zeros((1,), dtype=torch.float32,
+                                  device=logits.device)
+            return logits, aux
         return (logits, qobs) if return_qobs else logits
 
     apply = forward
 
     def fwd_flops(self, x_shape) -> float:
-        """(B, T) token batch: qkv/out/ffn/attention matmuls + LM head."""
+        """(B, T) token batch: qkv/out/ffn/attention matmuls + LM head;
+        with MoE each token runs ``moe_top_k`` expert FFNs plus the
+        router."""
         c = self.cfg
         b, t = x_shape
         d, ff, v = c.d_model, c.d_ff, c.vocab_size
         per_layer = 2.0 * b * t * d * c.qkv_dim     # qkv projection
         per_layer += 2.0 * b * t * d * d            # attention out projection
         per_layer += 2.0 * (2.0 * b * t * t * d)    # scores + values
-        per_layer += 2.0 * ((3.0 if c.activation == "swiglu" else 2.0)
-                            * b * t * d * ff)
+        ffn = 2.0 * ((3.0 if c.activation == "swiglu" else 2.0)
+                     * b * t * d * ff)
+        if c.moe_experts > 0:
+            ffn *= c.moe_top_k
+            per_layer += 2.0 * b * t * d * c.moe_experts    # router
+        per_layer += ffn
         return float(c.n_layers * per_layer + 2.0 * b * t * d * v)
 
     # ---- fused chunked cross-entropy (cfg.ce_chunk > 0) ----
@@ -457,11 +523,29 @@ def layer_params(params: Params) -> List[Params]:
     blocks = params["blocks"]
     if not isinstance(blocks, dict):
         return blocks
-    per_leaf = {name: {k: torch.unbind(v, 0) for k, v in sub.items()}
-                for name, sub in blocks.items()}
-    n = len(next(iter(next(iter(per_leaf.values())).values())))
-    return [{name: {k: v[i] for k, v in sub.items()}
-             for name, sub in per_leaf.items()} for i in range(n)]
+
+    def unbind(node):
+        if isinstance(node, dict):
+            return {k: unbind(v) for k, v in node.items()}
+        return torch.unbind(node, 0)
+
+    def take(node, i):
+        if isinstance(node, dict):
+            return {k: take(v, i) for k, v in node.items()}
+        return node[i]
+
+    per_leaf = unbind(blocks)
+    n = len(blocks["ln1"]["scale"])
+    return [take(per_leaf, i) for i in range(n)]
+
+
+def _stack(layers: List[Params]) -> Params:
+    """Per-layer block dicts -> one dict of stacked (n_layers, ...) leaves
+    (the ``scan_layers`` tree), nested dicts (an MoE FFN's) included."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lay[k] for lay in layers]) for k in first}
+    return torch.stack(layers)
 
 
 def tensors(tree) -> Iterator[torch.Tensor]:

@@ -78,9 +78,9 @@ def _is_linear_params(node: Dict) -> bool:
 
 
 def _is_expert_params(node: Dict) -> bool:
-    # the JAX package's MoE expert kernels {"w_in": (E, d, f), "w_out":
-    # (E, f, d)[, "w_gate"]}: per-(expert, out-column) scales.  The port
-    # builds no MoE model, but the walk treats the same trees the same way
+    # an MoE FFN's expert kernels {"w_in": (E, d, f), "w_out": (E, f,
+    # d)[, "w_gate"]} (models.moe): per-(expert, out-column) scales, which
+    # the expert products fold into their outputs
     w_in, w_out = node.get("w_in"), node.get("w_out")
     return (_is_float(w_in) and isinstance(w_out, torch.Tensor)
             and w_in.ndim == 3 and w_out.ndim == 3

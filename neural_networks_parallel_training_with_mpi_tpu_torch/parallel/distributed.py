@@ -7,23 +7,29 @@ with ``torchrun``, whose ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` (and
 ``MASTER_ADDR``/``MASTER_PORT``) environment it reads.  Nothing of a
 cluster is discovered otherwise: with no launcher the world is one process.
 
-Under fsdp, pipeline, sequence and tensor parallelism (``fsdp > 1``,
-``pp > 1``, ``sp > 1``, ``tp > 1``) the world is a ``data x fsdp x pipe x
-seq x tensor`` grid: rank = (((data_index * fsdp + fsdp_index) * pp +
-pipe_index) * sp + seq_index) * tp + tensor_index (``tensor`` minor, then
-``seq``, ``pipe``, ``fsdp``, ``data``, as in the JAX package's
-``parallel/mesh.py`` ``AXIS_ORDER`` without its expert axis, so a tensor
-group sits on adjacent ranks, on one node's NVLink).  Its process groups
-run along one axis each through every grid point: ``seq_pg`` over the
-``sp`` sequence ranks, ``data_pg`` over the ``dp`` data ranks (the sharded
-weight update's collectives), ``fsdp_pg`` over the ``fsdp`` ranks (the
-gathers of ``parallel.fsdp``), ``pipe_pg`` over the ``pp`` pipeline
-stages (``parallel.pipeline``'s hops) and ``tensor_pg`` over the ``tp``
-tensor ranks; ``replica_pg`` runs over the data x seq ranks of one (fsdp,
-pipe, tensor) index, the ranks that hold the same slices of the state,
-over which a gradient is all-reduced.  The batch is split over data x
-fsdp (the JAX package's ``DATA_AXES``); the stages of one data index read
-the same rows.
+Under fsdp, pipeline, expert, sequence and tensor parallelism (``fsdp >
+1``, ``pp > 1``, ``ep > 1``, ``sp > 1``, ``tp > 1``) the world is a ``data
+x fsdp x pipe x expert x seq x tensor`` grid: rank = ((((data_index *
+fsdp + fsdp_index) * pp + pipe_index) * ep + expert_index) * sp +
+seq_index) * tp + tensor_index (``tensor`` minor, then ``seq``,
+``expert``, ``pipe``, ``fsdp``, ``data``: the JAX package's
+``parallel/mesh.py`` ``AXIS_ORDER``, so a tensor group sits on adjacent
+ranks, on one node's NVLink).  Its process groups run along one axis each
+through every grid point: ``seq_pg`` over the ``sp`` sequence ranks,
+``data_pg`` over the ``dp`` data ranks (the sharded weight update's
+collectives), ``fsdp_pg`` over the ``fsdp`` ranks (the gathers of
+``parallel.fsdp``), ``pipe_pg`` over the ``pp`` pipeline stages
+(``parallel.pipeline``'s hops), ``expert_pg`` over the ``ep`` expert
+ranks (``parallel.expert``'s all-to-alls) and ``tensor_pg`` over the
+``tp`` tensor ranks; ``replica_pg`` runs over the data x expert x seq
+ranks of one (fsdp, pipe, tensor) index, the ranks that hold the same
+slices of every replicated leaf, over which a gradient is all-reduced,
+and ``expert_replica_pg`` over the data x seq ranks of one (expert,
+tensor) index, the ranks that hold the same experts (the expert leaves'
+gradients reduce over it: JAX's rule in ``parallel/expert.py``).  The
+batch is split over data x fsdp x expert (the JAX package's
+``DATA_AXES``, and its ``TOKEN_AXES`` on the expert layouts); the stages
+of one data index read the same rows.
 
 Fail-fast world formation (the JAX package's ``parallel/mesh.py``): before
 ``init_process_group`` a multi-process world meets in a bounded
@@ -272,10 +278,16 @@ class World:
     pp: int = 1
     # this rank's pipe process group (pp > 1 only)
     pipe_pg: Optional[Any] = None
+    ep: int = 1
+    # this rank's expert process group (ep > 1 only)
+    expert_pg: Optional[Any] = None
+    # the data x seq ranks of this rank's (expert, tensor) index (ep > 1
+    # only)
+    expert_replica_pg: Optional[Any] = None
 
     @property
     def _model(self) -> int:
-        return self.fsdp * self.pp * self.sp * self.tp
+        return self.fsdp * self.pp * self.ep * self.sp * self.tp
 
     @property
     def dp(self) -> int:
@@ -287,11 +299,16 @@ class World:
 
     @property
     def fsdp_rank(self) -> int:
-        return (self.rank // (self.pp * self.sp * self.tp)) % self.fsdp
+        return (self.rank // (self.pp * self.ep * self.sp * self.tp)
+                ) % self.fsdp
 
     @property
     def pipe_rank(self) -> int:
-        return (self.rank // (self.sp * self.tp)) % self.pp
+        return (self.rank // (self.ep * self.sp * self.tp)) % self.pp
+
+    @property
+    def expert_rank(self) -> int:
+        return (self.rank // (self.sp * self.tp)) % self.ep
 
     @property
     def seq_rank(self) -> int:
@@ -303,13 +320,14 @@ class World:
 
     @property
     def batch_shards(self) -> int:
-        """The batch's row shards: data x fsdp."""
-        return self.dp * self.fsdp
+        """The batch's row shards: data x fsdp x expert."""
+        return self.dp * self.fsdp * self.ep
 
     @property
     def batch_rank(self) -> int:
-        """This rank's row shard of the batch (data major)."""
-        return self.data_rank * self.fsdp + self.fsdp_rank
+        """This rank's row shard of the batch (data major, expert minor)."""
+        return ((self.data_rank * self.fsdp + self.fsdp_rank) * self.ep
+                + self.expert_rank)
 
     @property
     def initialized(self) -> bool:
@@ -349,10 +367,11 @@ class BatchGroup:
 
 def world_setup(device: DeviceLike = None, sp: int = 1,
                 dp: int = -1, collective_timeout: float = 0.0,
-                tp: int = 1, fsdp: int = 1, pp: int = 1) -> World:
+                tp: int = 1, fsdp: int = 1, pp: int = 1,
+                ep: int = 1) -> World:
     """Form the world; returns this process's rank, the world size, its
-    device and, for ``sp``, ``tp``, ``fsdp`` or ``pp`` > 1, its process
-    groups.
+    device and, for ``sp``, ``tp``, ``fsdp``, ``pp`` or ``ep`` > 1, its
+    process groups.
 
     * An already initialised process group is used as it is.
     * Under torchrun (``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` set) the group
@@ -365,7 +384,8 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
     The device is ``cuda:LOCAL_RANK`` by default (raising without a GPU);
     ``device="cpu"`` asks for the host.
 
-    ``dp`` x ``fsdp`` x ``pp`` x ``sp`` x ``tp`` must equal the world size
+    ``dp`` x ``fsdp`` x ``pp`` x ``ep`` x ``sp`` x ``tp`` must equal the
+    world size
     (``dp=-1``: whatever the others leave); every rank takes part in
     forming every group (``dist.new_group`` is collective).
     """
@@ -395,28 +415,33 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
         rank, size = dist.get_rank(), dist.get_world_size()
     else:
         rank, size = 0, 1
-    model = fsdp * pp * sp * tp
-    if min(sp, tp, fsdp, pp) < 1 or size % model or (
+    model = fsdp * pp * ep * sp * tp
+    if min(sp, tp, fsdp, pp, ep) < 1 or size % model or (
             dp != -1 and dp * model != size):
         what = (f"--dp {dp}" + (f" x --fsdp {fsdp}" if fsdp > 1 else "")
                 + (f" x --pp {pp}" if pp > 1 else "")
+                + (f" x --ep {ep}" if ep > 1 else "")
                 + f" x --sp {sp}" + (f" x --tp {tp}" if tp > 1 else ""))
         raise ValueError(
             f"{what} does not fit a world of {size} "
             f"process(es){'' if size > 1 else ' (launch with torchrun)'}")
-    grid = np.arange(size).reshape(size // model, fsdp, pp, sp, tp)
+    grid = np.arange(size).reshape(size // model, fsdp, pp, ep, sp, tp)
     pgs: Dict[str, Any] = {}
     if model > 1:
         # (the axes moved last, the groups along them): each rank's group
-        # is the one through its own grid point
-        for name, axes in (("seq", (3,)), ("data", (0,)), ("tensor", (4,)),
+        # is the one through its own grid point; the groups form in the
+        # same order on every rank (the expert ones last)
+        for name, axes in (("seq", (4,)), ("data", (0,)), ("tensor", (5,)),
                            ("fsdp", (1,)), ("pipe", (2,)),
-                           ("replica", (0, 3))):
+                           ("replica", (0, 3, 4)), ("expert", (3,)),
+                           ("expert_replica", (0, 4))):
             n = int(np.prod([grid.shape[a] for a in axes]))
             if (name == "replica" and fsdp * pp * tp == 1) or (
-                    n == 1 and name not in ("data", "replica")):
+                    name == "expert_replica" and ep == 1) or (
+                    n == 1 and name not in ("data", "replica",
+                                            "expert_replica")):
                 continue
-            lines = np.moveaxis(grid, axes, range(5 - len(axes), 5)
+            lines = np.moveaxis(grid, axes, range(6 - len(axes), 6)
                                 ).reshape(-1, n)
             for line in lines:
                 pg = dist.new_group([int(r) for r in line])
@@ -424,15 +449,16 @@ def world_setup(device: DeviceLike = None, sp: int = 1,
                     pgs[name] = pg
     return World(rank, size, dev, sp, pgs.get("seq"), pgs.get("data"), tp,
                  pgs.get("tensor"), fsdp, pgs.get("fsdp"),
-                 pgs.get("replica"), pp, pgs.get("pipe"))
+                 pgs.get("replica"), pp, pgs.get("pipe"), ep,
+                 pgs.get("expert"), pgs.get("expert_replica"))
 
 
 def describe(world: World) -> str:
-    """``data=N fsdp=F pipe=P seq=S tensor=T`` (the axes above 1 past
-    data) for a world with a model axis, ``data=N`` for a data-parallel
-    one, ``single-device`` for one process."""
-    axes = (("fsdp", world.fsdp), ("pipe", world.pp), ("seq", world.sp),
-            ("tensor", world.tp))
+    """``data=N fsdp=F pipe=P expert=E seq=S tensor=T`` (the axes above 1
+    past data) for a world with a model axis, ``data=N`` for a
+    data-parallel one, ``single-device`` for one process."""
+    axes = (("fsdp", world.fsdp), ("pipe", world.pp), ("expert", world.ep),
+            ("seq", world.sp), ("tensor", world.tp))
     if any(n > 1 for _, n in axes):
         return " ".join([f"data={world.dp}"]
                         + [f"{k}={n}" for k, n in axes if n > 1])

@@ -356,7 +356,7 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
                    group, attention_fn: Optional[Callable] = None,
                    qscales=None, qobs=None,
                    mm: Optional[Callable[[str], str]] = None,
-                   batch=None) -> torch.Tensor:
+                   batch=None, ffn_fn: Optional[Callable] = None):
     """One transformer block with the tensor dimension split over
     ``group``: ``layer_shards`` are the per-shard trees of the shards this
     process holds (:func:`shard_layer`), qkv / ff_in / ff_gate holding
@@ -374,7 +374,12 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
     products run through ``ops.qmm``'s tensor-parallel seam; fp8 reads
     ``qscales`` and writes each role's observed amax into ``qobs``;
     ``batch``: the batch ranks' group of the global-view scales
-    (``parallel.distributed.BatchGroup``)."""
+    (``parallel.distributed.BatchGroup``).
+
+    ``ffn_fn(layer_shards, h) -> (ff, aux)`` replaces the column / row
+    FFN: the TP x EP composition point (``parallel.expert.moe_ffn_fn``,
+    which owns its f / g placement; ``h`` is handed over whole).  The
+    block then returns ``(x, aux)``."""
     f, g = make_megatron_ops(group)
     cdt = cfg.compute_dtype
     tp = group.size
@@ -420,6 +425,9 @@ def tp_block_apply(cfg, layer_shards: List[Dict[str, Any]], x: torch.Tensor,
             + rep["attn_out"]["b"].to(cdt))
     x = x + attn.to(x.dtype)
 
+    if ffn_fn is not None:
+        ff, aux = ffn_fn(layer_shards, ln.apply(rep["ln2"], x))
+        return x + ff.to(x.dtype), aux
     # FFN: column-parallel in, row-parallel out
     h = f(ln.apply(rep["ln2"], x))
     hid = _col(mm("ff_in"), "ff_in", h, layer_shards, "ff_in", group, cdt,

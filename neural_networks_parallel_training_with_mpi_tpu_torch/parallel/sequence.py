@@ -32,12 +32,12 @@ r*T_local .. (r+1)*T_local - 1, striped layouts (inputs permuted by
 
 ``ulysses`` (DeepSpeed-Ulysses) trades the sequence split for a head
 split with an all-to-all, attends over the full sequence with
-``attention_reference`` on H/S heads, and all-to-alls back: over a
-``ProcessSeqGroup`` by ``all_to_all_single`` inside an autograd function
-whose backward is the inverse all-to-all, over a ``LocalSeqGroup`` by
-regrouping the list of shards.  ``dense_blockwise`` is
-``attention_reference`` computed one query block at a time, so the
-(B, H, T, T) scores never exist at once.
+``attention_reference`` on H/S heads, and all-to-alls back, both through
+``parallel.collectives.all_to_all`` (over a ``ProcessSeqGroup`` an
+``all_to_all_single`` whose backward is the inverse exchange, over a
+``LocalSeqGroup`` a regrouping of the list of shards).
+``dense_blockwise`` is ``attention_reference`` computed one query block
+at a time, so the (B, H, T, T) scores never exist at once.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from ..ops.flash_attention import (
     HEAD_DIMS, flash_attention, flash_attention_with_lse,
 )
 from ..ops.rope import rope_rotate
+from . import collectives
 
 NEG_INF = -1e30
 
@@ -94,17 +95,12 @@ class LocalSeqGroup:
         groups (B, T, H/S, D) over the whole sequence: shard d of the
         all-to-all's output is every shard's head group d, joined along
         the sequence."""
-        shards = self.split(x)
-        return [torch.cat([sh.chunk(self.size, dim=2)[d] for sh in shards],
-                          dim=1) for d in range(self.size)]
+        return collectives.all_to_all(self.split(x), self, 2, 1)
 
     def to_seq(self, outs: List[torch.Tensor]) -> torch.Tensor:
-        """The inverse regrouping: head groups back to the S sequence
+        """The inverse exchange: head groups back to the S sequence
         shards, joined along the sequence."""
-        t_local = outs[0].shape[1] // self.size
-        return torch.cat([torch.cat([o[:, s * t_local:(s + 1) * t_local]
-                                     for o in outs], dim=2)
-                          for s in range(self.size)], dim=1)
+        return torch.cat(collectives.all_to_all(outs, self, 1, 2), dim=1)
 
 
 class _Shift(torch.autograd.Function):
@@ -139,38 +135,6 @@ class _Tie(torch.autograd.Function):
                                for s, dt, dev in ctx.metas)
 
 
-class _AllToAll(torch.autograd.Function):
-    """``all_to_all_single`` between sequence and head sharding, as the
-    JAX package's ``lax.all_to_all(tiled=True)``: ``to_heads`` (B, T/S,
-    H, D) -> (B, T, H/S, D), ``to_seq`` the inverse; the backward of each
-    is the other."""
-
-    @staticmethod
-    def forward(ctx, group, to_heads, x):
-        ctx.group, ctx.to_heads = group, to_heads
-        return _all_to_all(group, x, to_heads)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return None, None, _all_to_all(ctx.group, grad, not ctx.to_heads)
-
-
-def _all_to_all(group, x: torch.Tensor, to_heads: bool) -> torch.Tensor:
-    s = group.size
-    b, t, h, d = x.shape
-    if to_heads:    # send head group j of my rows to rank j
-        send = x.reshape(b, t, s, h // s, d).permute(2, 0, 1, 3, 4)
-    else:           # send my heads' rows of sequence shard j to rank j
-        send = x.reshape(b, s, t // s, h, d).permute(1, 0, 2, 3, 4)
-    send = send.contiguous()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group.pg)
-    if to_heads:    # recv[j]: rank j's rows of my head group
-        return recv.permute(1, 0, 2, 3, 4).reshape(b, s * t, h // s, d)
-    # recv[j]: my rows of rank j's head group
-    return recv.permute(1, 2, 0, 3, 4).reshape(b, t // s, s * h, d)
-
-
 class ProcessSeqGroup:
     """One shard per rank of the process group ``pg``."""
 
@@ -194,10 +158,11 @@ class ProcessSeqGroup:
         return _Tie.apply(outs[0], *blocks[0])
 
     def to_heads(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return [_AllToAll.apply(self, True, x)]
+        return collectives.all_to_all([x], self, 2, 1)
 
     def to_seq(self, outs: List[torch.Tensor]) -> torch.Tensor:
-        return _AllToAll.apply(self, False, outs[0])
+        (x,) = collectives.all_to_all(outs, self, 1, 2)
+        return x
 
     def exchange(self, xs: Sequence[torch.Tensor],
                  forward: bool) -> List[torch.Tensor]:

@@ -15,7 +15,8 @@ logits never exist.  ``grad_clip`` clips by the global norm, which every
 rank takes over its own slices (``parallel.tensor_parallel``): under a
 process group each rank holds only its tensor slice of the split leaves,
 params and optimizer slots, as JAX's ``shard_map`` specs slice them over
-``tensor``.
+``tensor``.  An MoE model is refused here, as in JAX, and sent to
+``parallel.expert.make_moe_tp_train_step`` (seq x TP with an MoE FFN).
 """
 
 from __future__ import annotations
@@ -38,12 +39,17 @@ def sp_tp_param_specs(params: Tree, vocab_parallel: bool = False) -> Tree:
     """The slice rule of every leaf under ``sp_tp``: the block leaves of
     ``megatron.is_tensor_sharded`` split (columns on their last dim, row
     weights on their input dim, stacked ``scan_layers`` leaves one dim
-    right), the embedding table on dim 0 and the head on dim 1 under
-    ``vocab_parallel``; None (whole) for the rest."""
+    right), an MoE FFN's expert leaves on their hidden dim
+    (``expert.expert_leaf_tensor_spec``: the seq x TP layout with an MoE
+    FFN, experts whole), the embedding table on dim 0 and the head on dim
+    1 under ``vocab_parallel``; None (whole) for the rest."""
+    from .expert import expert_leaf_tensor_spec, is_expert_leaf
 
     def spec(names, leaf):
         ndim = leaf.dim()
         if names[0] == "blocks":
+            if is_expert_leaf(names):
+                return expert_leaf_tensor_spec(names[-1], ndim)
             if not megatron.is_tensor_sharded(names):
                 return None
             row = "attn_out" in names or "ff_out" in names
@@ -117,6 +123,14 @@ def make_sp_tp_train_step(model, optimizer: Optimizer, world: World, group,
                          f"tensor={tp}, seq={sp} — use the plain "
                          "spmd/gspmd paths otherwise")
     megatron.validate_tp(model.cfg, tp)
+    if model.cfg.moe_experts > 0:
+        raise ValueError(
+            "SP x TP with an MoE FFN rides the expert module: "
+            "parallel.expert.make_moe_tp_train_step(seq_group=...) — with "
+            "the mesh's expert axis at 1 the experts stay whole and only "
+            "their hidden dim is tensor-sharded; expert>1 gives the full "
+            "SP x EP x TP composition.  The Trainer routes MoE models "
+            "there automatically")
     if model.cfg.attention == "ulysses":
         validate_ulysses_under_tp(model.cfg.n_heads, tp, sp)
     if vocab_parallel:

@@ -76,12 +76,13 @@ Tree = Any
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
     """The dim of a leaf split over the tensor group, the one split over
-    the fsdp group and the stage dim split over the pipe group (None:
-    whole on that axis)."""
+    the fsdp group, the stage dim split over the pipe group and the
+    expert dim split over the expert group (None: whole on that axis)."""
 
     tensor: Optional[int] = None
     fsdp: Optional[int] = None
     pipe: Optional[int] = None
+    expert: Optional[int] = None
 
 
 WHOLE = LeafSpec()
@@ -189,14 +190,16 @@ class StateLayout:
     group keeps it whole), its fsdp slice when ``fsdp_group`` is given
     (every slice, stacked, under a local one), its pipeline stage's slice
     when ``pipe_group`` is a process group (``parallel.pipeline``; a
-    local one keeps every stage).
+    local one keeps every stage), its experts when ``expert_group`` is a
+    process group (``parallel.expert``; a local one keeps every expert).
     ``qkv_dense``: the params keep the dense qkv column order (the GSPMD
     layout), so a held tensor slice of a qkv leaf is its head-aligned
     columns."""
 
     def __init__(self, spec_tree: Tree, shapes: List[Tuple[int, ...]],
                  names: List[Tuple[str, ...]], group, fsdp_group=None,
-                 qkv_dense: bool = False, head_dims=None, pipe_group=None):
+                 qkv_dense: bool = False, head_dims=None, pipe_group=None,
+                 expert_group=None):
         self.spec_tree = spec_tree
         self.specs: List[LeafSpec] = [
             s for _, s in _spec_items(spec_tree)]
@@ -209,8 +212,15 @@ class StateLayout:
         # the pipe process group; None: no pipe, or every stage held here
         self.pipe_pg = (pipe_group.pg if hasattr(pipe_group, "pg")
                         and self.pp > 1 else None)
+        self.expert_group = expert_group
+        self.ep = _group_size(expert_group)
+        # the expert process group; None: no expert split, or every expert
+        # held here
+        self.expert_pg = (expert_group.pg if hasattr(expert_group, "pg")
+                          and self.ep > 1 else None)
         self.sliced = (self.tensor_sliced or fsdp_group is not None
-                       or self.pipe_pg is not None)
+                       or self.pipe_pg is not None
+                       or self.expert_pg is not None)
         # the fsdp process group; None: no fsdp, or every slice held here
         self.fsdp_pg = getattr(fsdp_group, "pg", None)
         self._qkv_perm = None
@@ -221,15 +231,18 @@ class StateLayout:
         t_rank = group.rank if self.tensor_sliced else 0
         f_rank = fsdp_group.rank if self.fsdp_pg is not None else 0
         p_rank = pipe_group.rank if self.pipe_pg is not None else 0
+        e_rank = expert_group.rank if self.expert_pg is not None else 0
         self.owner = [(st.tensor is not None or t_rank == 0)
                       and (st.fsdp is not None or f_rank == 0)
                       and (st.pipe is not None or p_rank == 0)
+                      and (st.expert is not None or e_rank == 0)
                       for st in self.stored]
 
     def _stored(self, spec: LeafSpec) -> LeafSpec:
         return LeafSpec(spec.tensor if self.tensor_sliced else None,
                         spec.fsdp if self.fsdp_group is not None else None,
-                        spec.pipe if self.pipe_pg is not None else None)
+                        spec.pipe if self.pipe_pg is not None else None,
+                        spec.expert if self.expert_pg is not None else None)
 
     # ---- the optimizer slots mirror the params ----
     def mirror(self, tree: Tree) -> List[int]:
@@ -269,6 +282,8 @@ class StateLayout:
             x = self.fsdp_group.slice(x, spec.fsdp)
         if spec.pipe is not None:
             x = x.chunk(self.pp, spec.pipe)[self.pipe_group.rank]
+        if spec.expert is not None:
+            x = x.chunk(self.ep, spec.expert)[self.expert_group.rank]
         return x.clone()
 
     def conform(self, params: Tree) -> Tree:
@@ -290,10 +305,13 @@ class StateLayout:
 
     def gather_leaf(self, x: torch.Tensor, j: int) -> torch.Tensor:
         """One leaf whole from every rank's slice (collective over the
-        pipe, fsdp and tensor groups), qkv columns back in the dense
-        order."""
+        expert, pipe, fsdp and tensor groups), qkv columns back in the
+        dense order."""
         spec, qkv = self._spec_of(j)
         x = x.detach()
+        if spec.expert is not None:
+            x = fsdp_lib.all_gather_dim(x, spec.expert, self.expert_pg,
+                                        self.ep)
         if spec.pipe is not None:
             x = fsdp_lib.all_gather_dim(x, spec.pipe, self.pipe_pg, self.pp)
         if spec.fsdp is not None:
@@ -332,6 +350,8 @@ class StateLayout:
             shape[spec.fsdp] *= self.fsdp
         if spec.pipe is not None:
             shape[spec.pipe] *= self.pp
+        if spec.expert is not None:
+            shape[spec.expert] *= self.ep
         return shape
 
     # ---- the forward's gathers ----
@@ -347,11 +367,11 @@ class StateLayout:
     # ---- global-view norms ----
     def combine(self, norms: List[torch.Tensor]) -> torch.Tensor:
         """The global norm from per-leaf norms of this rank's slices (in
-        param order): the owned leaves' squares summed over the tensor
-        and fsdp groups, and over the pipe group (no process group: every
-        slice is here)."""
+        param order): the owned leaves' squares summed over the tensor,
+        fsdp, pipe and expert groups (no process group: every slice is
+        here)."""
         if not (self.tensor_sliced or self.fsdp_pg is not None
-                or self.pipe_pg is not None):
+                or self.pipe_pg is not None or self.expert_pg is not None):
             return combine_norms(norms)
         sq = torch.stack([n.float().square() for n, o
                           in zip(norms, self.owner) if o]
@@ -362,7 +382,7 @@ class StateLayout:
         return self.combine(leaf_norms([x.float() for x in xs]))
 
     def sum_over_model(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the tensor, fsdp and pipe groups (in
+        """``x`` summed over the tensor, fsdp, pipe and expert groups (in
         place)."""
         if self.tensor_sliced:
             dist.all_reduce(x, group=self.group.pg)
@@ -370,6 +390,8 @@ class StateLayout:
             dist.all_reduce(x, group=self.fsdp_pg)
         if self.pipe_pg is not None:
             dist.all_reduce(x, group=self.pipe_pg)
+        if self.expert_pg is not None:
+            dist.all_reduce(x, group=self.expert_pg)
         return x
 
     # ---- the sharded update over the data ranks ----
@@ -465,11 +487,16 @@ class TensorParallelModel:
     is given; by default, on the first call, every leaf whole (a local
     group's).  ``batch_group``: the ranks holding the batch's other rows
     (``parallel.distributed.BatchGroup``), over which the quantized
-    products' row-spanning scales are taken (JAX's global view)."""
+    products' row-spanning scales are taken (JAX's global view).  An MoE
+    model's blocks run ``parallel.expert.moe_ffn_fn`` in place of the
+    Megatron FFN: its experts split over ``expert_group`` and their hidden
+    dim over ``group`` (JAX's EP x TP), and :meth:`apply` with
+    ``return_aux`` returns the aux beside the logits."""
 
     def __init__(self, model, group, qkv_order: str = "dense",
                  seq_group=None, vocab_parallel: bool = False,
-                 layout: Optional[StateLayout] = None, batch_group=None):
+                 layout: Optional[StateLayout] = None, batch_group=None,
+                 expert_group=None):
         if qkv_order not in ("dense", "permuted"):
             raise ValueError(f"unknown qkv_order {qkv_order!r}")
         if layout is None and hasattr(group, "pg") and group.size > 1:
@@ -480,8 +507,15 @@ class TensorParallelModel:
         self.layout, self.batch_group = layout, batch_group
         self.tp = group.size
         self.transformer = isinstance(model, Transformer)
+        self._ffn_fn = None
         if self.transformer:
             megatron.validate_tp(model.cfg, self.tp)
+            if model.cfg.moe_experts > 0:
+                from .expert import moe_ffn_fn
+
+                self._ffn_fn = moe_ffn_fn(
+                    model.cfg, expert_group, group,
+                    len(seq_group.ranks) if seq_group is not None else 1)
         self._qkv_index = {}
 
     @property
@@ -537,9 +571,15 @@ class TensorParallelModel:
     def backbone(self, params: Tree, ids: torch.Tensor, qscales=None,
                  qobs: Optional[Dict[str, torch.Tensor]] = None
                  ) -> torch.Tensor:
-        """Embedding and the Megatron blocks -> (B, T, d_model); fp8 as the
-        dense model's ``backbone`` (``qscales`` read, the block roles'
-        observations maxed into ``qobs``)."""
+        """:meth:`backbone_aux`'s hidden states."""
+        return self.backbone_aux(params, ids, qscales, qobs)[0]
+
+    def backbone_aux(self, params: Tree, ids: torch.Tensor, qscales=None,
+                     qobs: Optional[Dict[str, torch.Tensor]] = None):
+        """Embedding and the Megatron blocks -> ((B, T, d_model), the MoE
+        aux summed over the layers or None); fp8 as the dense model's
+        ``backbone`` (``qscales`` read, the block roles' observations
+        maxed into ``qobs``)."""
         m, c, group = self.model, self.model.cfg, self.group
         lay = self._layout(params)
         positions = global_positions(c.attention, self.seq_group,
@@ -569,9 +609,13 @@ class TensorParallelModel:
                 self._qkv(ids.device))
             if not lay.tensor_sliced:
                 shards = [shards[r] for r in group.ranks]
-            return megatron.tp_block_apply(
+            out = megatron.tp_block_apply(
                 c, shards, h, group, attention_fn=attend, qscales=qscales,
-                qobs=obs, mm=self._mm, batch=self.batch_group), obs
+                qobs=obs, mm=self._mm, batch=self.batch_group,
+                ffn_fn=self._ffn_fn)
+            if self._ffn_fn is None:
+                return out, obs, None
+            return out[0], obs, out[1]
 
         if m._remat is not None:
             block_fn = m._remat(block_fn)
@@ -581,15 +625,18 @@ class TensorParallelModel:
                     qobs[r] = torch.zeros((), dtype=torch.float32,
                                           device=x.device)
         spec_layers = lay.spec_tree["blocks"]
+        aux_total = None
         for i, layer in enumerate(layer_params(params)):
             specs = (spec_layers[i] if isinstance(spec_layers, list)
                      else spec_layers)
-            x, obs = block_fn(layer, specs, x)
+            x, obs, aux = block_fn(layer, specs, x)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
             if collect:
                 for r in qobs:
                     if r in obs:
                         qobs[r] = torch.maximum(qobs[r], obs[r])
-        return x
+        return x, aux_total
 
     def _logits_local(self, params: Tree, x: torch.Tensor, qscales=None,
                       qobs=None, split: bool = True) -> List[torch.Tensor]:
@@ -612,17 +659,18 @@ class TensorParallelModel:
             batch=self.batch_group)]
 
     def _transformer_logits(self, params: Tree, ids: torch.Tensor,
-                            qscales=None, qobs=None) -> torch.Tensor:
-        x = self.backbone(params, ids, qscales=qscales, qobs=qobs)
+                            qscales=None, qobs=None):
+        """(f32 logits, the MoE aux or None)."""
+        x, aux = self.backbone_aux(params, ids, qscales=qscales, qobs=qobs)
         if self._head_split(params):
             return self.group.gather(self._logits_local(params, x, qscales,
-                                                        qobs), dim=-1)
+                                                        qobs), dim=-1), aux
         if self._mm("head") != "bf16":
             (logits,) = self._logits_local(params, x, qscales, qobs,
                                            split=False)
-            return logits
+            return logits, aux
         head = {k: self._full(params, k) for k in ("ln_f", "head")}
-        return self.model.head_logits(head, x)
+        return self.model.head_logits(head, x), aux
 
     # ---- the MLP ----
     def _mlp_modes(self, params: Tree) -> List[Optional[str]]:
@@ -669,13 +717,16 @@ class TensorParallelModel:
 
     # ---- the entry points the train and eval steps call ----
     def apply(self, params: Tree, x: torch.Tensor, qscales=None,
-              return_qobs: bool = False):
+              return_qobs: bool = False, return_aux: bool = False):
         """The model's output, whole, on every rank of the group; with
         ``return_qobs`` (the fp8 step's), (output, {role: observed
-        amax})."""
+        amax}); with ``return_aux`` (an MoE model's), (output, the aux per
+        routing group)."""
         if self.transformer:
             qobs = {} if return_qobs else None
-            out = self._transformer_logits(params, x, qscales, qobs)
+            out, aux = self._transformer_logits(params, x, qscales, qobs)
+            if return_aux:
+                return out, aux
             return (out, qobs) if return_qobs else out
         if isinstance(self.model, MLP):
             return self._mlp_apply(params, x)

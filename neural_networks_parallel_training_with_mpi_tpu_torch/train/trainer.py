@@ -103,9 +103,29 @@ global batch, raise ``accum_steps``; ``per_device``: keep each rank's
 rows), maps the step counter onto the new loader through
 ``consumed_samples`` and records the change (``kind="topology"``).
 
-Every flag of a path the port has not taken over yet (the expert axis,
-MoE, RL, ...) raises ``NotImplementedError`` naming the flag when it is
+Every flag of a path the port has not taken over yet (RL, the workload
+switch, ...) raises ``NotImplementedError`` naming the flag when it is
 set to anything but its default; none is ignored.
+
+MoE and expert parallelism (``--moe_experts``, ``--moe_top_k``,
+``--moe_capacity_factor``, ``--ep E``; the JAX trainer's routing and
+refusals): an MoE model trains on the plain DP and DP x seq steps (no
+aux in the loss, as in JAX), and with ``--ep`` on the expert step of
+``parallel.expert`` (``expert``: EP and seq x EP) or with ``--tp`` on its
+EP x TP step (``ep_tp``: EP x TP, seq x EP x TP, and seq x TP with an MoE
+FFN; qkv columns stored permuted, ``qkv_tp`` = T in a snapshot): the loss
+plus 0.01 x the load-balance aux, the expert leaves' gradient reduced
+over the ranks of their expert index, the clip inside the step, no guard,
+no ``--matmul_dtype``, no update sharding and loss-only telemetry, as in
+JAX.  The world is ``data x expert x seq x tensor`` torchrun ranks
+(``parallel.expert.ProcessExpertGroup``), each holding only its experts
+(``StateLayout``); in a world of one process (no torchrun) ``--ep E``
+runs the E shards here (``LocalExpertGroup(E)``), as
+``Trainer(cfg, device, expert_group=LocalExpertGroup(E))`` does beside
+local sequence and tensor groups.  A snapshot holds every expert (the
+dense layout); the replica check skips the expert leaves.  Pipe x expert,
+an MoE model on the pipe or GSPMD (``--tp`` / ``--fsdp`` alone) layouts
+raise, naming ``QUEUE_A4``.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``, ``ulysses``)
@@ -169,7 +189,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import ModelConfig, RLConfig, TrainConfig
+from ..config import RLConfig, TrainConfig
 from ..data.datasets import build_dataset, train_val_split
 from ..data.loader import MULTI_PROCESS_DISPATCH, ShardedLoader
 from ..models.registry import build_model
@@ -178,11 +198,13 @@ from ..ops import qmm
 from ..ops import schedules
 from ..parallel import data_parallel as dp
 from ..parallel import distributed
+from ..parallel import expert as ep_lib
 from ..parallel import gspmd, megatron, spmd
 from ..parallel import pipeline as pp
 from ..parallel import tensor_parallel as tp_lib
 from ..parallel import update_sharding as us
 from ..parallel.distributed import describe, world_setup
+from ..parallel.expert import LocalExpertGroup, ProcessExpertGroup
 from ..parallel.fsdp import ProcessFsdpGroup, all_gather_dim
 from ..parallel.megatron import (LocalTensorGroup, ProcessTensorGroup,
                                  qkv_tp_permutation)
@@ -209,13 +231,8 @@ from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {"workload": "--workload"}
-_UNPORTED_MESH = {"expert": "--ep"}
 # the model-parallel layouts' next pieces (ROADMAP Queue A item 4)
 QUEUE_A4 = "held out of the port so far: ROADMAP Queue A item 4"
-_UNPORTED_MODEL = {"moe_experts": "--moe_experts",
-                   "moe_expert_axis": "--ep",
-                   "moe_capacity_factor": "--moe_capacity_factor",
-                   "moe_top_k": "--moe_top_k"}
 # the replica check runs with at least this many replicas (ranks): one
 # replica has nothing to compare (the JAX trainer's rule)
 SDC_MIN_REPLICAS = 2
@@ -315,6 +332,55 @@ def check_fsdp_layout(cfg: TrainConfig) -> None:
             "for other mixes")
 
 
+def _moe_layouts(cfg: TrainConfig) -> Tuple[bool, bool]:
+    """(ep_tp, expert): the JAX trainer's (SP x) EP x TP step (``ep_tp``:
+    tensor with expert, or with seq and an MoE model) and its expert step
+    (EP and seq x EP), neither under pipe or fsdp."""
+    mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
+    pipeline, fsdp = mesh.pipe > 1, mesh.fsdp > 1
+    tensor, expert, seq = mesh.tensor > 1, mesh.expert > 1, mesh.seq > 1
+    ep_tp = tensor and not (pipeline or fsdp) and (expert or (seq and moe))
+    return ep_tp, expert and not (ep_tp or pipeline or fsdp)
+
+
+def check_expert_layout(cfg: TrainConfig) -> None:
+    """The JAX trainer's rules for the expert axis and MoE models, with its
+    messages and exception types (the expert axis needs an MoE
+    transformer; adafactor not on the expert layouts: elsewhere the port,
+    which has no adafactor, refuses it at ``optim.make``), and the mixes
+    the port holds out (pipe x expert, an MoE model on the pipe or GSPMD
+    layouts), naming ``QUEUE_A4``."""
+    mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
+    pipeline, expert = mesh.pipe > 1, mesh.expert > 1
+    tensor, fsdp = mesh.tensor > 1, mesh.fsdp > 1
+    ep_tp, expert_step = _moe_layouts(cfg)
+    if expert and (cfg.model.arch != "transformer" or not moe):
+        raise ValueError("expert axis > 1 requires a transformer with "
+                         "moe_experts > 0 (--moe_experts)")
+    if cfg.optimizer == "adafactor" and (expert_step or ep_tp):
+        raise ValueError(
+            "adafactor's stats are exact only where every leaf sees its "
+            "full matrix: DP/SP shard_map layouts and GSPMD global-view. "
+            "Layouts that slice inside matrices (pipe, seq x tensor, "
+            "expert x tensor) make the factor means shard-local; the "
+            "expert axis slices the stacked-expert leaves, so the "
+            "update-RMS clip / parameter-scale RMS(p) (whole-leaf "
+            "means) and the (E, f) bias column factor become "
+            "EP-degree-dependent; zero1's flat state cannot carry "
+            "factored stats at all, and the per-leaf sharded update "
+            "scatters inside matrices the same way. Use "
+            "adam/adamw/lion/sgd there")
+    if pipeline and (expert or moe):
+        raise NotImplementedError(
+            "--pp with --moe_experts / --ep (pipe x expert: the MoE aux "
+            "through the pipeline schedule, the expert-sharded stage "
+            f"leaves, pp x ep x tp and pp x sp x ep) is {QUEUE_A4}")
+    if moe and (tensor or fsdp) and not (ep_tp or pipeline):
+        raise NotImplementedError(
+            "an MoE model on the GSPMD layout (--tp / --fsdp without --ep "
+            f"or --sp) is {QUEUE_A4}; use --ep, or --sp with --tp")
+
+
 def check_pipe_layout(cfg: TrainConfig) -> None:
     """The JAX trainer's rules for the pipe axis that no other axis
     meets, with its messages: a transformer only; ``--pp_interleave``
@@ -338,9 +404,12 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
     GSPMD, and ``--scan-layers`` not under pipe)."""
     mesh = cfg.mesh
     tensor, fsdp, pipeline = mesh.tensor > 1, mesh.fsdp > 1, mesh.pipe > 1
-    sp_tp = tensor and mesh.seq > 1 and not (fsdp or pipeline)
-    gspmd_on = (tensor or fsdp) and not (sp_tp or pipeline)
-    if (sp_tp or pipeline) and cfg.grad_reduction != "global_mean":
+    ep_tp, expert = _moe_layouts(cfg)
+    sp_tp = tensor and mesh.seq > 1 and not (fsdp or pipeline or ep_tp)
+    gspmd_on = (tensor or fsdp) and not (sp_tp or pipeline or ep_tp)
+    moe_step = ep_tp or expert
+    if (sp_tp or pipeline or moe_step) and \
+            cfg.grad_reduction != "global_mean":
         raise ValueError("pipeline/expert/seq-x-tensor steps always use "
                          "global_mean gradient semantics")
     if cfg.vocab_parallel and not sp_tp:
@@ -348,19 +417,22 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "--vocab_parallel shards the embedding/head over 'tensor' "
             "on the seq x tensor path (--sp > 1 and --tp > 1); other "
             "layouts keep them replicated")
-    if cfg.model.ce_chunk > 0 and not pipeline and (tensor or fsdp):
+    if cfg.model.ce_chunk > 0 and not pipeline and (tensor or fsdp
+                                                    or mesh.expert > 1):
         raise ValueError(
             "--ce_chunk (fused chunked cross-entropy) is wired on "
             "the data-parallel/ZeRO-1, sequence-parallel, and "
             "pipeline step paths; with non-pipeline tp/ep/fsdp "
             "axes use --vocab_parallel (seq x tensor) or drop "
             "--ce_chunk")
-    if cfg.update_sharding == "zero1" and (tensor or fsdp or pipeline):
+    if cfg.update_sharding == "zero1" and (tensor or fsdp or pipeline
+                                           or moe_step):
         raise NotImplementedError(
             "update_sharding='zero1' is the flat-buffer shard_map DP "
             "and DP x seq layout; the automatic per-leaf form "
             "(update_sharding='sharded') covers the GSPMD path too")
-    if cfg.update_sharding == "sharded" and (sp_tp or pipeline):
+    if cfg.update_sharding == "sharded" and (sp_tp or pipeline
+                                             or moe_step):
         raise NotImplementedError(
             "update_sharding='sharded' is wired into the shard_map DP "
             "/ DP x seq and GSPMD (tensor/fsdp) layouts; the "
@@ -370,7 +442,7 @@ def check_tensor_layout(cfg: TrainConfig) -> None:
             "grad_reduction='per_shard_mean' (the reference's :188-197 "
             "semantics) is only available on the pure-DP shard_map path; "
             "GSPMD global semantics always compute the exact global mean")
-    if cfg.model.scan_layers and (gspmd_on or pipeline):
+    if cfg.model.scan_layers and (gspmd_on or pipeline or mesh.expert > 1):
         raise ValueError(
             "scan_layers stacks blocks for a depth-independent compile "
             "on the plain DP / DP x seq / seq x tensor paths; the "
@@ -398,15 +470,11 @@ def refuse_unported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` naming the first flag of a path the
     port lacks that ``cfg`` sets to a non-default value."""
     base = TrainConfig()
-    checks = [(cfg, base, _UNPORTED)]
-    checks.append((cfg.mesh, base.mesh, _UNPORTED_MESH))
-    checks.append((cfg.model, ModelConfig(), _UNPORTED_MODEL))
-    for obj, default, names in checks:
-        for field, flag in names.items():
-            if getattr(obj, field) != getattr(default, field):
-                raise NotImplementedError(
-                    f"{flag} (= {getattr(obj, field)!r}) is not ported to "
-                    "the PyTorch/CUDA package yet")
+    for field, flag in _UNPORTED.items():
+        if getattr(cfg, field) != getattr(base, field):
+            raise NotImplementedError(
+                f"{flag} (= {getattr(cfg, field)!r}) is not ported to "
+                "the PyTorch/CUDA package yet")
     if cfg.rl != RLConfig():
         raise NotImplementedError("the RL flags (--rl_*, --rollout_steps, "
                                   "--gamma, ...) are not ported yet")
@@ -416,7 +484,8 @@ def refuse_unported(cfg: TrainConfig) -> None:
 
 class Trainer:
     def __init__(self, cfg: TrainConfig, device: DeviceLike = None,
-                 seq_group=None, tensor_group=None, fsdp_group=None):
+                 seq_group=None, tensor_group=None, fsdp_group=None,
+                 expert_group=None):
         """``seq_group``: an explicit sequence group (``LocalSeqGroup``)
         for the sequence-sharded attentions; by default ``--sp > 1`` forms
         a ``ProcessSeqGroup`` from the torchrun world.  ``tensor_group``
@@ -424,7 +493,9 @@ class Trainer:
         ``ProcessTensorGroup``) and ``fsdp_group`` (``LocalFsdpGroup``; by
         default ``--fsdp > 1`` forms a ``ProcessFsdpGroup``).  ``--pp > 1``
         runs every stage here (``LocalPipeGroup``) in a world of one
-        process, else one stage per rank (``ProcessPipeGroup``)."""
+        process, else one stage per rank (``ProcessPipeGroup``), and
+        ``--ep > 1`` likewise (``LocalExpertGroup`` / ``ProcessExpertGroup``;
+        ``expert_group`` passes one)."""
         if cfg.param_dtype:
             if cfg.param_dtype not in ("float32", "bfloat16", "float16"):
                 raise ValueError(f"unknown --param_dtype {cfg.param_dtype!r}")
@@ -437,7 +508,9 @@ class Trainer:
                                         (tensor_group, "tensor", "--tp",
                                          "tensor"),
                                         (fsdp_group, "fsdp", "--fsdp",
-                                         "fsdp")):
+                                         "fsdp"),
+                                        (expert_group, "expert", "--ep",
+                                         "expert")):
             if group is None:
                 continue
             n = getattr(cfg.mesh, axis)
@@ -447,6 +520,7 @@ class Trainer:
             cfg = dataclasses.replace(cfg, mesh=dataclasses.replace(
                 cfg.mesh, **{axis: group.size}))
         check_fsdp_layout(cfg)
+        check_expert_layout(cfg)
         check_pipe_layout(cfg)
         check_matmul_dtype(cfg)
         check_resilience(cfg)
@@ -468,7 +542,7 @@ class Trainer:
         attention = (cfg.model.attention if cfg.model.arch == "transformer"
                      else None)
         sp, tp, n_fsdp = cfg.mesh.seq, cfg.mesh.tensor, cfg.mesh.fsdp
-        n_pipe = cfg.mesh.pipe
+        n_pipe, n_expert = cfg.mesh.pipe, cfg.mesh.expert
         if seq_group is None and sp > 1 and \
                 attention not in SEQ_SHARDED_IMPLS:
             raise ValueError(
@@ -479,33 +553,41 @@ class Trainer:
         if n_pipe > 1 and distributed.process_count() == 1:
             # one process (no torchrun): every stage runs here
             pipe_group = LocalPipeGroup(n_pipe)
+        if n_expert > 1 and expert_group is None and \
+                distributed.process_count() == 1:
+            expert_group = LocalExpertGroup(n_expert)
         # the process groups of the axes no local group stands for
         self.world = world_setup(
             device, sp=1 if seq_group is not None else sp,
             tp=1 if tensor_group is not None else tp, dp=cfg.mesh.data,
             collective_timeout=cfg.collective_timeout,
             fsdp=1 if fsdp_group is not None else n_fsdp,
-            pp=1 if pipe_group is not None else n_pipe)
+            pp=1 if pipe_group is not None else n_pipe,
+            ep=1 if expert_group is not None else n_expert)
         if seq_group is None and sp > 1:
             seq_group = ProcessSeqGroup(self.world.seq_pg)
         if fsdp_group is None and n_fsdp > 1:
             fsdp_group = ProcessFsdpGroup(self.world.fsdp_pg)
         if pipe_group is None and n_pipe > 1:
             pipe_group = ProcessPipeGroup(self.world.pipe_pg)
-        # the JAX trainer's routing: pipe (x tensor x seq), seq x tensor,
-        # or tensor / fsdp (GSPMD)
+        if expert_group is None and n_expert > 1:
+            expert_group = ProcessExpertGroup(self.world.expert_pg)
+        # the JAX trainer's routing: pipe (x tensor x seq), (seq x) expert
+        # x tensor, (seq x) expert, seq x tensor, or tensor / fsdp (GSPMD)
         self.pipeline = n_pipe > 1
         self.pipe_group = pipe_group
-        self.sp_tp = tp > 1 and sp > 1 and not self.pipeline
+        self.expert_group = expert_group
+        self.ep_tp, self.expert = _moe_layouts(cfg)
+        self.sp_tp = tp > 1 and sp > 1 and not (self.pipeline or self.ep_tp)
         self.gspmd = ((tp > 1 or n_fsdp > 1) and not self.sp_tp
-                      and not self.pipeline)
+                      and not self.pipeline and not self.ep_tp)
         if tensor_group is None and tp > 1:
             tensor_group = ProcessTensorGroup(self.world.tensor_pg)
         elif tensor_group is None and self.gspmd:
             tensor_group = LocalTensorGroup(1)
         self.tensor_group, self.fsdp_group = tensor_group, fsdp_group
         # the qkv column order of this layout's params and snapshots
-        self.qkv_tp = tp if self.sp_tp or self.pipeline else 1
+        self.qkv_tp = tp if self.sp_tp or self.pipeline or self.ep_tp else 1
         # the capacity floor: a world below --min_devices does not train
         # (exit 46, which the supervisor does not retry); one card per rank
         n_devices = self.world.world_size
@@ -537,6 +619,8 @@ class Trainer:
         self.sharded = cfg.update_sharding == "sharded"
         # the JAX trainer's name of the step's program
         self.layout_tag = ("pipe" if self.pipeline else "sp_tp" if self.sp_tp
+                           else "ep_tp" if self.ep_tp
+                           else "expert" if self.expert
                            else "gspmd" if self.gspmd
                            else "sp" if seq_group is not None else "dp")
         if cfg.update_sharding != "replicated":
@@ -567,7 +651,8 @@ class Trainer:
             raise ValueError(f"label_smoothing must be in [0, 1), got "
                              f"{cfg.label_smoothing}")
         self.model = build_model(cfg.model, device=self.device,
-                                 seq_group=seq_group)
+                                 seq_group=seq_group,
+                                 expert_group=expert_group)
         if self.pipeline:   # JAX's checks, before the stages are stacked
             pp._validate_pipe(self.model, pipe_group.size, tp,
                               seq_group.size if seq_group else 1,
@@ -577,7 +662,12 @@ class Trainer:
         self.state_layout: Optional[tp_lib.StateLayout] = None
         # the seeded init drawn for the layout, kept for the first state
         self._init_params = None
-        if self.gspmd or self.sp_tp or self.pipeline:
+        if self.ep_tp or self.expert:
+            self._init_params = self._global_init()
+            self.state_layout = ep_lib.moe_state_layout(
+                self.model, self._init_params,
+                tensor_group if self.ep_tp else None, expert_group)
+        elif self.gspmd or self.sp_tp or self.pipeline:
             self._init_params = self._global_init()
             self.state_layout = tp_lib.state_layout(
                 self.model, self._init_params,
@@ -623,7 +713,7 @@ class Trainer:
         # the sharded updates, sp_tp and the pipeline clip inside the
         # step, by the global norm
         step_clips = self.zero1 or self.sharded or self.sp_tp or \
-            self.pipeline
+            self.pipeline or self.ep_tp or self.expert
         self.optimizer = optim_lib.make(
             cfg.optimizer, lr, cfg.momentum, cfg.weight_decay,
             grad_clip=0.0 if step_clips else cfg.grad_clip, steps=total_steps,
@@ -645,7 +735,8 @@ class Trainer:
         # whose JAX steps return their loss only)
         self.telemetry_metrics = bool(cfg.telemetry_dir
                                       and cfg.metrics_every > 0
-                                      and not (self.sp_tp or self.pipeline))
+                                      and not (self.sp_tp or self.pipeline
+                                               or self.ep_tp or self.expert))
         with_acc = cfg.loss == "cross_entropy"
         if self.pipeline:
             # accumulation folds into the schedule: accum_steps x more
@@ -661,6 +752,31 @@ class Trainer:
             eval_step = pp.make_pipeline_eval_step(
                 self.model, self.world, pipe_group, loss_name=cfg.loss,
                 with_accuracy=with_acc, **pipe_kw)
+        elif self.ep_tp or self.expert:
+            moe_kw = dict(expert_group=expert_group, seq_group=seq_group)
+            if self.ep_tp:
+                moe_step = ep_lib.make_moe_tp_train_step(
+                    self.model, self.optimizer, self.world, tensor_group,
+                    loss_name=train_loss, grad_clip=cfg.grad_clip,
+                    accum_steps=cfg.accum_steps, layout=self.state_layout,
+                    **moe_kw)
+                eval_step = ep_lib.make_moe_tp_eval_step(
+                    self.model, self.world, tensor_group, loss_name=cfg.loss,
+                    with_accuracy=with_acc, layout=self.state_layout,
+                    **moe_kw)
+            else:
+                moe_step = ep_lib.make_moe_train_step(
+                    self.model, self.optimizer, self.world,
+                    loss_name=train_loss, grad_clip=cfg.grad_clip,
+                    accum_steps=cfg.accum_steps, **moe_kw)
+                eval_step = ep_lib.make_moe_eval_step(
+                    self.model, self.world, loss_name=cfg.loss,
+                    with_accuracy=with_acc)
+
+            def step(state, batch):
+                # the step's metrics carry the aux; the loop reads the loss
+                state, metrics = moe_step(state, batch)
+                return state, metrics["loss"]
         elif self.sp_tp:
             step = spmd.make_sp_tp_train_step(
                 self.model, self.optimizer, self.world, tensor_group,
@@ -1122,15 +1238,16 @@ class Trainer:
 
     def _unreplicated(self) -> frozenset:
         """The ids of the state's tensors JAX's layout does not hold
-        replicated: the leaves the rules split over tensor, fsdp or pipe (and
-        the optimizer slots mirroring them, which a local group holds
-        whole all the same), and the optimizer leaves the sharded update
-        splits over the data ranks."""
+        replicated: the leaves the rules split over tensor, fsdp, pipe or
+        expert (and the optimizer slots mirroring them, which a local
+        group holds whole all the same), and the optimizer leaves the
+        sharded update splits over the data ranks."""
         lay, s = self.state_layout, self.state
         if lay is None:
             return frozenset()
         split = [sp.tensor is not None or sp.fsdp is not None
-                 or sp.pipe is not None for sp in lay.specs]
+                 or sp.pipe is not None or sp.expert is not None
+                 for sp in lay.specs]
         out = {id(x) for x, sp in zip(leaves(s.params), split) if sp}
         axes = (self.layout.axes if self.layout is not None
                 else [None] * len(leaves(s.opt_state)))
@@ -1380,7 +1497,8 @@ class Trainer:
                      "dp": int(self.loader.dp),
                      "mesh": {"data": w.dp, "fsdp": cfg.mesh.fsdp,
                               "pipe": cfg.mesh.pipe,
-                              "expert": 1, "seq": w.sp,
+                              "expert": cfg.mesh.expert,
+                              "seq": cfg.mesh.seq,
                               "tensor": cfg.mesh.tensor},
                      "update_sharding": cfg.update_sharding},
                  "consumed_samples": self.loader.consumed_samples(

@@ -31,7 +31,10 @@ and survived when it breaks.  Three tiers:
 Replicated leaves are the tensors of the state in the JAX package's
 flatten order (``.params['w']``, ...; dict keys sorted), skipping the
 host step counter and, under the sharded updates (zero1, ``sharded``),
-the optimizer state, whose slices differ by rank by design.
+the optimizer state, whose slices differ by rank by design; the trainer
+also skips every leaf its layout splits (tensor, fsdp, pipe and, under
+``--ep``, the expert leaves and their optimizer slots), as the JAX
+``Fingerprinter`` skips every leaf that is not fully replicated.
 """
 
 from __future__ import annotations
@@ -287,7 +290,7 @@ class Fingerprinter:
     def __init__(self, tree: Tree, sharded_opt: bool = False,
                  skip: frozenset = frozenset()):
         """``skip``: the ids of ``tree``'s tensors the layout does not hold
-        replicated (a tensor or fsdp slice; the JAX ``Fingerprinter``
+        replicated (a tensor, fsdp or expert slice; the JAX ``Fingerprinter``
         skips every leaf that is not fully replicated)."""
         self.sharded_opt = sharded_opt
         self.paths = [n for n, t in replicated_leaves(tree, sharded_opt)

@@ -163,11 +163,13 @@ def test_init_tree_matches_jax_layout():
 # "ring": the sequence-sharded family is ported (ring and striped:
 # tests/test_torch_sequence.py; ulysses: tests/test_torch_megatron.py), so
 # ulysses without a sequence group is refused as every seq impl is, with
-# a ValueError naming the group.  "fp8": fp8 is ported
-# (tests/test_torch_qmm.py), over MoE FFNs it still refuses
+# a ValueError naming the group.  "moe": MoE FFNs are ported
+# (tests/test_torch_moe.py): a top-k out of range refuses at construction
+# with the JAX layer's ValueError.  "fp8": fp8 is ported
+# (tests/test_torch_qmm.py), an unknown matmul format refuses
 @pytest.mark.parametrize("bad,exc", [
-    (dict(moe_experts=2), NotImplementedError),
-    (dict(matmul_dtype="fp8", moe_experts=2), NotImplementedError),
+    (dict(moe_experts=2, moe_top_k=3), ValueError),
+    (dict(matmul_dtype="fp4", moe_experts=2), ValueError),
     (dict(attention="ulysses"), ValueError)], ids=["moe", "fp8", "ring"])
 def test_unported_configs_refuse(bad, exc):
     with pytest.raises(exc):

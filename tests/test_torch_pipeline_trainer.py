@@ -15,7 +15,8 @@ snapshot prints JAX's tokens.  (f) Over gloo ranks (``ProcessPipeGroup``,
 trajectories equal the ``LocalPipeGroup`` runs' within 1e-6, and a
 snapshot of 4 ranks gathers the stages to rank 0 and restores each
 rank's slices.  (g) The Trainer's refusals under ``--pp``, with JAX's
-type and message; ``--moe_experts`` and ``--ep`` stay refused.
+type and message; ``--moe_experts`` and ``--ep`` stay refused under
+``--pp`` (pipe x expert).
 
 f32, SGD-momentum trajectories (loss rtol 1e-5, params rtol 1e-4 / atol
 1e-5, JAX's own tolerances).

@@ -111,11 +111,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               each flash kernel (fwd, delta, dq, dkv; by design as in
               phase 7) and of ``flash_attention_with_lse``; step
               time, tokens/s, MFU, peak memory and a profile with the
-              flash wrappers' host ms per call.  Then the same under
-              ``--matmul_dtype int8`` (ce_chunk 256) and ``fp8`` (ce_chunk
-              0): B5 under quantized compute, each Linear quantizing its
-              4 sequence shards as 4 ranks would; the same checks, step
-              ms and peak memory beside bf16's.
+              flash wrappers' host ms per call.  Then the same at 2
+              layers, one epoch, under ``--matmul_dtype int8`` (ce_chunk
+              256) and ``fp8`` (ce_chunk 0): B5 under quantized compute,
+              each Linear quantizing its 4 sequence shards as 4 ranks
+              would; the same checks, step ms and peak memory beside
+              bf16's.
 12. seqidentity — f32, TF32 off, 2 layers: 3 SGD steps with ring_flash
               and with striped_flash over ``LocalSeqGroup(4)`` agree with
               flash (losses 1e-5 relative, params 1e-6).
@@ -204,11 +205,12 @@ Phases, each printing its own lines; any failure exits non-zero:
               qdot on the card against the host at (256, 1024->3072):
               the same codes, int8 outputs bitwise, fp8 within that
               bound (dx also one bf16 rounding).  (b)-(c) phase 7's job
-              under ``--matmul_dtype int8`` (ce_chunk 256) and ``fp8``
-              (ce_chunk 0): losses finite and falling 1 nat, flash
+              at phase 15's 2 layers (full width; phase 15's bf16 run the
+              reference) under ``--matmul_dtype int8`` (ce_chunk 256) and
+              ``fp8`` (ce_chunk 0): losses finite and falling 1 nat, flash
               launches by design, the quantized products counted against
-              the design (3 per block Linear and the head's: 160 and
-              147 per step), one step under the profiler (that many
+              the design (3 per block Linear and the head's: 40 and 27
+              per step), one step under the profiler (that many
               ``aten::_int_mm`` / ``aten::_scaled_mm``, no f32 or bf16
               product, every GEMM kernel one of theirs), then
               ``--steps_per_dispatch 13`` bitwise equal to eager; step
@@ -229,7 +231,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               line holds the phase's numbers.
 
 19. resilience — phase 7's job (graphed, k 13, unless a part says
-              otherwise), (b)-(d) cut to 2 layers (full width).  (a)
+              otherwise), cut to 2 layers (full width).  (a)
               ``--skip-nonfinite`` against the same run without it, 2
               epochs, graphed and eager: losses and final state bitwise
               equal; step ms, the guard's overhead and peak memory.
@@ -255,7 +257,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               snapshot and the exit, and from a (re)launch to its first
               step.  (e) 2
               layers, ``--hang_timeout 10 --faults peer_hang@4``: exit 42
-              with the threads' stacks, 10-30 s after the hang.  A
+              with the threads' stacks, 10-30 s after the hang.  (d)'s
+              and (e)'s processes start at the phase's head and run
+              beside (a)-(c).  A
               ``resilience:`` JSON line holds the phase's numbers; the
               flash kernels' launches count phase 19's in-process runs.
               (e)'s run has ``--telemetry_dir``: its flight recorder
@@ -341,9 +345,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               gradients; each trained 26 bf16 steps at 2 layers.  A
               ``tensor_parallel:`` JSON line holds the phase's numbers.
 
-23. the GSPMD layout's memory half — (a) phase 7's job, DP x TP over
-              ``LocalTensorGroup(4)`` under ``--matmul_dtype int8`` and
-              ``fp8`` (ce_chunk 0): one epoch eager (products counted
+23. the GSPMD layout's memory half — (a) phase 7's job at 2 layers
+              (full width; phase 15's bf16 run the loss reference), DP x
+              TP over ``LocalTensorGroup(4)`` under ``--matmul_dtype
+              int8`` and ``fp8`` (ce_chunk 0): one epoch eager (products
+              counted
               against 4 x the dense step's design, one step profiled: no
               unquantized product) and one graphed (k 13, bitwise), and
               each one's 2-layer f32 identity to the dense quantized
@@ -378,7 +384,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               design; then one epoch at ``--steps_per_dispatch 13``,
               bitwise to it.  (c) The same job under ``--pp 4
               --pp_interleave 3``.  (d) ``--pp 2`` x ``LocalTensorGroup(2)``
-              at 12 layers.  (e) ``--pp 2`` x ``LocalSeqGroup(2)`` with
+              at 2 layers.  (e) ``--pp 2`` x ``LocalSeqGroup(2)`` with
               ``striped_flash`` at 2 layers (B5 2 x 2^2 x 2 a step) and
               its f32 identity to the dense striped_flash step.  (f) The
               CLI's 16 sampled tokens equal a decode of the saver's live
@@ -416,6 +422,34 @@ Phases, each printing its own lines; any failure exits non-zero:
               capacity: fused == gathered == ``generate()`` and the card's
               tokens == the host's.  A ``moe:`` JSON line; phase 25's B1-B3,
               B4 and B5 launches join the kernels line's counts.
+26. moe layouts — MoE on the pipe and GSPMD layouts, and
+              ``models.generate_tp``: (a) the MoE LM under ``--pp 2 --ep
+              2`` over ``LocalPipeGroup(2)`` x ``LocalExpertGroup(2)`` at
+              full width (ce_chunk 256), one epoch eager (1 nat, B1-B3 24
+              a step all sm90, a profile with the dispatch/combine
+              class) and graphed (k 13, bitwise); (c) the MoE LM on the
+              GSPMD layout under ``--tp 4`` over ``LocalTensorGroup(4)``
+              (one routing group of the 8192 tokens; ce_chunk 0), eager
+              (profiled; B1-B3 48 a step) and graphed (bitwise), and
+              ``--fsdp 4`` over ``LocalFsdpGroup(4)`` at 2 layers, eager;
+              (b), (c) f32, TF32 off, 2 layers (4 for the interleave), 3
+              SGD steps from one seed: pp 2 x ep 2, pp 2 x ep 2 x tp 2
+              and ``--pp_interleave 2`` x ep 2 == the expert steps with
+              ``--accum_steps 2``, ``--tp 4`` and ``--fsdp 4`` == the DP
+              MoE step, all within 1e-6 (losses 1e-5 relative), each
+              run's flash launches by design; pp 2 x sp 2 x ep 2
+              striped_flash (B5) at T 128 on the card == the host's (a
+              subprocess started at the phase's head) within 1e-5;
+              ``--generate`` through the CLI from a pp 2 x ep 2 snapshot
+              (2 layers) == the decode of the saver's params; (d)
+              ``generate_tp`` over ``LocalTensorGroup(4)``: the flagship
+              and the MoE LM in f32, greedy tokens == ``generate()``'s
+              with the head whole and vocab-parallel; bf16 tokens/s of
+              both beside ``generate()``'s; a pp 2 x tp 2 snapshot's
+              params through ``pipeline_params_for_decode`` at tensor
+              size 4 (qkv re-permuted) == ``generate()`` over the
+              saver's params.  A ``moe_layouts:`` JSON line; phase 26's
+              B1-B3 and B5 launches join the kernels line's counts.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -1647,7 +1681,8 @@ def fwd_launches_per_layer(model_cfg):
 
 def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                      profile=True, inspect=None, tag=None, tensor_group=None,
-                     fsdp_group=None, expert_group=None, **over):
+                     fsdp_group=None, expert_group=None, keep_init=False,
+                     **over):
     """Train through the port's own Trainer and CLI config (over
     ``seq_group`` for a sequence-sharded attention, ``tensor_group`` for
     tensor parallelism; under ``pp=S`` the pipeline's every microbatch
@@ -1656,8 +1691,10 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
     peak memory and (``profile``) a profile of 3 more steps.  Returns the
     printed numbers and every step's loss; with ``keep_final``, also a
     host copy of the params after the last step (taken before the
-    profile's steps); ``inspect(trainer)`` returns more numbers to
-    print, read after the last step."""
+    profile's steps); with ``keep_init``, a host copy of the seeded
+    init (``init_params``: :func:`dispatch_full_width` starts from it
+    rather than draw it again); ``inspect(trainer)`` returns more numbers
+    to print, read after the last step."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
@@ -1686,6 +1723,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
                           expert_group=expert_group)
         trainer.init_state()
         n_params = sum(p.numel() for p in leaves(trainer.state.params))
+        init = (tree_map(lambda p: p.detach().to("cpu", copy=True),
+                         trainer.state.params) if keep_init else None)
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
@@ -1760,7 +1799,8 @@ def train_full_width(torch, np, device, seq_group=None, keep_final=False,
             out.update(profile_training(torch, trainer,
                                         moe=m.moe_experts > 0))
     print(f"{tag}: " + json.dumps(out), flush=True)
-    return dict(out, losses=losses, final_params=final, final_tree=final_tree)
+    return dict(out, losses=losses, final_params=final, final_tree=final_tree,
+                init_params=init)
 
 
 def _kernel_class(name, moe=False):
@@ -2659,6 +2699,29 @@ def launch_profile(torch, run, n_steps):
                 profiled_flash_kernels_per_step=flash / n_steps)
 
 
+@__import__("contextlib").contextmanager
+def eager_init(torch, init):
+    """Trainers built inside start from ``init`` (a host copy of the
+    eager run's seeded init, the same seed and layout: the same values)
+    instead of drawing it again on the host, which takes ~10 s for the
+    924.5M-param MoE LM; ``None``: they draw it."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.trainer import (  # noqa: E501
+        Trainer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    draw = Trainer._global_init
+    if init is not None:
+        Trainer._global_init = lambda self: tree_map(
+            lambda t: t.to(self.device, copy=True), init)
+    try:
+        yield
+    finally:
+        Trainer._global_init = draw
+
+
 def dispatch_full_width(torch, np, device, eager, seq_group=None,
                         k=DISPATCH_K, exact=False, tag=None, inspect=None,
                         profile=True, tensor_group=None, fsdp_group=None,
@@ -2698,10 +2761,12 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         cfg = config_from_args(build_argparser().parse_args(train_flags(
             metrics_jsonl=metrics, steps_per_dispatch=k, **over)))
         before = memory_before(torch, device)
-        trainer = Trainer(cfg, device=device, seq_group=seq_group,
-                          tensor_group=tensor_group, fsdp_group=fsdp_group,
-                          expert_group=expert_group)
-        trainer.init_state()
+        with eager_init(torch, eager.get("init_params")):
+            trainer = Trainer(cfg, device=device, seq_group=seq_group,
+                              tensor_group=tensor_group,
+                              fsdp_group=fsdp_group,
+                              expert_group=expert_group)
+            trainer.init_state()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
         fa.set_launch_counts()
@@ -2711,7 +2776,8 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
         fit_s = time.perf_counter() - t0
         counts = fa.launch_counts()
         gemms = dict(qmm.library_gemm.launches)
-        final = [p.detach().cpu() for p in flat_params(trainer.state.params)]
+        # compared on the card, leaf by leaf, with the eager run's host copy
+        final = [p.detach() for p in flat_params(trainer.state.params)]
         inspected = inspect(trainer) if inspect is not None else {}
         with open(metrics) as f:
             losses = {r["step"]: r["loss"] for r in map(json.loads, f)
@@ -2728,13 +2794,15 @@ def dispatch_full_width(torch, np, device, eager, seq_group=None,
     loss_diff = max(abs(losses[s] - eager["losses"][s - 1]) for s in ends)
     loss_rel = max(abs(losses[s] - eager["losses"][s - 1])
                    / abs(eager["losses"][s - 1]) for s in ends)
-    param_diff = max(float((a - b).abs().max())
-                     for a, b in zip(final, eager["final_params"]))
+    pairs = [(a, b.to(a.device)) for a, b in zip(final,
+                                                   eager["final_params"])]
+    param_diff = max(float((a - b).abs().max()) for a, b in pairs)
     bitwise = loss_diff == 0 and param_diff == 0
     # phase 8's f32 tolerance, the bar should graph and eager not be equal
-    within = loss_rel <= 1e-5 and all(
+    within = bitwise or (loss_rel <= 1e-5 and all(
         bool(((a - b).abs() <= 1e-5 + 1e-4 * b.abs()).all())
-        for a, b in zip(final, eager["final_params"]))
+        for a, b in pairs))
+    del pairs, final
     print(f"{tag}: k {k}, {steps} steps, losses at the dispatch ends "
           f"{[round(losses[s], 4) for s in ends]}; against the eager run: "
           f"largest loss difference {loss_diff:.3g} ({loss_rel:.3g} "
@@ -3650,13 +3718,14 @@ def profile_quant_step(torch, trainer, fmt, per_step=None):
 
 
 def quant_train_full_width(torch, np, device, trained, **over):
-    """(b)-(c) Phase 7's job under --matmul_dtype int8 (ce_chunk 256) and
-    fp8 (ce_chunk 0, as the trainer requires), eager (its products counted
-    against the design and one step profiled) and under
+    """(b)-(c) Phase 7's job (``over``: its flags changed; the script cuts
+    it to phase 15's 2 layers) under --matmul_dtype int8 (ce_chunk 256)
+    and fp8 (ce_chunk 0, as the trainer requires), eager (its products
+    counted against the design and one step profiled) and under
     --steps_per_dispatch 13 (CUDA-graph replay, bitwise equal to eager);
     every loss finite and falling 1 nat (train_full_width), flash launches
-    by design; step ms, tokens/s and peak memory beside bf16 (phase 7:
-    ``trained``) and the largest |loss - bf16 loss|.  Then int8's
+    by design; step ms, tokens/s and peak memory beside bf16 (``trained``:
+    the bf16 run at the same depth) and the largest |loss - bf16 loss|.  Then int8's
     witnesses, eager: ce_chunk 0 (the head's products whole, none run
     again) and the head unquantized (``--quantize_skip head``), their
     losses against bf16's and the int8 run's."""
@@ -3713,7 +3782,7 @@ def quant_train_full_width(torch, np, device, trained, **over):
                        graphed_bitwise=graphed["bitwise"])
             print(f"quant {fmt}: step {run['step_ms_median']:.2f} ms eager, "
                   f"{graphed['step_ms_median']:.2f} ms graphed vs bf16 "
-                  f"{trained['step_ms_median']:.2f} ms (phase 7); "
+                  f"{trained['step_ms_median']:.2f} ms eager; "
                   f"{run['tokens_per_s']:.0f} tokens/s eager; peak memory "
                   f"{run['peak_memory_gib']:.2f} GiB vs "
                   f"{trained['peak_memory_gib']:.2f} GiB; largest |loss - "
@@ -3861,7 +3930,7 @@ def quant_identity(torch, np, device, host, n_layers=2, steps=3,
 
 def start_quant_host(tmp):
     """(d)'s host runs (unquantized, int8, fp8) in a subprocess of this
-    script, started at the phase's head and read by
+    script, started after phase 17 (a) and read by
     :func:`read_quant_host`."""
     path = f"{tmp}/quant_host.npz"
     env = dict(os.environ, OMP_NUM_THREADS="4")
@@ -4100,8 +4169,9 @@ def res_fit(torch, device, tag, inspect=None, **over):
 
 def guard_happy_path(torch, device):
     """(a) ``--skip-nonfinite`` against the same run without it, graphed
-    (k 13) and eager, 2 epochs: losses and final state bitwise equal; the
-    guard's overhead on the step time and peak memory."""
+    (k 13) and eager, 2 epochs at phase 15's 2 layers: losses and final
+    state bitwise equal; the guard's overhead on the step time and peak
+    memory."""
     out, runs = {}, {}
     for mode, k in (("graphed", DISPATCH_K), ("eager", 1)):
         order = ((False, True) if mode == "graphed" else (True, False))
@@ -4109,7 +4179,8 @@ def guard_happy_path(torch, device):
             extra = {"skip-nonfinite": True} if guard else {}
             runs[(mode, guard)] = res_fit(
                 torch, device, f"guard {mode} {'on' if guard else 'off'}",
-                nepochs=2, steps_per_dispatch=k, **extra)
+                nepochs=2, steps_per_dispatch=k, n_layers=CUT_LAYERS,
+                **extra)
         on, off = runs[(mode, True)], runs[(mode, False)]
         if on["losses"] != off["losses"] or not all(
                 math.isfinite(x) for x in on["losses"].values()):
@@ -4475,23 +4546,24 @@ def guard_watchdog():
 def resilience_full_width(torch, np, device, straight, background=None):
     """Phase 19: (a)-(e) above; the flash launches of the in-process runs
     (their counts set to 0 before each).  ``background()``, called once
-    (a)'s timed runs are done, starts host work that runs beside the rest
+    (a)'s runs are done, starts host work that runs beside the rest
     (phase 21's writer)."""
     out = {}
-    out["happy"], l1 = guard_happy_path(torch, device)
-    if background is not None:
-        background()
     # (d)'s chains, its exit-44 run and (e) are processes, run side by
-    # side and beside (b) and (c): their checks are exit codes, messages,
-    # bitwise snapshots and a hang's seconds to exit (the watchdog's
-    # timeout and poll); their start-up and signal-to-exit seconds, and
-    # (c)'s restore seconds, are read under that load
+    # side and beside (a)-(c), from the phase's head (the chains are its
+    # longest path): their checks are exit codes, messages, bitwise
+    # snapshots and a hang's seconds to exit (the watchdog's timeout and
+    # poll); their start-up and signal-to-exit seconds, (a)'s step ms and
+    # (c)'s restore seconds are read under that load
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(3) as pool:
         abort = pool.submit(guard_abort)
         cli = pool.submit(guard_cli, torch, device, straight)
         watchdog = pool.submit(guard_watchdog)
+        out["happy"], l1 = guard_happy_path(torch, device)
+        if background is not None:
+            background()
         out["faults"], l2 = guard_faults(torch, device)
         out["rollback"], l3 = guard_rollback(torch, device)
         out["watchdog"] = watchdog.result()
@@ -5581,8 +5653,7 @@ def tensor_parallel_full_width(torch, np, device):
                                   exact=True, profile=False,
                                   tag="dispatch dp x tp4", **tp_over)
     del eager["final_params"]
-    # phase 23 reads the bf16 losses (a) and the dense final params (c)
-    out["dp_tp_losses"] = eager["losses"]
+    # phase 23 (c) reads the dense final params
     final_tree = eager.pop("final_tree")
     out["dp_tp"] = {k: eager[k] for k in (
         "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
@@ -5650,15 +5721,17 @@ class _TensorRank:
         self.size, self.rank = size, rank
 
 
-def quant_tp_full_width(torch, np, device, bf16_losses):
-    """(a) Phase 7's job at full depth and width, DP x TP over
+def quant_tp_full_width(torch, np, device, bf16_losses, **over):
+    """(a) Phase 7's job at full width (``over``: its flags changed; the
+    script cuts it to phase 15's 2 layers), DP x TP over
     ``LocalTensorGroup(4)``, int8 and fp8 (ce_chunk 0, as ``--tp``
     requires): one epoch eager (its products counted against tp x the
     dense step's design, one step profiled: no unquantized product) and
-    one graphed (k 13, bitwise to eager); B1-B3 48 a step, all sm90; the
-    largest |loss - phase 22's bf16 TP loss| over the epoch.  Then the
-    f32 identity at 2 layers: the TP quantized step within the
-    code-flip bounds of the dense quantized step."""
+    one graphed (k 13, bitwise to eager); B1-B3 4 x n_layers a step, all
+    sm90; the largest |loss - bf16 loss| over the epoch (``bf16_losses``:
+    phase 15's DP run at the same depth).  Then the f32 identity at 2
+    layers: the TP quantized step within the code-flip bounds of the
+    dense quantized step."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         build_argparser, config_from_args,
     )
@@ -5669,7 +5742,8 @@ def quant_tp_full_width(torch, np, device, bf16_losses):
     cuda = device.type == "cuda"
     out = {}
     for fmt in ("int8", "fp8"):
-        flags = dict(tp=TP_SHARDS, ce_chunk=0, matmul_dtype=fmt, nepochs=1)
+        flags = dict(over, tp=TP_SHARDS, ce_chunk=0, matmul_dtype=fmt,
+                     nepochs=1)
         cfg = config_from_args(build_argparser().parse_args(
             train_flags(**flags)))
         per_step = TP_SHARDS * quant_step_design(cfg)
@@ -5687,7 +5761,7 @@ def quant_tp_full_width(torch, np, device, bf16_losses):
                                  f"{run['gemm_launches']}, by design {want}")
         delta = max(abs(a - b) for a, b in zip(run["losses"], bf16_losses))
         res = dict(losses=[round(x, 4) for x in run["losses"]],
-                   max_abs_loss_diff_vs_bf16_tp=delta,
+                   max_abs_loss_diff_vs_bf16=delta,
                    gemm_launches=run["gemm_launches"],
                    products_per_step=per_step, launches=run["launches"],
                    **{k: run[k] for k in ("step_ms_median", "tokens_per_s",
@@ -5711,7 +5785,7 @@ def quant_tp_full_width(torch, np, device, bf16_losses):
                   f"replay's device time); "
                   f"{run['tokens_per_s']:.0f} tokens/s eager; peak memory "
                   f"{run['peak_memory_gib']:.2f} GiB; largest |loss - bf16 "
-                  f"TP loss| {delta:.4f}", flush=True)
+                  f"loss| {delta:.4f}", flush=True)
         (ld, pd), (lt, pt), _, p0 = tp_identity_runs(torch, device,
                                                      matmul_dtype=fmt)
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lt, ld))
@@ -6121,8 +6195,9 @@ def generate_under_tp(procs, reference):
                 distinct=distinct)
 
 
-def gspmd_memory_half(torch, np, device, tensor, tp_final):
-    """Phase 23: (a)-(f) above; its seconds."""
+def gspmd_memory_half(torch, np, device, short, tp_final):
+    """Phase 23: (a)-(f) above; its seconds.  ``short``: phase 15's bf16
+    run at 2 layers, (a)'s reference."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -6136,7 +6211,8 @@ def gspmd_memory_half(torch, np, device, tensor, tp_final):
         marks.append(time.perf_counter())
 
     out = {"quant_tp": quant_tp_full_width(torch, np, device,
-                                           tensor["dp_tp_losses"])}
+                                           short["losses"],
+                                           n_layers=CUT_LAYERS)}
     mark()
     out["fsdp"] = fsdp_on_card(torch, np, device)
     mark()
@@ -6401,8 +6477,8 @@ def pipeline_full_width(torch, np, device):
             out["pp4_interleave3"] = {k: inter[k] for k in keys if k in inter}
             pp_tp = train_full_width(
                 torch, np, device, tensor_group=LocalTensorGroup(2),
-                profile=False,
-                tag="train pp2 x tp2", pp=2, tp=2, nepochs=1)
+                profile=False, tag=f"train pp2 x tp2 {CUT_LAYERS} layers",
+                pp=2, tp=2, nepochs=1, n_layers=CUT_LAYERS)
             out["pp2_tp2"] = {k: pp_tp[k] for k in keys if k in pp_tp}
             pp_sp = train_full_width(
                 torch, np, device, seq_group=LocalSeqGroup(2),
@@ -6649,41 +6725,35 @@ def moe_identity_ep_dense(torch, device, n_layers=CUT_LAYERS, steps=3,
                 dp_first_loss_vs_forward=[ld[0], first])
 
 
-def moe_host_runs(torch, device, out_path=None):
-    """(d) :data:`MOE_HOST_JOBS` through the Trainer over local groups on
-    ``device``, f32 (TF32 off), :data:`MOE_HOST_STEPS` steps each: the
-    losses and final params (host numpy) by job; with ``out_path``, saved
-    there (the host's run, a subprocess of this script)."""
+def moe_host_runs(torch, device, out_path=None, jobs=None):
+    """(d) :data:`MOE_HOST_JOBS` (or ``jobs``: phase 26 (b)'s) through
+    the Trainer over local groups on ``device``, f32 (TF32 off),
+    :data:`MOE_HOST_STEPS` steps each: the losses and final params (host
+    numpy, the blocks per layer) by job; with ``out_path``, saved there
+    (the host's run, a subprocess of this script)."""
     import numpy as np
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
     )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.expert import (  # noqa: E501
-        LocalExpertGroup,
-    )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
-        LocalTensorGroup,
-    )
-    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
-        LocalSeqGroup,
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.pipeline import (  # noqa: E501
+        dense_layer_blocks,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     platform = {} if device.type == "cuda" else dict(platform="cpu")
     out = {}
-    for name, job in MOE_HOST_JOBS.items():
-        groups = dict(expert_group=LocalExpertGroup(job["ep"]))
-        if job.get("sp"):
-            groups["seq_group"] = LocalSeqGroup(job["sp"])
-        if job.get("tp"):
-            groups["tensor_group"] = LocalTensorGroup(job["tp"])
+    for name, job in (jobs or MOE_HOST_JOBS).items():
+        groups = _groups_of(torch, job)
         fa.set_launch_counts()
         t = _trainer(torch, device, steps=MOE_HOST_STEPS,
                      **dict(MOE_HOST, **job, **platform, **groups))
+        params = t.state.params
+        if job.get("pp"):
+            params = dict(params, blocks=dense_layer_blocks(params["blocks"]))
         out[name] = dict(losses=t.losses, params=[
-            p.detach().cpu().numpy() for p in flat_params(t.state.params)],
+            p.detach().cpu().numpy() for p in flat_params(params)],
             launches=fa.launch_counts())
         del t
     if out_path is not None:
@@ -6695,23 +6765,25 @@ def moe_host_runs(torch, device, out_path=None):
     return out
 
 
-def start_moe_host_runs(tmp):
-    """(d)'s host runs in a subprocess of this script (the CPU's threads
-    beside the card's work); :func:`moe_card_vs_host` reads them."""
-    path = f"{tmp}/moe_host.npz"
+def start_moe_host_runs(tmp, flag="--moe-host"):
+    """(d)'s host runs (``--pp-ep-host``: phase 26 (b)'s) in a subprocess
+    of this script (the CPU's threads beside the card's work);
+    :func:`moe_card_vs_host` reads them."""
+    path = f"{tmp}/{flag.strip('-')}.npz"
     env = dict(os.environ, OMP_NUM_THREADS="4")
-    proc = subprocess.Popen([sys.executable, __file__, "--moe-host", path],
+    proc = subprocess.Popen([sys.executable, __file__, flag, path],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, cwd=str(REPO_ROOT), env=env)
     return proc, path
 
 
-def moe_card_vs_host(torch, np, device, proc, path):
-    """(d) the card's runs of :data:`MOE_HOST_JOBS` against the host's:
-    losses within 1e-5 relative, params within 1e-5 (absolute and
-    relative); the card's B1-B3 (simt in f32) and B5 launches by
-    design."""
-    card = moe_host_runs(torch, device)
+def moe_card_vs_host(torch, np, device, proc, path, jobs=None):
+    """(d) the card's runs of :data:`MOE_HOST_JOBS` (or ``jobs``) against
+    the host's: losses within 1e-5 relative, params within 1e-5 (absolute
+    and relative); the card's B1-B3 (simt in f32) and B5 launches by
+    design (a pipeline's per microbatch)."""
+    jobs = jobs or MOE_HOST_JOBS
+    card = moe_host_runs(torch, device, jobs=jobs)
     o, e = proc.communicate(timeout=900)
     if proc.returncode != 0:
         raise AssertionError(f"moe host runs: rc {proc.returncode}\n"
@@ -6720,7 +6792,7 @@ def moe_card_vs_host(torch, np, device, proc, path):
     with open(path + ".json") as f:
         host_losses = json.load(f)
     out = {}
-    for name, job in MOE_HOST_JOBS.items():
+    for name, job in jobs.items():
         got = card[name]
         want = [host[f"{name}/{i}"] for i in range(len(got["params"]))]
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
@@ -6731,7 +6803,7 @@ def moe_card_vs_host(torch, np, device, proc, path):
             np.allclose(a, b, rtol=1e-5, atol=1e-5)
             for a, b in zip(got["params"], want))
         blocks = ring_blocks(job.get("attention", "flash"), job.get("sp", 1),
-                             job.get("tp", 1))
+                             job.get("tp", 1)) * job.get("pp", 1)
         expect = (MOE_HOST["n_layers"] * blocks * MOE_HOST_STEPS
                   if device.type == "cuda" else 0)
         launches = got["launches"]
@@ -6833,10 +6905,10 @@ def moe_full_width(torch, np, device):
     ``LocalExpertGroup(4)`` at full width, ce_chunk 0, one epoch eager
     (the 1-nat check, step ms, tokens/s, peak memory, B1-B3 12 a step all
     on sm90, a profile with the dispatch/combine class, the final
-    snapshot (e) decodes) and one graphed (k 13, bitwise); (c)
-    ``--moe_top_k 2`` on the plain DP step (ce_chunk 256) at full width,
-    eager (with a profile) and graphed (bitwise); (e)'s ``--generate``
-    process starts; (d) the f32 identities; (f) serving; (e) the tokens
+    snapshot (e) decodes) and one graphed (k 13, bitwise); (e)'s
+    ``--generate`` process starts; (c) ``--moe_top_k 2`` on the plain DP
+    step (ce_chunk 256) at full width, eager (with a profile) and graphed
+    (bitwise); (d) the f32 identities; (f) serving; (e) the tokens
     against the decode of (b)'s final params."""
     import tempfile
     from pathlib import Path
@@ -6860,6 +6932,7 @@ def moe_full_width(torch, np, device):
             ck = Path(tmp) / "ck"
             eager = train_full_width(
                 torch, np, device, keep_final="tree", tag="train moe ep4",
+                keep_init=True,
                 checkpoint_dir=ck, inspect=lambda t: dict(
                     save_s=t.save_seconds[-1], snapshot_bytes=snapshot_bytes(
                         ck / f"ckpt-{int(t.state.step)}")),
@@ -6868,26 +6941,29 @@ def moe_full_width(torch, np, device):
                 torch, np, device, eager, exact=True, profile=False,
                 tag="dispatch moe ep4",
                 expert_group=LocalExpertGroup(EP_SHARDS), **ep4)
-            del eager["final_params"]
+            del eager["final_params"], eager["init_params"]
             out["ep4"] = {k: eager[k] for k in MOE_KEYS if k in eager}
             out["ep4_graphed"] = {k: graphed[k] for k in (
                 "step_ms_median", "step_ms_from", "tokens_per_s", "mfu",
                 "peak_memory_gib", "launches", "bitwise", "replays",
                 "launches_per_replay")}
+            # (e) once (b)'s timed runs are done: its start-up, the
+            # snapshot's checksum and restore run beside (c) (its decode,
+            # 16 tokens, shares the card for well under a second)
+            gen = start_moe_generate(ck)
+            procs.append(gen)
             top2 = dict(moe_top_k=2, nepochs=1, **MOE_FLAGS)
             dense = train_full_width(torch, np, device, keep_final=True,
-                                     tag="train moe top-2 dp", **top2)
+                                     tag="train moe top-2 dp",
+                                     keep_init=True, **top2)
             dense_g = dispatch_full_width(
                 torch, np, device, dense, exact=True, profile=False,
                 tag="dispatch moe top-2 dp", **top2)
-            del dense["final_params"]
+            del dense["final_params"], dense["init_params"]
             out["dp_top2"] = {k: dense[k] for k in MOE_KEYS if k in dense}
             out["dp_top2_graphed"] = {k: dense_g[k] for k in (
                 "step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
                 "launches", "bitwise", "replays")}
-            # (e) after the timed runs: the process shares the card
-            gen = start_moe_generate(ck)
-            procs.append(gen)
             reference = reference_decode(
                 torch, device, tree_map(lambda t: t.to(device),
                                         eager.pop("final_tree")),
@@ -6912,6 +6988,401 @@ def moe_full_width(torch, np, device):
     out["paged_launches"] = out["serve"]["serve"]["launches"]
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 25: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 26: MoE on the pipe and GSPMD layouts, tensor-parallel decoding
+# ---------------------------------------------------------------------------
+
+PP_EP = dict(pp=2, ep=2, **MOE_FLAGS)
+# (b)'s card-vs-host identity of pp 2 x sp 2 x ep 2 (MOE_HOST's 2 layers
+# at full width, T 128)
+PP_EP_HOST_JOBS = {"pp2_sp2_ep2_striped_flash": dict(
+    pp=2, sp=2, ep=2, attention="striped_flash")}
+# (d)'s decode: 4 prompts of 32 tokens, 16 greedy tokens in f32; 8 of 128
+# and 16 new tokens for the bf16 rate (each decoder warmed up on 2)
+TP_DECODE = dict(rows=4, prompt=32, new=16)
+TP_DECODE_RATE = dict(rows=8, prompt=128, new=16)
+
+
+def _groups_of(torch, kw):
+    """Local groups for the layout flags ``kw`` (``ep``, ``pp``, ``sp``,
+    ``tp``, ``fsdp``), one card holding every shard."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.expert import (  # noqa: E501
+        LocalExpertGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.fsdp import (  # noqa: E501
+        LocalFsdpGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.sequence import (  # noqa: E501
+        LocalSeqGroup,
+    )
+
+    groups = {}
+    for flag, name, cls in (("ep", "expert_group", LocalExpertGroup),
+                            ("sp", "seq_group", LocalSeqGroup),
+                            ("tp", "tensor_group", LocalTensorGroup),
+                            ("fsdp", "fsdp_group", LocalFsdpGroup)):
+        if kw.get(flag, 1) > 1:
+            groups[name] = cls(kw[flag])
+    return groups
+
+
+def _dense_flat(trainer):
+    """A trainer's params as :func:`flat_params` leaves in the per-layer
+    order (a pipeline's stage stack unstacked; the qkv order kept)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.pipeline import (  # noqa: E501
+        dense_layer_blocks,
+    )
+
+    params = trainer.whole_params()
+    if trainer.pipeline:
+        params = dict(params, blocks=dense_layer_blocks(params["blocks"]))
+    return [p.detach() for p in flat_params(params)]
+
+
+def layout_identity(torch, device, tag, ref, run, steps=3, bar=1e-6,
+                    refs=None, **common):
+    """(b), (c) f32, TF32 off, full width at 2 layers (``common`` may
+    change the depth), SGD-momentum: ``steps`` steps of two Trainers
+    over local groups from the same seeded init and batches (``ref`` and
+    ``run``: their layout flags): losses within 1e-5 relative, params
+    within ``bar``; each run's flash launches (simt in f32) of
+    ``n_layers`` x shards x microbatches (x accumulation) a step.
+    ``refs``: a dict keeping each reference run for the calls after."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    one_rank_group(torch, device)
+    kw = dict(F32_2L, **MOE_FLAGS)
+    kw.update(common)
+    refs = {} if refs is None else refs
+    runs = []
+    for flags in (ref, run):
+        key = json.dumps(dict(kw, **flags), sort_keys=True)
+        if flags is ref and key in refs:
+            runs.append(refs[key])
+            continue
+        fa.set_launch_counts()
+        t = _trainer(torch, device, steps=steps,
+                     **dict(kw, **flags, **_groups_of(torch, flags)))
+        per = (kw["n_layers"] * flags.get("pp", 1)
+               * flags.get("accum_steps", 1)
+               * ring_blocks(flags.get("attention", kw.get("attention",
+                                                           "flash")),
+                             flags.get("sp", 1), flags.get("tp", 1)))
+        runs.append((t.losses, _dense_flat(t), fa.launch_counts()["all"],
+                     per * steps if device.type == "cuda" else 0))
+        if flags is ref:
+            refs[key] = runs[-1]
+        del t
+    (lr_, pr, ar, er), (lu, pu, au, eu) = runs
+    worst = max(float((a - b).abs().max()) for a, b in zip(pu, pr))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lu, lr_))
+    print(f"{tag}: losses {lu} vs {lr_} (largest relative diff "
+          f"{loss_rel:.3g}); params max |diff| {worst:.3e}; flash launches "
+          f"{au} vs {ar}, expected {eu} / {er} each", flush=True)
+    if loss_rel > 1e-5 or worst > bar:
+        raise AssertionError(f"{tag}: beyond the bar")
+    if au != dict.fromkeys(au, eu) or ar != dict.fromkeys(ar, er):
+        raise AssertionError(f"{tag}: flash launches {au} / {ar}, expected "
+                             f"{eu} / {er}")
+    return dict(losses=lu, ref_losses=lr_, loss_max_rel_diff=loss_rel,
+                param_max_abs_diff=worst, launches=au)
+
+
+def start_generate_from_pp_ep(ck):
+    """(b) ``--generate`` through the CLI from the pp 2 x ep 2 snapshot
+    (2 layers; the mesh flags accepted and ignored), sampled at
+    temperature 1 from the seed; it starts here and runs beside the
+    rest of the phase."""
+    flags = train_flags(checkpoint_dir=ck, n_layers=CUT_LAYERS, ce_chunk=0,
+                        **PP_EP)
+    return subprocess.Popen([sys.executable, "-m", PKG, *flags,
+                             *GENERATE_FLAGS], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=str(REPO_ROOT))
+
+
+def _decode_model(torch, device, dtype, moe):
+    """(d) The flagship (or its MoE LM) at full width in ``dtype``, its
+    params drawn on the card from the seed."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer,
+    )
+
+    import dataclasses
+
+    cfg = big_config(torch, dtype=dtype)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe_experts=MOE_EXPERTS)
+    model = Transformer(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        SEED + 26 + moe))
+    return model, params
+
+
+def generate_tp_full_width(torch, np, device):
+    """(d) ``models.generate_tp`` under ``LocalTensorGroup(4)`` at full
+    width: the flagship and its MoE LM (8 experts), f32 (TF32 off),
+    greedy :data:`TP_DECODE` tokens equal to ``generate()``'s with the
+    head whole and vocab-parallel; bf16 tokens/s of both decoders at
+    :data:`TP_DECODE_RATE`; a pp 2 x tp 2 snapshot (2 layers, f32)
+    through ``pipeline_params_for_decode`` at tensor size 4 (the qkv
+    columns re-permuted) against ``generate()`` over the saver's own
+    params."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.generate import (  # noqa: E501
+        generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models.generate_tp import (  # noqa: E501
+        generate_tp, pipeline_params_for_decode,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        megatron,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.pipeline import (  # noqa: E501
+        dense_layer_blocks,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        checkpoint as ckpt,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = megatron.LocalTensorGroup(TP_SHARDS)
+    rng = np.random.default_rng(SEED + 26)
+    out = {}
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+
+    def permuted(model, params, tp):
+        c = model.cfg
+        return dict(params, blocks=megatron.permute_qkv(
+            params["blocks"], c.d_model, c.n_heads, tp, kv_heads=c.kv_heads))
+
+    for name, moe in (("flagship", False), ("moe", True)):
+        model, params = _decode_model(torch, device, torch.float32, moe)
+        prompt = rng.integers(0, model.cfg.vocab_size,
+                              (TP_DECODE["rows"], TP_DECODE["prompt"]))
+        want = generate(model, params, prompt, TP_DECODE["new"],
+                        device=device)
+        tp_params = permuted(model, params, TP_SHARDS)
+        equal = {}
+        for vp in (False, True):
+            got = generate_tp(model, tp_params, prompt, group,
+                              TP_DECODE["new"], vocab_parallel=vp,
+                              device=device)
+            equal[vp] = bool(torch.equal(got, want))
+        print(f"generate_tp {name} f32 (LocalTensorGroup({TP_SHARDS}), "
+              f"{TP_DECODE['rows']} x {TP_DECODE['prompt']} prompt, "
+              f"{TP_DECODE['new']} greedy tokens): equal to generate() "
+              f"with the head whole {equal[False]}, vocab-parallel "
+              f"{equal[True]}", flush=True)
+        if not all(equal.values()):
+            raise AssertionError(f"generate_tp {name}: the f32 greedy "
+                                 "tokens differ from generate()'s")
+        del params, tp_params
+        model, params = _decode_model(torch, device, torch.bfloat16, moe)
+        prompt = rng.integers(0, model.cfg.vocab_size,
+                              (TP_DECODE_RATE["rows"],
+                               TP_DECODE_RATE["prompt"]))
+        tp_params = permuted(model, params, TP_SHARDS)
+        rate = {}
+        for which, fn in (
+                ("generate_tp", lambda n: generate_tp(
+                    model, tp_params, prompt, group, n, device=device)),
+                ("generate_tp_vocab_parallel", lambda n: generate_tp(
+                    model, tp_params, prompt, group, n, vocab_parallel=True,
+                    device=device)),
+                ("generate", lambda n: generate(
+                    model, params, prompt, n, device=device))):
+            fn(2)       # warm-up: the prefill and a decode step
+            sync()
+            t0 = time.perf_counter()
+            fn(TP_DECODE_RATE["new"])
+            sync()
+            rate[which] = (TP_DECODE_RATE["rows"] * TP_DECODE_RATE["new"]
+                           / (time.perf_counter() - t0))
+        print(f"generate_tp {name} bf16 tokens/s ({TP_DECODE_RATE['rows']} "
+              f"x {TP_DECODE_RATE['prompt']} prompt, "
+              f"{TP_DECODE_RATE['new']} new, wall): " + json.dumps(
+                  {k: round(v, 1) for k, v in rate.items()}), flush=True)
+        out[name] = dict(f32_equal=equal, bf16_tokens_per_s=rate)
+        del model, params, tp_params
+    # a pp 2 x tp 2 snapshot decoded at tensor size 4
+    with tempfile.TemporaryDirectory() as tmp:
+        saver = _trainer(torch, device, steps=2, checkpoint_dir=tmp,
+                         pp=2, tp=2, **dict(F32_2L, lr=1e-5),
+                         **_groups_of(torch, dict(tp=2)))
+        saver.save(final=True)
+        ckpt.wait_pending()
+        model = saver.model
+        dense = dict(saver.state.params, blocks=dense_layer_blocks(
+            saver.state.params["blocks"], model.cfg, 2))
+        template = tree_map(lambda t: t.detach().cpu(), saver.state.params)
+        step, restored = ckpt.restore_params(tmp, template)
+        saved_tp = int(ckpt.read_meta(tmp, step=step)["qkv_tp"])
+        del saver
+    restored = tree_map(lambda t: t.to(device), restored)
+    prompt = rng.integers(0, model.cfg.vocab_size,
+                          (TP_DECODE["rows"], TP_DECODE["prompt"]))
+    want = generate(model, dense, prompt, TP_DECODE["new"], device=device)
+    dec = pipeline_params_for_decode(restored, model, qkv_tp=saved_tp,
+                                     decode_tp=TP_SHARDS)
+    got = generate_tp(model, dec, prompt, group, TP_DECODE["new"],
+                      device=device)
+    equal = bool(torch.equal(got, want))
+    print(f"generate_tp from a pp 2 x tp 2 snapshot (qkv_tp {saved_tp}, "
+          f"step {step}, 2 layers, f32) at tensor size {TP_SHARDS}, qkv "
+          f"re-permuted: equal to generate() over the saver's params "
+          f"{equal}", flush=True)
+    if not equal or saved_tp != 2:
+        raise AssertionError("generate_tp from the pipeline snapshot "
+                             "differs from generate()")
+    out["pipeline_snapshot_equal"] = equal
+    return out
+
+
+def moe_layouts_full_width(torch, np, device):
+    """Phase 26: (b)'s host run (pp 2 x sp 2 x ep 2) starts first, in a
+    subprocess, and (b)'s pp 2 x ep 2 snapshot with its ``--generate``
+    process; (a) the flagship MoE LM (924.5M params) under ``--pp 2 --ep
+    2`` over ``LocalPipeGroup(2)`` x ``LocalExpertGroup(2)`` at full
+    width, one epoch eager (the 1-nat check, step ms, tokens/s, peak
+    memory, B1-B3 12 x 2 a step all on sm90, a profile with the
+    dispatch/combine class) and one graphed (k 13, bitwise); (c) the MoE
+    LM on the GSPMD layout under ``--tp 4`` over ``LocalTensorGroup(4)``
+    (one routing group of 8192 tokens), eager (profiled) and graphed;
+    ``--fsdp 4`` over ``LocalFsdpGroup(4)`` at 2 layers; (b) and (c)'s f32
+    identities at 2 layers: pp 2 x ep 2, pp 2 x ep 2 x tp 2 and the
+    interleave against the expert steps with ``accum_steps`` 2, tp 4 and
+    fsdp 4 against the plain DP MoE step, and pp 2 x sp 2 x ep 2
+    striped_flash card against host; (d) ``generate_tp``; (b) the
+    tokens."""
+    import tempfile
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.expert import (  # noqa: E501
+        LocalExpertGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.fsdp import (  # noqa: E501
+        LocalFsdpGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (  # noqa: E501
+        LocalTensorGroup,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.pipeline import (  # noqa: E501
+        dense_layer_blocks,
+    )
+
+    t0 = time.perf_counter()
+    out = {}
+    procs = []
+    graphed_keys = ("step_ms_median", "step_ms_from", "tokens_per_s", "mfu",
+                    "peak_memory_gib", "launches", "bitwise", "replays",
+                    "launches_per_replay")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            host_proc, host_path = start_moe_host_runs(tmp, "--pp-ep-host")
+            procs.append(host_proc)
+            saver = _trainer(torch, device, steps=3, checkpoint_dir=tmp,
+                             n_layers=CUT_LAYERS, ce_chunk=0, lr=1e-5,
+                             expert_group=LocalExpertGroup(2), **PP_EP)
+            saver.save(final=True)
+            gen = start_generate_from_pp_ep(tmp)
+            procs.append(gen)
+            reference = reference_decode(
+                torch, device, dict(saver.state.params,
+                                    blocks=dense_layer_blocks(
+                                        saver.state.params["blocks"])),
+                **MOE_FLAGS)
+            del saver
+            # (a) pp 2 x ep 2 at full width
+            pp_ep = dict(nepochs=1, **PP_EP)
+            eager = train_full_width(
+                torch, np, device, keep_final=True,
+                tag="train moe pp2 x ep2", keep_init=True,
+                expert_group=LocalExpertGroup(2), **pp_ep)
+            graphed = dispatch_full_width(
+                torch, np, device, eager, exact=True, profile=False,
+                tag="dispatch moe pp2 x ep2",
+                expert_group=LocalExpertGroup(2), **pp_ep)
+            del eager["final_params"], eager["init_params"]
+            out["pp2_ep2"] = {k: eager[k] for k in MOE_KEYS if k in eager}
+            out["pp2_ep2_graphed"] = {k: graphed[k] for k in graphed_keys}
+            # (c) the GSPMD layout: --tp 4, then --fsdp 4 at 2 layers
+            tp4 = dict(tp=TP_SHARDS, ce_chunk=0, nepochs=1, **MOE_FLAGS)
+            eager = train_full_width(
+                torch, np, device, keep_final=True, tag="train moe tp4",
+                keep_init=True,
+                tensor_group=LocalTensorGroup(TP_SHARDS), **tp4)
+            graphed = dispatch_full_width(
+                torch, np, device, eager, exact=True, profile=False,
+                tag="dispatch moe tp4",
+                tensor_group=LocalTensorGroup(TP_SHARDS), **tp4)
+            del eager["final_params"], eager["init_params"]
+            out["tp4"] = {k: eager[k] for k in MOE_KEYS if k in eager}
+            out["tp4_graphed"] = {k: graphed[k] for k in graphed_keys}
+            fsdp = train_full_width(
+                torch, np, device, profile=False,
+                tag="train moe fsdp4 2 layers",
+                fsdp_group=LocalFsdpGroup(FSDP_SLICES), fsdp=FSDP_SLICES,
+                n_layers=CUT_LAYERS, ce_chunk=0, **MOE_FLAGS)
+            out["fsdp4"] = {k: fsdp[k] for k in MOE_KEYS if k in fsdp}
+            # (b), (c) f32 identities at 2 layers
+            ident, refs = {}, {}
+            ident["pp2_ep2"] = layout_identity(
+                torch, device, "moe f32 identity pp2 x ep2 == --ep 2 "
+                "--accum_steps 2 (2 layers, 3 steps)",
+                dict(ep=2, accum_steps=2), dict(pp=2, ep=2))
+            ident["pp2_ep2_tp2"] = layout_identity(
+                torch, device, "moe f32 identity pp2 x ep2 x tp2 == --ep 2 "
+                "--tp 2 --accum_steps 2 (2 layers, 3 steps)",
+                dict(ep=2, tp=2, accum_steps=2, attention="dense"),
+                dict(pp=2, ep=2, tp=2, attention="dense"))
+            ident["pp2_ep2_interleave2"] = layout_identity(
+                torch, device, "moe f32 identity --pp 2 --pp_interleave 2 "
+                "x ep2 == --ep 2 --accum_steps 2 (4 layers, 3 steps)",
+                dict(ep=2, accum_steps=2),
+                dict(pp=2, ep=2, pp_interleave=2), n_layers=4)
+            ident["tp4"] = layout_identity(
+                torch, device, "moe f32 identity --tp 4 (GSPMD, one routing "
+                "group) == the DP MoE step (2 layers, 3 steps)", {},
+                dict(tp=TP_SHARDS), refs=refs)
+            ident["fsdp4"] = layout_identity(
+                torch, device, "moe f32 identity --fsdp 4 (GSPMD) == the DP "
+                "MoE step (2 layers, 3 steps)", {}, dict(fsdp=FSDP_SLICES),
+                refs=refs)
+            out["identity"] = ident
+            out["card_vs_host"] = moe_card_vs_host(
+                torch, np, device, host_proc, host_path, PP_EP_HOST_JOBS)
+            out["generate_tp"] = generate_tp_full_width(torch, np, device)
+            out["generate"] = generate_from_pipe(
+                gen, reference, what="a pp 2 x ep 2 MoE snapshot")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    runs = (out["pp2_ep2"], out["pp2_ep2_graphed"], out["tp4"],
+            out["tp4_graphed"], out["fsdp4"])
+    out["flash_launches"] = {w: sum(r["launches"][w] for r in runs)
+                             for w in out["pp2_ep2"]["launches"]}
+    out["with_lse_launches"] = out["card_vs_host"][
+        "pp2_sp2_ep2_striped_flash"]["with_lse_launches"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 26: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -6998,18 +7469,24 @@ def main() -> int:
           f"{merge_ms:+.2f} ms/step over flash (the lse merges, the "
           f"splits and joins)", flush=True)
     # B5 under quantized compute: every Linear quantizes its 4 sequence
-    # shards as 4 ranks would (fp8 takes no --ce_chunk)
+    # shards as 4 ranks would (fp8 takes no --ce_chunk); at phase 15's
+    # depth, for the time limit
     seq_quant = {}
     for fmt, ce in (("int8", 256), ("fp8", 0)):
         q = train_full_width(torch, np, device, seq_group=LocalSeqGroup(4),
-                             profile=False, tag=f"train striped_flash {fmt}",
+                             profile=False,
+                             tag=f"train striped_flash {fmt} "
+                                 f"{CUT_LAYERS} layers",
                              attention="striped_flash", sp=4,
-                             matmul_dtype=fmt, ce_chunk=ce, nepochs=1)
+                             matmul_dtype=fmt, ce_chunk=ce, nepochs=1,
+                             n_layers=CUT_LAYERS)
         seq_quant[fmt] = {k: q[k] for k in (
             "step_ms_median", "peak_memory_gib", "first_loss", "last3_loss",
             "with_lse_launches", "gemm_launches")}
-        print(f"seqtrain {fmt}: step {q['step_ms_median']:.2f} ms vs bf16 "
-              f"{seq_trained['step_ms_median']:.2f} ms, peak memory "
+        print(f"seqtrain {fmt} {CUT_LAYERS} layers: step "
+              f"{q['step_ms_median']:.2f} ms vs bf16 "
+              f"{seq_trained['step_ms_median']:.2f} ms (12 layers), peak "
+              f"memory "
               f"{q['peak_memory_gib']:.2f} vs "
               f"{seq_trained['peak_memory_gib']:.2f} GiB, with_lse "
               f"launches {q['with_lse_launches']}", flush=True)
@@ -7048,20 +7525,23 @@ def main() -> int:
     phase("17 slice: the auto row, --remat, --scan-layers, update sharding, "
           "master weights")
     auto = measure_auto(torch, np, device)
-    sliced = slice_full_width(torch, np, device, short)
-
-    phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize int8")
-    # (d)'s host runs, in a subprocess beside (a)-(c)
+    # phase 18 (d)'s host runs, in a subprocess beside 17 (b)-(f) (checks,
+    # not a timed pick) and 18 (a)-(c)
     import shutil
     import tempfile
 
     quant_tmp = tempfile.mkdtemp(prefix="chip-smoke-quant-")
     quant_host = start_quant_host(quant_tmp)
-    quant = dict(products=check_qmm(torch, device),
-                 card_vs_host=qdot_card_vs_host(torch, device))
-    quant["train"] = quant_train_full_width(torch, np, device, trained,
-                                            nepochs=1)
     try:
+        sliced = slice_full_width(torch, np, device, short)
+
+        phase("18 quantized compute: --matmul_dtype int8|fp8, --quantize "
+              "int8")
+        quant = dict(products=check_qmm(torch, device),
+                     card_vs_host=qdot_card_vs_host(torch, device))
+        # (b)-(c) at phase 15's depth: its bf16 run is their reference
+        quant["train"] = quant_train_full_width(
+            torch, np, device, short, nepochs=1, n_layers=CUT_LAYERS)
         quant["identity"] = quant_identity(
             torch, np, device, read_quant_host(torch, np, *quant_host))
     finally:
@@ -7111,7 +7591,7 @@ def main() -> int:
     phase("23 the GSPMD layout's memory half: int8/fp8 under TP, --fsdp, "
           "the sliced state, sharded under TP, the replica check under "
           "TP, --generate --tp")
-    gspmd_mem = gspmd_memory_half(torch, np, device, tensor, tp_final)
+    gspmd_mem = gspmd_memory_half(torch, np, device, short, tp_final)
     del tp_final
     print("gspmd_memory_half: " + json.dumps(gspmd_mem), flush=True)
 
@@ -7126,6 +7606,12 @@ def main() -> int:
           "serving")
     moe = moe_full_width(torch, np, device)
     print("moe: " + json.dumps(moe), flush=True)
+
+    phase("26 MoE on the pipe and GSPMD layouts: --pp 2 --ep 2, MoE under "
+          "--tp 4 / --fsdp 4 (global-batch routing), the f32 identities, "
+          "generate_tp")
+    moe_layouts = moe_layouts_full_width(torch, np, device)
+    print("moe_layouts: " + json.dumps(moe_layouts), flush=True)
     torch.distributed.destroy_process_group()
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
@@ -7171,7 +7657,9 @@ def main() -> int:
                                       + tp_launches[which]
                                       + gspmd_mem["flash_launches"][which]
                                       + pipeline["flash_launches"][which]
-                                      + moe["flash_launches"][which]),
+                                      + moe["flash_launches"][which]
+                                      + moe_layouts["flash_launches"][
+                                          which]),
                             launches_phase7=trained["launches"][which],
                             launches_phase22=tp_launches[which],
                             launches_phase23=gspmd_mem["flash_launches"][
@@ -7179,6 +7667,8 @@ def main() -> int:
                             launches_phase24=pipeline["flash_launches"][
                                 which],
                             launches_phase25=moe["flash_launches"][which],
+                            launches_phase26=moe_layouts["flash_launches"][
+                                which],
                             launches_phase20=obs_launches[which],
                             launches_phase21=sdc["elastic"][
                                 "flash_launches"][which],
@@ -7207,9 +7697,12 @@ def main() -> int:
                                   + obs_launches["with_lse"]
                                   + tensor["sp_tp"]["with_lse_launches"]
                                   + pipeline["with_lse_launches"]
-                                  + moe["with_lse_launches"]),
+                                  + moe["with_lse_launches"]
+                                  + moe_layouts["with_lse_launches"]),
                         # phase 25 (d): sp 2 x ep 2, f32, 2 layers
                         launches_phase25=moe["with_lse_launches"],
+                        # phase 26 (b): pp 2 x sp 2 x ep 2, f32, 2 layers
+                        launches_phase26=moe_layouts["with_lse_launches"],
                         launches_phase20=obs_launches["with_lse"],
                         # phase 24 (e): pp 2 x sp 2, 2 layers
                         launches_phase24=pipeline["with_lse_launches"],
@@ -7249,14 +7742,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--moe-host"], ["--quant-host"]):
-        # phase 25 (d)'s and phase 18 (d)'s host runs, subprocesses of
-        # the card's run
+    if sys.argv[1:2] in (["--moe-host"], ["--pp-ep-host"],
+                         ["--quant-host"]):
+        # phase 25 (d)'s, phase 26 (b)'s and phase 18 (d)'s host runs,
+        # subprocesses of the card's run
         import numpy
         import torch
 
         if sys.argv[1] == "--moe-host":
             moe_host_runs(torch, torch.device("cpu"), sys.argv[2])
+        elif sys.argv[1] == "--pp-ep-host":
+            moe_host_runs(torch, torch.device("cpu"), sys.argv[2],
+                          jobs=PP_EP_HOST_JOBS)
         else:
             write_quant_host(torch, numpy, sys.argv[2])
         sys.exit(0)

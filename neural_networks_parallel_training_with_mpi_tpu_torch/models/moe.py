@@ -32,6 +32,19 @@ process, each with its own rows) times its ``seq_shards`` column blocks
 (a ``LocalSeqGroup``'s shards), tokens in row-major order inside each;
 ``apply`` returns one aux per group.
 
+Global-batch routing (the GSPMD layout, JAX's global view): with a
+``batch`` group (``parallel.distributed.BatchGroup``) of more than one
+rank, the one routing group is every batch rank's tokens in the global
+row order, none of them gathered.  The capacity counts the global tokens;
+each rank's queue positions start after, for each choice rank r, the
+global counts of the choice ranks below r plus the counts of choice r on
+the batch ranks below it (one all-gather of k x E counts per layer), and
+a token is kept when its global position is under the capacity.  The
+expert FFN is row-wise, so each rank runs only its own kept tokens, in a
+slot table of ``min(C, n)`` rows per expert (its local positions, which
+never exceed the global ones).  The aux then covers this rank's tokens
+(the GSPMD step does not read it).
+
 Expert parallelism: ``expert_group`` (``parallel.expert``) moves the
 (G, E, C, d) slots to the shards that own their experts and back: a
 process group by ``all_to_all`` (JAX's ``all_to_all(tiled=True)``), a
@@ -128,11 +141,15 @@ class MoEFFN:
         return max(1, math.ceil(self.capacity_factor * self.router_top_k
                                 * n_tokens / self.n_experts))
 
-    def route(self, gate_w: torch.Tensor, toks: torch.Tensor) -> Route:
-        """``toks`` (G, n, d): G groups routed alone."""
+    def route(self, gate_w: torch.Tensor, toks: torch.Tensor,
+              batch=None) -> Route:
+        """``toks`` (G, n, d): G groups routed alone; with a ``batch``
+        group of several ranks (G = 1), one group over every batch rank's
+        tokens (see the module docstring)."""
         e, k = self.n_experts, self.router_top_k
         g, n, _ = toks.shape
-        cap = self._capacity(n)
+        spread = batch is not None and batch.size > 1
+        cap = self._capacity(n * batch.size if spread else n)
         logits = torch.matmul(toks.float(), gate_w.float())     # (G, n, E)
         probs = torch.softmax(logits, dim=-1)
         experts = torch.arange(e, device=toks.device)
@@ -152,21 +169,37 @@ class MoEFFN:
                                          min=1e-9)
         counts = torch.zeros((g, e, 1), dtype=torch.int64,
                              device=toks.device)
+        # (G, E, n) per choice rank: the token axis innermost, so the
+        # cumsum scans contiguous rows (a scan over an outer axis runs one
+        # thread per (group, expert) column on the card)
+        onehots = [(i[:, None, :] == experts[:, None]).long() for i in idx]
+        table = cap
+        if spread:
+            # each choice rank's queue offset on this batch rank: the
+            # global counts of the ranks below it, plus its own counts on
+            # the batch ranks below this one
+            every = batch.all_gather(torch.stack(
+                [o.sum(-1)[0] for o in onehots]))               # (R, k, E)
+            total = every.sum(0)
+            offsets = (torch.cumsum(total, 0) - total
+                       + every[:batch.index].sum(0))            # (k, E)
+            table = min(cap, n)
         dest = []
-        for i in idx:
-            # (G, E, n): the token axis innermost, so the cumsum scans
-            # contiguous rows (a scan over an outer axis runs one thread
-            # per (group, expert) column on the card)
-            onehot = (i[:, None, :] == experts[:, None]).long()
-            pos = torch.cumsum(onehot, dim=-1) - 1 + counts
-            pos_tok = pos.gather(1, i[:, None, :])[:, 0]       # (G, n)
-            keep = pos_tok < cap
-            dest.append(torch.where(keep, i * cap + pos_tok,
-                                    torch.full_like(pos_tok, e * cap)))
+        for r, (i, onehot) in enumerate(zip(idx, onehots)):
+            cum = torch.cumsum(onehot, dim=-1) - 1
+            pos_tok = (cum + counts).gather(1, i[:, None, :])[:, 0]
+            if spread:
+                glob = (cum + offsets[r][None, :, None]).gather(
+                    1, i[:, None, :])[:, 0]
+                keep = glob < cap
+            else:
+                keep = pos_tok < cap
+            dest.append(torch.where(keep, i * table + pos_tok,
+                                    torch.full_like(pos_tok, e * table)))
             counts = counts + onehot.sum(-1, keepdim=True)
         top1 = (idx[0][..., None] == experts).float()
         aux = e * (top1.mean(1) * probs.mean(1)).sum(-1)       # (G,)
-        return Route(torch.stack(dest, dim=1), weight, aux, cap)
+        return Route(torch.stack(dest, dim=1), weight, aux, table)
 
     # ---- expert compute ----
     def _pieces(self, ep: Params, name: str, tensor_group) -> List:
@@ -219,11 +252,12 @@ class MoEFFN:
 
     # ---- the layer ----
     def apply(self, params: Params, x: torch.Tensor, expert_group=None,
-              tensor_group=None, seq_shards: int = 1,
+              tensor_group=None, seq_shards: int = 1, batch=None,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x (B, T, d) (or (N, d) with one group) -> (y in the compute
         dtype, aux (G,) f32), G = the expert shards ``expert_group`` holds
-        here x ``seq_shards``."""
+        here x ``seq_shards``; ``batch``: the batch group of the
+        global-batch routing (one group)."""
         cdt = self.compute_dtype
         shape, d = x.shape, x.shape[-1]
         g_e = 1 if expert_group is None else len(expert_group.ranks)
@@ -238,7 +272,8 @@ class MoEFFN:
                     f"x {seq_shards} sequence routing groups")
             toks = (x.reshape(g_e, b // g_e, seq_shards, t // seq_shards, d)
                     .transpose(1, 2).reshape(groups, -1, d))
-        r = self.route(params["gate"]["w"], toks)
+        r = self.route(params["gate"]["w"], toks,
+                       batch if groups == 1 else None)
         g, n = toks.shape[:2]
         e, cap, k = self.n_experts, r.capacity, self.router_top_k
         rows = e * cap + 1

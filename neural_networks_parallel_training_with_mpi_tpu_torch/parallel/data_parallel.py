@@ -24,8 +24,12 @@ gradient came back reduce-scattered from its gather, and the leaves fsdp
 keeps whole, the loss sum and the count are summed over the fsdp group
 first.  Under pipeline parallelism (``parallel.pipeline``) the leaves
 every stage holds (the embedding, the final norm, the head), the loss sum
-and the count are summed over the pipe group the same way.  The norms (guard, telemetry) come from the layout's ``combine``:
-JAX's global-view norms over the slices.
+and the count are summed over the pipe group the same way; with MoE
+stages over a process expert group an expert leaf's gradient then sums
+over ``World.expert_replica_pg`` (the ranks of its expert index), and the
+schedule's objective (loss sum plus the weighted aux) is differentiated
+while its loss sum is reported.  The norms (guard, telemetry) come from
+the layout's ``combine``: JAX's global-view norms over the slices.
 
 Two gradient semantics (``TrainConfig.grad_reduction``):
 
@@ -152,20 +156,27 @@ def _lifted(loss_fn):
 
 def _sum_and_grads(loss_fn, params, batch, qamax):
     s, (c, obs) = loss_fn(params, batch, qamax)
+    # a loss whose objective carries more than its sum (the pipe x expert
+    # schedule's weighted aux) comes as (loss_sum, objective)
+    s, objective = s if isinstance(s, tuple) else (s, s)
     ps = leaves(params)
-    grads = torch.autograd.grad(s, ps, allow_unused=True)
+    grads = torch.autograd.grad(objective, ps, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(ps, grads)]
     return s.detach(), c.detach(), grads, obs
 
 
 def _accumulated_sum_and_grads(loss_fn, params, batch: Batch,
-                               accum_steps: int, qamax=None):
+                               accum_steps: int, qamax=None,
+                               congruent: bool = False):
     """This rank's (loss_sum, count, grads-of-sum as a leaf list, fp8
     observations), microbatched when ``accum_steps > 1``: every loss
     returns SUMS, so adding microbatch sums (grads in f32) is the unsplit
     computation, and the amax of the union is the max of the
-    microbatches' amax.  ``loss_fn`` follows :func:`make_qloss_fn`."""
+    microbatches' amax.  ``loss_fn`` follows :func:`make_qloss_fn`.  The
+    microbatches are contiguous row chunks (JAX's DP step), or with
+    ``congruent`` the rows ``i`` with ``i mod accum_steps`` = m (JAX's
+    GSPMD step: the same sums, other MoE routing groups)."""
     if accum_steps == 1:
         return _sum_and_grads(loss_fn, params, batch, qamax)
     for k, v in batch.items():
@@ -173,7 +184,9 @@ def _accumulated_sum_and_grads(loss_fn, params, batch: Batch,
             raise ValueError(
                 f"per-device batch rows {v.shape[0]} (leaf {k!r}) not "
                 f"divisible by accum_steps={accum_steps}")
-    micro = {k: v.chunk(accum_steps) for k, v in batch.items()}
+    micro = {k: ([v[m::accum_steps] for m in range(accum_steps)]
+                 if congruent else v.chunk(accum_steps))
+             for k, v in batch.items()}
     s = c = grads = obs = None
     for i in range(accum_steps):
         ms, mc, mg, mo = _sum_and_grads(loss_fn, params,
@@ -222,6 +235,24 @@ def _all_reduce(vals: List[torch.Tensor], group) -> List[torch.Tensor]:
     dist.all_reduce(flat, group=group)
     return [part.view(v.shape) for part, v in zip(
         torch.split(flat, [v.numel() for v in vals]), vals)]
+
+
+def _replica_reduce(vals: List[torch.Tensor], layout,
+                    world: World) -> List[torch.Tensor]:
+    """The gradients (then the loss sum and count) summed over the ranks
+    holding the same slices: ``World.replica_pg``, and for a leaf split
+    over a process expert group (the pipe x expert layout) the data (x
+    seq) ranks of its expert index, ``World.expert_replica_pg``."""
+    if getattr(layout, "expert_pg", None) is None:
+        return _all_reduce(vals, world.replica_pg)
+    split = [i for i, st in enumerate(layout.stored) if st.expert is not None]
+    rest = [i for i in range(len(vals)) if i not in set(split)]
+    out = list(vals)
+    for idx, pg in ((rest, world.replica_pg),
+                    (split, world.expert_replica_pg)):
+        for i, v in zip(idx, _all_reduce([vals[i] for i in idx], pg)):
+            out[i] = v
+    return out
 
 
 def _axis_reduce(layout, axis: str, grads: List[torch.Tensor],
@@ -327,11 +358,12 @@ def make_train_step(model, optimizer: Optimizer, world: World,
     guarded = optimizer.update_with_norm is not None
     loss_fn = (make_qloss_fn(model, loss_name) if fp8
                else _lifted(make_loss_fn(model, loss_name)))
+    congruent = getattr(model, "congruent_microbatches", False)
     def step(state: TrainState, batch: Batch):
         # fp8: each role's delayed amax, read before anything updates
         qamax = qmm.delayed_amax(state.qstate) if fp8 else None
         s, c, grads, obs = _accumulated_sum_and_grads(
-            loss_fn, state.params, batch, accum_steps, qamax)
+            loss_fn, state.params, batch, accum_steps, qamax, congruent)
         # a tensor-parallel / fsdp model's state layout (built by its
         # first forward): the global-view norms, and the fsdp stage
         layout = getattr(model, "layout", None)
@@ -366,7 +398,7 @@ def make_train_step(model, optimizer: Optimizer, world: World,
         else:
             vals = list(grads) + [s.reshape(1), c.reshape(1)]
         if world.initialized:
-            vals = _all_reduce(vals, world.replica_pg)
+            vals = _replica_reduce(vals, layout, world)
         if grad_reduction == "per_shard_mean":
             n = world.world_size if world.initialized else 1
             grads = [g / n for g in vals[:-1]]

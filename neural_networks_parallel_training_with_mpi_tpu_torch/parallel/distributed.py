@@ -348,10 +348,33 @@ class World:
 class BatchGroup:
     """The ranks holding other rows of the global batch and the same model
     slices (data x fsdp), as ``ops.qmm``'s global-view scales read them:
-    ``max`` is the elementwise max over them."""
+    ``max`` is the elementwise max over them, ``all_gather`` stacks their
+    tensors in the global batch's row order (data major, fsdp minor), as
+    the MoE layer's global-batch routing reads them (``models.moe``);
+    ``size`` is their count and ``index`` this rank's place among
+    them."""
 
     def __init__(self, world: World):
         self.world = world
+        fsdp = world.fsdp if world.fsdp_pg is not None else 1
+        data = (dist.get_world_size(world.replica_pg)
+                if world.initialized else 1)
+        self.size = fsdp * data
+        self.index = world.batch_rank
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(size, *x.shape): every batch rank's ``x`` (no gradient)."""
+        x = x.detach().contiguous()
+        if self.world.fsdp_pg is not None:
+            parts = [torch.empty_like(x) for _ in range(self.world.fsdp)]
+            dist.all_gather(parts, x, group=self.world.fsdp_pg)
+            x = torch.stack(parts)
+        else:
+            x = x[None]
+        parts = [torch.empty_like(x)
+                 for _ in range(self.size // x.shape[0])]
+        dist.all_gather(parts, x, group=self.world.replica_pg)
+        return torch.cat(parts)
 
     def max(self, parts) -> torch.Tensor:
         out = parts[0].detach().clone()

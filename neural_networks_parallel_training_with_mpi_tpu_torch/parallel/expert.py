@@ -437,10 +437,11 @@ def make_moe_eval_step(model, world: World, loss_name: str = "cross_entropy",
 # ---------------------------------------------------------------------------
 
 def moe_ffn_fn(cfg, expert_group=None, tensor_group=None,
-               seq_shards: int = 1):
+               seq_shards: int = 1, batch=None):
     """The MoE FFN injection of ``megatron.tp_block_apply``: the block's
     ``moe`` params (the same dict on every tensor shard) through the
-    layer with the expert and tensor groups -> ``(ff, aux)``."""
+    layer with the expert and tensor groups -> ``(ff, aux)``; ``batch``:
+    the GSPMD layout's batch group, over which one group routes."""
     from ..models.moe import MoEFFN
 
     ffn = MoEFFN(cfg.d_model, cfg.d_ff, cfg.moe_experts,
@@ -452,7 +453,7 @@ def moe_ffn_fn(cfg, expert_group=None, tensor_group=None,
 
     def ffn_fn(layer_shards, h):
         return ffn.apply(layer_shards[0]["moe"], h, expert_group,
-                         tensor_group, seq_shards)
+                         tensor_group, seq_shards, batch)
 
     return ffn_fn
 

@@ -15,6 +15,13 @@ the telemetry metrics, ``--matmul_dtype int8|fp8`` (``ops.qmm``'s
 tensor-parallel seam) and the CUDA-graph dispatch (``GraphedTrainStep``)
 run as they run under data parallelism.
 
+An MoE model runs in JAX's global view too: the experts whole on every
+tensor and fsdp rank (JAX's rules split no expert leaf; the router's
+``gate.w`` is fsdp-split), the FFN on the replicated residual stream,
+one routing group over the global batch (``models.moe``'s global-batch
+routing over the data x fsdp ranks), no aux in the loss, and under
+``accum_steps`` JAX's congruence microbatches.
+
 The state is the ``layout``'s (``tensor_parallel.StateLayout``): under
 process groups each rank holds only its tensor / fsdp slice of every
 split leaf, params and optimizer slots alike (under a local fsdp group,

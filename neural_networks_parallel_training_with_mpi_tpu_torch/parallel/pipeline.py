@@ -48,8 +48,24 @@ by the global token count, as JAX's ``blocks_psum`` and ``reduce_axes``
 psums.  ``grad_clip`` clips inside the step by the global norm, the
 blocks' squares summed over pipe (and tensor for the split leaves), as
 JAX's.  Accumulation folds into the schedule (the Trainer passes
-``n_microbatches = S x accum_steps``).  MoE blocks (pipe x expert) are not
-ported.
+``n_microbatches = S x accum_steps``).
+
+MoE blocks ride an expert group (pipe x expert, JAX's DP x PP x EP[ x SP][
+x TP]): each stage's MoE FFN is ``parallel.expert.moe_ffn_fn``'s, the one
+the EP and EP x TP steps run, and returns its load-balance aux, one per
+routing group.  The rows shard over the expert group too, and each
+shard's rows split into the microbatches (a microbatch is the union of
+every shard's m-th piece, as JAX splits each device's rows), so a routing
+group is one shard's (and sequence shard's) microbatch.  Each active
+(stage, microbatch) application adds its aux, summed over the stage's
+layers and weighted by its own group's loss count, to the objective:
+``loss_sum + aux_weight * sum(aux * count)``, JAX's carry; the reported
+loss stays the task loss.  The expert leaves ``(S, per, E, ...)`` are
+split over the pipe group on their stage dim and over the expert group on
+their E dim (and their hidden dim over the tensor group); their gradient
+sums over the data (x seq) ranks of their expert index, every other
+leaf's over the data x expert (x seq) ranks, as JAX's ``blocks_psum``.
+An MoE model without an expert group is refused, with JAX's words.
 """
 
 from __future__ import annotations
@@ -176,8 +192,11 @@ def pipeline_param_specs(params: Tree, tp: int = 1,
     ``pipeline_param_specs``): the stacked block leaves split over the
     pipe group on their stage dim (0, or 1 under the interleaved stack),
     and with ``tp > 1`` the Megatron column leaves on their last dim and
-    the row weights on their input dim (right after the stack dims); the
-    embeddings, the final norm and the head whole."""
+    the row weights on their input dim (right after the stack dims); an
+    MoE block's expert leaves over the expert group on their E dim (right
+    after the stack dims); the embeddings, the final norm and the head
+    whole."""
+    from .expert import expert_leaf_tensor_spec, is_expert_leaf
     from .tensor_parallel import WHOLE, LeafSpec
 
     nstack = 2 if interleave == 1 else 3
@@ -186,6 +205,16 @@ def pipeline_param_specs(params: Tree, tp: int = 1,
         if names[0] != "blocks":
             return WHOLE
         pipe = nstack - 2
+        if is_expert_leaf(names):
+            # (S, per, E, ...): E over the expert group; with tp > 1 each
+            # expert's hidden dim over the tensor group, b_out whole there
+            # (it adds after the row-parallel sum); the router, gate.w,
+            # is an ordinary pipe-split leaf
+            t = (expert_leaf_tensor_spec(names[-1], len(leaf.shape))
+                 if tp > 1 else None)
+            if tp > 1 and t is None and names[-1] != "b_out":
+                raise ValueError(f"unexpected expert leaf {names}")
+            return LeafSpec(tensor=t, pipe=pipe, expert=nstack)
         if tp <= 1 or not megatron.is_tensor_sharded(names):
             return LeafSpec(pipe=pipe)
         col = "qkv" in names or "ff_in" in names or "ff_gate" in names
@@ -240,10 +269,12 @@ def _schedule_indices(tick_i: int, stage_idx: int, n_stages: int,
 
 
 def _validate_pipe(model, n_stages: int, tp: int = 1, sp: int = 1,
-                   interleave: int = 1) -> Tuple[int, int]:
+                   interleave: int = 1, expert_group=None
+                   ) -> Tuple[int, int]:
     """The JAX package's checks of a pipeline layout, with its messages
-    and exception types (the pipe, tensor and seq sizes in the place of
-    its mesh)."""
+    and exception types (the pipe, tensor, seq and expert sizes in the
+    place of its mesh; the model's expert group in the place of its
+    ``moe_expert_axis``)."""
     c = model.cfg
     if n_stages < 2:
         raise ValueError("pipeline needs mesh axis 'pipe' > 1; use the plain "
@@ -253,6 +284,19 @@ def _validate_pipe(model, n_stages: int, tp: int = 1, sp: int = 1,
     if c.n_layers % (n_stages * interleave):
         raise ValueError(f"n_layers={c.n_layers} not divisible by "
                          f"{interleave} x {n_stages} virtual stages")
+    if c.moe_experts > 0:
+        ep = 1 if expert_group is None else expert_group.size
+        if ep < 2:
+            raise NotImplementedError(
+                "MoE x pipeline rides the expert axis (DP x PP x EP"
+                "[ x TP]): add expert > 1 to the mesh; dense-expert "
+                "pipelining without an 'expert' axis is not wired")
+        if model.expert_group is not expert_group:
+            raise ValueError("the model's expert group is not the step's: "
+                             "build the Transformer with expert_group=")
+        if c.moe_experts % ep:
+            raise ValueError(f"{c.moe_experts} experts not divisible over "
+                             f"expert axis of size {ep}")
     if c.attention in SEQ_SHARDED_IMPLS:
         if sp < 2:
             raise NotImplementedError(
@@ -387,25 +431,37 @@ class PipelineModel:
     sequence-sharded attentions run over the model's sequence group.
     ``layout``: the params' ``tensor_parallel.StateLayout`` (sliced under
     process groups); by default, on the first call, every leaf whole.
-    ``loss_name``: the eval sums' loss."""
+    ``loss_name``: the eval sums' loss.  ``expert_group``: an MoE model's
+    (``parallel.expert``; the model's own), over which each shard routes
+    its rows; ``aux_weight`` weighs the load-balance aux into the
+    objective."""
 
     def __init__(self, model, group, n_microbatches: Optional[int] = None,
                  interleave: int = 1, tensor_group=None, layout=None,
-                 loss_name: str = "cross_entropy"):
+                 loss_name: str = "cross_entropy", expert_group=None,
+                 aux_weight: float = 0.01):
         tp = tensor_group.size if tensor_group is not None else 1
         sp = model.seq_group.size if model.seq_group is not None else 1
         self.n_stages, _ = _validate_pipe(model, group.size, tp, sp,
-                                          interleave)
+                                          interleave, expert_group)
         n_mb = int(n_microbatches or self.n_stages)
         if interleave > 1 and n_mb % self.n_stages:
             raise ValueError(f"interleaved schedule packs microbatches in "
                              f"groups of n_stages={self.n_stages}; "
                              f"n_microbatches={n_mb} does not divide")
-        if layout is None and (hasattr(group, "pg")
-                               or hasattr(tensor_group, "pg")):
-            raise ValueError("a process pipe or tensor group holds sliced "
-                             "params: pass their StateLayout")
+        if layout is None and any(hasattr(g, "pg") for g in (
+                group, tensor_group, expert_group)):
+            raise ValueError("a process pipe, tensor or expert group holds "
+                             "sliced params: pass their StateLayout")
         self.model, self.group, self.tensor_group = model, group, tensor_group
+        self.expert_group, self.aux_weight = expert_group, aux_weight
+        self.moe = model.cfg.moe_experts > 0
+        # the routing groups held here: expert shards (row blocks) x
+        # sequence shards (column blocks)
+        self.row_shards = (len(expert_group.ranks) if expert_group is not None
+                           else 1)
+        self.seq_shards = (len(model.seq_group.ranks)
+                           if model.seq_group is not None else 1)
         self.n_mb, self.interleave, self.layout = n_mb, interleave, layout
         self.schedule = [[_schedule_indices(t, d, self.n_stages, n_mb,
                                             interleave)
@@ -426,7 +482,8 @@ class PipelineModel:
             self.layout = state_layout(
                 self.model, params, self.tensor_group
                 or megatron.LocalTensorGroup(1), qkv_order="permuted",
-                pipe_group=self.group, interleave=self.interleave)
+                pipe_group=self.group, interleave=self.interleave,
+                expert_group=self.expert_group)
         return self.layout
 
     def combine(self, norms: List[torch.Tensor]) -> torch.Tensor:
@@ -436,16 +493,24 @@ class PipelineModel:
         return self.layout.combine(norms)
 
     def _block_fn(self, model, tensor_group):
-        """One layer of a stage: the dense model's block, or the Megatron
-        block over the tensor group; under ``--remat`` recomputed in the
-        backward."""
+        """One layer of a stage -> (x, the MoE aux per routing group or
+        None): the model's block, or the Megatron block over the tensor
+        group (an MoE FFN through ``parallel.expert.moe_ffn_fn``, experts
+        over the expert group, their hidden dim over the tensor group);
+        under ``--remat`` recomputed in the backward."""
         c = model.cfg
         if tensor_group is None or tensor_group.size == 1:
             def block(layer, h, positions):
-                return model.block(layer, h, positions, model.attend)
+                return model.block_aux(layer, h, positions, model.attend)
         else:
             rope = c.rope_theta if c.pos_encoding == "rope" else None
             sliced = hasattr(tensor_group, "pg")
+            ffn_fn = None
+            if self.moe:
+                from .expert import moe_ffn_fn
+
+                ffn_fn = moe_ffn_fn(c, self.expert_group, tensor_group,
+                                    self.seq_shards)
 
             def attend(q, k, v):
                 return sequence_sharded_attention(
@@ -458,8 +523,10 @@ class PipelineModel:
                     layer, 1 if sliced else tensor_group.size)
                 if not sliced:
                     shards = [shards[r] for r in tensor_group.ranks]
-                return megatron.tp_block_apply(c, shards, h, tensor_group,
-                                               attention_fn=attend)
+                out = megatron.tp_block_apply(c, shards, h, tensor_group,
+                                              attention_fn=attend,
+                                              ffn_fn=ffn_fn)
+                return out if ffn_fn is not None else (out, None)
         if model._remat is not None:
             block = model._remat(block)
         return block
@@ -482,28 +549,41 @@ class PipelineModel:
                  for i in range(len(first[j]))] for j in range(len(first))]
 
     def _microbatches(self, batch):
-        """(ids, targets, mask) split into the step's microbatches, the
-        rows padded with mask-0 rows to a multiple of their count."""
-        ids, tgts = batch["x"], batch["y"]
-        b, t = ids.shape
+        """(ids, targets, mask) split into the step's microbatches
+        (n_mb, rows, ...): each expert shard's rows (one block under no
+        local expert group) padded with mask-0 rows to a multiple of the
+        count and split, microbatch m the shards' m-th pieces side by
+        side, as JAX splits each device's rows."""
+        ids = batch["x"]
+        b = ids.shape[0]
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones((b,), dtype=torch.float32, device=ids.device)
-        pad = (-b) % self.n_mb
-        if pad:
-            ids = torch.cat([ids, ids.new_zeros((pad, t))])
-            tgts = torch.cat([tgts, tgts.new_zeros((pad,)
-                                                   + tuple(tgts.shape[1:]))])
-            mask = torch.cat([mask, mask.new_zeros((pad,))])
-        mb = (b + pad) // self.n_mb
-        return (ids.reshape(self.n_mb, mb, t),
-                tgts.reshape((self.n_mb, mb) + tuple(tgts.shape[1:])),
-                mask.reshape(self.n_mb, mb))
+        g = self.row_shards
+        if b % g:
+            raise ValueError(f"batch rows {b} do not split over {g} expert "
+                             f"shards")
 
-    def _run(self, params: Tree, ids_mb: torch.Tensor, on_output):
+        def split(v):
+            v = v.reshape((g, b // g) + tuple(v.shape[1:]))
+            pad = (-(b // g)) % self.n_mb
+            if pad:
+                v = torch.cat([v, v.new_zeros((g, pad)
+                                               + tuple(v.shape[2:]))], 1)
+            mb = v.shape[1] // self.n_mb
+            return (v.reshape((g, self.n_mb, mb) + tuple(v.shape[2:]))
+                    .transpose(0, 1)
+                    .reshape((self.n_mb, g * mb) + tuple(v.shape[2:])))
+
+        return split(ids), split(batch["y"]), split(mask)
+
+    def _run(self, params: Tree, ids_mb: torch.Tensor, on_output,
+             on_aux=None):
         """The schedule over this rank's stages on the microbatches
         ``ids_mb`` (n_mb, mb, t): ``on_output(y, m)`` at each microbatch
-        the last stage finishes.  Returns the hop token (None under a
+        the last stage finishes, ``on_aux(aux, m)`` at each active stage
+        application of an MoE model (its aux per routing group, summed
+        over the stage's layers).  Returns the hop token (None under a
         local group), which the caller ties into its loss."""
         model, c, group = self.model, self.model.cfg, self.group
         self._layout(params)
@@ -532,8 +612,13 @@ class PipelineModel:
                 if not active:
                     continue
                 x = emb[m] if injecting else acts.pop(d)
+                aux = None
                 for layer in layers[j][i]:
-                    x = self._block(layer, x, positions)
+                    x, a = self._block(layer, x, positions)
+                    if a is not None:
+                        aux = a if aux is None else aux + a
+                if on_aux is not None and aux is not None:
+                    on_aux(aux, m)
                 if producing:
                     on_output(x, m)
                 else:
@@ -548,7 +633,12 @@ class PipelineModel:
         """(params, batch) -> (loss_sum, count) of this rank's stages: the
         last stage's head and loss over the microbatches it finishes (the
         model's chunked cross-entropy under ``ce_chunk``), zeros on the
-        others."""
+        others.  An MoE model's loss sum comes as (loss_sum, objective),
+        the objective adding ``aux_weight`` x each active application's
+        aux weighted by its groups' counts (the data-parallel step
+        differentiates the objective and reports the loss)."""
+        from .expert import _group_counts
+
         model, c = self.model, self.model.cfg
         base = losses_lib.get(loss_name)
         ce_base, _, smooth = loss_name.partition("@")
@@ -557,7 +647,15 @@ class PipelineModel:
 
         def loss_fn(params, batch):
             ids_mb, tgt_mb, mask_mb = self._microbatches(batch)
-            sums = []
+            sums, auxes = [], []
+            on_aux = None
+            if self.moe:
+                counts = [_group_counts({"y": tgt_mb[m], "mask": mask_mb[m]},
+                                        self.row_shards, self.seq_shards)
+                          for m in range(self.n_mb)]
+
+                def on_aux(aux, m):
+                    auxes.append((aux * counts[m]).sum())
 
             def on_output(y, m):
                 if chunked:
@@ -568,7 +666,7 @@ class PipelineModel:
                     sums.append(base(model.head_logits(params, y),
                                      tgt_mb[m], mask_mb[m]))
 
-            token = self._run(params, ids_mb, on_output)
+            token = self._run(params, ids_mb, on_output, on_aux)
             zero = torch.zeros((), dtype=torch.float32,
                                device=batch["x"].device)
             s, cnt = zero, zero
@@ -576,7 +674,12 @@ class PipelineModel:
                 s, cnt = s + ls, cnt + cn
             if token is not None:   # every hop's backward runs, in order
                 s = s + token * 0.0
-            return s, cnt
+            if not self.moe:
+                return s, cnt
+            asum = zero
+            for a in auxes:         # in the ticks' order, as JAX's carry
+                asum = asum + a
+            return (s, s + self.aux_weight * asum), cnt
 
         return loss_fn
 
@@ -615,15 +718,20 @@ def make_pipeline_train_step(model, optimizer, world, group,
                              loss_name: str = "cross_entropy",
                              n_microbatches: Optional[int] = None,
                              grad_clip: float = 0.0, interleave: int = 1,
-                             tensor_group=None, layout=None):
+                             tensor_group=None, layout=None,
+                             expert_group=None, aux_weight: float = 0.01):
     """(state, this rank's batch) -> (state, global mean loss): the ring
     schedule over ``group`` inside ``parallel.data_parallel``'s step (see
     the module docstring).  ``state`` holds the pipeline layout
     (:func:`init_pipeline_params`; this rank's slices under process
     groups, ``layout``); ``grad_clip`` clips by the global norm inside
-    the step (do not wrap ``optimizer`` in ``optim.with_clipping``)."""
+    the step (do not wrap ``optimizer`` in ``optim.with_clipping``).  An
+    MoE model runs over ``expert_group`` (the model's), the objective
+    carrying ``aux_weight`` x its load-balance aux; the loss reported is
+    the task loss."""
     pm = PipelineModel(model, group, n_microbatches, interleave,
-                       tensor_group, layout)
+                       tensor_group, layout, expert_group=expert_group,
+                       aux_weight=aux_weight)
     if grad_clip > 0:
         optimizer = optim_lib.with_clipping(optimizer, grad_clip, pm.combine)
     return dp.make_train_step(pm, optimizer, world, loss_name=loss_name)
@@ -634,11 +742,13 @@ def make_pipeline_eval_step(model, world, group,
                             with_accuracy: bool = False,
                             n_microbatches: Optional[int] = None,
                             interleave: int = 1, tensor_group=None,
-                            layout=None):
+                            layout=None, expert_group=None):
     """(pipelined params, batch) -> {"loss", "count"[, "accuracy",
     "example_count"]}: the ring schedule forward only, on the params in
-    place, as ``data_parallel.make_eval_step``."""
+    place, as ``data_parallel.make_eval_step`` (an MoE model's aux
+    dropped)."""
     pm = PipelineModel(model, group, n_microbatches, interleave,
-                       tensor_group, layout, loss_name)
+                       tensor_group, layout, loss_name,
+                       expert_group=expert_group)
     return dp.make_eval_step(pm, world, loss_name=loss_name,
                              with_accuracy=with_accuracy)

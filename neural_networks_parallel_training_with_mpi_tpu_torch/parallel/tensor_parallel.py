@@ -439,12 +439,12 @@ def _spec_items(tree, path=()):
 def state_layout(model, params: Tree, group, fsdp_group=None,
                  qkv_order: str = "dense",
                  vocab_parallel: bool = False, pipe_group=None,
-                 interleave: int = 1) -> StateLayout:
+                 interleave: int = 1, expert_group=None) -> StateLayout:
     """The :class:`StateLayout` of ``model``'s global ``params`` (the
     dense init, or under ``qkv_order="permuted"`` the ``sp_tp`` one; with
     ``pipe_group``, the stage-stacked pipeline params of
     ``parallel.pipeline``, whose qkv columns are permuted for the tensor
-    group)."""
+    group, an MoE model's experts split over ``expert_group`` too)."""
     if pipe_group is not None:
         from .pipeline import pipeline_param_specs
 
@@ -466,7 +466,8 @@ def state_layout(model, params: Tree, group, fsdp_group=None,
     return StateLayout(spec_tree, [tuple(x.shape) for _, x in paths],
                        [n for n, _ in paths], group, fsdp_group,
                        qkv_dense=qkv_order == "dense" and pipe_group is None,
-                       head_dims=head_dims, pipe_group=pipe_group)
+                       head_dims=head_dims, pipe_group=pipe_group,
+                       expert_group=expert_group)
 
 
 class TensorParallelModel:
@@ -489,9 +490,17 @@ class TensorParallelModel:
     (``parallel.distributed.BatchGroup``), over which the quantized
     products' row-spanning scales are taken (JAX's global view).  An MoE
     model's blocks run ``parallel.expert.moe_ffn_fn`` in place of the
-    Megatron FFN: its experts split over ``expert_group`` and their hidden
-    dim over ``group`` (JAX's EP x TP), and :meth:`apply` with
-    ``return_aux`` returns the aux beside the logits."""
+    Megatron FFN, and :meth:`apply` with ``return_aux`` returns the aux
+    beside the logits.  With the permuted qkv order (EP x TP, seq x TP)
+    its experts split over ``expert_group`` and their hidden dim over
+    ``group`` (JAX's EP x TP).  On the GSPMD layout (the dense order)
+    the experts are whole on every tensor and fsdp rank, as JAX's rules
+    leave them: the FFN runs with no tensor or expert group on the
+    replicated residual stream (so a whole expert leaf's gradient is the
+    same on every tensor rank, and is not summed over them), routing the
+    global batch as one group over ``batch_group`` (JAX's global view),
+    and under ``accum_steps`` the microbatches are JAX's congruence
+    classes (:attr:`congruent_microbatches`)."""
 
     def __init__(self, model, group, qkv_order: str = "dense",
                  seq_group=None, vocab_parallel: bool = False,
@@ -508,14 +517,22 @@ class TensorParallelModel:
         self.tp = group.size
         self.transformer = isinstance(model, Transformer)
         self._ffn_fn = None
+        # the GSPMD step's MoE microbatches: row i in microbatch i mod
+        # accum_steps (the routing groups JAX's global view forms)
+        self.congruent_microbatches = False
         if self.transformer:
             megatron.validate_tp(model.cfg, self.tp)
             if model.cfg.moe_experts > 0:
                 from .expert import moe_ffn_fn
 
-                self._ffn_fn = moe_ffn_fn(
-                    model.cfg, expert_group, group,
-                    len(seq_group.ranks) if seq_group is not None else 1)
+                if qkv_order == "dense":
+                    self._ffn_fn = moe_ffn_fn(model.cfg, batch=batch_group)
+                    self.congruent_microbatches = True
+                else:
+                    self._ffn_fn = moe_ffn_fn(
+                        model.cfg, expert_group, group,
+                        len(seq_group.ranks) if seq_group is not None
+                        else 1)
         self._qkv_index = {}
 
     @property

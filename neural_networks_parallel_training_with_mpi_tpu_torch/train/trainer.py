@@ -123,9 +123,15 @@ JAX.  The world is ``data x expert x seq x tensor`` torchrun ranks
 runs the E shards here (``LocalExpertGroup(E)``), as
 ``Trainer(cfg, device, expert_group=LocalExpertGroup(E))`` does beside
 local sequence and tensor groups.  A snapshot holds every expert (the
-dense layout); the replica check skips the expert leaves.  Pipe x expert,
-an MoE model on the pipe or GSPMD (``--tp`` / ``--fsdp`` alone) layouts
-raise, naming ``QUEUE_A4``.
+dense layout); the replica check skips the expert leaves.  With ``--pp``
+and ``--ep`` (``pp_ep``: pp x ep, pp x ep x tp, pp x sp x ep and their
+interleave) the pipeline step carries the aux through its schedule and
+splits the stage-stacked experts over the expert group; an MoE model on
+the pipe layout without ``--ep`` raises JAX's ``NotImplementedError``.
+An MoE model under ``--tp`` and / or ``--fsdp`` alone trains on the GSPMD
+step: experts whole on every tensor and fsdp rank, routed over the global
+batch (one routing group of every data x fsdp rank's rows, JAX's global
+view), no aux in the loss.
 
 Sequence parallelism: ``--sp S`` with a sequence-sharded attention
 (``ring``, ``ring_flash``, ``striped``, ``striped_flash``, ``ulysses``)
@@ -231,7 +237,7 @@ from .state import TrainState
 
 # TrainConfig fields of paths not ported yet -> the flag that sets them
 _UNPORTED = {"workload": "--workload"}
-# the model-parallel layouts' next pieces (ROADMAP Queue A item 4)
+# the resume the port still refuses (named after ROADMAP Queue A item 4)
 QUEUE_A4 = "held out of the port so far: ROADMAP Queue A item 4"
 # the replica check runs with at least this many replicas (ranks): one
 # replica has nothing to compare (the JAX trainer's rule)
@@ -347,12 +353,12 @@ def check_expert_layout(cfg: TrainConfig) -> None:
     """The JAX trainer's rules for the expert axis and MoE models, with its
     messages and exception types (the expert axis needs an MoE
     transformer; adafactor not on the expert layouts: elsewhere the port,
-    which has no adafactor, refuses it at ``optim.make``), and the mixes
-    the port holds out (pipe x expert, an MoE model on the pipe or GSPMD
-    layouts), naming ``QUEUE_A4``."""
-    mesh, moe = cfg.mesh, cfg.model.moe_experts > 0
-    pipeline, expert = mesh.pipe > 1, mesh.expert > 1
-    tensor, fsdp = mesh.tensor > 1, mesh.fsdp > 1
+    which has no adafactor, refuses it at ``optim.make``).  Pipe x expert
+    and an MoE model on the GSPMD layout train; an MoE model on the pipe
+    layout without an expert axis is refused by
+    ``parallel.pipeline._validate_pipe``, with JAX's words."""
+    moe = cfg.model.moe_experts > 0
+    expert = cfg.mesh.expert > 1
     ep_tp, expert_step = _moe_layouts(cfg)
     if expert and (cfg.model.arch != "transformer" or not moe):
         raise ValueError("expert axis > 1 requires a transformer with "
@@ -370,15 +376,6 @@ def check_expert_layout(cfg: TrainConfig) -> None:
             "factored stats at all, and the per-leaf sharded update "
             "scatters inside matrices the same way. Use "
             "adam/adamw/lion/sgd there")
-    if pipeline and (expert or moe):
-        raise NotImplementedError(
-            "--pp with --moe_experts / --ep (pipe x expert: the MoE aux "
-            "through the pipeline schedule, the expert-sharded stage "
-            f"leaves, pp x ep x tp and pp x sp x ep) is {QUEUE_A4}")
-    if moe and (tensor or fsdp) and not (ep_tp or pipeline):
-        raise NotImplementedError(
-            "an MoE model on the GSPMD layout (--tp / --fsdp without --ep "
-            f"or --sp) is {QUEUE_A4}; use --ep, or --sp with --tp")
 
 
 def check_pipe_layout(cfg: TrainConfig) -> None:
@@ -577,6 +574,8 @@ class Trainer:
         self.pipeline = n_pipe > 1
         self.pipe_group = pipe_group
         self.expert_group = expert_group
+        # DP x PP x EP (x SP x TP): the pipeline step with MoE stages
+        self.pp_ep = self.pipeline and n_expert > 1
         self.ep_tp, self.expert = _moe_layouts(cfg)
         self.sp_tp = tp > 1 and sp > 1 and not (self.pipeline or self.ep_tp)
         self.gspmd = ((tp > 1 or n_fsdp > 1) and not self.sp_tp
@@ -656,7 +655,7 @@ class Trainer:
         if self.pipeline:   # JAX's checks, before the stages are stacked
             pp._validate_pipe(self.model, pipe_group.size, tp,
                               seq_group.size if seq_group else 1,
-                              cfg.pp_interleave)
+                              cfg.pp_interleave, expert_group)
         # where the state's bytes live (tensor / fsdp slices under
         # process groups; whole under a local group), from the global init
         self.state_layout: Optional[tp_lib.StateLayout] = None
@@ -675,7 +674,8 @@ class Trainer:
                 qkv_order="dense" if self.gspmd else "permuted",
                 vocab_parallel=cfg.vocab_parallel,
                 pipe_group=pipe_group if self.pipeline else None,
-                interleave=cfg.pp_interleave)
+                interleave=cfg.pp_interleave,
+                expert_group=expert_group if self.pipeline else None)
         combine = (optim_lib.combine_norms if self.state_layout is None
                    else self.state_layout.combine)
         if attention == "auto":     # refuse a length flash cannot take
@@ -743,7 +743,8 @@ class Trainer:
             # microbatches per step; the eval at the natural count
             pipe_kw = dict(interleave=cfg.pp_interleave,
                            tensor_group=tensor_group if tp > 1 else None,
-                           layout=self.state_layout)
+                           layout=self.state_layout,
+                           expert_group=expert_group)
             step = pp.make_pipeline_train_step(
                 self.model, self.optimizer, self.world, pipe_group,
                 loss_name=train_loss,

@@ -14,8 +14,9 @@ against JAX's ``moe_param_specs`` / ``moe_tp_param_specs``; the
 and bytes) and the snapshot gathered from the shards (bitwise the dense
 tree); an exact resume under seq x EP x TP; the replica check, which
 skips the expert leaves as JAX's ``Fingerprinter`` does.  (c) JAX's
-refusals with JAX's type and message, and pipe x expert and MoE under
-GSPMD naming ``QUEUE_A4``.
+refusals with JAX's type and message; the mixes the port once held out
+under ``QUEUE_A4`` (pipe x expert, MoE under GSPMD) now build, and an
+MoE model on the pipe layout without ``--ep`` raises JAX's error.
 
 f32 on both sides.  Tolerance 1e-5 (rtol and atol) on the losses and
 params after three steps.
@@ -442,6 +443,28 @@ def test_jax_refusals_raise_jax_type_and_message(extra, exc):
     ["--fsdp", "2"]], ids=["pp_ep", "pp_moe", "pp_ep_tp", "gspmd_moe",
                            "fsdp_moe"])
 def test_held_out_mixes_name_queue_a4(extra):
-    with pytest.raises(NotImplementedError, match=QUEUE_A4):
-        Trainer(config_from_args(build_argparser().parse_args(
-            moe_flags(*extra))), device="cpu")
+    """The mixes once held out under QUEUE_A4 (ROADMAP Queue A item 4)
+    build on their layouts (pipe x expert on the pipe step, an MoE model
+    under --tp / --fsdp alone on GSPMD); an MoE model on the pipe layout
+    without --ep raises JAX's NotImplementedError, naming no queue (its
+    words against JAX's: tests/test_torch_pipeline_expert.py)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.fsdp import (  # noqa: E501
+        LocalFsdpGroup,
+    )
+
+    cfg = config_from_args(build_argparser().parse_args(moe_flags(*extra)))
+    if extra == ["--pp", "2"]:
+        with pytest.raises(NotImplementedError) as err:
+            Trainer(cfg, device="cpu")
+        assert str(err.value).startswith("MoE x pipeline rides the expert "
+                                         "axis")
+        assert QUEUE_A4 not in str(err.value)
+        return
+    kw = {}
+    if cfg.mesh.tensor > 1:
+        kw["tensor_group"] = LocalTensorGroup(cfg.mesh.tensor)
+    if cfg.mesh.fsdp > 1:
+        kw["fsdp_group"] = LocalFsdpGroup(cfg.mesh.fsdp)
+    t = Trainer(cfg, device="cpu", **kw)
+    assert t.layout_tag == ("pipe" if "--pp" in extra else "gspmd")
+    assert t.pp_ep == ("--pp" in extra)

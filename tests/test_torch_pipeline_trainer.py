@@ -389,5 +389,12 @@ def test_seq_attention_without_sp_raises_jax_type_and_message():
     (["--moe_experts", "4"], "--moe_experts"),
     (["--ep", "2", "--moe_experts", "4"], "--ep")])
 def test_moe_and_expert_under_pipe_stay_refused(extra, flag):
-    with pytest.raises(NotImplementedError, match=flag):
+    """An MoE model on the pipe layout without --ep stays refused, in
+    JAX's words (it rides the expert axis); with --ep it builds (pipe x
+    expert: tests/test_torch_pipeline_expert.py)."""
+    if flag == "--ep":
+        t = _port(LM + ["--pp", "2"] + extra)
+        assert t.pp_ep and t.layout_tag == "pipe"
+        return
+    with pytest.raises(NotImplementedError, match="rides the expert axis"):
         _port(LM + ["--pp", "2"] + extra)

@@ -511,13 +511,15 @@ def test_interop_round_trips_a_jax_train_state():
     # --pp_interleave are ported with their combinations
     # (tests/test_torch_tensor_parallel.py, tests/test_torch_sp_tp.py,
     # tests/test_torch_megatron.py, tests/test_torch_fsdp.py,
-    # tests/test_torch_pipeline*.py), and MoE with the expert axis
-    # (tests/test_torch_expert.py); their mixes with the pipe and GSPMD
-    # layouts (ROADMAP Queue A item 4) take their places
-    ["--tp", "2", "--pp", "2", "--ep", "2", "--dataset", "lm"],
+    # tests/test_torch_pipeline*.py), MoE with the expert axis
+    # (tests/test_torch_expert.py) and on the pipe and GSPMD layouts
+    # (tests/test_torch_pipeline_expert.py, tests/test_torch_moe_gspmd.py);
+    # the mixes JAX refuses (fsdp beside pipe, seq or expert; MoE on the
+    # pipe layout without an expert axis) take their places
+    ["--tp", "2", "--pp", "2", "--fsdp", "2", "--dataset", "lm"],
     ["--sp", "2", "--attention", "ulysses", "--fsdp", "2"],
     ["--pp", "2", "--moe_experts", "4", "--dataset", "lm"],
-    ["--ep", "2", "--pp", "2", "--dataset", "lm"],
+    ["--ep", "2", "--pp", "2", "--fsdp", "2", "--dataset", "lm"],
     ["--fsdp", "2", "--pp", "2"],
     # the observability flags are ported
     # (tests/test_torch_telemetry.py::test_observability_flags_are_ported)
@@ -527,21 +529,21 @@ def test_interop_round_trips_a_jax_train_state():
     # serving-fleet fault kinds (Queue A item 6) and the flags of the
     # model-parallel layouts and RL are not
     ["--vocab_parallel", "--sp", "2", "--tp", "2", "--attention", "ring",
-     "--dataset", "lm", "--ep", "2", "--pp", "2"],
+     "--dataset", "lm", "--fsdp", "2", "--pp", "2"],
     ["--faults", "replica_kill@1"],
     ["--moe_top_k", "2", "--moe_experts", "4", "--pp", "2", "--dataset",
      "lm"],
     ["--pp_interleave", "2", "--pp", "2", "--n_layers", "4", "--dataset",
-     "lm", "--ep", "2"],
-    ["--moe_capacity_factor", "2", "--moe_experts", "4", "--tp", "2",
+     "lm", "--fsdp", "2"],
+    ["--moe_capacity_factor", "2", "--moe_experts", "4", "--pp", "2",
      "--dataset", "lm"],
     ["--ep", "4", "--fsdp", "2", "--dataset", "lm"],
     ["--workload", "rl"], ["--data_backend", "native"],
     ["--attention", "dense_blockwise", "--tp", "2", "--dataset", "lm",
-     "--pp", "2", "--ep", "2"],
+     "--pp", "2", "--fsdp", "2"],
     # ported, but not over the pipeline layout (JAX's refusals)
     ["--matmul_dtype", "fp8", "--dataset", "lm", "--pp", "2"],
-    ["--moe_experts", "4", "--fsdp", "2", "--dataset", "lm"],
+    ["--moe_experts", "4", "--pp", "2", "--dataset", "lm"],
     ["--skip-nonfinite", "--pp", "2", "--dataset", "lm"],
     ["--optimizer", "lion"], ["--dataset", "cifar10"],
 ], ids=lambda f: f[0].lstrip("-"))

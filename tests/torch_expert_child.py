@@ -103,16 +103,17 @@ def main():
     dist.destroy_process_group()
 
 
-def spawn(tmp, size, spec, timeout=300):
-    """``size`` gloo ranks of this script on ``spec``; each rank's
-    outputs."""
+def spawn(tmp, size, spec, timeout=300, script=None):
+    """``size`` gloo ranks of this script (or of the child ``script``) on
+    ``spec``; each rank's outputs."""
     import subprocess
 
     with open(os.path.join(tmp, "in.pkl"), "wb") as f:
         pickle.dump(spec, f)
     env = dict(os.environ, PYTHONPATH=ROOT)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(size),
+        [sys.executable, script or os.path.abspath(__file__), str(r),
+         str(size),
          str(tmp)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for r in range(size)]
     for p in procs:

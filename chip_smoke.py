@@ -28,7 +28,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. serve    — the 218M-parameter LM (vocab 32768, 12 layers, d_model
               1024, 16 heads, d_ff 4096; random weights from a seed, bf16)
               behind ``Scheduler`` -> ``PagedDecodeServer`` with
-              ``attn_impl="fused"``: 32 seeded greedy requests (prompts
+              ``attn_impl="fused"``: 16 seeded greedy requests (prompts
               64-768 tokens, 32-128 new tokens).  Every request must
               finish, the allocator must drain, and the kernel's launch
               count must equal n_layers x (prefill chunks + decode
@@ -450,6 +450,32 @@ Phases, each printing its own lines; any failure exits non-zero:
               size 4 (qkv re-permuted) == ``generate()`` over the
               saver's params.  A ``moe_layouts:`` JSON line; phase 26's
               B1-B3 and B5 launches join the kernels line's counts.
+27. disagg  — disaggregated serving on phase 4's LM, params, geometry
+              and 16 requests: (a) a ``role="prefill"`` and a
+              ``role="decode"`` scheduler on the one card, each with
+              ``telemetry_dir``, ``trace_dir`` and rollups, a pump moving
+              ``take_handoffs()`` into ``inject()``: every request
+              finishes, both allocators drain, 16 handoffs each way, B4
+              launched n_layers x (prefill chunks + decode steps), fewer
+              syncs than decode steps in the decode loop; export and
+              import ms per handoff, payload bytes against the K/V
+              bytes, the decode side's tokens/s and ITL beside phase 4's
+              unified run, the prefill side's TTFT; the unified run again
+              with telemetry and tracing on (ms a tick on vs off).  (d)
+              Both roles' records: ``serve_req`` per request finished,
+              rollup and goodput records and heartbeats stamped with the
+              role, the handoff and inject flows, the load reports'
+              roles, ``tools/metrics_summary.py`` and ``obs_agg.py``
+              reading both directories.  (e) ``loadgen.sweep_loads`` at 4
+              and 16 clients (2 requests each, ``mix="long_prefill"``).
+              (b) f32, TF32 off, phase 5's LM at 2 layers: disaggregated
+              == unified == ``generate()`` with plain pools, int8 KV pools
+              and the prefix cache; payloads exported on the card decode
+              on the host (a CPU server of the port) to the same tokens,
+              and the other way.  (c) ``quiesce()`` with streams in
+              flight on both roles: both allocators drain, readmission
+              reproduces the tokens.  A ``disagg:`` JSON line; (a)'s B4
+              launches join the kernels line's count.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -1430,6 +1456,7 @@ def serve_measure(torch, device, model, params, sconf, requests, tag):
     if launches != expect:
         raise AssertionError(f"paged_attention launched {launches} times, "
                              f"expected n_layers x passes = {expect}")
+    sched.close()
     stats = [sched.stats(r) for r in rids]
     ttft = [s.ttft_ms for s in stats]
     itl = [s.itl_ms for s in stats]
@@ -1438,21 +1465,27 @@ def serve_measure(torch, device, model, params, sconf, requests, tag):
                ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
                itl_p50_ms=pct(itl, 50), itl_p99_ms=pct(itl, 99),
                prefill_chunks=snap["prefill_chunks"],
-               decode_steps=snap["decode_steps"], launches=launches,
+               decode_steps=snap["decode_steps"], ticks=sched.tick_no,
+               launches=launches,
                attended_ratio=snap["attended_ratio"],
                evicted=snap["evicted"], param_bytes=quantized_bytes(params))
     print(f"{tag}: " + json.dumps(out), flush=True)
     return out
 
 
-def serve_full_width(torch, np, device, checks=True, tag="serve", **kw):
+def serve_full_width(torch, np, device, checks=True, tag="serve", keep=None,
+                     **kw):
     """``serve_setup`` and one ``serve_measure``; ``checks``: also count
-    the host's syncs and profile one drain."""
+    the host's syncs and profile one drain; ``keep``: a dict that receives
+    the setup (phase 27 serves the same model and requests)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
         Scheduler, ServeConfig,
     )
 
     model, params, sconf, requests = serve_setup(torch, np, device, **kw)
+    if keep is not None:
+        keep.update(model=model, params=params, sconf=sconf,
+                    requests=requests)
     out = serve_measure(torch, device, model, params, sconf, requests, tag)
     if device.type == "cuda" and checks:
         make = lambda: Scheduler(model, params,  # noqa: E731
@@ -1489,11 +1522,13 @@ def count_host_syncs(torch, make_scheduler, requests):
                              "steps: the decode loop waits per token")
 
 
-def profile_serving(torch, make_scheduler, requests):
-    """Where the serving time goes: one profiled drain of ``requests``
-    (a fresh scheduler, so every request is admitted at once).  Prints
-    the device's busy share of the window, device kernels per forward
-    pass, and the top kernels by device time.  The profiler's own cost
+def profile_serving(torch, make_scheduler, requests, window=40):
+    """Where the serving time goes: one drain of ``requests`` (a fresh
+    scheduler, so every request is admitted at once), its first
+    ``window`` ticks under the profiler (prefill chunks and decode steps
+    together; the profiler's processing costs ~0.1 s a tick).  Prints the
+    device's busy share of the window, device kernels per forward pass,
+    and the top kernels by device time.  The profiler's own cost
     lengthens the window, so the busy share is a lower bound.  Only the
     device's activity is recorded: the host's operators, which nothing
     here reads, cost most of the profiler's processing."""
@@ -1501,12 +1536,21 @@ def profile_serving(torch, make_scheduler, requests):
     from torch.profiler import ProfilerActivity, profile
 
     sched = make_scheduler()
+    rids = [sched.submit(p, n) for p, n in requests]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drive(sched, requests)
+        for _ in range(window):
+            sched.tick()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    snap = sched.snapshot()
+    sched.run_until_drained()
+    for (p, n), rid in zip(requests, rids):
+        toks = sched.result(rid)
+        assert len(toks) == len(p) + n and toks[:len(p)] == p, \
+            "profiled drain: a request came back altered"
+    sched.server.allocator.assert_drained()
     by_name = {}
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1514,9 +1558,9 @@ def profile_serving(torch, make_scheduler, requests):
             by_name[ev.name] = (tot + ev.device_time_total, cnt + 1)
     busy_us = sum(t for t, _ in by_name.values())
     n_dev = sum(c for _, c in by_name.values())
-    snap = sched.snapshot()
     passes = snap["prefill_chunks"] + snap["decode_steps"]
-    print(f"profile: {len(requests)} requests, {passes} forward passes, "
+    print(f"profile: {len(requests)} requests, {window} ticks, {passes} "
+          f"forward passes, "
           f"wall {wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({100 * busy_us / wall_us:.1f}%), {n_dev} device ops "
           f"({n_dev / max(passes, 1):.0f} per pass)", flush=True)
@@ -6899,7 +6943,7 @@ MOE_KEYS = ("step_ms_median", "tokens_per_s", "mfu", "peak_memory_gib",
             "profile_shares", "n_params", "save_s", "snapshot_bytes")
 
 
-def moe_full_width(torch, np, device):
+def moe_full_width(torch, np, device, keep=None):
     """Phase 25: (d)'s host runs start first, in a subprocess; (a) the
     layer; (b) the flagship MoE LM (924M params) under ``--ep 4`` over
     ``LocalExpertGroup(4)`` at full width, ce_chunk 0, one epoch eager
@@ -6908,7 +6952,8 @@ def moe_full_width(torch, np, device):
     snapshot (e) decodes) and one graphed (k 13, bitwise); (e)'s
     ``--generate`` process starts; (c) ``--moe_top_k 2`` on the plain DP
     step (ce_chunk 256) at full width, eager (with a profile) and graphed
-    (bitwise); (d) the f32 identities; (f) serving; (e) the tokens
+    (bitwise), from (b)'s seeded init (the same global tree: drawn once,
+    and kept in ``keep["init"]`` for phase 26 (c)); (d) the f32 identities; (f) serving; (e) the tokens
     against the decode of (b)'s final params."""
     import tempfile
     from pathlib import Path
@@ -6941,6 +6986,11 @@ def moe_full_width(torch, np, device):
                 torch, np, device, eager, exact=True, profile=False,
                 tag="dispatch moe ep4",
                 expert_group=LocalExpertGroup(EP_SHARDS), **ep4)
+            # the seeded init, drawn once: the plain DP layout (c) and the
+            # GSPMD one (phase 26 (c)) draw the same global tree as --ep 4
+            moe_init = eager["init_params"]
+            if keep is not None:
+                keep["init"] = moe_init
             del eager["final_params"], eager["init_params"]
             out["ep4"] = {k: eager[k] for k in MOE_KEYS if k in eager}
             out["ep4_graphed"] = {k: graphed[k] for k in (
@@ -6953,9 +7003,11 @@ def moe_full_width(torch, np, device):
             gen = start_moe_generate(ck)
             procs.append(gen)
             top2 = dict(moe_top_k=2, nepochs=1, **MOE_FLAGS)
-            dense = train_full_width(torch, np, device, keep_final=True,
-                                     tag="train moe top-2 dp",
-                                     keep_init=True, **top2)
+            with eager_init(torch, moe_init):
+                dense = train_full_width(torch, np, device, keep_final=True,
+                                         tag="train moe top-2 dp",
+                                         keep_init=True, **top2)
+            del moe_init
             dense_g = dispatch_full_width(
                 torch, np, device, dense, exact=True, profile=False,
                 tag="dispatch moe top-2 dp", **top2)
@@ -7255,8 +7307,9 @@ def generate_tp_full_width(torch, np, device):
     return out
 
 
-def moe_layouts_full_width(torch, np, device):
-    """Phase 26: (b)'s host run (pp 2 x sp 2 x ep 2) starts first, in a
+def moe_layouts_full_width(torch, np, device, init=None):
+    """Phase 26 (``init``: phase 25's seeded init, which (a), stacked for
+    the pipe, and (c) start from rather than draw it again): (b)'s host run (pp 2 x sp 2 x ep 2) starts first, in a
     subprocess, and (b)'s pp 2 x ep 2 snapshot with its ``--generate``
     process; (a) the flagship MoE LM (924.5M params) under ``--pp 2 --ep
     2`` over ``LocalPipeGroup(2)`` x ``LocalExpertGroup(2)`` at full
@@ -7283,7 +7336,7 @@ def moe_layouts_full_width(torch, np, device):
         LocalTensorGroup,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.pipeline import (  # noqa: E501
-        dense_layer_blocks,
+        dense_layer_blocks, stack_blocks,
     )
 
     t0 = time.perf_counter()
@@ -7308,12 +7361,17 @@ def moe_layouts_full_width(torch, np, device):
                                         saver.state.params["blocks"])),
                 **MOE_FLAGS)
             del saver
-            # (a) pp 2 x ep 2 at full width
+            # (a) pp 2 x ep 2 at full width, from phase 25's init with the
+            # blocks stage-stacked (the pipeline's own draw: the same tree)
             pp_ep = dict(nepochs=1, **PP_EP)
-            eager = train_full_width(
-                torch, np, device, keep_final=True,
-                tag="train moe pp2 x ep2", keep_init=True,
-                expert_group=LocalExpertGroup(2), **pp_ep)
+            pp_init = None if init is None else dict(
+                init, blocks=stack_blocks(init["blocks"], PP_EP["pp"], 1))
+            with eager_init(torch, pp_init):
+                eager = train_full_width(
+                    torch, np, device, keep_final=True,
+                    tag="train moe pp2 x ep2", keep_init=True,
+                    expert_group=LocalExpertGroup(2), **pp_ep)
+            del pp_init
             graphed = dispatch_full_width(
                 torch, np, device, eager, exact=True, profile=False,
                 tag="dispatch moe pp2 x ep2",
@@ -7323,10 +7381,12 @@ def moe_layouts_full_width(torch, np, device):
             out["pp2_ep2_graphed"] = {k: graphed[k] for k in graphed_keys}
             # (c) the GSPMD layout: --tp 4, then --fsdp 4 at 2 layers
             tp4 = dict(tp=TP_SHARDS, ce_chunk=0, nepochs=1, **MOE_FLAGS)
-            eager = train_full_width(
-                torch, np, device, keep_final=True, tag="train moe tp4",
-                keep_init=True,
-                tensor_group=LocalTensorGroup(TP_SHARDS), **tp4)
+            with eager_init(torch, init):
+                eager = train_full_width(
+                    torch, np, device, keep_final=True, tag="train moe tp4",
+                    keep_init=True,
+                    tensor_group=LocalTensorGroup(TP_SHARDS), **tp4)
+            init = None
             graphed = dispatch_full_width(
                 torch, np, device, eager, exact=True, profile=False,
                 tag="dispatch moe tp4",
@@ -7386,6 +7446,480 @@ def moe_layouts_full_width(torch, np, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: disaggregated serving (the prefill -> decode block handoff),
+# the scheduler's telemetry, tracing and fleet surface, the load sweep
+# ---------------------------------------------------------------------------
+
+# (a)'s telemetry cadence: a kind="serve" record every 10 ticks, a rollup
+# (and a goodput record) every 25
+DISAGG_TELEMETRY = dict(metrics_every=10, rollup_every=25)
+
+
+def disagg_pump(torch, pre, dec, requests, timings=None, syncs=None,
+                max_ticks=20_000):
+    """Serve ``requests`` through a ``role="prefill"`` scheduler and a
+    ``role="decode"`` one on one thread: each pass ticks the prefill side,
+    moves its ``take_handoffs()`` into ``dec.inject()`` (an inject that
+    returns None is retried on the next pass) and ticks the decode side.
+    Checks each request's tokens for length and prompt and both
+    allocators drained; returns ``(tokens in request order, prefill-side
+    handoff descriptors, decode-side rids)``.  ``timings``: a dict that
+    receives the export and import ms of each handoff (the device
+    device synchronised before each export, whose read of the rows waits
+    for it anyway; an import's is the host's time in ``inject``, the
+    copy to the card and the row writes queued behind it).  ``syncs``: a
+    list that receives the synchronising calls of the decode side's
+    ticks (``inject`` left out)."""
+    import warnings
+
+    cuda = pre.server.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if timings is not None:
+        timings.update(export_ms=[], import_ms=[], payload_bytes=[],
+                       prompt_tokens=[], rows=[])
+        export = pre.server.export_stream
+
+        def timed_export(rid):
+            sync()
+            t0 = time.perf_counter()
+            out = export(rid)
+            timings["export_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        pre.server.export_stream = timed_export
+    rids = [pre.submit(p, n) for p, n in requests]
+    assert all(r is not None for r in rids), "a request was rejected"
+    dec_of, waiting, out, handoffs = {}, [], {}, []
+    for _ in range(max_ticks):
+        for rid in pre.tick():
+            out[rid] = pre.result(rid)          # finished at prefill
+        taken = pre.take_handoffs()
+        handoffs += taken
+        waiting += taken
+        for h in list(waiting):
+            t0 = time.perf_counter()
+            got = dec.inject(h["payload"], slo_ms=h["slo_ms"])
+            if got is None:
+                continue
+            if timings is not None:
+                pay = h["payload"]
+                timings["import_ms"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                timings["payload_bytes"].append(sum(
+                    len(b) for lay in pay["layers"] for b in lay.values()))
+                timings["prompt_tokens"].append(len(pay["prompt"]))
+                timings["rows"].append(pay["n_blocks"])
+            dec_of[got] = h["rid"]
+            waiting.remove(h)
+        if syncs is not None and cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    finished = dec.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("synchroniz" in str(w.message)
+                             for w in caught))
+        else:
+            finished = dec.tick()
+        for rid in finished:
+            out[dec_of[rid]] = dec.result(rid)
+        if len(out) == len(rids):
+            break
+    else:
+        raise AssertionError(f"disaggregated serving not drained: "
+                             f"{len(out)}/{len(rids)} done")
+    if timings is not None:
+        pre.server.export_stream = export
+    toks = [out[r] for r in rids]
+    for (p, n), t in zip(requests, toks):
+        assert len(t) == len(p) + n, "a request came back short"
+        assert t[:len(p)] == p, "a prompt came back altered"
+    pre.server.allocator.assert_drained()
+    dec.server.allocator.assert_drained()
+    return toks, handoffs, list(dec_of)
+
+
+def disagg_full_width(torch, np, device, tmp, setup):
+    """(a) Phase 4's LM, params, scheduler geometry and 16 requests
+    through a prefill and a decode scheduler on the one card, each with
+    ``telemetry_dir``, ``trace_dir`` and rollups in ``tmp``: every request
+    finishes, both allocators drain, 16 handoffs each way, paged attention
+    (B4) launched n_layers x (prefill chunks + decode steps), fewer syncs
+    than decode steps in the decode loop.  Before it the unified fused
+    scheduler on the same requests with telemetry and tracing off, on,
+    on, off: the ms a tick they cost, and the unified runs the
+    disaggregated one stands beside."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+
+    model, params = setup["model"], setup["params"]
+    sconf, requests = setup["sconf"], setup["requests"]
+    c = model.cfg
+    unified = {"off": [], "on": []}
+    for i, arm in enumerate(("off", "on", "on", "off")):
+        obs = (dict(telemetry_dir=f"{tmp}/unified{i}",
+                    trace_dir=f"{tmp}/unified{i}-trace", **DISAGG_TELEMETRY)
+               if arm == "on" else {})
+        unified[arm].append(serve_measure(
+            torch, device, model, params, dict(sconf, **obs), requests,
+            f"disagg unified, telemetry + trace {arm}"))
+    tick_ms = {arm: [1e3 * r["wall_s"] / r["ticks"] for r in runs]
+               for arm, runs in unified.items()}
+    clock = synced_clock(torch, device)
+    roles = {}
+    for role in ("prefill", "decode"):
+        roles[role] = Scheduler(model, params, ServeConfig(
+            **sconf, role=role, telemetry_dir=f"{tmp}/{role}",
+            trace_dir=f"{tmp}/{role}-trace", **DISAGG_TELEMETRY),
+            now_fn=clock, device=device)
+    pre, dec = roles["prefill"], roles["decode"]
+    timings, syncs = {}, []
+    paged_attention.launches = 0
+    t0 = clock()
+    _, handoffs, dec_rids = disagg_pump(torch, pre, dec, requests,
+                                        timings=timings, syncs=syncs)
+    wall = clock() - t0
+    launches = paged_attention.launches
+    ps, ds = pre.snapshot(), dec.snapshot()
+    passes = (ps["prefill_chunks"] + ps["decode_steps"]
+              + ds["prefill_chunks"] + ds["decode_steps"])
+    expect = c.n_layers * passes if device.type == "cuda" else 0
+    n = len(requests)
+    checks = {
+        f"handed_off == injected == {n}": (
+            ps["handed_off"] == ds["injected"] == n),
+        "prefill side decodes nothing, decode side prefills nothing": (
+            ps["decode_steps"] == 0 and ds["prefill_chunks"] == 0),
+        f"B4 launches {launches} == n_layers x passes {expect}": (
+            launches == expect),
+        f"decode-loop syncs {sum(syncs)} < decode steps "
+        f"{ds['decode_steps']}": (
+            device.type != "cuda" or sum(syncs) < ds["decode_steps"]),
+        "completed 16 on the decode side": ds["completed"] == n,
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"disagg (a): {failed}")
+    stats = [dec.stats(r) for r in dec_rids]
+    itl = [s.itl_ms for s in stats]
+    ttft = [h["ttft_ms"] for h in handoffs]
+    kv_bytes_token = c.n_layers * 2 * c.kv_heads * c.head_dim * \
+        torch.tensor([], dtype=c.compute_dtype).element_size()
+    raw = [r * sconf["block_size"] * kv_bytes_token for r in timings["rows"]]
+    out = dict(
+        requests=n, handed_off=ps["handed_off"], injected=ds["injected"],
+        wall_s=wall, prefill_chunks=ps["prefill_chunks"],
+        decode_steps=ds["decode_steps"], launches=launches,
+        decode_loop_syncs=sum(syncs),
+        export_ms_p50=pct(timings["export_ms"], 50),
+        export_ms_max=max(timings["export_ms"]),
+        import_ms_p50=pct(timings["import_ms"], 50),
+        import_ms_max=max(timings["import_ms"]),
+        payload_bytes_p50=pct(timings["payload_bytes"], 50),
+        payload_bytes_max=max(timings["payload_bytes"]),
+        kv_bytes_per_prompt_token=kv_bytes_token,
+        raw_row_bytes_max=max(raw),
+        payload_over_raw=sum(timings["payload_bytes"]) / sum(raw),
+        longest_prompt=max(timings["prompt_tokens"]),
+        decode_tokens_per_s=ds["tokens_out"] / wall,
+        decode_itl_p50_ms=pct(itl, 50), decode_itl_p99_ms=pct(itl, 99),
+        prefill_ttft_p50_ms=pct(ttft, 50), prefill_ttft_p99_ms=pct(ttft, 99),
+        unified={arm: [{k: r[k] for k in (
+            "tokens_per_s", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms",
+            "itl_p99_ms", "wall_s", "ticks")} for r in runs]
+            for arm, runs in unified.items()},
+        ms_per_tick_telemetry=tick_ms)
+    on, off = unified["on"], unified["off"]
+
+    def rates(runs, key="tokens_per_s"):
+        return ", ".join(f"{r[key]:.2f}" for r in runs)
+
+    print(f"disagg (a): {n} requests, {ps['handed_off']} handoffs; export "
+          f"{out['export_ms_p50']:.1f} ms p50 / {out['export_ms_max']:.1f} "
+          f"max, import {out['import_ms_p50']:.1f} / "
+          f"{out['import_ms_max']:.1f} ms; payload "
+          f"{out['payload_bytes_max'] / 1e6:.2f} MB at most (prompt "
+          f"{out['longest_prompt']} tokens; rows "
+          f"{out['raw_row_bytes_max'] / 1e6:.2f} MB raw, {kv_bytes_token} "
+          f"B of K/V a token; base64 x "
+          f"{out['payload_over_raw']:.3f}); decode side "
+          f"{out['decode_tokens_per_s']:.1f} tokens/s, ITL "
+          f"{out['decode_itl_p50_ms']:.2f} / {out['decode_itl_p99_ms']:.2f} "
+          f"ms p50/p99 (unified, telemetry on: {rates(on)} tokens/s, "
+          f"ITL p50 {rates(on, 'itl_p50_ms')}, p99 "
+          f"{rates(on, 'itl_p99_ms')}; off: {rates(off)} "
+          f"tokens/s); prefill side TTFT "
+          f"{out['prefill_ttft_p50_ms']:.1f} / "
+          f"{out['prefill_ttft_p99_ms']:.1f} ms; B4 {launches} launches; "
+          f"decode-loop syncs {sum(syncs)} over {ds['decode_steps']} steps; "
+          f"ms a tick with telemetry and tracing off / on / on / off: "
+          f"{tick_ms['off'][0]:.2f} / {tick_ms['on'][0]:.2f} / "
+          f"{tick_ms['on'][1]:.2f} / {tick_ms['off'][1]:.2f}", flush=True)
+    out["records"] = disagg_records(tmp, pre, dec, n)
+    return out
+
+
+def disagg_records(tmp, pre, dec, n):
+    """(d) Both roles' telemetry after (a): one ``serve_req`` per request
+    the decode side finished, none on the prefill side (its final
+    ``serve`` record counts the handoffs), rollup and goodput records and
+    heartbeats stamped with each role, the flows' handoff and inject
+    stages in the one trace, the load reports' roles;
+    ``tools/metrics_summary.py`` and ``tools/obs_agg.py`` (``--json``)
+    read both directories."""
+    import glob
+
+    reports = {r: s.load_report()["now"]["role"]
+               for r, s in (("prefill", pre), ("decode", dec))}
+    pre.close()
+    dec.close()
+    out = {}
+    for role in ("prefill", "decode"):
+        recs = _jsonl(f"{tmp}/{role}/metrics.jsonl")
+        kinds = {}
+        for r in recs:
+            kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+        final = [r for r in recs if r["kind"] == "serve"][-1]
+        stamped = {r["role"] for r in recs
+                   if r["kind"] in ("rollup", "goodput")}
+        beats = sorted(os.path.basename(f) for f in glob.glob(
+            f"{tmp}/{role}/heartbeat*.json"))
+        summary = _tool_json("metrics_summary", f"{tmp}/{role}")
+        out[role] = dict(kinds=kinds, heartbeats=beats,
+                         final_handed_off=final["handed_off"],
+                         final_injected=final["injected"],
+                         summary_keys=sorted(summary))
+        want_req = n if role == "decode" else 0
+        ok = (kinds.get("serve_req", 0) == want_req
+              and kinds.get("rollup", 0) >= 1
+              and kinds.get("goodput", 0) >= 1
+              and stamped == {f"serve-{role}"}
+              and beats == [f"heartbeat-serve-{role}-p0.json"]
+              and reports[role] == role
+              and (final["handed_off"] if role == "prefill"
+                   else final["injected"]) == n)
+        if not ok:
+            raise AssertionError(f"disagg (d) {role}: {out[role]}, "
+                                 f"stamped {stamped}, load report role "
+                                 f"{reports[role]}")
+    fleet = _tool_json("obs_agg", f"{tmp}/prefill", f"{tmp}/decode")
+    roles = sorted(fleet.get("roles", {}))
+    if not {"serve-prefill", "serve-decode"} <= set(roles):
+        raise AssertionError(f"disagg (d): obs_agg roles {roles}")
+    stages = {}
+    for path in glob.glob(f"{tmp}/prefill-trace/trace-*.jsonl"):
+        for r in _jsonl(path):
+            if r.get("kind") == "flow":
+                stages[r.get("stage")] = stages.get(r.get("stage"), 0) + 1
+    if stages.get("handoff") != n or stages.get("inject") != n:
+        raise AssertionError(f"disagg (d): flow stages {stages}")
+    out.update(obs_agg_roles=roles, flow_stages=stages,
+               load_report_roles=reports)
+    print(f"disagg (d): records prefill {out['prefill']['kinds']}, decode "
+          f"{out['decode']['kinds']}; heartbeats "
+          f"{out['prefill']['heartbeats'] + out['decode']['heartbeats']}; "
+          f"obs_agg roles {roles}; flow stages {stages}", flush=True)
+    return out
+
+
+def _tool_json(tool, *paths):
+    """``tools/<tool>.py <paths> --json``, parsed."""
+    proc = subprocess.run([sys.executable, str(REPO_ROOT / "tools" /
+                                               f"{tool}.py"), *paths,
+                           "--json"], capture_output=True, text=True,
+                          timeout=120, cwd=str(REPO_ROOT))
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/{tool}.py {paths}: rc "
+                             f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def disagg_identity(torch, np, device, cfg=None):
+    """(b), (c) f32 with TF32 off, phase 5's LM at 2 layers (or ``cfg``)
+    and its requests: disaggregated tokens == unified == ``generate()``, with plain
+    pools, int8 KV pools and the prefix cache on both sides; payloads
+    exported on the card decode on the host (a CPU server of the port,
+    the gathered path) to the same tokens, and the other way.  (c)
+    ``quiesce()`` with streams in flight on both roles and requests
+    queued: both allocators drain, and the drained requests readmitted on
+    a fresh scheduler give the same tokens."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils.tree import (  # noqa: E501
+        tree_map,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or big_config(torch, n_layers=2, dtype=torch.float32)
+    model = Transformer(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 1))
+    rng = np.random.default_rng(SEED + 1)
+    vocab = cfg.vocab_size
+    ragged = [(rng.integers(0, vocab, p).tolist(), 16)
+              for p in (5, 40, 100, 300) if p + 16 <= cfg.max_seq_len]
+    base = rng.integers(0, vocab, 100).tolist()
+    shared = [(base + [1], 12), (base + [2, 3], 12), (base[:37] + [4], 10),
+              (base, 12), (base + [1], 8)]
+    geom = dict(slots=4, block_size=16, max_len=cfg.max_seq_len,
+                prefill_chunk=256, attn_impl="fused",
+                num_blocks=4 * -(-cfg.max_seq_len // 16) + 1)
+
+    def sched(role="unified", dev=device, mdl=model, prm=params, **kw):
+        return Scheduler(mdl, prm, ServeConfig(**{**geom, **kw}, role=role),
+                         device=dev)
+
+    out = {}
+    unified = {}
+    for tag, kw, reqs in (("plain", {}, ragged),
+                          ("int8_kv", dict(kv_quant=True), ragged),
+                          ("prefix_cache", dict(prefix_cache=True), shared)):
+        uni = drive(sched(**kw), reqs)[1]
+        pre, dec = sched("prefill", **kw), sched("decode", **kw)
+        dis = disagg_pump(torch, pre, dec, reqs)[0]
+        oracle = [generate(model, params, [p], n, device=device,
+                           kv_quant=kw.get("kv_quant", False))[0].tolist()
+                  for p, n in reqs]
+        hits = (dec.snapshot().get("prefix_hits"),
+                pre.snapshot().get("prefix_hits"))
+        out[tag] = dict(disagg_eq_unified=dis == uni,
+                        unified_eq_generate=uni == oracle,
+                        handoffs=pre.handed_off, prefix_hits=hits)
+        print(f"disagg (b) f32 {tag}: disaggregated == unified "
+              f"{dis == uni}, unified == generate() {uni == oracle} "
+              f"({len(reqs)} requests, {pre.handed_off} handoffs"
+              f"{', prefix hits (decode, prefill) %s' % (hits,) if kw.get('prefix_cache') else ''})",
+              flush=True)
+        if not (dis == uni == oracle):
+            raise AssertionError(f"disagg (b) {tag}: tokens differ")
+        unified[tag] = uni
+    # card <-> host: a CPU server of the port on a host copy of the params
+    cpu = torch.device("cpu")
+    host_model = Transformer(cfg, device=cpu)
+    host_params = tree_map(lambda t: t.cpu(), params)
+    pair = ragged[1:3]
+    want = unified["plain"][1:3]
+    got = {}
+    for src, dst in (("card", "host"), ("host", "card")):
+        dev_of = {"card": device, "host": cpu}
+        mdl = {"card": model, "host": host_model}
+        prm = {"card": params, "host": host_params}
+        pre = sched("prefill", dev_of[src], mdl[src], prm[src],
+                    attn_impl="fused" if src == "card" else "gathered")
+        dec = sched("decode", dev_of[dst], mdl[dst], prm[dst],
+                    attn_impl="fused" if dst == "card" else "gathered")
+        got[f"{src}_to_{dst}"] = disagg_pump(torch, pre, dec, pair)[0] == want
+    out["card_host"] = got
+    print(f"disagg (b) f32 payloads across devices (2 requests, prompts "
+          f"40 and 100): {got}", flush=True)
+    if not all(got.values()):
+        raise AssertionError(f"disagg (b): card <-> host tokens {got}")
+    # (c) quiesce with a prompt mid-prefill on the prefill side (chunks of
+    # 32), streams decoding on the decode side and requests queued
+    pre, dec = sched("prefill", prefill_chunk=32), sched("decode")
+    extra = [(rng.integers(0, vocab, p).tolist(), 16)
+             for p in (60, 7, 20, 33)]
+    reqs = ragged + extra
+    for p, n in reqs:
+        assert pre.submit(p, n) is not None
+    waiting = []
+    for _ in range(50):
+        pre.tick()
+        waiting += pre.take_handoffs()
+        waiting = [h for h in waiting if dec.inject(h["payload"]) is None]
+        dec.tick()
+        if pre.tokens_at_risk() and dec.in_flight():
+            break
+    else:
+        raise AssertionError("disagg (c): never in flight on both roles")
+    if waiting:
+        raise AssertionError("disagg (c): a handoff was left untaken")
+    state = dict(prefill_in_flight=pre.in_flight(),
+                 prefill_pending=pre.pending(),
+                 decode_in_flight=dec.in_flight(),
+                 tokens_at_risk=pre.tokens_at_risk() + dec.tokens_at_risk())
+    drained = pre.quiesce() + dec.quiesce()     # each asserts its drain
+    fresh = sched()
+    rids = [fresh.submit(d["prompt"], d["max_new"]) for d in drained]
+    fresh.run_until_drained()
+    by_prompt = {tuple(p): t for (p, _), t in zip(
+        ragged, unified["plain"])}
+    oracle = {tuple(p): generate(model, params, [p], n,
+                                 device=device)[0].tolist()
+              for p, n in extra}
+    redo = [fresh.result(r) for r in rids]
+    ok = (len(drained) == len(reqs)
+          and all(t == {**by_prompt, **oracle}[tuple(d["prompt"])]
+                  for d, t in zip(drained, redo)))
+    out["drain"] = dict(state, drained=len(drained), reproduced=ok)
+    print(f"disagg (c) quiesce: {state}; {len(drained)} drained, "
+          f"readmitted tokens equal {ok}", flush=True)
+    if not ok:
+        raise AssertionError("disagg (c): readmission changed the tokens")
+    fresh.server.allocator.assert_drained()
+    return out
+
+
+def load_sweep(torch, device, setup, loads=(4, 16), per_client=2,
+               mix="long_prefill"):
+    """(e) ``serve.loadgen.sweep_loads`` on the unified fused scheduler at
+    full width with a synced clock: ``loads`` closed-loop clients,
+    ``per_client`` requests each, traffic of ``mix``."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig, resolve_mix, sweep_loads,
+    )
+
+    model, params, sconf = setup["model"], setup["params"], setup["sconf"]
+    prompt_lens, max_new, spl, frac = resolve_mix(mix, None, None, 0, 0.0)
+    rows = sweep_loads(
+        lambda: Scheduler(model, params, ServeConfig(**sconf),
+                          now_fn=synced_clock(torch, device), device=device),
+        list(loads), per_client, vocab_size=model.cfg.vocab_size,
+        prompt_lens=prompt_lens, max_new=max_new, seed=SEED,
+        shared_prefix_len=spl, shared_fraction=frac)
+    keys = ("clients", "requests", "tokens_per_sec", "ttft_ms_p50",
+            "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "ttft_ms_p50_shared",
+            "ttft_ms_p50_unique", "evicted")
+    out = [{k: r.get(k) for k in keys} for r in rows]
+    for r in out:
+        if r["requests"] != r["clients"] * per_client:
+            raise AssertionError(f"load sweep: {r}")
+        print(f"disagg (e) load sweep {mix}: " + json.dumps(r), flush=True)
+    return out
+
+
+def disagg_phase(torch, np, device, setup, cfg_f32=None):
+    """Phase 27: (a) + (d), (e), (b) + (c) (``cfg_f32``: their LM)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-disagg-")
+    try:
+        out = dict(full_width=disagg_full_width(torch, np, device, tmp,
+                                                setup))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["sweep"] = load_sweep(torch, device, setup)
+    out["identity"] = disagg_identity(torch, np, device, cfg=cfg_f32)
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7420,7 +7954,10 @@ def main() -> int:
         for hd, bs in ((32, 16), (64, 64), (64, 128))]
 
     phase("4 serve the 218M LM through the fused kernel")
-    served = serve_full_width(torch, np, device)
+    # phase 27 serves the same LM and requests
+    serve_kept = {}
+    served = serve_full_width(torch, np, device, keep=serve_kept,
+                              n_requests=16)
 
     phase("5 f32 token identity")
     token_identity(torch, np, device)
@@ -7604,15 +8141,23 @@ def main() -> int:
     phase("25 MoE and expert parallelism: the layer, --ep 4, top-2 on DP, "
           "the f32 identities, --generate from (b)'s snapshot, MoE "
           "serving")
-    moe = moe_full_width(torch, np, device)
+    moe_kept = {}
+    moe = moe_full_width(torch, np, device, keep=moe_kept)
     print("moe: " + json.dumps(moe), flush=True)
 
     phase("26 MoE on the pipe and GSPMD layouts: --pp 2 --ep 2, MoE under "
           "--tp 4 / --fsdp 4 (global-batch routing), the f32 identities, "
           "generate_tp")
-    moe_layouts = moe_layouts_full_width(torch, np, device)
+    moe_layouts = moe_layouts_full_width(torch, np, device,
+                                         init=moe_kept.pop("init"))
     print("moe_layouts: " + json.dumps(moe_layouts), flush=True)
     torch.distributed.destroy_process_group()
+
+    phase("27 disaggregated serving: the prefill -> decode block handoff, "
+          "the roles' telemetry, tracing and drain, the load sweep")
+    disagg = disagg_phase(torch, np, device, serve_kept)
+    del serve_kept
+    print("disagg: " + json.dumps(disagg), flush=True)
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
@@ -7627,8 +8172,11 @@ def main() -> int:
                     takes="head_dim 32/64/128; pool blocks of any multiple "
                           "of 16 keys (16, 32, 64, 128 checked)",
                     replaces=f"{tpu}:486",
-                    launches=served["launches"] + moe["paged_launches"],
+                    launches=(served["launches"] + moe["paged_launches"]
+                              + disagg["full_width"]["launches"]),
                     launches_phase25=moe["paged_launches"],
+                    # phase 27 (a): both roles of the disaggregated run
+                    launches_phase27=disagg["full_width"]["launches"],
                     max_abs_err=max_err, other_shapes=other_shapes,
                     **timing)]
     # phase 22 (b): the DP x TP run, eager and graphed

@@ -5,7 +5,10 @@ its paths to an NVIDIA H100, slice by slice:
 
 * serving: the Transformer LM behind the paged-KV continuous-batching
   scheduler (``serve.Scheduler`` -> ``serve.PagedDecodeServer``), whose
-  fused attention is a hand-written CUDA kernel (``ops.paged_attention``);
+  fused attention is a hand-written CUDA kernel (``ops.paged_attention``),
+  unified or split into prefill and decode roles joined by a block
+  handoff, with its telemetry and load generator (``serve.loadgen``), and
+  the dense ``models.DecodeServer``;
 * training: synchronous data parallelism (``train.Trainer``, the CLI
   ``python -m neural_networks_parallel_training_with_mpi_tpu_torch``),
   with flash attention forward and backward as hand-written CUDA kernels

@@ -81,32 +81,58 @@ def attend_masked(c, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, w, c.n_heads, c.head_dim)
 
 
+def _cached_attend(c, cache, idx, mask):
+    """The attention of a KV-cache forward: write the new K/V into
+    ``cache`` at ``idx`` in place (int8 codes and scales under a quantized
+    cache), then attend over the whole cache under ``mask``."""
+    def attend(q, k, v):
+        if "k_scale" in cache:
+            k, ks = _quantize_kv(k)
+            v, vs = _quantize_kv(v)
+            cache["k_scale"][idx] = ks
+            cache["v_scale"][idx] = vs
+        cache["k"][idx] = k.to(cache["k"].dtype)
+        cache["v"][idx] = v.to(cache["v"].dtype)
+        return attend_masked(c, q, cache["k"], cache["v"], mask,
+                             cache.get("k_scale"), cache.get("v_scale"))
+    return attend
+
+
 def _forward_chunk(model: Transformer, params, caches, ids: torch.Tensor,
                    pos: int) -> torch.Tensor:
     """ids (B, S) at start ``pos`` -> f32 logits (B, S, vocab).  Each
     layer writes the chunk's K/V into its cache in place and attends
     causally over positions ``0 .. pos+S-1``."""
-    c = model.cfg
     b, s = ids.shape
     positions = pos + torch.arange(s, device=ids.device)
     t = caches[0]["k"].shape[1]
     mask = (torch.arange(t, device=ids.device)[None, None, :]
             <= positions[None, :, None]).expand(b, s, t)
     x = model.embed(params, ids, positions)
+    idx = (slice(None), slice(pos, pos + s))
     for layer, cache in zip(layer_params(params), caches):
+        x = model.block(layer, x, positions,
+                        _cached_attend(model.cfg, cache, idx, mask))
+    return model.head_logits(params, x)
 
-        def attend(q, k, v, cache=cache):
-            if "k_scale" in cache:
-                k, ks = _quantize_kv(k)
-                v, vs = _quantize_kv(v)
-                cache["k_scale"][:, pos:pos + s] = ks
-                cache["v_scale"][:, pos:pos + s] = vs
-            cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
-            cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
-            return attend_masked(c, q, cache["k"], cache["v"], mask,
-                                 cache.get("k_scale"), cache.get("v_scale"))
 
-        x = model.block(layer, x, positions, attend)
+def _forward_token_batched(model: Transformer, params, layers, caches,
+                           ids: torch.Tensor, pos: torch.Tensor
+                           ) -> torch.Tensor:
+    """One token per row at per-row positions (the continuous-batching
+    decode of ``models.serve``): ids (B, 1), pos (B,) -> f32 logits (B, 1,
+    vocab).  Each layer writes row b's K/V at ``pos[b]`` of its cache in
+    place and attends over positions ``0 .. pos[b]``; ``layers`` is
+    ``layer_params(params)``."""
+    t = caches[0]["k"].shape[1]
+    mask = (torch.arange(t, device=ids.device)[None, None, :]
+            <= pos[:, None, None])                      # (B, 1, T)
+    positions = pos[:, None]
+    idx = (torch.arange(ids.shape[0], device=ids.device)[:, None], positions)
+    x = model.embed(params, ids, positions)
+    for layer, cache in zip(layers, caches):
+        x = model.block(layer, x, positions,
+                        _cached_attend(model.cfg, cache, idx, mask))
     return model.head_logits(params, x)
 
 

@@ -39,12 +39,18 @@ A stream writes only blocks it owns: when a matched prefix ends inside a
 block, the first write past it forks that block into one reserved at
 admission (one on-device row copy).
 
-Not ported yet: the disaggregated-serving block handoff
-(``export_stream``/``import_stream``), which comes with the fleet.
+**Block handoff** (disaggregated prefill/decode): :meth:`export_stream`
+serializes a prefill-complete stream (per layer and pool tensor, base64
+of the raw bytes of its ``blocks_for(p)`` block rows, plus the prompt
+and the first sampled token) and :meth:`import_stream` admits it on
+another server directly in the decoding state.  The wire format is the
+JAX package's (``"v": 1``, numpy dtype names), so a payload crosses
+between the two packages in either direction.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -62,6 +68,14 @@ ATTN_IMPLS = ("gathered", "fused")
 
 # block 0 is reserved: pad positions and frozen slots write here
 SINK_BLOCK = 0
+
+# pool dtypes by the numpy names the handoff geometry carries (the JAX
+# package writes ``str(np.dtype(...))``)
+_WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+                torch.float16: "float16", torch.int8: "int8"}
+# segments of the import's one host buffer start at multiples of this,
+# so each byte slice can be viewed as its pool's dtype
+_WIRE_ALIGN = 16
 
 
 def prefill_bucket(width: int) -> int:
@@ -319,6 +333,8 @@ class PagedDecodeServer:
         # forward passes run (each runs attention once per layer)
         self.prefill_chunks = 0
         self.decode_steps = 0
+        self.handoffs_exported = 0
+        self.handoffs_imported = 0
         self._lookup_memo = None      # (prompt, index-version) -> walk
         self._sampling = (float(temperature), int(top_k), float(top_p))
         self.kv_quant = bool(kv_quant)
@@ -593,6 +609,11 @@ class PagedDecodeServer:
         self.active[slot] = False
         return rid
 
+    def prefill_remaining(self, rid: int) -> int:
+        """Prompt tokens not yet prefilled (0 = the stream is decoding)."""
+        st = self._streams[rid]
+        return len(st.prompt) - st.prefilled
+
     @torch.no_grad()
     def prefill_step(self, rid: int, width: int) -> bool:
         """Advance ``rid``'s prefill by up to ``width`` prompt tokens (one
@@ -778,6 +799,152 @@ class PagedDecodeServer:
         self._release_stream(st, slot)
         return list(st.prompt), st.max_new
 
+    # ---- block handoff (disaggregated prefill/decode) -----------------
+    def _handoff_geometry(self) -> Dict[str, Any]:
+        """The pool facts both sides of a handoff must agree on byte for
+        byte; static server config, so a mismatch is a deployment error
+        (raise), never a transient to retry."""
+        return {
+            "block_size": self.block_size,
+            "n_layers": len(self.pools),
+            "kv_heads": int(self.model.cfg.kv_heads),
+            "head_dim": int(self.model.cfg.head_dim),
+            "kv_quant": self.kv_quant,
+            "dtype": _WIRE_DTYPES[self.pools[0]["k"].dtype],
+        }
+
+    @torch.no_grad()
+    def export_stream(self, rid: int) -> Dict[str, Any]:
+        """Serialize a prefill-complete stream for handoff to a decode
+        server: per layer and pool tensor (K, V and the int8 scale pools
+        alike) base64 of the raw bytes of the ``blocks_for(p)`` block rows
+        holding prompt positions ``0..p-1``, the prompt and the first
+        sampled token.  The rows and the token cross to the host in one
+        transfer.  Read-only: the stream stays here until the caller
+        releases it (``evict``).  Raises for a stream whose prefill is not
+        complete."""
+        st = self._streams[rid]
+        slot = self._slot_of[rid]
+        p = len(st.prompt)
+        if st.prefilled < p:
+            raise ValueError(
+                f"export of rid={rid} with prefill incomplete "
+                f"({st.prefilled}/{p}): handoff happens at the "
+                "prefill->decode boundary only")
+        n_copy = self.blocks_for(p)
+        idx = torch.as_tensor(st.blocks[:n_copy], dtype=torch.long,
+                              device=self.device)
+        parts = [self.tokens[slot, p:p + 1].view(torch.uint8)]
+        for pool in self.pools:
+            parts += [t.index_select(0, idx).view(torch.uint8).reshape(-1)
+                      for t in pool.values()]
+        host = torch.cat(parts).cpu().numpy()
+        first_token = int(host[:8].view(np.int64)[0])
+        off = 8
+        layers = []
+        for pool in self.pools:
+            rec = {}
+            for name, t in pool.items():
+                n = n_copy * t[0].numel() * t.element_size()
+                rec[name] = base64.b64encode(
+                    host[off:off + n].tobytes()).decode("ascii")
+                off += n
+            layers.append(rec)
+        self.handoffs_exported += 1
+        return {
+            "v": 1,
+            "prompt": list(st.prompt),
+            "max_new": int(st.max_new),
+            "first_token": first_token,
+            "n_blocks": n_copy,
+            "geom": self._handoff_geometry(),
+            "layers": layers,
+        }
+
+    @torch.no_grad()
+    def import_stream(self, payload: Dict[str, Any]) -> Optional[int]:
+        """Admit a handed-off stream directly in the decoding state:
+        allocate fresh blocks, write the exported rows into them (one host
+        buffer, one transfer, one ``index_copy_`` per pool tensor),
+        rebuild the token row (prompt + first sampled token) and register
+        the prompt blocks in the local prefix index, so later prompts
+        sharing the prefix hit the cache here.  Returns a request id, or
+        None when a slot or the blocks are unavailable (nothing used).
+        Raises on a geometry mismatch, a malformed payload or a request
+        this server could never hold."""
+        geom = dict(payload["geom"])
+        mine = self._handoff_geometry()
+        if geom != mine:
+            raise ValueError(f"handoff geometry mismatch: exporter "
+                             f"{geom} vs importer {mine}")
+        prompt_ids = [int(t) for t in payload["prompt"]]
+        max_new = int(payload["max_new"])
+        p = len(prompt_ids)
+        self.check_request(p, max_new)
+        n_copy = int(payload["n_blocks"])
+        if n_copy != self.blocks_for(p):
+            raise ValueError(f"handoff carries {n_copy} blocks, prompt "
+                             f"of {p} needs {self.blocks_for(p)}")
+        if len(payload["layers"]) != len(self.pools):
+            raise ValueError(f"handoff carries {len(payload['layers'])} "
+                             f"layers, the server has {len(self.pools)}")
+        if not self.free_slots():
+            return None
+        # decode every segment into one aligned host buffer, each at its
+        # pool's row shape; a short or long buffer is a hard error
+        segs, total = [], 0
+        for li, rec in enumerate(payload["layers"]):
+            pool = self.pools[li]
+            if set(rec) != set(pool):
+                raise ValueError(f"handoff layer {li} carries "
+                                 f"{sorted(rec)}, the pool {sorted(pool)}")
+            for name, t in pool.items():
+                raw = base64.b64decode(rec[name])
+                want = n_copy * t[0].numel() * t.element_size()
+                if len(raw) != want:
+                    raise ValueError(f"handoff layer {li} {name}: "
+                                     f"{len(raw)} bytes, expected {want}")
+                segs.append((li, name, total, raw))
+                total += -(-want // _WIRE_ALIGN) * _WIRE_ALIGN
+        blocks = self.allocator.alloc(self.blocks_for(p + 1))
+        if blocks is None:
+            return None
+        buf = np.zeros((total,), np.uint8)
+        for _, _, off, raw in segs:
+            buf[off:off + len(raw)] = np.frombuffer(raw, np.uint8)
+        dev_buf = h2d(buf, self.device)
+        idx = h2d(np.asarray(blocks[:n_copy], np.int64), self.device)
+        for li, name, off, raw in segs:
+            t = self.pools[li][name]
+            rows = dev_buf[off:off + len(raw)].view(t.dtype).view(
+                (n_copy,) + tuple(t.shape[1:]))
+            t.index_copy_(0, idx, rows)
+        rid = self._rid
+        self._rid += 1
+        st = _Stream(rid=rid, prompt=prompt_ids, max_new=max_new,
+                     target=p + max_new, blocks=blocks, prefilled=p)
+        slot = next(s for s in range(self.slots)
+                    if s not in self._slot_of.values())
+        self._streams[rid] = st
+        self._slot_of[rid] = slot
+        self.tables[slot, :] = SINK_BLOCK
+        self.tables[slot, :len(blocks)] = blocks
+        row = np.zeros((self.t_cap,), np.int64)
+        row[:p] = prompt_ids
+        row[p] = int(payload["first_token"])
+        self.tokens[slot] = h2d(row, self.device)
+        self.pos[slot] = p
+        self._pos_host[slot] = p
+        self.active[slot] = max_new > 1
+        self.prompt_tokens_admitted += p
+        self.handoffs_imported += 1
+        self._register_prefix(st, final=True)
+        if max_new <= 1:
+            # a single-token request is already complete (the prefill
+            # side normally finishes these without a handoff)
+            self._finish(rid)
+        return rid
+
     # ---- decode --------------------------------------------------------
     @torch.no_grad()
     def step(self) -> List[int]:
@@ -846,6 +1013,9 @@ class PagedDecodeServer:
     def result(self, rid: int) -> List[int]:
         """Prompt + generated ids for a finished request (pops it)."""
         return self._results.pop(rid)
+
+    def live(self) -> int:
+        return len(self._streams)
 
     def any_active(self) -> bool:
         return bool(self.active.any())

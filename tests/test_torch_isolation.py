@@ -89,9 +89,12 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_default_to_the_gpu():
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
-        Transformer, TransformerConfig,
+        DecodeServer, Transformer, TransformerConfig,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch import cli
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         TrainConfig,
     )
@@ -113,6 +116,14 @@ def test_entry_points_default_to_the_gpu():
         resolve_device()
     with pytest.raises(RuntimeError):
         Transformer(TransformerConfig())
+    # the serving entry points, over a model built on the CPU
+    model = Transformer(TransformerConfig(), device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DecodeServer(model, params)
+    for role in ("unified", "prefill", "decode"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Scheduler(model, params, ServeConfig(role=role))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(TrainConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):

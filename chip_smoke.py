@@ -9,6 +9,7 @@ Phases, each printing its own lines; any failure exits non-zero:
               limit as ``nvidia-smi`` reports them.
 2. build    — builds the CUDA kernels from ``csrc/`` with ``nvcc`` for
               sm_90a (one ``nvcc`` per source, all started together).
+              Phase 14's two reference processes run beside it.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               in bf16 and f32: paged attention (split over the context)
               for decode at the 218M LM's head geometry (ragged lengths
@@ -127,9 +128,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 14. reference — the reference's job as its README runs it,
               ``python -m neural_networks_parallel_training_with_mpi_tpu_torch
               --lr 0.001 --momentum 0.9 --batch_size 4 --nepochs 3``, as a
-              subprocess on the card and again with ``--platform cpu``:
-              rc 0, three ``epoch n: loss`` lines, the same losses (1e-5
-              relative).  Then ``quality.py``'s four configurations
+              subprocess on the card and again with ``--platform cpu``
+              (both started in phase 2): rc 0, three ``epoch n: loss``
+              lines, the same losses (1e-5 relative).  Then ``quality.py``'s four configurations
               trained on the card to their bars (the port's ``quality``
               module): the toy regression against the plain-torch
               reference loop, digits >= 0.95, both byte LMs under the
@@ -165,7 +166,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 17. slice   — (a) the ``attention="auto"`` rows, in bf16 and in f32:
               dense (the plain path, f32 scores) against flash, forward
               + backward of the op alone at T 256-8192 and the full train
-              step of phase 7's model cut to 4 layers at T 256-4096 (B x
+              step of phase 7's model cut to 4 layers at T 256-4096 (the
+              median of 4 steps after 2; B x
               T = 8192 tokens, causal, 16 heads of 64; dense training at
               T 8192 would not fit) beside the step with no layers, a
               table on one line each; the measured row beside the port's
@@ -284,7 +286,9 @@ Phases, each printing its own lines; any failure exits non-zero:
               dispatch ends and the flight recorder holds one skip.  (b)
               f32, 2 layers, T 128: the card's metrics against the
               host's within 1e-4 relative, flash and striped_flash over
-              ``LocalSeqGroup(4)`` (B5).  (c) ``--profile_dir``: a Chrome
+              ``LocalSeqGroup(4)`` (B5); the host's runs are a subprocess
+              (``--obs-host``) started once phase 19's in-process runs
+              are done.  (c) ``--profile_dir``: a Chrome
               trace of 3 steps at 2 layers naming B1-B3's and Adam's
               ``_foreach`` kernels; the profiler's cost per step.  (d) phase 19 (e)'s
               hang postmortem, and phase 19 (d)'s supervised crash (run
@@ -476,6 +480,43 @@ Phases, each printing its own lines; any failure exits non-zero:
               flight on both roles: both allocators drain, readmission
               reproduces the tokens.  A ``disagg:`` JSON line; (a)'s B4
               launches join the kernels line's count.
+28. fleet   — the serving fleet (``serve.fleet``).  (d)'s workers start
+              first: ``launch_fleet(2, ...)`` of the port's workers at the
+              218M LM's width and 2 layers, f32, ``--attn-impl fused``,
+              ``--ckpt`` from a seeded snapshot saved just before; their
+              start-up runs beside (c) and (a).  (c) f32,
+              TF32 off, phase 5's LM at 2 layers, 6 ragged requests: a
+              ``FleetRouter`` over two ``InprocReplica``s with one failed
+              mid-load == one scheduler == ``generate()``; a prefill-pool
+              death before the commit (unified on the decode pool) and a
+              decode death after it (one re-decode from the ledger), tokens
+              equal; ``TPGenerateReplica`` over ``LocalTensorGroup(2)`` ==
+              the paged replica, alone and in a mixed fleet; a router with
+              ``wal_dir`` abandoned mid-load, a new one over fresh replicas
+              recovers every request exactly once, tokens equal.  (a)
+              Phase 4's LM, params and geometry (bf16, one
+              scheduler of 1025 blocks a replica) behind a router over two
+              ``InprocReplica``s, each with its telemetry dir, the router's
+              too: ``run_fleet_closed_loop``, 4 clients x 4 requests of
+              phase 4's ranges; replica 1 fails mid-load: all 16 finish,
+              requeued >= 1, both allocators drain (the failed one's by
+              ``quiesce``), B4 launched n_layers x the schedulers' passes;
+              tokens/s, TTFT and ITL p50/p99, completions per replica, the
+              router's ms a pump (the replicas' ticks taken out);
+              ``tools/obs_agg.py --json`` reads the replica and router dirs.
+              (d) 8 requests (prompts 16-200, 8-24 new) through the
+              workers; worker 1 SIGKILLs itself at its third submit
+              (``--faults replica_kill@3?proc=1``, once): the router
+              requeues, every token == an in-process f32 fused
+              scheduler's over the snapshot's params; the supervisor
+              relaunches it, and its start-up runs beside (b).
+              (b) The same through a ``prefill`` and a ``decode`` replica:
+              16 handoffs committed, ``handoff_stats()``, B4 as (a).  Then
+              (d)'s end: the relaunched worker 1 ready (its seconds from
+              relaunch), serving again with equal tokens; the supervisor's
+              events, the heartbeats; ``Fleet.close()`` leaves no worker
+              process.  A ``fleet:`` JSON line; (a)'s and (b)'s B4 launches
+              join the kernels line's count.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -2458,10 +2499,9 @@ def epoch_losses(text):
                                          text, re.M)]
 
 
-def reference_job(card="auto"):
-    """The reference's job as its README runs it, on the card
-    (``--platform auto``) and on the host (``--platform cpu``): rc 0,
-    three ``epoch n: loss`` lines, the same losses."""
+def start_reference_job(card="auto"):
+    """Start :func:`reference_job`'s two processes, side by side (their
+    seconds overlap); the script starts them beside phase 2's build."""
     from concurrent.futures import ThreadPoolExecutor
 
     def run(platform):
@@ -2469,9 +2509,19 @@ def reference_job(card="auto"):
         proc = run_cli(REFERENCE_JOB + ["--platform", platform])
         return proc, time.perf_counter() - t0
 
-    # the two processes run side by side (their seconds overlap)
-    with ThreadPoolExecutor(2) as pool:
-        runs = list(pool.map(run, (card, "cpu")))
+    pool = ThreadPoolExecutor(2)
+    futures = [pool.submit(run, p) for p in (card, "cpu")]
+    pool.shutdown(wait=False)
+    return card, futures
+
+
+def reference_job(card="auto", started=None):
+    """The reference's job as its README runs it, on the card
+    (``--platform auto``) and on the host (``--platform cpu``): rc 0,
+    three ``epoch n: loss`` lines, the same losses.  ``started``: what
+    :func:`start_reference_job` returned (else they start now)."""
+    card, futures = started or start_reference_job(card)
+    runs = [f.result() for f in futures]
     losses = {}
     for platform, (proc, secs) in zip((card, "cpu"), runs):
         got = epoch_losses(proc.stdout)
@@ -3147,7 +3197,7 @@ def auto_step_ms(torch, device, kw, step_t, steps):
 
 
 def measure_auto(torch, np, device, op_t=AUTO_OP_T, step_t=AUTO_STEP_T,
-                 steps=6, **over):
+                 steps=4, **over):
     """Phase 17a, in bf16 and in f32: dense attention (the port's plain
     path, f32 scores) against flash (B1 forward; delta, B2 and B3
     backward), as forward + backward of the op alone and as the full train
@@ -4587,11 +4637,14 @@ def guard_watchdog():
                 postmortem_records=pm["n_records"])
 
 
-def resilience_full_width(torch, np, device, straight, background=None):
+def resilience_full_width(torch, np, device, straight, *, background,
+                          after):
     """Phase 19: (a)-(e) above; the flash launches of the in-process runs
     (their counts set to 0 before each).  ``background()``, called once
     (a)'s runs are done, starts host work that runs beside the rest
-    (phase 21's writer)."""
+    (phase 21's writer); ``after()``, called once the in-process runs are
+    done, host work beside the CLI chains' end (phase 20 (b)'s host
+    runs)."""
     out = {}
     # (d)'s chains, its exit-44 run and (e) are processes, run side by
     # side and beside (a)-(c), from the phase's head (the chains are its
@@ -4606,10 +4659,10 @@ def resilience_full_width(torch, np, device, straight, background=None):
         cli = pool.submit(guard_cli, torch, device, straight)
         watchdog = pool.submit(guard_watchdog)
         out["happy"], l1 = guard_happy_path(torch, device)
-        if background is not None:
-            background()
+        background()
         out["faults"], l2 = guard_faults(torch, device)
         out["rollback"], l3 = guard_rollback(torch, device)
+        after()
         out["watchdog"] = watchdog.result()
         out["cli"] = cli.result()
         out["cli"]["abort"] = abort.result()
@@ -4876,15 +4929,12 @@ def _one(pattern):
     return found[0]
 
 
-def obs_card_vs_host(torch, device):
-    """(b) f32, TF32 off, 2 layers, T 128 (ce_chunk 32: a chunk must lie
-    inside the 32 tokens of one of the 4 sequence shards), 3 steps of
-    batch 2: the card's
-    metrics records (loss, grad_norm, param_norm, update_ratio) against
-    the host's within 1e-4 relative, for the replicated step with flash
-    and for striped_flash over ``LocalSeqGroup(4)`` (B5 on the card).
-    Returns the largest relative differences and the card's B5 launches
-    (counts set to 0 before each card run)."""
+OBS_HOST_JOBS = (("flash", 1), ("striped_flash", 4))
+
+
+def _obs_fit(torch, dev, attention, sp):
+    """One of (b)'s runs on ``dev``: its step records, and on the card
+    the flash launches (counts set to 0 before it)."""
     import tempfile
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
@@ -4900,58 +4950,104 @@ def obs_card_vs_host(torch, device):
         Trainer,
     )
 
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        flags = dict(n_layers=2, seq_len=128, n_samples=6, batch_size=2,
+                     nepochs=1, ce_chunk=32, compute_dtype="float32",
+                     attention=attention, telemetry_dir=tmp,
+                     metrics_every=1)
+        if sp > 1:
+            flags["sp"] = sp
+        cfg = config_from_args(build_argparser().parse_args(
+            train_flags(**flags)))
+        t = Trainer(cfg, device=dev, seq_group=(
+            LocalSeqGroup(sp) if sp > 1 else None))
+        if dev.type == "cuda":
+            fa.set_launch_counts()
+        t.fit()
+        if dev.type == "cuda":
+            c = fa.launch_counts()
+            launches = dict(c["all"], with_lse=c["with_lse"])
+        recs = [x for x in _jsonl(f"{tmp}/metrics.jsonl")
+                if x["kind"] == "step"]
+    return recs, launches
+
+
+def write_obs_host(torch, path):
+    """(b)'s host side: both jobs on the host, their step records saved
+    at ``path`` (JSON)."""
+    one_rank_group(torch, torch.device("cpu"))
+    recs = {attention: _obs_fit(torch, torch.device("cpu"), attention,
+                                sp)[0] for attention, sp in OBS_HOST_JOBS}
+    with open(path, "w") as f:
+        json.dump(recs, f)
+
+
+def start_obs_host(tmp):
+    """(b)'s host runs in a subprocess of this script, started once phase
+    19's in-process runs are done (beside the rest of its CLI chains) and
+    read by :func:`obs_card_vs_host`."""
+    path = f"{tmp}/obs_host.json"
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    proc = subprocess.Popen([sys.executable, __file__, "--obs-host", path],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=str(REPO_ROOT), env=env)
+    return proc, path
+
+
+def obs_card_vs_host(torch, device, host):
+    """(b) f32, TF32 off, 2 layers, T 128 (ce_chunk 32: a chunk must lie
+    inside the 32 tokens of one of the 4 sequence shards), 3 steps of
+    batch 2: the card's
+    metrics records (loss, grad_norm, param_norm, update_ratio) against
+    the host's within 1e-4 relative, for the replicated step with flash
+    and for striped_flash over ``LocalSeqGroup(4)`` (B5 on the card).
+    ``host``: :func:`start_obs_host`'s (process, path), whose records
+    stand for the host's.
+    Returns the largest relative differences and the card's B5 launches
+    (counts set to 0 before each card run)."""
     one_rank_group(torch, device)
     tf32 = torch.backends.cuda.matmul.allow_tf32, \
         torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out, launches = {}, {}
+    out, launches, card_recs = {}, {}, {}
     try:
-        for attention, sp in (("flash", 1), ("striped_flash", 4)):
-            recs = []
-            for dev in (device, torch.device("cpu")):
-                with tempfile.TemporaryDirectory() as tmp:
-                    flags = dict(n_layers=2, seq_len=128, n_samples=6,
-                                 batch_size=2, nepochs=1, ce_chunk=32,
-                                 compute_dtype="float32",
-                                 attention=attention, telemetry_dir=tmp,
-                                 metrics_every=1)
-                    if sp > 1:
-                        flags["sp"] = sp
-                    cfg = config_from_args(build_argparser().parse_args(
-                        train_flags(**flags)))
-                    t = Trainer(cfg, device=dev, seq_group=(
-                        LocalSeqGroup(sp) if sp > 1 else None))
-                    if dev.type == "cuda":
-                        fa.set_launch_counts()
-                    t.fit()
-                    if dev.type == "cuda":
-                        c = fa.launch_counts()
-                        launches[attention] = dict(c["all"],
-                                                   with_lse=c["with_lse"])
-                    recs.append([x for x in _jsonl(
-                        f"{tmp}/metrics.jsonl") if x["kind"] == "step"])
-                    del t
-            card, host = recs
-            if [x["step"] for x in card] != [1, 2, 3] or \
-                    [x["step"] for x in host] != [1, 2, 3]:
-                raise AssertionError(f"obs card vs host {attention}: "
-                                     "records")
-            worst = {m: max(abs(a[m] - b[m]) / abs(b[m])
-                            for a, b in zip(card, host)) for m in OBS_METRICS}
-            out[attention] = worst
-            print(f"obs card vs host {attention}"
-                  + (f" over LocalSeqGroup({sp})" if sp > 1 else "")
-                  + ": largest relative differences "
-                  + ", ".join(f"{m} {v:.3g}" for m, v in worst.items())
-                  + f" (bar {OBS_METRICS_RTOL}); card launches "
-                  f"{launches.get(attention)}", flush=True)
-            if max(worst.values()) > OBS_METRICS_RTOL:
-                raise AssertionError(f"obs card vs host {attention}: "
-                                     f"{worst}")
+        for attention, sp in OBS_HOST_JOBS:
+            card_recs[attention], ln = _obs_fit(torch, device, attention,
+                                                sp)
+            if ln is not None:      # a CPU rehearsal launches nothing
+                launches[attention] = ln
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = tf32
+    proc, path = host
+    o, e = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"obs card vs host: host runs rc "
+                             f"{proc.returncode}\n{o[-2000:]}\n"
+                             f"{e[-2000:]}")
+    with open(path) as f:
+        host_recs = json.load(f)
+    for attention, sp in OBS_HOST_JOBS:
+        card, host_run = card_recs[attention], host_recs[attention]
+        if [x["step"] for x in card] != [1, 2, 3] or \
+                [x["step"] for x in host_run] != [1, 2, 3]:
+            raise AssertionError(f"obs card vs host {attention}: "
+                                 "records")
+        worst = {m: max(abs(a[m] - b[m]) / abs(b[m])
+                        for a, b in zip(card, host_run))
+                 for m in OBS_METRICS}
+        out[attention] = worst
+        print(f"obs card vs host {attention}"
+              + (f" over LocalSeqGroup({sp})" if sp > 1 else "")
+              + ": largest relative differences "
+              + ", ".join(f"{m} {v:.3g}" for m, v in worst.items())
+              + f" (bar {OBS_METRICS_RTOL}); card launches "
+              f"{launches.get(attention)}", flush=True)
+        if max(worst.values()) > OBS_METRICS_RTOL:
+            raise AssertionError(f"obs card vs host {attention}: "
+                                 f"{worst}")
     return out, launches
 
 
@@ -5027,15 +5123,17 @@ def obs_crash_merge(tdir, lines):
                 relaunch_gap_s=gaps[0]["gap_s"])
 
 
-def observability_full_width(torch, np, device, resilience):
+def observability_full_width(torch, np, device, resilience, host):
     """Phase 20: (a)-(c) above; (d) reads phase 19's results
     (``resilience``): (e)'s run had ``--telemetry_dir`` (its postmortem:
     reason ``hang``), (d)'s supervised crash ``--telemetry_dir --trace``
-    (``obs_crash_merge``).  Returns the phase's numbers and the flash
-    launches of its in-process runs (counts set to 0 before each)."""
+    (``obs_crash_merge``).  ``host``: (b)'s host runs, started during
+    phase 19 (:func:`start_obs_host`).  Returns the phase's numbers and
+    the flash launches of its in-process runs (counts set to 0 before
+    each)."""
     out = {}
     out["on_off"], l1 = obs_on_off(torch, device)
-    out["card_vs_host"], l2 = obs_card_vs_host(torch, device)
+    out["card_vs_host"], l2 = obs_card_vs_host(torch, device, host)
     out["profile"], l3 = obs_profile(torch, device)
     out["hang_postmortem"] = resilience["watchdog"]["postmortem_reason"]
     out["supervised_crash"] = {
@@ -7920,6 +8018,560 @@ def disagg_phase(torch, np, device, setup, cfg_f32=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the serving fleet (the router over in-process, tensor-parallel
+# and subprocess replicas, GroupSupervisor, the write-ahead ledger)
+# ---------------------------------------------------------------------------
+
+# (a), (b): 4 closed-loop clients x 4 requests, phase 4's ranges (prompts
+# 64-768, 32-128 new)
+FLEET_LOAD = dict(clients=4, per_client=4, prompt_lens=(64, 768),
+                  max_new=(32, 128))
+# (d): the workers' model at the 218M LM's width, 2 layers, their default
+# dtype (f32); worker 1 is SIGKILLed at its third submit, once (the marker
+# keeps its relaunch from firing again)
+FLEET_WORKER_MODEL = dict(vocab=BIG["vocab_size"], seq=BIG["max_seq_len"],
+                          layers=CUT_LAYERS, d_model=BIG["d_model"],
+                          heads=BIG["n_heads"], d_ff=BIG["d_ff"],
+                          init_seed=SEED)
+FLEET_WORKER_SERVE = dict(slots=4, block_size=16, prefill_chunk=256,
+                          queue_depth=16, attn_impl="fused")
+FLEET_KILL = "replica_kill@3?proc=1"
+FLEET_PROC_REQUESTS = 8
+
+
+def _worker_config(torch, model_flags):
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        TransformerConfig,
+    )
+
+    m = model_flags
+    return TransformerConfig(vocab_size=m["vocab"], max_seq_len=m["seq"],
+                             n_layers=m["layers"], d_model=m["d_model"],
+                             n_heads=m["heads"], d_ff=m["d_ff"])
+
+
+def start_proc_fleet(torch, device, tmp, model_flags=None, platform=None):
+    """(d)'s subprocess fleet, started at phase 28's head (the workers'
+    start-up, torch, a CUDA context and the verified snapshot, runs
+    beside (c) and (a)): a seeded f32 snapshot of the workers' model saved here,
+    then ``launch_fleet(2, ...)`` of the port's workers with ``--ckpt``
+    from it and worker 1's fault.  Returns what (d) reads."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        fleet, save_weight_snapshot,
+    )
+
+    model_flags = model_flags or FLEET_WORKER_MODEL
+    model = Transformer(_worker_config(torch, model_flags), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 2))
+    t0 = time.perf_counter()
+    snap = save_weight_snapshot(f"{tmp}/weights", params)
+    save_s = time.perf_counter() - t0
+    del model, params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    serve = dict(FLEET_WORKER_SERVE, ckpt=snap,
+                 faults=f"{FLEET_KILL}&once={tmp}/killed")
+    if platform:
+        serve["platform"] = platform
+    fl = fleet.launch_fleet(2, model=model_flags, serve=serve,
+                            telemetry_root=f"{tmp}/procs", backoff=0.5,
+                            backoff_cap=2.0, max_restarts=2,
+                            log=lambda m: print(m, flush=True))
+    return dict(fleet=fl, snap=snap, model_flags=model_flags, tmp=tmp,
+                snapshot_save_s=save_s, t_launch=time.perf_counter())
+
+
+class _FailAfter:
+    """The router, with in-process replica ``victim`` failed at the first
+    pump after ``after`` completions that finds it holding requests (the
+    in-process SIGKILL); times each pump and the replicas' share of it."""
+
+    def __init__(self, router, victim, after, pump_s):
+        self.router, self.victim, self.after = router, victim, after
+        self.pump_s = pump_s
+        self.completions = 0
+        self.killed_with = None
+
+    def __getattr__(self, name):
+        return getattr(self.router, name)
+
+    def pump(self):
+        t0 = time.perf_counter()
+        done = self.router.pump()
+        self.pump_s.append(time.perf_counter() - t0)
+        self.completions += len(done)
+        if (self.victim is not None and self.killed_with is None
+                and self.completions >= self.after
+                and self.victim.assigned()):
+            self.killed_with = len(self.victim.assigned())
+            self.victim.fail()
+        return done
+
+
+def _timed_pumps(handles):
+    """Each handle's pump timed: the replicas' share of a router pump."""
+    spent = []
+    for h in handles:
+        def timed(_pump=h.pump):
+            t0 = time.perf_counter()
+            out = _pump()
+            spent.append(time.perf_counter() - t0)
+            return out
+        h.pump = timed
+    return spent
+
+
+def fleet_full_width(torch, np, device, setup, tmp, roles, tag, kill=False):
+    """(a) / (b): phase 4's LM, params and scheduler geometry (bf16, fused,
+    16 slots, blocks of 16, chunks of 256, 1025 blocks a scheduler) behind
+    a ``FleetRouter`` over one ``InprocReplica`` a role of ``roles``, each
+    with its own telemetry dir (rollups), the router's in ``tmp/router``;
+    ``run_fleet_closed_loop`` drives 4 clients x 4 requests.  ``kill``:
+    replica 1 fails mid-load.  Checks every request finished, B4's
+    launches == n_layers x the schedulers' passes, and the allocators
+    drained (a failed replica's by ``quiesce``)."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.ops.paged_attention import (  # noqa: E501
+        paged_attention,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        FleetRouter, InprocReplica, Scheduler, ServeConfig,
+        run_fleet_closed_loop,
+    )
+
+    model, params, sconf = setup["model"], setup["params"], setup["sconf"]
+    clock = synced_clock(torch, device)
+    handles = [InprocReplica(Scheduler(model, params, ServeConfig(
+        **sconf, role=role, replica=i, telemetry_dir=f"{tmp}/replica-{i}",
+        rollup_every=25), now_fn=clock, device=device), name=f"replica-{i}")
+        for i, role in enumerate(roles)]
+    replica_s = _timed_pumps(handles)
+    router = FleetRouter(handles, queue_depth=64,
+                         telemetry_dir=f"{tmp}/router", rollup_every=25)
+    pump_s = []
+    driver = _FailAfter(router, handles[1] if kill else None, 2, pump_s)
+    load = FLEET_LOAD
+    paged_attention.launches = 0
+    row = run_fleet_closed_loop(driver, load["clients"], load["per_client"],
+                                vocab_size=model.cfg.vocab_size,
+                                prompt_lens=load["prompt_lens"],
+                                max_new=load["max_new"], seed=SEED)
+    launches = paged_attention.launches
+    snaps = [h.sched.snapshot() for h in handles]
+    passes = sum(s["prefill_chunks"] + s["decode_steps"] for s in snaps)
+    expect = model.cfg.n_layers * passes if device.type == "cuda" else 0
+    n = load["clients"] * load["per_client"]
+    for h in handles:
+        if h.alive():
+            h.sched.server.allocator.assert_drained()
+        else:
+            h.sched.quiesce()     # the abandoned streams evicted: drained
+    checks = {f"{n} requests finished": row["requests"] == n,
+              f"B4 launches {launches} == n_layers x passes {expect}":
+                  launches == expect}
+    if kill:
+        checks["a replica failed holding requests"] = bool(
+            driver.killed_with)
+        checks[f"requeued {router.requeued} >= 1"] = router.requeued >= 1
+    if "prefill" in roles:
+        checks[f"handoffs {router.handoffs} == {n}"] = router.handoffs == n
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet {tag}: {failed}")
+    router_ms = 1e3 * (sum(pump_s) - sum(replica_s)) / len(pump_s)
+    out = dict(requests=row["requests"], tokens_out=row["tokens_out"],
+               wall_s=row["wall_s"], tokens_per_s=row["tokens_per_sec"],
+               ttft_p50_ms=row["ttft_ms_p50"], ttft_p99_ms=row["ttft_ms_p99"],
+               itl_p50_ms=row["itl_ms_p50"], itl_p99_ms=row["itl_ms_p99"],
+               per_replica_completed=row["per_replica_completed"],
+               requeued=router.requeued, replica_deaths=router.replica_deaths,
+               failed_holding=driver.killed_with, pumps=len(pump_s),
+               pump_ms=1e3 * sum(pump_s) / len(pump_s),
+               router_ms_per_pump=router_ms,
+               passes=passes, launches=launches,
+               handoff_stats=(router.handoff_stats() if "prefill" in roles
+                              else None))
+    for h in handles:
+        h.sched.close()
+    router.close()
+    print(f"fleet {tag}: " + json.dumps(out), flush=True)
+    return out
+
+
+def fleet_obs(tmp, n_replicas):
+    """``tools/obs_agg.py --json`` over (a)'s replica and router dirs: a
+    breakdown row for each replica and one for the router."""
+    dirs = [f"{tmp}/replica-{i}" for i in range(n_replicas)] + [
+        f"{tmp}/router"]
+    doc = _tool_json("obs_agg", *dirs)
+    rows = sorted((r.get("role"), r.get("replica"))
+                  for r in doc.get("breakdown", []))
+    want = {("serve", i) for i in range(n_replicas)}
+    if not (want <= set(rows) and any(r == "router" for r, _ in rows)):
+        raise AssertionError(f"fleet (a): obs_agg rows {rows}")
+    print(f"fleet (a): obs_agg breakdown rows {rows}", flush=True)
+    return rows
+
+
+def _pump_until(router, cond, what, max_iter=100_000):
+    done = set()
+    for _ in range(max_iter):
+        done.update(router.pump())
+        if cond(done):
+            return done
+    raise AssertionError(f"fleet (c): {what} never happened")
+
+
+def fleet_identity(torch, np, device, tmp, cfg=None):
+    """(c) f32 with TF32 off, phase 5's LM at 2 layers (or ``cfg``) and 6
+    ragged requests (prompts 5-300, 16 new): (a)'s fleet with a replica
+    failed mid-load == one scheduler == ``generate()``; a prefill-pool
+    death before the commit serves unified on the decode pool, a decode
+    death after it re-decodes from the ledger (tokens equal); a
+    ``TPGenerateReplica`` over ``LocalTensorGroup(2)`` == the paged
+    replica, alone and in a mixed fleet; a router with ``wal_dir``
+    abandoned mid-load, and a new one over fresh replicas recovers every
+    request exactly once with equal tokens."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer, generate,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel import (
+        megatron,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        FleetRequest, FleetRouter, InprocReplica, Scheduler, ServeConfig,
+        TPGenerateReplica,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or big_config(torch, n_layers=2, dtype=torch.float32)
+    model = Transformer(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(SEED + 1))
+    rng = np.random.default_rng(SEED + 28)
+    reqs = [(rng.integers(0, cfg.vocab_size, p).tolist(), 16)
+            for p in (5, 40, 100, 300, 60, 7) if p + 16 <= cfg.max_seq_len]
+    geom = dict(slots=4, block_size=16, max_len=cfg.max_seq_len,
+                prefill_chunk=256, attn_impl="fused",
+                num_blocks=4 * -(-cfg.max_seq_len // 16) + 1)
+
+    def rep(name, role="unified", **kw):
+        return InprocReplica(Scheduler(model, params, ServeConfig(
+            **{**geom, **kw}, role=role), device=device), name=name)
+
+    def close(*handles):
+        for h in handles:
+            h.sched.close()
+
+    single = drive(rep("one").sched, reqs)[1]
+    oracle = [generate(model, params, [p], n, device=device)[0].tolist()
+              for p, n in reqs]
+    out = {"single_eq_generate": single == oracle}
+    # (a)'s fleet, a replica failed mid-load
+    a, b = rep("a"), rep("b")
+    router = FleetRouter([a, b], queue_depth=64)
+    rids = [router.submit(p, n) for p, n in reqs]
+    for _ in range(3):
+        router.pump()
+    victim = a if a.assigned() else b
+    held = len(victim.assigned())
+    victim.fail()
+    _pump_until(router, lambda d: set(rids) <= d, "the kill's drain")
+    out["kill"] = dict(equal=[router.result(r) for r in rids] == single,
+                       held=held, requeued=router.requeued)
+    close(a, b)
+    # a prefill-pool death before the commit: unified on the decode pool
+    i = max(range(len(reqs)), key=lambda k: len(reqs[k][0]))
+    pre, dec = rep("pre", "prefill"), rep("dec", "decode")
+    router = FleetRouter([pre, dec], queue_depth=16)
+    rid = router.submit(*reqs[i])
+    _pump_until(router, lambda d: router.reqs[rid].phase == "prefilling",
+                "prefilling")
+    pre.fail()
+    router.on_replica_down(pre.name)
+    _pump_until(router, lambda d: rid in d, "the degraded request")
+    out["prefill_death"] = dict(
+        equal=router.result(rid) == single[i], handoffs=router.handoffs,
+        requeued=router.requeued,
+        degraded_dispatches=router.degraded_dispatches)
+    dec.sched.server.allocator.assert_drained()
+    close(pre, dec)
+    # a decode death after the commit: re-decoded from the ledger
+    pre, d0, d1 = rep("pre", "prefill"), rep("d0", "decode"), rep("d1",
+                                                                 "decode")
+    router = FleetRouter([pre, d0, d1], queue_depth=16)
+    rid = router.submit(*reqs[2])
+    _pump_until(router, lambda d: router.reqs[rid].phase == "decoding",
+                "decoding")
+    victim = d0 if router.reqs[rid].replica == "d0" else d1
+    victim.fail()
+    router.on_replica_down(victim.name)
+    _pump_until(router, lambda d: rid in d, "the re-decode")
+    out["decode_death"] = dict(
+        equal=router.result(rid) == single[2], redecodes=router.redecodes,
+        handoffs=router.handoffs, reprefills=router.handoff_reprefills)
+    close(pre, d0, d1)
+    # TPGenerateReplica over LocalTensorGroup(2): the prompts up to 100
+    # (power-of-two buckets to 256 positions)
+    short = [k for k, (p, _) in enumerate(reqs) if len(p) <= 100]
+    ptp = dict(params, blocks=megatron.permute_qkv(
+        params["blocks"], cfg.d_model, cfg.n_heads, 2, kv_heads=cfg.kv_heads))
+    tp = TPGenerateReplica(model, ptp, megatron.LocalTensorGroup(2),
+                           batch=4, name="tp", device=device)
+    for k in short:
+        assert tp.submit(FleetRequest(k, reqs[k][0], reqs[k][1], None, 0.0,
+                                      math.inf))
+    got = {}
+    while len(got) < len(short):
+        got.update((r["rid"], r["tokens"]) for r in tp.pump())
+    tp_alone = all(got[k] == single[k] for k in short)
+    paged = rep("paged")
+    router = FleetRouter([paged, tp], queue_depth=64)
+    rids = [router.submit(*reqs[k]) for k in short]
+    _pump_until(router, lambda d: set(rids) <= d, "the mixed fleet")
+    out["tp"] = dict(alone_equal=tp_alone, mixed_equal=[
+        router.result(r) for r in rids] == [single[k] for k in short],
+        mixed_completed=router.per_replica_completed(),
+        requests=len(short))
+    close(paged)
+    # the write-ahead ledger: abandoned mid-load, recovered by a new router
+    wal = f"{tmp}/wal"
+    a, b = rep("a1"), rep("b1")
+    router = FleetRouter([a, b], queue_depth=64, wal_dir=wal)
+    rids = [router.submit(p, n, idem=f"k{k}") for k, (p, n) in
+            enumerate(reqs)]
+    _pump_until(router, lambda d: len(d) >= 1, "a first completion")
+    done1 = router.completed
+    router._wal.close()           # the crash: no close, the records fsynced
+    for h in (a, b):
+        h.sched.quiesce()
+        h.sched.close()
+    a, b = rep("a2"), rep("b2")
+    router = FleetRouter([a, b], queue_depth=64, wal_dir=wal)
+    again = [router.submit(p, n, idem=f"k{k}") for k, (p, n) in
+             enumerate(reqs)]
+    _pump_until(router, lambda d: set(rids) <= d, "the recovery")
+    out["wal"] = dict(
+        same_rids=again == rids, completed_first_life=done1,
+        completed=router.completed, equal=[router.result(r) for r in rids]
+        == single, **{k: router.recovery[k] for k in (
+            "replayed", "deduped", "lost", "wall_s")})
+    router.close()
+    close(a, b)
+    checks = {
+        "one scheduler == generate()": out["single_eq_generate"],
+        "(a)'s kill: tokens equal, requeued": (
+            out["kill"]["equal"] and out["kill"]["requeued"] >= 1),
+        "prefill-pool death: unified on decode, tokens equal": (
+            out["prefill_death"]["equal"]
+            and out["prefill_death"]["handoffs"] == 0
+            and out["prefill_death"]["degraded_dispatches"] >= 1),
+        "decode death: one re-decode, tokens equal": (
+            out["decode_death"]["equal"]
+            and out["decode_death"]["redecodes"] == 1
+            and out["decode_death"]["reprefills"] == 0),
+        "TP replica == paged, alone and mixed": (
+            out["tp"]["alone_equal"] and out["tp"]["mixed_equal"]),
+        "ledger: every request once, tokens equal": (
+            out["wal"]["same_rids"] and out["wal"]["equal"]
+            and out["wal"]["completed"] == len(reqs)
+            and out["wal"]["replayed"] == len(reqs) - done1
+            and out["wal"]["lost"] == 0),
+    }
+    print(f"fleet (c) f32: {json.dumps(out)}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet (c): {failed}")
+    return out
+
+
+def proc_fleet_drive(torch, np, device, procs):
+    """(d) first half: wait for both workers, then 8 requests through the
+    subprocess fleet; worker 1 dies at its third submit (SIGKILL, the
+    fault spec), the router requeues its requests, every request finishes
+    with the tokens of an in-process f32 fused scheduler of the workers'
+    geometry over the snapshot's params.  Returns what the second half
+    (:func:`proc_fleet_finish`) reads."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig, load_weight_snapshot,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fl = procs["fleet"]
+    t0 = time.perf_counter()
+    fl.wait_ready(300)
+    ready = {h.name: h.ready_s for h in fl.handles}
+    waited = time.perf_counter() - t0
+    first_pids = {h.name: fl.supervisor.proc(h.name).pid
+                  for h in fl.handles}
+    m = procs["model_flags"]
+    cfg = _worker_config(torch, m)
+    model = Transformer(cfg, device=device)
+    params = load_weight_snapshot(procs["snap"], model.init(
+        torch.Generator(device=device).manual_seed(SEED)))
+    reqs = serve_requests(np, FLEET_PROC_REQUESTS, cfg.vocab_size,
+                          SEED + 29, p_lo=16,
+                          p_hi=min(200, cfg.max_seq_len - 25), n_lo=8,
+                          n_hi=24)
+    geom = dict(FLEET_WORKER_SERVE, num_blocks=1 + FLEET_WORKER_SERVE[
+        "slots"] * -(-cfg.max_seq_len // FLEET_WORKER_SERVE["block_size"]))
+    want = drive(Scheduler(model, params, ServeConfig(**geom),
+                           device=device), reqs)[1]
+    del params
+    t1 = time.perf_counter()
+    rids = [fl.submit(p, n) for p, n in reqs]
+    assert all(r is not None for r in rids), "the fleet rejected a request"
+    while not all(fl.done(r) for r in rids):
+        if time.perf_counter() - t1 > 180:
+            raise AssertionError("fleet (d): the requests never finished")
+        fl.pump()
+        time.sleep(0.002)
+    wall = time.perf_counter() - t1
+    got = [fl.result(r) for r in rids]
+    stats = [fl.stats(r) for r in rids]
+    out = dict(ready_s=ready, ready_wait_s=waited,
+               snapshot_save_s=procs["snapshot_save_s"],
+               equal=got == want, requests=len(rids),
+               tokens_per_s=sum(s.n_generated for s in stats) / wall,
+               wall_s=wall, requeued=fl.router.requeued,
+               replica_deaths=fl.router.replica_deaths,
+               per_replica_completed=fl.per_replica_completed(),
+               first_pids=first_pids, t_kill=t1, reference=(reqs, want))
+    return out
+
+
+def await_relaunch(procs, timeout_s=60.0):
+    """Pump the fleet until the supervisor has relaunched worker 1 (after
+    its backoff); the new process then starts up on its own, beside (b),
+    and its ready event is stamped on arrival."""
+    fl = procs["fleet"]
+    t0 = time.perf_counter()
+    while fl.supervisor.incarnation(fl.handles[1].name) < 1:
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError("fleet (d): worker 1 was not relaunched")
+        fl.pump()
+        time.sleep(0.02)
+
+
+def proc_fleet_finish(torch, procs, run):
+    """(d) second half: the relaunched worker 1 is ready (its seconds from
+    relaunch to ready) and serves 2 more requests with the reference's
+    tokens; the supervisor's events; heartbeats; ``Fleet.close()`` leaves
+    no worker process behind."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.train.resilience import (  # noqa: E501
+        find_heartbeats,
+    )
+
+    fl = procs["fleet"]
+    h1 = fl.handles[1]
+    t0 = time.perf_counter()
+    while not h1.ready and time.perf_counter() - t0 < 120:
+        fl.pump()
+        time.sleep(0.02)
+    events = [(e["child"], e["event"], e.get("rc")) for e in fl.events]
+    relaunched = (fl.supervisor.incarnation(h1.name) >= 1 and h1.ready)
+    reqs, want = run.pop("reference")
+    before = fl.per_replica_completed().get(h1.name, 0)
+    # two more: least-loaded placement puts one on each idle worker
+    rids = [fl.submit(p, n) for p, n in reqs[:2]]
+    t0 = time.perf_counter()
+    while not all(fl.done(r) for r in rids):
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("fleet (d): the last requests never "
+                                 "finished")
+        fl.pump()
+        time.sleep(0.002)
+    again = [fl.result(r) for r in rids] == want[:2]
+    served = fl.per_replica_completed().get(h1.name, 0) - before
+    beats = {d.rsplit("/", 1)[-1]: [os.path.basename(p) for p in
+                                    find_heartbeats(d)]
+             for d in fl.telemetry_dirs}
+    pids = dict(run.pop("first_pids"))
+    pids["replica-1 relaunched"] = fl.supervisor.proc(h1.name).pid
+    all_procs = [fl.supervisor.proc(h.name) for h in fl.handles]
+    fl.close()
+    left = [p.pid for p in all_procs if p.poll() is None]
+    for pid in pids.values():
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            left.append(pid)
+    run.pop("t_kill")
+    run.update(relaunched=relaunched, relaunch_to_ready_s=h1.ready_s,
+               events=events, after_relaunch_equal=again,
+               relaunched_served=served,
+               after_relaunch_completed=fl.per_replica_completed(),
+               heartbeats=beats, pids=pids, left_behind=sorted(set(left)))
+    checks = {
+        "tokens equal the in-process scheduler's": run["equal"],
+        "worker 1 killed, its requests requeued": (
+            run["requeued"] >= 1 and run["replica_deaths"] >= 1),
+        "worker 1 relaunched and ready": relaunched,
+        "the relaunched worker served, tokens equal": again and served >= 1,
+        "no worker left behind": not run["left_behind"],
+    }
+    print(f"fleet (d): ready s {run['ready_s']} (waited "
+          f"{run['ready_wait_s']:.1f} s in phase 28); relaunch to ready "
+          f"{h1.ready_s} s; supervisor events {events}; {run['requests']} "
+          f"requests at {run['tokens_per_s']:.1f} tokens/s, requeued "
+          f"{run['requeued']}; heartbeats {beats}; pids {pids}, left "
+          f"behind {run['left_behind']}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"fleet (d): {failed}")
+    return run
+
+
+def fleet_phase(torch, np, device, setup, cfg_f32=None, model_flags=None,
+                platform=None):
+    """Phase 28: (d)'s workers start first and come up beside (c) and
+    (a); (d)'s 8 requests and the kill; (b) while worker 1's relaunch comes
+    up; then (d)'s relaunch, last requests and shutdown.  ``model_flags``
+    / ``platform``: the workers' (a rehearsal's small model on the
+    CPU)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    procs = None
+    try:
+        procs = start_proc_fleet(torch, device, f"{tmp}/d", model_flags,
+                                 platform)
+        out = dict(identity=fleet_identity(torch, np, device, f"{tmp}/c",
+                                           cfg=cfg_f32))
+        out["inproc"] = fleet_full_width(torch, np, device, setup,
+                                         f"{tmp}/a", ("unified", "unified"),
+                                         "(a) two replicas, one failed",
+                                         kill=True)
+        out["inproc"]["obs_agg_rows"] = fleet_obs(f"{tmp}/a", 2)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        run = proc_fleet_drive(torch, np, device, procs)
+        await_relaunch(procs)
+        out["disagg"] = fleet_full_width(torch, np, device, setup,
+                                         f"{tmp}/b", ("prefill", "decode"),
+                                         "(b) prefill + decode")
+        out["procs"] = proc_fleet_finish(torch, procs, run)
+    finally:
+        if procs is not None:
+            procs["fleet"].close()      # idempotent after (d)'s own close
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = out["inproc"]["launches"] + out["disagg"]["launches"]
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 28: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7943,6 +8595,8 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     phase("2 build")
+    # phase 14's reference processes run beside the build
+    reference_started = start_reference_job()
     build_kernels()
 
     phase("3 kernels against their plain versions")
@@ -8036,7 +8690,7 @@ def main() -> int:
     ln_timing = time_layernorm(torch, device)
 
     phase("14 reference: the reference job through the CLI, quality bars")
-    reference_job()
+    reference_job(started=reference_started)
     quality_bars(device)
 
     phase("15 resume: checkpoint, resume and --generate of the 219M LM at "
@@ -8096,19 +8750,20 @@ def main() -> int:
     import tempfile
 
     elastic_tmp = tempfile.mkdtemp(prefix="chip-smoke-elastic-")
-    writer = []
+    writer, obs_host = [], []
     try:
         phase("19 resilience: guard, faults, rollback, SIGTERM, supervisor, "
               "watchdog")
         resilience, res_launches = resilience_full_width(
             torch, np, device, short, background=lambda: writer.extend(
-                elastic_writer(elastic_tmp, f"{elastic_tmp}/ck")))
+                elastic_writer(elastic_tmp, f"{elastic_tmp}/ck")),
+            after=lambda: obs_host.extend(start_obs_host(elastic_tmp)))
         print("resilience: " + json.dumps(resilience), flush=True)
 
         phase("20 observability: telemetry, tracing, the capture ledger, "
               "goodput, the profiler, postmortems")
         observability, obs_launches = observability_full_width(
-            torch, np, device, resilience)
+            torch, np, device, resilience, host=obs_host)
         print("observability: " + json.dumps(observability), flush=True)
 
         phase("21 replica consistency and elastic resume: the fingerprint "
@@ -8117,6 +8772,9 @@ def main() -> int:
                                      final_state.pop("leaves"), elastic_tmp,
                                      writer)
     finally:
+        if obs_host and obs_host[0].poll() is None:
+            obs_host[0].kill()
+            obs_host[0].wait()
         stop_writer(writer)
         shutil.rmtree(elastic_tmp, ignore_errors=True)
 
@@ -8156,8 +8814,14 @@ def main() -> int:
     phase("27 disaggregated serving: the prefill -> decode block handoff, "
           "the roles' telemetry, tracing and drain, the load sweep")
     disagg = disagg_phase(torch, np, device, serve_kept)
-    del serve_kept
     print("disagg: " + json.dumps(disagg), flush=True)
+
+    phase("28 the serving fleet: the router over in-process, tensor-"
+          "parallel and subprocess replicas, GroupSupervisor, the write-"
+          "ahead ledger")
+    fleet = fleet_phase(torch, np, device, serve_kept)
+    del serve_kept
+    print("fleet: " + json.dumps(fleet), flush=True)
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
@@ -8173,10 +8837,13 @@ def main() -> int:
                           "of 16 keys (16, 32, 64, 128 checked)",
                     replaces=f"{tpu}:486",
                     launches=(served["launches"] + moe["paged_launches"]
-                              + disagg["full_width"]["launches"]),
+                              + disagg["full_width"]["launches"]
+                              + fleet["launches"]),
                     launches_phase25=moe["paged_launches"],
                     # phase 27 (a): both roles of the disaggregated run
                     launches_phase27=disagg["full_width"]["launches"],
+                    # phase 28 (a), (b): the router's in-process replicas
+                    launches_phase28=fleet["launches"],
                     max_abs_err=max_err, other_shapes=other_shapes,
                     **timing)]
     # phase 22 (b): the DP x TP run, eager and graphed
@@ -8291,9 +8958,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] in (["--moe-host"], ["--pp-ep-host"],
-                         ["--quant-host"]):
-        # phase 25 (d)'s, phase 26 (b)'s and phase 18 (d)'s host runs,
-        # subprocesses of the card's run
+                         ["--quant-host"], ["--obs-host"]):
+        # phase 25 (d)'s, phase 26 (b)'s, phase 18 (d)'s and phase 20
+        # (b)'s host runs, subprocesses of the card's run
         import numpy
         import torch
 
@@ -8302,6 +8969,8 @@ if __name__ == "__main__":
         elif sys.argv[1] == "--pp-ep-host":
             moe_host_runs(torch, torch.device("cpu"), sys.argv[2],
                           jobs=PP_EP_HOST_JOBS)
+        elif sys.argv[1] == "--obs-host":
+            write_obs_host(torch, sys.argv[2])
         else:
             write_quant_host(torch, numpy, sys.argv[2])
         sys.exit(0)

@@ -1,4 +1,4 @@
-"""Serving: paged KV cache + continuous batching.
+"""Serving: paged KV cache + continuous batching, and the fleet over it.
 
 * :mod:`serve.paged_kv` — block-allocated KV pools with per-stream block
   tables, chunked prefill, batched decode, prefix caching with
@@ -8,8 +8,14 @@
 * :mod:`serve.scheduler` — bounded queue, per-tick admit/prefill/decode/
   retire, SLO-aware eviction, the prefill/decode roles, serving
   telemetry and tracing, and the fleet surface (load report, drain).
-* :mod:`serve.loadgen` — a closed-loop load generator measuring tokens/s
-  and TTFT/ITL percentiles against offered load.
+* :mod:`serve.loadgen` — closed-loop load generators (one scheduler, or
+  a fleet router) measuring tokens/s and TTFT/ITL percentiles against
+  offered load.
+* :mod:`serve.fleet` — the router over in-process, tensor-parallel and
+  subprocess replicas, its request and handoff ledgers, the worker
+  process and ``launch_fleet`` under ``train.resilience.GroupSupervisor``;
+  :mod:`serve.wal` its write-ahead ledger; :mod:`serve.autopilot` the
+  weight snapshots a worker's ``--ckpt`` reads.
 """
 
 from .loadgen import (
@@ -18,6 +24,7 @@ from .loadgen import (
     prewarm,
     resolve_mix,
     run_closed_loop,
+    run_fleet_closed_loop,
     sweep_loads,
 )
 from .paged_kv import (
@@ -30,8 +37,24 @@ from .paged_kv import (
     prefill_bucket,
 )
 from .scheduler import Request, Scheduler, ServeConfig
+from .fleet import (
+    Fleet,
+    FleetRequest,
+    FleetRouter,
+    InprocReplica,
+    LoadSignal,
+    ProcReplica,
+    TPGenerateReplica,
+    launch_fleet,
+    role_kind,
+)
+from .autopilot import load_weight_snapshot, save_weight_snapshot
 
-__all__ = ["ATTN_IMPLS", "BlockAllocator", "BlockExhausted", "MIXES",
-           "PagedDecodeServer", "PrefixIndex", "Request", "Scheduler",
-           "ServeConfig", "init_paged_kv", "make_requests", "prefill_bucket",
-           "prewarm", "resolve_mix", "run_closed_loop", "sweep_loads"]
+__all__ = ["ATTN_IMPLS", "BlockAllocator", "BlockExhausted", "Fleet",
+           "FleetRequest", "FleetRouter", "InprocReplica", "LoadSignal",
+           "MIXES", "PagedDecodeServer", "PrefixIndex", "ProcReplica",
+           "Request", "Scheduler", "ServeConfig", "TPGenerateReplica",
+           "init_paged_kv", "launch_fleet", "load_weight_snapshot",
+           "make_requests", "prefill_bucket", "prewarm", "resolve_mix",
+           "role_kind", "run_closed_loop", "run_fleet_closed_loop",
+           "save_weight_snapshot", "sweep_loads"]

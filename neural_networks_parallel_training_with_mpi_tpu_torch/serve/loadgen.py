@@ -1,6 +1,7 @@
 """Closed-loop load generator and latency percentiles: the port of the
-JAX package's ``serve/loadgen.py`` (its fleet driver,
-``run_fleet_closed_loop``, comes with the fleet router).
+JAX package's ``serve/loadgen.py``, with its fleet driver
+(:func:`run_fleet_closed_loop`, over a ``serve.fleet.FleetRouter`` or a
+``Fleet``).
 
 Closed-loop means each simulated client holds at most one outstanding
 request and submits its next the moment the previous completes: offered
@@ -278,3 +279,152 @@ def sweep_loads(make_scheduler, loads: List[int],
         finally:
             sched.close()
     return rows
+
+
+def run_fleet_closed_loop(router, clients: int,
+                          requests_per_client: int, *, vocab_size: int,
+                          prompt_lens=(4, 24), max_new=(8, 32),
+                          seed: int = 0,
+                          classes: Optional[List[Dict[str, Any]]] = None,
+                          stream: int = 0,
+                          mix: Optional[str] = None,
+                          max_wall_s: float = 600.0) -> Dict[str, Any]:
+    """The MULTI-REPLICA closed-loop driver: ``clients`` one-outstanding
+    clients against a ``serve.fleet.FleetRouter`` instead of one
+    scheduler.  Same pre-generated request plan as
+    :func:`run_closed_loop` (pure function of seed/stream: fleets of
+    different replica counts serve byte-identical traffic), plus
+    per-CLASS SLOs: ``classes`` is a list of ``{"name", "slo_ms"}``
+    dicts assigned client-major (client ``ci`` runs class ``ci % K`` —
+    an interactive client and a bulk client are different CLIENTS, not
+    different requests of one), and the row reports TTFT percentiles
+    per class — the split the router's deadline-aware placement is
+    judged on.  Rejections at the ROUTER (fleet queue full / SLO
+    infeasible) surface as ``router_rejections`` with clients retrying,
+    the closed-loop discipline."""
+    classes = classes or [{"name": "all", "slo_ms": None}]
+    (prompt_lens, max_new, shared_prefix_len,
+     shared_fraction) = resolve_mix(mix, prompt_lens, max_new, 0, 0.0)
+    plan = make_requests(clients, requests_per_client,
+                         vocab_size=vocab_size, prompt_lens=prompt_lens,
+                         max_new=max_new, seed=seed, stream=stream,
+                         shared_prefix_len=shared_prefix_len,
+                         shared_fraction=shared_fraction)
+    cls_of = [classes[ci % len(classes)] for ci in range(int(clients))]
+    next_idx = [0] * int(clients)
+    outstanding: List[Optional[int]] = [None] * int(clients)
+    finished: List[int] = []
+    owner: Dict[int, int] = {}          # fleet rid -> client
+    tokens_of: Dict[int, tuple] = {}    # fleet rid -> (ci, idx, tokens)
+    shared_rids: set = set()
+    submit_retries = 0
+    t0 = time.perf_counter()
+    while True:
+        progressed = False
+        for ci in range(int(clients)):
+            if outstanding[ci] is not None or \
+                    next_idx[ci] >= requests_per_client:
+                continue
+            req = plan[ci][next_idx[ci]]
+            # client idempotency key: a pure function of the request's
+            # coordinates in the plan (seed/stream/client/index), so a
+            # relaunched driver resubmitting after a control-plane
+            # death names each request IDENTICALLY and the router's
+            # journal dedupes instead of re-executing (serve/wal.py)
+            idem = f"{int(seed)}.{int(stream)}.{ci}.{next_idx[ci]}"
+            rid = router.submit(req["prompt"], req["max_new"],
+                                slo_ms=cls_of[ci]["slo_ms"], idem=idem)
+            if rid is None:
+                submit_retries += 1
+                continue
+            owner[rid] = ci
+            if req.get("shared"):
+                shared_rids.add(rid)
+            tokens_of[rid] = (ci, next_idx[ci], None)
+            outstanding[ci] = rid
+            next_idx[ci] += 1
+            progressed = True
+        for rid in router.pump():
+            ci = owner.get(rid)
+            if ci is None:
+                # a journal-replayed request can complete before its
+                # client re-attaches (recovered router, fresh driver);
+                # the idempotency-key resubmit re-announces it
+                continue
+            outstanding[ci] = None
+            finished.append(rid)
+            c, i, _ = tokens_of[rid]
+            tokens_of[rid] = (c, i, router.result(rid))
+            progressed = True
+        if all(i >= requests_per_client for i in next_idx) and \
+                all(o is None for o in outstanding):
+            break
+        if time.perf_counter() - t0 > max_wall_s:
+            raise RuntimeError(
+                f"fleet load run not drained in {max_wall_s}s: "
+                f"{len(finished)}/{clients * requests_per_client} done, "
+                f"outstanding={[o for o in outstanding if o is not None]}")
+        if not progressed:
+            # subprocess replicas own the compute; a busy-spinning
+            # driver would steal their core
+            time.sleep(0.002)
+    wall = time.perf_counter() - t0
+    stats = [router.stats(rid) for rid in finished]
+    h = hashlib.sha256()
+    if stream:
+        h.update(repr(("stream", int(stream))).encode())
+    for ci, i, toks in sorted(tokens_of.values()):
+        h.update(repr((ci, i, toks)).encode())
+    tokens_out = sum(s.n_generated or 0 for s in stats)
+    row: Dict[str, Any] = {
+        "clients": int(clients),
+        "requests": len(finished),
+        "wall_s": round(wall, 3),
+        "tokens_out": tokens_out,
+        "tokens_per_sec": round(tokens_out / wall, 1),
+        "submit_retries": submit_retries,
+        "router_rejections": router.rejected,
+        "requeued": router.requeued,
+        "tokens_sha256": h.hexdigest(),
+    }
+    ttft_all = [s.ttft_ms for s in stats if s.ttft_ms is not None]
+    row["ttft_ms_p50"] = _pct(ttft_all, 50)
+    row["ttft_ms_p99"] = _pct(ttft_all, 99)
+    # fleet-wide decode cadence: the signal a slow-but-alive replica
+    # degrades first
+    itl_all = [s.itl_ms for s in stats if s.itl_ms is not None]
+    row["itl_ms_p50"] = _pct(itl_all, 50)
+    row["itl_ms_p99"] = _pct(itl_all, 99)
+    if mix is not None:
+        row["mix"] = mix
+    if shared_prefix_len > 0:
+        # shared/unique split under a prefix mix, TTFT and ITL both:
+        # the shared class's TTFT prices prefix reuse, its ITL pins
+        # that reuse never taxes decode cadence
+        row["shared_prefix_len"] = int(shared_prefix_len)
+        row["shared_fraction"] = float(shared_fraction)
+        row["shared_requests"] = len(shared_rids)
+        for cls, rids in (("shared", shared_rids),
+                          ("unique", set(finished) - shared_rids)):
+            tv = [s.ttft_ms for rid, s in zip(finished, stats)
+                  if rid in rids and s.ttft_ms is not None]
+            iv = [s.itl_ms for rid, s in zip(finished, stats)
+                  if rid in rids and s.itl_ms is not None]
+            row[f"ttft_ms_p50_{cls}"] = _pct(tv, 50)
+            row[f"ttft_ms_p99_{cls}"] = _pct(tv, 99)
+            row[f"itl_ms_p50_{cls}"] = _pct(iv, 50)
+            row[f"itl_ms_p99_{cls}"] = _pct(iv, 99)
+    for k in classes:
+        vals = [s.ttft_ms for rid, s in zip(finished, stats)
+                if cls_of[owner[rid]]["name"] == k["name"]
+                and s.ttft_ms is not None]
+        row[f"ttft_ms_p50_{k['name']}"] = _pct(vals, 50)
+        row[f"ttft_ms_p99_{k['name']}"] = _pct(vals, 99)
+        row[f"requests_{k['name']}"] = len(vals)
+        if k["slo_ms"] is not None:
+            row[f"deadline_missed_{k['name']}"] = sum(
+                1 for rid, s in zip(finished, stats)
+                if cls_of[owner[rid]]["name"] == k["name"]
+                and s.ttft_ms is not None and s.deadline_missed)
+    row["per_replica_completed"] = router.per_replica_completed()
+    return row

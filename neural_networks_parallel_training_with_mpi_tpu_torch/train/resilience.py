@@ -53,7 +53,10 @@ code         meaning                                       supervisor
 other        crash (segfault, OOM, fault injection, ...)   retry
 ===========  ============================================  =========
 
-Not ported yet: the process-group supervisor of the serving fleet.
+:class:`GroupSupervisor` is the multi-child form of :func:`supervise`
+for the serving fleet: each :class:`ChildSpec` carries its own exit
+contract, backoff, restart budget and heartbeat bound; :meth:`poll` is
+non-blocking, and a relaunch never touches a sibling's process.
 """
 
 from __future__ import annotations
@@ -66,8 +69,9 @@ import signal
 import subprocess
 import sys
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 from ..utils import ckpt_manifest
 
@@ -227,11 +231,16 @@ PREEMPT_NOTICE_ENV = "NNPT_PREEMPT_NOTICE"
 PREEMPT_GRACE_ENV = "NNPT_PREEMPT_GRACE_S"
 
 
+def preempt_notice_path(env: Optional[dict] = None) -> Optional[str]:
+    """The notice file's path in ``env`` (default: this process's)."""
+    return (env if env is not None else os.environ).get(PREEMPT_NOTICE_ENV)
+
+
 def write_preempt_notice(path: Optional[str] = None, *,
                          grace_s: float = 2.0) -> Optional[str]:
     """Write the notice file (the sender's half); ``path`` defaults to
     :data:`PREEMPT_NOTICE_ENV`.  Best-effort: None when no path is set."""
-    path = path or os.environ.get(PREEMPT_NOTICE_ENV)
+    path = path or preempt_notice_path()
     if not path:
         return None
     try:
@@ -247,7 +256,7 @@ def write_preempt_notice(path: Optional[str] = None, *,
 
 def read_preempt_notice(path: Optional[str] = None) -> Optional[dict]:
     """The receiver's half: the notice file, or None."""
-    path = path or os.environ.get(PREEMPT_NOTICE_ENV)
+    path = path or preempt_notice_path()
     if not path:
         return None
     try:
@@ -875,3 +884,327 @@ def _run_child(cmd: Sequence[str], env: Optional[dict],
                 signal.signal(s, prev)
             except ValueError:
                 pass
+
+
+# ---------------------------------------------------------------------------
+# process-group supervision (the serving fleet's replicas)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ChildSpec:
+    """One child of a :class:`GroupSupervisor`: its command, role and its
+    own contracts (heartbeat bound, restart budget and backoff, the exit
+    codes that stop it).  ``spawn`` replaces process creation (the fleet
+    passes one that wires stdio pipes); ``on_spawn`` fires after every
+    (re)launch so the owner can re-attach to the new process."""
+    name: str
+    cmd: Sequence[str] = ()
+    role: str = "worker"
+    env: Optional[dict] = None
+    heartbeat_path: Optional[str] = None
+    heartbeat_timeout: float = 0.0
+    max_restarts: int = 3
+    backoff: float = 0.5
+    backoff_cap: float = 30.0
+    no_retry: Tuple[int, ...] = _NO_RETRY
+    spawn: Optional[Callable] = None      # (spec, env) -> Popen-like
+    on_spawn: Optional[Callable] = None   # (spec, proc, incarnation)
+
+
+@dataclass
+class _ChildState:
+    spec: ChildSpec
+    proc: Any = None
+    incarnation: int = -1          # attempts - 1 (stamped into the env)
+    restarts_used: int = 0
+    launched_at: float = 0.0
+    hb_armed: bool = False
+    relaunch_at: Optional[float] = None   # pending backoff deadline
+    final_rc: Optional[int] = None        # set once the child is done
+    gave_up: bool = False
+    retired: bool = False          # the next exit is terminal, any rc
+    last_rc: Optional[int] = None  # newest reaped rc (retire() uses it)
+    events: List[dict] = field(default_factory=list)
+
+
+class GroupSupervisor:
+    """Supervision of a process group: :func:`supervise` for N children,
+    each under its own :class:`ChildSpec`, so one failing child is
+    relaunched with its own backoff and budget while its siblings run on.
+
+    :meth:`poll` does not block: it reaps exits, kills children whose
+    heartbeat went stale (reported as :data:`EXIT_HANG`), runs due
+    relaunches and returns the events since the last poll, so the owner
+    (a router pumping traffic, a test) keeps the loop.  An exit in
+    ``spec.no_retry`` stops that child (``stopped``); any other relaunches
+    after ``backoff * 2^k`` (jittered down, capped) until ``max_restarts``
+    is spent (``gave_up``).  Every launch stamps :data:`RUN_ID_ENV` and
+    the child's :data:`INCARNATION_ENV`, as :func:`supervise` does."""
+
+    def __init__(self, specs: Sequence[ChildSpec],
+                 log: Optional[Callable[[str], None]] = None,
+                 jitter: float = 0.5,
+                 env: Optional[dict] = None,
+                 events_path: Optional[str] = None,
+                 _rand: Callable[[], float] = random.random,
+                 now_fn: Callable[[], float] = time.time):
+        names = [s.name for s in specs]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate child names: {names}")
+        self._log = log or (lambda m: print(m, file=sys.stderr,
+                                            flush=True))
+        self._jitter = float(jitter)
+        self._rand = _rand
+        self._now = now_fn
+        self._base_env = dict(env if env is not None else os.environ)
+        self.run_id = self._base_env.get(RUN_ID_ENV) or (
+            f"run-{int(time.time())}-{os.getpid()}")
+        self._children = {s.name: _ChildState(spec=s) for s in specs}
+        self._started = False
+        # lifecycle JSONL for the goodput join (supervise()'s events_path),
+        # stamped with the wall clock even under a virtual now_fn
+        self._events_path = events_path
+
+    def _emit_event(self, st: _ChildState, kind: str, **extra) -> None:
+        spec = st.spec
+        rec = {"kind": "supervisor", "event": kind,
+               "t": round(time.time(), 6), "run": self.run_id,
+               "child": spec.name, "role": spec.role,
+               "inc": st.incarnation, **extra}
+        pid = (spec.env or {}).get(_PROCESS_ID_ENV)
+        if pid is not None:
+            try:
+                rec["p"] = int(pid)
+            except (TypeError, ValueError):
+                pass
+        _append_event(self._events_path, rec)
+
+    # ---- lifecycle -----------------------------------------------------
+    def start(self) -> None:
+        self._started = True
+        for st in self._children.values():
+            self._launch(st)
+
+    def add_child(self, spec: ChildSpec) -> None:
+        """Register a new child at run time, launched at once if
+        :meth:`start` has run.  Names stay unique for the supervisor's
+        lifetime."""
+        if spec.name in self._children:
+            raise ValueError(f"duplicate child name: {spec.name!r}")
+        st = _ChildState(spec=spec)
+        self._children[spec.name] = st
+        if self._started:
+            self._launch(st)
+
+    def retire(self, name: str) -> None:
+        """Make the child's next exit terminal whatever its rc (no
+        relaunch, no budget spent): retire first, then ask the child to
+        drain and exit, so a kill after a stalled drain does not relaunch
+        it.  A pending relaunch is cancelled and the child finalized at its
+        last reaped rc."""
+        st = self._children[name]
+        st.retired = True
+        if st.relaunch_at is not None:
+            st.relaunch_at = None
+            st.final_rc = st.last_rc
+            self._log(f"[group] {st.spec.role}/{name}: retired while a "
+                      "relaunch was pending; relaunch cancelled")
+        else:
+            self._log(f"[group] {st.spec.role}/{name}: retired (next "
+                      "exit is terminal)")
+
+    def notify_preempt(self, name: str, grace_s: float = 2.0) -> bool:
+        """Send a live child the advance preemption notice: the notice
+        file (where the child's env names one, :data:`PREEMPT_NOTICE_ENV`)
+        and :data:`PREEMPT_SIGNAL`.  The child answers by its own contract
+        and exits 47, which ``no_retry`` already stops.  False when the
+        child is dead or unreachable (the crash path owns what follows)."""
+        st = self._children[name]
+        if st.proc is None or st.proc.poll() is not None:
+            return False
+        env = dict(self._base_env)
+        env.update(st.spec.env or {})
+        path = preempt_notice_path(env)
+        if path:
+            write_preempt_notice(path, grace_s=grace_s)
+        try:
+            st.proc.send_signal(PREEMPT_SIGNAL)
+        except OSError:
+            return False
+        self._log(f"[group] {st.spec.role}/{name}: preemption notice "
+                  f"delivered (grace {float(grace_s):.1f}s)")
+        self._emit_event(st, "preempt_notice",
+                         grace_s=round(float(grace_s), 3))
+        return True
+
+    def remove_child(self, name: str) -> None:
+        """Forget a terminal child (stopped or given up); refuses one that
+        could still run."""
+        st = self._children[name]
+        if st.final_rc is None and not st.gave_up:
+            raise ValueError(f"child {name!r} is not terminal")
+        del self._children[name]
+
+    def _launch(self, st: _ChildState) -> None:
+        spec = st.spec
+        env = dict(self._base_env)
+        if spec.env:
+            env.update(spec.env)
+        st.incarnation += 1
+        env[RUN_ID_ENV] = self.run_id
+        env[INCARNATION_ENV] = str(st.incarnation)
+        if spec.spawn is not None:
+            st.proc = spec.spawn(spec, env)
+        else:
+            st.proc = subprocess.Popen(list(spec.cmd), env=env)
+        st.launched_at = self._now()
+        st.hb_armed = False
+        st.relaunch_at = None
+        self._log(f"[group] {spec.role}/{spec.name} inc "
+                  f"{st.incarnation}: pid {st.proc.pid}")
+        self._emit_event(st, "launch", pid=getattr(st.proc, "pid", None))
+        if spec.on_spawn is not None:
+            spec.on_spawn(spec, st.proc, st.incarnation)
+
+    def _next_delay(self, st: _ChildState) -> float:
+        d = min(st.spec.backoff * (2.0 ** st.restarts_used),
+                st.spec.backoff_cap)
+        if self._jitter > 0:
+            d *= 1.0 - self._jitter * self._rand()
+        return d
+
+    def _check_heartbeat(self, st: _ChildState) -> bool:
+        """True when the child was just killed as hung."""
+        spec = st.spec
+        if not (spec.heartbeat_path and spec.heartbeat_timeout > 0):
+            return False
+        age = heartbeat_age_s(spec.heartbeat_path)
+        now = self._now()
+        if not st.hb_armed:
+            # armed at this incarnation's first write: start-up is never a
+            # hang, and an earlier incarnation's file does not count
+            if age is not None and age < now - st.launched_at:
+                st.hb_armed = True
+            return False
+        if age is not None and age > spec.heartbeat_timeout:
+            self._log(f"[group] {spec.role}/{spec.name}: heartbeat "
+                      f"stale for {age:.0f}s "
+                      f"(> {spec.heartbeat_timeout:.0f}s): killing as "
+                      "hung")
+            st.proc.terminate()
+            try:
+                st.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                st.proc.kill()
+                st.proc.wait()
+            return True
+        return False
+
+    def poll(self) -> List[dict]:
+        """One non-blocking pass; the events since the last one: ``exit``
+        (rc), ``hang_kill``, ``relaunch``, ``stopped`` (a no-retry exit),
+        ``gave_up`` (budget spent)."""
+        events: List[dict] = []
+
+        def ev(st: _ChildState, kind: str, **extra) -> None:
+            e = {"event": kind, "child": st.spec.name,
+                 "role": st.spec.role, "incarnation": st.incarnation,
+                 **extra}
+            st.events.append(e)
+            events.append(e)
+            self._emit_event(st, kind, **extra)
+
+        now = self._now()
+        for st in self._children.values():
+            if st.final_rc is not None or st.gave_up:
+                continue
+            if st.proc is not None and st.proc.poll() is None:
+                if self._check_heartbeat(st):
+                    ev(st, "hang_kill", rc=st.proc.poll())
+                    # EXIT_HANG for the retry contract, as _run_child: a
+                    # graceful exit 0 after SIGTERM still means stalled
+                    self._after_exit(st, EXIT_HANG, ev)
+                continue
+            if st.proc is not None and st.relaunch_at is None:
+                rc = st.proc.poll()
+                ev(st, "exit", rc=rc)
+                self._after_exit(st, rc, ev)
+                continue
+            if st.relaunch_at is not None and now >= st.relaunch_at:
+                st.restarts_used += 1
+                self._launch(st)
+                ev(st, "relaunch", restarts_used=st.restarts_used,
+                   max_restarts=st.spec.max_restarts)
+        return events
+
+    def _after_exit(self, st: _ChildState, rc: int, ev) -> None:
+        spec = st.spec
+        st.last_rc = rc
+        if st.retired or rc in spec.no_retry:
+            st.final_rc = rc
+            ev(st, "stopped", rc=rc)
+            why = ("retired" if st.retired and rc not in spec.no_retry
+                   else "no-retry contract")
+            self._log(f"[group] {spec.role}/{spec.name} exited {rc} "
+                      f"({why}): stopped")
+            return
+        if st.restarts_used >= spec.max_restarts:
+            st.gave_up = True
+            st.final_rc = rc
+            ev(st, "gave_up", rc=rc, max_restarts=spec.max_restarts)
+            self._log(f"[group] {spec.role}/{spec.name}: "
+                      f"{spec.max_restarts} restarts exhausted "
+                      f"(last exit {rc}); giving up on this child")
+            return
+        delay = self._next_delay(st)
+        st.relaunch_at = self._now() + delay
+        self._log(f"[group] {spec.role}/{spec.name} exit {rc}; "
+                  f"relaunching in {delay:.1f}s "
+                  f"({st.restarts_used + 1}/{spec.max_restarts}); "
+                  "siblings undisturbed")
+
+    # ---- introspection -------------------------------------------------
+    def proc(self, name: str):
+        return self._children[name].proc
+
+    def incarnation(self, name: str) -> int:
+        return self._children[name].incarnation
+
+    def alive(self, name: str) -> bool:
+        st = self._children[name]
+        return (st.proc is not None and st.relaunch_at is None
+                and st.final_rc is None and not st.gave_up
+                and st.proc.poll() is None)
+
+    def pending_relaunch(self, name: str) -> bool:
+        return self._children[name].relaunch_at is not None
+
+    def done(self, name: str) -> Optional[int]:
+        """The final rc once the child will never run again, else None."""
+        st = self._children[name]
+        return st.final_rc if (st.final_rc is not None or st.gave_up) \
+            else None
+
+    def running(self) -> bool:
+        """Any child not yet stopped or given up (an exit not yet reaped
+        by :meth:`poll` still counts: its retry decision is pending)."""
+        return any(st.final_rc is None and not st.gave_up
+                   for st in self._children.values())
+
+    def terminate_all(self, grace_s: float = 10.0) -> None:
+        for st in self._children.values():
+            st.relaunch_at = None
+            if st.proc is not None and st.proc.poll() is None:
+                st.proc.terminate()
+        deadline = time.time() + grace_s
+        for st in self._children.values():
+            if st.proc is None:
+                continue
+            try:
+                st.proc.wait(timeout=max(0.1, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                st.proc.kill()
+                try:
+                    st.proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    pass

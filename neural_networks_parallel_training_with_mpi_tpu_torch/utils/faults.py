@@ -50,14 +50,28 @@ on it stays valid), on the rank whose data-rank index is ``shard`` only:
                      step ``start`` on, the replay reproduces it, and the
                      run aborts with exit 45.
 
+Serving-fleet kinds (:data:`FLEET_KINDS`), polled by a fleet worker
+through :meth:`FaultPlan.fire_if_due` at its own counters (``proc=K``
+matches the worker's ``--replica``), never fired by :meth:`FaultPlan.apply`:
+
+    ``replica_kill``      SIGKILL at the Nth accepted submit.
+    ``stall_drain``       swallow a drain / decommission op.
+    ``handoff_kill``      SIGKILL before the Nth handoff reaches the wire.
+    ``handoff_kill_post`` SIGKILL just after it.
+    ``decode_kill``       SIGKILL after acking the Nth inject.
+    ``handoff_stall``     swallow the Nth inject (no ack).
+
+``preempt`` and ``slow`` also reach a worker, through :meth:`FaultPlan.
+due_spec` and :meth:`FaultPlan.slow_penalty_ms`.
+
 Options: ``max=N`` (fire at most N times in this process), ``once=PATH``
 (at most once while the marker file exists: survives a relaunch),
 ``proc=K`` (fire on rank K only), ``grace=S`` (preempt), ``ms=M`` (slow),
 ``param=``/``shard=``/``bit=``/``eps=``/``det`` (the SDC kinds).
 
 Parsed, with the JAX package's grammar and errors, but refused when the
-plan is built into a run: the serving-fleet, handoff and control-plane
-kinds (ROADMAP Queue A item 6).
+plan is built into a run: the driver kinds (:data:`DRIVER_KINDS`), whose
+victim is the router process (ROADMAP Queue A item 6b).
 """
 
 from __future__ import annotations
@@ -78,13 +92,15 @@ KINDS = ("nan", "crash", "sigterm", "torn_ckpt", "corrupt_ckpt",
          "handoff_stall", "router_kill", "fleet_kill")
 # the kinds that corrupt the train state (apply_state), not the batch
 STATE_KINDS = ("bitflip", "desync")
+# kinds a serving-fleet worker polls (fire_if_due); apply() skips them
+FLEET_KINDS = ("replica_kill", "stall_drain", "handoff_kill",
+               "handoff_kill_post", "decode_kill", "handoff_stall")
+# kinds the driver owning the fleet fires at the router process
+DRIVER_KINDS = ("router_kill", "fleet_kill")
 # kinds parsed for the grammar's sake whose paths are not ported, with the
 # ROADMAP Queue A item that ports them
-UNPORTED_KINDS = {
-    **{k: "the serving fleet (Queue A item 6)" for k in (
-        "replica_kill", "stall_drain", "handoff_kill", "handoff_kill_post",
-        "decode_kill", "handoff_stall", "router_kill", "fleet_kill")},
-}
+UNPORTED_KINDS = {k: "the fleet's control plane (Queue A item 6b)"
+                  for k in DRIVER_KINDS}
 
 
 def _process_index() -> int:
@@ -417,10 +433,52 @@ class FaultPlan:
                  f"{shard} of {name}")
         return state
 
+    def due_spec(self, kind: str, step: int,
+                 proc: Optional[int] = None) -> Optional[_Fault]:
+        """The first ``kind`` spec due at ``step``, marked fired (a fleet
+        worker reads ``preempt``'s ``grace`` off it); None when none is.
+        ``proc`` is the caller's identity (a worker's ``--replica``),
+        matched against the spec's ``proc=`` when both are set."""
+        for f in self.faults:
+            if f.kind != kind:
+                continue
+            if f.proc is not None and proc is not None and f.proc != proc:
+                continue
+            if not f.should_fire(step):
+                continue
+            f.mark_fired()
+            return f
+        return None
+
+    def fire_if_due(self, kind: str, step: int,
+                    proc: Optional[int] = None) -> bool:
+        """Whether a ``kind`` spec is due at ``step`` (and now marked
+        fired): the due-check of callers owning the fault's semantics, the
+        fleet worker's :data:`FLEET_KINDS`."""
+        return self.due_spec(kind, step, proc=proc) is not None
+
+    def slow_penalty_ms(self, step: int,
+                        proc: Optional[int] = None) -> float:
+        """The summed ``ms`` of the ``slow`` specs due at ``step``, which
+        a fleet worker sleeps every engine pass while the window is open
+        (each poll fires; ``max=N`` bounds the fires)."""
+        ms = 0.0
+        for f in self.faults:
+            if f.kind != "slow":
+                continue
+            if f.proc is not None and proc is not None and f.proc != proc:
+                continue
+            if not f.should_fire(step):
+                continue
+            f.mark_fired()
+            ms += f.ms
+        return ms
+
     def apply(self, step: int, batch: Dict,
               ckpt_dir: Optional[str] = None) -> Dict:
         for f in self.faults:
-            if f.kind in UNPORTED_KINDS or f.kind in STATE_KINDS:
+            if (f.kind in STATE_KINDS or f.kind in FLEET_KINDS
+                    or f.kind in DRIVER_KINDS):
                 continue
             if f.proc is not None and _process_index() != f.proc:
                 continue

@@ -9,8 +9,9 @@ kind and option as JAX's parser does and rejects what it rejects;
 ``corrupt_ckpt`` rots the newest snapshot, which the restore quarantines;
 ``ckpt_ioerr`` raises on a sync and an async save with older snapshots
 intact; ``torn_ckpt`` publishes a snapshot without its manifest and dies
-by SIGKILL, and the restore falls back past it.  The kinds of Queue A
-items 3 and 6 parse but are refused when a run is built.
+by SIGKILL, and the restore falls back past it.  The fleet kinds are
+skipped by a training run, as JAX's ``apply`` skips them; the driver kinds
+of Queue A item 6b parse but are refused when a run is built.
 """
 
 import dataclasses
@@ -105,13 +106,34 @@ def test_fault_firing_and_env_fallback(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("fleet_kill@1", "item 6"), ("handoff_stall@2", "item 6"),
-    ("replica_kill@1", "item 6"), ("router_kill@3", "item 6")])
+    ("fleet_kill@1", "item 6b"), ("router_kill@3", "item 6b")])
 def test_unported_kinds_refused_naming_their_item(spec, item):
     cfg = config_from_args(build_argparser().parse_args(
         ["--faults", spec]))
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, device="cpu")
+
+
+def test_fleet_kinds_leave_training_untouched():
+    """``--faults replica_kill@1`` (a kind only a fleet worker fires)
+    trains exactly as no fault plan does: ``apply`` skips it, as JAX's."""
+    def run(extra):
+        cfg = config_from_args(build_argparser().parse_args(
+            ["--no-full-batch", "--batch_size", "4", "--n_samples", "16",
+             "--nepochs", "2"] + extra))
+        t = Trainer(cfg, device="cpu")
+        return t.fit(), t.state
+    (r0, s0), (r1, s1) = run([]), run(["--faults", "replica_kill@1"])
+    assert r0["final_loss"] == r1["final_loss"]
+    for (_, a), (_, b) in zip(ckpt.flatten(s0), ckpt.flatten(s1)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
+    plan = faults.FaultPlan.parse("replica_kill@1,handoff_stall@1")
+    batch = {"x": torch.ones(2)}
+    assert plan.apply(1, batch) is batch
+    assert [f.fires for f in plan.faults] == [0, 0]
 
 
 def test_nan_poisons_only_its_step_in_a_group():

@@ -93,7 +93,13 @@ def test_entry_points_default_to_the_gpu():
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch import cli
     from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
-        Scheduler, ServeConfig,
+        InprocReplica, Scheduler, ServeConfig, TPGenerateReplica,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve.fleet import (
+        worker_main,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.parallel.megatron import (
+        LocalTensorGroup,
     )
     from neural_networks_parallel_training_with_mpi_tpu_torch.config import (
         TrainConfig,
@@ -124,6 +130,13 @@ def test_entry_points_default_to_the_gpu():
     for role in ("unified", "prefill", "decode"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Scheduler(model, params, ServeConfig(role=role))
+    # the fleet's replicas and its worker process (--platform gpu default)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InprocReplica(Scheduler(model, params, ServeConfig()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TPGenerateReplica(model, params, LocalTensorGroup(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker_main(["--worker", "--layers", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(TrainConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -525,12 +525,12 @@ def test_interop_round_trips_a_jax_train_state():
     # (tests/test_torch_telemetry.py::test_observability_flags_are_ported)
     # the resilience flags are ported (tests/test_torch_resilience.py),
     # and replica consistency and elastic resume
-    # (tests/test_torch_sdc.py, tests/test_torch_elastic.py); the
-    # serving-fleet fault kinds (Queue A item 6) and the flags of the
+    # (tests/test_torch_sdc.py, tests/test_torch_elastic.py); the fleet's
+    # driver fault kinds (Queue A item 6b) and the flags of the
     # model-parallel layouts and RL are not
     ["--vocab_parallel", "--sp", "2", "--tp", "2", "--attention", "ring",
      "--dataset", "lm", "--fsdp", "2", "--pp", "2"],
-    ["--faults", "replica_kill@1"],
+    ["--faults", "router_kill@1"],
     ["--moe_top_k", "2", "--moe_experts", "4", "--pp", "2", "--dataset",
      "lm"],
     ["--pp_interleave", "2", "--pp", "2", "--n_layers", "4", "--dataset",
@@ -555,10 +555,11 @@ def test_unported_flags_raise(flags):
 
 # --quantize, --probe_timeout and --supervise are ported
 # (tests/test_torch_quant.py, tests/test_torch_resilience.py), and the
-# SDC fault kinds (tests/test_torch_sdc.py): fault kinds of item 6 take
-# their places
-@pytest.mark.parametrize("flags", [["--faults", "handoff_kill@1"],
-                                   ["--faults", "replica_kill@1"],
+# SDC and fleet fault kinds (tests/test_torch_sdc.py,
+# tests/test_torch_fleet.py): the driver kinds of item 6b take their
+# places
+@pytest.mark.parametrize("flags", [["--faults", "router_kill@1"],
+                                   ["--faults", "fleet_kill@1"],
                                    ["--num_devices", "4"]])
 def test_unported_cli_flags_raise(flags):
     with pytest.raises(NotImplementedError):

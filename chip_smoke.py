@@ -19,12 +19,15 @@ Phases, each printing its own lines; any failure exits non-zero:
               short lanes in a table at full capacity and lanes ending
               inside a split; head_dim 32 (f32, bf16 and int8 pools,
               GQA) and pool blocks of 64 and 128 keys at head_dim 32,
-              64 and 128.  Times the kernel at 32-512 keys per split,
+              64 and 128; head_dim 16 (the fleet workers' default
+              geometry: f32, bf16 and int8 pools, GQA, split and
+              unsplit, blocks of 16 and 64).  Times the kernel at 32-512
+              keys per split,
               its plain version and a library yardstick (gather +
               ``F.scaled_dot_product_attention``) at the decode shape,
               medians of single calls, beside the bound (bytes or
               operations at the card's peak); then the same at head_dim
-              32 (blocks of 16 keys) and head_dim 64 (blocks of 64 and
+              16 and 32 (blocks of 16 keys) and head_dim 64 (blocks of 64 and
               128 keys) at the shipped split size.
 4. serve    — the 218M-parameter LM (vocab 32768, 12 layers, d_model
               1024, 16 heads, d_ff 4096; random weights from a seed, bf16)
@@ -407,9 +410,11 @@ Phases, each printing its own lines; any failure exits non-zero:
               params) under ``--ep 4`` over ``LocalExpertGroup(4)``
               (ce_chunk 0, as JAX requires there): one epoch eager (the
               1-nat check, step ms, tokens/s, peak memory, a profile with
-              the dispatch/combine class, the final snapshot), B1-B3 12 a
-              step (one launch over the 4 shards' rows), all sm90; then
-              one epoch at ``--steps_per_dispatch 13``, bitwise to it.
+              the dispatch/combine class), B1-B3 12 a step (one launch
+              over the 4 shards' rows), all sm90; then one epoch at
+              ``--steps_per_dispatch 13``, bitwise to it; then the same
+              job at 2 layers, one epoch eager, writes its final snapshot
+              (save seconds, bytes).
               (c) ``--moe_top_k 2`` on the plain DP step (ce_chunk 256)
               at full depth, eager (with a profile) and graphed,
               bitwise.  (d) f32, TF32 off, 2
@@ -419,8 +424,8 @@ Phases, each printing its own lines; any failure exits non-zero:
               2 --ep 2`` striped_flash (B5) and ``--ep 2 --tp 2`` at T 128
               on the card == the host's (a subprocess of this script, run
               beside the rest) within 1e-5.  (e) ``--generate`` through
-              the CLI from (b)'s snapshot: 16 sampled tokens equal the
-              decode of (b)'s final params.  (f) The MoE
+              the CLI from (b)'s 2-layer snapshot: 16 sampled tokens equal
+              the decode of that run's final params.  (f) The MoE
               LM in bf16 behind the fused paged scheduler (8 requests; B4
               n_layers x passes), then f32 at 2 layers with a drop-free
               capacity: fused == gathered == ``generate()`` and the card's
@@ -516,7 +521,44 @@ Phases, each printing its own lines; any failure exits non-zero:
               relaunch), serving again with equal tokens; the supervisor's
               events, the heartbeats; ``Fleet.close()`` leaves no worker
               process.  A ``fleet:`` JSON line; (a)'s and (b)'s B4 launches
-              join the kernels line's count.
+              join the kernels line's count.  (d)'s fleet stays up for
+              phase 29, which closes it.
+29. control  — the fleet's control loop over phase 28 (d)'s fleet (2
+              workers, f32, the 218M LM's width at 2 layers, ``--attn-impl
+              fused``, its seeded snapshot) with an ``Autopilot``
+              (``serve/autopilot.py``) ticked from ``Fleet.pump``: min 2,
+              max 3 workers, holds of 0.5 / 1 s, a 1 s cooldown, and its
+              decisions written to an ``events_path``.
+              (a) A burst through ``run_fleet_closed_loop`` (16 clients x
+              2 requests against 2 x 4 slots): exactly one ``scale_out``
+              (the new worker's seconds to ready); then a trickle of 2
+              clients x 3 long requests: one ``scale_in``, the newest
+              worker drained, exit 47, retired and not relaunched, what it
+              held requeued once; both runs' tokens equal an in-process
+              f32 fused scheduler's over the snapshot's params.
+              (b) A second snapshot (another seed) with a payload byte
+              flipped after its manifest: ``start_rollout`` refuses it
+              before any spawn, the serving generation untouched; then,
+              the byte restored, under 4 clients: a generation-1 canary,
+              its traffic slice, the judge promotes it, generation 0
+              drains out (exit 47 each); every request's tokens equal the
+              in-process scheduler's over its generation's params (the
+              generation is the replica id // ``GEN_STRIDE``); the
+              decisions and the seconds from ``start_rollout`` to the
+              promotion.
+              (c) The port's chaos ``fleet_ctrlplane`` scenario through
+              ``tools/chaos_campaign.py --platform gpu`` (one scenario,
+              JAX's tiny geometry: paged attention at head_dim 16), a
+              process started at phase 24's head and read here: baseline,
+              ``router_kill`` and ``fleet_kill`` lives of
+              ``serve/ctrlplane_driver.py``; every invariant holds, both
+              arms' tokens equal the baseline's, nothing lost, nothing
+              left in the killed drivers' sessions; each arm's recovery
+              counters and seconds, and the phases it overlapped.
+              The fleet closed: no worker of phases 28-29 left.  A
+              ``control:`` JSON line; the workers' B4 launches in (a) and
+              (b) (from their status reports, against their counts at the
+              phase's head) join the kernels line's count.
 
 The last lines are the kernels JSON line (each kernel with the head_dims
 and blocks it takes; ``fingerprint`` has no Pallas counterpart), the
@@ -546,9 +588,12 @@ TOL = {"torch.float32": (1e-4, 1e-4), "torch.bfloat16": (2e-2, 1e-2)}
 
 
 _T0 = time.perf_counter()
+# (name, seconds of the script) of every phase begun
+_PHASE_STARTS = []
 
 
 def phase(name):
+    _PHASE_STARTS.append((name, time.perf_counter() - _T0))
     print(f"== phase {name} (at {time.perf_counter() - _T0:.1f} s)",
           flush=True)
 
@@ -724,6 +769,39 @@ def kernel_cases():
                               dict(dtype=dt, lengths=dec, starts=dec_starts,
                                    width=1, n_heads=4, kv_heads=4,
                                    head_dim=hd, block_size=bs)))
+        # head_dim 16 (the fleet workers' default geometry, 4 heads of
+        # 16): one int8 chunk a key; split (1024-key table) and unsplit
+        # (one split of 16 blocks), GQA, blocks of 16 and 64
+        cases += [
+            (f"decode_d16_{dt}", dict(dtype=dt, lengths=dec,
+                                      starts=dec_starts, width=1, n_heads=4,
+                                      kv_heads=4, head_dim=16)),
+            (f"decode_d16_int8_{dt}", dict(dtype=dt, lengths=dec,
+                                           starts=dec_starts, width=1,
+                                           n_heads=4, kv_heads=4,
+                                           head_dim=16, quant=True)),
+            (f"decode_d16_gqa_unsplit_{dt}",
+             dict(dtype=dt, lengths=short, starts=short_starts, width=1,
+                  n_heads=4, kv_heads=2, head_dim=16, max_blocks=16)),
+            (f"decode_d16_gqa_int8_unsplit_{dt}",
+             dict(dtype=dt, lengths=short, starts=short_starts, width=1,
+                  n_heads=4, kv_heads=2, head_dim=16, quant=True,
+                  max_blocks=16)),
+            (f"prefill_w16_d16_gqa_int8_{dt}",
+             dict(dtype=dt, lengths=[316, 28], starts=[300, 17], width=16,
+                  n_heads=4, kv_heads=2, head_dim=16, quant=True)),
+            (f"prefill_w32_d16_unsplit_{dt}",
+             dict(dtype=dt, lengths=[200, 40], starts=[168, 8], width=32,
+                  n_heads=4, kv_heads=4, head_dim=16, max_blocks=16)),
+            (f"decode_d16_b64_{dt}", dict(dtype=dt, lengths=dec,
+                                          starts=dec_starts, width=1,
+                                          n_heads=4, kv_heads=4,
+                                          head_dim=16, block_size=64)),
+            (f"decode_d16_b64_int8_gqa_{dt}",
+             dict(dtype=dt, lengths=mid, starts=mid_starts, width=1,
+                  n_heads=4, kv_heads=2, head_dim=16, block_size=64,
+                  quant=True, max_blocks=16)),
+        ]
         cases += [
             (f"decode_d32_b128_int8_{dt}",
              dict(dtype=dt, lengths=dec, starts=dec_starts, width=1,
@@ -6968,13 +7046,13 @@ def moe_card_vs_host(torch, np, device, proc, path, jobs=None):
     return out
 
 
-def start_moe_generate(ck):
-    """(e) ``--generate`` through the CLI from (b)'s ``--ep 4`` snapshot
-    (12 layers; the mesh flags accepted and ignored, as JAX's CLI),
-    sampled at temperature 1 from the seed; it runs beside (d) and
-    (f)."""
+def start_moe_generate(ck, n_layers=CUT_LAYERS):
+    """(e) ``--generate`` through the CLI from the ``--ep 4`` snapshot of
+    (b)'s job at ``n_layers`` (the mesh flags accepted and ignored, as
+    JAX's CLI), sampled at temperature 1 from the seed; it runs beside
+    (c), (d) and (f)."""
     flags = train_flags(checkpoint_dir=ck, ce_chunk=0, ep=EP_SHARDS,
-                        **MOE_FLAGS)
+                        n_layers=n_layers, **MOE_FLAGS)
     return subprocess.Popen([sys.executable, "-m", PKG, *flags,
                              *GENERATE_FLAGS], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -7046,9 +7124,12 @@ def moe_full_width(torch, np, device, keep=None):
     layer; (b) the flagship MoE LM (924M params) under ``--ep 4`` over
     ``LocalExpertGroup(4)`` at full width, ce_chunk 0, one epoch eager
     (the 1-nat check, step ms, tokens/s, peak memory, B1-B3 12 a step all
-    on sm90, a profile with the dispatch/combine class, the final
-    snapshot (e) decodes) and one graphed (k 13, bitwise); (e)'s
-    ``--generate`` process starts; (c) ``--moe_top_k 2`` on the plain DP
+    on sm90, a profile with the dispatch/combine class) and one graphed
+    (k 13, bitwise); then the same job cut to ``CUT_LAYERS`` layers, one
+    epoch eager, writes the final snapshot (e) decodes (its save seconds
+    and bytes; the 12-layer job's 11.1 GB snapshot written and read back
+    by (e) cost ~70 s of the time limit), and (e)'s ``--generate``
+    process starts; (c) ``--moe_top_k 2`` on the plain DP
     step (ce_chunk 256) at full width, eager (with a profile) and graphed
     (bitwise), from (b)'s seeded init (the same global tree: drawn once,
     and kept in ``keep["init"]`` for phase 26 (c)); (d) the f32 identities; (f) serving; (e) the tokens
@@ -7074,12 +7155,9 @@ def moe_full_width(torch, np, device, keep=None):
             ep4 = dict(ep=EP_SHARDS, ce_chunk=0, nepochs=1, **MOE_FLAGS)
             ck = Path(tmp) / "ck"
             eager = train_full_width(
-                torch, np, device, keep_final="tree", tag="train moe ep4",
-                keep_init=True,
-                checkpoint_dir=ck, inspect=lambda t: dict(
-                    save_s=t.save_seconds[-1], snapshot_bytes=snapshot_bytes(
-                        ck / f"ckpt-{int(t.state.step)}")),
-                expert_group=LocalExpertGroup(EP_SHARDS), **ep4)
+                torch, np, device, keep_final=True, tag="train moe ep4",
+                keep_init=True, expert_group=LocalExpertGroup(EP_SHARDS),
+                **ep4)
             graphed = dispatch_full_width(
                 torch, np, device, eager, exact=True, profile=False,
                 tag="dispatch moe ep4",
@@ -7095,9 +7173,23 @@ def moe_full_width(torch, np, device, keep=None):
                 "step_ms_median", "step_ms_from", "tokens_per_s", "mfu",
                 "peak_memory_gib", "launches", "bitwise", "replays",
                 "launches_per_replay")}
-            # (e) once (b)'s timed runs are done: its start-up, the
+            # (e)'s snapshot, once (b)'s timed runs are done: the job at
+            # CUT_LAYERS layers; the --generate process's start-up, the
             # snapshot's checksum and restore run beside (c) (its decode,
             # 16 tokens, shares the card for well under a second)
+            snap_run = train_full_width(
+                torch, np, device, keep_final="tree", profile=False,
+                tag=f"train moe ep4 {CUT_LAYERS} layers (the snapshot (e) "
+                    f"decodes)",
+                checkpoint_dir=ck, inspect=lambda t: dict(
+                    save_s=t.save_seconds[-1], snapshot_bytes=snapshot_bytes(
+                        ck / f"ckpt-{int(t.state.step)}")),
+                expert_group=LocalExpertGroup(EP_SHARDS),
+                **dict(ep4, n_layers=CUT_LAYERS))
+            out["ep4_snapshot"] = dict(
+                n_layers=CUT_LAYERS, save_s=snap_run["save_s"],
+                snapshot_bytes=snap_run["snapshot_bytes"],
+                last3_loss=snap_run["last3_loss"])
             gen = start_moe_generate(ck)
             procs.append(gen)
             top2 = dict(moe_top_k=2, nepochs=1, **MOE_FLAGS)
@@ -7116,14 +7208,16 @@ def moe_full_width(torch, np, device, keep=None):
                 "launches", "bitwise", "replays")}
             reference = reference_decode(
                 torch, device, tree_map(lambda t: t.to(device),
-                                        eager.pop("final_tree")),
-                n_layers=BIG["n_layers"], **MOE_FLAGS)
+                                        snap_run.pop("final_tree")),
+                n_layers=CUT_LAYERS, **MOE_FLAGS)
+            del snap_run
             out["identity_ep4_dense"] = moe_identity_ep_dense(torch, device)
             out["card_vs_host"] = moe_card_vs_host(torch, np, device,
                                                    host_proc, host_path)
             out["serve"] = moe_serve(torch, np, device)
             out["generate"] = generate_from_pipe(
-                gen, reference, what="(b)'s --ep 4 MoE snapshot")
+                gen, reference,
+                what=f"the --ep 4 MoE snapshot at {CUT_LAYERS} layers")
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -8459,11 +8553,13 @@ def await_relaunch(procs, timeout_s=60.0):
         time.sleep(0.02)
 
 
-def proc_fleet_finish(torch, procs, run):
+def proc_fleet_finish(torch, procs, run, keep_open=False):
     """(d) second half: the relaunched worker 1 is ready (its seconds from
     relaunch to ready) and serves 2 more requests with the reference's
     tokens; the supervisor's events; heartbeats; ``Fleet.close()`` leaves
-    no worker process behind."""
+    no worker process behind.  With ``keep_open`` the fleet stays up for
+    phase 29, whose end closes it and makes that last check over every
+    worker pid of both phases (``run["pids"]``)."""
     from neural_networks_parallel_training_with_mpi_tpu_torch.train.resilience import (  # noqa: E501
         find_heartbeats,
     )
@@ -8494,17 +8590,7 @@ def proc_fleet_finish(torch, procs, run):
              for d in fl.telemetry_dirs}
     pids = dict(run.pop("first_pids"))
     pids["replica-1 relaunched"] = fl.supervisor.proc(h1.name).pid
-    all_procs = [fl.supervisor.proc(h.name) for h in fl.handles]
-    fl.close()
-    left = [p.pid for p in all_procs if p.poll() is None]
-    for pid in pids.values():
-        try:
-            os.kill(pid, 0)
-            left.append(pid)
-        except ProcessLookupError:
-            pass
-        except PermissionError:
-            left.append(pid)
+    left = [] if keep_open else close_fleet(fl, pids.values())
     run.pop("t_kill")
     run.update(relaunched=relaunched, relaunch_to_ready_s=h1.ready_s,
                events=events, after_relaunch_equal=again,
@@ -8517,33 +8603,54 @@ def proc_fleet_finish(torch, procs, run):
             run["requeued"] >= 1 and run["replica_deaths"] >= 1),
         "worker 1 relaunched and ready": relaunched,
         "the relaunched worker served, tokens equal": again and served >= 1,
-        "no worker left behind": not run["left_behind"],
     }
+    if not keep_open:
+        checks["no worker left behind"] = not run["left_behind"]
     print(f"fleet (d): ready s {run['ready_s']} (waited "
           f"{run['ready_wait_s']:.1f} s in phase 28); relaunch to ready "
           f"{h1.ready_s} s; supervisor events {events}; {run['requests']} "
           f"requests at {run['tokens_per_s']:.1f} tokens/s, requeued "
           f"{run['requeued']}; heartbeats {beats}; pids {pids}, left "
-          f"behind {run['left_behind']}", flush=True)
+          f"behind {run['left_behind'] if not keep_open else 'checked in '
+                    'phase 29, the fleet kept open'}", flush=True)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"fleet (d): {failed}")
     return run
 
 
+def close_fleet(fl, pids):
+    """``Fleet.close()``, then the worker pids (of ``pids``, and the
+    supervisor's current children) still alive."""
+    all_procs = [fl.supervisor.proc(h.name) for h in fl.handles]
+    fl.close()
+    left = [p.pid for p in all_procs if p is not None and p.poll() is None]
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            left.append(pid)
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            left.append(pid)
+    return sorted(set(left))
+
+
 def fleet_phase(torch, np, device, setup, cfg_f32=None, model_flags=None,
-                platform=None):
+                platform=None, keep=None):
     """Phase 28: (d)'s workers start first and come up beside (c) and
     (a); (d)'s 8 requests and the kill; (b) while worker 1's relaunch comes
     up; then (d)'s relaunch, last requests and shutdown.  ``model_flags``
     / ``platform``: the workers' (a rehearsal's small model on the
-    CPU)."""
+    CPU).  With ``keep`` (a dict), (d)'s fleet and its directory stay for
+    phase 29 (``keep["procs"]``, ``keep["tmp"]``), which closes them."""
     import shutil
     import tempfile
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
     procs = None
+    kept = False
     try:
         procs = start_proc_fleet(torch, device, f"{tmp}/d", model_flags,
                                  platform)
@@ -8561,14 +8668,547 @@ def fleet_phase(torch, np, device, setup, cfg_f32=None, model_flags=None,
         out["disagg"] = fleet_full_width(torch, np, device, setup,
                                          f"{tmp}/b", ("prefill", "decode"),
                                          "(b) prefill + decode")
-        out["procs"] = proc_fleet_finish(torch, procs, run)
+        out["procs"] = proc_fleet_finish(torch, procs, run,
+                                         keep_open=keep is not None)
+        if keep is not None:
+            keep.update(procs=procs, tmp=tmp, pids=out["procs"]["pids"])
+            kept = True
     finally:
-        if procs is not None:
-            procs["fleet"].close()      # idempotent after (d)'s own close
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not kept:
+            if procs is not None:
+                procs["fleet"].close()  # idempotent after (d)'s own close
+            shutil.rmtree(tmp, ignore_errors=True)
     out["launches"] = out["inproc"]["launches"] + out["disagg"]["launches"]
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 28: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the fleet's control loop (the autopilot ticked from Fleet.pump,
+# a rollout with its canary judge, control-plane death through the chaos
+# campaign)
+# ---------------------------------------------------------------------------
+
+# the autopilot over phase 28 (d)'s two workers: one scale-out to 3, one
+# scale-in back to 2; short holds, windows and cooldown for the time limit;
+# the router's queue (read at once, where a worker's occupancy arrives
+# with its next status report) is high with the burst's 16 clients on 2 x
+# (4 slots + 2 parked)
+CONTROL_AUTOPILOT = dict(min_replicas=2, max_replicas=3, interval_s=0.1,
+                         high_queue=4, scale_out_hold_s=0.5,
+                         scale_in_hold_s=1.0,
+                         cooldown_s=1.0, drain_timeout_s=60.0,
+                         ready_timeout_s=180.0, canary_replicas=1,
+                         canary_fraction=0.5, canary_window_s=3.0,
+                         canary_min_completed=3, canary_max_extensions=6,
+                         canary_max_p50_ratio=10.0)
+# (a): a burst of 16 clients x 4 requests against 2 x 4 slots (on an H100
+# 16 x 2 requests of 8-24 new tokens end within the hold), then a trickle
+# of 2 clients x 3 long requests while the load is low
+CONTROL_BURST = dict(clients=16, per_client=4, prompt_lens=(16, 200),
+                     max_new=(32, 64))
+CONTROL_TRICKLE = dict(clients=2, per_client=3, prompt_lens=(16, 200),
+                       max_new=(48, 96))
+# (b): 4 clients through the rollout, cycling over this many requests until
+# it ends (on an H100 96 are done before a canary is ready)
+CONTROL_ROLLOUT = dict(clients=4, requests=96, p_lo=16, p_hi=200, n_lo=8,
+                       n_hi=24)
+CTRLPLANE_TIMEOUT_S = 600
+
+
+def start_ctrlplane_chaos(tmp, platform="gpu"):
+    """(c)'s campaign, a background process started beside GPU-bound
+    training (its five driver lives are mostly start-up): the port's
+    ``tools/chaos_campaign.py`` on a one-scenario plan (``full``'s
+    ``fleet_ctrlplane``), ``--platform gpu`` (``platform``: a rehearsal's
+    ``cpu``).  Returns what (c) reads."""
+    os.makedirs(tmp, exist_ok=True)
+    plan = dict(name="ctrlplane", seed=0, scenarios=[dict(
+        name="fleet_ctrlplane", kind="fleet", mode="ctrlplane", clients=4,
+        rpc=3, kill_at_completed=2)])
+    plan_path = os.path.join(tmp, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    out = os.path.join(tmp, "campaign.json")
+    log = open(os.path.join(tmp, "campaign.log"), "w")
+    tool = REPO_ROOT / PKG / "tools" / "chaos_campaign.py"
+    proc = subprocess.Popen(
+        [sys.executable, str(tool), plan_path, "--repeat", "1",
+         "--platform", platform, "--json", out], stdout=log,
+        stderr=subprocess.STDOUT, text=True, cwd=str(tmp))
+    return dict(proc=proc, out=out, log=log, tmp=tmp,
+                t_start=time.perf_counter() - _T0)
+
+
+def ctrlplane_result(chaos):
+    """(c): the campaign's exit code, invariants, token identity and
+    recovery counters; the phases it overlapped."""
+    proc = chaos["proc"]
+    try:
+        rc = proc.wait(timeout=CTRLPLANE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        chaos["log"].close()
+    t_end = (os.path.getmtime(chaos["out"]) - (time.time()
+                                               - time.perf_counter()) - _T0
+             if os.path.exists(chaos["out"]) else None)
+    with open(os.path.join(chaos["tmp"], "campaign.log")) as f:
+        tail = f.read()[-3000:]
+    if rc != 0 or t_end is None:
+        raise AssertionError(f"control (c): the chaos campaign exited {rc}:"
+                             f"\n{tail}")
+    with open(chaos["out"]) as f:
+        doc = json.load(f)
+    sc = doc["scenarios"][0]
+    m = sc["metrics"]
+    arms = {arm: dict(m[arm], tokens_equal=m[arm]["tokens_sha256"]
+                      == m["tokens_sha256"]) for arm in ("router_kill",
+                                                          "fleet_kill")}
+    overlapped = [name for name, (a, b) in _phase_spans().items()
+                  if a < t_end and b > chaos["t_start"]]
+    # paged attention at head_dim 16 in the workers of the lives that ran
+    # to their end (the baseline and each arm's relaunch)
+    b4 = sum(int((d or {}).get("paged_attention", 0)) for d in (
+        m["kernel_launches"], m["router_kill"]["kernel_launches"],
+        m["fleet_kill"]["kernel_launches"]))
+    out = dict(invariants=sc["invariants"], problems=doc["problems"],
+               wall_s=sc["wall_s"], submitted=m["submitted"],
+               b4_launches_head_dim16=b4,
+               tokens_sha256=m["tokens_sha256"], arms=arms,
+               started_at_s=round(chaos["t_start"], 1),
+               ended_at_s=round(t_end, 1), overlapped_phases=overlapped)
+    checks = {
+        "every invariant held": doc["invariants_ok"] and all(
+            sc["invariants"].values()),
+        "both arms' tokens equal the baseline's": all(
+            a["tokens_equal"] for a in arms.values()),
+        "every request once, none lost": all(
+            a["requests"] == m["submitted"] and a["recovery"]["lost"] == 0
+            for a in arms.values()),
+        "replayed or deduped from the journal": all(
+            a["recovery"]["replayed"] + a["recovery"]["deduped"] > 0
+            for a in arms.values()),
+        "no process left": all(a["procs_left"] == 0 for a in arms.values()),
+        "B4 at head_dim 16 launched in the workers": b4 > 0,
+    }
+    print("control (c) fleet_ctrlplane: " + json.dumps(
+        {arm: {k: a[k] for k in ("kill_at_completed",
+                                 "handoffs_inflight_at_kill", "recovery",
+                                 "recovery_wall_s", "procs_left",
+                                 "tokens_equal")}
+         for arm, a in arms.items()})
+          + f"; B4 (head_dim 16) launches {b4}; campaign {sc['wall_s']} "
+            f"s, from {out['started_at_s']} s to "
+            f"{out['ended_at_s']} s of the script, beside phases "
+            f"{overlapped}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"control (c): {failed}; {tail}")
+    return out
+
+
+def _phase_spans():
+    """name -> (start, end) seconds of the script of every phase begun."""
+    now = time.perf_counter() - _T0
+    spans = {}
+    for i, (name, t) in enumerate(_PHASE_STARTS):
+        end = _PHASE_STARTS[i + 1][1] if i + 1 < len(_PHASE_STARTS) else now
+        spans[name.split(" ", 1)[0]] = (t, end)
+    return spans
+
+
+def _worker_launches(handles):
+    """Each worker's B4 launches, as its last status report gave them."""
+    return {h.name: int(((getattr(h, "report", None) or {}).get(
+        "kernel_launches") or {}).get("paged_attention", 0))
+        for h in handles}
+
+
+def _fresh_reports(fl, seconds=0.6):
+    """Pump the idle fleet long enough for every worker's next status
+    report (one each 0.25 s when idle)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        fl.pump()
+        time.sleep(0.01)
+
+
+def _fleet_pump_until(fl, cond, what, timeout_s):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"control: {what} within {timeout_s} s")
+        fl.pump()
+        time.sleep(0.01)
+
+
+def _plan_hash(plan, results):
+    """``run_fleet_closed_loop``'s ``tokens_sha256`` of ``results``
+    (client-major, as ``plan``)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    it = iter(results)
+    for ci, reqs in enumerate(plan):
+        for i, _ in enumerate(reqs):
+            h.update(repr((ci, i, next(it))).encode())
+    return h.hexdigest()
+
+
+def _reference(torch, device, model, params, reqs):
+    """The in-process f32 fused scheduler of the workers' geometry over
+    ``params``: each request's tokens."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Scheduler, ServeConfig,
+    )
+
+    cfg = model.cfg
+    geom = dict(FLEET_WORKER_SERVE, queue_depth=max(16, len(reqs)),
+                num_blocks=1 + FLEET_WORKER_SERVE["slots"] * -(
+                    -cfg.max_seq_len // FLEET_WORKER_SERVE["block_size"]))
+    return drive(Scheduler(model, params, ServeConfig(**geom),
+                           device=device), reqs)[1]
+
+
+def control_autoscale(torch, np, device, fl, ap, model, params, seen):
+    """(a) The burst through ``run_fleet_closed_loop``: one scale_out (its
+    worker's seconds to ready); then the trickle while the load is low:
+    one scale_in, the newest worker drained (exit 47, retired, not
+    relaunched), what it held requeued once; every token equal to the
+    in-process scheduler's over the snapshot's params."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        make_requests, run_fleet_closed_loop,
+    )
+
+    vocab = model.cfg.vocab_size
+    held = {}
+    decommission = fl.decommission
+
+    def counted(name):
+        h = next((h for h in fl.router.replicas if h.name == name), None)
+        held[name] = len(h.assigned()) if h is not None else 0
+        return decommission(name)
+
+    # what a replica holds when its exit reaches the router, which requeues
+    # exactly that (the router keeps placing on a draining replica until
+    # then, as JAX's does)
+    held_down = {}
+    down = fl.router.on_replica_down
+
+    def counted_down(name):
+        h = next((h for h in fl.router.replicas if h.name == name), None)
+        held_down.setdefault(name, len(h.assigned()) if h is not None else 0)
+        return down(name)
+
+    fl.decommission = counted
+    fl.router.on_replica_down = counted_down
+    rows, plans, ok = {}, {}, {}
+    ready_s = None
+
+    def check(tag):
+        reqs = [(r["prompt"], r["max_new"]) for c in plans[tag] for r in c]
+        want = _reference(torch, device, model, params, reqs)
+        ok[tag] = rows[tag]["tokens_sha256"] == _plan_hash(plans[tag], want)
+
+    try:
+        for tag, load, seed in (("burst", CONTROL_BURST, SEED + 31),
+                                ("trickle", CONTROL_TRICKLE, SEED + 32)):
+            plans[tag] = make_requests(
+                load["clients"], load["per_client"], vocab_size=vocab,
+                prompt_lens=load["prompt_lens"], max_new=load["max_new"],
+                seed=seed)
+            rows[tag] = run_fleet_closed_loop(
+                fl, load["clients"], load["per_client"], vocab_size=vocab,
+                prompt_lens=load["prompt_lens"], max_new=load["max_new"],
+                seed=seed)
+            if tag == "burst":
+                # the reference while the scaled-out worker starts up
+                check(tag)
+                _fleet_pump_until(fl, lambda: any(
+                    d["action"] == "scale_out_ready" for d in ap.decisions),
+                    "the scaled-out worker ready",
+                    CONTROL_AUTOPILOT["ready_timeout_s"])
+                new = next(d["replica"] for d in ap.decisions
+                           if d["action"] == "scale_out")
+                # every handle spawned (it may be drained out already)
+                ready_s = next(h.ready_s for h in seen if h.name == new)
+        _fleet_pump_until(fl, lambda: any(d["action"] == "drained"
+                                          for d in ap.decisions),
+                          "the scale-in's drain", 120)
+    finally:
+        fl.decommission = decommission
+        fl.router.on_replica_down = down
+    check("trickle")
+    acts = [d["action"] for d in ap.decisions]
+    out_d = next(d for d in ap.decisions if d["action"] == "scale_out")
+    ready_d = next(d for d in ap.decisions
+                   if d["action"] == "scale_out_ready")
+    in_d = next((d for d in ap.decisions if d["action"] == "scale_in"), {})
+    drained = next(d for d in ap.decisions if d["action"] == "drained")
+    victim = drained["replica"]
+    relaunched = any(e["event"] == "relaunch" and e["child"] == victim
+                     for e in fl.events)
+    exited_47 = any(e["event"] == "exit" and e["child"] == victim
+                    and e.get("rc") == 47 for e in fl.events)
+    out = dict(
+        decisions=[(d["action"], d.get("replica")) for d in ap.decisions],
+        scale_out_replica=out_d["replica"],
+        scale_out_reason={k: out_d[k] for k in ("mean_occupancy",
+                                                "queue_depth")},
+        # spawn to its ready event (the worker's own start-up), and to
+        # the autopilot's decision (a tick after it, behind the burst's
+        # reference)
+        seconds_to_ready=ready_s, reaction_s=ready_d["reaction_s"],
+        scale_in_replica=in_d.get("replica"), drained_rc=drained["rc"],
+        drained_forced=drained["forced"], drain_wall_s=drained["wall_s"],
+        held_at_decommission=held.get(victim),
+        held_at_exit=held_down.get(victim),
+        requeued_by_drain=drained["requeued"],
+        victim_exited_47=exited_47, victim_relaunched=relaunched,
+        burst={k: rows["burst"][k] for k in (
+            "requests", "tokens_per_sec", "ttft_ms_p50", "itl_ms_p50",
+            "requeued", "per_replica_completed")},
+        trickle={k: rows["trickle"][k] for k in (
+            "requests", "tokens_per_sec", "requeued",
+            "per_replica_completed")},
+        tokens_equal=ok)
+    checks = {
+        "exactly one scale_out and one scale_in": (
+            acts.count("scale_out") == 1 and acts.count("scale_in") == 1
+            and acts.count("drained") == 1),
+        "no action failed": "action_backoff" not in acts,
+        "the scaled-out (newest) worker scaled in": (
+            out["scale_in_replica"] == out["scale_out_replica"] == victim),
+        "it drained and exited 47, retired, not relaunched": (
+            drained["rc"] == 47 and not drained["forced"]
+            and exited_47 and not relaunched
+            and victim not in {h.name for h in fl.router.replicas}),
+        "what it held requeued exactly once, every request done once": (
+            out["held_at_exit"] == out["requeued_by_drain"]
+            and rows["burst"]["requests"] == CONTROL_BURST["clients"]
+            * CONTROL_BURST["per_client"]
+            and rows["trickle"]["requests"] == CONTROL_TRICKLE["clients"]
+            * CONTROL_TRICKLE["per_client"]),
+        "tokens equal the in-process scheduler's": all(ok.values()),
+    }
+    print("control (a) autoscale: " + json.dumps(out), flush=True)
+    failed = [k for k, ok_ in checks.items() if not ok_]
+    if failed:
+        raise AssertionError(f"control (a): {failed}")
+    return out
+
+
+def control_rollout(torch, np, device, fl, ap, model, params, snap2,
+                    params2):
+    """(b) A snapshot flipped after its manifest is refused before any
+    spawn; then ``start_rollout`` of the second snapshot under 4 clients:
+    a generation-1 canary, the judge promotes it, generation 0 drains out
+    (exit 47 each); every request's tokens equal the in-process
+    scheduler's over the params of the generation that served it."""
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve.fleet import (  # noqa: E501
+        GEN_STRIDE,
+    )
+
+    # the refusal: one payload byte flipped, the manifest not recommitted
+    payload = os.path.join(snap2, "weights.npz")
+    names = sorted(h.name for h in fl.handles)
+    with open(payload, "r+b") as f:
+        f.seek(os.path.getsize(payload) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        refused = ap.start_rollout(snap2) is False
+    finally:
+        with open(payload, "r+b") as f:
+            f.seek(os.path.getsize(payload) // 2)
+            f.write(byte)
+    rejected = [d for d in ap.decisions
+                if d["action"] == "rollout_rejected"]
+    untouched = (sorted(h.name for h in fl.handles) == names
+                 and fl.router._primary_gen == 0)
+    n_before = len(ap.decisions)
+    reqs = serve_requests(np, CONTROL_ROLLOUT["requests"],
+                          model.cfg.vocab_size, SEED + 33,
+                          p_lo=CONTROL_ROLLOUT["p_lo"],
+                          p_hi=CONTROL_ROLLOUT["p_hi"],
+                          n_lo=CONTROL_ROLLOUT["n_lo"],
+                          n_hi=CONTROL_ROLLOUT["n_hi"])
+    t0 = time.perf_counter()
+    assert ap.start_rollout(snap2) is True, "the rollout did not start"
+    clients = CONTROL_ROLLOUT["clients"]
+    outstanding = [None] * clients
+    nxt, finished = 0, []
+
+    def complete():
+        return any(d["action"] in ("rollout_complete", "canary_rollback")
+                   for d in ap.decisions[n_before:])
+
+    while True:
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError("control (b): the rollout never completed")
+        for ci in range(clients):
+            if outstanding[ci] is None and not complete():
+                i = nxt % len(reqs)      # the list again, until the end
+                rid = fl.submit(*reqs[i])
+                if rid is not None:
+                    outstanding[ci] = (rid, i)
+                    nxt += 1
+        fl.pump()
+        for ci in range(clients):
+            if outstanding[ci] is not None and fl.done(outstanding[ci][0]):
+                finished.append(outstanding[ci])
+                outstanding[ci] = None
+        if complete() and all(o is None for o in outstanding):
+            break
+        time.sleep(0.002)
+    decisions = ap.decisions[n_before:]
+    served = []                          # (generation, request, tokens)
+    for rid, i in finished:
+        st = fl.stats(rid)
+        # the generation is the serving replica's id // GEN_STRIDE
+        gen = int(st.replica.rsplit("-", 1)[1]) // GEN_STRIDE
+        assert gen == st.generation, (st.replica, st.generation)
+        served.append((gen, i, fl.result(rid)))
+    ok = True
+    for gen, p in ((0, params), (1, params2)):
+        idx = sorted({i for g, i, _ in served if g == gen})
+        want = dict(zip(idx, _reference(torch, device, model, p,
+                                        [reqs[i] for i in idx])))
+        ok = ok and all(toks == want[i] for g, i, toks in served
+                        if g == gen)
+    by_gen = {}
+    for g, _, _ in served:
+        by_gen[g] = by_gen.get(g, 0) + 1
+    acts = [d["action"] for d in decisions]
+    t_spawn = next(d["t"] for d in decisions if d["action"] == "canary_spawn")
+    promote = next((d for d in decisions
+                    if d["action"] == "canary_promote"), None)
+    old_drains = [d for d in decisions if d["action"] == "drained"
+                  and d.get("kind") == "rollout_old"]
+    out = dict(
+        refused=refused, rejected_problems=(rejected[0]["problems"]
+                                            if rejected else None),
+        decisions=[(d["action"], d.get("replica") or d.get("replicas")
+                    or d.get("generation")) for d in decisions],
+        seconds_to_promotion=(round(promote["t"] - t_spawn, 3)
+                              if promote else None),
+        promote_verdict={k: promote[k] for k in (
+            "completed", "missed", "miss_frac", "p50_ratio")}
+        if promote else None,
+        old_drains=[(d["replica"], d["rc"], d["forced"])
+                    for d in old_drains],
+        requests=len(finished), by_generation=by_gen,
+        per_generation_completed=fl.router.per_generation_completed(),
+        primary_generation=fl.router._primary_gen, tokens_equal=ok,
+        wall_s=round(time.perf_counter() - t0, 3))
+    checks = {
+        "the flipped snapshot refused before any spawn": (
+            refused and bool(rejected) and untouched),
+        "canary spawned, given traffic, promoted, rollout complete": (
+            acts[:1] == ["canary_spawn"] and "canary_traffic" in acts
+            and promote is not None and "rollout_complete" in acts
+            and "canary_rollback" not in acts),
+        "generation 0 drained out, exit 47 each": (
+            len(old_drains) == 2
+            and all(d["rc"] == 47 and not d["forced"] for d in old_drains)),
+        "both generations served": set(by_gen) == {0, 1},
+        "tokens equal the scheduler's over their generation's params": ok,
+        "generation 1 serves": fl.router._primary_gen == 1,
+    }
+    print("control (b) rollout: " + json.dumps(out), flush=True)
+    failed = [k for k, ok_ in checks.items() if not ok_]
+    if failed:
+        raise AssertionError(f"control (b): {failed}")
+    return out
+
+
+def control_phase(torch, np, device, kept, chaos):
+    """Phase 29: phase 28 (d)'s fleet (2 workers, f32, the 218M LM's
+    width at 2 layers, ``--attn-impl fused``, its seeded snapshot) under
+    an ``Autopilot`` ticked from ``Fleet.pump``: (a) autoscaling, (b) a
+    rollout; then (c), the chaos campaign started beside phase 24, read;
+    the fleet closed, no worker of phases 28 and 29 left."""
+    import shutil
+
+    from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
+        Transformer,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        Autopilot, AutopilotConfig, load_weight_snapshot,
+        save_weight_snapshot,
+    )
+
+    t0 = time.perf_counter()
+    procs, tmp = kept["procs"], kept["tmp"]
+    fl = procs["fleet"]
+    seen = list(fl.handles)
+    pids = list(kept["pids"].values())
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model = Transformer(_worker_config(torch, procs["model_flags"]),
+                            device=device)
+        params = load_weight_snapshot(procs["snap"], model.init(
+            torch.Generator(device=device).manual_seed(SEED)))
+        params2 = model.init(torch.Generator(device=device).manual_seed(
+            SEED + 3))
+        snap2 = save_weight_snapshot(f"{tmp}/weights-gen1", params2, step=1)
+        add = fl.add_replica
+
+        def spawned(**kw):
+            h = add(**kw)
+            seen.append(h)
+            return h
+
+        fl.add_replica = spawned
+        ap = Autopilot(fl, AutopilotConfig(
+            events_path=f"{tmp}/autopilot-decisions.jsonl",
+            **CONTROL_AUTOPILOT), log=lambda m: print(m, flush=True))
+        _fresh_reports(fl)
+        base = _worker_launches(seen)
+        fl.autopilot = ap
+        out["autoscale"] = control_autoscale(torch, np, device, fl, ap,
+                                             model, params, seen)
+        out["rollout"] = control_rollout(torch, np, device, fl, ap, model,
+                                         params, snap2, params2)
+        _fresh_reports(fl)
+        after = _worker_launches(seen)
+        out["launches"] = sum(after[n] - base.get(n, 0) for n in after)
+        out["launches_by_worker"] = {n: after[n] - base.get(n, 0)
+                                     for n in after}
+        with open(f"{tmp}/autopilot-decisions.jsonl") as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+        out["decision_records"] = len(recs)
+        out["summary"] = ap.summary()
+        pids += [fl.supervisor.proc(h.name).pid for h in fl.handles
+                 if fl.supervisor.proc(h.name) is not None]
+        del model, params, params2
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        out["ctrlplane"] = ctrlplane_result(chaos)
+    finally:
+        fl.autopilot = None
+        left = close_fleet(fl, pids)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["left_behind"] = left
+    out["seconds"] = time.perf_counter() - t0
+    checks = {
+        "B4 launched in the workers": out["launches"] > 0,
+        "a decision record for every decision": (
+            out["decision_records"] == out["summary"]["decisions"]),
+        "no worker of phases 28-29 left behind": not left,
+    }
+    print(f"control: B4 launches in the workers {out['launches']} "
+          f"{out['launches_by_worker']}; {out['decision_records']} "
+          f"decision records; left behind {left}", flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"control: {failed}")
+    print(f"phase 29: {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -8599,13 +9239,14 @@ def main() -> int:
     reference_started = start_reference_job()
     build_kernels()
 
-    phase("3 kernels against their plain versions")
+    phase("3 kernels against their plain versions (paged attention at "
+          "head_dim 16/32/64/128)")
     max_err = check_kernels(torch, device)
     timing = time_paged_attention(torch, device)
     # the other head_dims and blocks the kernel takes
     other_shapes = [dict(head_dim=hd, block_size=bs, **time_paged_attention(
         torch, device, head_dim=hd, block_size=bs, sweep=False))
-        for hd, bs in ((32, 16), (64, 64), (64, 128))]
+        for hd, bs in ((16, 16), (32, 16), (64, 64), (64, 128))]
 
     phase("4 serve the 218M LM through the fused kernel")
     # phase 27 serves the same LM and requests
@@ -8793,6 +9434,16 @@ def main() -> int:
     phase("24 pipeline parallelism: --pp and --pp_interleave over a local "
           "pipe group, pipe x tensor, pipe x seq, --generate from a pipe "
           "snapshot")
+    # phase 29 (c)'s campaign: five driver lives, mostly start-up, beside
+    # the GPU-bound training of phases 24-26 (not beside the host-bound
+    # serving of phases 27-28)
+    import atexit
+    import tempfile
+
+    chaos = start_ctrlplane_chaos(tempfile.mkdtemp(
+        prefix="chip-smoke-ctrlplane-"))
+    atexit.register(lambda: chaos["proc"].poll() is None
+                    and chaos["proc"].kill())
     pipeline = pipeline_full_width(torch, np, device)
     print("pipeline: " + json.dumps(pipeline), flush=True)
 
@@ -8819,9 +9470,17 @@ def main() -> int:
     phase("28 the serving fleet: the router over in-process, tensor-"
           "parallel and subprocess replicas, GroupSupervisor, the write-"
           "ahead ledger")
-    fleet = fleet_phase(torch, np, device, serve_kept)
+    # (d)'s worker fleet stays up for phase 29
+    fleet_kept = {}
+    fleet = fleet_phase(torch, np, device, serve_kept, keep=fleet_kept)
     del serve_kept
     print("fleet: " + json.dumps(fleet), flush=True)
+
+    phase("29 the fleet's control loop: the autopilot (autoscaling, a "
+          "rollout with its canary judge), control-plane death "
+          "(router_kill, fleet_kill) through the chaos campaign")
+    control = control_phase(torch, np, device, fleet_kept, chaos)
+    print("control: " + json.dumps(control), flush=True)
 
     from neural_networks_parallel_training_with_mpi_tpu_torch.ops import (
         flash_attention as fa,
@@ -8833,17 +9492,19 @@ def main() -> int:
                     source=src + "paged_attention.cu",
                     design="split-K over the context, cp.async ring, "
                            "in-kernel merge in split order",
-                    takes="head_dim 32/64/128; pool blocks of any multiple "
-                          "of 16 keys (16, 32, 64, 128 checked)",
+                    takes="head_dim 16/32/64/128; pool blocks of any "
+                          "multiple of 16 keys (16, 32, 64, 128 checked)",
                     replaces=f"{tpu}:486",
                     launches=(served["launches"] + moe["paged_launches"]
                               + disagg["full_width"]["launches"]
-                              + fleet["launches"]),
+                              + fleet["launches"] + control["launches"]),
                     launches_phase25=moe["paged_launches"],
                     # phase 27 (a): both roles of the disaggregated run
                     launches_phase27=disagg["full_width"]["launches"],
                     # phase 28 (a), (b): the router's in-process replicas
                     launches_phase28=fleet["launches"],
+                    # phase 29 (a), (b): the workers', from their reports
+                    launches_phase29=control["launches"],
                     max_abs_err=max_err, other_shapes=other_shapes,
                     **timing)]
     # phase 22 (b): the DP x TP run, eager and graphed

@@ -44,7 +44,10 @@
 //   XOR-swizzled, so the 16 lanes that read 16 keys' chunk c at once hit
 //   different banks.  Scores: lane l takes key l % 16 over half of the
 //   head dim, one shuffle joins the halves; values: each lane owns HD/32
-//   output dims.
+//   output dims.  At head_dim 16 a key is half a warp's dims: lanes
+//   l and l + 16 own dim l % 16, the first half of the warp adds the
+//   unit's even keys and the second its odd ones, and one shuffle joins
+//   the two partial accumulators before the merge.
 // - Merge, in a fixed order so the result does not depend on which block
 //   ran first: the 4 warps' partials are combined in warp order through
 //   shared memory.  A tile whose keys fit one split writes its output
@@ -57,9 +60,10 @@
 // - q and out are indexed through their (S, W, H, hd) strides, so the
 //   wrapper passes the strided q view from the fused qkv projection as
 //   it is.
-// - Geometry: head_dim 32, 64 or 128 (one template each; a lane owns
-//   head_dim / 32 output dims and reads half of each key's 16-byte
-//   chunks, so int8 at head_dim 32 takes one chunk per half), and any
+// - Geometry: head_dim 16, 32, 64 or 128 (one template each; a lane
+//   owns max(head_dim / 32, 1) output dims and reads half of each key's
+//   16-byte chunks, so int8 at head_dim 32 takes one chunk per half, and
+//   int8 at head_dim 16, one chunk a key, 8 bytes of it), and any
 //   pool block size that is a multiple of the 16-key unit, read at run
 //   time: a unit never straddles two pool blocks, and shared memory holds
 //   units, so it does not grow with the block size.
@@ -135,16 +139,20 @@ struct Layout {
   static constexpr size_t kSmem =
       kQBytes + (kRingBytes > kMergeBytes ? kRingBytes : kMergeBytes);
   // a lane reads half a key's chunks: an even count (int8 at head_dim 32
-  // has 2 chunks of 16 values, one per half)
-  static_assert(kChunks >= 2 && kChunks % 2 == 0, "unsupported geometry");
-  static_assert(HD % 32 == 0, "unsupported geometry");
+  // has 2 chunks of 16 values, one per half), or half of the one chunk
+  // of int8 at head_dim 16
+  static constexpr bool kHalfChunk = kChunks == 1;
+  static_assert(kHalfChunk || kChunks % 2 == 0, "unsupported geometry");
+  static_assert(HD % 16 == 0, "unsupported geometry");
   // byte offset of chunk c of key row k: chunks XOR-swizzled by row, so
   // the 8 lanes of a quarter-warp, reading 8 keys' chunk c, hit 8
-  // different 16-byte bank groups (the XOR stays below kChunks)
+  // different 16-byte bank groups (the XOR stays below kChunks; a row of
+  // one chunk is not swizzled: 16 keys' rows are 256 bytes in a row)
   static __device__ __forceinline__ int offset(int k, int c) {
     const int f = kChunks >= 8   ? (k & 7)
                   : kChunks == 4 ? ((k >> 1) & 3)
-                                 : ((k >> 2) & 1);
+                  : kChunks == 2 ? ((k >> 2) & 1)
+                                 : 0;
     return k * kRowBytes + ((c ^ f) << 4);
   }
 };
@@ -196,8 +204,14 @@ template <typename QT, typename KT, int HD>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const Params p) {
   using L = Layout<KT, HD>;
-  constexpr int kAcc = HD / 32;          // output dims per lane
-  constexpr int kHalf = L::kChunks / 2;  // chunks per lane of a key
+  // lanes that own output dims (dim d is lane d % kDimLanes's), and the
+  // keys a warp adds at once in p.v: 2 at head_dim 16, else 1
+  constexpr int kDimLanes = HD < 32 ? HD : 32;
+  constexpr int kKeyPar = 32 / kDimLanes;
+  constexpr int kAcc = HD / kDimLanes;   // output dims per lane
+  constexpr int kHalf = L::kHalfChunk ? 1 : L::kChunks / 2;  // per lane
+  const int dim0 = (threadIdx.x & 31) % kDimLanes;
+  const bool owns = (threadIdx.x & 31) < kDimLanes;  // writes its dims
   // pool block size, a multiple of kUnit (the launch checks): a unit lies
   // in one pool block, so shared memory does not depend on it
   const int BS = p.block_size;
@@ -253,9 +267,11 @@ __global__ void __launch_bounds__(kThreads)
     // (position, head) index of the unit's first key
     const long long pos0 = (blk * BS + key0 % BS) * p.kv_heads + kvh;
     const uint32_t dst = smem_addr(my_ring + st * L::kStageBytes);
+    constexpr int kCopies = kUnit * L::kChunks;  // 16-byte copies of K
 #pragma unroll
-    for (int it = 0; it < kUnit * L::kChunks / 32; ++it) {
+    for (int it = 0; it < (kCopies + 31) / 32; ++it) {
       const int e = it * 32 + lane, key = e / L::kChunks, c = e % L::kChunks;
+      if (kCopies % 32 != 0 && e >= kCopies) break;
       const long long src =
           (pos0 + static_cast<long long>(key) * p.kv_heads) * L::kRowBytes +
           c * 16;
@@ -311,25 +327,38 @@ __global__ void __launch_bounds__(kThreads)
 
     // this lane's key slice, in its own type
     float4 kc[kHalf];
+    uint2 kh;  // int8 at head_dim 16: 8 bytes, half of the key's chunk
+    if constexpr (L::kHalfChunk) {
+      kh = *reinterpret_cast<const uint2*>(k_t + key * L::kRowBytes +
+                                           half * 8);
+    } else {
 #pragma unroll
-    for (int cc = 0; cc < kHalf; ++cc)
-      kc[cc] = *reinterpret_cast<const float4*>(
-          k_t + L::offset(key, half * kHalf + cc));
+      for (int cc = 0; cc < kHalf; ++cc)
+        kc[cc] = *reinterpret_cast<const float4*>(
+            k_t + L::offset(key, half * kHalf + cc));
+    }
     const float k_scale = L::kQuant ? scales[key] : 1.f;
 
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       if (r >= n_live) break;  // warp-uniform
       const int q_pos = start + (row0 + r) / groups;
-      const float* qr = q_s + r * HD + half * kHalf * L::kVec;
+      const float* qr = q_s + r * HD + half * (HD / 2);
       float sc = 0.f;
+      if constexpr (L::kHalfChunk) {
+        const int8_t* b = reinterpret_cast<const int8_t*>(&kh);
 #pragma unroll
-      for (int cc = 0; cc < kHalf; ++cc) {
-        float kf[L::kVec];
-        chunk_to_f32(kc[cc], kf);
+        for (int e = 0; e < 8; ++e)
+          sc = fmaf(qr[e], static_cast<float>(b[e]), sc);
+      } else {
 #pragma unroll
-        for (int e = 0; e < L::kVec; ++e)
-          sc = fmaf(qr[cc * L::kVec + e], kf[e], sc);
+        for (int cc = 0; cc < kHalf; ++cc) {
+          float kf[L::kVec];
+          chunk_to_f32(kc[cc], kf);
+#pragma unroll
+          for (int e = 0; e < L::kVec; ++e)
+            sc = fmaf(qr[cc * L::kVec + e], kf[e], sc);
+        }
       }
       sc += __shfl_xor_sync(kFull, sc, 16);
       const bool keep = k_pos < len && k_pos <= q_pos;
@@ -349,13 +378,16 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int a = 0; a < kAcc; ++a) acc[r][a] *= corr;
 #pragma unroll
-      for (int kk = 0; kk < kUnit; ++kk) {
+      for (int k2 = 0; k2 < kUnit; k2 += kKeyPar) {
+        // this lane's key of the step: k2, or k2 + 1 on the second half
+        // of the warp at head_dim 16
+        const int kk = k2 + lane / kDimLanes;
         const float pk = __shfl_sync(kFull, pr, kk);
-        if (pk == 0.f) continue;  // masked (warp-uniform)
+        if (pk == 0.f) continue;  // masked (warp-uniform if kKeyPar == 1)
         const float v_scale = L::kQuant ? scales[kUnit + kk] : 1.f;
 #pragma unroll
         for (int a = 0; a < kAcc; ++a) {
-          const int d = lane + 32 * a;
+          const int d = dim0 + kDimLanes * a;
           const KT* vr = reinterpret_cast<const KT*>(
               v_t + L::offset(kk, d / L::kVec));
           acc[r][a] = fmaf(pk, to_f32(vr[d % L::kVec]) * v_scale, acc[r][a]);
@@ -368,6 +400,16 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   }
   cp_async_wait<0>();
+  if constexpr (kKeyPar > 1) {  // join the halves' keys: every lane full
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= n_live) break;  // warp-uniform
+#pragma unroll
+      for (int a = 0; a < kAcc; ++a)
+        for (int off = kDimLanes; off < 32; off <<= 1)
+          acc[r][a] += __shfl_xor_sync(kFull, acc[r][a], off);
+    }
+  }
   __syncthreads();  // every warp is done with its ring: the merge reuses it
 
   // the warps' partials, combined in warp order
@@ -378,9 +420,11 @@ __global__ void __launch_bounds__(kThreads)
       m_s[warp * kRows + r] = m[r];
       l_s[warp * kRows + r] = l[r];
     }
+    if (owns) {
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a)
-      acc_s[(warp * kRows + r) * HD + lane + 32 * a] = acc[r][a];
+      for (int a = 0; a < kAcc; ++a)
+        acc_s[(warp * kRows + r) * HD + dim0 + kDimLanes * a] = acc[r][a];
+    }
   }
   __syncthreads();
   const long long tile_id =
@@ -398,24 +442,29 @@ __global__ void __launch_bounds__(kThreads)
       den = fmaf(c, l_s[w * kRows + r], den);
 #pragma unroll
       for (int a = 0; a < kAcc; ++a)
-        num[a] = fmaf(c, acc_s[(w * kRows + r) * HD + lane + 32 * a], num[a]);
+        num[a] = fmaf(c, acc_s[(w * kRows + r) * HD + dim0 + kDimLanes * a],
+                      num[a]);
     }
     if (n_used == 1) {  // the whole tile in one split: the output
       const bool empty = mx < kNegInf * 0.5f;
       const float inv = empty ? 0.f : 1.f / den;
       QT* o = out_at(row0 + r);
+      if (owns) {
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a)
-        o[lane + 32 * a] = from_f32<QT>(num[a] * inv);
+        for (int a = 0; a < kAcc; ++a)
+          o[dim0 + kDimLanes * a] = from_f32<QT>(num[a] * inv);
+      }
     } else {
       const long long at = (tile_id * p.n_splits + sp) * kRows + r;
       if (lane == 0) {
         p.part_ml[2 * at] = mx;
         p.part_ml[2 * at + 1] = den;
       }
+      if (owns) {
 #pragma unroll
-      for (int a = 0; a < kAcc; ++a)
-        p.part_acc[at * HD + lane + 32 * a] = num[a];
+        for (int a = 0; a < kAcc; ++a)
+          p.part_acc[at * HD + dim0 + kDimLanes * a] = num[a];
+      }
     }
   }
   if (n_used == 1) return;
@@ -445,14 +494,17 @@ __global__ void __launch_bounds__(kThreads)
       den = fmaf(c, __ldcg(p.part_ml + 2 * at + 1), den);
 #pragma unroll
       for (int a = 0; a < kAcc; ++a)
-        num[a] = fmaf(c, __ldcg(p.part_acc + at * HD + lane + 32 * a), num[a]);
+        num[a] = fmaf(c, __ldcg(p.part_acc + at * HD + dim0 + kDimLanes * a),
+                      num[a]);
     }
     const bool empty = mx < kNegInf * 0.5f;
     const float inv = empty ? 0.f : 1.f / den;
     QT* o = out_at(row0 + r);
+    if (owns) {
 #pragma unroll
-    for (int a = 0; a < kAcc; ++a)
-      o[lane + 32 * a] = from_f32<QT>(num[a] * inv);
+      for (int a = 0; a < kAcc; ++a)
+        o[dim0 + kDimLanes * a] = from_f32<QT>(num[a] * inv);
+    }
   }
 }
 
@@ -473,6 +525,7 @@ int launch(const Params& p, int streams, cudaStream_t stream) {
 template <typename QT, typename KT>
 int dispatch_geometry(int head_dim, const Params& p, int streams,
                       cudaStream_t stream) {
+  if (head_dim == 16) return launch<QT, KT, 16>(p, streams, stream);
   if (head_dim == 32) return launch<QT, KT, 32>(p, streams, stream);
   if (head_dim == 64) return launch<QT, KT, 64>(p, streams, stream);
   if (head_dim == 128) return launch<QT, KT, 128>(p, streams, stream);
@@ -483,9 +536,10 @@ int dispatch_geometry(int head_dim, const Params& p, int streams,
 
 // dtype codes: 0 = float32, 1 = bfloat16, 2 = int8 (pools only; needs
 // the f32 scale pools)
-// head_dim 32, 64 or 128; any block size that is a multiple of 16 keys
+// head_dim 16, 32, 64 or 128; any block size that is a multiple of 16 keys
 extern "C" int paged_attention_supported(int head_dim, int block_size) {
-  return (head_dim == 32 || head_dim == 64 || head_dim == 128) &&
+  return (head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+          head_dim == 128) &&
          block_size > 0 && block_size % kUnit == 0;
 }
 

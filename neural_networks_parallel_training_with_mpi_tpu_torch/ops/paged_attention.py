@@ -235,7 +235,7 @@ def _launch(q, k_pool, v_pool, tables, lengths, starts, k_scale, v_scale):
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32")
     if not lib.paged_attention_supported(hd, bs):
-        raise ValueError(f"the CUDA kernel takes head_dim 32/64/128 and a "
+        raise ValueError(f"the CUDA kernel takes head_dim 16/32/64/128 and a "
                          f"block_size that is a multiple of 16, got "
                          f"{hd}/{bs}")
     out = torch.empty((s_n, w, n_heads, hd), dtype=q.dtype, device=dev)

@@ -14,8 +14,13 @@
 * :mod:`serve.fleet` — the router over in-process, tensor-parallel and
   subprocess replicas, its request and handoff ledgers, the worker
   process and ``launch_fleet`` under ``train.resilience.GroupSupervisor``;
-  :mod:`serve.wal` its write-ahead ledger; :mod:`serve.autopilot` the
-  weight snapshots a worker's ``--ckpt`` reads.
+  :mod:`serve.wal` its write-ahead ledger.
+* :mod:`serve.autopilot` — the control loop over a fleet (autoscaling,
+  rollouts with a canary judge, preemption backfill, health eviction),
+  ticked from ``Fleet.pump``, and the weight snapshots a rollout pushes
+  and a worker's ``--ckpt`` reads.
+* :mod:`serve.ctrlplane_driver` — the killable process that runs a
+  WAL-backed fleet under load (what ``router_kill``/``fleet_kill`` hit).
 """
 
 from .loadgen import (
@@ -48,9 +53,15 @@ from .fleet import (
     launch_fleet,
     role_kind,
 )
-from .autopilot import load_weight_snapshot, save_weight_snapshot
+from .autopilot import (
+    Autopilot,
+    AutopilotConfig,
+    load_weight_snapshot,
+    save_weight_snapshot,
+)
 
-__all__ = ["ATTN_IMPLS", "BlockAllocator", "BlockExhausted", "Fleet",
+__all__ = ["ATTN_IMPLS", "Autopilot", "AutopilotConfig", "BlockAllocator",
+           "BlockExhausted", "Fleet",
            "FleetRequest", "FleetRouter", "InprocReplica", "LoadSignal",
            "MIXES", "PagedDecodeServer", "PrefixIndex", "ProcReplica",
            "Request", "Scheduler", "ServeConfig", "TPGenerateReplica",

@@ -1,7 +1,7 @@
 """Serving fleet: N replicas behind one SLO-aware router, the port of the
-JAX package's ``serve/fleet.py`` (its data plane: the router, the replica
-kinds, the worker process and its supervision; the control loop over it
-is ROADMAP Queue A item 6b).
+JAX package's ``serve/fleet.py``: the router, the replica kinds, the
+worker process and its supervision; ``serve/autopilot.py``'s control
+loop rides :meth:`Fleet.pump`.
 
 One ``Scheduler`` over one ``PagedDecodeServer`` is one replica.  A fleet
 is N replica processes under ``train.resilience.GroupSupervisor`` with a
@@ -73,6 +73,8 @@ Pytree = Any
 #                     | {"ev": "handoff", "rid", "payload", "ttft_ms"}
 #                     | {"ev": "injected", "rid"}
 #                     | {"ev": "status", "report": <load_report>}
+#                       (the port's report also carries "kernel_launches":
+#                        this process's CUDA kernel launch counts)
 #                     | {"ev": "drained", "requests": [...]}
 #                     | {"ev": "load_error", "error": ...}
 # fleet rids ride the wire verbatim, so completions need no id
@@ -1806,6 +1808,7 @@ class Fleet:
     events: List[dict] = field(default_factory=list)
     spawn_cfg: Optional[Dict[str, Any]] = None   # launch_fleet's recipe,
     #   so add_replica can scale out / spawn generations at runtime
+    autopilot: Any = None    # attached control loop, ticked from pump()
     _next_index: int = 0     # next per-generation replica index k
 
     def pump(self) -> List[int]:
@@ -1813,7 +1816,12 @@ class Fleet:
             self.events.append(e)
             if e["event"] in ("exit", "hang_kill"):
                 self.router.on_replica_down(e["child"])
-        return self.router.pump()
+        done = self.router.pump()
+        if self.autopilot is not None:
+            # the control loop rides the service loop: no extra thread,
+            # so its cost shows in the tokens/s the fleet reports
+            self.autopilot.tick()
+        return done
 
     # client surface: a Fleet IS a router whose replicas happen to be
     # supervised subprocesses — load drivers (serve.loadgen.
@@ -1844,7 +1852,7 @@ class Fleet:
     def requeued(self) -> int:
         return self.router.requeued
 
-    # ---- runtime membership (scale-out, scale-in, rollouts) -------------
+    # ---- runtime membership (the autopilot's actuation surface) --------
     def add_replica(self, *, generation: int = 0,
                     ckpt: Optional[str] = None,
                     faults: Optional[str] = None,
@@ -2237,6 +2245,17 @@ def worker_main(argv: Optional[Sequence[str]] = None) -> int:
                 _handoff_prewarm(model, params, sched.cfg, device)
         engine = InprocReplica(sched, name=f"replica-{args.replica}")
 
+    from ..ops.paged_attention import paged_attention as _paged
+
+    def status() -> None:
+        """One load report, with this process's kernel launches (the
+        parent cannot read a worker's counters otherwise)."""
+        report = (sched.load_report() if sched is not None
+                  else engine.load_report())
+        report["generation"] = args.generation
+        report["kernel_launches"] = {"paged_attention": _paged.launches}
+        emit({"ev": "status", "report": report})
+
     # raw non-blocking stdin: a burst of submit lines must all drain in
     # one pass (a buffered readline-per-select would admit one request
     # per idle timeout); selectors only provide the idle wait
@@ -2422,6 +2441,7 @@ def worker_main(argv: Optional[Sequence[str]] = None) -> int:
                 else:
                     reqs = [{"rid": r, "prefilled": 0, "generated": 0}
                             for r in engine.take_assigned()]
+                status()      # the final counts, before the process ends
                 emit({"ev": "drained", "requests": reqs})
                 if kind == "decommission":
                     # intentional-decommission handshake: drained state
@@ -2465,6 +2485,7 @@ def worker_main(argv: Optional[Sequence[str]] = None) -> int:
                 else:
                     reqs = [{"rid": r, "prefilled": 0, "generated": 0}
                             for r in engine.take_assigned()]
+                status()
                 emit({"ev": "drained", "requests": reqs})
                 proto.flush()
                 if sched is not None:
@@ -2523,10 +2544,7 @@ def worker_main(argv: Optional[Sequence[str]] = None) -> int:
         now = time.monotonic()
         if (ticks % max(1, args.status_every) == 0
                 or now - last_status > 0.25):
-            report = (sched.load_report() if sched is not None
-                      else engine.load_report())
-            report["generation"] = args.generation
-            emit({"ev": "status", "report": report})
+            status()
             last_status = now
     if sched is not None:
         sched.close()

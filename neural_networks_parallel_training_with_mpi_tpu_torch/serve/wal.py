@@ -37,7 +37,18 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..utils import ckpt_manifest as _manifest
+try:
+    from ..utils import ckpt_manifest as _manifest
+except ImportError:      # file-path loaded (utils/chaos.py's stdlib children)
+    import importlib.util as _ilu
+    import sys as _sys
+
+    _p = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "utils", "ckpt_manifest.py")
+    _spec = _ilu.spec_from_file_location("_wal_ckpt_manifest", _p)
+    _manifest = _ilu.module_from_spec(_spec)
+    _sys.modules["_wal_ckpt_manifest"] = _manifest
+    _spec.loader.exec_module(_manifest)
 
 SEG_PREFIX = "walseg-"
 ACTIVE = "wal-active.jsonl"

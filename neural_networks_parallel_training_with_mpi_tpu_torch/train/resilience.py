@@ -73,7 +73,17 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
-from ..utils import ckpt_manifest
+try:
+    from ..utils import ckpt_manifest
+except ImportError:      # file-path loaded (utils/chaos.py's stdlib children)
+    import importlib.util as _ilu
+
+    _p = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "utils", "ckpt_manifest.py")
+    _spec = _ilu.spec_from_file_location("_res_ckpt_manifest", _p)
+    ckpt_manifest = _ilu.module_from_spec(_spec)
+    sys.modules["_res_ckpt_manifest"] = ckpt_manifest
+    _spec.loader.exec_module(ckpt_manifest)
 
 EXIT_OK = 0
 EXIT_HANG = 42          # utils.watchdog.HangWatchdog

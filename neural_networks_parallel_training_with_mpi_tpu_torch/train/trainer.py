@@ -526,7 +526,6 @@ class Trainer:
         # parsed once: max=/once= counters live across epochs
         self.fault_plan = FaultPlan.from_config(cfg.faults)
         if self.fault_plan is not None:
-            self.fault_plan.check_ported()
             mesh = cfg.mesh
             if self.fault_plan.det_desync() is not None and (
                     cfg.update_sharding != "replicated" or mesh.tensor > 1

@@ -69,9 +69,10 @@ Options: ``max=N`` (fire at most N times in this process), ``once=PATH``
 ``proc=K`` (fire on rank K only), ``grace=S`` (preempt), ``ms=M`` (slow),
 ``param=``/``shard=``/``bit=``/``eps=``/``det`` (the SDC kinds).
 
-Parsed, with the JAX package's grammar and errors, but refused when the
-plan is built into a run: the driver kinds (:data:`DRIVER_KINDS`), whose
-victim is the router process (ROADMAP Queue A item 6b).
+The driver kinds (:data:`DRIVER_KINDS`: ``router_kill``, ``fleet_kill``)
+parse here and are fired by the process that owns a fleet's driver
+(``utils/chaos.py``'s ``fleet_ctrlplane`` scenario, which SIGKILLs
+``serve/ctrlplane_driver.py``); :meth:`FaultPlan.apply` skips them.
 """
 
 from __future__ import annotations
@@ -97,10 +98,6 @@ FLEET_KINDS = ("replica_kill", "stall_drain", "handoff_kill",
                "handoff_kill_post", "decode_kill", "handoff_stall")
 # kinds the driver owning the fleet fires at the router process
 DRIVER_KINDS = ("router_kill", "fleet_kill")
-# kinds parsed for the grammar's sake whose paths are not ported, with the
-# ROADMAP Queue A item that ports them
-UNPORTED_KINDS = {k: "the fleet's control plane (Queue A item 6b)"
-                  for k in DRIVER_KINDS}
 
 
 def _process_index() -> int:
@@ -366,16 +363,6 @@ class FaultPlan:
         """The config spec, else ``NNPT_FAULTS`` (what a supervised child
         inherits)."""
         return FaultPlan.parse(cfg_spec or os.environ.get(ENV_VAR, ""))
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the first kind whose path
-        the port lacks."""
-        for f in self.faults:
-            if f.kind in UNPORTED_KINDS:
-                raise NotImplementedError(
-                    f"fault kind {f.kind!r} needs "
-                    f"{UNPORTED_KINDS[f.kind]}, not ported to the "
-                    "PyTorch/CUDA package yet")
 
     def det_desync(self) -> Optional[_Fault]:
         """The deterministic in-step desync, if any (the Trainer wraps its

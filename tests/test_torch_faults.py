@@ -10,8 +10,8 @@ kind and option as JAX's parser does and rejects what it rejects;
 ``ckpt_ioerr`` raises on a sync and an async save with older snapshots
 intact; ``torn_ckpt`` publishes a snapshot without its manifest and dies
 by SIGKILL, and the restore falls back past it.  The fleet kinds are
-skipped by a training run, as JAX's ``apply`` skips them; the driver kinds
-of Queue A item 6b parse but are refused when a run is built.
+skipped by a training run, as JAX's ``apply`` skips them, and so are the
+driver kinds (``router_kill``, ``fleet_kill``).
 """
 
 import dataclasses
@@ -105,13 +105,24 @@ def test_fault_firing_and_env_fallback(tmp_path, monkeypatch):
     assert faults.FaultPlan.from_config("nan@2").faults[0].start == 2
 
 
-@pytest.mark.parametrize("spec,item", [
-    ("fleet_kill@1", "item 6b"), ("router_kill@3", "item 6b")])
-def test_unported_kinds_refused_naming_their_item(spec, item):
-    cfg = config_from_args(build_argparser().parse_args(
-        ["--faults", spec]))
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(cfg, device="cpu")
+@pytest.mark.parametrize("spec", ["fleet_kill@1", "router_kill@3"])
+def test_unported_kinds_refused_naming_their_item(spec):
+    """The driver kinds (fired by the process that owns a fleet's driver,
+    ``utils/chaos.py``) build into a run and train exactly as no fault
+    plan does: ``apply`` skips them, as JAX's."""
+    def run(extra):
+        cfg = config_from_args(build_argparser().parse_args(
+            ["--no-full-batch", "--batch_size", "4", "--n_samples", "16",
+             "--nepochs", "2"] + extra))
+        t = Trainer(cfg, device="cpu")
+        return t.fit(), t.state
+    (r0, s0), (r1, s1) = run([]), run(["--faults", spec])
+    assert r0["final_loss"] == r1["final_loss"]
+    for (_, a), (_, b) in zip(ckpt.flatten(s0), ckpt.flatten(s1)):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+        else:
+            assert a == b
 
 
 def test_fleet_kinds_leave_training_untouched():

@@ -1,13 +1,17 @@
 """The port stands alone: no module of it, and not ``chip_smoke.py``,
 imports JAX or the JAX package, or loads a module of either by file
-path; importing it (the observability modules included) loads no JAX;
-its entry points default to the GPU and refuse to run quietly on the
-CPU.  ``tools/``, which loads the JAX package's stdlib-only modules by
-path, is not part of the port."""
+path; importing it (the observability modules, the autopilot, the
+control-plane driver, the chaos campaigns and the port's tools included)
+loads no JAX; its entry points default to the GPU and refuse to run
+quietly on the CPU.  The repository's ``tools/``, which loads the JAX
+package's stdlib-only modules by path, is not part of the port; the
+port's own ``tools/`` is."""
 
 import ast
+import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -50,13 +54,33 @@ _PATH_LOADERS = ("spec_from_file_location", "SourceFileLoader",
                  "__import__('jax")
 
 
+# the port's modules that load the port's own stdlib-only modules by
+# file path, as the JAX package's chaos campaign does: utils/chaos.py (its
+# ``python -S`` children, and the package when it was itself loaded by
+# path), tools/chaos_campaign.py (chaos.py, so the lite plan needs no
+# torch), and the ckpt_manifest fallback of the two modules those
+# children load.  Each builds its paths from its own ``__file__``;
+# tests/test_torch_chaos.py reads the paths a campaign really loads.
+FILE_LOADERS = {"utils/chaos.py", "tools/chaos_campaign.py",
+                "train/resilience.py", "serve/wal.py"}
+_JAX_PKG_NAME = re.compile(r"neural_networks_parallel_training_with_mpi_tpu"
+                           r"(?!_torch)")
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_module_loaded_by_file_path(path):
-    """No loader at all: a path into the JAX package (``chip_smoke.py``
-    names the TPU kernels' file in its report) cannot become a module."""
+    """No loader outside :data:`FILE_LOADERS`, so a path into the JAX
+    package (``chip_smoke.py`` names the TPU kernels' file in its report)
+    cannot become a module; inside them, the JAX package is not named at
+    all."""
     text = path.read_text()
-    assert not [w for w in _PATH_LOADERS if w in text]
+    rel = path.relative_to(PORT).as_posix() if PORT in path.parents else ""
+    if rel in FILE_LOADERS:
+        assert [w for w in _PATH_LOADERS if w in text]
+        assert not _JAX_PKG_NAME.search(text)
+    else:
+        assert not [w for w in _PATH_LOADERS if w in text]
 
 
 def _clean_env():
@@ -76,7 +100,12 @@ def test_importing_the_port_loads_no_jax():
             "from neural_networks_parallel_training_with_mpi_tpu_torch.train "
             "import telemetry, trace\n"
             "from neural_networks_parallel_training_with_mpi_tpu_torch.utils "
-            "import compile_ledger, goodput, jsonl, profiling, sketches\n"
+            "import chaos, compile_ledger, goodput, jsonl, profiling, "
+            "sketches\n"
+            "from neural_networks_parallel_training_with_mpi_tpu_torch.serve "
+            "import autopilot, ctrlplane_driver\n"
+            "from neural_networks_parallel_training_with_mpi_tpu_torch.tools "
+            "import chaos_campaign, serve_fleet\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
@@ -87,7 +116,7 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_entry_points_default_to_the_gpu():
+def test_entry_points_default_to_the_gpu(tmp_path):
     from neural_networks_parallel_training_with_mpi_tpu_torch.models import (
         DecodeServer, Transformer, TransformerConfig,
     )
@@ -144,6 +173,31 @@ def test_entry_points_default_to_the_gpu():
     for platform in ("auto", "gpu"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(["--nepochs", "1", "--platform", platform])
+    # the control loop's entry points: the driver, a fleet chaos scenario
+    # and the port's tools, each before any process starts
+    from neural_networks_parallel_training_with_mpi_tpu_torch.serve import (
+        ctrlplane_driver,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.tools import (
+        chaos_campaign, serve_fleet,
+    )
+    from neural_networks_parallel_training_with_mpi_tpu_torch.utils import (
+        chaos,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ctrlplane_driver.main(["--out", os.devnull])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chaos.run_scenario({"name": "f", "kind": "fleet", "mode": "kill"})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_fleet.main(["--replicas", "1"])
+    plan = chaos.load_plan("full")
+    plan["scenarios"] = [sc for sc in plan["scenarios"]
+                         if sc.get("mode") == "ctrlplane"]
+    plan_file = tmp_path / "ctrlplane-plan.json"
+    plan_file.write_text(json.dumps(plan))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chaos_campaign.main([str(plan_file), "--repeat", "1", "--quiet"])
 
 
 def test_chip_smoke_fails_without_a_gpu_or_without_the_repo(tmp_path):

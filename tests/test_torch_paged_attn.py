@@ -246,3 +246,30 @@ def test_split_plan_takes_no_lengths_and_covers_the_table():
             assert (n_splits - 1) * split_blocks < max_blocks
     # the server's table: 1024 keys of block 16
     assert split_plan(64, 16) == (SPLIT_KEYS // 16, 1024 // SPLIT_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# head_dim 16: the fleet workers' default geometry (d_model 64, 4 heads)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("split_blocks", [2, 8])
+@pytest.mark.parametrize("case", ["decode", "int8", "gqa_prefill"])
+def test_head_dim_16_matches_jax_and_plain(case, split_blocks):
+    """head_dim 16, the shape the CUDA kernel's head_dim-16 instance
+    takes on the card (phase 3 of chip_smoke.py holds it there): f32 and
+    int8 pools, 4 query heads over 2 KV heads in a width-4 chunk at
+    non-zero starts, split (2 blocks a split) and unsplit (one split
+    covers the table), against JAX's kernel and the plain version."""
+    rng, kp, vp, tables, lens, scales = _split_fixture(
+        seed=20, quant=case == "int8", hd=16)
+    width = 1
+    starts = np.maximum(lens - 1, 0).astype(np.int32)
+    if case == "gqa_prefill":
+        lens = np.asarray([17, 5, 4, 1, 0], np.int32)
+        starts = np.asarray([13, 1, 0, 0, 0], np.int32)
+        width = 4
+    q = rng.normal(size=(5, width, 4, 16)).astype(np.float32)
+    tol = dict(rtol=2e-4, atol=2e-5) if case == "int8" else TOL
+    got = _split_vs_jax_and_plain(q, kp, vp, tables, lens, starts, scales,
+                                  split_blocks, tol)
+    assert np.all(got[4] == 0.0)
